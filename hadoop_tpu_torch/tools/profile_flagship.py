@@ -1,0 +1,82 @@
+"""Where the time goes on the GPU: flagship-1b forward and decode steps.
+
+    python -m hadoop_tpu_torch.tools.profile_flagship
+
+Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
+[1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
+running lanes (block 16, context 1024). For each it prints one JSON line:
+host wall time per call, the summed device time of the CUDA kernels per
+call, the device's idle share (1 - device / wall) and the kernels that
+took the most device time. Weights are random from a fixed seed. Needs a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
+                              get_config, init_params)
+
+
+def _trace(fn, calls: int, label: str) -> None:
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    wall_ms = wall * 1e3 / calls
+    device_ms = device_us / 1e3 / calls
+    print(json.dumps({
+        "profile": label, "calls": calls, "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
+        "kernel_launches": sum(e.count for e in kernels) // calls,
+        "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
+                 / 1e3 / calls, "count": e.count // calls} for e in top],
+    }), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_flagship: no CUDA device", file=sys.stderr)
+        return 2
+    cfg = get_config("flagship-1b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        _trace(lambda: forward(params, tokens, cfg), 3,
+               "forward flagship-1b bf16 [1,512]")
+
+    eng = DecodeEngine(params, cfg, max_batch=4, block_size=16,
+                       max_context=1024, prefill_chunk=64)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 100),
+                            generator=gen, device="cuda").tolist()
+    reqs = [eng.submit(p, SamplingParams(max_new_tokens=200))
+            for p in prompts]
+    while any(r._prefill_pos is not None or r.state == "QUEUED"
+              for r in reqs):
+        eng.step()                       # every lane decoding from here
+    _trace(eng.step, 10, "engine decode step flagship-1b bf16, 4 lanes")
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

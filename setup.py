@@ -9,8 +9,10 @@ setup(
     version="0.1.0",
     description=("TPU-native distributed storage, scheduling, and batch "
                  "compute framework"),
-    packages=find_packages(include=["hadoop_tpu", "hadoop_tpu.*"]),
-    package_data={"hadoop_tpu.native": ["Makefile", "src/*.cc"]},
+    packages=find_packages(include=["hadoop_tpu", "hadoop_tpu.*",
+                                   "hadoop_tpu_torch*"]),
+    package_data={"hadoop_tpu.native": ["Makefile", "src/*.cc"],
+                  "hadoop_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.9",
     entry_points={
         "console_scripts": [

@@ -1,0 +1,199 @@
+"""The PyTorch port's model core against the JAX package's, on the CPU.
+
+Weights come from the JAX package's ``init_params`` and cross through
+``params_from_numpy``. Logits are compared in float32 at atol/rtol 1e-4
+(18 or fewer float32 layers of matmuls summed in another order), with
+equal argmax. Also here: the port's isolation from JAX and its refusal
+to run on a device nobody asked for.
+"""
+
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hadoop_tpu.models import config as jconfig
+from hadoop_tpu.models import decoder as jdecoder
+from hadoop_tpu_torch import DecodeEngine
+from hadoop_tpu_torch.models import config, params_from_numpy
+from hadoop_tpu_torch.models import decoder
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Keep torch to one thread: the tier-1 run shares the CPU between
+    several test workers, some of them timing-sensitive."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# flagship-1b cut to 2 layers and d_model 512; 4/2 heads keep head_dim 128
+_TRIMMED = dict(n_layers=2, d_model=512, n_heads=4, n_kv_heads=2,
+                dtype="float32")
+
+
+def _both(preset, **overrides):
+    jcfg = jconfig.get_config(preset, **overrides)
+    cfg = config.get_config(preset, **overrides)
+    jparams = jdecoder.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return jcfg, jparams, cfg, params_from_numpy(tree, cfg, device="cpu")
+
+
+def test_presets_equal_field_for_field():
+    assert set(config.PRESETS) == set(jconfig.PRESETS)
+    for name, cfg in config.PRESETS.items():
+        assert dataclasses.asdict(cfg) == \
+            dataclasses.asdict(jconfig.PRESETS[name]), name
+        assert cfg.head_dim == jconfig.PRESETS[name].head_dim
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_params_from_numpy_round_trips_bit_exact(dtype):
+    jcfg = jconfig.get_config("tiny-gpt2", dtype=dtype)
+    cfg = config.get_config("tiny-gpt2", dtype=dtype)
+    tree = jax.tree_util.tree_map(
+        np.asarray, jdecoder.init_params(jax.random.PRNGKey(3), jcfg))
+    got = params_from_numpy(tree, cfg, device="cpu")
+    flat_np = jax.tree_util.tree_leaves_with_path(tree)
+    assert len(flat_np) == len(jax.tree_util.tree_leaves(got))
+    for path, arr in flat_np:
+        t = got
+        for key in path:
+            t = t[key.key]
+        assert t.dtype == cfg.torch_dtype and tuple(t.shape) == arr.shape
+        bits = np.int16 if dtype == "bfloat16" else np.int32
+        tview = torch.int16 if dtype == "bfloat16" else torch.int32
+        np.testing.assert_array_equal(t.view(tview).numpy(), arr.view(bits))
+    with pytest.raises(ValueError):      # a leaf of another dtype
+        params_from_numpy(tree, config.get_config(
+            "tiny-gpt2", dtype="float32" if dtype == "bfloat16"
+            else "bfloat16"), device="cpu")
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-gpt2"])
+def test_init_params_layout_matches_jax(preset):
+    """Same leaf names, shapes and dtypes; fan-in scaled weights."""
+    cfg = config.get_config(preset)
+    got = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    want = jdecoder.init_params(jax.random.PRNGKey(0),
+                                jconfig.get_config(preset))
+    shapes = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)), want)
+    assert jax.tree_util.tree_map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        got) == shapes
+    std = got["layers"]["wq"].std().item() * cfg.d_model ** 0.5
+    assert 0.9 < std < 1.1
+
+
+@pytest.mark.parametrize("preset,overrides,seq", [
+    ("tiny", {}, 16),
+    ("tiny-gpt2", {}, 16),
+    ("flagship-1b", _TRIMMED, 128),
+])
+def test_forward_matches_jax(preset, overrides, seq):
+    jcfg, jparams, cfg, params = _both(preset, **overrides)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, seq))
+    want = np.asarray(jdecoder.forward(jparams, jnp.asarray(tokens), jcfg))
+    got = decoder.forward(params, tokens, cfg, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_forward_flash_path_on_cpu_matches_plain():
+    """attn_impl="flash" reaches the kernel's wrapper, which computes its
+    plain version for CPU tensors: same logits as the einsum path."""
+    _, _, cfg, params = _both("flagship-1b", **_TRIMMED)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 128))
+    flash_logits = decoder.forward(params, tokens, cfg, device="cpu",
+                                   attn_impl="flash")
+    ref_logits = decoder.forward(params, tokens, cfg, device="cpu",
+                                 attn_impl="ref")
+    torch.testing.assert_close(flash_logits, ref_logits, atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_causality():
+    """Changing a future token must not change earlier logits."""
+    cfg = config.get_config("tiny")
+    params = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 16)))
+    logits_a = decoder.forward(params, tokens, cfg, device="cpu")
+    tokens_b = tokens.clone()
+    tokens_b[0, 10] = (tokens[0, 10] + 1) % cfg.vocab_size
+    logits_b = decoder.forward(params, tokens_b, cfg, device="cpu")
+    torch.testing.assert_close(logits_a[0, :10], logits_b[0, :10],
+                               rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(logits_a[0, 10:], logits_b[0, 10:])
+
+
+def test_entry_points_refuse_a_missing_gpu():
+    """Without CUDA and without device="cpu", every entry point raises;
+    and parameters on another device than the one asked for are refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = config.get_config("tiny")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decoder.init_params(cfg, gen)
+    params = decoder.init_params(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decoder.forward(params, [[1, 2, 3]], cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"embed": np.zeros((2, 2), np.float32)}, cfg)
+    with pytest.raises(ValueError):
+        decoder.forward(params, [[1, 2, 3]], cfg, device="meta")
+
+
+def test_moe_is_refused():
+    cfg = config.get_config("tiny-moe")
+    with pytest.raises(NotImplementedError):
+        decoder.init_params(cfg, torch.Generator(), device="cpu")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    """In a fresh interpreter (this one has JAX loaded by conftest), the
+    port and chip_smoke's module-level imports load no jax and no
+    hadoop_tpu module."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "import hadoop_tpu_torch, hadoop_tpu_torch.models.convert\n"
+        "import hadoop_tpu_torch.ops.flash, hadoop_tpu_torch.ops._build\n"
+        "import hadoop_tpu_torch.serving.engine\n"
+        "import hadoop_tpu_torch.tools.profile_flagship\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
+        "m.startswith('hadoop_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sources_name_no_jax():
+    """No port source imports jax or names a module of the JAX package."""
+    files = sorted((REPO / "hadoop_tpu_torch").rglob("*.py")) + sorted(
+        (REPO / "hadoop_tpu_torch").rglob("*.cu")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
+    for path in files:
+        hits = bad.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
