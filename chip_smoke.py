@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version, runs the flagship-1b forward
-through it, and serves flagship-1b requests through ``DecodeEngine``.
-Weights are random, made from a seeded ``torch.Generator``. Each phase
-prints one JSON line; the card's name and power limit (as
-``nvidia-smi`` reports them) follow the build line; the line before
-the last lists every ported kernel with its launches on the main path,
-its error and its times; the last line is ``{"ok": true, "device":
-...}``. Any failed check raises, so the script exits non-zero and
-prints no result. It needs a CUDA device and exits non-zero without one.
+Builds the port's CUDA kernels from the sources in this checkout and
+holds each against its plain PyTorch version (the flash forward, and the
+two flash backward kernels, also through the autograd Function); trains
+flagship-1b at ``bench.py``'s configuration (bf16, batch 4, seq 2048,
+full remat, AdamW) for 7 steps through ``make_train_step``; runs the
+flagship-1b forward; serves flagship-1b requests through
+``DecodeEngine``; and checks two float32 SGD steps of the kernel path
+against plain attention. Weights are random, made from a seeded
+``torch.Generator``. Each phase prints one JSON line; the card's name
+and power limit (as ``nvidia-smi`` reports them) follow the build lines;
+the line before the last lists every ported kernel with its launches on
+its main path (the forward for ``flash_fwd``, the 7 training steps for
+the backward kernels), its error and its times; the last line is
+``{"ok": true, "device": ...}``. Any failed check raises, so the script
+exits non-zero and prints no result. It needs a CUDA device and exits
+non-zero without one.
 
 Peak rates for the bound (``bound_ms``): NVIDIA H100 SXM data sheet,
 3.35 TB/s device memory, 989 TFLOP/s dense bf16 on the tensor cores and
@@ -23,6 +29,7 @@ float32, so the float32 peak is the one that applies).
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -31,25 +38,48 @@ import torch
 import torch.nn.functional as F
 
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
-                              get_config, init_params)
+                              get_config, init_params, init_train_state,
+                              make_train_step)
 from hadoop_tpu_torch.ops import _build, flash
+from hadoop_tpu_torch.parallel import MeshPlan, adamw_init
+from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 
-# (B, S, Hq, Hkv, D, dtypes): flagship-1b's forward shape first
+# (B, S, Hq, Hkv, D, dtypes): flagship-1b's forward shape first, then its
+# training shape; the last two reach the D 192 and D 256 builds (D 256
+# takes 32-row tiles in the backward)
 KERNEL_SHAPES = [
     (1, 512, 16, 8, 128, (torch.bfloat16, torch.float32)),
     (4, 2048, 16, 8, 128, (torch.bfloat16, torch.float32)),
     (2, 256, 4, 2, 64, (torch.float32,)),
     (1, 384, 4, 1, 64, (torch.float32,)),
     (1, 128, 2, 1, 64, (torch.float32,)),
+    (1, 256, 4, 2, 192, (torch.float32,)),
+    (1, 256, 4, 2, 256, (torch.bfloat16, torch.float32)),
 ]
 # max abs error of the kernel against flash_attention_ref: (O, LSE).
 # bf16 rounds P to bf16 before P.V at other places than the plain version
 # (per 64-key tile against the running max, not once against the row max)
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+# max abs error of dq, dk, dv against flash_attention_bwd_ref, relative to
+# the reference's max |grad|. float32: the same products summed in another
+# order (some 1e-6 expected). bf16: the outputs are rounded to bf16 once (an
+# ulp is up to 2**-7 of a value), and a P or dS value near a rounding
+# boundary may round the other way, because Q K^T and dO V^T are summed in
+# another order before P and dS are rounded to bf16.
+BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# float32 SGD steps, kernel path against plain attention: per parameter
+# leaf, max |update difference| over max |update|. The kernels and the
+# plain attention sum in another order, and the embedding's backward
+# (index_add) sums in nondeterministic order: some 1e-5 for the matrices.
+# The norm weights' gradients are sums over every token with heavy
+# cancellation, which magnifies that relative error (up to 9.1e-4 seen
+# on an H100).
+PARITY_TOL = 1e-2
+TRAIN = dict(batch=4, seq=2048, warmup=2, timed=5, lr=3e-4, remat="full")
 TIE_REL = 1e-4          # near-tie rule for greedy token comparisons
 
 
@@ -91,21 +121,52 @@ def flash_bound(b, s, hq, hkv, d, dtype):
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
 
 
+def bwd_bound(b, s, hq, hkv, d, dtype, kernel):
+    """(bound_ms, bound_by) of one backward kernel: inputs read once and
+    outputs written once (dkv: q, k, v, dO, lse, delta → dK, dV; dq: q, k,
+    v, O, dO, lse → dQ, delta) against 8·D FLOPs (dkv: QKᵀ, dO·Vᵀ, Pᵀ·dO,
+    dSᵀ·Q) or 6·D (dq: QKᵀ, dO·Vᵀ, dS·K) per visible (q, k) pair and
+    query head."""
+    elt = torch.finfo(dtype).bits // 8
+    q_bytes, kv_bytes = elt * b * s * hq * d, elt * b * s * hkv * d
+    row_bytes = 4 * b * hq * s
+    pairs = b * hq * s * (s + 1) / 2
+    if kernel == "dkv":
+        nbytes, flops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8 * d * pairs
+    else:
+        nbytes, flops = 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6 * d * pairs
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+
+
+def counts():
+    return flash.launches, flash.launches_bwd_dq, flash.launches_bwd_dkv
+
+
+def zero_counts():
+    flash.launches = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
+
+
 # ------------------------------------------------------------------ phases
+
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd"]
+
 
 def phase_build():
     t0 = time.monotonic()
-    _build.build(["flash_fwd"])
-    _build.load("flash_fwd")
+    _build.build(KERNEL_SOURCES)        # one nvcc per source, in parallel
+    for name in KERNEL_SOURCES:
+        _build.load(name)
     seconds = time.monotonic() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    ptxas = [ln.strip() for ln in _build.build_logs.get("flash_fwd", "")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "flash_fwd", "seconds": seconds,
-          "ptxas": ptxas})
+    for name in KERNEL_SOURCES:
+        ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name, "seconds": seconds,
+              "ptxas": ptxas})
     print(smi, flush=True)
     return smi
 
@@ -151,6 +212,172 @@ def phase_kernel():
                 flagship = rec
             del q, k, v, o, lse, o_ref, lse_ref
     return flagship
+
+
+def sdpa_backward_ms(q, k, v, do, scale):
+    """SDPA's backward alone (forward + backward minus forward), a
+    yardstick only: the port never calls it."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=scale, enable_gqa=True)
+
+    both = cuda_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot), 10)
+    return both - cuda_ms(fwd, 10)
+
+
+def phase_backward():
+    """Both backward kernels against their plain version at every listed
+    shape, and once through ``FlashAttention`` with autograd; returns the
+    record at the flagship training shape in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    training = None
+    for b, s, hq, hkv, d, dtypes in KERNEL_SHAPES:
+        for dtype in dtypes:
+            q, do = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            scale = d ** -0.5
+            o, lse = flash.flash_forward(q, k, v, scale)
+            got = flash.flash_backward(q, k, v, o, lse, do, scale)
+            want = flash.flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            err = {n: (g.float() - w.float()).abs().max().item()
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            rel = {n: err[n] / w.float().abs().max().item()
+                   for n, w in zip(("dq", "dk", "dv"), want)}
+            tol = BWD_TOLERANCE[dtype]
+            _, delta = flash._launch_bwd_dq(q, k, v, o, lse, do, scale)
+            rec = {"phase": "backward", "shape": [b, s, hq, hkv, d],
+                   "dtype": str(dtype), "max_abs_err": err,
+                   "rel_err": rel, "tol": tol,
+                   "plain_ms": cuda_ms(lambda: flash.flash_attention_bwd_ref(
+                       q, k, v, o, lse, do, scale), 3),
+                   "library_ms": sdpa_backward_ms(q, k, v, do, scale)}
+            for name, fn in (
+                    ("dq", lambda: flash._launch_bwd_dq(
+                        q, k, v, o, lse, do, scale)),
+                    ("dkv", lambda: flash._launch_bwd_dkv(
+                        q, k, v, lse, delta, do, scale))):
+                bound = bwd_bound(b, s, hq, hkv, d, dtype, name)
+                rec[name] = {"ms": cuda_ms(fn, 10), "bound_ms": bound[0],
+                             "bound_by": bound[1]}
+            rec["dq"]["max_abs_err"] = err["dq"]
+            rec["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
+            emit(rec)
+            require(all(r <= tol for r in rel.values()),
+                    f"flash backward disagrees with its plain version at "
+                    f"{rec['shape']} {dtype}: {rel} (tolerance {tol})")
+            if (b, s, dtype) == (TRAIN["batch"], TRAIN["seq"],
+                                 torch.bfloat16):
+                check_function(q, k, v, do, scale, o, got)
+                emit({"phase": "gqa_rounding", "shape": rec["shape"],
+                      "rel_diff": gqa_rounding(q, k, v, o, lse, do, scale,
+                                               got)})
+                training = rec
+            del q, k, v, do, o, lse, got, want, delta
+    require(training is not None, "no backward record at the training shape")
+    return training
+
+
+def gqa_rounding(q, k, v, o, lse, do, scale, grads):
+    """How far the kernels' dK/dV (each KV head's query-head group summed
+    in float32, rounded once) lie from the reference's order (each query
+    head's dK/dV rounded to the input dtype, then summed): max |diff| over
+    max |dK| and |dV|. The plain version on K/V repeated per query head
+    gives the per-head rounded gradients."""
+    b, s, hkv, d = k.shape
+    n_rep = q.shape[2] // hkv
+    per_head = flash.flash_attention_bwd_ref(
+        q, k.repeat_interleave(n_rep, dim=2),
+        v.repeat_interleave(n_rep, dim=2), o, lse, do, scale)[1:]
+    out = {}
+    for name, got, heads in zip(("dk", "dv"), grads[1:], per_head):
+        ref_order = heads.float().reshape(b, s, hkv, n_rep, d).sum(3) \
+            .to(got.dtype).float()
+        out[name] = ((got.float() - ref_order).abs().max()
+                     / ref_order.abs().max()).item()
+    return out
+
+
+def check_function(q, k, v, do, scale, o, grads):
+    """``flash_attention`` on inputs that require grad goes through
+    ``FlashAttention``: one launch of each kernel, and the same output
+    and gradients as the bare kernels."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = counts()
+    out = flash.flash_attention(*leaves, scale)
+    auto = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    delta = tuple(a - b for a, b in zip(counts(), before))
+    require(delta == (1, 1, 1),
+            f"FlashAttention launched (fwd, dq, dkv) {delta} times")
+    require(torch.equal(out, o) and all(
+        torch.equal(a, g) for a, g in zip(auto, grads)),
+        "FlashAttention's output or gradients differ from the kernels'")
+    emit({"phase": "autograd_function", "launches": list(delta),
+          "equal_to_kernels": True})
+
+
+def phase_train():
+    """flagship-1b at bench.py's training configuration, through
+    ``make_train_step``: 2 warm-up and 5 timed steps on one seeded batch.
+    Returns the launches of the whole run (fwd, dq, dkv)."""
+    cfg = get_config("flagship-1b")
+    params, opt = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch, seq = TRAIN["batch"], TRAIN["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 3))
+    targets = torch.roll(tokens, -1, dims=1)
+    step = make_train_step(cfg, MeshPlan(), lr=TRAIN["lr"],
+                           remat=TRAIN["remat"])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, per_step = [], [], []
+    zero_counts()                             # the main path's run
+    for _ in range(TRAIN["warmup"] + TRAIN["timed"]):
+        before = counts()
+        start.record()
+        params, opt, metrics = step(params, opt, tokens, targets)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+        per_step.append([a - b for a, b in zip(counts(), before)])
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    grad_norm = metrics["grad_norm"].item()
+    timed_ms = sum(step_ms[TRAIN["warmup"]:]) / TRAIN["timed"]
+    tokens_per_s = batch * seq / (timed_ms / 1e3)
+    # bench.py's utilisation: 6N + attention FLOPs per token over peak
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * seq * \
+        cfg.d_model // 2
+    emit({"phase": "train", "model": "flagship-1b", "dtype": cfg.dtype,
+          "tokens": [batch, seq], "remat": TRAIN["remat"],
+          "optimizer": "adamw", "lr": TRAIN["lr"], "params": n_params,
+          "losses": losses, "grad_norm": grad_norm, "step_ms": step_ms,
+          "timed_step_ms": timed_ms, "tokens_per_s": tokens_per_s,
+          "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+          "peak_memory_bytes": peak,
+          "launches_per_step_fwd_dq_dkv": per_step})
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+            f"first loss {losses[0]}, ln(V) {math.log(cfg.vocab_size)}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    require(all(c == want for c in per_step),
+            f"launches per step (fwd, dq, dkv) {per_step}, expected {want}")
+    del params, opt, step
+    return launches
 
 
 def make_params():
@@ -296,6 +523,53 @@ def phase_serving(cfg32, p32, cfg16, p16):
           "cache": eng.cache_stats()})
 
 
+def phase_parity(cfg32, p32):
+    """Two float32 SGD steps (lr 1e-2) at [1, 512] from the same weights
+    and tokens: the kernel path (forward and both backward kernels)
+    against plain attention."""
+    tokens = torch.randint(0, cfg32.vocab_size, (1, 512), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 4))
+    targets = torch.roll(tokens, -1, dims=1)
+    runs = {}
+    for impl in ("auto", "ref"):
+        params = tree_map(torch.clone, p32)
+        opt = adamw_init(params)
+        step = make_train_step(cfg32, lr=1e-2, optimizer="sgd",
+                               attn_impl=impl)
+        zero_counts()
+        losses = []
+        for _ in range(2):
+            params, opt, metrics = step(params, opt, tokens, targets)
+            losses.append(metrics["loss"].item())
+        runs[impl] = (losses, params, counts())
+        del opt
+    (lk, pk, ck), (lr_, pr, cr) = runs["auto"], runs["ref"]
+    want = (2 * cfg32.n_layers,) * 3
+    require(ck == want and cr == (0, 0, 0),
+            f"launches (fwd, dq, dkv): kernel path {ck}, plain path {cr}")
+    leaf_err = {}
+    for key, a, b, p0 in zip(tree_leaves(_names(p32)), tree_leaves(pk),
+                             tree_leaves(pr), tree_leaves(p32)):
+        upd_k, upd_r = a - p0, b - p0
+        leaf_err[key] = ((upd_k - upd_r).abs().max()
+                         / upd_r.abs().max()).item()
+    emit({"phase": "parity", "dtype": "float32", "tokens": [1, 512],
+          "optimizer": "sgd", "losses_kernel": lk, "losses_plain": lr_,
+          "update_rel_err": leaf_err, "tol": PARITY_TOL})
+    require(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lk, lr_)),
+            f"losses kernel {lk} vs plain {lr_}")
+    require(all(e <= PARITY_TOL for e in leaf_err.values()),
+            f"updates kernel vs plain: {leaf_err}")
+
+
+def _names(tree, prefix=""):
+    """A tree like ``tree`` whose leaves are their dotted names."""
+    return {key: _names(value, prefix + key + ".")
+            if isinstance(value, dict) else prefix + key
+            for key, value in tree.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -304,9 +578,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     record = phase_kernel()
+    bwd = phase_backward()
+    _, train_dq, train_dkv = phase_train()
     cfg32, p32, cfg16, p16 = make_params()
     launches = phase_forward(cfg32, p32, cfg16, p16)
     phase_serving(cfg32, p32, cfg16, p16)
+    phase_parity(cfg32, p32)
+    source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     emit({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "hadoop_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -314,7 +592,16 @@ def main() -> int:
         "launches": launches, "max_abs_err": record["max_abs_err"],
         "ms": record["ms"], "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
-        "library_ms": record["library_ms"]}]})
+        "library_ms": record["library_ms"]}] + [{
+            "name": f"flash_bwd_{name}", "route": "cuda",
+            "source": source_bwd, "replaces": f"hadoop_tpu/ops/flash.py:{line}",
+            "launches": n, "max_abs_err": bwd[name]["max_abs_err"],
+            "ms": bwd[name]["ms"], "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd[name]["bound_ms"],
+            "bound_by": bwd[name]["bound_by"],
+            "library_ms": bwd["library_ms"]}
+        for name, line, n in (("dkv", 188, train_dkv),
+                              ("dq", 240, train_dq))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

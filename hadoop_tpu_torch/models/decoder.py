@@ -10,13 +10,18 @@ in later slices.
 Attention goes through ``ops.attention.causal_attention``, which takes
 the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
 forces either path ("flash" or "ref") so a run can compare the two.
+``remat`` recomputes layers in the backward, as the reference's
+``jax.checkpoint`` modes do.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
@@ -131,12 +136,38 @@ def layer_forward(x, lp, cfg: ModelConfig, cos, sin,
     return _mlp_block(x, lp, cfg)
 
 
+# matmul outputs, the ops "dots" keeps (the counterpart of JAX's
+# dots_with_no_batch_dims_saveable); the flash kernel is not one of them
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default]
+
+
+def _layer_fn(remat):
+    """The layer body for a remat mode: False/None — save every
+    activation; True/"full" — one non-reentrant checkpoint per layer,
+    recomputed whole in the backward; "dots" — selective: save the matmul
+    outputs, recompute the rest."""
+    if not remat:
+        return layer_forward
+    if remat is True or remat == "full":
+        return functools.partial(checkpoint, layer_forward,
+                                 use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, layer_forward, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _DOTS))
+    raise ValueError(f"remat={remat!r} (choices: False, True, 'full', "
+                     f"'dots')")
+
+
 def run_layers(x, layers, cfg: ModelConfig, cos, sin,
-               attn_impl: str = "auto"):
+               attn_impl: str = "auto", remat=False):
     """Run the stacked layers over x, one layer slice at a time."""
+    body = _layer_fn(remat)
     for i in range(cfg.n_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        x = layer_forward(x, lp, cfg, cos, sin, attn_impl)
+        x = body(x, lp, cfg, cos, sin, attn_impl)
     return x
 
 
@@ -169,17 +200,17 @@ def lm_logits(params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------- forward
 
 def forward_hidden(params, tokens, cfg: ModelConfig,
-                   attn_impl: str = "auto"):
+                   attn_impl: str = "auto", remat=False):
     """Embed + layer stack (everything before the LM head)."""
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=params["embed"].device)
     h = embed_tokens(params, tokens, cfg)
-    return run_layers(h, params["layers"], cfg, cos, sin, attn_impl)
+    return run_layers(h, params["layers"], cfg, cos, sin, attn_impl, remat)
 
 
 def forward(params, tokens, cfg: ModelConfig, *,
             device: Optional[Any] = None,
-            attn_impl: str = "auto") -> torch.Tensor:
+            attn_impl: str = "auto", remat=False) -> torch.Tensor:
     """Full forward to logits [B, S, V] on ``device`` (default: the GPU;
     the parameters must already lie there). ``tokens``: [B, S] integers
     as a tensor, array or nested list."""
@@ -187,5 +218,5 @@ def forward(params, tokens, cfg: ModelConfig, *,
     dev = resolve_device(device)
     check_on(params["embed"], dev, "params")
     tokens = torch.as_tensor(tokens, device=dev).long()
-    h = forward_hidden(params, tokens, cfg, attn_impl)
+    h = forward_hidden(params, tokens, cfg, attn_impl, remat)
     return lm_logits(params, h, cfg)

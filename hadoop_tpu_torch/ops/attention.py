@@ -6,7 +6,9 @@ fused flash kernel (``hadoop_tpu_torch.ops.flash``) instead. This
 mirrors the reference's TPU branch (``hadoop_tpu/ops/attention.py``,
 the ``jax.default_backend()`` test) on the CUDA backend; note that the
 reference excludes ``"gpu"`` there, so on a GPU the JAX package never
-reaches its kernel.
+reaches its kernel. Both paths are differentiable: the flash path
+through ``flash.FlashAttention``, whose backward is the two backward
+kernels.
 
 ``chunk_attention`` and ``merge_attention`` (the ring-attention
 partials) come with the multi-GPU slice.

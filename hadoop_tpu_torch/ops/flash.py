@@ -1,22 +1,28 @@
-"""Fused causal flash attention (forward) — a CUDA C++ kernel for Hopper.
+"""Fused causal flash attention, forward and backward — CUDA C++ kernels
+for Hopper.
 
-The counterpart of ``hadoop_tpu/ops/flash.py``'s causal forward: the
-Pallas TPU kernel ``_fwd_kernel`` becomes ``csrc/flash_fwd.cu``, a
-kernel written for ``sm_90a`` and called through ``ctypes``
-(``ops/_build.py`` compiles it on first use). It streams K/V tiles
-through shared memory against a resident Q tile with the softmax kept
-online, so the [S, S] score matrix never reaches device memory; query
-head ``h`` reads KV head ``h // n_rep`` with no copied heads.
+The counterpart of ``hadoop_tpu/ops/flash.py``'s causal path: the Pallas
+TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+become ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, kernels written
+for ``sm_90a`` and called through ``ctypes`` (``ops/_build.py`` compiles
+them on first use). The forward streams K/V tiles through shared memory
+against a resident Q tile with the softmax kept online, so the [S, S]
+score matrix never reaches device memory; the backward recomputes P from
+the saved log-sum-exp. Query head ``h`` reads KV head ``h // n_rep`` with
+no copied heads.
 
 Numerics as in the reference: scores and softmax statistics in float32,
-P cast to the input dtype before P·V, O in the input dtype, the per-row
-log-sum-exp in float32. bf16 and float32 inputs.
+P cast to the input dtype before P·V and Pᵀ·dO, dS·scale cast to the
+input dtype before dSᵀ·Q and dS·K, outputs in the input dtype, the
+per-row log-sum-exp in float32. bf16 and float32 inputs.
 
-Dispatch: ``flash_forward`` launches the kernel for a CUDA tensor, or
-raises; for a CPU tensor it computes ``flash_attention_ref``, the plain
-PyTorch version of the same function. ``launches`` counts kernel
-launches. The backward kernels come with the training slice: until then
-the wrapper refuses inputs that require a gradient.
+Dispatch: ``flash_forward`` and ``flash_backward`` launch the kernels for
+CUDA tensors, or raise; for CPU tensors they compute
+``flash_attention_ref`` and ``flash_attention_bwd_ref``, the plain
+PyTorch versions of the same functions. ``FlashAttention`` is the
+``torch.autograd.Function`` that joins them; ``flash_attention`` takes it
+when a gradient is wanted. ``launches``, ``launches_bwd_dq`` and
+``launches_bwd_dkv`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -29,16 +35,18 @@ import torch
 from hadoop_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (64, 128, 192, 256)        # head dims the kernel is built for
+_HEAD_DIMS = (64, 128, 192, 256)        # head dims the kernels are built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = 0                            # kernel launches, for run records
-_fn = None
+launches = 0                            # forward kernel launches
+launches_bwd_dq = 0                     # dQ kernel launches
+launches_bwd_dkv = 0                    # dK/dV kernel launches
+_fns = {}
 
 
 def _pick_block(seq: int, preferred: int) -> int:
     """The TPU kernel's block size for ``seq``, as the reference picks it
-    (the CUDA kernel tiles by 64 rows instead)."""
+    (the CUDA kernels tile by 64 rows instead)."""
     b = min(preferred, seq)
     while seq % b:
         b //= 2
@@ -59,20 +67,30 @@ def supported(q_shape, k_shape, q_offset, kv_offset) -> bool:
     return d % 64 == 0 and sq % 128 == 0 and sq >= 128
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: q [B,S,Hq,D], k/v [B,S,Hkv,D]
-    → (o [B,S,Hq,D] in q's dtype, lse [B,Hq,S] float32). P is the
-    unnormalised exp(s - max) rounded to the input dtype, as in the
-    kernel's single-block case."""
-    s = q.shape[1]
+def _head_major(q, k, v):
+    """float32 [B,H,S,D] views, K/V heads repeated for their query heads."""
     n_rep = q.shape[2] // k.shape[2]
-    qf = q.float().transpose(1, 2)                           # [B,Hq,S,D]
+    qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2).repeat_interleave(n_rep, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(n_rep, dim=1)
+    return qf, kf, vf
+
+
+def _causal_scores(qf, kf, scale):
+    s = qf.shape[2]
     scores = (qf @ kf.transpose(-1, -2)) * scale
-    visible = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~visible, _NEG_INF)
+    visible = torch.ones(s, s, dtype=torch.bool, device=qf.device).tril()
+    return scores.masked_fill(~visible, _NEG_INF)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: q [B,S,Hq,D], k/v
+    [B,S,Hkv,D] → (o [B,S,Hq,D] in q's dtype, lse [B,Hq,S] float32). P is
+    the unnormalised exp(s - max) rounded to the input dtype, as in the
+    kernel's single-block case."""
+    qf, kf, vf = _head_major(q, k, v)
+    scores = _causal_scores(qf, kf, scale)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -81,76 +99,203 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype).transpose(1, 2).contiguous(), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_fwd").htpu_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels, in the layout of
+    ``flash_attention_ref`` (``o``, ``do`` like q; ``lse`` [B,Hq,S]) →
+    (dq, dk, dv) in the input dtype. δ = rowsum(dO∘O) in float32; P
+    rounded to the input dtype before Pᵀ·dO and dS·scale before dSᵀ·Q and
+    dS·K, as the reference rounds; each KV head's dK/dV summed over its
+    query heads in float32 and rounded once."""
+    b, s, hkv, d = k.shape
+    n_rep = q.shape[2] // hkv
+    qf, kf, vf = _head_major(q, k, v)
+    dof = do.float().transpose(1, 2)
+    delta = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    p = torch.exp(_causal_scores(qf, kf, scale) - lse[..., None])
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    ds = (ds * scale).to(q.dtype).float()
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ qf
+
+    def out(x, like, heads):
+        x = x.reshape(b, heads, -1, s, d).sum(2)     # GQA group sum, f32
+        return x.to(like.dtype).transpose(1, 2).contiguous()
+
+    return out(dq, q, q.shape[2]), out(dk, k, hkv), out(dv, v, hkv)
+
+
+# ------------------------------------------------------------ the kernels
+
+_SIGNATURES = {     # C entry point: (library, pointer args, int args)
+    "htpu_flash_fwd": ("flash_fwd", 5, 6),
+    "htpu_flash_bwd_dq": ("flash_bwd", 8, 6),
+    "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6),
+}
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        lib, n_ptr, n_int = _SIGNATURES[name]
+        fn = getattr(_build.load(lib), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
-def _error_string(err: int) -> str:
-    if err < 0:
-        return "head dim or dtype the kernel was not built for"
-    lib = _build.load("flash_fwd")
-    lib.htpu_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.htpu_cuda_error_string.restype = ctypes.c_char_p
-    return lib.htpu_cuda_error_string(err).decode()
+def _call(name: str, *args) -> None:
+    """Launch on the current stream of args[0]'s device; raise on error."""
+    dev = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(dev):
+        err = _kernel(name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        if err < 0:
+            why = "head dim or dtype the kernel was not built for"
+        else:
+            lib = _build.load(_SIGNATURES[name][0])
+            lib.htpu_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.htpu_cuda_error_string.restype = ctypes.c_char_p
+            why = lib.htpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed ({err}): {why}")
 
 
-def _launch(q, k, v, scale: float):
-    """Check, allocate, launch on the current stream; raise on anything
-    the kernel does not take."""
-    global launches
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash kernel: q, k, v must lie on one CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash kernel: dtype {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; it takes float32 or bfloat16")
+def _check(q, k, v, *like_q):
+    """Raise on anything the kernels do not take; ``like_q`` are tensors
+    of q's shape and dtype (o, do)."""
+    tensors = (q, k, v) + like_q
+    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+        raise ValueError("flash kernel: inputs must lie on one CUDA device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"flash kernel: dtypes "
+                         f"{[str(t.dtype) for t in tensors]}; it takes "
+                         f"float32 or bfloat16")
     if q.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
-            or k.shape[3] != q.shape[3]:
-        raise ValueError(f"flash kernel: shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+            or k.shape[3] != q.shape[3] \
+            or any(t.shape != q.shape for t in like_q):
+        raise ValueError(f"flash kernel: shapes {[tuple(t.shape) for t in tensors]}")
     if not supported(q.shape, k.shape, 0, 0):
         raise ValueError(f"flash kernel: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel: q, k, v must be contiguous")
-    b, s, hq, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel: head dim {d} not built "
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash kernel: inputs must be contiguous")
+    if q.shape[3] not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {q.shape[3]} not built "
                          f"(built: {_HEAD_DIMS})")
+
+
+def _dims(q, k):
+    b, s, hq, d = q.shape
+    return b, s, hq, k.shape[2], d, _DTYPES[q.dtype]
+
+
+def _launch(q, k, v, scale: float):
+    """The forward kernel: check, allocate, launch on the current stream."""
+    global launches
+    _check(q, k, v)
+    b, s, hq, _, _, _ = _dims(q, k)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), b, s, hq, k.shape[2],
-                        d, _DTYPES[q.dtype], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash kernel launch failed ({err}): "
-                           f"{_error_string(err)}")
+    _call("htpu_flash_fwd", q, k, v, o, lse, *_dims(q, k), float(scale))
     launches += 1
     return o, lse
+
+
+def _check_lse(q, lse, what="lse"):
+    b, s, hq, _ = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (b, hq, s) \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash kernel: {what} must be float32 "
+                         f"[{b}, {hq}, {s}] contiguous on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def _launch_bwd_dq(q, k, v, o, lse, do, scale: float):
+    """The dQ kernel → (dq, delta): delta = rowsum(dO∘O) [B,Hq,S] float32,
+    which the dK/dV kernel reads."""
+    global launches_bwd_dq
+    _check(q, k, v, o, do)
+    _check_lse(q, lse)
+    b, s, hq, _, _, _ = _dims(q, k)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    _call("htpu_flash_bwd_dq", q, k, v, o, lse, do, dq, delta,
+          *_dims(q, k), float(scale))
+    launches_bwd_dq += 1
+    return dq, delta
+
+
+def _launch_bwd_dkv(q, k, v, lse, delta, do, scale: float):
+    """The dK/dV kernel → (dk, dv), each KV head summed over its group."""
+    global launches_bwd_dkv
+    _check(q, k, v, do)
+    _check_lse(q, lse)
+    _check_lse(q, delta, "delta")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _call("htpu_flash_bwd_dkv", q, k, v, lse, delta, do, dk, dv,
+          *_dims(q, k), float(scale))
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+# ---------------------------------------------------------------- public
+
+def _scale(q, scale):
+    return 1.0 / (q.shape[-1] ** 0.5) if scale is None else float(scale)
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of causal attention: the kernel for CUDA tensors, the
-    plain version for CPU tensors. Layout as ``flash_attention_ref``."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention has no backward yet (training slice): "
-            "call it on tensors that do not require grad")
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
+    plain version for CPU tensors. Layout as ``flash_attention_ref``.
+    Records no autograd graph on either device (``flash_attention`` is
+    the differentiable entry)."""
+    scale = _scale(q, scale)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, scale)
+        with torch.no_grad():
+            return flash_attention_ref(q, k, v, scale)
     return _launch(q, k, v, scale)
+
+
+def flash_backward(q, k, v, o, lse, do, scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal attention given the forward's o and lse and
+    the output gradient do: the two kernels for CUDA tensors (dQ first,
+    which also writes δ, then dK/dV), the plain version for CPU tensors."""
+    scale = _scale(q, scale)
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+    dq, delta = _launch_bwd_dq(q, k, v, o, lse, do, scale)
+    dk, dv = _launch_bwd_dkv(q, k, v, lse, delta, do, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal flash attention with the backward kernels as its gradient:
+    saves q, k, v, o and the log-sum-exp (no [S, S] matrix)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        o, lse = flash_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(),
+                                    ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,6 +303,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused causal flash attention.
 
     q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA).
-    Returns [B, Sq, Hq, D].
+    Returns [B, Sq, Hq, D]. Differentiable: when grad mode is on and an
+    input requires grad it goes through ``FlashAttention``; otherwise it
+    is the bare forward and saves nothing.
     """
+    scale = _scale(q, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
     return flash_forward(q, k, v, scale)[0]

@@ -1,10 +1,13 @@
-"""Where the time goes on the GPU: flagship-1b forward and decode steps.
+"""Where the time goes on the GPU: flagship-1b forward, decode and
+training steps.
 
-    python -m hadoop_tpu_torch.tools.profile_flagship
+    python -m hadoop_tpu_torch.tools.profile_flagship [--train]
 
 Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
 [1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
-running lanes (block 16, context 1024). For each it prints one JSON line:
+running lanes (block 16, context 1024); with ``--train`` instead, three
+flagship-1b training steps at ``chip_smoke.py``'s configuration (bf16,
+batch 4, seq 2048, full remat, AdamW). For each it prints one JSON line:
 host wall time per call, the summed device time of the CUDA kernels per
 call, the device's idle share (1 - device / wall) and the kernels that
 took the most device time. Weights are random from a fixed seed. Needs a
@@ -13,6 +16,7 @@ CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -22,7 +26,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
-                              get_config, init_params)
+                              get_config, init_params, init_train_state,
+                              make_train_step)
 
 
 def _trace(fn, calls: int, label: str) -> None:
@@ -51,12 +56,36 @@ def _trace(fn, calls: int, label: str) -> None:
     }), flush=True)
 
 
-def main() -> int:
+def _train(cfg, gen) -> None:
+    params, opt = init_train_state(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
+                           device="cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    step = make_train_step(cfg, remat="full")
+    state = {"params": params, "opt": opt}
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], tokens, targets)
+
+    _trace(one, 3, "train step flagship-1b bf16 [4,2048] remat full adamw")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="trace training steps instead of the forward "
+                    "and decode steps")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device", file=sys.stderr)
         return 2
     cfg = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.train:
+        _train(cfg, gen)
+        print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+        return 0
     params = init_params(cfg, gen)
     tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
                            device="cuda")

@@ -177,6 +177,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch, hadoop_tpu_torch.models.convert\n"
         "import hadoop_tpu_torch.ops.flash, hadoop_tpu_torch.ops._build\n"
         "import hadoop_tpu_torch.serving.engine\n"
+        "import hadoop_tpu_torch.ops.cross_entropy\n"
+        "import hadoop_tpu_torch.parallel.train\n"
         "import hadoop_tpu_torch.tools.profile_flagship\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
@@ -193,6 +195,10 @@ def test_port_sources_name_no_jax():
     files = sorted((REPO / "hadoop_tpu_torch").rglob("*.py")) + sorted(
         (REPO / "hadoop_tpu_torch").rglob("*.cu")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    for new in ("ops/csrc/flash_bwd.cu", "ops/cross_entropy.py",
+                "parallel/mesh.py", "parallel/optimizer.py",
+                "parallel/train.py"):
+        assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
         hits = bad.findall(path.read_text())

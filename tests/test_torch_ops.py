@@ -4,7 +4,9 @@ Inputs are made with numpy from a seed and fed to both. Tolerances:
 1e-6 for the elementwise ops and norms (float32, one reduction),
 1e-5 for attention (a softmax over a float32 einsum), and 2e-5 for the
 flash kernel's plain version against the Pallas kernel in interpret
-mode, the reference's own tolerance (tests/test_flash.py).
+mode, the reference's own tolerance (tests/test_flash.py); 5e-4 for the
+backward's plain version against the Pallas backward, the reference's
+own gradient tolerance there.
 """
 
 import numpy as np
@@ -126,13 +128,72 @@ def test_supported_and_pick_block_match_jax():
                 jflash._pick_block(seq, pref)
 
 
-def test_flash_wrapper_refuses_requires_grad():
-    q = torch.zeros(1, 128, 2, 64)
-    k = torch.zeros(1, 128, 1, 64)
-    with pytest.raises(NotImplementedError):
-        flash.flash_forward(q.requires_grad_(), k, k)
-    with pytest.raises(NotImplementedError):
-        flash.flash_attention(q.detach(), k, k.requires_grad_())
+def test_flash_grads_flow_on_cpu_uncounted():
+    """With grad mode on and an input requiring grad, ``flash_attention``
+    goes through ``FlashAttention``, whose backward on CPU tensors is the
+    plain version: gradients flow and no kernel launch is counted. The
+    bare ``flash_forward`` records no graph."""
+    q, k, v = (torch.from_numpy(_randn(20 + i, 1, 128, h, 64))
+               for i, h in enumerate((2, 1, 1)))
+    counts = (flash.launches, flash.launches_bwd_dq, flash.launches_bwd_dkv)
+    qg = q.clone().requires_grad_()
+    out = flash.flash_attention(qg, k, v)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    o, lse = flash.flash_forward(qg, k, v)
+    assert o.grad_fn is None and lse.grad_fn is None
+    with torch.no_grad():
+        assert flash.flash_attention(qg, k, v).grad_fn is None
+    assert (flash.launches, flash.launches_bwd_dq,
+            flash.launches_bwd_dkv) == counts
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,bq,bk", [
+    (1, 256, 2, 2, 64, 128, 128),
+    (2, 256, 4, 2, 64, 128, 128),
+    (1, 256, 2, 2, 128, 128, 256),
+    (1, 384, 4, 1, 64, 128, 128),       # MQA
+])
+def test_flash_bwd_ref_matches_pallas_backward(b, s, hq, hkv, d, bq, bk):
+    """dq, dk, dv of the plain version against the Pallas backward kernels
+    in interpret mode, on the same q, k, v, o, lse and dO (head-major
+    there, [B,S,H,D] here)."""
+    q, k, v, do = _randn(30, b, s, hq, d), _randn(31, b, s, hkv, d), \
+        _randn(32, b, s, hkv, d), _randn(33, b, s, hq, d)
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.swapaxes(jnp.asarray(x), 1, 2)
+                       for x in (q, k, v, do))
+    jo, jlse = jflash._fwd(jq, jk, jv, scale, bq, bk, True)
+    want = jflash._bwd(scale, bq, bk, True, (jq, jk, jv, jo, jlse),
+                       (jdo, None))
+    got = flash.flash_attention_bwd_ref(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(np.array(jnp.swapaxes(jo, 1, 2))),
+        torch.from_numpy(np.array(jlse[..., 0])), torch.from_numpy(do),
+        scale)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jnp.swapaxes(w, 1, 2)),
+                                   atol=5e-4, rtol=5e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (2, 2)])
+def test_flash_function_grads_match_plain_attention(hq, hkv):
+    """Gradients through ``FlashAttention`` (forward and backward plain
+    versions on the CPU) against autograd through the einsum-softmax
+    attention, with a non-trivial cotangent."""
+    q, k, v = (torch.from_numpy(_randn(40 + i, 2, 128, h, 64))
+               for i, h in enumerate((hq, hkv, hkv)))
+    grads = []
+    for impl in ("flash", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = attention.causal_attention(*leaves, impl=impl)
+        (out * torch.cos(out)).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for name, a, b in zip("qkv", *grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5,
+                                   msg=f"d{name}")
 
 
 def test_flash_wrapper_on_cpu_is_the_plain_version_uncounted():
