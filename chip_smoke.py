@@ -4,21 +4,31 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout and
-holds each against its plain PyTorch version (the flash forward, and the
-two flash backward kernels, also through the autograd Function); trains
-flagship-1b at ``bench.py``'s configuration (bf16, batch 4, seq 2048,
-full remat, AdamW) for 7 steps through ``make_train_step``; runs the
-flagship-1b forward; serves flagship-1b requests through
-``DecodeEngine``; and checks two float32 SGD steps of the kernel path
-against plain attention. Weights are random, made from a seeded
-``torch.Generator``. Each phase prints one JSON line; the card's name
-and power limit (as ``nvidia-smi`` reports them) follow the build lines;
-the line before the last lists every ported kernel with its launches on
-its main path (the forward for ``flash_fwd``, the 7 training steps for
-the backward kernels), its error and its times; the last line is
-``{"ok": true, "device": ...}``. Any failed check raises, so the script
-exits non-zero and prints no result. It needs a CUDA device and exits
-non-zero without one.
+holds each against its plain PyTorch version (the flash forward, the two
+flash backward kernels, also through the autograd Function, and the
+non-causal ring partial); runs ring attention at sp 4 on one device
+against the causal kernel over the whole sequence; trains flagship-1b
+at ``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
+AdamW) for 7 steps through ``make_train_step``; runs the flagship-1b
+forward; serves flagship-1b requests through ``DecodeEngine``; checks
+two float32 SGD steps of the kernel path against plain attention; runs
+the context-parallel prefill of flagship-1b in float32 through the
+exact A-B guard (sp 4 and sp 2); and prefills three prompts of
+llama3-8b (8192, 8100 and 8000 tokens) at full width and depth with
+``ContextParallelPrefiller`` (sp 4 ranks on the one card), holding every
+layer's ring attention against the causal kernel on the same inputs,
+and its logits and every layer's K/V against the single-device forward.
+Weights are random, made from a seeded ``torch.Generator``. Each phase
+prints one JSON line; the card's name and power limit (as
+``nvidia-smi`` reports them) follow the build lines; the line before the
+last lists every ported kernel with its launches on its main path (the
+forward for ``flash_fwd``, the 7 training steps for the backward
+kernels, one 8192-token llama3-8b CP prefill for ``flash_fwd_partial``),
+its error and its times; the last line is ``{"ok": true, "device":
+...}``. Any failed check raises, so the script exits non-zero and
+prints no result. It needs a CUDA device and exits non-zero without
+one. One phase runs alone from Python, after the build, e.g.
+``python3 -c 'import chip_smoke as c; c.phase_build(); c.phase_ring()'``.
 
 Peak rates for the bound (``bound_ms``): NVIDIA H100 SXM data sheet,
 3.35 TB/s device memory, 989 TFLOP/s dense bf16 on the tensor cores and
@@ -28,6 +38,7 @@ float32, so the float32 peak is the one that applies).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -37,12 +48,18 @@ import time
 import torch
 import torch.nn.functional as F
 
+import hadoop_tpu_torch.parallel.ring_attention as ring_module
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
                               get_config, init_params, init_train_state,
                               make_train_step)
-from hadoop_tpu_torch.ops import _build, flash
+from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
+                                             head_matrix, run_layers_kv)
+from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
 from hadoop_tpu_torch.parallel import MeshPlan, adamw_init
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
+from hadoop_tpu_torch.parallel.ring_attention import ring_attention
+from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
+                                              run_prefill_ab)
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -80,6 +97,52 @@ BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # on an H100).
 PARITY_TOL = 1e-2
 TRAIN = dict(batch=4, seq=2048, warmup=2, timed=5, lr=3e-4, remat="full")
+# (B, Sq, Skv, Hq, Hkv, D) of the non-causal partial: llama3-8b's
+# per-rank ring shape at sp 4 (8192 tokens, the 4 ranks folded into the
+# batch) first, then flagship-1b's at sp 4 ([2048]), one Sq != Skv case
+# and one at D 64; each in bf16 and float32
+PARTIAL_SHAPES = [(4, 2048, 2048, 32, 8, 128), (4, 512, 512, 16, 8, 128),
+                  (2, 256, 512, 8, 2, 128), (2, 256, 256, 4, 2, 64)]
+# the partial against its plain version: max |dO| over max |O|, and max
+# |d lse|. bf16: P is rounded per 64-key tile against the running max in
+# the kernel, once against the row max in the plain version (as for the
+# forward); float32: the same products summed in another order
+PARTIAL_TOLERANCE = {torch.bfloat16: (2e-2, 1e-2),
+                     torch.float32: (1e-4, 1e-4)}
+# ring attention at sp 4 against the causal kernel over the whole
+# sequence, (B, S, Hq, Hkv, D, dtype); every layer's ring attention in
+# the llama3-8b CP prefill is held the same way. Rank 0's rows must be
+# equal bit for bit: its diagonal runs the same kernel tiles, and every
+# later chunk merges into them with weight exactly 1 and 0. The later
+# rows, the ones the non-causal partials and the merge reach, are held
+# row by row: max |dO| over max |O| of that row. bf16: each partial's O
+# is rounded to bf16 before the float32 merge and once more after it,
+# where the single kernel rounds once (half an ulp is up to 2**-8 of a
+# value), and P is rounded against other running maxima: up to about two
+# ulps of the row's max, 2**-6. Seen on an H100: 2**-7 at most, here and
+# at every layer of the three llama3-8b prompts. A dropped or
+# mis-weighted 64-key tile moves a row by some sqrt(64 / keys), 9% at
+# 8192 keys.
+RING_CASES = [(1, 8192, 32, 8, 128, torch.bfloat16),
+              (1, 1024, 4, 2, 64, torch.float32)]
+RING_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+RING_SP = 4
+# llama3-8b CP prefill: sp 4 ranks, 16-token blocks; three prompts of
+# random tokens, each from its own seed: 8192 tokens (no padding; the
+# main path's counted and timed run), 8100 (padding and a 4-token tail
+# block) and 8000 (padding, no tail). Rank 0's K/V must equal the
+# single-device forward's bit for bit (the same GEMMs and kernel tiles).
+# The logits and every layer's K/V from position S/sp on are held
+# against the single-device forward (the causal kernel at S 8192) by way
+# of a calibration: the same forward with plain attention, which lies
+# 1.8e-2 to 2.4e-2 of max |ref| from the kernel forward on this metric
+# (bf16 noise through 32 layers; each value is a few ulps of the
+# largest). The CP prefill may lie at most ``cal_factor`` times as far as
+# the calibration, value by value (logits, and K and V per layer). Seen
+# on an H100 over the three prompts: 0.75 to 1.33 times.
+LONGCTX = dict(model="llama3-8b", sp=4, block=16, tokens=(8192, 8100, 8000),
+               cal_factor=2.0, timed=3)
+EXACT_SP = (4, 2)       # flagship-1b float32 through run_prefill_ab(exact)
 TIE_REL = 1e-4          # near-tie rule for greedy token comparisons
 
 
@@ -139,12 +202,25 @@ def bwd_bound(b, s, hq, hkv, d, dtype, kernel):
     return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
 
 
+def partial_bound(b, sq, skv, hq, hkv, d, dtype):
+    """(bound_ms, bound_by) of the non-causal partial: q, k, v read once,
+    O (float32) and lse written once, against 4·D FLOPs (QKᵀ and PV) per
+    (q, k) pair and query head."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = elt * b * d * (sq * hq + 2 * skv * hkv) + 4 * b * sq * hq * (d + 1)
+    flops = 4 * b * hq * sq * skv * d
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+
+
 def counts():
-    return flash.launches, flash.launches_bwd_dq, flash.launches_bwd_dkv
+    return (flash.launches, flash.launches_bwd_dq, flash.launches_bwd_dkv,
+            flash.launches_partial)
 
 
 def zero_counts():
     flash.launches = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
+    flash.launches_partial = 0
 
 
 # ------------------------------------------------------------------ phases
@@ -313,7 +389,7 @@ def check_function(q, k, v, do, scale, o, grads):
     out = flash.flash_attention(*leaves, scale)
     auto = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    delta = tuple(a - b for a, b in zip(counts(), before))
+    delta = tuple(a - b for a, b in zip(counts(), before))[:3]
     require(delta == (1, 1, 1),
             f"FlashAttention launched (fwd, dq, dkv) {delta} times")
     require(torch.equal(out, o) and all(
@@ -352,8 +428,8 @@ def phase_train():
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(metrics["loss"].item())
-        per_step.append([a - b for a, b in zip(counts(), before)])
-    launches = counts()
+        per_step.append([a - b for a, b in zip(counts(), before)][:3])
+    launches = counts()[:3]
     peak = torch.cuda.max_memory_allocated()
     grad_norm = metrics["grad_norm"].item()
     timed_ms = sum(step_ms[TRAIN["warmup"]:]) / TRAIN["timed"]
@@ -542,7 +618,7 @@ def phase_parity(cfg32, p32):
         for _ in range(2):
             params, opt, metrics = step(params, opt, tokens, targets)
             losses.append(metrics["loss"].item())
-        runs[impl] = (losses, params, counts())
+        runs[impl] = (losses, params, counts()[:3])
         del opt
     (lk, pk, ck), (lr_, pr, cr) = runs["auto"], runs["ref"]
     want = (2 * cfg32.n_layers,) * 3
@@ -570,6 +646,329 @@ def _names(tree, prefix=""):
             for key, value in tree.items()}
 
 
+def phase_partial():
+    """The non-causal partial against its plain version at every listed
+    shape and dtype, timed against SDPA (non-causal, a yardstick for O
+    only) and its bound; the causal partial against ``flash_forward``
+    bit for bit. Returns the llama3-8b-shape bf16 record."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    main_shape = None
+    for b, sq, skv, hq, hkv, d in PARTIAL_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, skv, hkv, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            scale = d ** -0.5
+            o, lse = flash.flash_attention_partial(q, k, v, scale, False)
+            o_ref, lse_ref = flash.flash_attention_partial_ref(
+                q, k, v, scale, False)
+            torch.cuda.synchronize()
+            err_o = (o - o_ref).abs().max().item()
+            rel_o = err_o / o_ref.abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            tol_o, tol_lse = PARTIAL_TOLERANCE[dtype]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            rec = {
+                "phase": "partial", "name": "flash_fwd_partial",
+                "shape": [b, sq, skv, hq, hkv, d], "dtype": str(dtype),
+                "max_abs_err": err_o, "rel_err": rel_o,
+                "max_abs_err_lse": err_lse, "tol": [tol_o, tol_lse],
+                "ms": cuda_ms(lambda: flash.flash_attention_partial(
+                    q, k, v, scale, False), 10),
+                "plain_ms": cuda_ms(lambda: flash.flash_attention_partial_ref(
+                    q, k, v, scale, False), 3),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=False, scale=scale,
+                    enable_gqa=True), 10),
+            }
+            rec["bound_ms"], rec["bound_by"] = partial_bound(
+                b, sq, skv, hq, hkv, d, dtype)
+            if sq == skv:
+                po, plse = flash.flash_attention_partial(q, k, v, scale, True)
+                fo, flse = flash.flash_forward(q, k, v, scale)
+                rec["causal_bit_equal"] = bool(
+                    torch.equal(po, fo.float())
+                    and torch.equal(plse, flse.transpose(1, 2)))
+                require(rec["causal_bit_equal"],
+                        f"causal partial differs from flash_forward at "
+                        f"{rec['shape']} {dtype}")
+            emit(rec)
+            require(rel_o <= tol_o and err_lse <= tol_lse,
+                    f"flash_fwd_partial disagrees with its plain version at "
+                    f"{rec['shape']} {dtype}: O {rel_o} of max |O|, "
+                    f"LSE {err_lse}")
+            if main_shape is None:
+                main_shape = rec
+            del q, k, v, o, lse, o_ref, lse_ref
+    return main_shape
+
+
+def _fold(x, sp):
+    """[B, S, H, D] -> [sp*B, S/sp, H, D], rank r's shard on rows
+    r*B..(r+1)*B-1."""
+    b, s, h, d = x.shape
+    return x.reshape(b, sp, s // sp, h, d).transpose(0, 1).reshape(
+        sp * b, s // sp, h, d)
+
+
+def _unfold(x, sp):
+    n, sl, h, d = x.shape
+    return x.reshape(sp, n // sp, sl, h, d).transpose(0, 1).reshape(
+        n // sp, sp * sl, h, d)
+
+
+def _ring_err(got, want, sp):
+    """The ring's output ``got`` against the causal kernel's ``want``
+    over the whole sequence, both [B, S, H, D]: whether rank 0's rows are
+    equal bit for bit, and the largest per-row max |dO| over max |O| on
+    the later rows."""
+    local = want.shape[1] // sp
+    g, w = got[:, local:].float(), want[:, local:].float()
+    rel = (g - w).abs().amax(dim=(2, 3)) / w.abs().amax(dim=(2, 3))
+    return torch.equal(got[:, :local], want[:, :local]), rel.max().item()
+
+
+def phase_ring():
+    """``ring_attention`` at sp 4 on one device (the kernel path: 1
+    causal and 3 non-causal partial launches per call) against the
+    causal kernel over the whole sequence."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for b, s, hq, hkv, d, dtype in RING_CASES:
+        q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        want, _ = flash.flash_forward(q, k, v)
+        rq, rk, rv = (_fold(x, RING_SP) for x in (q, k, v))
+        before = counts()
+        got = _unfold(ring_attention(rq, rk, rv, RING_SP), RING_SP)
+        torch.cuda.synchronize()
+        delta = [a - c for a, c in zip(counts(), before)]
+        rank0_equal, rel = _ring_err(got, want, RING_SP)
+        tol = RING_ROW_TOL[dtype]
+        rec = {"phase": "ring", "shape": [b, s, hq, hkv, d], "sp": RING_SP,
+               "dtype": str(dtype), "rank0_bit_equal": rank0_equal,
+               "row_rel_err": rel, "tol": tol,
+               "launches_causal_partial": [delta[0], delta[3]],
+               "ms": cuda_ms(lambda: ring_attention(rq, rk, rv, RING_SP), 5),
+               "single_causal_ms": cuda_ms(
+                   lambda: flash.flash_forward(q, k, v), 5)}
+        # the ring's causal diagonal alone, at its folded shape
+        qt, kt, vt = (x.transpose(1, 2) for x in (rq, rk, rv))
+        diag = {"shape": [RING_SP * b, s // RING_SP, hq, hkv, d],
+                "ms": cuda_ms(lambda: flash.flash_forward(rq, rk, rv), 10),
+                "plain_ms": cuda_ms(lambda: flash.flash_attention_ref(
+                    rq, rk, rv, d ** -0.5), 3),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), 10)}
+        diag["bound_ms"], diag["bound_by"] = flash_bound(*diag["shape"],
+                                                         dtype)
+        rec["diagonal"] = diag
+        emit(rec)
+        require(delta == [1, 0, 0, RING_SP - 1],
+                f"ring attention launched (fwd, dq, dkv, partial) {delta}")
+        require(rank0_equal and rel <= tol,
+                f"ring attention vs causal kernel at {[b, s, hq, hkv, d]} "
+                f"{dtype}: rank 0 equal {rank0_equal}, later rows {rel} "
+                f"(tolerance {tol})")
+        del q, k, v, rq, rk, rv, got, want
+
+
+def phase_longctx_exact(cfg32, p32):
+    """flagship-1b in float32 at [2048]: the CP prefill at sp 4 and sp 2
+    through the exact A-B guard (atol 5e-4, argmax identical), the
+    reference's own contract."""
+    tokens = torch.randint(0, cfg32.vocab_size, (2048,), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 8)).tolist()
+    for sp in EXACT_SP:
+        pre = ContextParallelPrefiller(p32, cfg32, block_size=16,
+                                       pad_tokens=2048, sp=sp)
+        before = counts()
+        report = run_prefill_ab(p32, cfg32, tokens, pre, mode="exact")
+        delta = [a - c for a, c in zip(counts(), before)]
+        report.update(phase="longctx_exact", model="flagship-1b",
+                      dtype="float32", launches_causal_partial=[
+                          delta[0], delta[3]])
+        emit(report)
+        # the reference forward launches n_layers causal kernels too
+        require(delta[3] == (sp - 1) * cfg32.n_layers
+                and delta[0] == 2 * cfg32.n_layers,
+                f"sp {sp}: launches (fwd, dq, dkv, partial) {delta}")
+
+
+def _max_rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def _rel_per_layer(got, ref):
+    """Per layer (dim 0): max |got - ref| over max |ref|."""
+    err = (got.float() - ref.float()).abs().amax(dim=(1, 2, 3))
+    return (err / ref.float().abs().amax(dim=(1, 2, 3))).tolist()
+
+
+def _streamed_kv(res):
+    """The prefill's K/V stream as one host tensor each, [L, n, Hkv,
+    Dh]: the full blocks in chain order, then the tail; and the number
+    of full blocks."""
+    blocks = list(res.blocks)
+    out = []
+    for i, tail in enumerate((res.tail_k, res.tail_v)):
+        out.append(torch.cat([blk[i] for blk in blocks]
+                             + ([tail] if tail is not None else []), dim=1))
+    return out, len(blocks)
+
+
+@contextlib.contextmanager
+def _probe_ring(sp, errs):
+    """While open, every ``ring_attention`` call of the decoder also runs
+    the causal kernel over the same q, k, v gathered into one sequence,
+    and appends ``_ring_err`` of the ring's output against it to
+    ``errs``: each layer's attention held on its own inputs, apart from
+    the drift of the layers before it."""
+    ring_call = ring_module.ring_attention
+
+    def probed(q, k, v, ring_size, impl="auto"):
+        out = ring_call(q, k, v, ring_size, impl=impl)
+        want, _ = flash.flash_forward(*(_unfold(x, sp) for x in (q, k, v)))
+        errs.append(_ring_err(_unfold(out, sp), want, sp))
+        return out
+
+    ring_module.ring_attention = probed
+    try:
+        yield
+    finally:
+        ring_module.ring_attention = ring_call
+
+
+def _reference(params, cfg, full, n, head, cos, sin):
+    """The single-device forward over ``full`` (the prompt is its first
+    ``n`` tokens; causal, so those rows are the prompt's own), as
+    ``run_layers_kv`` (``forward_hidden``'s layers, also returning K/V):
+    for the kernel forward ("auto") and for plain attention ("ref", the
+    calibration), row n-1's logits and every layer's K and V [L, n, Hkv,
+    Dh] on the host."""
+    out = {}
+    with torch.no_grad():
+        for impl in ("auto", "ref"):
+            h, (ks, vs) = run_layers_kv(params["embed"][full[None]],
+                                        params["layers"], cfg, cos, sin,
+                                        attn_impl=impl)
+            out[impl] = ((final_hidden(params, h[0, n - 1], cfg) @ head)
+                         .float().cpu(), ks[:, 0, :n].cpu(),
+                         vs[:, 0, :n].cpu())
+            del h, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_longctx():
+    """llama3-8b at full width and depth and its published context: CP
+    prefill (sp 4 on this card, block 16) of three prompts against the
+    single-device forward (the causal kernel at S 8192). Returns the
+    main path's launches (causal, partial) of the 8192-token prefill."""
+    cfg = get_config(LONGCTX["model"])
+    sp = LONGCTX["sp"]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    head = head_matrix(params, cfg)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device="cuda")
+    pre = ContextParallelPrefiller(params, cfg, block_size=LONGCTX["block"],
+                                   pad_tokens=cfg.max_seq, sp=sp)
+    local = pre.pad_tokens // sp
+    want_launches = (cfg.n_layers, 0, 0, (sp - 1) * cfg.n_layers)
+    main_launches = None
+    for i, n in enumerate(LONGCTX["tokens"]):
+        full = torch.randint(0, cfg.vocab_size, (cfg.max_seq,),
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(SEED + 9 + i), device="cuda")
+        ref = _reference(params, cfg, full, n, head, cos, sin)
+        prompt = full[:n].tolist()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                          # the main path's run
+        res = pre.cp_prefill(prompt)
+        torch.cuda.synchronize()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        got_kv, n_blocks = _streamed_kv(res)
+        got = torch.from_numpy(res.last_logits)
+        tail = 0 if res.tail_k is None else res.tail_k.shape[1]
+        del res
+        attn = []
+        with _probe_ring(sp, attn):
+            pre.cp_prefill(prompt)
+        # the CP prefill and the calibration against the kernel forward:
+        # logits, then K and V per layer from position S/sp on
+        kernel, plain = ref["auto"], ref["ref"]
+        err = [[_max_rel(got, kernel[0])]]
+        cal = [[_max_rel(plain[0], kernel[0])]]
+        for j in (1, 2):
+            if got_kv[j - 1].shape != kernel[j].shape:
+                raise SmokeFailure(f"streamed K/V {tuple(got_kv[j - 1].shape)}"
+                                   f", expected {tuple(kernel[j].shape)}")
+            err.append(_rel_per_layer(got_kv[j - 1][:, local:],
+                                      kernel[j][:, local:]))
+            cal.append(_rel_per_layer(plain[j][:, local:],
+                                      kernel[j][:, local:]))
+        ratio = max(e / c if c else (0.0 if e == 0 else math.inf)
+                    for es, cs in zip(err, cal) for e, c in zip(es, cs))
+        rank0_equal = all(torch.equal(g[:, :local], w[:, :local])
+                          for g, w in zip(got_kv, kernel[1:]))
+        rec = {"phase": "longctx", "model": LONGCTX["model"],
+               "dtype": cfg.dtype, "params": n_params, "prompt_tokens": n,
+               "pad_tokens": pre.pad_tokens, "sp": sp,
+               "block_size": LONGCTX["block"], "full_blocks": n_blocks,
+               "tail_tokens": tail,
+               "attention_rank0_bit_equal": all(e[0] for e in attn),
+               "attention_row_rel_err_per_layer": [e[1] for e in attn],
+               "attention_tol": RING_ROW_TOL[torch.bfloat16],
+               "rank0_kv_bit_equal": rank0_equal,
+               "logits_rel_err": err[0][0],
+               "logits_rel_err_calibration": cal[0][0],
+               "argmax_agree": int(got.argmax()) == int(kernel[0].argmax()),
+               "k_rel_err_max": max(err[1]), "v_rel_err_max": max(err[2]),
+               "k_rel_err_per_layer": err[1], "v_rel_err_per_layer": err[2],
+               "k_rel_err_calibration_per_layer": cal[1],
+               "v_rel_err_calibration_per_layer": cal[2],
+               "calibration_ratio_max": ratio,
+               "cal_factor": LONGCTX["cal_factor"],
+               "launches_fwd_dq_dkv_partial": list(launches),
+               "peak_memory_bytes": peak,
+               "shapes": [pre.prefill_compiles, pre.head_compiles]}
+        if i == 0:
+            ms = cuda_ms(lambda: pre.cp_prefill(prompt), LONGCTX["timed"])
+            rec.update(ms=ms, tokens_per_s=n / (ms / 1e3),
+                       single_device_forward_ms=cuda_ms(
+                           lambda: final_hidden(params, forward_hidden(
+                               params, full[None], cfg)[0, -1], cfg) @ head,
+                           2))
+            main_launches = (launches[0], launches[3])
+        emit(rec)
+        require(tuple(launches) == want_launches,
+                f"CP prefill launches (fwd, dq, dkv, partial) {launches}, "
+                f"expected {want_launches}")
+        require(len(attn) == cfg.n_layers and rec["attention_rank0_bit_equal"]
+                and max(rec["attention_row_rel_err_per_layer"])
+                <= RING_ROW_TOL[torch.bfloat16],
+                f"CP prefill of {n} tokens: ring attention vs the causal "
+                f"kernel on the same inputs: {attn}")
+        require(rank0_equal, "rank 0's K/V differ from the single-device "
+                "forward's")
+        require(ratio <= LONGCTX["cal_factor"],
+                f"CP prefill of {n} tokens vs the single-device forward: up "
+                f"to {ratio} times the calibration's distance")
+        require(bool(torch.isfinite(got).all()), "non-finite CP logits")
+        require(n_blocks == n // LONGCTX["block"] and
+                tail == n % LONGCTX["block"], "wrong block count")
+        del ref, got_kv
+    require(pre.prefill_compiles == 1 and pre.head_compiles == 1,
+            "the CP prefill ran at more than one shape")
+    del params, pre
+    return main_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -579,17 +978,23 @@ def main() -> int:
     phase_build()
     record = phase_kernel()
     bwd = phase_backward()
+    partial = phase_partial()
+    phase_ring()
     _, train_dq, train_dkv = phase_train()
     cfg32, p32, cfg16, p16 = make_params()
-    launches = phase_forward(cfg32, p32, cfg16, p16)
+    fwd_launches = phase_forward(cfg32, p32, cfg16, p16)
     phase_serving(cfg32, p32, cfg16, p16)
     phase_parity(cfg32, p32)
+    phase_longctx_exact(cfg32, p32)
+    del cfg32, p32, cfg16, p16          # free flagship-1b for llama3-8b
+    torch.cuda.empty_cache()
+    _, cp_partial = phase_longctx()
+    source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "hadoop_tpu_torch/ops/csrc/flash_fwd.cu",
+        "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",
-        "launches": launches, "max_abs_err": record["max_abs_err"],
+        "launches": fwd_launches, "max_abs_err": record["max_abs_err"],
         "ms": record["ms"], "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
         "library_ms": record["library_ms"]}] + [{
@@ -601,7 +1006,14 @@ def main() -> int:
             "bound_by": bwd[name]["bound_by"],
             "library_ms": bwd["library_ms"]}
         for name, line, n in (("dkv", 188, train_dkv),
-                              ("dq", 240, train_dq))]})
+                              ("dq", 240, train_dq))] + [{
+            "name": "flash_fwd_partial", "route": "cuda",
+            "source": source_fwd, "replaces": "hadoop_tpu/ops/flash.py:438",
+            "launches": cp_partial,
+            "max_abs_err": partial["max_abs_err"], "ms": partial["ms"],
+            "plain_ms": partial["plain_ms"], "bound_ms": partial["bound_ms"],
+            "bound_by": partial["bound_by"],
+            "library_ms": partial["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

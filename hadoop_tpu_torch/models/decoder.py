@@ -1,11 +1,15 @@
-"""Functional decoder-only transformer core, single device.
+"""Functional decoder-only transformer core.
 
-The counterpart of ``hadoop_tpu/models/decoder.py`` on its single-device
-context (``SINGLE``): the same layer-stacked parameter tree (every
-per-layer weight one tensor with a leading ``n_layers`` dim), here a
-plain dict of tensors walked by a Python loop. Families llama and gpt2.
-MoE, tensor/sequence/ring parallelism and the quantized weight seams come
-in later slices.
+The counterpart of ``hadoop_tpu/models/decoder.py``: the same
+layer-stacked parameter tree (every per-layer weight one tensor with a
+leading ``n_layers`` dim), here a plain dict of tensors walked by a
+Python loop. Families llama and gpt2. ``ParallelCtx`` carries the
+context-parallel ring only: under a ring ctx the activations are
+``[R*B, S_local, ...]`` with rank r's sequence shard on rows
+r*B..(r+1)*B-1 (all ranks on one device, ``parallel/ring_attention.py``),
+RoPE and learned positions take each rank's absolute offset, and
+attention is ring attention. MoE, tensor/expert parallelism and the
+quantized weight seams come in later slices.
 
 Attention goes through ``ops.attention.causal_attention``, which takes
 the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
@@ -16,6 +20,7 @@ forces either path ("flash" or "ref") so a run can compare the two.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
@@ -28,6 +33,41 @@ from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.ops import (apply_rope, causal_attention, gelu,
                                   layer_norm, rms_norm, rope_frequencies,
                                   swiglu)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """The context-parallel ring the current run is under (None =
+    single device). Only the reference's ring fields exist here: tensor,
+    expert and the relaxed-tier fields come with multi-GPU parallelism
+    (ROADMAP Queue A 6), and naming one is a TypeError.
+
+    ring:      name of the context-parallel axis (the reference's
+        ``ring_axis``), e.g. "sp".
+    ring_size: ranks on the ring.
+    sp_mode:   "ring" only; "ulysses" is not ported (ROADMAP Queue A 7).
+    """
+    ring: Optional[str] = None
+    ring_size: int = 1
+    sp_mode: str = "ring"
+
+    def __post_init__(self):
+        if self.sp_mode != "ring":
+            raise NotImplementedError(
+                f"sp_mode={self.sp_mode!r}: only ring attention is ported "
+                f"(ulysses: ROADMAP Queue A 7)")
+        if self.ring_size < 1 or (self.ring is None and self.ring_size != 1):
+            raise ValueError(f"ring={self.ring!r}, ring_size={self.ring_size}")
+
+
+SINGLE = ParallelCtx()
+
+
+def _ring_positions(ctx: ParallelCtx, seq: int, device) -> torch.Tensor:
+    """Absolute positions [R, S_local] of each rank's shard:
+    ``rank * S_local + arange(S_local)``."""
+    rank = torch.arange(ctx.ring_size, device=device)[:, None]
+    return rank * seq + torch.arange(seq, device=device)
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -103,8 +143,12 @@ def _norm(x, w, b, cfg: ModelConfig):
 
 
 def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
-                     attn_impl: str = "auto"):
-    """Pre-norm attention with residual. x: [B, S, D]."""
+                     attn_impl: str = "auto", ctx: ParallelCtx = SINGLE,
+                     return_kv: bool = False):
+    """Pre-norm attention with residual. x: [B, S, D] ([R*B, S_local, D]
+    under a ring ctx). ``return_kv=True`` also returns this layer's
+    post-RoPE ``(k, v)`` [B, S, Hkv, Dh], the rows the long-context
+    prefill streams out."""
     resid = x
     h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg)
     B, S, _ = h.shape
@@ -112,11 +156,18 @@ def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
     k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    attn = causal_attention(q, k, v, impl=attn_impl)
+        positions = None if ctx.ring is None else \
+            _ring_positions(ctx, S, h.device)
+        q = apply_rope(q, cos, sin, positions)
+        k = apply_rope(k, cos, sin, positions)
+    if ctx.ring is not None:
+        from hadoop_tpu_torch.parallel.ring_attention import ring_attention
+        attn = ring_attention(q, k, v, ctx.ring_size, impl=attn_impl)
+    else:
+        attn = causal_attention(q, k, v, impl=attn_impl)
     out = attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
-    return resid + out.to(resid.dtype)
+    y = resid + out.to(resid.dtype)
+    return (y, (k, v)) if return_kv else y
 
 
 def _mlp_block(x, lp, cfg: ModelConfig):
@@ -134,6 +185,15 @@ def layer_forward(x, lp, cfg: ModelConfig, cos, sin,
     """One transformer block. lp: this layer's weights (no leading L dim)."""
     x = _attention_block(x, lp, cfg, cos, sin, attn_impl)
     return _mlp_block(x, lp, cfg)
+
+
+def layer_forward_kv(x, lp, cfg: ModelConfig, cos, sin,
+                     attn_impl: str = "auto", ctx: ParallelCtx = SINGLE):
+    """One transformer block, also returning the layer's post-RoPE
+    ``(k, v)``."""
+    x, kv = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx,
+                             return_kv=True)
+    return _mlp_block(x, lp, cfg), kv
 
 
 # matmul outputs, the ops "dots" keeps (the counterpart of JAX's
@@ -171,13 +231,38 @@ def run_layers(x, layers, cfg: ModelConfig, cos, sin,
     return x
 
 
+@torch.no_grad()
+def run_layers_kv(x, layers, cfg: ModelConfig, cos, sin,
+                  ctx: ParallelCtx = SINGLE, attn_impl: str = "auto"):
+    """Run the stacked layers over x, collecting every layer's post-RoPE
+    K/V. Returns ``(h, (k, v))`` with k/v ``[L, B, S, Hkv, Dh]``
+    (``[L, R*B, S_local, Hkv, Dh]`` under a ring ctx): the prefill side
+    of the long-context plane. Inference only: records no gradient."""
+    ks = vs = None
+    for i in range(cfg.n_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x, (k, v) = layer_forward_kv(x, lp, cfg, cos, sin, attn_impl, ctx)
+        if ks is None:
+            ks = k.new_empty((cfg.n_layers, *k.shape))
+            vs = v.new_empty((cfg.n_layers, *v.shape))
+        ks[i], vs[i] = k, v
+    return x, (ks, vs)
+
+
 # ------------------------------------------------------------- embeddings
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    """Token (+ learned position) embedding. tokens: [B, S] integer."""
+def embed_tokens(params, tokens, cfg: ModelConfig,
+                 ctx: ParallelCtx = SINGLE):
+    """Token (+ learned position) embedding. tokens: [B, S] integer
+    ([R*B, S_local] under a ring ctx, each rank's positions offset)."""
     h = params["embed"][tokens]
     if not cfg.use_rope:
-        h = h + params["pos_embed"][:tokens.shape[1]][None]
+        seq = tokens.shape[1]
+        if ctx.ring is None:
+            return h + params["pos_embed"][:seq][None]
+        pos = params["pos_embed"][_ring_positions(ctx, seq, tokens.device)]
+        h = h + pos.repeat_interleave(tokens.shape[0] // ctx.ring_size,
+                                      dim=0)
     return h
 
 

@@ -10,8 +10,11 @@ reaches its kernel. Both paths are differentiable: the flash path
 through ``flash.FlashAttention``, whose backward is the two backward
 kernels.
 
-``chunk_attention`` and ``merge_attention`` (the ring-attention
-partials) come with the multi-GPU slice.
+Ring attention (``hadoop_tpu_torch.parallel.ring_attention``) builds
+on ``chunk_attention`` + ``merge_attention``: each partial result is the
+chunk-normalised output plus its per-row log-sum-exp, and two partials
+merge by log-add-exp weighting. A row with no visible key has lse -inf,
+the merge's identity.
 """
 
 from __future__ import annotations
@@ -74,3 +77,40 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, q_positions: torch.Tensor,
+                    kv_positions: torch.Tensor):
+    """Attention of q against one K/V chunk, as an online-softmax partial.
+
+    Shapes: q [B,Sq,H,D]; k,v [B,Sk,H,D] (KV heads already expanded);
+    positions [Sq] and [Sk], or [B,Sq] and [B,Sk] for positions per
+    batch row (ring ranks folded into the batch). Returns (out
+    [B,Sq,H,D] float32, normalised within this chunk; lse [B,Sq,H]
+    float32, the log-sum-exp of the visible logits: -inf rows, i.e. rows
+    with no visible key, have out 0 and act as the merge identity).
+    """
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = q_positions[..., :, None] >= kv_positions[..., None, :]
+    logits = logits.masked_fill(~mask.unsqueeze(-3), float("-inf"))
+    row_max = logits.amax(dim=-1, keepdim=True)                 # [B,H,Sq,1]
+    safe_max = torch.where(torch.isfinite(row_max), row_max, 0.0)
+    unnorm = torch.exp(logits - safe_max)                       # masked -> 0
+    denom = unnorm.sum(dim=-1)                                  # [B,H,Sq]
+    out = torch.einsum("bhqk,bkhd->bqhd", unnorm, v.float())
+    out = out / denom.clamp_min(1e-30).transpose(1, 2)[..., None]
+    lse = torch.where(denom > 0,
+                      torch.log(denom.clamp_min(1e-30)) + safe_max[..., 0],
+                      float("-inf"))
+    return out, lse.transpose(1, 2)                             # [B,Sq,H]
+
+
+def merge_attention(out_a, lse_a, out_b, lse_b):
+    """Merge two (chunk-normalised out, lse) partials into one."""
+    lse_new = torch.logaddexp(lse_a, lse_b)
+    safe = torch.where(torch.isfinite(lse_new), lse_new, 0.0)
+    wa = torch.where(torch.isfinite(lse_a), torch.exp(lse_a - safe), 0.0)
+    wb = torch.where(torch.isfinite(lse_b), torch.exp(lse_b - safe), 0.0)
+    out = out_a * wa[..., None] + out_b * wb[..., None]
+    return out, lse_new

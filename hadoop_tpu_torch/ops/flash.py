@@ -1,9 +1,10 @@
-"""Fused causal flash attention, forward and backward — CUDA C++ kernels
-for Hopper.
+"""Fused flash attention, forward and backward, and the ring-attention
+partial — CUDA C++ kernels for Hopper.
 
-The counterpart of ``hadoop_tpu/ops/flash.py``'s causal path: the Pallas
-TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
-become ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, kernels written
+The counterpart of ``hadoop_tpu/ops/flash.py``: the Pallas TPU kernels
+``_fwd_kernel`` (causal, and ``causal=False`` for the partial),
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` become ``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu``, kernels written
 for ``sm_90a`` and called through ``ctypes`` (``ops/_build.py`` compiles
 them on first use). The forward streams K/V tiles through shared memory
 against a resident Q tile with the softmax kept online, so the [S, S]
@@ -23,6 +24,15 @@ PyTorch versions of the same functions. ``FlashAttention`` is the
 ``torch.autograd.Function`` that joins them; ``flash_attention`` takes it
 when a gradient is wanted. ``launches``, ``launches_bwd_dq`` and
 ``launches_bwd_dkv`` count kernel launches.
+
+``flash_attention_partial`` is ring attention's per-chunk partial:
+(chunk-normalised O in float32, lse [B, Sq, Hq]), merged by
+``ops.attention.merge_attention``. Its causal form (the diagonal chunk)
+is the causal forward kernel, counted in ``launches``; its fully visible
+form is the same kernel built without the mask and with Sq ≠ Skv
+allowed, counted in ``launches_partial``. Like the TPU kernel it writes O
+in the input dtype, so O is rounded to bf16 before the float32 cast.
+The partial records no gradient (CP training is a later slice).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0                            # forward kernel launches
 launches_bwd_dq = 0                     # dQ kernel launches
 launches_bwd_dkv = 0                    # dK/dV kernel launches
+launches_partial = 0                    # non-causal partial launches
 _fns = {}
 
 
@@ -67,6 +78,16 @@ def supported(q_shape, k_shape, q_offset, kv_offset) -> bool:
     return d % 64 == 0 and sq % 128 == 0 and sq >= 128
 
 
+def partial_supported(q_shape, k_shape) -> bool:
+    """Shapes the fused ring-attention partial handles."""
+    b, sq, hq, d = q_shape
+    _, skv, hkv, _ = k_shape
+    if hq % hkv:
+        return False
+    return (d % 64 == 0 and sq % 128 == 0 and skv % 128 == 0
+            and sq >= 128 and skv >= 128)
+
+
 def _head_major(q, k, v):
     """float32 [B,H,S,D] views, K/V heads repeated for their query heads."""
     n_rep = q.shape[2] // k.shape[2]
@@ -83,20 +104,42 @@ def _causal_scores(qf, kf, scale):
     return scores.masked_fill(~visible, _NEG_INF)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel: q [B,S,Hq,D], k/v
-    [B,S,Hkv,D] → (o [B,S,Hq,D] in q's dtype, lse [B,Hq,S] float32). P is
-    the unnormalised exp(s - max) rounded to the input dtype, as in the
-    kernel's single-block case."""
-    qf, kf, vf = _head_major(q, k, v)
-    scores = _causal_scores(qf, kf, scale)
+def _softmax_pv(scores, vf, dtype):
+    """(o [B,H,Sq,D] in ``dtype``, lse [B,H,Sq] float32) of float32
+    scores. P is the unnormalised exp(s - max) rounded to ``dtype``, as
+    in the kernel's single-block case."""
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = (p.to(v.dtype).float() @ vf) / l
-    lse = (m + torch.log(l))[..., 0]
-    return o.to(q.dtype).transpose(1, 2).contiguous(), lse
+    o = (p.to(dtype).float() @ vf) / l
+    return o.to(dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: q [B,S,Hq,D], k/v
+    [B,S,Hkv,D] → (o [B,S,Hq,D] in q's dtype, lse [B,Hq,S] float32)."""
+    qf, kf, vf = _head_major(q, k, v)
+    o, lse = _softmax_pv(_causal_scores(qf, kf, scale), vf, q.dtype)
+    return o.transpose(1, 2).contiguous(), lse
+
+
+def flash_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, scale: float, causal: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the partial: q [B,Sq,Hq,D], k/v
+    [B,Skv,Hkv,D] → (o [B,Sq,Hq,D] float32, lse [B,Sq,Hq] float32). It
+    computes what the kernel computes: P rounded to the input dtype
+    before P·V, O rounded to the input dtype and then cast to float32
+    (the reference's ``_partial_ref`` does neither rounding)."""
+    if causal:
+        o, lse = flash_attention_ref(q, k, v, scale)
+    else:
+        qf, kf, vf = _head_major(q, k, v)
+        o, lse = _softmax_pv((qf @ kf.transpose(-1, -2)) * scale, vf,
+                             q.dtype)
+        o = o.transpose(1, 2)
+    return o.float().contiguous(), lse.transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float
@@ -131,6 +174,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float
 
 _SIGNATURES = {     # C entry point: (library, pointer args, int args)
     "htpu_flash_fwd": ("flash_fwd", 5, 6),
+    "htpu_flash_fwd_partial": ("flash_fwd", 5, 7),
     "htpu_flash_bwd_dq": ("flash_bwd", 8, 6),
     "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6),
 }
@@ -166,9 +210,10 @@ def _call(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed ({err}): {why}")
 
 
-def _check(q, k, v, *like_q):
+def _check(q, k, v, *like_q, partial: bool = False):
     """Raise on anything the kernels do not take; ``like_q`` are tensors
-    of q's shape and dtype (o, do)."""
+    of q's shape and dtype (o, do). ``partial``: the shapes of the
+    fully visible partial (Sq ≠ Skv allowed)."""
     tensors = (q, k, v) + like_q
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):
         raise ValueError("flash kernel: inputs must lie on one CUDA device")
@@ -180,7 +225,8 @@ def _check(q, k, v, *like_q):
             or k.shape[3] != q.shape[3] \
             or any(t.shape != q.shape for t in like_q):
         raise ValueError(f"flash kernel: shapes {[tuple(t.shape) for t in tensors]}")
-    if not supported(q.shape, k.shape, 0, 0):
+    if not (partial_supported(q.shape, k.shape) if partial
+            else supported(q.shape, k.shape, 0, 0)):
         raise ValueError(f"flash kernel: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)}")
     if not all(t.is_contiguous() for t in tensors):
@@ -204,6 +250,20 @@ def _launch(q, k, v, scale: float):
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     _call("htpu_flash_fwd", q, k, v, o, lse, *_dims(q, k), float(scale))
     launches += 1
+    return o, lse
+
+
+def _launch_partial(q, k, v, scale: float):
+    """The fully visible partial kernel → (o, lse) as the kernel writes
+    them: o in q's dtype, lse [B, Hq, Sq]."""
+    global launches_partial
+    _check(q, k, v, partial=True)
+    b, sq, hq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    _call("htpu_flash_fwd_partial", q, k, v, o, lse, b, sq, k.shape[1], hq,
+          k.shape[2], d, _DTYPES[q.dtype], float(scale))
+    launches_partial += 1
     return o, lse
 
 
@@ -277,6 +337,28 @@ def flash_backward(q, k, v, o, lse, do, scale: Optional[float] = None
     dq, delta = _launch_bwd_dq(q, k, v, o, lse, do, scale)
     dk, dv = _launch_bwd_dkv(q, k, v, lse, delta, do, scale)
     return dq, dk, dv
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float, causal: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ring attention's online-softmax partial: (chunk-normalised o
+    [B,Sq,Hq,D] float32, lse [B,Sq,Hq] float32), merge-compatible with
+    ``ops.attention.merge_attention``. ``causal=True`` is the diagonal
+    chunk (Sq == Skv), ``causal=False`` a fully visible chunk. The
+    kernels for CUDA tensors (or raise), the plain version for CPU
+    tensors. Raises when a gradient would be wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention_partial has no backward yet: context-parallel "
+            "training comes with multi-GPU parallelism (ROADMAP Queue A 6)")
+    scale = float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_partial_ref(q, k, v, scale, causal)
+    o, lse = _launch(q, k, v, scale) if causal else \
+        _launch_partial(q, k, v, scale)
+    return o.float(), lse.transpose(1, 2).contiguous()
 
 
 class FlashAttention(torch.autograd.Function):

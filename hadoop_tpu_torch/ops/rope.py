@@ -22,16 +22,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rotate q or k of shape [..., S, H, D] by position.
 
-    ``positions``: optional [S] integer tensor of absolute positions;
-    defaults to 0..S-1.
+    ``positions``: optional integer tensor of absolute positions, [S] for
+    every row, or [R, S] per ring rank for x of shape [R*B, S, H, D]
+    (rank r's rows r*B..(r+1)*B-1); defaults to 0..S-1.
     """
     seq = x.shape[-3]
     if positions is None:
         c, s = cos[:seq], sin[:seq]
     else:
         c, s = cos[positions], sin[positions]
-    c = c[:, None, :]                     # [S, 1, D/2]: broadcast over heads
-    s = s[:, None, :]
+    if c.dim() == 3:                      # [R, S, D/2] -> [R*B, S, D/2]
+        rows = x.shape[0] // c.shape[0]
+        c = c.repeat_interleave(rows, dim=0)
+        s = s.repeat_interleave(rows, dim=0)
+    c = c[..., None, :]                   # [.., S, 1, D/2]: over heads
+    s = s[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
     return out.to(x.dtype)

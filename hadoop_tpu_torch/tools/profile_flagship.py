@@ -1,13 +1,16 @@
 """Where the time goes on the GPU: flagship-1b forward, decode and
-training steps.
+training steps, and the llama3-8b context-parallel prefill.
 
-    python -m hadoop_tpu_torch.tools.profile_flagship [--train]
+    python -m hadoop_tpu_torch.tools.profile_flagship [--train | --longctx]
 
 Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
 [1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
 running lanes (block 16, context 1024); with ``--train`` instead, three
 flagship-1b training steps at ``chip_smoke.py``'s configuration (bf16,
-batch 4, seq 2048, full remat, AdamW). For each it prints one JSON line:
+batch 4, seq 2048, full remat, AdamW); with ``--longctx`` instead, one
+``ContextParallelPrefiller.cp_prefill`` of an 8192-token prompt on
+llama3-8b (bf16, full width and depth, sp 4 ranks on the one card, block
+16), after one untraced prefill. For each it prints one JSON line:
 host wall time per call, the summed device time of the CUDA kernels per
 call, the device's idle share (1 - device / wall) and the kernels that
 took the most device time. Weights are random from a fixed seed. Needs a
@@ -28,6 +31,8 @@ from torch.profiler import ProfilerActivity, profile
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
                               get_config, init_params, init_train_state,
                               make_train_step)
+from hadoop_tpu_torch.ops import flash
+from hadoop_tpu_torch.serving.longctx import ContextParallelPrefiller
 
 
 def _trace(fn, calls: int, label: str) -> None:
@@ -71,19 +76,41 @@ def _train(cfg, gen) -> None:
     _trace(one, 3, "train step flagship-1b bf16 [4,2048] remat full adamw")
 
 
+def _longctx(gen) -> None:
+    cfg = get_config("llama3-8b")
+    params = init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (cfg.max_seq,), generator=gen,
+                           device="cuda").tolist()
+    pre = ContextParallelPrefiller(params, cfg, block_size=16,
+                                   pad_tokens=cfg.max_seq, sp=4)
+    flash.launches = flash.launches_partial = 0
+    _trace(lambda: pre.cp_prefill(prompt), 1,
+           "cp_prefill llama3-8b bf16 8192 tokens sp 4 block 16")
+    # the warm-up and the traced call: two prefills
+    print(json.dumps({"flash_launches_per_prefill": {
+        "causal": flash.launches // 2,
+        "partial": flash.launches_partial // 2}}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--train", action="store_true",
-                    help="trace training steps instead of the forward "
-                    "and decode steps")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="trace training steps instead of the forward "
+                      "and decode steps")
+    mode.add_argument("--longctx", action="store_true",
+                      help="trace one llama3-8b CP prefill instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device", file=sys.stderr)
         return 2
     cfg = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.train:
-        _train(cfg, gen)
+    if args.train or args.longctx:
+        if args.train:
+            _train(cfg, gen)
+        else:
+            _longctx(gen)
         print(json.dumps({"device": torch.cuda.get_device_name(0)}))
         return 0
     params = init_params(cfg, gen)

@@ -180,6 +180,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.ops.cross_entropy\n"
         "import hadoop_tpu_torch.parallel.train\n"
         "import hadoop_tpu_torch.tools.profile_flagship\n"
+        "import hadoop_tpu_torch.serving.longctx\n"
+        "import hadoop_tpu_torch.parallel.ring_attention\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -197,7 +199,9 @@ def test_port_sources_name_no_jax():
     assert len(files) > 10
     for new in ("ops/csrc/flash_bwd.cu", "ops/cross_entropy.py",
                 "parallel/mesh.py", "parallel/optimizer.py",
-                "parallel/train.py"):
+                "parallel/train.py", "parallel/ring_attention.py",
+                "serving/longctx/plan.py", "serving/longctx/prefill.py",
+                "serving/longctx/guard.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

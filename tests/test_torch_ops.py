@@ -221,3 +221,140 @@ def test_causal_attention_dispatch():
                                    impl="flash")
     with pytest.raises(ValueError):
         attention.causal_attention(q, k, k, q_offset=1, impl="flash")
+
+
+# --------------------------------------------------------- ring partials
+
+@pytest.mark.parametrize("causal,sq,skv,dtype,tol", [
+    (True, 256, 256, "float32", 2e-5),     # the diagonal chunk
+    (False, 256, 256, "float32", 2e-5),    # a fully visible chunk
+    (False, 128, 384, "float32", 2e-5),    # Sq != Skv
+    (False, 384, 128, "float32", 2e-5),
+    (False, 256, 256, "bfloat16", 2e-2),
+])
+def test_flash_partial_ref_matches_pallas_partial(causal, sq, skv, dtype,
+                                                  tol):
+    """O and lse of the partial's plain version against the Pallas
+    partial run in interpret mode, as tests/test_flash.py runs it
+    (Skv <= 512: one key block there, so P is rounded against the row
+    max on both sides). bf16: both round P and O to bf16."""
+    q, k, v = _randn(50, 2, sq, 4, 64), _randn(51, 2, skv, 2, 64), \
+        _randn(52, 2, skv, 2, 64)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    want_o, want_l = jflash.flash_attention_partial(jq, jk, jv, 0.125,
+                                                    causal, True)
+    tq, tk, tv = (torch.from_numpy(np.array(x.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for x in (jq, jk, jv))
+    o, lse = flash.flash_attention_partial(tq, tk, tv, 0.125, causal)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == (2, sq, 4, 64) and lse.shape == (2, sq, 4)
+    _close(o, want_o, tol)
+    _close(lse, want_l, tol)
+
+
+def test_partial_supported_matches_jax():
+    for q_shape, k_shape in [((4, 2048, 32, 128), (4, 2048, 8, 128)),
+                             ((2, 256, 8, 128), (2, 512, 2, 128)),
+                             ((1, 96, 2, 64), (1, 128, 1, 64)),
+                             ((1, 128, 2, 64), (1, 64, 1, 64)),
+                             ((1, 128, 4, 64), (1, 128, 3, 64)),
+                             ((1, 128, 2, 96), (1, 128, 1, 96))]:
+        assert flash.partial_supported(q_shape, k_shape) == \
+            jflash.partial_supported(q_shape, k_shape)
+
+
+def test_partial_wrapper_on_cpu_is_the_plain_version_uncounted():
+    """On CPU tensors the wrapper computes the plain version and counts
+    no launch; the kernel path refuses CPU tensors; a gradient is
+    refused (the partial has no backward yet)."""
+    q, k, v = (torch.from_numpy(_randn(60 + i, 1, 128, h, 64))
+               for i, h in enumerate((4, 2, 2)))
+    before = (flash.launches, flash.launches_partial)
+    for causal in (True, False):
+        o, lse = flash.flash_attention_partial(q, k, v, 0.125, causal)
+        ro, rlse = flash.flash_attention_partial_ref(q, k, v, 0.125, causal)
+        assert torch.equal(o, ro) and torch.equal(lse, rlse)
+    # the causal partial is the causal forward, cast and transposed
+    fo, flse = flash.flash_forward(q, k, v, 0.125)
+    o, lse = flash.flash_attention_partial(q, k, v, 0.125, True)
+    assert torch.equal(o, fo.float()) and torch.equal(lse, flse.transpose(1, 2))
+    assert (flash.launches, flash.launches_partial) == before
+    with pytest.raises(ValueError):
+        flash._launch_partial(q, k, v, 1.0)
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        flash.flash_attention_partial(q.clone().requires_grad_(), k, v,
+                                      0.125, False)
+
+
+def test_partial_ref_rounds_o_to_the_input_dtype():
+    """bf16: O is rounded to bf16 before the float32 cast, as the TPU
+    kernel writes it."""
+    q, k, v = (torch.from_numpy(_randn(70 + i, 1, 128, 2, 64))
+               .to(torch.bfloat16) for i in range(3))
+    o, _ = flash.flash_attention_partial_ref(q, k, v, 0.125, False)
+    assert torch.equal(o, o.to(torch.bfloat16).float())
+
+
+def _chunk_case(seed, sq, sk, q_off, kv_off):
+    q, k, v = _randn(seed, 2, sq, 4, 16), _randn(seed + 1, 2, sk, 4, 16), \
+        _randn(seed + 2, 2, sk, 4, 16)
+    qp, kp = np.arange(sq) + q_off, np.arange(sk) + kv_off
+    want = jattn.chunk_attention(*(jnp.asarray(x) for x in (q, k, v)), 0.25,
+                                 jnp.asarray(qp), jnp.asarray(kp))
+    tq, tk, tv, tqp, tkp = (torch.from_numpy(x) for x in (q, k, v, qp, kp))
+    got = attention.chunk_attention(tq, tk, tv, 0.25, tqp, tkp)
+    return got, want
+
+
+@pytest.mark.parametrize("sq,sk,q_off,kv_off", [
+    (8, 8, 0, 0),        # the diagonal
+    (8, 12, 16, 0),      # fully visible
+    (6, 10, 3, 0),       # partly visible: some rows see nothing
+    (8, 8, 0, 8),        # all future: every row -inf
+])
+def test_chunk_and_merge_attention_match_jax(sq, sk, q_off, kv_off):
+    (o1, l1), (jo1, jl1) = _chunk_case(80, sq, sk, q_off, kv_off)
+    _close(o1, jo1, 1e-6)
+    _close(l1, jl1, 1e-6)
+    (o2, l2), (jo2, jl2) = _chunk_case(90, sq, sk, q_off, 0)
+    got = attention.merge_attention(o1, l1, o2, l2)
+    want = jattn.merge_attention(jo1, jl1, jo2, jl2)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6)
+    if kv_off > q_off:                    # the -inf chunk is the identity
+        assert torch.isneginf(l1).all() and not o1.any()
+        assert torch.equal(got[0], o2) and torch.equal(got[1], l2)
+        both = attention.merge_attention(o1, l1, o1, l1)
+        assert torch.isneginf(both[1]).all() and not both[0].any()
+
+
+def test_chunk_attention_per_row_positions():
+    """[B, S] positions (ring ranks folded into the batch) equal one call
+    per batch row with [S] positions."""
+    q, k, v = (torch.from_numpy(_randn(100 + i, 2, 8, 2, 16))
+               for i in range(3))
+    qp = torch.arange(8) + torch.tensor([[0], [8]])
+    kp = torch.arange(8) + torch.tensor([[8], [4]])
+    o, lse = attention.chunk_attention(q, k, v, 0.25, qp, kp)
+    for r in range(2):
+        ro, rl = attention.chunk_attention(q[r:r + 1], k[r:r + 1],
+                                           v[r:r + 1], 0.25, qp[r], kp[r])
+        torch.testing.assert_close(o[r:r + 1], ro, atol=0, rtol=0)
+        torch.testing.assert_close(lse[r:r + 1], rl, atol=0, rtol=0)
+
+
+def test_rope_per_rank_positions_match_jax():
+    """[R, S] positions on x [R*B, S, H, D]: each rank's rows rotate by
+    that rank's absolute positions, as the reference does per shard."""
+    cos, sin = rope.rope_frequencies(16, 64, 10000.0)
+    jcos, jsin = jrope.rope_frequencies(16, 64, 10000.0)
+    r, b, s = 4, 2, 8
+    x = _randn(110, r * b, s, 3, 16)
+    pos = np.arange(r)[:, None] * s + np.arange(s)
+    got = rope.apply_rope(torch.from_numpy(x), cos, sin,
+                          torch.from_numpy(pos))
+    for rank in range(r):
+        rows = slice(rank * b, (rank + 1) * b)
+        want = jrope.apply_rope(jnp.asarray(x[rows]), jcos, jsin,
+                                jnp.asarray(pos[rank]))
+        _close(got[rows], want, 1e-6)
