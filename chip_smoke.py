@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout and
-holds each against its plain PyTorch version (the flash forward, the two
-flash backward kernels, also through the autograd Function, and the
-non-causal ring partial); runs ring attention at sp 4 on one device
+Builds the port's CUDA kernels from the sources in this checkout (failing
+on any ptxas spill, wgmma serialization or ignored setmaxnreg) and holds
+each against its plain PyTorch version (the flash forward, the two flash
+backward kernels, also through the autograd Function, and the non-causal
+ring partial); runs ring attention at sp 4 on one device
 against the causal kernel over the whole sequence; trains flagship-1b
 at ``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
 AdamW) for 7 steps through ``make_train_step``; runs the flagship-1b
@@ -41,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -65,21 +67,31 @@ MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 
-# (B, S, Hq, Hkv, D, dtypes): flagship-1b's forward shape first, then its
-# training shape; the last two reach the D 192 and D 256 builds (D 256
-# takes 32-row tiles in the backward)
+# (B, S, Hq, Hkv, D, dtypes, q scale): flagship-1b's forward shape first,
+# then its training shape; bf16 at D 64 and 128 takes the wgmma kernel,
+# float32 and bf16 at D 192/256 the FMA kernel (D 256 takes 32-row tiles
+# in the backward). The last three hold the wgmma kernel at D 128 where it
+# could go wrong: Hq/Hkv 1 with a single 128-row tile, Hq/Hkv 4 with an
+# odd count of tiles, and q scaled by 8 (scores of large range: the
+# running max moves between key tiles, so the register accumulators are
+# rescaled). The forward phase runs every case, the backward phase the
+# cases of q scale 1.
 KERNEL_SHAPES = [
-    (1, 512, 16, 8, 128, (torch.bfloat16, torch.float32)),
-    (4, 2048, 16, 8, 128, (torch.bfloat16, torch.float32)),
-    (2, 256, 4, 2, 64, (torch.float32,)),
-    (1, 384, 4, 1, 64, (torch.float32,)),
-    (1, 128, 2, 1, 64, (torch.float32,)),
-    (1, 256, 4, 2, 192, (torch.float32,)),
-    (1, 256, 4, 2, 256, (torch.bfloat16, torch.float32)),
+    (1, 512, 16, 8, 128, (torch.bfloat16, torch.float32), 1),
+    (4, 2048, 16, 8, 128, (torch.bfloat16, torch.float32), 1),
+    (2, 256, 4, 2, 64, (torch.bfloat16, torch.float32), 1),
+    (1, 384, 4, 1, 64, (torch.bfloat16, torch.float32), 1),
+    (1, 128, 2, 1, 64, (torch.float32,), 1),
+    (1, 256, 4, 2, 192, (torch.float32,), 1),
+    (1, 256, 4, 2, 256, (torch.bfloat16, torch.float32), 1),
+    (2, 128, 4, 4, 128, (torch.bfloat16,), 1),
+    (1, 384, 8, 2, 128, (torch.bfloat16,), 1),
+    (1, 1024, 8, 2, 128, (torch.bfloat16,), 8),
 ]
 # max abs error of the kernel against flash_attention_ref: (O, LSE).
 # bf16 rounds P to bf16 before P.V at other places than the plain version
-# (per 64-key tile against the running max, not once against the row max)
+# (per key tile against the running max, not once against the row max:
+# 128-key tiles in the wgmma kernel, 64 in the FMA kernel)
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 # max abs error of dq, dk, dv against flash_attention_bwd_ref, relative to
 # the reference's max |grad|. float32: the same products summed in another
@@ -97,14 +109,18 @@ BWD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # on an H100).
 PARITY_TOL = 1e-2
 TRAIN = dict(batch=4, seq=2048, warmup=2, timed=5, lr=3e-4, remat="full")
-# (B, Sq, Skv, Hq, Hkv, D) of the non-causal partial: llama3-8b's
+# (B, Sq, Skv, Hq, Hkv, D, q scale) of the non-causal partial: llama3-8b's
 # per-rank ring shape at sp 4 (8192 tokens, the 4 ranks folded into the
-# batch) first, then flagship-1b's at sp 4 ([2048]), one Sq != Skv case
-# and one at D 64; each in bf16 and float32
-PARTIAL_SHAPES = [(4, 2048, 2048, 32, 8, 128), (4, 512, 512, 16, 8, 128),
-                  (2, 256, 512, 8, 2, 128), (2, 256, 256, 4, 2, 64)]
+# batch) first, then flagship-1b's at sp 4 ([2048]), one Sq < Skv case and
+# one at D 64; then Hq/Hkv 1 with one 128-row tile, Hq/Hkv 4 with Sq > Skv
+# and an odd count of tiles, Sq < Skv the other way round, and q scaled by
+# 8 (scores of large range); each in bf16 and float32
+PARTIAL_SHAPES = [(4, 2048, 2048, 32, 8, 128, 1), (4, 512, 512, 16, 8, 128, 1),
+                  (2, 256, 512, 8, 2, 128, 1), (2, 256, 256, 4, 2, 64, 1),
+                  (2, 128, 128, 4, 4, 128, 1), (1, 384, 128, 8, 2, 128, 1),
+                  (1, 128, 384, 8, 2, 128, 1), (1, 512, 1024, 8, 2, 128, 8)]
 # the partial against its plain version: max |dO| over max |O|, and max
-# |d lse|. bf16: P is rounded per 64-key tile against the running max in
+# |d lse|. bf16: P is rounded per key tile against the running max in
 # the kernel, once against the row max in the plain version (as for the
 # forward); float32: the same products summed in another order
 PARTIAL_TOLERANCE = {torch.bfloat16: (2e-2, 1e-2),
@@ -173,19 +189,35 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes, flops, dtype):
+    """(bound_ms, bound_by, flops): bytes over the memory rate against
+    operations over the peak rate for the dtype, whichever is longer."""
+    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations", flops)
+
+
+def add_rates(rec, bound):
+    """Put a timed record's bound beside its time: bound_ms, bound_by,
+    achieved TFLOP/s and the share of the bound (bound_ms / ms)."""
+    rec["bound_ms"], rec["bound_by"], flops = bound
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
 def flash_bound(b, s, hq, hkv, d, dtype):
-    """(bound_ms, bound_by): each input read once and each output written
-    once over the memory rate, against the causal work (QK^T and PV over
-    the S(S+1)/2 visible pairs) over the peak rate for the dtype."""
+    """(bound_ms, bound_by, flops): each input read once and each output
+    written once over the memory rate, against the causal work (QK^T and
+    PV over the S(S+1)/2 visible pairs) over the peak rate for the
+    dtype."""
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * b * s * (2 * hq + 2 * hkv) * d + 4 * b * hq * s
-    flops = 4 * d * b * hq * s * (s + 1) / 2
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+    return _bound(nbytes, 4 * d * b * hq * s * (s + 1) / 2, dtype)
 
 
 def bwd_bound(b, s, hq, hkv, d, dtype, kernel):
-    """(bound_ms, bound_by) of one backward kernel: inputs read once and
+    """(bound_ms, bound_by, flops) of one backward kernel: inputs read once and
     outputs written once (dkv: q, k, v, dO, lse, delta → dK, dV; dq: q, k,
     v, O, dO, lse → dQ, delta) against 8·D FLOPs (dkv: QKᵀ, dO·Vᵀ, Pᵀ·dO,
     dSᵀ·Q) or 6·D (dq: QKᵀ, dO·Vᵀ, dS·K) per visible (q, k) pair and
@@ -198,19 +230,16 @@ def bwd_bound(b, s, hq, hkv, d, dtype, kernel):
         nbytes, flops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8 * d * pairs
     else:
         nbytes, flops = 4 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6 * d * pairs
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+    return _bound(nbytes, flops, dtype)
 
 
 def partial_bound(b, sq, skv, hq, hkv, d, dtype):
-    """(bound_ms, bound_by) of the non-causal partial: q, k, v read once,
-    O (float32) and lse written once, against 4·D FLOPs (QKᵀ and PV) per
-    (q, k) pair and query head."""
+    """(bound_ms, bound_by, flops) of the non-causal partial: q, k, v read
+    once, O (float32) and lse written once, against 4·D FLOPs (QKᵀ and
+    PV) per (q, k) pair and query head."""
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * b * d * (sq * hq + 2 * skv * hkv) + 4 * b * sq * hq * (d + 1)
-    flops = 4 * b * hq * sq * skv * d
-    t_mem, t_ops = nbytes / MEM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else "operations"
+    return _bound(nbytes, 4 * b * hq * sq * skv * d, dtype)
 
 
 def counts():
@@ -228,6 +257,36 @@ def zero_counts():
 KERNEL_SOURCES = ["flash_fwd", "flash_bwd"]
 
 
+def ptxas_report(log):
+    """Per kernel entry of one nvcc -Xptxas -v log: registers, spill
+    bytes and static shared memory; and the ptxas lines that report wgmma
+    serialization, spills or an ignored setmaxnreg."""
+    entries, name, bad = [], None, []
+    for line in log.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?([\w$]+)'?", line)
+        if hit:
+            if hit.group(1) != name:
+                name = hit.group(1)
+                entries.append({"kernel": name})
+            continue
+        if re.search(r"wgmma.*serializ|setmaxnreg ignored", line, re.I):
+            bad.append(line.strip())
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and entries:
+            entries[-1]["spill_bytes"] = [int(spill.group(1)),
+                                          int(spill.group(2))]
+            if any(entries[-1]["spill_bytes"]):
+                bad.append(f"{entries[-1]['kernel']}: {line.strip()}")
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and entries:
+            entries[-1]["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    return entries, bad
+
+
 def phase_build():
     t0 = time.monotonic()
     _build.build(KERNEL_SOURCES)        # one nvcc per source, in parallel
@@ -238,12 +297,20 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    problems = []
     for name in KERNEL_SOURCES:
-        ptxas = [ln.strip() for ln in _build.build_logs.get(name, "")
-                 .splitlines() if "registers" in ln or "spill" in ln]
-        emit({"phase": "build", "kernel": name, "seconds": seconds,
-              "ptxas": ptxas})
+        entries, bad = ptxas_report(_build.build_logs.get(name, ""))
+        problems += bad
+        emit({"phase": "build", "library": name, "seconds": seconds,
+              "kernels": entries, "ptxas_problems": bad})
+    # dynamic shared memory per block of the kernel each (D, dtype) takes
+    smem = flash._kernel("htpu_flash_fwd_smem")
+    emit({"phase": "build", "library": "flash_fwd", "dynamic_smem_bytes": {
+        f"{dt} D{d}": smem(d, code) for dt, code in (("float32", 0),
+                                                    ("bfloat16", 1))
+        for d in flash._HEAD_DIMS}})
     print(smi, flush=True)
+    require(not problems, f"ptxas reports: {problems}")
     return smi
 
 
@@ -252,9 +319,10 @@ def phase_kernel():
     the flagship bf16 record for the kernels line."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flagship = None
-    for b, s, hq, hkv, d, dtypes in KERNEL_SHAPES:
+    for b, s, hq, hkv, d, dtypes, q_mul in KERNEL_SHAPES:
         for dtype in dtypes:
-            q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+            q = (q_mul * torch.randn(b, s, hq, d, generator=gen,
+                                     device="cuda")).to(dtype)
             k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
             scale = d ** -0.5
@@ -268,6 +336,7 @@ def phase_kernel():
             rec = {
                 "phase": "kernel", "name": "flash_fwd",
                 "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+                "q_scale": q_mul,
                 "max_abs_err": err_o, "max_abs_err_lse": err_lse,
                 "tol": [tol_o, tol_lse],
                 "ms": cuda_ms(lambda: flash.flash_forward(q, k, v, scale),
@@ -278,8 +347,7 @@ def phase_kernel():
                     qt, kt, vt, is_causal=True, scale=scale,
                     enable_gqa=True), 20),
             }
-            rec["bound_ms"], rec["bound_by"] = flash_bound(b, s, hq, hkv, d,
-                                                           dtype)
+            add_rates(rec, flash_bound(b, s, hq, hkv, d, dtype))
             emit(rec)
             require(err_o <= tol_o and err_lse <= tol_lse,
                     f"flash_fwd disagrees with its plain version at "
@@ -311,7 +379,9 @@ def phase_backward():
     record at the flagship training shape in bf16."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     training = None
-    for b, s, hq, hkv, d, dtypes in KERNEL_SHAPES:
+    for b, s, hq, hkv, d, dtypes, q_mul in KERNEL_SHAPES:
+        if q_mul != 1:
+            continue
         for dtype in dtypes:
             q, do = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
                      .to(dtype) for _ in range(2))
@@ -339,9 +409,8 @@ def phase_backward():
                         q, k, v, o, lse, do, scale)),
                     ("dkv", lambda: flash._launch_bwd_dkv(
                         q, k, v, lse, delta, do, scale))):
-                bound = bwd_bound(b, s, hq, hkv, d, dtype, name)
-                rec[name] = {"ms": cuda_ms(fn, 10), "bound_ms": bound[0],
-                             "bound_by": bound[1]}
+                rec[name] = add_rates({"ms": cuda_ms(fn, 10)}, bwd_bound(
+                    b, s, hq, hkv, d, dtype, name))
             rec["dq"]["max_abs_err"] = err["dq"]
             rec["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
             emit(rec)
@@ -653,9 +722,10 @@ def phase_partial():
     bit for bit. Returns the llama3-8b-shape bf16 record."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     main_shape = None
-    for b, sq, skv, hq, hkv, d in PARTIAL_SHAPES:
+    for b, sq, skv, hq, hkv, d, q_mul in PARTIAL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn(b, sq, hq, d, generator=gen, device="cuda").to(dtype)
+            q = (q_mul * torch.randn(b, sq, hq, d, generator=gen,
+                                     device="cuda")).to(dtype)
             k, v = (torch.randn(b, skv, hkv, d, generator=gen, device="cuda")
                     .to(dtype) for _ in range(2))
             scale = d ** -0.5
@@ -671,7 +741,7 @@ def phase_partial():
             rec = {
                 "phase": "partial", "name": "flash_fwd_partial",
                 "shape": [b, sq, skv, hq, hkv, d], "dtype": str(dtype),
-                "max_abs_err": err_o, "rel_err": rel_o,
+                "q_scale": q_mul, "max_abs_err": err_o, "rel_err": rel_o,
                 "max_abs_err_lse": err_lse, "tol": [tol_o, tol_lse],
                 "ms": cuda_ms(lambda: flash.flash_attention_partial(
                     q, k, v, scale, False), 10),
@@ -681,8 +751,7 @@ def phase_partial():
                     qt, kt, vt, is_causal=False, scale=scale,
                     enable_gqa=True), 10),
             }
-            rec["bound_ms"], rec["bound_by"] = partial_bound(
-                b, sq, skv, hq, hkv, d, dtype)
+            add_rates(rec, partial_bound(b, sq, skv, hq, hkv, d, dtype))
             if sq == skv:
                 po, plse = flash.flash_attention_partial(q, k, v, scale, True)
                 fo, flse = flash.flash_forward(q, k, v, scale)
@@ -760,8 +829,7 @@ def phase_ring():
                     rq, rk, rv, d ** -0.5), 3),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), 10)}
-        diag["bound_ms"], diag["bound_by"] = flash_bound(*diag["shape"],
-                                                         dtype)
+        add_rates(diag, flash_bound(*diag["shape"], dtype))
         rec["diagonal"] = diag
         emit(rec)
         require(delta == [1, 0, 0, RING_SP - 1],

@@ -3,8 +3,11 @@
 Each source ``ops/csrc/<name>.cu`` has a plain C interface. It is
 compiled on first use with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/hadoop_tpu_torch/`` at the root of the checkout, named by
-a hash of its source so an edited kernel is never served from a stale
-build, and loaded with ``ctypes``. Nothing here runs at import time.
+a hash of its source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited kernel or header is never served from a stale
+build, and loaded with ``ctypes``. The TMA descriptors' driver call is
+looked up at run time (``cudaGetDriverEntryPoint``), so no ``-lcuda``.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The build of ``csrc/<name>.cu``, named by a hash of that source,
+    every header of ``csrc/`` (any of them may be included) and the
+    flags."""
     digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

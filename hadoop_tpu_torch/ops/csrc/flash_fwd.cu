@@ -7,48 +7,86 @@
 // through `flash_attention_partial` (ring attention's other chunks, Sq and
 // Skv free). Online-softmax attention with grouped-query heads (query head
 // h reads KV head h / (Hq / Hkv)), scores and softmax statistics in
-// float32, P rounded to the input dtype before P.V, O written in the input
-// dtype (also for the partial, as the TPU kernel writes it) and the per-row
-// log-sum-exp in float32.
+// float32, P rounded to the input dtype before P.V, O rounded to the input
+// dtype and the per-row log-sum-exp in float32.
 //
-// Layout: q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], o like q, all
-// contiguous (the model's own layout, so no transpose is needed);
-// lse [B, Hq, Sq] float32. The causal entry has Sq == Skv.
+// Layout: q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], all contiguous (the
+// model's own layout, so no transpose is needed). The causal entry (Sq ==
+// Skv) writes o like q and lse [B, Hq, Sq]; the partial writes what ring
+// attention's merge reads: o float32 [B, Sq, Hq, D] (the value rounded to
+// the input dtype, as the TPU kernel writes O in q's dtype before the
+// wrapper's float32 cast) and lse [B, Sq, Hq].
 //
-// Design. One thread block of 256 threads per (q tile of 64 rows, query
-// head, batch row). The TPU walks the key blocks as a sequential grid
-// axis with the softmax state in scratch memory; here a loop inside the
-// block takes that axis, and the state lives in registers:
-//   - the Q tile and each K/V tile are staged in shared memory as float32
-//     (rows padded by one float so column walks hit distinct banks);
-//   - thread (ty, tx) owns rows ty + 16 i and, for S = Q K^T, key columns
-//     tx + 16 j (i, j < 4). A row's 16 owners are the 16 lanes of one half
-//     warp, so row max and row sum reduce with four xor shuffles and the
-//     running max, sum and rescale never leave registers;
-//   - the same thread owns output columns tx + 16 j (j < D / 16) of its
-//     rows for O += P V, so the per-row rescale is local too;
-//   - causal: tiles past the diagonal are never loaded: q tile t reads K/V
-//     tiles 0..t, and only tile t is masked (kpos > qpos -> -1e30, as on
-//     the TPU); blocks are issued longest row-range first, so the long
-//     diagonal tails start early and the last wave is short;
-//   - non-causal (the CAUSAL template flag off): every block walks all
-//     Skv / 64 K/V tiles with no mask, so every block has the same work
-//     and the issue order does not matter.
-// Products are plain float32 FMA (no tensor cores): the result is the
-// same function for bf16 and float32 inputs, and float32 stays float32.
+// Which kernel takes which call (static; no fallback between them):
+//   bf16,    D 64 or 128  -> the wgmma kernel (flash_fwd_sm90.cuh)
+//   float32, any D; bf16, D 192 or 256 -> the FMA kernel below
+// The float32 path stays in full float32 (TF32 wgmma would not), so it
+// remains the exactness oracle of the float32 checks.
 //
-// Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense): at the
-// flagship's serving shape (B 1, S 512, Hq 16, Hkv 8, D 128, bf16) the
-// causal call moves about 6.3 MB against about 1.1 GFLOP, so its bound is
-// the memory (about 1.9 us); at B 4, S 2048 it does about 69 GFLOP, so its
-// bound is the tensor-core rate (about 69 us). The non-causal partial at
-// llama3-8b's per-rank ring shape (B 4, Sq = Skv 2048, Hq 32, Hkv 8, D 128)
-// does 4 B Hq Sq Skv D = 275 GFLOP: bound by operations, about 0.28 ms.
-// This first version runs on the FMA units and is far from either bound;
-// wgmma/TMA come later.
+// Design of the wgmma kernel (bf16, D 64/128). One block of 384 threads
+// per (query head, batch row, q tile of 128 rows): warpgroup 0 produces,
+// warpgroups 1 and 2 consume 64 rows each. The TPU walks the key blocks as
+// a sequential grid axis with the softmax state in scratch memory; here a
+// loop inside the block takes that axis and the state lives in registers.
+//   - One producer thread issues TMA copies: Q once, then K and V tiles of
+//     128 keys into a ring of 2 stages each, tracked by full/empty
+//     mbarrier pairs (K and V apart, so Q K^T starts before V lands).
+//     Tiles stay bf16 in shared memory, 128-byte swizzled; at D 128 a row
+//     of the tile is two 64-column boxes (the swizzle's width).
+//     Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB at D 128.
+//   - S = Q K^T: 8 wgmma m64n128k16 per warpgroup (k16 steps along D), A
+//     and B K-major from shared memory, f32 accumulators in registers.
+//   - The online softmax runs on the accumulator fragment: a row's scores
+//     lie on the 4 lanes of a quad (two xor shuffles for the max), the
+//     scale is folded with log2(e) into one multiply before exp2, and the
+//     running max, the sum and the rescale of O never leave registers.
+//     Causal: q tile t reads key tiles 0..t; only tile t is masked (kpos >
+//     qpos -> -1e30, as on the TPU); the q tile is the grid's slowest
+//     axis, counted down, so all blocks are issued longest row range
+//     first and the last wave holds the short ones. Non-causal: every
+//     block walks all Skv / 128 key tiles with no mask.
+//   - O += P V: P is rounded to bf16 in registers, per key tile against
+//     the running max, and fed as wgmma's A operand from registers (the
+//     f32 accumulator's element order is the bf16 A fragment's); V is the
+//     B operand as it lies, [key, d], with wgmma's transpose flag.
+//   - setmaxnreg hands the producer's registers to the consumers at run
+//     time (40 / 232); ptxas compiles the whole kernel within the 168
+//     registers that 384 threads allow, and the consumers' loop (S 64 + O
+//     64 + P 32 floats a thread) fits there with no spill.
+//   - Each q tile's arithmetic depends only on its own rows and the keys
+//     it sees, in a fixed order: a causal partial equals the causal
+//     forward, and ring rank 0's rows equal the single kernel's, bit for
+//     bit.
+//   Not yet: ping-pong of one warpgroup's softmax against the other's
+//   GEMMs, S of the next tile issued before this tile's softmax,
+//   persistent blocks, clusters.
+//
+// The FMA kernel (float32; bf16 at D 192/256): 256 threads per (q tile of
+// 64 rows, query head, batch row); Q and each K/V tile staged as float32
+// in shared memory (rows padded by one float); thread (ty, tx) owns rows
+// ty + 16 i and key columns tx + 16 j, so a row's 16 owners are one half
+// warp; products are float32 FMA.
+//
+// Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense): the
+// causal call at the flagship's serving shape (B 1, S 512, Hq 16, Hkv 8,
+// D 128, bf16) moves about 6.3 MB against about 1.1 GFLOP, so its bound
+// is the memory (about 1.9 us); at B 4, S 2048 it does about 69 GFLOP,
+// bound by the tensor-core rate (about 70 us). The non-causal partial at
+// llama3-8b's per-rank ring shape (B 4, Sq = Skv 2048, Hq 32, Hkv 8, D
+// 128) does 4 B Hq Sq Skv D = 275 GFLOP: bound by operations, 0.28 ms.
+// The wgmma kernel feeds the tensor cores from TMA-fed bf16 tiles; what
+// still stands between it and that bound is the softmax's exp2 work, which
+// runs between a warpgroup's two GEMMs (the other warpgroup's GEMMs fill
+// some of it), and, for the causal build, each block's prologue (barrier
+// init, the Q and first K/V loads) and epilogue, paid over half as many
+// key tiles as the partial's and not overlapped (one 160 KB block per SM).
+// float32 has no tensor-core path here: its bound is the 67 TFLOP/s of
+// the FMA units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -78,7 +116,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, void* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
                  float scale) {
   constexpr int DP = D + 1;      // padded row of Q and K tiles
@@ -202,10 +240,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = qt * kBQ + ty + 16 * i;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((long)b * Sq + row) * q_stride + (long)h * D;
+    const long orow = ((long)b * Sq + row) * q_stride + (long)h * D;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / lc);
-    if (tx == 0) lse[((long)b * Hq + h) * Sq + row] = m[i] + logf(lc);
+    for (int j = 0; j < NJ; ++j) {
+      const T x = from_f<T>(acc[i][j] / lc);
+      if (CAUSAL)
+        static_cast<T*>(o)[orow + tx + 16 * j] = x;
+      else      // the partial: float32 of the rounded value
+        static_cast<float*>(o)[orow + tx + 16 * j] = to_f(x);
+    }
+    if (tx == 0)
+      lse[CAUSAL ? ((long)b * Hq + h) * Sq + row : ((long)b * Sq + row) * Hq + h] =
+          m[i] + logf(lc);
   }
 }
 
@@ -221,8 +267,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   const dim3 grid(Sq / kBQ, Hq, B);
   flash_fwd_kernel<T, D, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, scale);
+      static_cast<const T*>(v), o, static_cast<float*>(lse), Sq, Skv, Hq,
+      Hkv, scale);
   return (int)cudaGetLastError();
 }
 
@@ -239,6 +285,20 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
   }
 }
 
+// bf16 at D 64/128 -> the wgmma kernel; bf16 at D 192/256 -> the FMA one
+template <bool CAUSAL>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                float scale, cudaStream_t stream) {
+  switch (D) {
+    case 64:  return flash_sm90::launch<64, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, stream);
+    case 128: return flash_sm90::launch<128, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, stream);
+    case 192: return launch<__nv_bfloat16, 192, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, stream);
+    case 256: return launch<__nv_bfloat16, 256, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, stream);
+    default:  return -1;
+  }
+}
+
 template <bool CAUSAL>
 int launch_t(const void* q, const void* k, const void* v, void* o, void* lse,
              int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
@@ -248,8 +308,8 @@ int launch_t(const void* q, const void* k, const void* v, void* o, void* lse,
     return launch_d<float, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
                                    scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16, CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq,
-                                           Hkv, D, scale, st);
+    return launch_bf16<CAUSAL>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
+                               scale, st);
   return -1;
 }
 
@@ -258,10 +318,12 @@ int launch_t(const void* q, const void* k, const void* v, void* o, void* lse,
 extern "C" {
 
 // Both entries launch on `stream` and return cudaGetLastError() after the
-// launch (0 on success), or -1 for a head dim or dtype they were not built
-// for. dtype: 0 float32, 1 bfloat16. Hq must be a multiple of Hkv.
+// launch (0 on success), -1 for a head dim or dtype they were not built
+// for, or -2 when the driver refuses a TMA descriptor (bf16 at D 64/128).
+// dtype: 0 float32, 1 bfloat16. Hq must be a multiple of Hkv.
 
-// Causal attention; S (= Sq = Skv) a multiple of 64.
+// Causal attention; S (= Sq = Skv) a multiple of 128 (of 64 for the FMA
+// kernel). o like q, lse [B, Hq, S].
 int htpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int Hq, int Hkv, int D,
                    int dtype, float scale, void* stream) {
@@ -270,13 +332,29 @@ int htpu_flash_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The fully visible partial: every query row attends to every key. Sq and
-// Skv multiples of 64.
+// Skv multiples of 128 (of 64 for the FMA kernel). o float32 [B, Sq, Hq,
+// D], lse [B, Sq, Hq].
 int htpu_flash_fwd_partial(const void* q, const void* k, const void* v,
                            void* o, void* lse, int B, int Sq, int Skv,
                            int Hq, int Hkv, int D, int dtype, float scale,
                            void* stream) {
   return launch_t<false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, dtype,
                          scale, stream);
+}
+
+// Dynamic shared memory per block, in bytes, of the kernel that takes
+// (D, dtype); -1 for a head dim or dtype no kernel was built for.
+int htpu_flash_fwd_smem(int D, int dtype) {
+  if (dtype == 1 && D == 64) return (int)flash_sm90::Layout<64>::kSmem;
+  if (dtype == 1 && D == 128) return (int)flash_sm90::Layout<128>::kSmem;
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (D) {
+    case 64:  return (int)smem_bytes<64>();
+    case 128: return (int)smem_bytes<128>();
+    case 192: return (int)smem_bytes<192>();
+    case 256: return (int)smem_bytes<256>();
+    default:  return -1;
+  }
 }
 
 const char* htpu_cuda_error_string(int err) {

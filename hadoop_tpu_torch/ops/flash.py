@@ -10,7 +10,9 @@ them on first use). The forward streams K/V tiles through shared memory
 against a resident Q tile with the softmax kept online, so the [S, S]
 score matrix never reaches device memory; the backward recomputes P from
 the saved log-sum-exp. Query head ``h`` reads KV head ``h // n_rep`` with
-no copied heads.
+no copied heads. The forward takes bf16 at D 64/128 on the tensor cores
+(TMA and ``wgmma``, ``csrc/flash_fwd_sm90.cuh``) and float32, or bf16 at
+D 192/256, on the FMA units; the routing is static, in the C entry.
 
 Numerics as in the reference: scores and softmax statistics in float32,
 P cast to the input dtype before P·V and Pᵀ·dO, dS·scale cast to the
@@ -30,13 +32,16 @@ when a gradient is wanted. ``launches``, ``launches_bwd_dq`` and
 ``ops.attention.merge_attention``. Its causal form (the diagonal chunk)
 is the causal forward kernel, counted in ``launches``; its fully visible
 form is the same kernel built without the mask and with Sq ≠ Skv
-allowed, counted in ``launches_partial``. Like the TPU kernel it writes O
-in the input dtype, so O is rounded to bf16 before the float32 cast.
-The partial records no gradient (CP training is a later slice).
+allowed, counted in ``launches_partial``; it writes what the merge reads,
+O as float32 [B, Sq, Hq, D] and lse [B, Sq, Hq], with O rounded to the
+input dtype first (the TPU kernel writes O in q's dtype and its wrapper
+casts to float32). The partial records no gradient (CP training is a
+later slice).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -128,10 +133,11 @@ def flash_attention_partial_ref(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, scale: float, causal: bool
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the partial: q [B,Sq,Hq,D], k/v
-    [B,Skv,Hkv,D] → (o [B,Sq,Hq,D] float32, lse [B,Sq,Hq] float32). It
-    computes what the kernel computes: P rounded to the input dtype
-    before P·V, O rounded to the input dtype and then cast to float32
-    (the reference's ``_partial_ref`` does neither rounding)."""
+    [B,Skv,Hkv,D] → (o [B,Sq,Hq,D] float32, lse [B,Sq,Hq] float32), the
+    layout the fully visible kernel writes. It computes what the kernel
+    computes: P rounded to the input dtype before P·V, O rounded to the
+    input dtype and then cast to float32 (the reference's
+    ``_partial_ref`` does neither rounding)."""
     if causal:
         o, lse = flash_attention_ref(q, k, v, scale)
     else:
@@ -172,21 +178,27 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float
 
 # ------------------------------------------------------------ the kernels
 
-_SIGNATURES = {     # C entry point: (library, pointer args, int args)
-    "htpu_flash_fwd": ("flash_fwd", 5, 6),
-    "htpu_flash_fwd_partial": ("flash_fwd", 5, 7),
-    "htpu_flash_bwd_dq": ("flash_bwd", 8, 6),
-    "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6),
+# Each C entry returning int, by its arguments in order: tensor pointers,
+# ints, floats (the scale), the stream.
+# (library, pointer args, int args, float args, stream)
+_SIGNATURES = {
+    "htpu_flash_fwd": ("flash_fwd", 5, 6, 1, True),
+    "htpu_flash_fwd_partial": ("flash_fwd", 5, 7, 1, True),
+    "htpu_flash_bwd_dq": ("flash_bwd", 8, 6, 1, True),
+    "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6, 1, True),
+    "htpu_flash_fwd_smem": ("flash_fwd", 0, 2, 0, False),   # (D, dtype)
 }
+_ERR_TENSOR_MAP = -2        # the driver refused a TMA descriptor
 
 
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        lib, n_ptr, n_int = _SIGNATURES[name]
+        lib, n_ptr, n_int, n_float, stream = _SIGNATURES[name]
         fn = getattr(_build.load(lib), name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float
+                       + [ctypes.c_void_p] * stream)
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -194,13 +206,17 @@ def _kernel(name: str):
 
 def _call(name: str, *args) -> None:
     """Launch on the current stream of args[0]'s device; raise on error."""
-    dev = args[0].device
+    index = args[0].device.index
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
-    with torch.cuda.device(dev):
-        err = _kernel(name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    switch = torch.cuda.current_device() != index
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        err = _kernel(name)(*ptrs, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        if err < 0:
+        if err == _ERR_TENSOR_MAP:
+            why = ("cuTensorMapEncodeTiled refused a TMA descriptor (a "
+                   "base address not 16-byte aligned?)")
+        elif err < 0:
             why = "head dim or dtype the kernel was not built for"
         else:
             lib = _build.load(_SIGNATURES[name][0])
@@ -254,13 +270,13 @@ def _launch(q, k, v, scale: float):
 
 
 def _launch_partial(q, k, v, scale: float):
-    """The fully visible partial kernel → (o, lse) as the kernel writes
-    them: o in q's dtype, lse [B, Hq, Sq]."""
+    """The fully visible partial kernel → (o float32 [B, Sq, Hq, D], lse
+    [B, Sq, Hq]), what the merge reads, as the kernel writes them."""
     global launches_partial
     _check(q, k, v, partial=True)
     b, sq, hq, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
     _call("htpu_flash_fwd_partial", q, k, v, o, lse, b, sq, k.shape[1], hq,
           k.shape[2], d, _DTYPES[q.dtype], float(scale))
     launches_partial += 1
@@ -356,8 +372,9 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
     scale = float(scale)
     if q.device.type == "cpu":
         return flash_attention_partial_ref(q, k, v, scale, causal)
-    o, lse = _launch(q, k, v, scale) if causal else \
-        _launch_partial(q, k, v, scale)
+    if not causal:
+        return _launch_partial(q, k, v, scale)
+    o, lse = _launch(q, k, v, scale)
     return o.float(), lse.transpose(1, 2).contiguous()
 
 

@@ -1,0 +1,130 @@
+"""A/B of the flash forward kernel against another copy of its sources,
+in one process on one GPU.
+
+    python -m hadoop_tpu_torch.tools.ab_flash OTHER_CSRC_DIR
+
+Builds ``OTHER_CSRC_DIR/flash_fwd.cu`` (with the headers beside it) into
+a library of its own, prints what ptxas reports for it (registers,
+spills, ``wgmma`` serialization), and then, at the forward's main-path
+shapes, runs the checkout's kernel and the other one through the same
+wrapper (``ops.flash``), says whether O and lse are equal bit for bit,
+and times both in turns (other, this, this, other) with CUDA events,
+one JSON line per shape. Both copies must have the C entries of
+``flash._SIGNATURES``. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from hadoop_tpu_torch.ops import _build, flash
+
+ENTRIES = ("htpu_flash_fwd", "htpu_flash_fwd_partial")
+# (kind, shape): the causal forward's serving, training, CP-diagonal and
+# single-device llama3-8b shapes (B, S, Hq, Hkv, D), and the partial's
+# llama3-8b ring shape (B, Sq, Skv, Hq, Hkv, D); bf16
+SHAPES = [("causal", (1, 512, 16, 8, 128)), ("causal", (4, 2048, 16, 8, 128)),
+          ("causal", (4, 2048, 32, 8, 128)), ("causal", (1, 8192, 32, 8, 128)),
+          ("partial", (4, 2048, 2048, 32, 8, 128))]
+
+
+def build_other(csrc: Path):
+    """The other copy's entries, bound as ``flash._kernel`` binds them."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "libflash_fwd-ab-other.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                           str(csrc / "flash_fwd.cu")],
+                          capture_output=True, text=True)
+    report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+              if "registers" in ln or "spill" in ln or "C75" in ln]
+    print(json.dumps({"other_build_rc": proc.returncode, "ptxas": report}),
+          flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed for the other copy")
+    lib = ctypes.CDLL(str(out))
+    fns = {}
+    for name in ENTRIES:
+        _, n_ptr, n_int, n_float, stream = flash._SIGNATURES[name]
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float
+                       + [ctypes.c_void_p] * stream)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path,
+                    help="directory holding the other flash_fwd.cu")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_flash: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    for name in ENTRIES:
+        flash._kernel(name)                   # this checkout's build
+    mine = {name: flash._fns[name] for name in ENTRIES}
+    other = build_other(args.other)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for kind, shape in SHAPES:
+        if kind == "causal":
+            b, s, hq, hkv, d = shape
+            q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), \
+                randn(b, s, hkv, d)
+            call = functools.partial(flash._launch, q, k, v, d ** -0.5)
+        else:
+            b, sq, skv, hq, hkv, d = shape
+            q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), \
+                randn(b, skv, hkv, d)
+            call = functools.partial(flash._launch_partial, q, k, v,
+                                     d ** -0.5)
+        times = {"this": [], "other": []}
+        outs = {}
+        for side in ("other", "this", "this", "other"):
+            flash._fns.update(other if side == "other" else mine)
+            outs[side] = call()
+            times[side].append(cuda_ms(call))
+        flash._fns.update(mine)
+        equal = all(torch.equal(a, c)
+                    for a, c in zip(outs["this"], outs["other"]))
+        print(json.dumps({
+            "kind": kind, "shape": list(shape), "bit_equal": equal,
+            "this_ms": times["this"], "other_ms": times["other"],
+            "this_mean_ms": sum(times["this"]) / 2,
+            "other_mean_ms": sum(times["other"]) / 2}), flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,8 +12,9 @@ batch 4, seq 2048, full remat, AdamW); with ``--longctx`` instead, one
 llama3-8b (bf16, full width and depth, sp 4 ranks on the one card, block
 16), after one untraced prefill. For each it prints one JSON line:
 host wall time per call, the summed device time of the CUDA kernels per
-call, the device's idle share (1 - device / wall) and the kernels that
-took the most device time. Weights are random from a fixed seed. Needs a
+call, the device's idle share (1 - device / wall), the kernels that
+took the most device time and every flash kernel with its launches per
+call. Weights are random from a fixed seed. Needs a
 CUDA device.
 """
 
@@ -51,13 +52,18 @@ def _trace(fn, calls: int, label: str) -> None:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     wall_ms = wall * 1e3 / calls
     device_ms = device_us / 1e3 / calls
+
+    def rows(events):
+        return [{"kernel": e.key[:80], "ms": e.self_device_time_total
+                 / 1e3 / calls, "count": e.count // calls} for e in events]
+
     print(json.dumps({
         "profile": label, "calls": calls, "wall_ms": wall_ms,
         "device_ms": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "kernel_launches": sum(e.count for e in kernels) // calls,
-        "top": [{"kernel": e.key[:80], "ms": e.self_device_time_total
-                 / 1e3 / calls, "count": e.count // calls} for e in top],
+        "top": rows(top),
+        "flash": rows(e for e in kernels if "flash" in e.key),
     }), flush=True)
 
 

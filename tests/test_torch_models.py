@@ -180,6 +180,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.ops.cross_entropy\n"
         "import hadoop_tpu_torch.parallel.train\n"
         "import hadoop_tpu_torch.tools.profile_flagship\n"
+        "import hadoop_tpu_torch.tools.ab_flash\n"
         "import hadoop_tpu_torch.serving.longctx\n"
         "import hadoop_tpu_torch.parallel.ring_attention\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -195,9 +196,11 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_port_sources_name_no_jax():
     """No port source imports jax or names a module of the JAX package."""
     files = sorted((REPO / "hadoop_tpu_torch").rglob("*.py")) + sorted(
-        (REPO / "hadoop_tpu_torch").rglob("*.cu")) + [REPO / "chip_smoke.py"]
+        (REPO / "hadoop_tpu_torch").rglob("*.cu")) + sorted(
+        (REPO / "hadoop_tpu_torch").rglob("*.cuh")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    for new in ("ops/csrc/flash_bwd.cu", "ops/cross_entropy.py",
+    for new in ("ops/csrc/flash_bwd.cu", "ops/csrc/sm90.cuh",
+                "ops/csrc/flash_fwd_sm90.cuh", "ops/cross_entropy.py",
                 "parallel/mesh.py", "parallel/optimizer.py",
                 "parallel/train.py", "parallel/ring_attention.py",
                 "serving/longctx/plan.py", "serving/longctx/prefill.py",

@@ -9,6 +9,8 @@ backward's plain version against the Pallas backward, the reference's
 own gradient tolerance there.
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,7 +21,8 @@ from hadoop_tpu.ops import attention as jattn
 from hadoop_tpu.ops import flash as jflash
 from hadoop_tpu.ops import norms as jnorms
 from hadoop_tpu.ops import rope as jrope
-from hadoop_tpu_torch.ops import activations, attention, flash, norms, rope
+from hadoop_tpu_torch.ops import (_build, activations, attention, flash,
+                                  norms, rope)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -358,3 +361,68 @@ def test_rope_per_rank_positions_match_jax():
         want = jrope.apply_rope(jnp.asarray(x[rows]), jcos, jsin,
                                 jnp.asarray(pos[rank]))
         _close(got[rows], want, 1e-6)
+
+
+# ------------------------------------------------ the kernels' build and ABI
+
+def test_build_target_hashes_headers_and_flags(tmp_path, monkeypatch):
+    """A build is named by its source, every csrc header and the flags:
+    an edited header names a new build, so the library built from the old
+    header is never served. Nothing is compiled."""
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("constexpr int kN = 1;\n")
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    first = _build._target("k")
+    assert first.parent == _build.BUILD_DIR
+    (tmp_path / "k.cuh").write_text("constexpr int kN = 2;\n")
+    edited = _build._target("k")
+    assert edited != first
+    (tmp_path / "k.cuh").write_text("constexpr int kN = 1;\n")
+    assert _build._target("k") == first          # content, not time
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
+    assert _build._target("k") not in (first, edited)
+
+
+def _c_entries():
+    """Each function of the ``extern "C"`` blocks of ops/csrc/*.cu: (file
+    stem, name) -> the kinds of its parameters in order (ptr, int, float,
+    stream)."""
+    entries = {}
+    for path in sorted(_build._CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", path.read_text())
+        block = text[text.index('extern "C" {'):]
+        for ret, name, params in re.findall(
+                r"^([\w][\w\s\*]*?)\s*\b(htpu_\w+)\s*\(([^)]*)\)\s*\{",
+                block, re.M):
+            kinds = []
+            for param in params.split(","):
+                ptype, pname = param.strip().rsplit(None, 1)
+                ptype += "*" * pname.count("*")
+                kinds.append("stream" if pname == "stream" else
+                             "ptr" if "*" in ptype else
+                             {"int": "int", "float": "float"}[ptype])
+            entries[(path.stem, name)] = (ret.strip(), kinds)
+    return entries
+
+
+def test_c_entry_signatures_match_ctypes():
+    """ctypes passes arguments by the ``argtypes`` it is given: an entry
+    whose C parameters differ from ``_SIGNATURES`` (a pointer, int, float
+    or the stream more or fewer, or out of order) would read corrupted
+    arguments with no error. Every C entry is held here."""
+    entries = _c_entries()
+    assert ("flash_fwd", "htpu_flash_fwd_partial") in entries
+    seen = set()
+    for (lib, name), (ret, kinds) in entries.items():
+        if name == "htpu_cuda_error_string":        # bound in flash._call
+            assert kinds == ["int"] and "char" in ret, (lib, kinds, ret)
+            continue
+        assert name in flash._SIGNATURES, f"{lib}: {name} has no signature"
+        want_lib, n_ptr, n_int, n_float, stream = flash._SIGNATURES[name]
+        assert ret == "int", (name, ret)
+        assert lib == want_lib, (name, lib, want_lib)
+        assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
+                         + ["float"] * n_float + ["stream"] * stream), \
+            (name, kinds)
+        seen.add(name)
+    assert seen == set(flash._SIGNATURES)
