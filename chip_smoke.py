@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from the sources in this checkout (failing
 on any ptxas spill, wgmma serialization or ignored setmaxnreg) and holds
 each against its plain PyTorch version (the flash forward, the two flash
 backward kernels, also through the autograd Function, and the non-causal
-ring partial); runs ring attention at sp 4 on one device
+ring partial; bf16 at D 64/128 takes the wgmma kernels, float32 and D
+192/256 the FMA ones); runs ring attention at sp 4 on one device
 against the causal kernel over the whole sequence; trains flagship-1b
 at ``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
 AdamW) for 7 steps through ``make_train_step``; runs the flagship-1b
@@ -68,14 +69,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SEED = 0
 
 # (B, S, Hq, Hkv, D, dtypes, q scale): flagship-1b's forward shape first,
-# then its training shape; bf16 at D 64 and 128 takes the wgmma kernel,
-# float32 and bf16 at D 192/256 the FMA kernel (D 256 takes 32-row tiles
-# in the backward). The last three hold the wgmma kernel at D 128 where it
-# could go wrong: Hq/Hkv 1 with a single 128-row tile, Hq/Hkv 4 with an
-# odd count of tiles, and q scaled by 8 (scores of large range: the
-# running max moves between key tiles, so the register accumulators are
-# rescaled). The forward phase runs every case, the backward phase the
-# cases of q scale 1.
+# then its training shape; bf16 at D 64 and 128 takes the wgmma kernels,
+# float32 and bf16 at D 192/256 the FMA kernels (D 256 takes 32-row tiles
+# in the backward). The last three hold the wgmma kernels at D 128 where
+# they could go wrong: Hq/Hkv 1 with a single 128-row tile, Hq/Hkv 4 with
+# an odd count of 128-row tiles (the backward's 128-row tiles meet two
+# partly masked 64-row tiles each, so an off-by-one tile shows there, as
+# at (1, 384, 4, 1, 64)), and q scaled by 8 (scores of large range: the
+# forward's running max moves between key tiles, so the register
+# accumulators are rescaled; in the backward P is near 1 on a few keys,
+# where a wrong lse or exp2 scaling shows). Both phases run every case.
 KERNEL_SHAPES = [
     (1, 512, 16, 8, 128, (torch.bfloat16, torch.float32), 1),
     (4, 2048, 16, 8, 128, (torch.bfloat16, torch.float32), 1),
@@ -303,12 +306,13 @@ def phase_build():
         problems += bad
         emit({"phase": "build", "library": name, "seconds": seconds,
               "kernels": entries, "ptxas_problems": bad})
-    # dynamic shared memory per block of the kernel each (D, dtype) takes
-    smem = flash._kernel("htpu_flash_fwd_smem")
-    emit({"phase": "build", "library": "flash_fwd", "dynamic_smem_bytes": {
-        f"{dt} D{d}": smem(d, code) for dt, code in (("float32", 0),
-                                                    ("bfloat16", 1))
-        for d in flash._HEAD_DIMS}})
+    # dynamic shared memory per block of the kernels each (D, dtype) takes
+    for name in KERNEL_SOURCES:
+        smem = flash._kernel(f"htpu_{name}_smem")
+        emit({"phase": "build", "library": name, "dynamic_smem_bytes": {
+            f"{dt} D{d}": smem(d, code) for dt, code in (("float32", 0),
+                                                        ("bfloat16", 1))
+            for d in flash._HEAD_DIMS}})
     print(smi, flush=True)
     require(not problems, f"ptxas reports: {problems}")
     return smi
@@ -380,11 +384,10 @@ def phase_backward():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     training = None
     for b, s, hq, hkv, d, dtypes, q_mul in KERNEL_SHAPES:
-        if q_mul != 1:
-            continue
         for dtype in dtypes:
-            q, do = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
-                     .to(dtype) for _ in range(2))
+            q, do = ((m * torch.randn(b, s, hq, d, generator=gen,
+                                      device="cuda")).to(dtype)
+                     for m in (q_mul, 1))
             k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
                     .to(dtype) for _ in range(2))
             scale = d ** -0.5
@@ -399,7 +402,8 @@ def phase_backward():
             tol = BWD_TOLERANCE[dtype]
             _, delta = flash._launch_bwd_dq(q, k, v, o, lse, do, scale)
             rec = {"phase": "backward", "shape": [b, s, hq, hkv, d],
-                   "dtype": str(dtype), "max_abs_err": err,
+                   "dtype": str(dtype), "q_scale": q_mul,
+                   "max_abs_err": err,
                    "rel_err": rel, "tol": tol,
                    "plain_ms": cuda_ms(lambda: flash.flash_attention_bwd_ref(
                        q, k, v, o, lse, do, scale), 3),

@@ -20,37 +20,84 @@
 // Layout: q, o, dO, dQ [B, S, Hq, D]; k, v, dK, dV [B, S, Hkv, D], all
 // contiguous (the model's own layout); lse and delta [B, Hq, S] float32.
 //
-// Design. 256 threads per block; tiles of BT rows (64, or 32 at D 256 so the
-// four staged tiles fit the 227 KB of shared memory). The TPU carries the
-// accumulators across an "arbitrary" grid axis; here each block owns its
-// output tile and loops over the other side itself:
+// Which kernels take which call (static; no fallback between them):
+//   bf16,    D 64 or 128  -> the wgmma kernels (flash_bwd_sm90.cuh)
+//   float32, any D; bf16, D 192 or 256 -> the FMA kernels below
+// The float32 path stays in full float32 (TF32 wgmma would not), so it
+// remains the exactness oracle of the float32 checks.
+//
+// The split of work is the reference's, in both routes. The TPU carries
+// the accumulators across an "arbitrary" grid axis; here each block owns
+// its output tile and loops over the other side itself:
 //   - dQ: one block per (query head, batch row, q tile). Q and dO stay in
-//     shared memory; K/V tiles 0..diagonal stream through; only the diagonal
-//     tile is masked. Blocks are issued longest loop first.
+//     shared memory; K/V tiles 0..diagonal stream through; only the
+//     diagonal is masked. Blocks are issued longest loop first. Its
+//     prologue computes delta, which the dK/dV kernel reads.
 //   - dK/dV: one block per (KV head, batch row, k tile). K and V stay in
-//     shared memory; the block loops over the n_rep query heads of its group
-//     and, for each, over the q tiles from the diagonal to the end. So the
-//     group sum happens in the block: no [B, Hq, S, D] intermediate, and no
-//     two blocks write the same dK row, hence no atomics. k tile 0, which has
-//     the most q tiles, is issued first.
-//   - Every tile is staged as float32 with rows padded by one float, so the
-//     column walks of Q K^T and dO V^T hit 16 distinct banks. Thread (ty, tx)
-//     owns rows ty + 16 i and columns tx + 16 j of each product, so a row's 16
-//     owners are one half warp (delta reduces with four xor shuffles).
-//   - One BT x BT tile holds P, then dS, in turn (a second would not fit at
-//     D 192); the accumulators (2 x BT x D / 256 floats a thread for dK/dV)
-//     live in registers.
-// Products are plain float32 FMA, as in the forward: float32 stays float32.
+//     shared memory; the block loops over the n_rep query heads of its
+//     group and, for each, over the q tiles from the diagonal to the end.
+//     So the group sum happens in the block: no [B, Hq, S, D]
+//     intermediate, and no two blocks write the same dK row, hence no
+//     atomics and the same bits on every call. k tile 0, which has the
+//     most q tiles, is issued first.
+//
+// Design of the wgmma kernels (bf16, D 64/128). 256 threads per block:
+// two warpgroups, 64 resident rows each (of a 128-row tile), and no
+// producer warp. The first thread of the second warpgroup issues every
+// copy: as it starts an iteration, the tile kStages - 1 iterations ahead.
+//   - TMA brings the resident tiles once (dQ: Q and dO; dK/dV: K and V,
+//     128 rows) and the streamed tiles of 64 rows (dQ: K and V; dK/dV: Q
+//     and dO, with their lse and delta rows by a 1-D bulk copy) into a
+//     ring of 3 stages tracked by full/empty mbarrier pairs. Tiles stay
+//     bf16, 128-byte swizzled; at D 128 a row is two 64-column boxes.
+//     64 KB resident + 3 x 32 KB streamed + the rows = 163 KB at D 128.
+//   - Products, each wgmma with f32 accumulators in registers: S = Q K^T
+//     and dP = dO V^T (dQ), S^T = K Q^T and dP^T = V dO^T (dK/dV) at
+//     m64n64 with both operands K-major from shared memory; dQ += dS K,
+//     dV += P^T dO and dK += dS^T Q at m64nD with A from registers and B,
+//     a streamed tile as it lies, MN-major (the transpose flag).
+//   - P = exp2(S scale log2(e) - lse log2(e)) and dS = P o (dP - delta)
+//     run on the accumulator fragment. Its element order is the bf16 A
+//     fragment's, so P (rounded to bf16) and dS scale (rounded once) go
+//     from registers into the next wgmma: neither touches shared memory.
+//   - The causal mask compares absolute positions: a 128-row tile meets
+//     two partly visible 64-row tiles, one per consumer warpgroup; the
+//     warpgroup whose rows see none of a tile only releases its stage.
+//   - Registers: the dK/dV consumer holds dK and dV (64 + 64 floats a
+//     thread at D 128) and S^T and dP^T (32 + 32). ptxas caps a block of
+//     288 or 384 threads at 168 registers a thread, whatever setmaxnreg
+//     asks, and the dK/dV kernel then spills and serializes its wgmmas;
+//     a block of 256 threads may take up to 255 (248 at D 128), hence
+//     no producer warp.
+//   Not yet: overlap of one tile's elementwise work with the next tile's
+//   products inside a warpgroup, persistent blocks.
+//
+// The FMA kernels (float32; bf16 at D 192/256): 256 threads per block;
+// tiles of BT rows (64, or 32 at D 256 so the four staged tiles fit the
+// 227 KB of shared memory), staged as float32 with rows padded by one
+// float, so the column walks of Q K^T and dO V^T hit 16 distinct banks.
+// Thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j of each
+// product, so a row's 16 owners are one half warp (delta reduces with
+// four xor shuffles). One BT x BT tile holds P, then dS, in turn (a
+// second would not fit at D 192); the accumulators (2 x BT x D / 256
+// floats a thread for dK/dV) live in registers. Products are plain
+// float32 FMA.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense): at the
 // flagship training shape (B 4, S 2048, Hq 16, Hkv 8, D 128, bf16) dK/dV does
 // 8 D FLOPs and dQ 6 D FLOPs per visible (q, k) pair and query head, about
 // 138 and 103 GFLOP against some 135 and 170 MB moved (0.04 and 0.05 ms), so
-// both are bound by the tensor-core rate (about 0.14 and 0.10 ms). This first
-// version runs on the FMA units and is far from that; wgmma/TMA come later.
+// both are bound by the tensor-core rate (about 0.14 and 0.10 ms). What
+// stands between the wgmma kernels and that bound is the elementwise work
+// between a warpgroup's products (exp2, dS, two bf16 packs) that only the
+// other warpgroup's products overlap, and the per-block prologue; float32
+// has no tensor-core path here: its bound is the 67 TFLOP/s of the FMA
+// units.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -378,7 +425,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* lse,
   return (int)cudaGetLastError();
 }
 
-// Calls LAUNCH<T, D>(args...) for the runtime dtype and head dim.
+// Calls the launcher named LAUNCH of the kernel that takes the runtime
+// dtype and head dim: flash_bwd_sm90::LAUNCH<D> for bf16 at D 64/128, else
+// LAUNCH<T, D>.
 #define HTPU_DISPATCH(LAUNCH, ...)                                           \
   do {                                                                       \
     if (dtype == 0) {                                                        \
@@ -390,8 +439,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* lse,
       }                                                                      \
     } else if (dtype == 1) {                                                 \
       switch (D) {                                                           \
-        case 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);              \
-        case 128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);            \
+        case 64: return flash_bwd_sm90::LAUNCH<64>(__VA_ARGS__);             \
+        case 128: return flash_bwd_sm90::LAUNCH<128>(__VA_ARGS__);           \
         case 192: return LAUNCH<__nv_bfloat16, 192>(__VA_ARGS__);            \
         case 256: return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__);            \
       }                                                                      \
@@ -404,8 +453,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* lse,
 extern "C" {
 
 // Both launch on `stream` and return cudaGetLastError() after the launch
-// (0 on success), or -1 for a head dim or dtype they were not built for.
-// dtype: 0 float32, 1 bfloat16. S must be a multiple of 64 and Hq of Hkv.
+// (0 on success), -1 for a head dim or dtype they were not built for, or
+// -2 when the driver refuses a TMA descriptor (bf16 at D 64/128).
+// dtype: 0 float32, 1 bfloat16. S must be a multiple of 128 (of 64 for the
+// FMA kernels) and Hq of Hkv.
 
 // dQ, and delta = rowsum(dO o O) [B, Hq, S] float32 for the dK/dV kernel.
 int htpu_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -426,6 +477,22 @@ int htpu_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   HTPU_DISPATCH(launch_dkv, q, k, v, lse, delta, dout, dk, dv, B, S, Hq, Hkv,
                 scale, st);
+}
+
+// Dynamic shared memory per block, in bytes, of the kernels that take
+// (D, dtype) (the dQ and dK/dV kernels of a route share one layout); -1
+// for a head dim or dtype no kernel was built for.
+int htpu_flash_bwd_smem(int D, int dtype) {
+  if (dtype == 1 && D == 64) return (int)flash_bwd_sm90::Layout<64>::kSmem;
+  if (dtype == 1 && D == 128) return (int)flash_bwd_sm90::Layout<128>::kSmem;
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (D) {
+    case 64:  return (int)smem_bytes<64>();
+    case 128: return (int)smem_bytes<128>();
+    case 192: return (int)smem_bytes<192>();
+    case 256: return (int)smem_bytes<256>();
+    default:  return -1;
+  }
 }
 
 const char* htpu_cuda_error_string(int err) {

@@ -20,13 +20,9 @@ constexpr int kBQ = 64 * kConsumers;        // query rows per block
 constexpr int kBK = 128;                    // keys per K/V tile
 constexpr int kStages = 2;                  // K/V ring depth
 constexpr int kThreads = 128 * (1 + kConsumers);   // producer warpgroup first
-constexpr int kBoxCols = 64;                // bf16 columns per TMA box
-constexpr uint32_t kRowBytes = 128;         // a box row: the swizzle's width
 constexpr int kProducerRegs = 40;           // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kConsumerRegs = 232;          //   <= 65536 registers of the SM
-constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The causal mask compares tile-relative rows and keys: q tile t and key
 // tile t start at the same position.

@@ -10,9 +10,10 @@ them on first use). The forward streams K/V tiles through shared memory
 against a resident Q tile with the softmax kept online, so the [S, S]
 score matrix never reaches device memory; the backward recomputes P from
 the saved log-sum-exp. Query head ``h`` reads KV head ``h // n_rep`` with
-no copied heads. The forward takes bf16 at D 64/128 on the tensor cores
-(TMA and ``wgmma``, ``csrc/flash_fwd_sm90.cuh``) and float32, or bf16 at
-D 192/256, on the FMA units; the routing is static, in the C entry.
+no copied heads. Forward and backward take bf16 at D 64/128 on the
+tensor cores (TMA and ``wgmma``, ``csrc/flash_fwd_sm90.cuh`` and
+``csrc/flash_bwd_sm90.cuh``) and float32, or bf16 at D 192/256, on the
+FMA units; the routing is static, in the C entries.
 
 Numerics as in the reference: scores and softmax statistics in float32,
 P cast to the input dtype before P·V and Pᵀ·dO, dS·scale cast to the
@@ -187,6 +188,7 @@ _SIGNATURES = {
     "htpu_flash_bwd_dq": ("flash_bwd", 8, 6, 1, True),
     "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6, 1, True),
     "htpu_flash_fwd_smem": ("flash_fwd", 0, 2, 0, False),   # (D, dtype)
+    "htpu_flash_bwd_smem": ("flash_bwd", 0, 2, 0, False),   # (D, dtype)
 }
 _ERR_TENSOR_MAP = -2        # the driver refused a TMA descriptor
 

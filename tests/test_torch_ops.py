@@ -157,6 +157,10 @@ def test_flash_grads_flow_on_cpu_uncounted():
     (2, 256, 4, 2, 64, 128, 128),
     (1, 256, 2, 2, 128, 128, 256),
     (1, 384, 4, 1, 64, 128, 128),       # MQA
+    # the wgmma kernels' edge shapes: n_rep 4 with an odd count of
+    # 128-row tiles, and Hq = Hkv with a single tile
+    (1, 384, 8, 2, 128, 128, 128),
+    (2, 128, 4, 4, 128, 128, 128),
 ])
 def test_flash_bwd_ref_matches_pallas_backward(b, s, hq, hkv, d, bq, bk):
     """dq, dk, dv of the plain version against the Pallas backward kernels
