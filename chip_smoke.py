@@ -6,14 +6,19 @@
 Builds the port's CUDA kernels from the sources in this checkout (failing
 on any ptxas spill, wgmma serialization or ignored setmaxnreg) and holds
 each against its plain PyTorch version (the flash forward, the two flash
-backward kernels, also through the autograd Function, and the non-causal
-ring partial; bf16 at D 64/128 takes the wgmma kernels, float32 and D
-192/256 the FMA ones); runs ring attention at sp 4 on one device
-against the causal kernel over the whole sequence; trains flagship-1b
-at ``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
+backward kernels, also through the autograd Function, the non-causal
+ring partial, and AdamW's update and squared norm on flagship-1b's
+leaves; bf16 at D 64/128 takes the wgmma kernels, float32 and D 192/256
+the FMA ones); runs ring attention at sp 4 on one device against the
+causal kernel over the whole sequence; trains flagship-1b at
+``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
 AdamW) for 7 steps through ``make_train_step``; runs the flagship-1b
-forward; serves flagship-1b requests through ``DecodeEngine``; checks
-two float32 SGD steps of the kernel path against plain attention; runs
+forward, also in float16 (which no flash kernel takes: "auto" runs the
+plain attention); serves flagship-1b requests through ``DecodeEngine``
+(each step shape a CUDA graph), holding the graphs' tokens against the
+engine's eager step; checks two float32 SGD steps of the kernel path
+against plain attention and against the layer loop that slices each
+stacked leaf per layer (bit for bit); runs
 the context-parallel prefill of flagship-1b in float32 through the
 exact A-B guard (sp 4 and sp 2); and prefills three prompts of
 llama3-8b (8192, 8100 and 8000 tokens) at full width and depth with
@@ -25,8 +30,9 @@ prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
 forward for ``flash_fwd``, the 7 training steps for the backward
-kernels, one 8192-token llama3-8b CP prefill for ``flash_fwd_partial``),
-its error and its times; the last line is ``{"ok": true, "device":
+kernels and ``adamw``/``grad_sq``, one 8192-token llama3-8b CP prefill
+for ``flash_fwd_partial``), its error and its times; the last line is
+``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
 one. One phase runs alone from Python, after the build, e.g.
@@ -35,7 +41,8 @@ one. One phase runs alone from Python, after the build, e.g.
 Peak rates for the bound (``bound_ms``): NVIDIA H100 SXM data sheet,
 3.35 TB/s device memory, 989 TFLOP/s dense bf16 on the tensor cores and
 67 TFLOP/s float32 outside them (the kernel's float32 path keeps full
-float32, so the float32 peak is the one that applies).
+float32, so the float32 peak is the one that applies; AdamW's arithmetic
+is float32 outside them too).
 """
 
 from __future__ import annotations
@@ -55,14 +62,17 @@ import hadoop_tpu_torch.parallel.ring_attention as ring_module
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
                               get_config, init_params, init_train_state,
                               make_train_step)
+import hadoop_tpu_torch.models.decoder as decoder_module
 from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
                                              head_matrix, run_layers_kv)
 from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
 from hadoop_tpu_torch.parallel import MeshPlan, adamw_init
+from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.ring_attention import ring_attention
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
                                               run_prefill_ab)
+from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -163,6 +173,35 @@ LONGCTX = dict(model="llama3-8b", sp=4, block=16, tokens=(8192, 8100, 8000),
                cal_factor=2.0, timed=3)
 EXACT_SP = (4, 2)       # flagship-1b float32 through run_prefill_ab(exact)
 TIE_REL = 1e-4          # near-tie rule for greedy token comparisons
+# adamw.cu against its plain version on flagship-1b's leaves (bf16, random
+# gradients and moments, step 3, the clip active). The kernel rounds every
+# float32 operation once in the reference's order; PyTorch's CUDA ops,
+# which the plain version runs, contract m + (1 - b1)·g into an fma and
+# divide by a Python scalar as a multiply by its reciprocal. So a moment
+# may differ by an ulp or two of float32 (max |d| over max |ref| at most
+# ADAMW_MOMENT_TOL), and a parameter by one ulp of bf16 where the two
+# float32 values lie on either side of a rounding boundary (an ulp at the
+# larger of the parameter's magnitudes before and after the step: where
+# the step nearly cancels it, the two results may straddle zero): at most
+# ADAMW_P_SHARE of the elements. The squared norm sums in another order
+# (the kernel's fixed tree against PyTorch's): GRAD_SQ_TOL relative.
+ADAMW = dict(count=3, lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+             grad_scale=1e-3)
+ADAMW_MOMENT_TOL = 1e-6
+ADAMW_P_SHARE = 1e-4
+GRAD_SQ_TOL = 1e-5
+ADAMW_FLOPS = 17        # float32 operations per element of the update
+# The float16 flagship-1b forward through "auto" (plain attention: no
+# kernel is built for float16) against the float32 kernel forward: max
+# |d logits| over max |logits|. float16 keeps 11 significant bits, so each
+# rounded op adds up to 2**-11 of its value, over 18 layers of about ten
+# rounded ops each.
+FP16_TOL = 2e-2
+# The f32 SGD parity losses of PR 5's run on the H100 (PERF.md), for the
+# record: the unbound layers leave them as they were.
+PR5_PARITY_LOSSES = [10.879134178161621, 9.858037948608398]
+SERVE_KW = dict(max_batch=4, block_size=16, max_context=1024,
+                prefill_chunk=64)
 
 
 class SmokeFailure(RuntimeError):
@@ -250,14 +289,19 @@ def counts():
             flash.launches_partial)
 
 
+def optimizer_counts():
+    return optimizer.launches, optimizer.launches_grad_sq
+
+
 def zero_counts():
     flash.launches = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
     flash.launches_partial = 0
+    optimizer.launches = optimizer.launches_grad_sq = 0
 
 
 # ------------------------------------------------------------------ phases
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd"]
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "adamw"]
 
 
 def ptxas_report(log):
@@ -307,8 +351,8 @@ def phase_build():
         emit({"phase": "build", "library": name, "seconds": seconds,
               "kernels": entries, "ptxas_problems": bad})
     # dynamic shared memory per block of the kernels each (D, dtype) takes
-    for name in KERNEL_SOURCES:
-        smem = flash._kernel(f"htpu_{name}_smem")
+    for name in ("flash_fwd", "flash_bwd"):
+        smem = _build.entry(f"htpu_{name}_smem")
         emit({"phase": "build", "library": name, "dynamic_smem_bytes": {
             f"{dt} D{d}": smem(d, code) for dt, code in (("float32", 0),
                                                         ("bfloat16", 1))
@@ -475,7 +519,8 @@ def check_function(q, k, v, do, scale, o, grads):
 def phase_train():
     """flagship-1b at bench.py's training configuration, through
     ``make_train_step``: 2 warm-up and 5 timed steps on one seeded batch.
-    Returns the launches of the whole run (fwd, dq, dkv)."""
+    Returns the launches of the whole run (fwd, dq, dkv, adamw,
+    grad_sq)."""
     cfg = get_config("flagship-1b")
     params, opt = init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -494,15 +539,16 @@ def phase_train():
     losses, step_ms, per_step = [], [], []
     zero_counts()                             # the main path's run
     for _ in range(TRAIN["warmup"] + TRAIN["timed"]):
-        before = counts()
+        before = counts()[:3] + optimizer_counts()
         start.record()
         params, opt, metrics = step(params, opt, tokens, targets)
         end.record()
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(metrics["loss"].item())
-        per_step.append([a - b for a, b in zip(counts(), before)][:3])
-    launches = counts()[:3]
+        per_step.append([a - b for a, b in zip(
+            counts()[:3] + optimizer_counts(), before)])
+    launches = counts()[:3] + optimizer_counts()
     peak = torch.cuda.max_memory_allocated()
     grad_norm = metrics["grad_norm"].item()
     timed_ms = sum(step_ms[TRAIN["warmup"]:]) / TRAIN["timed"]
@@ -517,14 +563,17 @@ def phase_train():
           "timed_step_ms": timed_ms, "tokens_per_s": tokens_per_s,
           "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
           "peak_memory_bytes": peak,
-          "launches_per_step_fwd_dq_dkv": per_step})
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq": per_step})
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
             f"first loss {losses[0]}, ln(V) {math.log(cfg.vocab_size)}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    n_leaves = len(tree_leaves(params))
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, n_leaves,
+            n_leaves + 1]
     require(all(c == want for c in per_step),
-            f"launches per step (fwd, dq, dkv) {per_step}, expected {want}")
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq) {per_step}, "
+            f"expected {want}")
     del params, opt, step
     return launches
 
@@ -536,12 +585,11 @@ def make_params():
     cfg16 = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     p32 = init_params(cfg32, gen)
+    return cfg32, p32, cfg16, _cast(p32, torch.bfloat16)
 
-    def cast(tree):
-        return {k: cast(v) if isinstance(v, dict) else v.to(torch.bfloat16)
-                for k, v in tree.items()}
 
-    return cfg32, p32, cfg16, cast(p32)
+def _cast(tree, dtype):
+    return tree_map(lambda w: w.to(dtype), tree)
 
 
 def phase_forward(cfg32, p32, cfg16, p16):
@@ -582,6 +630,37 @@ def phase_forward(cfg32, p32, cfg16, p16):
     return main_launches
 
 
+def phase_forward_fp16(cfg32, p32):
+    """flagship-1b in float16 at [1, 512] through ``forward``'s "auto":
+    no flash kernel is built for float16, so every layer takes the plain
+    attention (no launch), as the reference does off the TPU; the logits
+    held against the float32 kernel forward on the same weights."""
+    cfg = get_config("flagship-1b", dtype="float16")
+    params = _cast(p32, torch.float16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    before = counts()
+    logits = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(counts(), before)]
+    want = forward(p32, tokens, get_config("flagship-1b", dtype="float32"))
+    rel = _max_rel(logits, want)
+    top1 = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+    emit({"phase": "forward_fp16", "model": "flagship-1b",
+          "dtype": cfg.dtype, "tokens": [1, 512],
+          "launches_fwd_dq_dkv_partial": launches,
+          "rel_err_vs_float32": rel, "tol": FP16_TOL,
+          "top1_agreement": top1, "finite": bool(torch.isfinite(logits).all()),
+          "ms": cuda_ms(lambda: forward(params, tokens, cfg), 5)})
+    require(launches == [0, 0, 0, 0], f"the float16 forward launched "
+            f"(fwd, dq, dkv, partial) {launches}")
+    require(bool(torch.isfinite(logits).all()), "non-finite float16 logits")
+    require(rel <= FP16_TOL, f"float16 logits vs float32: {rel}")
+    del params, logits, want
+
+
 def _prompts(vocab):
     gen = torch.Generator().manual_seed(SEED + 2)
     prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
@@ -607,15 +686,44 @@ def _reference_greedy(params, cfg, prompt, max_new):
     return seq[len(prompt):], rows
 
 
+def _serve_steps(params, cfg, requests, graphs: bool):
+    """Serve ``requests`` [(prompt, sampling)] through ``DecodeEngine.step``
+    (submitted together, stepped until done): through the engine's CUDA
+    graphs, or its eager step (``graphs=False``). Both step shapes run
+    once before the clock starts (a 1-token prompt, 2 tokens), so the
+    graphs are captured by then. Returns the tokens and a record."""
+    eng = DecodeEngine(params, cfg, **SERVE_KW)
+    if not graphs:
+        eng._launch_step = eng._step_eager
+    eng.generate([[1]], SamplingParams(max_new_tokens=2))
+    steps0 = eng.steps
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, sp) for p, sp in requests]
+    while not all(r.done.is_set() for r in reqs):
+        eng.step()
+    wall = time.monotonic() - t0
+    tokens = [r.wait(0) for r in reqs]
+    steps = eng.steps - steps0
+    n = sum(len(t) for t in tokens)
+    rec = {"steps": steps, "seconds": wall, "step_ms": wall / steps * 1e3,
+           "tokens": n, "tokens_per_s": n / wall,
+           "ttft_s": [r.first_token_at - r.submitted_at for r in reqs],
+           "graphs_captured": len(eng._graphs),
+           "decode_shapes": eng.decode_compiles,
+           "fused_shapes": eng.prefill_compiles}
+    del eng
+    return tokens, rec
+
+
 def phase_serving(cfg32, p32, cfg16, p16):
     prompts, sampled_prompt = _prompts(cfg32.vocab_size)
     new = 32
     greedy = SamplingParams(max_new_tokens=new)
     sampling = SamplingParams(max_new_tokens=new, temperature=0.8, top_k=50)
-    kw = dict(max_batch=4, block_size=16, max_context=1024, prefill_chunk=64)
 
     # float32, driven step by step: greedy tokens against the forward loop
-    eng = DecodeEngine(p32, cfg32, **kw)
+    eng = DecodeEngine(p32, cfg32, **SERVE_KW)
     t0 = time.monotonic()
     outs = eng.generate(prompts, greedy)
     extra = eng.generate([sampled_prompt], sampling)[0]
@@ -647,7 +755,7 @@ def phase_serving(cfg32, p32, cfg16, p16):
     del eng
 
     # bf16 through the scheduler thread, as a replica runs it
-    eng = DecodeEngine(p16, cfg16, **kw)
+    eng = DecodeEngine(p16, cfg16, **SERVE_KW)
     eng.start()
     try:
         t0 = time.monotonic()
@@ -669,7 +777,46 @@ def phase_serving(cfg32, p32, cfg16, p16):
           "ttft_s": ttft, "steps": eng.steps,
           "step_ms": wall / eng.steps * 1e3,
           "prefix_tokens_reused": last.prefix_tokens_reused,
-          "cache": eng.cache_stats()})
+          "cache": eng.cache_stats(),
+          "graphs_captured": len(eng._graphs)})
+    require(len(eng._graphs) == 2 and eng.decode_compiles == 1
+            and eng.prefill_compiles == 1,
+            f"the scheduler thread's engine captured {len(eng._graphs)} "
+            f"graphs at {eng.decode_compiles} + {eng.prefill_compiles} "
+            f"shapes")
+    del eng
+
+    # bf16, the same 5 requests stepped through the CUDA graphs and
+    # through the eager step: the same tokens, greedy and sampled (the
+    # sampler's generator is registered with each graph)
+    requests = [(p, greedy) for p in prompts] + [(sampled_prompt, sampling)]
+    runs = {mode: _serve_steps(p16, cfg16, requests, mode == "graph")
+            for mode in ("graph", "eager")}
+    equal = [a == b for a, b in zip(runs["graph"][0], runs["eager"][0])]
+    # launches per decode-only step: 4 lanes decoding, 10 steps traced
+    gen = torch.Generator().manual_seed(SEED + 11)
+    lanes = torch.randint(0, cfg16.vocab_size, (4, 100), generator=gen)
+    profiles = {}
+    for mode in ("graph", "eager"):
+        eng = decoding_engine(p16, cfg16, lanes.tolist(), mode == "graph")
+        rec = trace(eng.step, 10, f"engine decode step flagship-1b bf16, 4 "
+                    f"lanes, {mode}")
+        profiles[mode] = {k: rec[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "kernel_launches",
+            "host_launch_calls")}
+        del eng
+    emit({"phase": "serving_graphs", "dtype": "bfloat16", "requests": 5,
+          "tokens_equal_per_request": equal,
+          "graph": runs["graph"][1], "eager": runs["eager"][1],
+          "decode_step_profile": profiles})
+    require(all(equal), f"graph-replayed tokens differ from the eager "
+            f"step's: {equal}")
+    require(runs["graph"][1]["graphs_captured"] == 2
+            and runs["eager"][1]["graphs_captured"] == 0,
+            "the graph run did not capture both shapes, or the eager run "
+            "captured")
+    require(all(r[1]["decode_shapes"] == 1 and r[1]["fused_shapes"] == 1
+                for r in runs.values()), "more than two step shapes")
 
 
 def phase_parity(cfg32, p32):
@@ -681,19 +828,24 @@ def phase_parity(cfg32, p32):
                            .manual_seed(SEED + 4))
     targets = torch.roll(tokens, -1, dims=1)
     runs = {}
-    for impl in ("auto", "ref"):
+    for impl in ("auto", "ref", "sliced"):
         params = tree_map(torch.clone, p32)
         opt = adamw_init(params)
         step = make_train_step(cfg32, lr=1e-2, optimizer="sgd",
-                               attn_impl=impl)
+                               attn_impl="auto" if impl == "sliced" else impl)
         zero_counts()
         losses = []
-        for _ in range(2):
-            params, opt, metrics = step(params, opt, tokens, targets)
-            losses.append(metrics["loss"].item())
+        with _sliced_layers(impl == "sliced"):
+            for _ in range(2):
+                params, opt, metrics = step(params, opt, tokens, targets)
+                losses.append(metrics["loss"].item())
         runs[impl] = (losses, params, counts()[:3])
         del opt
     (lk, pk, ck), (lr_, pr, cr) = runs["auto"], runs["ref"]
+    ls, ps, _ = runs.pop("sliced")
+    sliced_equal = ls == lk and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(ps), tree_leaves(pk)))
+    del ps
     want = (2 * cfg32.n_layers,) * 3
     require(ck == want and cr == (0, 0, 0),
             f"launches (fwd, dq, dkv): kernel path {ck}, plain path {cr}")
@@ -705,11 +857,40 @@ def phase_parity(cfg32, p32):
                          / upd_r.abs().max()).item()
     emit({"phase": "parity", "dtype": "float32", "tokens": [1, 512],
           "optimizer": "sgd", "losses_kernel": lk, "losses_plain": lr_,
-          "update_rel_err": leaf_err, "tol": PARITY_TOL})
+          "update_rel_err": leaf_err, "tol": PARITY_TOL,
+          "unbound_equal_to_per_layer_slices": sliced_equal,
+          "losses_kernel_pr5": PR5_PARITY_LOSSES,
+          "losses_kernel_equal_pr5": lk == PR5_PARITY_LOSSES})
+    require(sliced_equal, "the unbound layers' SGD steps differ from the "
+            "per-layer slices' (losses or parameters)")
     require(all(math.isclose(a, b, rel_tol=1e-4) for a, b in zip(lk, lr_)),
             f"losses kernel {lk} vs plain {lr_}")
     require(all(e <= PARITY_TOL for e in leaf_err.values()),
             f"updates kernel vs plain: {leaf_err}")
+
+
+@contextlib.contextmanager
+def _sliced_layers(on: bool):
+    """While open (and ``on``), the decoder's layer loop takes ``w[i]`` of
+    each stacked leaf in each layer, as it did before it unbound each leaf
+    once: the same values, gradients summed from per-layer slices."""
+    if not on:
+        yield
+        return
+    unbound = decoder_module.run_layers
+
+    def sliced(x, layers, cfg, cos, sin, attn_impl="auto", remat=False):
+        body = decoder_module._layer_fn(remat)
+        for i in range(cfg.n_layers):
+            x = body(x, {name: w[i] for name, w in layers.items()}, cfg,
+                     cos, sin, attn_impl)
+        return x
+
+    decoder_module.run_layers = sliced
+    try:
+        yield
+    finally:
+        decoder_module.run_layers = unbound
 
 
 def _names(tree, prefix=""):
@@ -774,6 +955,118 @@ def phase_partial():
                 main_shape = rec
             del q, k, v, o, lse, o_ref, lse_ref
     return main_shape
+
+
+def _ulps(a, b, before):
+    """Per element, |a - b| in ulps of their dtype at the largest of |a|,
+    |b| and |before| (the value the update started from: where the
+    update nearly cancels it, two results a rounding apart straddle
+    zero, and an ulp of the result itself would be meaningless)."""
+    top = torch.maximum(torch.maximum(a.float().abs(), b.float().abs()),
+                        before.float().abs())
+    _, exp = torch.frexp(top)
+    nmant = round(-math.log2(torch.finfo(a.dtype).eps))   # mantissa bits
+    ulp = torch.ldexp(torch.ones_like(top), exp - 1 - nmant)
+    return (a.float() - b.float()).abs() / ulp
+
+
+def phase_adamw():
+    """adamw.cu's update and squared norm against their plain versions
+    on flagship-1b's leaves (bf16; random gradients and moments from a
+    seed; step ``ADAMW["count"]``), timed against the plain versions and,
+    as a yardstick, ``torch.optim.AdamW(fused=True)`` over the same
+    leaves (decay groups split by ndim; its moments in bf16 and no clip).
+    Returns the records of the two kernels for the kernels line."""
+    cfg = get_config("flagship-1b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    params = init_params(cfg, gen)
+
+    def rand(p, mul, square=False):
+        x = torch.randn(p.shape, generator=gen, device="cuda")
+        return (x.square() if square else x) * mul
+
+    grads = tree_map(lambda p: rand(p, ADAMW["grad_scale"]).to(p.dtype),
+                     params)
+    mu = tree_map(lambda p: rand(p, 1e-4), params)
+    nu = tree_map(lambda p: rand(p, 1e-8, square=True), params)
+    leaves, gleaves = tree_leaves(params), tree_leaves(grads)
+    n = sum(p.numel() for p in leaves)
+
+    gsq = optimizer._launch_grad_sq(gleaves)
+    gsq_ref = optimizer.grad_sq_ref(grads)
+    gsq_rel = abs(gsq.item() - gsq_ref.item()) / gsq_ref.item()
+    scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(gsq), min=1e-12),
+                        max=1.0)
+    hyper = optimizer._hyper(ADAMW["count"], ADAMW["lr"], ADAMW["b1"],
+                             ADAMW["b2"], ADAMW["eps"],
+                             ADAMW["weight_decay"])
+    sides = {}
+    for side in ("kernel", "plain"):
+        state = [tree_leaves(tree_map(torch.clone, t))
+                 for t in (params, mu, nu)]
+        update = optimizer._launch_adamw if side == "kernel" else \
+            optimizer.adamw_leaf_ref
+        for p, g, m, v in zip(*state[:1], gleaves, *state[1:]):
+            update(p, g, m, v, scale, hyper, p.ndim >= 2)
+        sides[side] = state
+    torch.cuda.synchronize()
+    (pk, mk, nk), (pr, mr, nr) = sides["kernel"], sides["plain"]
+    p_diff = sum(int((a != b).sum()) for a, b in zip(pk, pr))
+    p_ulps = max(_ulps(a, b, p0).max().item()
+                 for a, b, p0 in zip(pk, pr, leaves))
+    p_err = max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(pk, pr))
+    moment_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(mk + nk, mr + nr))
+    del sides, pr, mr, nr
+
+    def run(update):
+        for p, g, m, v in zip(pk, gleaves, mk, nk):
+            update(p, g, m, v, scale, hyper, p.ndim >= 2)
+
+    lib_params = [p.detach().clone().requires_grad_() for p in leaves]
+    for p, g in zip(lib_params, gleaves):
+        p.grad = g
+    lib = torch.optim.AdamW(
+        [{"params": [p for p in lib_params if p.ndim >= 2],
+          "weight_decay": ADAMW["weight_decay"]},
+         {"params": [p for p in lib_params if p.ndim < 2],
+          "weight_decay": 0.0}],
+        lr=ADAMW["lr"], betas=(ADAMW["b1"], ADAMW["b2"]), eps=ADAMW["eps"],
+        fused=True)
+    upd_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                 + 16) for p, g in zip(leaves, gleaves))
+    sq_bytes = sum(g.numel() * g.element_size() for g in gleaves) + 4
+    records = {
+        "adamw": add_rates({
+            "ms": cuda_ms(lambda: run(optimizer._launch_adamw), 5),
+            "plain_ms": cuda_ms(lambda: run(optimizer.adamw_leaf_ref), 2),
+            "library_ms": cuda_ms(lib.step, 5),
+            "max_abs_err": p_err},
+            _bound(upd_bytes, ADAMW_FLOPS * n, torch.float32)),
+        "grad_sq": add_rates({
+            "ms": cuda_ms(lambda: optimizer._launch_grad_sq(gleaves), 10),
+            "plain_ms": cuda_ms(lambda: optimizer.grad_sq_ref(grads), 3),
+            "library_ms": None,
+            "max_abs_err": abs(gsq.item() - gsq_ref.item())},
+            _bound(sq_bytes, 2 * n, torch.float32)),
+    }
+    emit({"phase": "adamw", "model": "flagship-1b", "params": n,
+          "leaves": len(leaves), "dtype": cfg.dtype,
+          "p_elements_differing": p_diff, "p_share_differing": p_diff / n,
+          "p_max_ulps": p_ulps, "p_share_tol": ADAMW_P_SHARE,
+          "moment_rel_err": moment_rel, "moment_tol": ADAMW_MOMENT_TOL,
+          "grad_sq_rel_err": gsq_rel, "grad_sq_tol": GRAD_SQ_TOL,
+          **records})
+    require(p_ulps <= 1 and p_diff / n <= ADAMW_P_SHARE,
+            f"adamw.cu parameters vs plain: {p_diff} elements differ, up to "
+            f"{p_ulps} ulps")
+    require(moment_rel <= ADAMW_MOMENT_TOL,
+            f"adamw.cu moments vs plain: {moment_rel}")
+    require(gsq_rel <= GRAD_SQ_TOL, f"grad_sq vs plain: {gsq_rel}")
+    del params, grads, mu, nu, lib, lib_params, pk, mk, nk
+    torch.cuda.empty_cache()
+    return records
 
 
 def _fold(x, sp):
@@ -1051,10 +1344,12 @@ def main() -> int:
     record = phase_kernel()
     bwd = phase_backward()
     partial = phase_partial()
+    adamw = phase_adamw()
     phase_ring()
-    _, train_dq, train_dkv = phase_train()
+    _, train_dq, train_dkv, train_adamw, train_grad_sq = phase_train()
     cfg32, p32, cfg16, p16 = make_params()
     fwd_launches = phase_forward(cfg32, p32, cfg16, p16)
+    phase_forward_fp16(cfg32, p32)
     phase_serving(cfg32, p32, cfg16, p16)
     phase_parity(cfg32, p32)
     phase_longctx_exact(cfg32, p32)
@@ -1085,7 +1380,17 @@ def main() -> int:
             "max_abs_err": partial["max_abs_err"], "ms": partial["ms"],
             "plain_ms": partial["plain_ms"], "bound_ms": partial["bound_ms"],
             "bound_by": partial["bound_by"],
-            "library_ms": partial["library_ms"]}]})
+            "library_ms": partial["library_ms"]}] + [{
+            "name": name, "route": "cuda",
+            "source": "hadoop_tpu_torch/ops/csrc/adamw.cu",
+            "replaces": f"hadoop_tpu/parallel/optimizer.py:{line}",
+            "launches": n, "max_abs_err": adamw[name]["max_abs_err"],
+            "ms": adamw[name]["ms"], "plain_ms": adamw[name]["plain_ms"],
+            "bound_ms": adamw[name]["bound_ms"],
+            "bound_by": adamw[name]["bound_by"],
+            "library_ms": adamw[name]["library_ms"]}
+        for name, line, n in (("adamw", 62, train_adamw),
+                              ("grad_sq", 56, train_grad_sq))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

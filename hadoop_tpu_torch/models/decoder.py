@@ -221,12 +221,26 @@ def _layer_fn(remat):
                      f"'dots')")
 
 
+def layer_slices(layers, n_layers: int):
+    """Each layer's weights, as views of the stacked ``[L, ...]`` leaves:
+    every leaf is unbound once, so the backward of a stack is one
+    ``stack`` of its layers' gradients (the reference's ``lax.scan``
+    writes each layer's slice once), where taking ``w[i]`` in each layer
+    would add up L zero-filled full-size gradients."""
+    names = list(layers)
+    views = zip(*(layers[name].unbind(0) for name in names))
+    slices = [dict(zip(names, ws)) for ws in views]
+    if len(slices) != n_layers:
+        raise ValueError(f"stacked leaves hold {len(slices)} layers, "
+                         f"expected {n_layers}")
+    return slices
+
+
 def run_layers(x, layers, cfg: ModelConfig, cos, sin,
                attn_impl: str = "auto", remat=False):
     """Run the stacked layers over x, one layer slice at a time."""
     body = _layer_fn(remat)
-    for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    for lp in layer_slices(layers, cfg.n_layers):
         x = body(x, lp, cfg, cos, sin, attn_impl)
     return x
 
@@ -239,8 +253,7 @@ def run_layers_kv(x, layers, cfg: ModelConfig, cos, sin,
     (``[L, R*B, S_local, Hkv, Dh]`` under a ring ctx): the prefill side
     of the long-context plane. Inference only: records no gradient."""
     ks = vs = None
-    for i in range(cfg.n_layers):
-        lp = {name: w[i] for name, w in layers.items()}
+    for i, lp in enumerate(layer_slices(layers, cfg.n_layers)):
         x, (k, v) = layer_forward_kv(x, lp, cfg, cos, sin, attn_impl, ctx)
         if ks is None:
             ks = k.new_empty((cfg.n_layers, *k.shape))

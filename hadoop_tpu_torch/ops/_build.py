@@ -8,10 +8,15 @@ flags, so an edited kernel or header is never served from a stale
 build, and loaded with ``ctypes``. The TMA descriptors' driver call is
 looked up at run time (``cudaGetDriverEntryPoint``), so no ``-lcuda``.
 Nothing here runs at import time.
+
+Every C entry is listed in ``SIGNATURES`` and called through ``launch``,
+which passes tensors as their device pointers and raises when the entry
+returns an error.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +24,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hadoop_tpu_torch"
@@ -29,6 +36,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}      # guarded-by: _lock
 build_logs: Dict[str, str] = {}         # nvcc's output (ptxas registers, smem)
+
+# Each C entry returning int, by its arguments in order: tensor pointers,
+# ints, floats, the stream.
+# name: (library, pointer args, int args, float args, stream)
+SIGNATURES = {
+    "htpu_flash_fwd": ("flash_fwd", 5, 6, 1, True),
+    "htpu_flash_fwd_partial": ("flash_fwd", 5, 7, 1, True),
+    "htpu_flash_bwd_dq": ("flash_bwd", 8, 6, 1, True),
+    "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6, 1, True),
+    "htpu_flash_fwd_smem": ("flash_fwd", 0, 2, 0, False),   # (D, dtype)
+    "htpu_flash_bwd_smem": ("flash_bwd", 0, 2, 0, False),   # (D, dtype)
+    "htpu_adamw": ("adamw", 5, 3, 9, True),
+    "htpu_grad_sq_partial": ("adamw", 2, 3, 0, True),
+    "htpu_grad_sq_finish": ("adamw", 2, 1, 0, True),
+}
+ERR_NOT_BUILT = -1          # a dtype, head dim or size it was not built for
+ERR_TENSOR_MAP = -2         # the driver refused a TMA descriptor
+entries: Dict[str, Callable] = {}       # bound C entries, by name
 
 
 def _nvcc() -> str:
@@ -90,3 +115,47 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def bind(fn, name: str):
+    """Give the C entry ``fn`` the ctypes types of ``SIGNATURES[name]``:
+    pointers and the stream as ``c_void_p`` (ctypes would cut them to 32
+    bits otherwise), ints, floats, an int result."""
+    _, n_ptr, n_int, n_float, stream = SIGNATURES[name]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p] * stream)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def entry(name: str):
+    """The C entry ``name``, its library built and loaded first if needed."""
+    fn = entries.get(name)
+    if fn is None:
+        fn = entries[name] = bind(getattr(load(SIGNATURES[name][0]), name),
+                                  name)
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry ``name`` on the current stream of args[0]'s
+    device: tensors go as their device pointers, the rest as they are.
+    Raises on an error from the entry."""
+    index = args[0].device.index
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    switch = torch.cuda.current_device() != index
+    with torch.cuda.device(index) if switch else contextlib.nullcontext():
+        err = entry(name)(*ptrs, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        if err == ERR_TENSOR_MAP:
+            why = ("cuTensorMapEncodeTiled refused a TMA descriptor (a "
+                   "base address not 16-byte aligned?)")
+        elif err == ERR_NOT_BUILT:
+            why = "a dtype, head dim or size the kernel was not built for"
+        else:
+            lib = load(SIGNATURES[name][0])
+            lib.htpu_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.htpu_cuda_error_string.restype = ctypes.c_char_p
+            why = lib.htpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed ({err}): {why}")

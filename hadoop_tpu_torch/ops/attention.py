@@ -1,8 +1,9 @@
 """Causal (grouped-query) attention.
 
 The plain path is a float32 einsum-softmax in PyTorch. On a CUDA tensor
-whose shapes ``flash.supported`` accepts, ``causal_attention`` calls the
-fused flash kernel (``hadoop_tpu_torch.ops.flash``) instead. This
+whose shapes ``flash.supported`` accepts, and whose dtype and head dim
+the kernels were built for (``flash.kernel_built``), ``causal_attention``
+calls the fused flash kernel (``hadoop_tpu_torch.ops.flash``) instead. This
 mirrors the reference's TPU branch (``hadoop_tpu/ops/attention.py``,
 the ``jax.default_backend()`` test) on the CUDA backend; note that the
 reference excludes ``"gpu"`` there, so on a GPU the JAX package never
@@ -37,6 +38,14 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         b, s, h * n_rep, d)
 
 
+def _kernel_takes(q, k, v) -> bool:
+    """Whether a flash kernel was built for q's dtype and head dim, with
+    k and v of the same dtype: "auto" asks this beside the reference's
+    shape predicates, which accept any dtype and any D % 64 == 0."""
+    return (k.dtype == q.dtype == v.dtype
+            and flash.kernel_built(q.dtype, q.shape[-1]))
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: Optional[float] = None,
                      q_offset: Union[int, torch.Tensor] = 0,
@@ -49,7 +58,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the first query/key token. Returns [B, Sq, Hq, D].
 
     ``impl``: "auto" takes the flash kernel for CUDA tensors whose shapes
-    qualify and the plain path otherwise; "flash"/"ref" force.
+    qualify (``flash.supported``) and whose dtype and head dim it was
+    built for (``flash.kernel_built``), and the plain path otherwise;
+    "flash"/"ref" force ("flash" raises on what the kernel does not
+    take).
     """
     if impl not in ("auto", "flash", "ref"):
         raise ValueError(f"impl={impl!r} (choices: auto, flash, ref)")
@@ -61,7 +73,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"q_offset={q_offset} kv_offset={kv_offset} "
                 "(offsets must be static 0)")
         return flash.flash_attention(q, k, v, scale)
-    if impl == "auto" and q.is_cuda and \
+    if impl == "auto" and q.is_cuda and _kernel_takes(q, k, v) and \
             flash.supported(q.shape, k.shape, q_offset, kv_offset):
         return flash.flash_attention(q, k, v, scale)
     b, sq, hq, d = q.shape

@@ -42,8 +42,6 @@ later slice).
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -58,7 +56,6 @@ launches = 0                            # forward kernel launches
 launches_bwd_dq = 0                     # dQ kernel launches
 launches_bwd_dkv = 0                    # dK/dV kernel launches
 launches_partial = 0                    # non-causal partial launches
-_fns = {}
 
 
 def _pick_block(seq: int, preferred: int) -> int:
@@ -82,6 +79,15 @@ def supported(q_shape, k_shape, q_offset, kv_offset) -> bool:
         return False
     # Lane-dim friendliness + at least one full min-tile of rows.
     return d % 64 == 0 and sq % 128 == 0 and sq >= 128
+
+
+def kernel_built(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the kernels were built for this dtype and head dim.
+    ``supported`` and ``partial_supported`` are the reference's shape
+    predicates and accept any dtype and any D % 64 == 0; the "auto"
+    dispatchers ask this too, so what no kernel takes goes to the plain
+    path instead of raising."""
+    return dtype in _DTYPES and head_dim in _HEAD_DIMS
 
 
 def partial_supported(q_shape, k_shape) -> bool:
@@ -179,55 +185,6 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, scale: float
 
 # ------------------------------------------------------------ the kernels
 
-# Each C entry returning int, by its arguments in order: tensor pointers,
-# ints, floats (the scale), the stream.
-# (library, pointer args, int args, float args, stream)
-_SIGNATURES = {
-    "htpu_flash_fwd": ("flash_fwd", 5, 6, 1, True),
-    "htpu_flash_fwd_partial": ("flash_fwd", 5, 7, 1, True),
-    "htpu_flash_bwd_dq": ("flash_bwd", 8, 6, 1, True),
-    "htpu_flash_bwd_dkv": ("flash_bwd", 8, 6, 1, True),
-    "htpu_flash_fwd_smem": ("flash_fwd", 0, 2, 0, False),   # (D, dtype)
-    "htpu_flash_bwd_smem": ("flash_bwd", 0, 2, 0, False),   # (D, dtype)
-}
-_ERR_TENSOR_MAP = -2        # the driver refused a TMA descriptor
-
-
-def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        lib, n_ptr, n_int, n_float, stream = _SIGNATURES[name]
-        fn = getattr(_build.load(lib), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float
-                       + [ctypes.c_void_p] * stream)
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
-
-
-def _call(name: str, *args) -> None:
-    """Launch on the current stream of args[0]'s device; raise on error."""
-    index = args[0].device.index
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    switch = torch.cuda.current_device() != index
-    with torch.cuda.device(index) if switch else contextlib.nullcontext():
-        err = _kernel(name)(*ptrs, torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        if err == _ERR_TENSOR_MAP:
-            why = ("cuTensorMapEncodeTiled refused a TMA descriptor (a "
-                   "base address not 16-byte aligned?)")
-        elif err < 0:
-            why = "head dim or dtype the kernel was not built for"
-        else:
-            lib = _build.load(_SIGNATURES[name][0])
-            lib.htpu_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.htpu_cuda_error_string.restype = ctypes.c_char_p
-            why = lib.htpu_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed ({err}): {why}")
-
-
 def _check(q, k, v, *like_q, partial: bool = False):
     """Raise on anything the kernels do not take; ``like_q`` are tensors
     of q's shape and dtype (o, do). ``partial``: the shapes of the
@@ -266,7 +223,8 @@ def _launch(q, k, v, scale: float):
     b, s, hq, _, _, _ = _dims(q, k)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    _call("htpu_flash_fwd", q, k, v, o, lse, *_dims(q, k), float(scale))
+    _build.launch("htpu_flash_fwd", q, k, v, o, lse, *_dims(q, k),
+                  float(scale))
     launches += 1
     return o, lse
 
@@ -279,8 +237,9 @@ def _launch_partial(q, k, v, scale: float):
     b, sq, hq, d = q.shape
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    _call("htpu_flash_fwd_partial", q, k, v, o, lse, b, sq, k.shape[1], hq,
-          k.shape[2], d, _DTYPES[q.dtype], float(scale))
+    _build.launch("htpu_flash_fwd_partial", q, k, v, o, lse, b, sq,
+                  k.shape[1], hq, k.shape[2], d, _DTYPES[q.dtype],
+                  float(scale))
     launches_partial += 1
     return o, lse
 
@@ -303,8 +262,8 @@ def _launch_bwd_dq(q, k, v, o, lse, do, scale: float):
     b, s, hq, _, _, _ = _dims(q, k)
     dq = torch.empty_like(q)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    _call("htpu_flash_bwd_dq", q, k, v, o, lse, do, dq, delta,
-          *_dims(q, k), float(scale))
+    _build.launch("htpu_flash_bwd_dq", q, k, v, o, lse, do, dq, delta,
+                  *_dims(q, k), float(scale))
     launches_bwd_dq += 1
     return dq, delta
 
@@ -317,8 +276,8 @@ def _launch_bwd_dkv(q, k, v, lse, delta, do, scale: float):
     _check_lse(q, delta, "delta")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("htpu_flash_bwd_dkv", q, k, v, lse, delta, do, dk, dv,
-          *_dims(q, k), float(scale))
+    _build.launch("htpu_flash_bwd_dkv", q, k, v, lse, delta, do, dk, dv,
+                  *_dims(q, k), float(scale))
     launches_bwd_dkv += 1
     return dk, dv
 

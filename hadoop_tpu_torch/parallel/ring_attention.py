@@ -24,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from hadoop_tpu_torch.ops import flash
-from hadoop_tpu_torch.ops.attention import (_repeat_kv, chunk_attention,
-                                            merge_attention)
+from hadoop_tpu_torch.ops.attention import (_kernel_takes, _repeat_kv,
+                                            chunk_attention, merge_attention)
 
 
 def _hop(x: torch.Tensor, ring_size: int) -> torch.Tensor:
@@ -47,9 +47,10 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a later rank is entirely in this rank's future, so its lse is forced
     to -inf, the merge identity: the same shape every step). "ref" runs
     the chunk/merge path on absolute positions. "auto" takes "flash" for
-    CUDA tensors whose shapes ``flash.partial_supported`` accepts (the
-    reference's predicate excludes GPUs; this port's kernels are for
-    one) and "ref" otherwise.
+    CUDA tensors whose shapes ``flash.partial_supported`` accepts and
+    whose dtype and head dim the kernels were built for
+    (``flash.kernel_built``; the reference's predicate excludes GPUs,
+    this port's kernels are for one) and "ref" otherwise.
     """
     if impl not in ("auto", "flash", "ref"):
         raise ValueError(f"impl={impl!r} (choices: auto, flash, ref)")
@@ -61,7 +62,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # rank of each row
     my = torch.arange(ring_size, device=q.device).repeat_interleave(b)
     use_flash = impl == "flash" or (
-        impl == "auto" and q.is_cuda
+        impl == "auto" and q.is_cuda and _kernel_takes(q, k, v)
         and flash.partial_supported(q.shape, k.shape))
 
     if use_flash:

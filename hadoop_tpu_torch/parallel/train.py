@@ -5,7 +5,10 @@ and ``init_sharded`` for ``MeshPlan()``: forward through the decoder
 (``remat`` as there), the chunked LM-head cross-entropy, the backward —
 through the flash-attention backward kernels on a CUDA device — and an
 AdamW (or plain SGD) update. PyTorch runs it eagerly; the step updates
-the parameters and the optimizer state in place. Plans of more than one
+the parameters and the optimizer state in place. Its four parts run under
+``torch.profiler.record_function`` ranges ("forward", "loss",
+"backward", "optimizer"), which a profile shows beside the kernels
+(``tools/profile_flagship.py --train``). Plans of more than one
 device, ZeRO-1 and microbatching come with the multi-GPU slice.
 """
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
@@ -72,23 +76,27 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
         # requires_grad flag, and the update below writes their storage
         alias = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
-            h = forward_hidden(alias, tokens, cfg, attn_impl, remat)
-            loss = _loss_from_h(alias, h, targets, cfg)
+            with record_function("forward"):
+                h = forward_hidden(alias, tokens, cfg, attn_impl, remat)
+            with record_function("loss"):
+                loss = _loss_from_h(alias, h, targets, cfg)
             leaves = tree_leaves(alias)
-            flat = torch.autograd.grad(loss, leaves)
+            with record_function("backward"):
+                flat = torch.autograd.grad(loss, leaves)
         grad_of = {id(a): g for a, g in zip(leaves, flat)}
         grads = tree_map(lambda a: grad_of[id(a)], alias)
-        gsq = grad_sq(grads)
-        if optimizer == "sgd":
-            with torch.no_grad():
-                tree_map(lambda p, g: p.copy_(p.float() - lr * g.float()),
-                         params, grads)
-            opt_state = AdamWState(opt_state.count + 1, opt_state.mu,
-                                   opt_state.nu)
-            gnorm = torch.sqrt(gsq)
-        else:
-            params, opt_state, gnorm = adamw_update(params, grads, opt_state,
-                                                    lr, gsq=gsq)
+        with record_function("optimizer"):
+            gsq = grad_sq(grads)
+            if optimizer == "sgd":
+                with torch.no_grad():
+                    tree_map(lambda p, g: p.copy_(p.float() - lr * g.float()),
+                             params, grads)
+                opt_state = AdamWState(opt_state.count + 1, opt_state.mu,
+                                       opt_state.nu)
+                gnorm = torch.sqrt(gsq)
+            else:
+                params, opt_state, gnorm = adamw_update(
+                    params, grads, opt_state, lr, gsq=gsq)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return step

@@ -32,8 +32,19 @@ keeping its semantics:
   seeded with the step count, the counterpart of the JAX engine's
   carried per-step PRNG seed.
 
-The step runs eagerly; attention in it is torch ops (the reference's is
-plain jnp too) — the flash kernel does not take paged, offset rows.
+- **Two CUDA graphs.** The reference compiles each step shape once; on a
+  CUDA device the port captures each once as a ``torch.cuda.CUDAGraph``
+  and replays it, so a step is one graph launch instead of some 1300
+  kernel launches from the host. The step reads only device tensors that
+  live as long as the engine (the step state, written in place, and one
+  static buffer for the chunk's tokens, slot, start and length), and the
+  sampler's generator is registered with each graph, so a replay draws
+  what the eager step draws from the same seed. The first step of each
+  shape runs eagerly (its warm-up) and is then captured; a capture that
+  fails raises. On the CPU the step runs eagerly.
+
+Attention in the step is torch ops (the reference's is plain jnp too) —
+the flash kernel does not take paged, offset rows.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
 speculation, the host/DFS KV tiers, the int8 weight plane, MoE, the
@@ -56,7 +67,7 @@ import torch
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
-from hadoop_tpu_torch.models.decoder import _norm, head_matrix
+from hadoop_tpu_torch.models.decoder import _norm, head_matrix, layer_slices
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
 from hadoop_tpu_torch.serving.kvstore import BlockPool, PrefixCache
 
@@ -215,9 +226,12 @@ class DecodeEngine:
             num_blocks = max_batch * self.blocks_per_seq + 1
         self.pool = BlockPool(num_blocks, block_size)
         self.prefix_cache = PrefixCache(block_size) if prefix_cache else None
-        self._pool_shape = (cfg.n_layers, num_blocks, block_size,
-                            cfg.n_kv_heads, cfg.head_dim)
-        self._kp, self._vp = self._fresh_kv_pools()
+        pool_shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+                      cfg.head_dim)
+        self._kp = torch.zeros(pool_shape, dtype=cfg.torch_dtype,
+                               device=self.device)
+        self._vp = torch.zeros_like(self._kp)
+        self._layers = layer_slices(params["layers"], cfg.n_layers)
         self._cos, self._sin = (rope_frequencies(
             cfg.head_dim, cfg.max_seq, cfg.rope_theta, device=self.device)
             if cfg.use_rope else (None, None))
@@ -231,6 +245,13 @@ class DecodeEngine:
         self._active = np.zeros((max_batch,), bool)
         self._slots: List[Optional[GenRequest]] = [None] * max_batch
         self._dstate = self._fresh_dstate()
+        # the fused step's chunk: tokens [C], then slot, start and n_valid
+        self._chunk_in = torch.zeros(self.prefill_chunk + 3,
+                                     dtype=torch.int64, device=self.device)
+        # per shape (fused or not): the captured graph and its output
+        self._graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
+        self._graph_out: Dict[bool, torch.Tensor] = {}
+        self._graph_stream = None
 
         self._pending: deque = deque()          # guarded-by: _cond
         self._admit_counter = itertools.count()
@@ -268,30 +289,33 @@ class DecodeEngine:
         return gelu(x @ lp["w_in"] + lp["b_in"]) @ lp["w_out"] + lp["b_out"]
 
     @torch.no_grad()
-    def _step_impl(self, chunk):
-        """One step over the decode lanes plus, when ``chunk`` is given as
-        ``(tokens [C] on the device, slot, start, n_valid)``, one prompt
-        chunk. Scatter-all-then-gather makes earlier rows' K/V visible to
-        later positions in the same step; the mask ``kpos <= pos`` does
-        the rest. Returns ``(packed [B, 4], chunk_first_token or None)``
-        as device tensors."""
+    def _step_impl(self, fused: bool) -> torch.Tensor:
+        """One step over the decode lanes plus, when ``fused``, one prompt
+        chunk, read from ``_chunk_in``. Scatter-all-then-gather makes
+        earlier rows' K/V visible to later positions in the same step; the
+        mask ``kpos <= pos`` does the rest. Returns the packed readback,
+        flat int64: per lane token | emit count | finished | accept length
+        ([B * 4]), then, when fused, the chunk's first sampled token. It
+        reads only tensors that live as long as the engine and writes the
+        step state in place, so one call can be captured as a CUDA graph."""
         cfg, st = self.cfg, self._dstate
         B = self.max_batch
         tokens, positions = st["last"], st["positions"]
         active, tables = st["active"], st["tables"]
         temps, topks = st["temps"], st["topks"]
-        if chunk is not None:
-            c_tok, c_slot, c_start, c_n = chunk
+        if fused:
             C = self.prefill_chunk
+            c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
+            c_start, c_n = self._chunk_in[C + 1:C + 2], self._chunk_in[C + 2:]
             cj = torch.arange(C, device=self.device)
             tokens = torch.cat([tokens, c_tok])
             positions = torch.cat([positions, c_start + cj])
             active = torch.cat([active, cj < c_n])
-            tables = torch.cat([tables, tables[c_slot].expand(C, -1)])
-            temps = torch.cat([temps, temps[c_slot].expand(C)])
-            topks = torch.cat([topks, topks[c_slot].expand(C)])
+            tables = torch.cat([tables,
+                                tables.index_select(0, c_slot).expand(C, -1)])
+            temps = torch.cat([temps, temps.index_select(0, c_slot).expand(C)])
+            topks = torch.cat([topks, topks.index_select(0, c_slot).expand(C)])
         t = tokens.shape[0]
-        self._row_counts["decode" if chunk is None else "fused"].add(t)
         pos = torch.clamp(positions, max=self.s_max - 1)
 
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -307,8 +331,7 @@ class DecodeEngine:
         visible = torch.arange(self.s_max, device=self.device)[None, :] \
             <= pos[:, None]                                  # [t, S_max]
 
-        for li in range(cfg.n_layers):
-            lp = {name: w[li] for name, w in params["layers"].items()}
+        for li, lp in enumerate(self._layers):
             kc, vc = self._kp[li], self._vp[li]
             x = _norm(h, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg)
             q = (x @ lp["wq"]).reshape(t, hq, dh)
@@ -335,10 +358,8 @@ class DecodeEngine:
         h = _norm(h, params["final_norm_w"], params.get("final_norm_b"), cfg)
         logits = (h @ head_matrix(params, cfg, h.dtype)).float()
 
-        self._gen.manual_seed(self.steps)
         sampled = _sample(logits, temps, topks, self._gen)
         out = sampled[:B]
-        c_first = sampled[B + c_n - 1] if chunk is not None else None
 
         # on-device stop-condition scan: budget clamp, stop_token, lane
         # retirement — the host reads the verdict, it does not compute it
@@ -348,13 +369,61 @@ class DecodeEngine:
         n_emit = torch.where(act, n_emit, torch.zeros_like(n_emit))
         stop_hit = (stopt >= 0) & (out == stopt) & (n_emit > 0)
         finished = act & ((outc + n_emit >= maxn) | stop_hit)
-        st["last"] = torch.where(act, out, st["last"])
-        st["positions"] = st["positions"] + n_emit
-        st["outc"] = outc + n_emit
-        st["active"] = act & ~finished
+        last = torch.where(act, out, st["last"])
+        still = act & ~finished
         packed = torch.stack([out, n_emit, finished.long(),
-                              torch.zeros_like(out)], dim=1)  # [B, 4]
-        return packed, c_first
+                              torch.zeros_like(out)], dim=1).flatten()
+        st["last"].copy_(last)
+        st["positions"].add_(n_emit)
+        st["outc"].add_(n_emit)
+        st["active"].copy_(still)
+        if fused:
+            packed = torch.cat([packed, sampled.index_select(0, B - 1 + c_n)])
+        return packed
+
+    def _step_eager(self, fused: bool) -> torch.Tensor:
+        """The step run op by op, on any device: what a replay of its
+        graph computes. The sampler's generator is seeded with the step
+        count, the counterpart of the JAX engine's per-step seed."""
+        self._gen.manual_seed(self.steps)
+        return self._step_impl(fused)
+
+    def _launch_step(self, fused: bool) -> torch.Tensor:
+        """The step of this shape: on a CUDA device a replay of its graph
+        (captured at the shape's first step), else eager."""
+        if self.device.type != "cuda":
+            return self._step_eager(fused)
+        with torch.cuda.device(self.device):
+            graph = self._graphs.get(fused)
+            if graph is None:
+                return self._capture(fused)
+            self._gen.manual_seed(self.steps)
+            graph.replay()
+            return self._graph_out[fused]
+
+    def _capture(self, fused: bool) -> torch.Tensor:
+        """Run this shape's step for real, eagerly, on the capture stream
+        (the warm-up: cuBLAS and the allocator settle there), then capture
+        the same step as a CUDA graph, which records and does not run.
+        Returns the eager step's output; a failed capture raises."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        side, main = self._graph_stream, torch.cuda.current_stream(
+            self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._step_eager(fused)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        # thread_local: other threads (the caller's, a door's) may use the
+        # device while the scheduler thread captures
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            static_out = self._step_impl(fused)
+        self._graphs[fused] = graph
+        self._graph_out[fused] = static_out
+        return out
 
     # -------------------------------------------------------- public face
 
@@ -542,11 +611,13 @@ class DecodeEngine:
         with self._cond:
             self._pending.appendleft(victim)
 
-    def _fresh_kv_pools(self):
-        """Zeroed paged K/V pools (construction and failed-step recovery)."""
-        kp = torch.zeros(self._pool_shape, dtype=self.cfg.torch_dtype,
-                         device=self.device)
-        return kp, torch.zeros_like(kp)
+    def _reset_device_state(self) -> None:
+        """Zero the K/V pools and clear every lane of the step state, in
+        place: the captured graphs go on reading the same tensors."""
+        self._kp.zero_()
+        self._vp.zero_()
+        for name, value in self._fresh_dstate().items():
+            self._dstate[name].copy_(value)
 
     def _fresh_dstate(self) -> dict:
         """Zeroed device-resident step state, every lane cleared."""
@@ -630,21 +701,20 @@ class DecodeEngine:
         if pre is None and not self._active.any():
             return 0
         n_valid = 0
-        if pre is None:
-            packed, c_first = self._step_impl(None)
-        else:
+        fused = pre is not None
+        B = self.max_batch
+        if fused:
             c = self.prefill_chunk
             start = pre._prefill_pos
             n_valid = min(c, len(pre._ctx) - start)
-            c_tokens = np.zeros((c,), np.int64)
-            c_tokens[:n_valid] = pre._ctx[start:start + n_valid]
-            chunk = (torch.from_numpy(c_tokens).to(self.device), pre._slot,
-                     start, n_valid)
-            packed, c_first = self._step_impl(chunk)
-            packed = torch.cat([packed.flatten(), c_first[None]])
+            chunk = np.zeros((c + 3,), np.int64)
+            chunk[:n_valid] = pre._ctx[start:start + n_valid]
+            chunk[c:] = (pre._slot, start, n_valid)
+            self._chunk_in.copy_(torch.from_numpy(chunk))
+        self._row_counts["fused" if fused else "decode"].add(
+            B + self.prefill_chunk if fused else B)
         # the ONE device→host read of the step
-        flat = packed.flatten().cpu().numpy()
-        B = self.max_batch
+        flat = self._launch_step(fused).cpu().numpy()
         packed = flat[:B * 4].reshape(B, 4)
         self.steps += 1
         emitted = 0
@@ -787,8 +857,7 @@ class DecodeEngine:
                     # the failed step may have left the pools and lane
                     # state half written: rebuild them before the
                     # release path writes lane-clear events
-                    self._dstate = self._fresh_dstate()
-                    self._kp, self._vp = self._fresh_kv_pools()
+                    self._reset_device_state()
                     for req in [r for r in self._slots if r]:
                         self._release_slot(req)
                         self._finish_request(req, FAILED,

@@ -15,7 +15,7 @@ shape. The forward's shapes are its causal and partial main-path shapes;
 the backward's the flagship training shape, where the dQ kernel (with
 its delta) and the dK/dV kernel are timed apart, both dK/dV runs reading
 the checkout's delta. The other copy must have the C entries of
-``flash._SIGNATURES`` that it is called through: a copy of the sources
+``_build.SIGNATURES`` that it is called through: a copy of the sources
 from an earlier commit serves, e.g. ``git show
 <commit>:hadoop_tpu_torch/ops/csrc/flash_bwd.cu > DIR/flash_bwd.cu``.
 Needs a CUDA device.
@@ -49,7 +49,7 @@ BWD_SHAPES = [(4, 2048, 16, 8, 128)]
 
 
 def build_other(csrc: Path, lib: str):
-    """The other copy's entries of ``lib``, bound as ``flash._kernel``
+    """The other copy's entries of ``lib``, bound as ``_build.entry``
     binds them."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / f"lib{lib}-ab-other.so"
@@ -63,16 +63,8 @@ def build_other(csrc: Path, lib: str):
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed for the other copy")
     so = ctypes.CDLL(str(out))
-    fns = {}
-    for name in ENTRIES[lib]:
-        _, n_ptr, n_int, n_float, stream = flash._SIGNATURES[name]
-        fn = getattr(so, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float] * n_float
-                       + [ctypes.c_void_p] * stream)
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+    return {name: _build.bind(getattr(so, name), name)
+            for name in ENTRIES[lib]}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -95,10 +87,10 @@ def compare(kind, shape, call, mine, other):
     times = {"this": [], "other": []}
     outs = {}
     for side in ("other", "this", "this", "other"):
-        flash._fns.update(other if side == "other" else mine)
+        _build.entries.update(other if side == "other" else mine)
         outs[side] = call()
         times[side].append(cuda_ms(call))
-    flash._fns.update(mine)
+    _build.entries.update(mine)
     pairs = list(zip(outs["this"], outs["other"]))
     print(json.dumps({
         "kind": kind, "shape": list(shape),
@@ -160,8 +152,8 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip(), flush=True)
     lib = "flash_bwd" if args.backward else "flash_fwd"
     for name in ENTRIES[lib]:
-        flash._kernel(name)                   # this checkout's build
-    mine = {name: flash._fns[name] for name in ENTRIES[lib]}
+        _build.entry(name)                    # this checkout's build
+    mine = {name: _build.entries[name] for name in ENTRIES[lib]}
     other = build_other(args.other, lib)
     gen = torch.Generator(device="cuda").manual_seed(0)
 

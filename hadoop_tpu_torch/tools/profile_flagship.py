@@ -5,17 +5,25 @@ training steps, and the llama3-8b context-parallel prefill.
 
 Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
 [1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
-running lanes (block 16, context 1024); with ``--train`` instead, three
-flagship-1b training steps at ``chip_smoke.py``'s configuration (bf16,
-batch 4, seq 2048, full remat, AdamW); with ``--longctx`` instead, one
-``ContextParallelPrefiller.cp_prefill`` of an 8192-token prompt on
+running lanes (block 16, context 1024), as the engine runs them (each a
+replay of its CUDA graph) and then op by op (the engine's eager twin);
+with ``--train`` instead, three flagship-1b training steps at
+``chip_smoke.py``'s configuration (bf16, batch 4, seq 2048, full remat,
+AdamW), with each step's device time split by the step's own
+``record_function`` ranges (forward, loss, optimizer; the backward runs
+on autograd's thread, so it is split by autograd node) and the kernels
+that took the most of each; with ``--longctx`` instead,
+one ``ContextParallelPrefiller.cp_prefill`` of an 8192-token prompt on
 llama3-8b (bf16, full width and depth, sp 4 ranks on the one card, block
 16), after one untraced prefill. For each it prints one JSON line:
 host wall time per call, the summed device time of the CUDA kernels per
-call, the device's idle share (1 - device / wall), the kernels that
-took the most device time and every flash kernel with its launches per
-call. Weights are random from a fixed seed. Needs a
-CUDA device.
+call, the device's idle share (1 - device / wall), the kernels the
+device ran and the runtime-API launch calls the host made per call (a
+graph replay is one launch call for all of its kernels; cuBLAS launches
+through the driver API, which the trace does not list), the kernels
+that took the most device time and every flash kernel with its launches
+per call.
+Weights are random from a fixed seed. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,7 +44,62 @@ from hadoop_tpu_torch.ops import flash
 from hadoop_tpu_torch.serving.longctx import ContextParallelPrefiller
 
 
-def _trace(fn, calls: int, label: str) -> None:
+# the runtime calls by which the host starts work on the device
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cuGraphLaunch")
+TRAIN_RANGES = ("forward", "loss", "backward", "optimizer")
+
+
+def _kernels_under(evt):
+    """Every device kernel launched under a profiled CPU event."""
+    found = list(evt.kernels)
+    for child in evt.cpu_children:
+        found += _kernels_under(child)
+    return found
+
+
+_NODE = "autograd::engine::evaluate_function: "
+
+
+def _tally(groups, calls: int, n: int):
+    """The ``n`` groups of kernels [(name, kernels)] with the most device
+    time: ms and kernel count per call."""
+    rows = [(name, sum(k.duration for k in ks) / 1e3 / calls,
+             len(ks) // calls) for name, ks in groups]
+    return [{"name": name[:80], "ms": ms, "count": count}
+            for name, ms, count in sorted(rows, key=lambda r: -r[1])[:n]]
+
+
+def _by_range(prof, averages, names, calls: int):
+    """Per ``record_function`` range of ``names``: its span on the device
+    (ms per call, kineto's device-side copy of the range), and the
+    kernels of the ops run under it on the calling thread, by kernel.
+    The backward's ops run on autograd's device thread, outside the
+    caller's range: they are tallied by autograd node, with the kernels
+    each node's evaluation launched (the recomputed forward included)."""
+    out = {name: {"device_span_ms": sum(
+        e.self_device_time_total for e in averages
+        if e.device_type == DeviceType.CUDA and e.key == name) / 1e3 / calls}
+        for name in names}
+    for name in names:
+        kernels = [k for e in prof.events() if e.name == name
+                   for k in _kernels_under(e)]
+        by_kernel = {}
+        for k in kernels:
+            by_kernel.setdefault(k.name, []).append(k)
+        out[name]["aten_kernels"] = _tally(by_kernel.items(), calls, 6)
+    by_node = {}
+    for e in prof.events():
+        if e.name.startswith(_NODE):
+            by_node.setdefault(e.name[len(_NODE):], []).extend(
+                _kernels_under(e))
+    out["backward_by_autograd_node"] = _tally(by_node.items(), calls, 12)
+    return out
+
+
+def trace(fn, calls: int, label: str, ranges=()) -> dict:
+    """Profile ``calls`` calls of ``fn`` after one untraced call; print
+    and return the JSON record described in the module docstring."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -46,8 +109,11 @@ def _trace(fn, calls: int, label: str) -> None:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    # device-side copies of record_function ranges are spans, not kernels
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in ranges]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     wall_ms = wall * 1e3 / calls
@@ -57,14 +123,21 @@ def _trace(fn, calls: int, label: str) -> None:
         return [{"kernel": e.key[:80], "ms": e.self_device_time_total
                  / 1e3 / calls, "count": e.count // calls} for e in events]
 
-    print(json.dumps({
+    record = {
         "profile": label, "calls": calls, "wall_ms": wall_ms,
         "device_ms": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "kernel_launches": sum(e.count for e in kernels) // calls,
+        "host_launch_calls": sum(
+            e.count for e in averages if e.device_type == DeviceType.CPU
+            and e.key.startswith(_LAUNCH_CALLS)) // calls,
         "top": rows(top),
         "flash": rows(e for e in kernels if "flash" in e.key),
-    }), flush=True)
+    }
+    if ranges:
+        record["ranges"] = _by_range(prof, averages, ranges, calls)
+    print(json.dumps(record), flush=True)
+    return record
 
 
 def _train(cfg, gen) -> None:
@@ -79,7 +152,8 @@ def _train(cfg, gen) -> None:
         state["params"], state["opt"], _ = step(state["params"],
                                                 state["opt"], tokens, targets)
 
-    _trace(one, 3, "train step flagship-1b bf16 [4,2048] remat full adamw")
+    trace(one, 3, "train step flagship-1b bf16 [4,2048] remat full adamw",
+          TRAIN_RANGES)
 
 
 def _longctx(gen) -> None:
@@ -90,7 +164,7 @@ def _longctx(gen) -> None:
     pre = ContextParallelPrefiller(params, cfg, block_size=16,
                                    pad_tokens=cfg.max_seq, sp=4)
     flash.launches = flash.launches_partial = 0
-    _trace(lambda: pre.cp_prefill(prompt), 1,
+    trace(lambda: pre.cp_prefill(prompt), 1,
            "cp_prefill llama3-8b bf16 8192 tokens sp 4 block 16")
     # the warm-up and the traced call: two prefills
     print(json.dumps({"flash_launches_per_prefill": {
@@ -123,21 +197,34 @@ def main(argv=None) -> int:
     tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
                            device="cuda")
     with torch.no_grad():
-        _trace(lambda: forward(params, tokens, cfg), 3,
-               "forward flagship-1b bf16 [1,512]")
-
-    eng = DecodeEngine(params, cfg, max_batch=4, block_size=16,
-                       max_context=1024, prefill_chunk=64)
+        trace(lambda: forward(params, tokens, cfg), 3,
+              "forward flagship-1b bf16 [1,512]")
     prompts = torch.randint(0, cfg.vocab_size, (4, 100),
                             generator=gen, device="cuda").tolist()
+    for graphs in (True, False):
+        eng = decoding_engine(params, cfg, prompts, graphs)
+        trace(eng.step, 10, "engine decode step flagship-1b bf16, 4 lanes, "
+              + ("CUDA graph" if graphs else "eager"))
+        del eng
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+def decoding_engine(params, cfg, prompts, graphs: bool = True):
+    """A flagship-1b ``DecodeEngine`` (4 lanes, block 16, context 1024,
+    chunk 64) with every prompt prefilled and its lane decoding, budget
+    200 tokens each; ``graphs=False`` steps through the engine's eager
+    twin instead of its CUDA graphs."""
+    eng = DecodeEngine(params, cfg, max_batch=4, block_size=16,
+                       max_context=1024, prefill_chunk=64)
+    if not graphs:
+        eng._launch_step = eng._step_eager
     reqs = [eng.submit(p, SamplingParams(max_new_tokens=200))
             for p in prompts]
     while any(r._prefill_pos is not None or r.state == "QUEUED"
               for r in reqs):
         eng.step()                       # every lane decoding from here
-    _trace(eng.step, 10, "engine decode step flagship-1b bf16, 4 lanes")
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
-    return 0
+    return eng
 
 
 if __name__ == "__main__":

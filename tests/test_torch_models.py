@@ -24,6 +24,7 @@ from hadoop_tpu.models import decoder as jdecoder
 from hadoop_tpu_torch import DecodeEngine
 from hadoop_tpu_torch.models import config, params_from_numpy
 from hadoop_tpu_torch.models import decoder
+from hadoop_tpu_torch.ops import rope_frequencies
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -141,6 +142,85 @@ def test_causality():
     assert not torch.allclose(logits_a[0, 10:], logits_b[0, 10:])
 
 
+def _run_layers_sliced(x, layers, cfg, cos, sin, attn_impl="auto",
+                       remat=False):
+    """The layer loop as it was before ``layer_slices``: ``w[i]`` of each
+    stacked leaf in each layer."""
+    body = decoder._layer_fn(remat)
+    for i in range(cfg.n_layers):
+        x = body(x, {name: w[i] for name, w in layers.items()}, cfg, cos,
+                 sin, attn_impl)
+    return x
+
+
+def _layer_grads(run, params, tokens, cfg, remat):
+    """The layer stack's output and the gradients of its stacked leaves,
+    through ``run``."""
+    leaves = {name: w.detach().requires_grad_()
+              for name, w in params["layers"].items()}
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta)
+    h = decoder.embed_tokens(params, tokens, cfg)
+    out = run(h, leaves, cfg, cos, sin, "auto", remat)
+    loss = out.float().square().mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return out, dict(zip(leaves, grads)), leaves, loss
+
+
+@pytest.mark.parametrize("remat", [False, "full", "dots"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unbound_layers_give_the_gradients_of_per_layer_slices(dtype,
+                                                               remat):
+    """Each stacked leaf unbound once gives the same output and the same
+    gradients, value for value, as ``w[i]`` taken in each layer: every
+    gradient element has one non-zero term either way, and the terms the
+    per-layer slices add are exact zeros."""
+    cfg = config.get_config("tiny", dtype=dtype)
+    params = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 16)))
+    out, grads, _, _ = _layer_grads(decoder.run_layers, params, tokens, cfg,
+                                    remat)
+    want_out, want, _, _ = _layer_grads(_run_layers_sliced, params, tokens,
+                                        cfg, remat)
+    assert torch.equal(out, want_out)
+    for name, g in grads.items():
+        assert g.dtype == cfg.torch_dtype
+        assert torch.equal(g, want[name]), name
+
+
+def test_no_select_backward_on_a_stacked_leaf():
+    """Without remat, the only node that feeds a stacked leaf's gradient
+    is one ``UnbindBackward0`` (a single stack of its layers' slices), not
+    one ``SelectBackward0`` per layer, each a zero-filled full-size
+    gradient to add up."""
+    cfg = config.get_config("tiny")
+    params = decoder.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 16)))
+    _, _, leaves, loss = _layer_grads(decoder.run_layers, params, tokens,
+                                      cfg, False)
+    feeders = {name: [] for name in leaves}
+    seen, todo = set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is None:
+                continue
+            if nxt.name() == "torch::autograd::AccumulateGrad":
+                for name, w in leaves.items():
+                    if nxt.variable is w:
+                        feeders[name].append(node.name())
+            todo.append(nxt)
+    assert feeders == {name: ["UnbindBackward0"] for name in leaves}
+    with pytest.raises(ValueError, match="layers"):
+        decoder.layer_slices(params["layers"], cfg.n_layers + 1)
+
+
 def test_entry_points_refuse_a_missing_gpu():
     """Without CUDA and without device="cpu", every entry point raises;
     and parameters on another device than the one asked for are refused."""
@@ -200,6 +280,7 @@ def test_port_sources_name_no_jax():
         (REPO / "hadoop_tpu_torch").rglob("*.cuh")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for new in ("ops/csrc/flash_bwd.cu", "ops/csrc/sm90.cuh",
+                "ops/csrc/adamw.cu",
                 "ops/csrc/flash_fwd_sm90.cuh", "ops/cross_entropy.py",
                 "parallel/mesh.py", "parallel/optimizer.py",
                 "parallel/train.py", "parallel/ring_attention.py",

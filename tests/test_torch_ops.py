@@ -230,6 +230,85 @@ def test_causal_attention_dispatch():
         attention.causal_attention(q, k, k, q_offset=1, impl="flash")
 
 
+def test_kernel_built_is_what_the_kernels_take():
+    """``kernel_built`` holds for the dtypes and head dims the kernels
+    are built for, where ``supported`` (the reference's copy) holds for
+    any dtype and any D % 64 == 0."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128, 192, 256):
+            assert flash.kernel_built(dtype, d)
+        for d in (32, 96, 320, 384, 512):
+            assert not flash.kernel_built(dtype, d)
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        assert not flash.kernel_built(dtype, 128)
+    assert flash.supported((1, 128, 2, 320), (1, 128, 1, 320), 0, 0)
+    assert jflash.supported((1, 128, 2, 320), (1, 128, 1, 320), 0, 0)
+
+
+class _LooksCuda(torch.Tensor):
+    """A CPU tensor whose ``is_cuda`` says True: "auto" decides as it
+    does on the card, and the arithmetic runs on the CPU."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _looks_cuda(seed, shape, dtype):
+    return torch.from_numpy(_randn(seed, *shape)).to(dtype).as_subclass(
+        _LooksCuda)
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.float16, 64, False),      # a float16 config
+    (torch.float32, 320, False),     # D % 64 == 0, but no kernel built
+    (torch.bfloat16, 384, False),
+    (torch.bfloat16, 64, True),      # control: the kernel's own case
+])
+def test_auto_takes_the_plain_path_where_no_kernel_is_built(
+        monkeypatch, dtype, d, kernel):
+    """On a (seemingly) CUDA tensor whose shapes ``supported`` accepts,
+    "auto" calls the flash kernel only for a dtype and head dim it was
+    built for; otherwise it returns the plain path's result, as the
+    reference does off the TPU, where the kernel's checks would raise."""
+    calls = []
+    monkeypatch.setattr(flash, "flash_attention",
+                        lambda *a: calls.append(1) or a[0])
+    q, k, v = (_looks_cuda(80 + i, (1, 128, h, d), dtype)
+               for i, h in enumerate((4, 2, 2)))
+    assert flash.supported(q.shape, k.shape, 0, 0)
+    got = attention.causal_attention(q, k, v)
+    assert len(calls) == int(kernel)
+    if not kernel:
+        plain = attention.causal_attention(
+            *(x.as_subclass(torch.Tensor) for x in (q, k, v)), impl="ref")
+        assert got.dtype == dtype
+        assert torch.equal(got.as_subclass(torch.Tensor), plain)
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.float16, 64, False), (torch.float32, 320, False),
+    (torch.bfloat16, 64, True)])
+def test_ring_auto_takes_the_chunk_path_where_no_kernel_is_built(
+        monkeypatch, dtype, d, kernel):
+    """Ring attention's "auto" asks the same: the fused partial only for
+    a dtype and head dim the kernels were built for."""
+    from hadoop_tpu_torch.parallel import ring_attention as ra
+
+    calls = []
+    partial = flash.flash_attention_partial
+    monkeypatch.setattr(flash, "flash_attention_partial",
+                        lambda *a: calls.append(1) or partial(*a))
+    q, k, v = (_looks_cuda(90 + i, (2, 128, h, d), dtype)
+               for i, h in enumerate((4, 2, 2)))
+    got = ra.ring_attention(q, k, v, 2)
+    assert bool(calls) == kernel
+    if not kernel:
+        plain = ra.ring_attention(
+            *(x.as_subclass(torch.Tensor) for x in (q, k, v)), 2, impl="ref")
+        assert torch.equal(got.as_subclass(torch.Tensor), plain)
+
+
 # --------------------------------------------------------- ring partials
 
 @pytest.mark.parametrize("causal,sq,skv,dtype,tol", [
@@ -411,22 +490,22 @@ def _c_entries():
 
 def test_c_entry_signatures_match_ctypes():
     """ctypes passes arguments by the ``argtypes`` it is given: an entry
-    whose C parameters differ from ``_SIGNATURES`` (a pointer, int, float
+    whose C parameters differ from ``SIGNATURES`` (a pointer, int, float
     or the stream more or fewer, or out of order) would read corrupted
     arguments with no error. Every C entry is held here."""
     entries = _c_entries()
     assert ("flash_fwd", "htpu_flash_fwd_partial") in entries
     seen = set()
     for (lib, name), (ret, kinds) in entries.items():
-        if name == "htpu_cuda_error_string":        # bound in flash._call
+        if name == "htpu_cuda_error_string":        # bound in _build.launch
             assert kinds == ["int"] and "char" in ret, (lib, kinds, ret)
             continue
-        assert name in flash._SIGNATURES, f"{lib}: {name} has no signature"
-        want_lib, n_ptr, n_int, n_float, stream = flash._SIGNATURES[name]
+        assert name in _build.SIGNATURES, f"{lib}: {name} has no signature"
+        want_lib, n_ptr, n_int, n_float, stream = _build.SIGNATURES[name]
         assert ret == "int", (name, ret)
         assert lib == want_lib, (name, lib, want_lib)
         assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
                          + ["float"] * n_float + ["stream"] * stream), \
             (name, kinds)
         seen.add(name)
-    assert seen == set(flash._SIGNATURES)
+    assert seen == set(_build.SIGNATURES)

@@ -208,6 +208,66 @@ def test_step_shapes_stay_two_and_top_k_one_is_greedy():
     assert eng.decode_compiles == 1 and eng.prefill_compiles == 1
 
 
+def _device_tensors(eng):
+    """The tensors a captured step graph reads and writes, with their
+    addresses."""
+    held = dict(eng._dstate, chunk=eng._chunk_in, kp=eng._kp, vp=eng._vp)
+    return {name: (t, t.data_ptr()) for name, t in held.items()}
+
+
+def _assert_same_tensors(eng, held):
+    now = dict(eng._dstate, chunk=eng._chunk_in, kp=eng._kp, vp=eng._vp)
+    for name, (t, ptr) in held.items():
+        assert now[name] is t and t.data_ptr() == ptr, name
+
+
+def test_step_state_is_written_in_place():
+    """The step writes its device state in place and reads its chunk
+    from one static buffer, the tensors a captured CUDA graph goes on
+    reading: the same tensors at the same addresses after every step,
+    decode-only and fused. On the CPU nothing is captured."""
+    _, _, cfg, params, _ = _model("tiny")
+    eng = DecodeEngine(params, cfg, max_batch=2, block_size=4,
+                       max_context=32, prefill_chunk=4, device="cpu")
+    held = _device_tensors(eng)
+    prompts = [[3, 17, 42, 99, 5, 6], [8, 8]]
+    out = eng.generate(prompts, SamplingParams(max_new_tokens=6))
+    assert out == [_reference_greedy("tiny", p, 6) for p in prompts]
+    _assert_same_tensors(eng, held)
+    assert eng.decode_compiles == 1 and eng.prefill_compiles == 1
+    assert eng._graphs == {}
+    assert not bool(eng._dstate["active"].any())      # every lane retired
+
+
+def test_failed_step_resets_the_state_in_place():
+    """A step that raises fails the requests in flight; the pools and the
+    lanes are cleared in place (a captured graph keeps its tensors) and
+    the engine serves the next request exactly."""
+    _, _, cfg, params, _ = _model("tiny")
+    eng = DecodeEngine(params, cfg, max_batch=2, block_size=4,
+                       max_context=32, device="cpu")
+    held = _device_tensors(eng)
+    real, calls = eng._step_impl, []
+
+    def flaky(fused):
+        calls.append(fused)
+        if len(calls) == 2:
+            raise RuntimeError("injected step failure")
+        return real(fused)
+
+    eng._step_impl = flaky
+    eng.start()
+    try:
+        first = eng.submit([3, 17, 42], SamplingParams(max_new_tokens=5))
+        with pytest.raises(RuntimeError, match="injected"):
+            first.wait(60)
+        second = eng.submit([3, 17, 42], SamplingParams(max_new_tokens=5))
+        assert second.wait(60) == _reference_greedy("tiny", [3, 17, 42], 5)
+    finally:
+        eng.stop(drain=True)
+    _assert_same_tensors(eng, held)
+
+
 def test_stop_token_and_submit_rejections():
     _, _, cfg, params, _ = _model("tiny")
     ref = _reference_greedy("tiny", [3, 17, 42], 8)

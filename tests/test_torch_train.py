@@ -26,6 +26,7 @@ from hadoop_tpu_torch import init_train_state, make_train_step
 from hadoop_tpu_torch.models import config, params_from_numpy
 from hadoop_tpu_torch.ops import cross_entropy, flash
 from hadoop_tpu_torch.parallel import MeshPlan, adamw_init, adamw_update
+from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves
 
 BATCH, SEQ = 8, 32
@@ -272,3 +273,42 @@ def test_adamw_update_matches_jax():
         _assert_tree_close(state.mu, jstate.mu, 1e-5)
         _assert_tree_close(state.nu, jstate.nu, 1e-5)
         assert state.count == int(jstate.count) == i + 1
+
+
+def test_adamw_on_cpu_is_the_plain_version_uncounted():
+    """On CPU tensors the update and the norm are their plain versions
+    and count no launch; the kernels' wrappers refuse CPU tensors (never
+    a CPU launch) and what the kernel does not take."""
+    params = {"w": torch.from_numpy(_randn(20, 3, 4)),
+              "b": torch.from_numpy(_randn(21, 4))}
+    grads = {"w": torch.from_numpy(_randn(22, 3, 4)),
+             "b": torch.from_numpy(_randn(23, 4))}
+    state = adamw_init(params)
+    before = (optimizer.launches, optimizer.launches_grad_sq)
+    assert torch.equal(optimizer.grad_sq(grads), optimizer.grad_sq_ref(grads))
+    adamw_update(params, grads, state, 1e-2)
+    assert (optimizer.launches, optimizer.launches_grad_sq) == before
+    p, g = params["w"], grads["w"]
+    m, n = state.mu["w"], state.nu["w"]
+    scale = torch.tensor(1.0)
+    hyper = optimizer._hyper(1, 1e-2, 0.9, 0.95, 1e-8, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        optimizer._launch_adamw(p, g, m, n, scale, hyper, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        optimizer._launch_grad_sq([g])
+    assert list(hyper) == ["b1", "one_minus_b1", "b2", "one_minus_b2",
+                           "bc1", "bc2", "eps", "weight_decay", "lr"]
+
+
+def test_adamw_pieces_are_views_that_cover_each_leaf(monkeypatch):
+    """The kernels count elements in int, so a leaf goes in pieces of at
+    most ``_CHUNK`` elements: views of it, in order, covering it once."""
+    monkeypatch.setattr(optimizer, "_CHUNK", 5)
+    a = torch.arange(12.0).view(3, 4)
+    b = torch.arange(12.0, 24.0).view(4, 3)
+    pieces = list(optimizer._pieces(a, b))
+    assert [len(pa) for pa, _ in pieces] == [5, 5, 2]
+    assert torch.equal(torch.cat([pa for pa, _ in pieces]), a.view(-1))
+    assert torch.equal(torch.cat([pb for _, pb in pieces]), b.view(-1))
+    pieces[1][0][0] = -1.0                          # a view, not a copy
+    assert a.view(-1)[5] == -1.0
