@@ -12,9 +12,12 @@ leaves; bf16 at D 64/128 takes the wgmma kernels, float32 and D 192/256
 the FMA ones); runs ring attention at sp 4 on one device against the
 causal kernel over the whole sequence; trains flagship-1b at
 ``bench.py``'s configuration (bf16, batch 4, seq 2048, full remat,
-AdamW) for 7 steps through ``make_train_step``; runs the flagship-1b
-forward, also in float16 (which no flash kernel takes: "auto" runs the
-plain attention); serves flagship-1b requests through ``DecodeEngine``
+AdamW) for 7 steps through ``make_train_step``, then through
+``Trainer`` over a token file on the local disk (an uninterrupted run,
+and a crashed run resumed from its checkpoint, whose losses must equal
+it), and serves the last checkpoint through ``load_serving_params``;
+runs the flagship-1b forward, also in float16 (which no flash kernel
+takes: "auto" runs the plain attention); serves flagship-1b requests through ``DecodeEngine``
 (each step shape a CUDA graph), holding the graphs' tokens against the
 engine's eager step; checks two float32 SGD steps of the kernel path
 against plain attention and against the layer loop that slices each
@@ -31,7 +34,8 @@ prints one JSON line; the card's name and power limit (as
 last lists every ported kernel with its launches on its main path (the
 forward for ``flash_fwd``, the 7 training steps for the backward
 kernels and ``adamw``/``grad_sq``, one 8192-token llama3-8b CP prefill
-for ``flash_fwd_partial``), its error and its times; the last line is
+for ``flash_fwd_partial``) and on this slice's (``launches_trainer``:
+the trainer phase's 12 steps), its error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -51,10 +55,13 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -66,10 +73,14 @@ import hadoop_tpu_torch.models.decoder as decoder_module
 from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
                                              head_matrix, run_layers_kv)
 from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
-from hadoop_tpu_torch.parallel import MeshPlan, adamw_init
+from hadoop_tpu_torch.fs import LocalFileSystem
+from hadoop_tpu_torch.obs.hbm import hbm_ledger
+from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel import optimizer
+from hadoop_tpu_torch.parallel.checkpoint import list_checkpoints
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.ring_attention import ring_attention
+from hadoop_tpu_torch.serving.loader import load_serving_params
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
                                               run_prefill_ab)
 from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
@@ -202,6 +213,19 @@ FP16_TOL = 2e-2
 PR5_PARITY_LOSSES = [10.879134178161621, 9.858037948608398]
 SERVE_KW = dict(max_batch=4, block_size=16, max_context=1024,
                 prefill_chunk=64)
+# The trainer phase: flagship-1b through Trainer at TRAIN's shape, on the
+# port's LocalFileSystem in a temporary directory. A token file of 4.5
+# batches (so the stream wraps within the run), an uninterrupted run of
+# ``steps``, a run that crashes after ``crash_at`` (its interval save at
+# that step on the background writer, fenced at train()'s exit) and one
+# that resumes from it, trains to ``steps`` and saves with ``keep`` 1. The
+# resumed losses must equal the uninterrupted run's within ``loss_rtol``
+# (the reference's gate, tests/test_trainer_dfs.py). The loader phase
+# serves the last checkpoint: greedy tokens for ``prompts`` prompts of
+# ``max_new`` tokens, against an engine on the resumed trainer's
+# parameters.
+TRAINER = dict(steps=6, crash_at=3, file_batches=4.5, loss_rtol=1e-6,
+               prompts=2, max_new=16, io_workers=4)
 
 
 class SmokeFailure(RuntimeError):
@@ -553,15 +577,12 @@ def phase_train():
     grad_norm = metrics["grad_norm"].item()
     timed_ms = sum(step_ms[TRAIN["warmup"]:]) / TRAIN["timed"]
     tokens_per_s = batch * seq / (timed_ms / 1e3)
-    # bench.py's utilisation: 6N + attention FLOPs per token over peak
-    flops_per_token = 6 * n_params + 12 * cfg.n_layers * seq * \
-        cfg.d_model // 2
     emit({"phase": "train", "model": "flagship-1b", "dtype": cfg.dtype,
           "tokens": [batch, seq], "remat": TRAIN["remat"],
           "optimizer": "adamw", "lr": TRAIN["lr"], "params": n_params,
           "losses": losses, "grad_norm": grad_norm, "step_ms": step_ms,
           "timed_step_ms": timed_ms, "tokens_per_s": tokens_per_s,
-          "mfu": tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+          "mfu": _mfu(cfg, n_params, tokens_per_s, seq),
           "peak_memory_bytes": peak,
           "launches_per_step_fwd_dq_dkv_adamw_grad_sq": per_step})
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
@@ -575,7 +596,228 @@ def phase_train():
             f"launches per step (fwd, dq, dkv, adamw, grad_sq) {per_step}, "
             f"expected {want}")
     del params, opt, step
-    return launches
+    return launches, {"timed_step_ms": timed_ms,
+                      "tokens_per_s": tokens_per_s}
+
+
+def _mfu(cfg, n_params, tokens_per_s, seq):
+    """bench.py's utilisation: 6N + attention FLOPs per token over peak."""
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * seq * \
+        cfg.d_model // 2
+    return tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16]
+
+
+def _counted_steps(trainer, log):
+    """Wrap ``trainer``'s step so each call appends its launches (fwd, dq,
+    dkv, adamw, grad_sq) and a pair of CUDA events around it to ``log``;
+    the run itself is unchanged."""
+    step = trainer.step_fn
+
+    def counted(*args):
+        before = counts()[:3] + optimizer_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*args)
+        end.record()
+        log.append(([a - b for a, b in zip(counts()[:3] + optimizer_counts(),
+                                           before)], start, end))
+        return out
+
+    trainer.step_fn = counted
+
+
+def _anatomy(trainer):
+    """The trainer's step anatomy: means in ms, and counts."""
+    m = trainer.step_metrics
+    rec = {}
+    for name in ("data_wait", "step_wall", "ckpt_snapshot", "ckpt_write",
+                 "ckpt_fence"):
+        snap = getattr(m, name).snapshot()
+        rec[name] = {"count": snap["num_ops"],
+                     "mean_ms": snap["avg_time"] * 1e3,
+                     "max_ms": snap["max_time"] * 1e3}
+    return rec
+
+
+def _ledger_bytes():
+    comps = hbm_ledger().report()["components"]
+    return {"params": comps.get("params", 0),
+            "opt_state": comps.get("opt_state", 0),
+            "memory_allocated": torch.cuda.memory_allocated()}
+
+
+def phase_trainer(train_rec, fs, root):
+    """flagship-1b through ``Trainer`` (this slice's main path), on ``fs``
+    under the directory ``root``: the uninterrupted run, the crashed run
+    and the resumed one, each step's launches held to the train phase's
+    counts, the resumed losses to the uninterrupted ones. Returns the
+    launches of the three runs (fwd, dq, dkv, adamw, grad_sq) and the
+    resumed trainer's parameters on the host."""
+    cfg = get_config("flagship-1b")
+    batch, seq = TRAIN["batch"], TRAIN["seq"]
+    n_params = sum(
+        p.numel() for p in tree_leaves(init_params(cfg, torch.Generator(),
+                                                   device="meta")))
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    # parameters, two float32 moments, count and data_pos
+    ckpt_bytes = n_params * (elt + 4 + 4) + 4 + 8
+    # two checkpoints coexist while the step-6 save is written; the
+    # snapshot of one lies in host memory
+    free_disk = shutil.disk_usage(root).free
+    require(free_disk > 2.2 * ckpt_bytes,
+            f"{free_disk} B free under {root}: two checkpoints of "
+            f"{ckpt_bytes} B do not fit")
+    mem_avail = int(re.search(r"MemAvailable:\s+(\d+) kB", open(
+        "/proc/meminfo").read()).group(1)) * 1024
+    require(mem_avail > 2 * ckpt_bytes,
+            f"{mem_avail} B of host memory available for snapshots of "
+            f"{ckpt_bytes} B")
+    n_tokens = int(TRAINER["file_batches"] * batch * (seq + 1))
+    tokens = torch.randint(0, cfg.vocab_size, (n_tokens,),
+                           generator=torch.Generator().manual_seed(SEED + 4))
+    data = f"{root}/tokens.bin"
+    fs.write_all(data, tokens.numpy().astype(np.uint16).tobytes())
+
+    def trainer(path, **kw):
+        return Trainer(cfg, MeshPlan(), fs, data, f"{root}/{path}",
+                       batch=batch, lr=TRAIN["lr"], remat=TRAIN["remat"],
+                       seed=SEED, **kw)
+
+    steps, crash_at = TRAINER["steps"], TRAINER["crash_at"]
+    per_step = []
+    zero_counts()                             # the main path's run
+    u = trainer("uninterrupted", ckpt_interval=0)
+    _counted_steps(u, per_step)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses = u.train(steps)
+    train_wall = time.monotonic() - t0
+    step_ms = [s.elapsed_time(e) for _, s, e in per_step]
+    timed_ms = sum(step_ms[1:]) / (steps - 1)
+    u_anatomy = _anatomy(u)
+    u.close()
+    del u
+
+    a = trainer("resumed", ckpt_interval=crash_at, keep=1)
+    _counted_steps(a, per_step)
+    t0 = time.monotonic()
+    crashed = a.train(crash_at)             # the exit fence included
+    crashed_wall = time.monotonic() - t0
+    require(list_checkpoints(fs, f"{root}/resumed") == [crash_at],
+            "the interval save is not durable at train()'s exit")
+    a_anatomy = _anatomy(a)
+    a.close()
+    del a                                     # as a crash leaves it
+
+    b = trainer("resumed", ckpt_interval=0, keep=1)
+    _counted_steps(b, per_step)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    restored = b.try_restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.monotonic() - t0) * 1e3
+    require(restored and b.step == crash_at,
+            f"try_restore: {restored}, step {b.step}")
+    resumed = b.train(steps - crash_at)
+    ledger = _ledger_bytes()
+    t0 = time.monotonic()
+    b.save()
+    save_ms = (time.monotonic() - t0) * 1e3
+    launches = counts()[:3] + optimizer_counts()
+    b_anatomy = _anatomy(b)
+    require(list_checkpoints(fs, f"{root}/resumed") == [steps],
+            "retention kept more than the newest checkpoint")
+    step_dir = f"{root}/resumed/step_{steps:012d}"
+    sizes = {st.path.rsplit("/", 1)[-1]: st.length
+             for st in fs.list_status(step_dir)}
+    shard_bytes = sum(n for f, n in sizes.items() if f != "manifest.json")
+    host = tree_map(lambda t: t.cpu(), b.params)
+    b.close()
+    del b
+
+    tokens_per_s = batch * seq / (timed_ms / 1e3)
+    want_losses = losses[crash_at:]
+    rel = [abs(g - w) / abs(w) for g, w in zip(resumed, want_losses)]
+    n_leaves = len(tree_leaves(host))
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, n_leaves,
+            n_leaves + 1]
+    emit({"phase": "trainer", "model": "flagship-1b", "dtype": cfg.dtype,
+          "tokens": [batch, seq], "remat": TRAIN["remat"],
+          "optimizer": "adamw", "params": n_params,
+          "data_tokens": n_tokens,
+          "losses_uninterrupted": losses, "losses_crashed": crashed,
+          "losses_resumed": resumed, "resumed_rel_err": rel,
+          "resumed_bit_equal": resumed == want_losses,
+          "step_ms": step_ms, "timed_step_ms": timed_ms,
+          "tokens_per_s": tokens_per_s,
+          "mfu": _mfu(cfg, n_params, tokens_per_s, seq),
+          "train_wall_ms_per_step": train_wall * 1e3 / steps,
+          "crashed_train_wall_ms": crashed_wall * 1e3,
+          "bare_train_phase": {"timed_step_ms": train_rec["timed_step_ms"],
+                               "tokens_per_s": train_rec["tokens_per_s"],
+                               "mfu": _mfu(cfg, n_params,
+                                           train_rec["tokens_per_s"], seq)},
+          "anatomy": {"uninterrupted": u_anatomy, "crashed": a_anatomy,
+                      "resumed": b_anatomy},
+          "restore_ms": restore_ms, "explicit_save_ms": save_ms,
+          "checkpoint_shard_bytes": shard_bytes,
+          "checkpoint_manifest_bytes": sizes.get("manifest.json"),
+          "checkpoint_files": len(sizes), "hbm_ledger_bytes": ledger,
+          "free_disk_bytes": free_disk, "host_mem_available_bytes":
+              mem_avail,
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq":
+              [c for c, _, _ in per_step]})
+    require(len(losses) == steps and len(crashed) == crash_at and
+            len(resumed) == steps - crash_at, "steps lost")
+    require(all(math.isfinite(x) for x in losses + crashed + resumed),
+            "non-finite loss")
+    require(max(abs(g - w) / abs(w) for g, w in zip(crashed, losses)) <=
+            TRAINER["loss_rtol"], "the crashed run left the curve")
+    require(max(rel) <= TRAINER["loss_rtol"],
+            f"resumed losses {resumed} vs {want_losses}")
+    require(all(c == want for c, _, _ in per_step),
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq), expected "
+            f"{want}")
+    require(len(per_step) == 2 * steps, f"{len(per_step)} steps counted")
+    require(shard_bytes == ckpt_bytes,
+            f"checkpoint shards {shard_bytes} B, expected {ckpt_bytes}")
+    require(ledger["params"] == elt * n_params and
+            ledger["opt_state"] == 8 * n_params, f"ledger {ledger}")
+    return launches, host
+
+
+def phase_loader(fs, root, host):
+    """The step-6 checkpoint through ``load_serving_params`` into a bf16
+    ``DecodeEngine``: the parameters bit-equal to the resumed trainer's,
+    and the greedy tokens of two prompts equal to an engine's on those
+    parameters."""
+    cfg = get_config("flagship-1b")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params, step = load_serving_params(fs, f"{root}/resumed", cfg,
+                                       io_workers=TRAINER["io_workers"])
+    torch.cuda.synchronize()
+    load_ms = (time.monotonic() - t0) * 1e3
+    require(step == TRAINER["steps"], f"loaded step {step}")
+    unequal = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
+                                                tree_leaves(host)))
+               if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    prompts = _prompts(cfg.vocab_size)[0][1:1 + TRAINER["prompts"]]
+    greedy = SamplingParams(max_new_tokens=TRAINER["max_new"])
+    tokens = []
+    for tree in (params, tree_map(lambda t: t.cuda(), host)):
+        eng = DecodeEngine(tree, cfg, **SERVE_KW)
+        tokens.append(eng.generate(prompts, greedy))
+        eng.stop()
+    emit({"phase": "loader", "model": "flagship-1b", "step": step,
+          "load_ms": load_ms, "io_workers": TRAINER["io_workers"],
+          "params_bit_equal": not unequal,
+          "prompt_tokens": [len(p) for p in prompts],
+          "tokens_loaded": tokens[0], "tokens_in_memory": tokens[1],
+          "tokens_equal": tokens[0] == tokens[1]})
+    require(not unequal, f"leaves {unequal} differ from the trainer's")
+    require(tokens[0] == tokens[1], "greedy tokens differ")
 
 
 def make_params():
@@ -1346,7 +1588,15 @@ def main() -> int:
     partial = phase_partial()
     adamw = phase_adamw()
     phase_ring()
-    _, train_dq, train_dkv, train_adamw, train_grad_sq = phase_train()
+    (_, train_dq, train_dkv, train_adamw, train_grad_sq), train_rec = \
+        phase_train()
+    fs, root = LocalFileSystem(), tempfile.mkdtemp(prefix="htpu-trainer-")
+    try:
+        trainer_launches, host = phase_trainer(train_rec, fs, root)
+        phase_loader(fs, root, host)
+        del host
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()
     fwd_launches = phase_forward(cfg32, p32, cfg16, p16)
     phase_forward_fp16(cfg32, p32)
@@ -1358,7 +1608,13 @@ def main() -> int:
     _, cp_partial = phase_longctx()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
-    emit({"kernels": [{
+    # launches: on each kernel's path of an earlier slice (the forward,
+    # the train phase's 7 steps, one CP prefill); launches_trainer: on
+    # this slice's, the trainer phase's 12 steps through Trainer
+    by_trainer = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                           "adamw", "grad_sq"), trainer_launches))
+    emit({"kernels": [dict(rec, launches_trainer=by_trainer.get(
+        rec["name"], 0)) for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",
         "launches": fwd_launches, "max_abs_err": record["max_abs_err"],
@@ -1390,7 +1646,7 @@ def main() -> int:
             "bound_by": adamw[name]["bound_by"],
             "library_ms": adamw[name]["library_ms"]}
         for name, line, n in (("adamw", 62, train_adamw),
-                              ("grad_sq", 56, train_grad_sq))]})
+                              ("grad_sq", 56, train_grad_sq))]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,2 +1,2 @@
 """Serving plane of the PyTorch port: the continuous-batching decode
-engine and its KV store."""
+engine, its KV store and the checkpoint loader."""

@@ -42,6 +42,8 @@ keeping its semantics:
   what the eager step draws from the same seed. The first step of each
   shape runs eagerly (its warm-up) and is then captured; a capture that
   fails raises. On the CPU the step runs eagerly.
+- **HBM ledger.** The weights and the K/V pool are registered with the
+  process's ledger (``obs/hbm.py``) and unregistered by ``stop()``.
 
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
@@ -68,6 +70,7 @@ import torch
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.models.decoder import _norm, head_matrix, layer_slices
+from hadoop_tpu_torch.obs.hbm import hbm_ledger, tree_nbytes
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
 from hadoop_tpu_torch.serving.kvstore import BlockPool, PrefixCache
 
@@ -231,6 +234,22 @@ class DecodeEngine:
         self._kp = torch.zeros(pool_shape, dtype=cfg.torch_dtype,
                                device=self.device)
         self._vp = torch.zeros_like(self._kp)
+        # the HBM ledger (obs/hbm.py): the weights and the K/V pool sized
+        # beside them, unregistered in stop(). The providers return
+        # numbers, so an engine never stopped pins no tensor there.
+        self.weight_bytes = tree_nbytes(params)
+        self.block_nbytes = 2 * self._kp[:, 0].numel() * \
+            self._kp.element_size()
+        kv_pool_bytes = num_blocks * self.block_nbytes
+        # trailing separator: unregister_prefix("engine@123") must not
+        # also match a coexisting "engine@1234..." owner
+        self._hbm_owner = f"engine@{id(self)}."
+        led = hbm_ledger()
+        weight_bytes = self.weight_bytes
+        led.register(f"{self._hbm_owner}weights", "weights",
+                     lambda: weight_bytes)
+        led.register(f"{self._hbm_owner}kv", "kv_pool",
+                     lambda: kv_pool_bytes)
         self._layers = layer_slices(params["layers"], cfg.n_layers)
         self._cos, self._sin = (rope_frequencies(
             cfg.head_dim, cfg.max_seq, cfg.rope_theta, device=self.device)
@@ -816,6 +835,8 @@ class DecodeEngine:
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
+        # a stopped engine's pool must not haunt the HBM ledger
+        hbm_ledger().unregister_prefix(self._hbm_owner)
         if self._thread is not None:
             self._thread.join(timeout=timeout)
             self._thread = None

@@ -1,0 +1,89 @@
+"""Serving-side checkpoint load: a checkpoint directory → decoder params.
+
+The counterpart of ``hadoop_tpu/serving/loader.py``. It reads the
+trainer's checkpoints (``parallel/checkpoint.py``, the reference's
+format, so a checkpoint of either package loads) off any filesystem the
+caller passes (``hadoop_tpu_torch.fs``). Shards are fetched concurrently
+through a bounded pool of ``io_workers``. The trainer persists
+``{"params": ..., "opt": ..., "data_pos": ...}`` and serving wants the
+parameters only: the manifest's leaf names tell the wrapped layout from
+a bare parameter tree, and optimizer shards are never read.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from hadoop_tpu_torch.fs import FileSystemLike
+from hadoop_tpu_torch.models.config import ModelConfig
+from hadoop_tpu_torch.models.decoder import init_params
+from hadoop_tpu_torch.parallel.checkpoint import (latest_step,
+                                                  load_checkpoint,
+                                                  mismatched_leaves,
+                                                  read_manifest)
+from hadoop_tpu_torch.parallel.optimizer import tree_leaves
+
+log = logging.getLogger(__name__)
+
+HEDGED_POOL_KEY = "dfs.client.hedged.read.threadpool.size"
+HEDGED_THRESHOLD_KEY = "dfs.client.hedged.read.threshold"
+IO_WORKERS_KEY = "serving.loader.io.workers"
+
+
+def serving_read_defaults(conf) -> None:
+    """Arm hedged reads for checkpoint pulls unless the deployment already
+    chose (``conf``: any object with ``set_if_unset``, such as a
+    ``hadoop_tpu`` ``Configuration``)."""
+    conf.set_if_unset(HEDGED_POOL_KEY, "4")
+    conf.set_if_unset(HEDGED_THRESHOLD_KEY, "0.5")
+
+
+def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
+                        *, step: Optional[int] = None, mesh=None, specs=None,
+                        io_workers: int = 4, leaf_transform=None,
+                        device=None) -> Tuple[Dict, int]:
+    """Load decoder params for ``cfg`` from ``base_dir`` on ``fs`` onto
+    ``device`` (default: the GPU). Returns ``(params, step)``; ``step``
+    None takes the newest complete checkpoint.
+
+    Every leaf's shape and dtype is checked against ``cfg`` before a
+    shard is read, from a parameter tree on the meta device (no model is
+    allocated); a mismatch raises ``ValueError``. Raises
+    ``FileNotFoundError`` when no complete checkpoint exists. Sharded
+    placement (``mesh``/``specs``) is ROADMAP Queue A 6 and the streaming
+    ``leaf_transform`` (quantize at load) Queue A 4; both raise.
+    """
+    if mesh is not None or specs is not None:
+        raise NotImplementedError(
+            "mesh/specs: sharded serving placement is ROADMAP Queue A 6")
+    if leaf_transform is not None:
+        raise NotImplementedError(
+            "leaf_transform: quantize-at-load belongs to the weight plane, "
+            "ROADMAP Queue A 4")
+    t0 = time.monotonic()
+    if step is None:
+        step = latest_step(fs, base_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {base_dir}")
+    manifest = read_manifest(fs, base_dir, step)
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    wrapped = any(name.startswith("['params']")
+                  for name in manifest["leaves"])
+    like = {"params": shapes} if wrapped else shapes
+    bad = mismatched_leaves(manifest, like)
+    if bad:
+        raise ValueError(f"checkpoint {base_dir} step {step} does not hold "
+                         f"the parameters of this config: {bad[:3]}")
+    tree, step = load_checkpoint(fs, base_dir, like, step=step,
+                                 io_workers=max(1, io_workers),
+                                 device=device)
+    params = tree["params"] if wrapped else tree
+    n = sum(p.numel() for p in tree_leaves(params))
+    log.info("loaded %d-param checkpoint step %d from %s in %.2fs "
+             "(%d io workers)", n, step, base_dir,
+             time.monotonic() - t0, max(1, io_workers))
+    return params, step

@@ -263,6 +263,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.tools.ab_flash\n"
         "import hadoop_tpu_torch.serving.longctx\n"
         "import hadoop_tpu_torch.parallel.ring_attention\n"
+        "import hadoop_tpu_torch.fs, hadoop_tpu_torch.parallel.data\n"
+        "import hadoop_tpu_torch.parallel.checkpoint\n"
+        "import hadoop_tpu_torch.parallel.trainer\n"
+        "import hadoop_tpu_torch.serving.loader\n"
+        "import hadoop_tpu_torch.obs.hbm, hadoop_tpu_torch.obs.trainer\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -285,7 +290,9 @@ def test_port_sources_name_no_jax():
                 "parallel/mesh.py", "parallel/optimizer.py",
                 "parallel/train.py", "parallel/ring_attention.py",
                 "serving/longctx/plan.py", "serving/longctx/prefill.py",
-                "serving/longctx/guard.py"):
+                "serving/longctx/guard.py", "fs.py", "parallel/data.py",
+                "parallel/checkpoint.py", "parallel/trainer.py",
+                "serving/loader.py", "obs/hbm.py", "obs/trainer.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

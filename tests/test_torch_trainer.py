@@ -1,0 +1,265 @@
+"""The PyTorch port's Trainer against the JAX package's, on the CPU,
+through a real ``MiniDFSCluster`` filesystem.
+
+A run started in one package and resumed in the other continues the
+loss curve within rtol 5e-4 (the curve tolerance of
+tests/test_torch_train.py); the port's own resume, with and without a
+write in flight, within rtol 1e-6 (the reference's own gate,
+tests/test_trainer_dfs.py).
+"""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from hadoop_tpu.models import config as jconfig
+from hadoop_tpu.parallel import MeshPlan as JMeshPlan
+from hadoop_tpu.parallel import checkpoint as jckpt
+from hadoop_tpu.parallel.elastic import reshard as jreshard
+from hadoop_tpu.parallel.trainer import Trainer as JTrainer
+from hadoop_tpu.testing.minicluster import MiniDFSCluster
+from hadoop_tpu_torch.models import config
+from hadoop_tpu_torch.parallel import MeshPlan, Trainer
+from hadoop_tpu_torch.parallel import checkpoint as ckpt
+from hadoop_tpu_torch.serving import loader
+
+BATCH = 8
+LR = 1e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Keep torch to one thread: the tier-1 run shares the CPU between
+    several test workers, some of them timing-sensitive."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    with MiniDFSCluster(num_datanodes=3) as c:
+        yield c
+
+
+@pytest.fixture(scope="module")
+def fs(cluster):
+    return cluster.get_filesystem()
+
+
+@pytest.fixture(scope="module")
+def token_file(fs):
+    toks = np.random.default_rng(0).integers(0, 256, 200_000,
+                                             dtype=np.uint16)
+    fs.mkdirs("/pdata")
+    fs.write_all("/pdata/tokens.bin", toks.tobytes())
+    return "/pdata/tokens.bin"
+
+
+def _port(fs, token_file, ckpt_dir, **kw):
+    kw.setdefault("ckpt_interval", 0)
+    return Trainer(config.get_config("tiny"), MeshPlan(), fs, token_file,
+                   ckpt_dir, batch=BATCH, lr=LR, device="cpu", **kw)
+
+
+def _reference(fs, token_file, ckpt_dir):
+    return JTrainer(jconfig.get_config("tiny"), JMeshPlan(), fs, token_file,
+                    ckpt_dir, batch=BATCH, lr=LR, ckpt_interval=0)
+
+
+@pytest.fixture(scope="module")
+def port_curve(fs, token_file):
+    """The port's uninterrupted six steps."""
+    t = _port(fs, token_file, "/pckpt/curve")
+    losses = t.train(6)
+    t.close()
+    return losses
+
+
+# ----------------------------------------------------- across the packages
+
+def test_reference_run_resumes_in_port(fs, token_file):
+    ref = _reference(fs, token_file, "/pckpt/ref2port")
+    ref.train(3)
+    ref.save()
+    uninterrupted = ref.train(3)
+    t = _port(fs, token_file, "/pckpt/ref2port")
+    assert t.try_restore() and t.step == 3
+    assert t.data.state() == {"pos": 3 * BATCH * 129}
+    np.testing.assert_allclose(t.train(3), uninterrupted, rtol=5e-4)
+    t.close()
+
+
+def test_port_run_resumes_in_reference(fs, token_file, port_curve):
+    t = _port(fs, token_file, "/pckpt/port2ref")
+    np.testing.assert_allclose(t.train(3), port_curve[:3], rtol=1e-6)
+    t.save()
+    t.close()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        mode, _, _ = jreshard.resolve_restore(
+            jckpt.read_manifest(fs, "/pckpt/port2ref", 3), JMeshPlan(),
+            False)
+        assert mode == "same-plan"
+        ref = _reference(fs, token_file, "/pckpt/port2ref")
+        assert ref.try_restore() and ref.step == 3
+    np.testing.assert_allclose(ref.train(3), port_curve[3:], rtol=5e-4)
+
+
+# ------------------------------------------------------ the port's resume
+
+class _FailingFS:
+    """Delegating filesystem whose write_all starts raising after
+    ``allow`` more calls once armed: the writer killed mid-write."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self._armed = False
+        self._allow = 0
+
+    def arm(self, allow: int) -> None:
+        self._armed, self._allow = True, allow
+
+    def write_all(self, path, data):
+        if self._armed:
+            if self._allow <= 0:
+                raise IOError("injected mid-write crash")
+            self._allow -= 1
+        return self._inner.write_all(path, data)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def _explicit_save(fs, token_file, curve):
+    a = _port(fs, token_file, "/pckpt/explicit")
+    np.testing.assert_allclose(a.train(3), curve[:3], rtol=1e-6)
+    a.save()
+    return "/pckpt/explicit", 3
+
+
+def _interval_save_in_flight(fs, token_file, curve):
+    """The interval save fires at step 3 with the next batch already
+    prefetched; it must record the cursor of the last consumed batch."""
+    a = _port(fs, token_file, "/pckpt/interval", ckpt_interval=3)
+    a.train(4)
+    assert a.step_metrics.ckpt_write.snapshot()["num_ops"] == 1
+    return "/pckpt/interval", 3
+
+
+def _interval_write_crashes(fs, token_file, curve):
+    """The step-4 interval save's write dies mid-write: train() raises at
+    its exit fence and the restore lands on step 2."""
+    a = _port(fs, token_file, "/pckpt/crash", ckpt_interval=2)
+    a.train(2)
+    failing = _FailingFS(fs)
+    a.fs = failing
+    failing.arm(allow=1)
+    with pytest.raises(IOError, match="injected"):
+        a.train(2)
+    assert a.losses == pytest.approx(curve[:4], rel=1e-6)
+    return "/pckpt/crash", 2
+
+
+@pytest.mark.parametrize("crash", [_explicit_save, _interval_save_in_flight,
+                                   _interval_write_crashes],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_port_resume_continues_the_curve_exactly(fs, token_file, port_curve,
+                                                 crash):
+    path, step = crash(fs, token_file, port_curve)
+    b = _port(fs, token_file, path)
+    assert b.try_restore() and b.step == step
+    np.testing.assert_allclose(b.train(6 - step), port_curve[step:],
+                               rtol=1e-6)
+    assert b.loss_by_step == dict(zip(range(step + 1, 7), b.losses))
+    b.close()
+
+
+def test_cursor_survives_past_int32(fs, token_file):
+    big = 3_000_000_123
+    t = _port(fs, token_file, "/pckpt/big")
+    t.data.total_tokens = big + 500_000      # a dataset at LM scale
+    t.data._pos = big
+    t.step = 7
+    t.save()
+    t2 = _port(fs, token_file, "/pckpt/big")
+    t2.data.total_tokens = big + 500_000
+    assert t2.try_restore() and t2.data.state()["pos"] == big
+    manifest = ckpt.read_manifest(fs, "/pckpt/big", 7)
+    assert manifest["leaves"]["['data_pos']"]["shape"] == [2]
+    t.close()
+    t2.close()
+
+
+def test_step_anatomy_and_ranges(fs, token_file):
+    """The step anatomy counts what ran, and a profile that records every
+    thread sees the three ranges (the write's is on the writer thread)."""
+    t = _port(fs, token_file, "/pckpt/anatomy", ckpt_interval=2)
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=every_thread) as prof:
+        t.train(4)
+    names = {e.name for e in prof.events()}
+    assert {"trainer.step", "trainer.ckpt.snapshot",
+            "trainer.ckpt.write"} <= names
+    a = t.step_metrics.anatomy()
+    assert a["steps"] == 4
+    assert a["data_wait"]["count"] == a["step_wall"]["count"] == 4
+    assert a["ckpt"]["snapshot"]["num_ops"] == 2
+    assert a["ckpt"]["write"]["num_ops"] == 2
+    assert ckpt.list_checkpoints(fs, "/pckpt/anatomy") == [2, 4]
+    t.close()
+
+
+# --------------------------------------------------------------- refusals
+
+@pytest.mark.parametrize("kw", [
+    dict(plan=MeshPlan(dp=2)), dict(plan=MeshPlan(tp=2)), dict(zero1=True),
+    dict(n_microbatches=2), dict(pipeline_schedule="interleaved"),
+    dict(overlap=object()), dict(parity=object()), dict(elastic=object()),
+    dict(doctor_poll=lambda: None)], ids=lambda kw: next(iter(kw)))
+def test_trainer_refuses_what_queue_a6_brings(fs, token_file, kw):
+    plan = kw.pop("plan", MeshPlan())
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        Trainer(config.get_config("tiny"), plan, fs, token_file, "/pckpt/r",
+                batch=BATCH, device="cpu", **kw)
+
+
+def test_refusals_name_their_queue_item(fs, token_file):
+    t = _port(fs, token_file, "/pckpt/refuse")
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        t.apply_plan(MeshPlan())
+    t.save()
+    like = {"params": t.params}
+    for kw, item in ((dict(mesh=object()), "Queue A 6"),
+                     (dict(specs={}), "Queue A 6"),
+                     (dict(leaf_transform=lambda n, a: a), "Queue A 4")):
+        with pytest.raises(NotImplementedError, match=item):
+            ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
+                                 **kw)
+        with pytest.raises(NotImplementedError, match=item):
+            loader.load_serving_params(fs, "/pckpt/refuse", t.cfg,
+                                       device="cpu", **kw)
+    t.close()
+
+
+def test_entry_points_refuse_a_missing_gpu(fs, token_file):
+    """Without CUDA and without device="cpu", the trainer, the checkpoint
+    load and the loader raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(config.get_config("tiny"), MeshPlan(), fs, token_file,
+                "/pckpt/gpu", batch=BATCH)
+    t = _port(fs, token_file, "/pckpt/gpu")
+    t.save()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.load_checkpoint(fs, "/pckpt/gpu", {"params": t.params})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loader.load_serving_params(fs, "/pckpt/gpu", t.cfg)
+    t.close()
