@@ -15,8 +15,10 @@ causal kernel over the whole sequence; trains flagship-1b at
 AdamW) for 7 steps through ``make_train_step``, then through
 ``Trainer`` over a token file on the local disk (an uninterrupted run,
 and a crashed run resumed from its checkpoint, whose losses must equal
-it), and serves the last checkpoint through ``load_serving_params``;
-runs the flagship-1b forward, also in float16 (which no flash kernel
+it), and serves the last checkpoint through ``load_serving_params``,
+then over HTTP through ``ServingReplica`` (16 requests from 8 client
+threads, their tokens against in-process ``generate``; auth, health,
+``/prom``, a drain with a request in flight); runs the flagship-1b forward, also in float16 (which no flash kernel
 takes: "auto" runs the plain attention); serves flagship-1b requests through ``DecodeEngine``
 (each step shape a CUDA graph), holding the graphs' tokens against the
 engine's eager step; checks two float32 SGD steps of the kernel path
@@ -52,6 +54,7 @@ is float32 outside them too).
 from __future__ import annotations
 
 import contextlib
+import http.client
 import json
 import math
 import re
@@ -59,11 +62,14 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import hadoop_tpu_torch.parallel.ring_attention as ring_module
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
@@ -72,9 +78,10 @@ from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
 import hadoop_tpu_torch.models.decoder as decoder_module
 from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
                                              head_matrix, run_layers_kv)
+from hadoop_tpu_torch.conf import Configuration
 from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
 from hadoop_tpu_torch.fs import LocalFileSystem
-from hadoop_tpu_torch.obs.hbm import hbm_ledger
+from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.checkpoint import list_checkpoints
@@ -83,6 +90,8 @@ from hadoop_tpu_torch.parallel.ring_attention import ring_attention
 from hadoop_tpu_torch.serving.loader import load_serving_params
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
                                               run_prefill_ab)
+from hadoop_tpu_torch.serving.service import ServingReplica
+from hadoop_tpu_torch.tracing import global_tracer
 from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
 
 MEM_BYTES_PER_S = 3.35e12
@@ -226,6 +235,16 @@ SERVE_KW = dict(max_batch=4, block_size=16, max_context=1024,
 # parameters.
 TRAINER = dict(steps=6, crash_at=3, file_batches=4.5, loss_rtol=1e-6,
                prompts=2, max_new=16, io_workers=4)
+# The door phase: ServingReplica (QoS on, an auth secret) on the step-6
+# checkpoint, flagship-1b bf16 at SERVE_KW's sizes on 127.0.0.1:0. Its
+# ``requests`` greedy requests of ``max_new`` tokens (_door_prompts: the
+# serving phase's five, then more of the same mixed lengths) go out from
+# ``clients`` threads, each its own tenant, one request streamed; the
+# profiled window sends one request from each client; the poller round
+# repeats the requests with a thread reading /v1/health every
+# ``poll_s`` seconds beside them.
+DOOR = dict(requests=16, clients=8, max_new=64, secret="chip-smoke",
+            poll_s=0.005)
 
 
 class SmokeFailure(RuntimeError):
@@ -820,6 +839,260 @@ def phase_loader(fs, root, host):
     require(tokens[0] == tokens[1], "greedy tokens differ")
 
 
+def _door_prompts(vocab):
+    """DOOR["requests"] prompts: the serving phase's four and its
+    prefix-sharing one, then more at the same lengths (8, 37, 120, 300)."""
+    prompts, sampled = _prompts(vocab)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    lengths = [8, 37, 120, 300] * DOOR["requests"]
+    more = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in lengths[:DOOR["requests"] - 5]]
+    return prompts + [sampled] + more
+
+
+def _http(port, method, path, payload=None):
+    """(status, body bytes) of one request to the door on 127.0.0.1."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=None if payload is None
+                     else json.dumps(payload).encode())
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _door_round(port, prompts, stream=()):
+    """Send ``prompts`` through the door from DOOR["clients"] threads
+    (client c sends prompts c, c + clients, ... in turn, as tenant
+    ``client<c>``), the indices in ``stream`` streamed. Returns the tokens
+    per prompt, the streamed lines per streamed index and the wall
+    seconds from the first send to the last answer."""
+    tokens, lines = [None] * len(prompts), {}
+    errors = []
+
+    def client(c):
+        for i in range(c, len(prompts), DOOR["clients"]):
+            body = {"tokens": prompts[i], "max_new_tokens": DOOR["max_new"],
+                    "stream": i in stream}
+            status, out = _http(port, "POST",
+                                f"/v1/generate?user.name=client{c}", body)
+            if status != 200:
+                errors.append((i, status, out[:200]))
+                continue
+            if i in stream:
+                lines[i] = [json.loads(x) for x in out.splitlines() if x]
+                tokens[i] = lines[i][-1].get("tokens")
+            else:
+                tokens[i] = json.loads(out)["tokens"]
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(DOOR["clients"])]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    require(not errors and not any(t.is_alive() for t in threads),
+            f"door requests failed: {errors}")
+    return tokens, lines, wall
+
+
+def _device_window(fn):
+    """Run ``fn`` under ``torch.profiler`` (every thread: the door's
+    kernels are launched from the engine's scheduler thread). Returns the
+    wall ms, the summed device ms of the CUDA kernels and the idle share."""
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=cfg) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms}
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_door(fs, root):
+    """The step-6 checkpoint served over HTTP by ``ServingReplica`` (this
+    slice's main path): auth (401 without a credential), DOOR["requests"]
+    greedy requests from DOOR["clients"] threads, one streamed, whose
+    tokens must equal the same requests through in-process ``generate``
+    on the replica's parameters; /v1/health and /prom; both step shapes
+    captured once; a profiled window's idle share; a round beside a
+    /v1/health poller (the HBM ledger reads the allocator's stats from
+    the handler thread) against one without; then a drain with a request
+    in flight: 503 for new work, the held request finished, and
+    ``drain_complete``. TTFT is the engine's ``serving.first_token``
+    span (submit to the first token on the host, queue wait included)."""
+    cfg = get_config("flagship-1b")
+    conf = Configuration()
+    for key, value in (("serving.http.auth.secret", DOOR["secret"]),
+                       ("serving.max.batch", SERVE_KW["max_batch"]),
+                       ("serving.kv.block.size", SERVE_KW["block_size"]),
+                       ("serving.max.context", SERVE_KW["max_context"]),
+                       ("serving.prefill.chunk", SERVE_KW["prefill_chunk"]),
+                       ("serving.loader.io.workers", TRAINER["io_workers"])):
+        conf.set(key, value)
+    replica = ServingReplica(conf, name="chip-smoke", preset="flagship-1b",
+                             checkpoint=f"{root}/resumed", fs=fs)
+    eng = replica.engine
+    prompts = _door_prompts(cfg.vocab_size)
+    ttfts, collecting = [], [False]
+
+    def on_span(span):
+        if collecting[0] and span.name == "serving.first_token":
+            ttfts.append(float(span.kv["ttft_s"]))
+
+    tracer = global_tracer()
+    tracer.add_receiver(on_span)
+    replica.start()
+    port = replica.server.port
+    try:
+        unauth, _ = _http(port, "POST", "/v1/generate",
+                          {"tokens": [1, 2], "max_new_tokens": 2})
+        # both step shapes captured before the clock starts
+        warm, _ = _http(port, "POST", "/v1/generate?user.name=warm",
+                        {"tokens": [1], "max_new_tokens": 2})
+        require(unauth == 401 and warm == 200,
+                f"door answered {unauth} without a credential, {warm} "
+                f"with one")
+        collecting[0] = True
+        tokens, lines, wall = _door_round(port, prompts, stream={3})
+        collecting[0] = False
+        door_ttft = list(ttfts)
+        n_tokens = sum(len(t) for t in tokens)
+        streamed = lines[3]
+        health_status, health = _http(port, "GET", "/v1/health")
+        health = json.loads(health)
+        prom_status, prom = _http(port, "GET", "/prom")
+        window = _device_window(lambda: _door_round(
+            port, prompts[:DOOR["clients"]]))
+
+        def step_ms(fn):
+            eng.metrics.decode_step.snapshot(reset=True)
+            fn()
+            snap = eng.metrics.decode_step.snapshot(reset=True)
+            return snap["decode_step_avg_time"] * 1e3
+
+        polls, stop = [], threading.Event()
+
+        def poller():
+            while not stop.wait(DOOR["poll_s"]):
+                t0 = time.perf_counter()
+                status, _ = _http(port, "GET", "/v1/health")
+                polls.append((status, time.perf_counter() - t0))
+
+        t0 = time.perf_counter()
+        for _ in range(200):
+            device_memory_stats()
+        stats_ms = (time.perf_counter() - t0) / 200 * 1e3
+        quiet_ms = step_ms(lambda: _door_round(port, prompts))
+        th = threading.Thread(target=poller)
+        th.start()
+        try:
+            polled_ms = step_ms(lambda: _door_round(port, prompts))
+        finally:
+            stop.set()
+            th.join(timeout=60)
+
+        # drain with a request in flight: the captured step finishes it
+        held = eng.submit(prompts[4], SamplingParams(
+            max_new_tokens=DOOR["max_new"]))
+        drainer = threading.Thread(target=replica.server.drain,
+                                   kwargs={"timeout": 300})
+        drainer.start()
+        while not replica.server._draining.is_set():
+            time.sleep(0.001)
+        refused, _ = _http(port, "POST", "/v1/generate?user.name=late",
+                           {"tokens": [1, 2], "max_new_tokens": 2})
+        drainer.join(timeout=300)
+        _, after = _http(port, "GET", "/v1/health")
+        after = json.loads(after)
+        held_tokens = held.wait(0) if held.done.is_set() else None
+        compiles = (eng.decode_compiles, eng.prefill_compiles,
+                    len(eng._graphs))
+    finally:
+        tracer.remove_receiver(on_span)
+        replica.drain_and_stop(timeout=300)
+
+    # the same requests through in-process generate on the same weights
+    ref_tokens, ref = _serve_steps(
+        eng.params, cfg, [(p, SamplingParams(max_new_tokens=DOOR["max_new"]))
+                          for p in prompts], graphs=True)
+    equal = [a == b for a, b in zip(tokens, ref_tokens)]
+    emit({"phase": "door", "model": "flagship-1b", "dtype": cfg.dtype,
+          "requests": len(prompts), "clients": DOOR["clients"],
+          "max_new": DOOR["max_new"],
+          "prompt_tokens": [len(p) for p in prompts],
+          "load_seconds": replica.load_seconds,
+          "unauthenticated_status": unauth,
+          "tokens_equal_per_request": equal,
+          "streamed_lines": len(streamed),
+          "door": {"seconds": wall, "tokens": n_tokens,
+                   "tokens_per_s": n_tokens / wall,
+                   "ttft_p50_s": _pct(door_ttft, 0.5),
+                   "ttft_p99_s": _pct(door_ttft, 0.99),
+                   "ttft_s": door_ttft},
+          "in_process_generate": {
+              "seconds": ref["seconds"], "tokens": ref["tokens"],
+              "tokens_per_s": ref["tokens_per_s"],
+              "ttft_p50_s": _pct(ref["ttft_s"], 0.5),
+              "ttft_p99_s": _pct(ref["ttft_s"], 0.99),
+              "steps": ref["steps"], "step_ms": ref["step_ms"]},
+          "profiled_window": dict(window, requests=DOOR["clients"]),
+          "decode_step_ms": {"quiet": quiet_ms,
+                             "health_poller": polled_ms},
+          "health_polls": len(polls),
+          "device_memory_stats_ms": stats_ms,
+          "health_poll_ms_mean": sum(t for _, t in polls) * 1e3
+          / max(1, len(polls)),
+          "health_status": health_status, "prom_status": prom_status,
+          "hbm": health["hbm"], "prefix_cache": health["prefix_cache"],
+          "qos": health.get("qos"),
+          "compiles_decode_fused_graphs": list(compiles),
+          "drain": {"refused_status": refused, "status": after["status"],
+                    "drain_complete": after["drain_complete"],
+                    "held_request_finished": held_tokens is not None}})
+    require(all(equal), f"door tokens differ from in-process generate: "
+            f"{equal}")
+    require(all(t is not None and len(t) == DOOR["max_new"]
+                for t in tokens), "a door request came back short")
+    require([x.get("token") for x in streamed[:-1]] == tokens[3]
+            and streamed[-1].get("done") is True,
+            "the streamed lines do not carry the request's tokens")
+    require(len(door_ttft) == len(prompts),
+            f"{len(door_ttft)} first-token spans for {len(prompts)} "
+            f"requests")
+    require(health_status == 200 and health["status"] == "serving"
+            and health["hbm"]["device"] is not None,
+            f"/v1/health: {health_status} {health.get('status')}")
+    require(prom_status == 200 and
+            b"htpu_time_to_first_token_seconds_bucket" in prom and
+            b"htpu_tokens_out_total" in prom, "/prom lacks the families")
+    require(all(st == 200 for st, _ in polls) and polls,
+            "the /v1/health poller failed")
+    require(compiles == (1, 1, 2),
+            f"decode/fused shapes and graphs {compiles}, expected 1, 1, 2")
+    require(refused == 503 and after["status"] == "draining"
+            and after["drain_complete"] is True,
+            f"drain: {refused}, {after['status']}, "
+            f"{after['drain_complete']}")
+    require(held_tokens == ref_tokens[4],
+            "the request held through the drain did not finish with the "
+            "in-process tokens")
+
+
 def make_params():
     """flagship-1b at full width: float32 weights from a seeded generator
     and their bf16 cast (what init_params gives for the bf16 config)."""
@@ -1217,8 +1490,10 @@ def phase_adamw():
     on flagship-1b's leaves (bf16; random gradients and moments from a
     seed; step ``ADAMW["count"]``), timed against the plain versions and,
     as a yardstick, ``torch.optim.AdamW(fused=True)`` over the same
-    leaves (decay groups split by ndim; its moments in bf16 and no clip).
-    Returns the records of the two kernels for the kernels line."""
+    leaves (decay groups split by ndim; its moments in bf16 and no clip);
+    the squared norm against ``torch.nn.utils.get_total_norm(grads, 2.0)``
+    squared. Returns the records of the two kernels for the kernels
+    line."""
     cfg = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     params = init_params(cfg, gen)
@@ -1278,6 +1553,11 @@ def phase_adamw():
         fused=True)
     upd_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
                                  + 16) for p, g in zip(leaves, gleaves))
+
+    def lib_grad_sq():
+        return torch.nn.utils.get_total_norm(gleaves, 2.0).square()
+
+    lib_gsq = lib_grad_sq().item()
     sq_bytes = sum(g.numel() * g.element_size() for g in gleaves) + 4
     records = {
         "adamw": add_rates({
@@ -1289,7 +1569,7 @@ def phase_adamw():
         "grad_sq": add_rates({
             "ms": cuda_ms(lambda: optimizer._launch_grad_sq(gleaves), 10),
             "plain_ms": cuda_ms(lambda: optimizer.grad_sq_ref(grads), 3),
-            "library_ms": None,
+            "library_ms": cuda_ms(lib_grad_sq, 10),
             "max_abs_err": abs(gsq.item() - gsq_ref.item())},
             _bound(sq_bytes, 2 * n, torch.float32)),
     }
@@ -1299,6 +1579,8 @@ def phase_adamw():
           "p_max_ulps": p_ulps, "p_share_tol": ADAMW_P_SHARE,
           "moment_rel_err": moment_rel, "moment_tol": ADAMW_MOMENT_TOL,
           "grad_sq_rel_err": gsq_rel, "grad_sq_tol": GRAD_SQ_TOL,
+          "library_grad_sq_rel_err": abs(lib_gsq - gsq_ref.item())
+          / gsq_ref.item(),
           **records})
     require(p_ulps <= 1 and p_diff / n <= ADAMW_P_SHARE,
             f"adamw.cu parameters vs plain: {p_diff} elements differ, up to "
@@ -1595,6 +1877,7 @@ def main() -> int:
         trainer_launches, host = phase_trainer(train_rec, fs, root)
         phase_loader(fs, root, host)
         del host
+        phase_door(fs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()

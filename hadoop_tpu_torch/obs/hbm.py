@@ -8,8 +8,9 @@ beside what the device's allocator says (``device_memory_stats``).
 
 Providers are owned: a component unregisters on teardown, so a stopped
 engine's pool never haunts the report. A provider that raises is
-skipped and counted in ``errors``. There is no metrics system here: the
-``/prom`` gauges come with the HTTP door (ROADMAP Queue A 2).
+skipped and counted in ``errors``. The first ``report()`` registers one
+callback gauge per component in the metrics system (source ``hbm``,
+family ``htpu_hbm_bytes{component=...}`` on the door's ``/prom``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from hadoop_tpu_torch.metrics import metrics_system
 
 # The bounded component set; unknown components map to "other".
 HBM_COMPONENTS = ("weights", "weights_dequantized", "moe_experts",
@@ -56,6 +59,12 @@ class HbmLedger:
         # (monotonic stamp, components, errors) of the last sweep;
         # invalidated on register/unregister      guarded-by: _lock
         self._cache: Optional[Tuple[float, Dict[str, int], int]] = None
+        self._reg = None      # the metrics source the gauges live in
+        # (monotonic stamp, device_memory_stats()) of the last report:
+        # the allocator's stats dict is built in Python, so a health
+        # poller reading it at every scrape would hold the GIL against
+        # the engine's scheduler thread        guarded-by: _lock
+        self._device_cache: Optional[Tuple[float, Optional[Dict]]] = None
 
     def register(self, owner: str, component: str,
                  provider: Callable[[], int]) -> None:
@@ -104,14 +113,37 @@ class HbmLedger:
         return out, errors
 
     def report(self) -> Dict:
+        """Components, their total, and the allocator's view; each part
+        read at most once per ``CACHE_SECONDS``."""
+        self._ensure_metrics()
         comps, errors = self.component_bytes()
+        now = time.monotonic()
         with self._lock:
             n = len(self._providers)
+            cached = self._device_cache
+        if cached is None or now - cached[0] >= self.CACHE_SECONDS:
+            cached = (now, device_memory_stats())
+            with self._lock:
+                self._device_cache = cached
         return {"components": comps,
                 "total_bytes": sum(comps.values()),
                 "providers": n,
                 "errors": errors,
-                "device": device_memory_stats()}
+                "device": cached[1]}
+
+
+    def _ensure_metrics(self) -> None:
+        """Callback gauges per component under one ``htpu_hbm_bytes``
+        family, registered once per metrics source."""
+        reg = metrics_system().source("hbm")
+        if reg is self._reg:
+            return
+        for c in HBM_COMPONENTS:
+            reg.register_callback_gauge(
+                "hbm_bytes_" + c,
+                lambda comp=c: self.component_bytes()[0].get(comp, 0),
+                prom_name="hbm_bytes", prom_labels={"component": c})
+        self._reg = reg
 
 
 _LEDGER = HbmLedger()

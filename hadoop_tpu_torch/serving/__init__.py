@@ -1,2 +1,3 @@
 """Serving plane of the PyTorch port: the continuous-batching decode
-engine, its KV store and the checkpoint loader."""
+engine, its KV store, the checkpoint loader, and the HTTP door in front
+of them (``server``, ``service``, ``qos``, ``metrics``)."""

@@ -9,7 +9,15 @@ keeping its semantics:
   prefilling, ``prefill_chunk`` more rows carry a chunk of it. The step
   has exactly two shapes (decode-only and fused); ``decode_compiles`` /
   ``prefill_compiles`` count the distinct row counts each family used,
-  so a workload that keeps to the two shapes reads 1 and 1.
+  so a workload that keeps to the two shapes reads 1 and 1. Unlike the
+  reference, which runs the fused step's rows as one batch, the lanes
+  and the chunk run as two row groups of fixed size inside it, so each
+  row meets the same op shapes in every step and a request's tokens do
+  not depend on the rest of the batch (in bf16 on the GPU, a lane's
+  rounding otherwise changed with the step shape that carried it). A
+  preempted request's tokens, recomputed as prompt rows, may still
+  round otherwise. The chunk's rows, all of one request, gather that
+  request's paged context once, not once per row.
 - **Paged KV cache.** K/V live in a pool ``[L, num_blocks, block_size,
   Hkv, Dh]``; each running request owns a block table. Each step
   scatters the new rows' K/V into ``table[pos // bs], pos % bs`` and
@@ -44,6 +52,15 @@ keeping its semantics:
   fails raises. On the CPU the step runs eagerly.
 - **HBM ledger.** The weights and the K/V pool are registered with the
   process's ledger (``obs/hbm.py``) and unregistered by ``stop()``.
+- **The door's hooks**, at the reference's call sites: ``metrics=`` (a
+  ``serving/metrics.py`` ``ServingMetrics``) and ``tracer=`` (the
+  ``serving.admit``, ``serving.preempt`` and ``serving.first_token``
+  spans join each request's ``trace_ctx``); ``submit(..., tenant=)``
+  and ``admission_queue=``, any deque-shaped queue installed as the
+  pending queue (the door's QoS ``FairAdmissionQueue``). All of it is
+  host work on host mirrors, outside the captured graphs: it reads no
+  device tensor and adds no synchronisation to the step. TTFT is stamped
+  when the first token reaches the host, at the step's one readback.
 
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
@@ -51,6 +68,8 @@ the flash kernel does not take paged, offset rows.
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
 speculation, the host/DFS KV tiers, the int8 weight plane, MoE, the
 long-context plane, tensor-parallel ``plan`` and ``hbm_bytes`` sizing.
+``prefill_to_store`` raises the reference's ``ValueError`` for a replica
+without a DFS tier, which the port's always is.
 """
 
 from __future__ import annotations
@@ -73,6 +92,7 @@ from hadoop_tpu_torch.models.decoder import _norm, head_matrix, layer_slices
 from hadoop_tpu_torch.obs.hbm import hbm_ledger, tree_nbytes
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
 from hadoop_tpu_torch.serving.kvstore import BlockPool, PrefixCache
+from hadoop_tpu_torch.tracing import current_context, global_tracer
 
 log = logging.getLogger(__name__)
 
@@ -110,8 +130,14 @@ class GenRequest:
     error: Optional[str] = None
     submitted_at: float = field(default_factory=time.monotonic)
     first_token_at: Optional[float] = None
+    # auth identity for door QoS: the fair admission queue orders
+    # pending requests by the tenant's decayed usage share
+    tenant: str = ""
     preemptions: int = 0
     prefix_tokens_reused: int = 0     # cached tokens mapped at admission
+    # the door span's context: engine-side spans run on the scheduler
+    # thread, where no contextvar of the caller's survives
+    trace_ctx: Optional[Any] = None
     # engine-private placement
     _slot: Optional[int] = None
     _blocks: List[int] = field(default_factory=list)
@@ -194,7 +220,8 @@ class DecodeEngine:
                  prefix_cache: bool = True,
                  device=None,
                  speculate_k: int = 0, kv_host_bytes: int = 0,
-                 kv_store_fs=None, hbm_bytes: int = 0, plan=None):
+                 kv_store_fs=None, hbm_bytes: int = 0, plan=None,
+                 admission_queue=None, metrics=None, tracer=None):
         if speculate_k:
             _refuse("speculative decoding")
         if kv_host_bytes or kv_store_fs is not None:
@@ -238,6 +265,13 @@ class DecodeEngine:
         # beside them, unregistered in stop(). The providers return
         # numbers, so an engine never stopped pins no tensor there.
         self.weight_bytes = tree_nbytes(params)
+        # the weight plane's description, fixed at construction: health
+        # scrapes read it from a handler thread and touch no tensor
+        self._weight_dtype = str(params["embed"].dtype).replace("torch.", "")
+        self.metrics = metrics
+        if metrics:
+            metrics.weight_bytes.set(self.weight_bytes)
+        self.tracer = tracer or global_tracer()
         self.block_nbytes = 2 * self._kp[:, 0].numel() * \
             self._kp.element_size()
         kv_pool_bytes = num_blocks * self.block_nbytes
@@ -272,16 +306,23 @@ class DecodeEngine:
         self._graph_out: Dict[bool, torch.Tensor] = {}
         self._graph_stream = None
 
-        self._pending: deque = deque()          # guarded-by: _cond
+        # the admission seam: a deque, or any deque-shaped queue
+        # (append/appendleft/popleft/len/[0]) such as the door's QoS
+        # FairAdmissionQueue
+        self._pending = admission_queue if admission_queue is not None \
+            else deque()                        # guarded-by: _cond
         self._admit_counter = itertools.count()
         self._cond = threading.Condition()
         self._sched_lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
+        self.tokens_generated = 0
         self.occupancy_log: List[int] = []      # active slots per step
         self._row_counts = {"decode": set(), "fused": set()}
+        self._chunk_fill = 0                    # chunk rows used last step
         # prefix-cache lifetime stats
+        self.prefix_hit_blocks = 0
         self.prefix_tokens_seen = 0
         self.prefix_tokens_matched = 0
         self.prefix_evictions = 0
@@ -307,43 +348,26 @@ class DecodeEngine:
             return swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
         return gelu(x @ lp["w_in"] + lp["b_in"]) @ lp["w_out"] + lp["b_out"]
 
-    @torch.no_grad()
-    def _step_impl(self, fused: bool) -> torch.Tensor:
-        """One step over the decode lanes plus, when ``fused``, one prompt
-        chunk, read from ``_chunk_in``. Scatter-all-then-gather makes
-        earlier rows' K/V visible to later positions in the same step; the
-        mask ``kpos <= pos`` does the rest. Returns the packed readback,
-        flat int64: per lane token | emit count | finished | accept length
-        ([B * 4]), then, when fused, the chunk's first sampled token. It
-        reads only tensors that live as long as the engine and writes the
-        step state in place, so one call can be captured as a CUDA graph."""
-        cfg, st = self.cfg, self._dstate
-        B = self.max_batch
-        tokens, positions = st["last"], st["positions"]
-        active, tables = st["active"], st["tables"]
-        temps, topks = st["temps"], st["topks"]
-        if fused:
-            C = self.prefill_chunk
-            c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
-            c_start, c_n = self._chunk_in[C + 1:C + 2], self._chunk_in[C + 2:]
-            cj = torch.arange(C, device=self.device)
-            tokens = torch.cat([tokens, c_tok])
-            positions = torch.cat([positions, c_start + cj])
-            active = torch.cat([active, cj < c_n])
-            tables = torch.cat([tables,
-                                tables.index_select(0, c_slot).expand(C, -1)])
-            temps = torch.cat([temps, temps.index_select(0, c_slot).expand(C)])
-            topks = torch.cat([topks, topks.index_select(0, c_slot).expand(C)])
+    def _rows(self, tokens, positions, active, tables,
+              one_context: bool = False) -> torch.Tensor:
+        """Float32 logits [t, V] of one group of rows, each "one token at
+        one position": K/V scattered into ``table[pos // bs], pos % bs``
+        (block 0 for inactive rows), then gathered back through each row's
+        table ([t, blocks_per_seq]). Scatter-all-then-gather makes earlier
+        rows' K/V visible to later positions of the group; the mask ``kpos
+        <= pos`` does the rest. ``one_context``: every row belongs to one
+        request, whose table ([1, blocks_per_seq]) is gathered once."""
+        cfg = self.cfg
         t = tokens.shape[0]
         pos = torch.clamp(positions, max=self.s_max - 1)
-
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         rep = hq // hkv
         params = self.params
         h = params["embed"][tokens]
         if not cfg.use_rope:
             h = h + params["pos_embed"][torch.clamp(pos, 0, cfg.max_seq - 1)]
-        blk = torch.gather(tables, 1, (pos // self.block_size)[:, None])[:, 0]
+        blk = torch.gather(tables.expand(t, -1), 1,
+                           (pos // self.block_size)[:, None])[:, 0]
         blk = torch.where(active, blk, torch.zeros_like(blk))
         off = pos % self.block_size
         scale = 1.0 / (dh ** 0.5)
@@ -361,24 +385,45 @@ class DecodeEngine:
                 k = _rope_at(k, self._cos, self._sin, pos)
             kc[blk, off] = k.to(kc.dtype)
             vc[blk, off] = v.to(vc.dtype)
-            # paged gather: each row pulls its own pages back into a
-            # contiguous [S_max] context view through its block table
-            kctx = kc[tables].reshape(t, self.s_max, hkv, dh)
-            vctx = vc[tables].reshape(t, self.s_max, hkv, dh)
-            logits = torch.einsum("tgrd,tkgd->tgrk",
+            # paged gather: each row's pages back into a contiguous
+            # [S_max] context view through its block table; a one-request
+            # group's single view is shared by every row
+            kctx = kc[tables].reshape(-1, self.s_max, hkv, dh)
+            vctx = vc[tables].reshape(-1, self.s_max, hkv, dh)
+            ctx = "tkgd"
+            if one_context:
+                kctx, vctx, ctx = kctx[0], vctx[0], "kgd"
+            logits = torch.einsum(f"tgrd,{ctx}->tgrk",
                                   q.reshape(t, hkv, rep, dh).float(),
                                   kctx.float()) * scale
             logits = logits.masked_fill(~visible[:, None, None, :], _NEG_INF)
             probs = torch.softmax(logits, dim=-1).to(vctx.dtype)
-            attn = torch.einsum("tgrk,tkgd->tgrd", probs, vctx)
+            attn = torch.einsum(f"tgrk,{ctx}->tgrd", probs, vctx)
             h2 = h + (attn.reshape(t, hq * dh) @ lp["wo"]).to(h.dtype)
             x2 = _norm(h2, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
             h = h2 + self._mlp(x2, lp).to(h.dtype)
         h = _norm(h, params["final_norm_w"], params.get("final_norm_b"), cfg)
-        logits = (h @ head_matrix(params, cfg, h.dtype)).float()
+        return (h @ head_matrix(params, cfg, h.dtype)).float()
 
-        sampled = _sample(logits, temps, topks, self._gen)
-        out = sampled[:B]
+    @torch.no_grad()
+    def _step_impl(self, fused: bool) -> torch.Tensor:
+        """One step over the decode lanes plus, when ``fused``, one prompt
+        chunk, read from ``_chunk_in``. The lanes ([B] rows) and the chunk
+        ([C] rows) run as two row groups, each always at its own size, so
+        every op a row goes through has the same shape in every step: a
+        request's tokens do not depend on what else the batch holds or on
+        which step shape carried it (the groups touch disjoint pages: a
+        lane writes its own private page, the chunk the prefilling slot's).
+        The chunk's rows share one request's context, gathered once.
+        Returns the packed readback, flat int64: per lane token | emit
+        count | finished | accept length ([B * 4]), then, when fused, the
+        chunk's first sampled token. It reads only tensors that live as
+        long as the engine and writes the step state in place, so one
+        call can be captured as a CUDA graph."""
+        st = self._dstate
+        logits = self._rows(st["last"], st["positions"], st["active"],
+                            st["tables"])
+        out = _sample(logits, st["temps"], st["topks"], self._gen)
 
         # on-device stop-condition scan: budget clamp, stop_token, lane
         # retirement — the host reads the verdict, it does not compute it
@@ -397,7 +442,20 @@ class DecodeEngine:
         st["outc"].add_(n_emit)
         st["active"].copy_(still)
         if fused:
-            packed = torch.cat([packed, sampled.index_select(0, B - 1 + c_n)])
+            C = self.prefill_chunk
+            c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
+            c_start, c_n = self._chunk_in[C + 1:C + 2], self._chunk_in[C + 2:]
+            cj = torch.arange(C, device=self.device)
+            c_logits = self._rows(c_tok, c_start + cj, cj < c_n,
+                                  st["tables"].index_select(0, c_slot),
+                                  one_context=True)
+            c_out = _sample(c_logits,
+                            st["temps"].index_select(0, c_slot).expand(C),
+                            st["topks"].index_select(0, c_slot).expand(C),
+                            self._gen)
+            # the chunk's last valid row sits at the context's last
+            # position: its sample is the request's first token
+            packed = torch.cat([packed, c_out.index_select(0, c_n - 1)])
         return packed
 
     def _step_eager(self, fused: bool) -> torch.Tensor:
@@ -447,7 +505,8 @@ class DecodeEngine:
     # -------------------------------------------------------- public face
 
     def submit(self, prompt: List[int],
-               sampling: Optional[SamplingParams] = None) -> GenRequest:
+               sampling: Optional[SamplingParams] = None,
+               trace_ctx=None, tenant: str = "") -> GenRequest:
         sampling = sampling or SamplingParams()
         if not prompt:
             raise ValueError("empty prompt")
@@ -466,10 +525,16 @@ class DecodeEngine:
             raise ValueError(
                 f"request needs {pages} KV pages but the pool holds only "
                 f"{self.pool.num_usable} — it could never run alone")
-        req = GenRequest(prompt=list(prompt), sampling=sampling)
+        req = GenRequest(prompt=list(prompt), sampling=sampling,
+                         trace_ctx=trace_ctx or current_context(),
+                         tenant=tenant)
         with self._cond:
             self._pending.append(req)
+            depth = len(self._pending)
             self._cond.notify_all()
+        if self.metrics:
+            self.metrics.requests.incr()
+            self.metrics.queue_depth.set(depth)
         return req
 
     @property
@@ -477,9 +542,62 @@ class DecodeEngine:
         return int(self._active.sum())
 
     @property
+    def num_prefilling(self) -> int:
+        return sum(1 for r in list(self._slots)
+                   if r is not None and r._prefill_pos is not None)
+
+    @property
     def queue_depth(self) -> int:
         with self._cond:
             return len(self._pending)
+
+    @property
+    def prefill_backlog(self) -> int:
+        """Prompt tokens still awaiting prefill across admitted requests.
+        Read lock-free from the health thread: each slot's fields are
+        read once, so a prefill completing mid-scan reads as 0."""
+        total = 0
+        for r in list(self._slots):
+            if r is None:
+                continue
+            pos = r._prefill_pos
+            if pos is not None:
+                total += max(0, len(r._ctx) - pos)
+        return total
+
+    def longctx_stats(self) -> Dict[str, Any]:
+        """The long-context plane's face: the port attaches none
+        (ROADMAP Queue A 7)."""
+        return {"enabled": False}
+
+    def weight_plane(self) -> Dict[str, Any]:
+        """The resident-weight policy and the capacity it bought, with the
+        reference's keys: the bitwise tier (the checkpoint's own dtype;
+        the int8 plane is ROADMAP Queue A 4) and no experts."""
+        return {
+            "parity": "bitwise",
+            "dtype": self._weight_dtype,
+            "weight_bytes": self.weight_bytes,
+            "quantize_seconds": 0.0,
+            "quantized_leaves": 0,
+            "hbm_bytes": 0,
+            "lanes": self.max_batch,
+            "max_context": self.s_max,
+            "kv_capacity_tokens": self.pool.num_usable * self.block_size,
+            "lanes_x_context": self.max_batch * self.s_max,
+            "experts": 0,
+            "expert_shards": 0,
+            "expert_bytes": 0,
+        }
+
+    def prefill_to_store(self, prompt: List[int],
+                         timeout: float = 60.0) -> int:
+        """The prefill half of prefill/decode disaggregation needs the DFS
+        KV tier (ROADMAP Queue A 3); like a reference replica without one,
+        this raises ``ValueError``."""
+        raise ValueError("DFS KV tier disabled (set serving.kv.dfs.enable "
+                         "for prefill-role replicas; the PyTorch engine "
+                         "has no DFS tier yet, ROADMAP Queue A 3)")
 
     @property
     def idle(self) -> bool:
@@ -502,6 +620,17 @@ class DecodeEngine:
             "evictions": self.prefix_evictions,
             "inserted_blocks": self.prefix_inserted_blocks,
             "prefill_chunk": self.prefill_chunk,
+            # the reference's per-tier and speculation keys: HBM only,
+            # no speculation (ROADMAP Queue A 3)
+            "tiers": {"host_enabled": False, "dfs_enabled": False,
+                      "codec": "raw", "hits_hbm": self.prefix_hit_blocks,
+                      "hits_host": 0, "hits_dfs": 0, "demotions": 0,
+                      "promotions": 0, "host_resident": 0,
+                      "host_capacity_blocks": 0, "dfs_persists": 0,
+                      "dfs_persist_failures": 0, "chain_ingested": 0,
+                      "fetch_window": 4},
+            "speculate": {"k": 0, "proposed": 0, "accepted": 0,
+                          "accept_rate": 0.0},
         }
 
     # ------------------------------------------------------ the scheduler
@@ -514,7 +643,9 @@ class DecodeEngine:
         with self._sched_lock:
             self._admit()
             self._ensure_blocks()
-            return self._run_step()
+            emitted = self._run_step()
+            self._publish_metrics()
+            return emitted
 
     def _admit(self) -> None:
         while True:
@@ -556,6 +687,11 @@ class DecodeEngine:
                 # hit-rate counts cross-request reuse only
                 self.prefix_tokens_seen += len(ctx)
                 self.prefix_tokens_matched += reused
+                self.prefix_hit_blocks += len(shared)
+                if self.metrics and reused:
+                    self.metrics.prefix_tokens_reused.incr(reused)
+                if self.metrics and shared:
+                    self.metrics.kv_hits_hbm.incr(len(shared))
             self._place(req, slot, shared + private, ctx, len(shared))
 
     def _try_alloc(self, n: int) -> Optional[List[int]]:
@@ -572,6 +708,8 @@ class DecodeEngine:
             return None
         self.pool.free(evicted)
         self.prefix_evictions += len(evicted)
+        if self.metrics:
+            self.metrics.prefix_cache_evictions.incr(len(evicted))
         return self.pool.alloc(n)
 
     def _place(self, req: GenRequest, slot: int, blocks: List[int],
@@ -590,6 +728,11 @@ class DecodeEngine:
         self._active[slot] = False
         self._last_tokens[slot] = 0
         self._push_slot(slot, req)
+        sp = self.tracer.span("serving.admit", parent=req.trace_ctx)
+        sp.add_kv("request", str(req.id))
+        sp.add_kv("prompt_tokens", str(len(ctx)))
+        sp.add_kv("prefix_tokens_reused", str(req.prefix_tokens_reused))
+        sp.finish()
 
     def _ensure_blocks(self) -> None:
         """Every decoding slot must own the page its next token lands
@@ -629,6 +772,11 @@ class DecodeEngine:
         victim.preemptions += 1
         with self._cond:
             self._pending.appendleft(victim)
+        if self.metrics:
+            self.metrics.preemptions.incr()
+        psp = self.tracer.span("serving.preempt", parent=victim.trace_ctx)
+        psp.add_kv("request", str(victim.id))
+        psp.finish()
 
     def _reset_device_state(self) -> None:
         """Zero the K/V pools and clear every lane of the step state, in
@@ -722,6 +870,7 @@ class DecodeEngine:
         n_valid = 0
         fused = pre is not None
         B = self.max_batch
+        t0 = time.monotonic()
         if fused:
             c = self.prefill_chunk
             start = pre._prefill_pos
@@ -736,13 +885,18 @@ class DecodeEngine:
         flat = self._launch_step(fused).cpu().numpy()
         packed = flat[:B * 4].reshape(B, 4)
         self.steps += 1
+        self._chunk_fill = n_valid
         emitted = 0
         self.occupancy_log.append(self.num_active)
         if len(self.occupancy_log) > 100_000:
             del self.occupancy_log[:50_000]
+        step_exemplar = None   # any sampled request names this step
         for slot, req in enumerate(self._slots):
             if req is None or not self._active[slot]:
                 continue
+            if step_exemplar is None and req.trace_ctx is not None \
+                    and req.trace_ctx.sampled:
+                step_exemplar = req.trace_ctx.trace_id
             n = int(packed[slot, 1])
             if n <= 0:
                 continue
@@ -761,6 +915,13 @@ class DecodeEngine:
                 # position — its sample is the first output token
                 self._finish_prefill(pre, int(flat[B * 4]))
                 emitted += 1
+        self.tokens_generated += emitted
+        if self.metrics:
+            self.metrics.tokens_out.incr(emitted)
+            step_s = time.monotonic() - t0
+            self.metrics.decode_step.add(step_s)
+            self.metrics.decode_step_hist.add(
+                step_s, exemplar_trace=step_exemplar)
         return emitted
 
     def _deliver_burst(self, req: GenRequest, toks) -> int:
@@ -800,7 +961,22 @@ class DecodeEngine:
             if full:
                 self.prefix_inserted_blocks += self.prefix_cache.insert(
                     req._ctx[:full * self.block_size], req._blocks[:full])
+        first = req.first_token_at is None
         req._deliver(tok)
+        if first:
+            ttft = req.first_token_at - req.submitted_at
+            if self.metrics:
+                self.metrics.ttft.add(ttft)
+                # a slow TTFT bucket's exemplar is this request's trace
+                self.metrics.ttft_hist.add(
+                    ttft, exemplar_trace=req.trace_ctx.trace_id
+                    if req.trace_ctx is not None and req.trace_ctx.sampled
+                    else None)
+            fsp = self.tracer.span("serving.first_token",
+                                   parent=req.trace_ctx)
+            fsp.add_kv("request", str(req.id))
+            fsp.add_kv("ttft_s", f"{ttft:.6f}")
+            fsp.finish()
         self._maybe_finish(req, tok)
         if req._slot is not None:
             self._push_slot(slot, req)
@@ -811,6 +987,24 @@ class DecodeEngine:
                 (sp.stop_token is not None and tok == sp.stop_token):
             self._release_slot(req)
             self._finish_request(req, FINISHED)
+
+    def _publish_metrics(self) -> None:
+        """Per-step gauges, from the host mirrors."""
+        if not self.metrics:
+            return
+        m = self.metrics
+        with self._cond:
+            depth = len(self._pending)
+        m.queue_depth.set(depth)
+        m.batch_occupancy.set(self.num_active)
+        used = self.pool.num_usable - self.pool.num_free
+        m.kv_blocks_in_use.set(used)
+        m.kv_block_utilization.set(used / max(1, self.pool.num_usable))
+        stats = self.cache_stats()
+        m.prefix_cache_hit_rate.set(round(stats["hit_rate"], 4))
+        m.prefix_cached_blocks.set(stats["cached_blocks"])
+        m.chunk_occupancy.set(self._chunk_fill / self.prefill_chunk)
+        m.prefill_backlog.set(self.prefill_backlog)
 
     # --------------------------------------------------- replica lifecycle
 

@@ -268,6 +268,14 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.parallel.trainer\n"
         "import hadoop_tpu_torch.serving.loader\n"
         "import hadoop_tpu_torch.obs.hbm, hadoop_tpu_torch.obs.trainer\n"
+        "import hadoop_tpu_torch.conf, hadoop_tpu_torch.tracing\n"
+        "import hadoop_tpu_torch.metrics, hadoop_tpu_torch.obs.slo\n"
+        "import hadoop_tpu_torch.registry, hadoop_tpu_torch.http.server\n"
+        "import hadoop_tpu_torch.security.http_auth\n"
+        "import hadoop_tpu_torch.serving.metrics\n"
+        "import hadoop_tpu_torch.serving.qos\n"
+        "import hadoop_tpu_torch.serving.server\n"
+        "import hadoop_tpu_torch.serving.service\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -292,7 +300,11 @@ def test_port_sources_name_no_jax():
                 "serving/longctx/plan.py", "serving/longctx/prefill.py",
                 "serving/longctx/guard.py", "fs.py", "parallel/data.py",
                 "parallel/checkpoint.py", "parallel/trainer.py",
-                "serving/loader.py", "obs/hbm.py", "obs/trainer.py"):
+                "serving/loader.py", "obs/hbm.py", "obs/trainer.py",
+                "conf.py", "tracing.py", "metrics.py", "obs/slo.py",
+                "registry.py", "http/server.py", "security/http_auth.py",
+                "serving/metrics.py", "serving/qos.py", "serving/server.py",
+                "serving/service.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
