@@ -18,10 +18,19 @@ and a crashed run resumed from its checkpoint, whose losses must equal
 it), and serves the last checkpoint through ``load_serving_params``,
 then over HTTP through ``ServingReplica`` (16 requests from 8 client
 threads, their tokens against in-process ``generate``; auth, health,
-``/prom``, a drain with a request in flight); runs the flagship-1b forward, also in float16 (which no flash kernel
-takes: "auto" runs the plain attention); serves flagship-1b requests through ``DecodeEngine``
-(each step shape a CUDA graph), holding the graphs' tokens against the
-engine's eager step; checks two float32 SGD steps of the kernel path
+``/prom``, a drain with a request in flight), then through the KV tiers
+behind the engine (phase ``kvtiers``: demotions to a host-RAM ring and
+persists to a DFS store on the local disk under waves of shared-head
+traffic, replays from the ring and from the store on a second engine, a
+``prefill_to_store`` handoff, a drain persist, TTFT from each tier, an
+int8 ring, and prefill/decode roles through the door, every replay's
+tokens equal to the first run's); runs the flagship-1b forward, also in
+float16 (which no flash kernel takes: "auto" runs the plain attention);
+serves flagship-1b requests through ``DecodeEngine`` (each step shape a
+CUDA graph), holding the graphs' tokens against the engine's eager step,
+and with speculative decoding (phase ``speculate``: n-gram drafts
+verified in the captured step, float32 and bf16, on against off on
+self-similar prompts); checks two float32 SGD steps of the kernel path
 against plain attention and against the layer loop that slices each
 stacked leaf per layer (bit for bit); runs
 the context-parallel prefill of flagship-1b in float32 through the
@@ -87,6 +96,7 @@ from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.checkpoint import list_checkpoints
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.ring_attention import ring_attention
+from hadoop_tpu_torch.serving.kvstore import DFSTier
 from hadoop_tpu_torch.serving.loader import load_serving_params
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
                                               run_prefill_ab)
@@ -245,6 +255,35 @@ TRAINER = dict(steps=6, crash_at=3, file_batches=4.5, loss_rtol=1e-6,
 # ``poll_s`` seconds beside them.
 DOOR = dict(requests=16, clients=8, max_new=64, secret="chip-smoke",
             poll_s=0.005)
+# The speculate phase: flagship-1b at SERVE_KW's sizes with speculate_k
+# ``k`` and n-grams up to ``ngram``, in float32 and bf16, each with
+# speculation on and off in turn. ``requests`` prompts, each a distinct
+# ``head``-token head and a ``template``-token template repeated to
+# 96-288 tokens (templated answers and code, what n-gram drafting
+# serves); the first ``greedy`` greedy, the rest sampled at
+# ``temperature`` and ``top_k``; ``max_new`` tokens each. A float32
+# greedy request may leave speculation-off's tokens only at a near-tie
+# (top-2 gap under TIE_REL of |max logit| in the teacher-forced forward),
+# and at most ``f32_ties`` of them may; in bf16 the largest gap between a
+# greedy token's logit and the forward's maximum, speculation on, must
+# stay within ``bf16_cal`` times the gap of speculation off.
+SPECULATE = dict(k=4, ngram=3, requests=16, greedy=12, head=8, template=24,
+                 max_new=64, temperature=0.8, top_k=40, f32_ties=1,
+                 bf16_cal=2.0)
+# The kvtiers phase: the step-6 checkpoint (flagship-1b bf16) at SERVE_KW's
+# sizes and the default pool (257 pages of 1,179,648 B), a host ring of
+# ``host_bytes`` (113 raw pages) and a DFS store on the local disk with
+# min-refs 1. ``heads`` shared heads of ``head`` tokens, each with
+# ``prompts // heads`` tails of 64-108 tokens, ``max_new`` tokens each, in
+# waves of ``wave``; then ``replay`` of them again (host), on a second
+# engine with no ring (DFS), a ``handoff``-token prefill_to_store, a drain
+# persist, TTFT of one ``ttft_prompt``-token prompt from each tier, the
+# page movers and the DFS tier timed per page over ``timed_pages``, an
+# int8 pass, and a prefill-role replica handing a prompt to a decode-role
+# replica through the door.
+KVTIERS = dict(host_bytes=128 << 20, prompts=32, heads=8, head=192,
+               tails=(64, 108), max_new=32, wave=8, replay=8, handoff=600,
+               ttft_prompt=300, timed_pages=32)
 
 
 class SmokeFailure(RuntimeError):
@@ -1093,6 +1132,262 @@ def phase_door(fs, root):
             "in-process tokens")
 
 
+def _kv_prompts(vocab):
+    """KVTIERS["prompts"] prompts over KVTIERS["heads"] shared heads, each
+    with its own tail (prompt i on head i % heads)."""
+    K = KVTIERS
+    gen = torch.Generator().manual_seed(SEED + 31)
+    heads = [torch.randint(0, vocab, (K["head"],), generator=gen).tolist()
+             for _ in range(K["heads"])]
+    lo, hi = K["tails"]
+    return [heads[i % K["heads"]] + torch.randint(
+        0, vocab, (lo + (i * 7) % (hi - lo + 1),), generator=gen).tolist()
+        for i in range(K["prompts"])]
+
+
+def _kv_waves(eng, prompts, max_new):
+    """Serve ``prompts`` in waves of KVTIERS["wave"] (each wave stepped
+    until done). Returns the tokens per prompt."""
+    out = []
+    for w in range(0, len(prompts), KVTIERS["wave"]):
+        out += eng.generate(prompts[w:w + KVTIERS["wave"]],
+                            SamplingParams(max_new_tokens=max_new))
+    return out
+
+
+def _ttft(eng, prompt, max_new=4):
+    """(tokens, seconds from submit to the first token on the host) of one
+    request stepped alone."""
+    req = eng.submit(prompt, SamplingParams(max_new_tokens=max_new))
+    while not req.done.is_set():
+        eng.step()
+    return req.wait(0), req.first_token_at - req.submitted_at
+
+
+def _evict_all(eng):
+    """Evict every cached page of an idle engine through the radix's
+    eviction with the engine's demotion hook (what ``_try_alloc`` does
+    when the pool runs dry), so the pages go to the host ring."""
+    with eng._sched_lock:
+        freed = eng.prefix_cache.evict(len(eng.prefix_cache),
+                                       eng.pool.refcount,
+                                       on_evict=eng.kvstore.demote)
+        eng.pool.free(freed)
+    return len(freed)
+
+
+def _tier_delta(eng, before, key):
+    return eng.kvstore.stats()[key] - before[key]
+
+
+def phase_kvtiers(fs, root):
+    """The host-RAM and DFS KV tiers behind the engine, on the step-6
+    checkpoint (flagship-1b bf16; see KVTIERS): demotions under waves of
+    shared-head traffic, replays from the ring and from the store on a
+    second engine (tokens equal the first run's), a prefill_to_store
+    handoff (592 of 600 tokens durable, decoded to an engine without
+    tiers' tokens), a drain persist hit by a fresh engine, TTFT of one
+    prompt from each tier, the page movers and the DFS tier per page, an
+    int8 pass, and prefill/decode roles through the door."""
+    K = KVTIERS
+    cfg = get_config("flagship-1b")
+    params, _ = load_serving_params(fs, f"{root}/resumed", cfg,
+                                    io_workers=TRAINER["io_workers"])
+    store = LocalFileSystem()
+    kvdir = f"{root}/kvcache"
+    tiers = dict(kv_store_fs=store, kv_store_dir=kvdir, kv_dfs_min_refs=1)
+    prompts = _kv_prompts(cfg.vocab_size)
+    eng = DecodeEngine(params, cfg, kv_host_bytes=K["host_bytes"], **tiers,
+                       **SERVE_KW)
+    ring = eng.kvstore.host.capacity
+    require(ring == K["host_bytes"] // eng.block_nbytes,
+            f"ring of {ring} pages of {eng.block_nbytes} B")
+    eng.generate([[1]], SamplingParams(max_new_tokens=2))
+    t0 = time.monotonic()
+    first = _kv_waves(eng, prompts, K["max_new"])
+    waves_s = time.monotonic() - t0
+    after_waves = eng.kvstore.stats()
+    replay = prompts[:K["replay"]]
+    got = eng.generate(replay, SamplingParams(max_new_tokens=K["max_new"]))
+    host_hits = _tier_delta(eng, after_waves, "hits_host")
+    require(after_waves["demotions"] > 0 and host_hits > 0,
+            f"demotions {after_waves['demotions']}, host hits {host_hits}")
+    require(got == first[:K["replay"]], "tokens replayed through the host "
+            "ring differ from the first run's")
+    require(eng.kvstore.flush(300.0), "the DFS writer did not drain")
+
+    # a second engine on the same store: cold HBM, no ring
+    eng2 = DecodeEngine(params, cfg, **tiers, **SERVE_KW)
+    eng2.generate([[1]], SamplingParams(max_new_tokens=2))
+    got2 = eng2.generate(replay, SamplingParams(max_new_tokens=K["max_new"]))
+    dfs_hits = eng2.kvstore.stats()["hits_dfs"]
+    require(dfs_hits > 0 and got2 == first[:K["replay"]],
+            f"DFS replay: {dfs_hits} hits, tokens equal "
+            f"{got2 == first[:K['replay']]}")
+
+    # the prefill half of disaggregation, then its decode elsewhere
+    gen = torch.Generator().manual_seed(SEED + 32)
+    long = torch.randint(0, cfg.vocab_size, (K["handoff"],),
+                         generator=gen).tolist()
+    t0 = time.monotonic()
+    persisted = eng.prefill_to_store(long)
+    handoff_s = time.monotonic() - t0
+    before = eng2.kvstore.stats()
+    handed = eng2.generate([long], SamplingParams(
+        max_new_tokens=K["max_new"]))[0]
+    handoff_hits = _tier_delta(eng2, before, "hits_dfs")
+    plain = DecodeEngine(params, cfg, prefix_cache=False, **SERVE_KW)
+    alone = plain.generate([long], SamplingParams(
+        max_new_tokens=K["max_new"]))[0]
+    del plain
+    require(persisted == K["handoff"] // 16 * 16 and handed == alone
+            and handoff_hits == persisted // 16,
+            f"handoff: {persisted} tokens durable, {handoff_hits} DFS hits, "
+            f"tokens equal {handed == alone}")
+
+    # drain: resident prefixes persisted at stop(drain=True)
+    drained = [torch.randint(0, cfg.vocab_size, (256,),
+                             generator=gen).tolist() for _ in range(4)]
+    eng3 = DecodeEngine(params, cfg, kv_host_bytes=K["host_bytes"], **tiers,
+                        **SERVE_KW)
+    eng3.start()
+    reqs = [eng3.submit(p, SamplingParams(max_new_tokens=K["max_new"]))
+            for p in drained]
+    want = [r.wait(600) for r in reqs]
+    persists0 = eng3.kvstore.stats()["dfs_persists"]
+    eng3.stop(drain=True, timeout=300)
+    drain_persists = eng3.kvstore.stats()["dfs_persists"] - persists0
+    del eng3
+    fresh = DecodeEngine(params, cfg, **tiers, **SERVE_KW)
+    got3 = fresh.generate(drained, SamplingParams(
+        max_new_tokens=K["max_new"]))
+    drain_hits = fresh.kvstore.stats()["hits_dfs"]
+    del fresh
+    require(drain_persists > 0 and drain_hits > 0 and got3 == want,
+            f"drain: {drain_persists} persisted, {drain_hits} DFS hits, "
+            f"tokens equal {got3 == want}")
+
+    # TTFT of one prompt from each tier (the DFS tier on eng2)
+    prompt = torch.randint(0, cfg.vocab_size, (K["ttft_prompt"],),
+                           generator=gen).tolist()
+    ttft, toks = {}, {}
+    toks["cold"], ttft["cold"] = _ttft(eng, prompt)
+    toks["hbm"], ttft["hbm"] = _ttft(eng, prompt)
+    require(eng.kvstore.flush(300.0), "the DFS writer did not drain")
+    _evict_all(eng)
+    toks["host"], ttft["host"] = _ttft(eng, prompt)
+    toks["dfs"], ttft["dfs"] = _ttft(eng2, prompt)
+    require(all(t == toks["cold"] for t in toks.values()),
+            f"TTFT prompt tokens differ by tier: {toks}")
+
+    # the page movers and the DFS tier, per page
+    pages = eng.prefix_cache.match(prompt)[:K["timed_pages"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = [eng._extract_block(b) for b in pages]
+    extract_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    t0 = time.perf_counter()
+    for b, (k, v) in zip(pages, payloads):
+        eng._inject_block(b, k, v)
+    torch.cuda.synchronize()
+    inject_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    dfs = DFSTier(store, f"{root}/kvtimed", shape=eng.kvstore.block_shape,
+                  dtype="bfloat16")
+    digests = [bytes([i % 256, i // 256]) * 16 for i in range(len(pages))]
+    t0 = time.perf_counter()
+    require(all(dfs.put(d, k, v) for d, (k, v) in zip(digests, payloads)),
+            "a DFS tier put failed")
+    put_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    t0 = time.perf_counter()
+    back = [dfs.get(d) for d in digests]
+    get_ms = (time.perf_counter() - t0) * 1e3 / len(pages)
+    require(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(payloads, back)),
+            "DFS tier pages came back changed")
+    stats = eng.kvstore.stats()
+    pool_blocks, block_bytes = eng.pool.num_blocks, eng.block_nbytes
+    del eng, eng2
+
+    # int8: the same waves and replay through an int8 ring
+    eng = DecodeEngine(params, cfg, kv_host_bytes=K["host_bytes"],
+                       kv_codec="int8", **SERVE_KW)
+    eng.generate([[1]], SamplingParams(max_new_tokens=2))
+    _kv_waves(eng, prompts, K["max_new"])
+    before = eng.kvstore.stats()
+    got8 = eng.generate(replay, SamplingParams(max_new_tokens=K["max_new"]))
+    int8 = {"host_capacity_blocks": eng.kvstore.host.capacity,
+            "hits_host": _tier_delta(eng, before, "hits_host"),
+            "host_resident_bytes": len(eng.kvstore.host)
+            * eng.kvstore.host.block_bytes,
+            "tokens_agree": sum(a == b for x, y in zip(got8, first)
+                                for a, b in zip(x, y)),
+            "tokens": sum(len(x) for x in got8)}
+    del eng
+
+    door = _kv_door(fs, root)
+    emit({"phase": "kvtiers", "dtype": "bfloat16",
+          "pool_blocks": pool_blocks, "block_bytes": block_bytes,
+          "host_capacity_blocks": ring, "waves_seconds": waves_s,
+          "after_waves": after_waves, "replay_host_hits": host_hits,
+          "replay_dfs_hits": dfs_hits, "handoff_persisted_tokens": persisted,
+          "handoff_seconds": handoff_s, "handoff_dfs_hits": handoff_hits,
+          "drain_persists": drain_persists, "drain_dfs_hits": drain_hits,
+          "ttft_s": ttft, "extract_ms_per_page": extract_ms,
+          "inject_ms_per_page": inject_ms, "dfs_put_ms_per_page": put_ms,
+          "dfs_get_ms_per_page": get_ms, "tiers": stats, "int8": int8,
+          "door": door})
+    require(int8["hits_host"] > 0, "the int8 ring served no hit")
+
+
+def _kv_door(fs, root):
+    """A prefill-role replica answers /v1/prefill for a prompt; a
+    decode-role replica on the same store serves it from the DFS tier,
+    with the prefill replica's own tokens for it."""
+    K = KVTIERS
+    replicas = {}
+    for role in ("prefill", "decode"):
+        conf = Configuration()
+        for key, value in (("serving.role", role),
+                           ("serving.kv.dfs.dir", f"{root}/kvdoor"),
+                           ("serving.max.batch", SERVE_KW["max_batch"]),
+                           ("serving.kv.block.size", SERVE_KW["block_size"]),
+                           ("serving.max.context", SERVE_KW["max_context"]),
+                           ("serving.prefill.chunk",
+                            SERVE_KW["prefill_chunk"]),
+                           ("serving.loader.io.workers",
+                            TRAINER["io_workers"])):
+            conf.set(key, value)
+        replicas[role] = ServingReplica(
+            conf, name=f"kv-{role}", preset="flagship-1b",
+            checkpoint=f"{root}/resumed", fs=fs)
+        replicas[role].start()
+    try:
+        gen = torch.Generator().manual_seed(SEED + 33)
+        prompt = torch.randint(0, get_config("flagship-1b").vocab_size,
+                               (K["ttft_prompt"],), generator=gen).tolist()
+        pre, dec = (replicas[r].server.port for r in ("prefill", "decode"))
+        status, body = _http(pre, "POST", "/v1/prefill", {"tokens": prompt})
+        require(status == 200, f"/v1/prefill answered {status}: {body[:200]}")
+        persisted = json.loads(body)["persisted_tokens"]
+        ask = {"tokens": prompt, "max_new_tokens": K["max_new"]}
+        status, body = _http(dec, "POST", "/v1/generate", ask)
+        require(status == 200, f"decode replica answered {status}")
+        decoded = json.loads(body)["tokens"]
+        status, body = _http(pre, "POST", "/v1/generate", ask)
+        own = json.loads(body)["tokens"]
+        hits = replicas["decode"].engine.kvstore.stats()["hits_dfs"]
+        roles = {r: replicas[r].role for r in replicas}
+    finally:
+        for r in replicas.values():
+            r.drain_and_stop(timeout=60)
+    require(persisted == K["ttft_prompt"] // 16 * 16 and hits > 0
+            and decoded == own,
+            f"door handoff: {persisted} persisted, {hits} DFS hits, tokens "
+            f"equal {decoded == own}")
+    return {"persisted_tokens": persisted, "decode_dfs_hits": hits,
+            "tokens_equal": decoded == own, "roles": roles}
+
+
 def make_params():
     """flagship-1b at full width: float32 weights from a seeded generator
     and their bf16 cast (what init_params gives for the bf16 config)."""
@@ -1332,6 +1627,183 @@ def phase_serving(cfg32, p32, cfg16, p16):
             "captured")
     require(all(r[1]["decode_shapes"] == 1 and r[1]["fused_shapes"] == 1
                 for r in runs.values()), "more than two step shapes")
+
+
+def _spec_prompts(vocab):
+    """SPECULATE["requests"] self-similar prompts: a distinct head, then
+    one shared template repeated to 96-288 tokens."""
+    S = SPECULATE
+    gen = torch.Generator().manual_seed(SEED + 21)
+    template = torch.randint(0, vocab, (S["template"],),
+                             generator=gen).tolist()
+    prompts = []
+    for i in range(S["requests"]):
+        head = torch.randint(0, vocab, (S["head"],), generator=gen).tolist()
+        n = 96 + (i * 64) % 193
+        prompts.append(head + (template * (-(-n // S["template"])))[:n])
+    return prompts
+
+
+def _spec_run(params, cfg, prompts, samplings, k):
+    """Serve ``prompts`` through ``DecodeEngine.step`` with speculate_k
+    ``k`` (submitted together, stepped until done), after a warm-up that
+    captures both step shapes. Per step: the shape, the wall ms of
+    ``step()``, the device ms of the graph replay (CUDA events around
+    the launch), whether the step carried proposals and the draft
+    uploads it made. Returns the tokens and a record."""
+    eng = DecodeEngine(params, cfg, speculate_k=k,
+                       speculate_ngram=SPECULATE["ngram"], **SERVE_KW)
+    eng.generate([[1]], SamplingParams(max_new_tokens=2))
+    real_launch, real_run = eng._launch_step, eng._run_step
+    launches, steps = [], []
+
+    def launch(fused):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_launch(fused)
+        end.record()
+        launches.append((fused, start, end))
+        return out
+
+    def run():
+        proposing = bool(eng._draft_lens.any())
+        uploads = eng.spec_uploads
+        n = real_run()
+        steps.append((proposing, eng.spec_uploads - uploads))
+        return n
+
+    eng._launch_step, eng._run_step = launch, run
+    proposed0, accepted0 = eng.spec_proposed, eng.spec_accepted
+    walls = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, sp) for p, sp in zip(prompts, samplings)]
+    while not all(r.done.is_set() for r in reqs):
+        n = len(launches)
+        s0 = time.perf_counter()
+        eng.step()
+        if len(launches) > n:
+            walls.append((launches[-1][0], (time.perf_counter() - s0) * 1e3))
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    tokens = [r.wait(0) for r in reqs]
+    n_tokens = sum(len(t) for t in tokens)
+    by_shape = {}
+    for name, fused in (("decode", False), ("fused", True)):
+        dev = [a.elapsed_time(b) for f, a, b in launches if f == fused]
+        host = [w for f, w in walls if f == fused]
+        by_shape[name] = {"steps": len(host),
+                          "wall_ms": sum(host) / max(1, len(host)),
+                          "device_ms": sum(dev) / max(1, len(dev))}
+    proposing = sum(1 for p, _ in steps if p)
+    proposed = eng.spec_proposed - proposed0
+    accepted = eng.spec_accepted - accepted0
+    rec = {"k": k, "steps": len(steps), "seconds": wall, "tokens": n_tokens,
+           "tokens_per_s": n_tokens / wall, "proposed": proposed,
+           "accepted": accepted,
+           "accept_rate": accepted / proposed if proposed else 0.0,
+           "step": by_shape, "graphs_captured": len(eng._graphs),
+           "decode_shapes": eng.decode_compiles,
+           "fused_shapes": eng.prefill_compiles,
+           "proposing_steps": proposing,
+           "draft_uploads": sum(u for _, u in steps),
+           "draft_uploads_per_step": sum(u for _, u in steps) / len(steps),
+           "uploads_on_steps_without_proposals":
+               sum(u for p, u in steps if not p)}
+    del eng
+    return tokens, rec
+
+
+def _teacher_rows(params, cfg, prompt, out):
+    """float32 logits rows of the port's forward over ``prompt + out``:
+    row j is the distribution ``out[j]`` was drawn from."""
+    seq = prompt + out[:-1]
+    n = -(-len(seq) // 128) * 128
+    logits = forward(params, [seq + [0] * (n - len(seq))], cfg)
+    return logits[0, len(prompt) - 1:len(seq)].float()
+
+
+def phase_speculate(cfg32, p32, cfg16, p16):
+    """Speculative decoding through the engine's captured step, in float32
+    and bf16, speculation off and on in turn on the same requests (see
+    SPECULATE). Gates: both step shapes captured once; no draft upload on
+    a step without proposals; drafts proposed and accepted; float32
+    greedy tokens equal speculation-off's but at near-ties; bf16 greedy
+    tokens calibrated against the forward (SPECULATE["bf16_cal"]);
+    sampled tokens inside their row's top-k."""
+    S = SPECULATE
+    prompts = _spec_prompts(cfg32.vocab_size)
+    greedy = SamplingParams(max_new_tokens=S["max_new"])
+    sampled = SamplingParams(max_new_tokens=S["max_new"],
+                             temperature=S["temperature"], top_k=S["top_k"])
+    samplings = [greedy] * S["greedy"] + \
+        [sampled] * (S["requests"] - S["greedy"])
+    for cfg, params in ((cfg32, p32), (cfg16, p16)):
+        dtype = str(cfg.torch_dtype).replace("torch.", "")
+        runs = {name: _spec_run(params, cfg, prompts, samplings, k)
+                for name, k in (("off", 0), ("on", S["k"]))}
+        rows = {name: [_teacher_rows(params, cfg, p, t)
+                       for p, t in zip(prompts, runs[name][0])]
+                for name in runs}
+        gaps = {}
+        for name in runs:
+            gaps[name] = max(
+                float((r.max(-1).values - r[torch.arange(len(t)),
+                                             torch.tensor(t)]).max())
+                for r, t in zip(rows[name][:S["greedy"]],
+                                runs[name][0][:S["greedy"]]))
+        differ = []
+        for i in range(S["greedy"]):
+            a, b = runs["on"][0][i], runs["off"][0][i]
+            if a == b:
+                continue
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            top2 = rows["off"][i][j].topk(2).values
+            differ.append({"request": i, "position": j, "on": a[j],
+                           "off": b[j],
+                           "top2_gap_rel": float((top2[0] - top2[1])
+                                                 / top2[0].abs())})
+        # sampled tokens: inside the row's top-k of the forward's logits,
+        # up to the calibration (float32: TIE_REL of |max logit|)
+        outside = 0
+        for name in runs:
+            for r, t in zip(rows[name][S["greedy"]:],
+                            runs[name][0][S["greedy"]:]):
+                kth = r.topk(S["top_k"], dim=-1).values[:, -1]
+                tol = (gaps["off"] if dtype == "bfloat16"
+                       else TIE_REL * float(r.abs().max()))
+                outside += int((r[torch.arange(len(t)), torch.tensor(t)]
+                                < kth - tol).sum())
+        emit({"phase": "speculate", "dtype": dtype, "off": runs["off"][1],
+              "on": runs["on"][1],
+              "greedy_equal": S["greedy"] - len(differ), "differ": differ,
+              "calibration_gap": gaps,
+              "sampled_outside_top_k": outside})
+        for name, (_, rec) in runs.items():
+            require(rec["graphs_captured"] == 2 and rec["decode_shapes"] == 1
+                    and rec["fused_shapes"] == 1,
+                    f"{dtype} {name}: {rec['graphs_captured']} graphs at "
+                    f"{rec['decode_shapes']} + {rec['fused_shapes']} shapes")
+            require(rec["uploads_on_steps_without_proposals"] == 0,
+                    f"{dtype} {name}: drafts uploaded on a step without "
+                    f"proposals")
+        require(runs["on"][1]["proposed"] > 0
+                and runs["on"][1]["accepted"] > 0,
+                f"{dtype}: the self-similar prompts earned no accepted "
+                f"draft")
+        require(runs["off"][1]["proposed"] == 0, "speculation off proposed")
+        require(outside == 0, f"{dtype}: {outside} sampled tokens outside "
+                f"their row's top-{S['top_k']}")
+        if dtype == "float32":
+            require(len(differ) <= S["f32_ties"]
+                    and all(d["top2_gap_rel"] < TIE_REL for d in differ),
+                    f"float32 greedy tokens left speculation-off's: "
+                    f"{differ}")
+        else:
+            require(gaps["on"] <= S["bf16_cal"] * gaps["off"],
+                    f"bf16 greedy calibration gap {gaps['on']} with "
+                    f"speculation against {gaps['off']} without")
 
 
 def phase_parity(cfg32, p32):
@@ -1878,12 +2350,14 @@ def main() -> int:
         phase_loader(fs, root, host)
         del host
         phase_door(fs, root)
+        phase_kvtiers(fs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()
     fwd_launches = phase_forward(cfg32, p32, cfg16, p16)
     phase_forward_fp16(cfg32, p32)
     phase_serving(cfg32, p32, cfg16, p16)
+    phase_speculate(cfg32, p32, cfg16, p16)
     phase_parity(cfg32, p32)
     phase_longctx_exact(cfg32, p32)
     del cfg32, p32, cfg16, p16          # free flagship-1b for llama3-8b

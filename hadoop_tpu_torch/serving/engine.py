@@ -33,8 +33,9 @@ keeping its semantics:
   active mask, sampling params and token budgets are tensors on the
   device, changed from the host only on slot events (admission, prefill
   completion, page growth, preemption, release). The stop-condition
-  scan runs on the device and the host reads back one packed ``[B, 4]``
-  bundle (token | emit count | finished | accept length) per step.
+  scan runs on the device and the host reads back one packed bundle
+  ``[B, k+4]`` (tokens | emit count | finished | accept length) per
+  step.
 - **Sampling.** Greedy when temperature <= 0, else top-k + temperature
   (``_mask_and_scale``) and a Gumbel-max draw from a ``torch.Generator``
   seeded with the step count, the counterpart of the JAX engine's
@@ -62,14 +63,43 @@ keeping its semantics:
   device tensor and adds no synchronisation to the step. TTFT is stamped
   when the first token reaches the host, at the step's one readback.
 
+- **Tiered fleet-wide cache** (``serving/kvstore``): zero-ref pages the
+  radix evicts demote to a host-RAM ring (``kv_host_bytes``; page-locked
+  on a CUDA device), hot shared prefixes persist to a DFS store
+  (``kv_store_fs``, any ``FileSystemLike``) on a background writer, and a
+  radix miss at admission walks host, then DFS, along the prefix chain
+  before it prefills. The page movers copy one page out (``.cpu()``,
+  which synchronises before the tier reads the copy) or into the pools
+  in place (``copy_``: the captured graphs keep their addresses), on the
+  scheduler thread between steps. ``persist_cache``, the drain persist of
+  ``stop(drain=True)`` and ``prefill_to_store`` (the prefill half of
+  prefill/decode disaggregation) ship resident prefixes to the store.
+  The chain digests and the block files are the reference's byte for
+  byte, so one store serves both packages.
+- **Speculative decoding** (``speculate_k``): a host-side n-gram index
+  over each request's history (``serving/speculate.py``) proposes up to
+  k drafts per lane; each lane becomes a group of k+1 rows (its last
+  token plus the drafts at consecutive positions) that share one gather
+  of the lane's paged context, and the same captured step verifies them:
+  greedy lanes accept by argmax equality, sampled lanes by rejection
+  against the target (``u < p(draft)``; a rejection redraws from the
+  target with that draft removed), so the output law is the target's.
+  The drafts and their lengths sit in one static device buffer the host
+  writes only on steps that carry proposals (``spec_uploads``); the two
+  step shapes are ``[B(k+1)]`` and ``[B(k+1)] + C`` rows, one capture
+  each. A possibly-rejected draft never evicts a cached page: the drafts
+  are clamped to the pages a lane owns. Rejected rows' K/V lands beyond
+  the accepted tip and is rewritten before anything attends to it; the
+  radix only ever sees accepted, block-aligned tokens. ``speculate_k=0``
+  is exactly the step without speculation.
+
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-speculation, the host/DFS KV tiers, the int8 weight plane, MoE, the
-long-context plane, tensor-parallel ``plan`` and ``hbm_bytes`` sizing.
-``prefill_to_store`` raises the reference's ``ValueError`` for a replica
-without a DFS tier, which the port's always is.
+the int8 weight plane, MoE, the long-context plane, tensor-parallel
+``plan`` and ``hbm_bytes`` sizing. ``prefill_to_store`` raises the
+reference's ``ValueError`` for an engine without a DFS tier.
 """
 
 from __future__ import annotations
@@ -91,7 +121,8 @@ from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.models.decoder import _norm, head_matrix, layer_slices
 from hadoop_tpu_torch.obs.hbm import hbm_ledger, tree_nbytes
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
-from hadoop_tpu_torch.serving.kvstore import BlockPool, PrefixCache
+from hadoop_tpu_torch.serving.kvstore import BlockPool, TieredKVCache
+from hadoop_tpu_torch.serving.speculate import NgramProposer
 from hadoop_tpu_torch.tracing import current_context, global_tracer
 
 log = logging.getLogger(__name__)
@@ -140,7 +171,9 @@ class GenRequest:
     trace_ctx: Optional[Any] = None
     # engine-private placement
     _slot: Optional[int] = None
+    _proposer: Optional[Any] = None   # n-gram draft index (speculation)
     _blocks: List[int] = field(default_factory=list)
+    _shared_blocks: int = 0           # leading blocks mapped from cache
     _ctx: List[int] = field(default_factory=list)
     _prefill_pos: Optional[int] = None  # next position to prefill
     _admit_seq: int = 0
@@ -188,15 +221,85 @@ def _mask_and_scale(logits, temps, topks):
     return masked / torch.clamp(temps, min=1e-6)[..., None]
 
 
+def _gumbel_argmax(scores, generator: torch.Generator):
+    """One categorical draw per row of ``scores`` (logits), Gumbel-max."""
+    u = torch.rand(scores.shape, generator=generator, device=scores.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
+    return torch.argmax(scores + gumbel, dim=-1)
+
+
 def _sample(logits, temps, topks, generator: torch.Generator):
     """logits [T, V] float32; per-row temperature/top-k; greedy when
     temperature <= 0, else a Gumbel-max draw from the scaled logits."""
     greedy = torch.argmax(logits, dim=-1)
-    scaled = _mask_and_scale(logits, temps, topks)
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20)))
-    sampled = torch.argmax(scaled + gumbel, dim=-1)
+    sampled = _gumbel_argmax(_mask_and_scale(logits, temps, topks),
+                             generator)
     return torch.where(temps <= 0, greedy, sampled)
+
+
+def _remove_draft(p, draft, rejected):
+    """The target ``p`` [B, V] with each rejected lane's draft token
+    removed and the rest renormalised (lanes not rejected keep ``p``)."""
+    vocab = torch.arange(p.shape[-1], device=p.device)
+    adj = torch.where(rejected[:, None] & (vocab[None, :] == draft[:, None]),
+                      torch.zeros_like(p), p)
+    return adj / torch.clamp(adj.sum(-1, keepdim=True), min=1e-30)
+
+
+def _verify(logits, drafts, draft_lens, temps, topks,
+            generator: torch.Generator):
+    """Verify each lane's drafts against its own rows' logits.
+
+    ``logits`` [B, G, V] float32 are the lane groups' rows (last token,
+    then the G-1 drafts at consecutive positions), ``drafts`` [B, G-1],
+    ``draft_lens`` [B]. Greedy lanes (temperature <= 0) accept a draft
+    while it equals the argmax; sampled lanes accept it with probability
+    p(draft) under the target (``_mask_and_scale``'s transform, softmax),
+    and at the first rejection redraw from the target with that draft
+    removed, so a lane's output law is the target's. Returns ``out``
+    [B, G] (the accepted drafts, then the bonus token, in every later
+    column) and ``accept`` [B], the number of drafts accepted."""
+    B, G, V = logits.shape
+    S = G - 1
+    greedy_tok = torch.argmax(logits, dim=-1)                    # [B, G]
+    scaled = _mask_and_scale(logits, temps[:, None].expand(B, G),
+                             topks[:, None].expand(B, G))
+    probs = torch.softmax(scaled, dim=-1)                        # [B, G, V]
+    u = torch.rand((B, S), generator=generator, device=logits.device)
+    p_draft = torch.gather(probs[:, :S], 2, drafts[..., None])[..., 0]
+    greedy_lane = temps <= 0
+    ok = torch.where(greedy_lane[:, None], drafts == greedy_tok[:, :S],
+                     u < p_draft)
+    ok = ok & (torch.arange(S, device=logits.device)[None, :]
+               < draft_lens[:, None])
+    accept = torch.cumprod(ok.long(), dim=1).sum(dim=1)          # [B]
+    p_a = torch.gather(probs, 1, accept[:, None, None].expand(B, 1, V))[:, 0]
+    g_a = torch.gather(greedy_tok, 1, accept[:, None])[:, 0]
+    d_a = torch.gather(drafts, 1, torch.clamp(accept, max=S - 1)[:, None])[:, 0]
+    adj = _remove_draft(p_a, d_a, accept < draft_lens)
+    samp_a = _gumbel_argmax(torch.log(torch.clamp(adj, min=1e-38)),
+                            generator)
+    final = torch.where(greedy_lane, g_a, samp_a)                # [B]
+    draft_pad = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    gj = torch.arange(G, device=logits.device)
+    out = torch.where(gj[None, :] < accept[:, None], draft_pad,
+                      final[:, None])
+    return out, accept
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as the KV tiers hold it: numpy, bf16 as uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``_to_host`` (copies, so a read-only buffer is fine)."""
+    a = np.array(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _refuse(what: str) -> None:
@@ -219,13 +322,14 @@ class DecodeEngine:
                  prefill_chunk: int = 16,
                  prefix_cache: bool = True,
                  device=None,
-                 speculate_k: int = 0, kv_host_bytes: int = 0,
-                 kv_store_fs=None, hbm_bytes: int = 0, plan=None,
-                 admission_queue=None, metrics=None, tracer=None):
-        if speculate_k:
-            _refuse("speculative decoding")
-        if kv_host_bytes or kv_store_fs is not None:
-            _refuse("the host/DFS KV tiers")
+                 kv_host_bytes: int = 0,
+                 kv_store_fs=None, kv_store_dir: str = "/kvcache",
+                 kv_dfs_min_refs: int = 1, kv_codec: str = "raw",
+                 kv_fetch_window: int = 4,
+                 speculate_k: int = 0, speculate_ngram: int = 3,
+                 admission_queue=None, drain_persist: bool = True,
+                 hbm_bytes: int = 0, plan=None,
+                 metrics=None, tracer=None):
         if hbm_bytes:
             _refuse("hbm_bytes sizing")
         if plan is not None:
@@ -255,7 +359,6 @@ class DecodeEngine:
         if num_blocks is None:
             num_blocks = max_batch * self.blocks_per_seq + 1
         self.pool = BlockPool(num_blocks, block_size)
-        self.prefix_cache = PrefixCache(block_size) if prefix_cache else None
         pool_shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
                       cfg.head_dim)
         self._kp = torch.zeros(pool_shape, dtype=cfg.torch_dtype,
@@ -274,6 +377,18 @@ class DecodeEngine:
         self.tracer = tracer or global_tracer()
         self.block_nbytes = 2 * self._kp[:, 0].numel() * \
             self._kp.element_size()
+        # the tier manager owns the radix index and the cold tiers; the
+        # engine stays the device owner (the page movers below)
+        self.kvstore = TieredKVCache(
+            self.pool, layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, dtype=cfg.torch_dtype,
+            enabled=prefix_cache, host_bytes=kv_host_bytes,
+            fs=kv_store_fs, dfs_dir=kv_store_dir,
+            dfs_min_refs=kv_dfs_min_refs, codec=kv_codec,
+            fetch_window=kv_fetch_window, metrics=metrics,
+            tracer=self.tracer, extract=self._extract_block,
+            pin=self.device.type == "cuda")
+        self.prefix_cache = self.kvstore.radix
         kv_pool_bytes = num_blocks * self.block_nbytes
         # trailing separator: unregister_prefix("engine@123") must not
         # also match a coexisting "engine@1234..." owner
@@ -290,6 +405,14 @@ class DecodeEngine:
             if cfg.use_rope else (None, None))
         self._gen = torch.Generator(device=self.device)
 
+        # speculation lane: k draft tokens per decode lane, verified by
+        # the same step (0 = off: every lane is one row, the step without
+        # speculation)
+        self.spec_k = max(0, int(speculate_k))
+        self.spec_ngram = max(1, int(speculate_ngram))
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_uploads = 0        # host→device writes of the drafts
         # host MIRRORS of the slot state (page allocation, occupancy,
         # tests); the device copy in _dstate is what the step consumes
         self._tables = np.zeros((max_batch, self.blocks_per_seq), np.int64)
@@ -301,6 +424,14 @@ class DecodeEngine:
         # the fused step's chunk: tokens [C], then slot, start and n_valid
         self._chunk_in = torch.zeros(self.prefill_chunk + 3,
                                      dtype=torch.int64, device=self.device)
+        # per-step draft proposals: host-filled, then written to the
+        # static device buffer (drafts [B, k], then lengths) only on steps
+        # that carry proposals; a step without proposals zeroes it on the
+        # device, so an idle speculation lane uploads nothing
+        self._draft_tokens = np.zeros((max_batch, self.spec_k), np.int64)
+        self._draft_lens = np.zeros((max_batch,), np.int64)
+        self._spec_in = torch.zeros(max_batch, self.spec_k + 1,
+                                    dtype=torch.int64, device=self.device)
         # per shape (fused or not): the captured graph and its output
         self._graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
         self._graph_out: Dict[bool, torch.Tensor] = {}
@@ -311,6 +442,7 @@ class DecodeEngine:
         # FairAdmissionQueue
         self._pending = admission_queue if admission_queue is not None \
             else deque()                        # guarded-by: _cond
+        self.drain_persist = drain_persist
         self._admit_counter = itertools.count()
         self._cond = threading.Condition()
         self._sched_lock = threading.Lock()
@@ -322,7 +454,6 @@ class DecodeEngine:
         self._row_counts = {"decode": set(), "fused": set()}
         self._chunk_fill = 0                    # chunk rows used last step
         # prefix-cache lifetime stats
-        self.prefix_hit_blocks = 0
         self.prefix_tokens_seen = 0
         self.prefix_tokens_matched = 0
         self.prefix_evictions = 0
@@ -341,6 +472,23 @@ class DecodeEngine:
         """Distinct row counts of fused steps (1 when shapes hold)."""
         return len(self._row_counts["fused"])
 
+    # ------------------------------------------------- tier page movers
+
+    def _extract_block(self, blk: int):
+        """One page's (K, V) payload ``[L, bs, Hkv, Dh]`` as host numpy
+        (bf16 as uint16 bits) — the demotion and persistence copy. The
+        copy to the host synchronises, so the tier reads finished bytes."""
+        kv = torch.stack([self._kp[:, blk], self._vp[:, blk]]).cpu()
+        return _to_host(kv[0]), _to_host(kv[1])
+
+    def _inject_block(self, blk: int, k, v) -> None:
+        """Write a cold-tier payload into pool page ``blk``, in place: the
+        captured graphs keep reading the same pool tensors."""
+        kv = torch.stack([_from_host(k, self._kp.dtype),
+                          _from_host(v, self._vp.dtype)]).to(self.device)
+        self._kp[:, blk].copy_(kv[0])
+        self._vp[:, blk].copy_(kv[1])
+
     # ----------------------------------------------------------- the step
 
     def _mlp(self, x, lp):
@@ -348,15 +496,18 @@ class DecodeEngine:
             return swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
         return gelu(x @ lp["w_in"] + lp["b_in"]) @ lp["w_out"] + lp["b_out"]
 
-    def _rows(self, tokens, positions, active, tables,
+    def _rows(self, tokens, positions, active, tables, group: int = 1,
               one_context: bool = False) -> torch.Tensor:
         """Float32 logits [t, V] of one group of rows, each "one token at
         one position": K/V scattered into ``table[pos // bs], pos % bs``
-        (block 0 for inactive rows), then gathered back through each row's
-        table ([t, blocks_per_seq]). Scatter-all-then-gather makes earlier
-        rows' K/V visible to later positions of the group; the mask ``kpos
-        <= pos`` does the rest. ``one_context``: every row belongs to one
-        request, whose table ([1, blocks_per_seq]) is gathered once."""
+        (block 0 for inactive rows), then gathered back through the
+        tables. Scatter-all-then-gather makes earlier rows' K/V visible to
+        later positions of the group; the mask ``kpos <= pos`` does the
+        rest. ``tables`` [n, blocks_per_seq] holds one table for each run
+        of ``group`` consecutive rows (a speculating lane's k+1 rows),
+        whose context is gathered once and shared; ``one_context``: every
+        row belongs to one request, whose table ([1, blocks_per_seq]) is
+        gathered once."""
         cfg = self.cfg
         t = tokens.shape[0]
         pos = torch.clamp(positions, max=self.s_max - 1)
@@ -366,8 +517,12 @@ class DecodeEngine:
         h = params["embed"][tokens]
         if not cfg.use_rope:
             h = h + params["pos_embed"][torch.clamp(pos, 0, cfg.max_seq - 1)]
-        blk = torch.gather(tables.expand(t, -1), 1,
-                           (pos // self.block_size)[:, None])[:, 0]
+        if one_context:
+            blk = torch.gather(tables.expand(t, -1), 1,
+                               (pos // self.block_size)[:, None])[:, 0]
+        else:
+            blk = torch.gather(tables, 1, (pos // self.block_size).view(
+                tables.shape[0], group)).reshape(t)
         blk = torch.where(active, blk, torch.zeros_like(blk))
         off = pos % self.block_size
         scale = 1.0 / (dh ** 0.5)
@@ -385,20 +540,26 @@ class DecodeEngine:
                 k = _rope_at(k, self._cos, self._sin, pos)
             kc[blk, off] = k.to(kc.dtype)
             vc[blk, off] = v.to(vc.dtype)
-            # paged gather: each row's pages back into a contiguous
-            # [S_max] context view through its block table; a one-request
-            # group's single view is shared by every row
+            # paged gather: each table's pages back into a contiguous
+            # [S_max] context view; rows that share a table (a one-request
+            # chunk, a speculating lane's group) share its single view
             kctx = kc[tables].reshape(-1, self.s_max, hkv, dh)
             vctx = vc[tables].reshape(-1, self.s_max, hkv, dh)
-            ctx = "tkgd"
+            qs, ctx = "tgrd", "tkgd"
+            qr = q.reshape(t, hkv, rep, dh)
             if one_context:
                 kctx, vctx, ctx = kctx[0], vctx[0], "kgd"
-            logits = torch.einsum(f"tgrd,{ctx}->tgrk",
-                                  q.reshape(t, hkv, rep, dh).float(),
+            elif group > 1:
+                qs, ctx = "njgrd", "nkgd"
+                qr = q.reshape(-1, group, hkv, rep, dh)
+            ps = qs[:-1] + "k"
+            logits = torch.einsum(f"{qs},{ctx}->{ps}", qr.float(),
                                   kctx.float()) * scale
-            logits = logits.masked_fill(~visible[:, None, None, :], _NEG_INF)
+            logits = logits.reshape(t, hkv, rep, self.s_max).masked_fill(
+                ~visible[:, None, None, :], _NEG_INF)
             probs = torch.softmax(logits, dim=-1).to(vctx.dtype)
-            attn = torch.einsum(f"tgrk,{ctx}->tgrd", probs, vctx)
+            attn = torch.einsum(f"{ps},{ctx}->{qs}",
+                                probs.reshape(qr.shape[:-1] + (-1,)), vctx)
             h2 = h + (attn.reshape(t, hq * dh) @ lp["wo"]).to(h.dtype)
             x2 = _norm(h2, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
             h = h2 + self._mlp(x2, lp).to(h.dtype)
@@ -408,39 +569,62 @@ class DecodeEngine:
     @torch.no_grad()
     def _step_impl(self, fused: bool) -> torch.Tensor:
         """One step over the decode lanes plus, when ``fused``, one prompt
-        chunk, read from ``_chunk_in``. The lanes ([B] rows) and the chunk
-        ([C] rows) run as two row groups, each always at its own size, so
-        every op a row goes through has the same shape in every step: a
-        request's tokens do not depend on what else the batch holds or on
-        which step shape carried it (the groups touch disjoint pages: a
-        lane writes its own private page, the chunk the prefilling slot's).
-        The chunk's rows share one request's context, gathered once.
-        Returns the packed readback, flat int64: per lane token | emit
-        count | finished | accept length ([B * 4]), then, when fused, the
-        chunk's first sampled token. It reads only tensors that live as
-        long as the engine and writes the step state in place, so one
-        call can be captured as a CUDA graph."""
+        chunk, read from ``_chunk_in``. The lanes ([B (k+1)] rows: each
+        lane's last token, then its k drafts from ``_spec_in`` when
+        speculating) and the chunk ([C] rows) run as two row groups, each
+        always at its own size, so every op a row goes through has the
+        same shape in every step: a request's tokens do not depend on what
+        else the batch holds or on which step shape carried it (the groups
+        touch disjoint pages: a lane writes its own private pages, the
+        chunk the prefilling slot's). A lane's rows share one gather of
+        its context, and so do the chunk's. Returns the packed readback,
+        flat int64: per lane k+1 tokens | emit count | finished | accept
+        length ([B (k+4)]), then, when fused, the chunk's first sampled
+        token. It reads only tensors that live as long as the engine and
+        writes the step state in place, so one call can be captured as a
+        CUDA graph."""
         st = self._dstate
-        logits = self._rows(st["last"], st["positions"], st["active"],
-                            st["tables"])
-        out = _sample(logits, st["temps"], st["topks"], self._gen)
+        B, S = self.max_batch, self.spec_k
+        G = S + 1
+        gj = torch.arange(G, device=self.device)
+        if S == 0:
+            logits = self._rows(st["last"], st["positions"], st["active"],
+                                st["tables"])
+            out = _sample(logits, st["temps"], st["topks"], self._gen)[:, None]
+            accept = torch.zeros_like(st["last"])
+        else:
+            drafts, dlens = self._spec_in[:, :S], self._spec_in[:, S]
+            tokens = torch.cat([st["last"][:, None], drafts], dim=1)
+            positions = st["positions"][:, None] + gj[None, :]
+            active = st["active"][:, None] & (gj[None, :] <= dlens[:, None])
+            logits = self._rows(tokens.reshape(B * G),
+                                positions.reshape(B * G),
+                                active.reshape(B * G), st["tables"],
+                                group=G)
+            out, accept = _verify(logits.view(B, G, -1), drafts, dlens,
+                                  st["temps"], st["topks"], self._gen)
 
-        # on-device stop-condition scan: budget clamp, stop_token, lane
-        # retirement — the host reads the verdict, it does not compute it
+        # on-device stop-condition scan over each lane's group: budget
+        # clamp, stop_token cut, lane retirement — the host reads the
+        # verdict, it does not compute it
         outc, maxn, stopt = st["outc"], st["maxn"], st["stopt"]
         act = st["active"]
-        n_emit = torch.clamp(maxn - outc, 0, 1)
+        n_emit = torch.minimum(accept + 1, torch.clamp(maxn - outc, min=0))
+        stop_hits = (out == stopt[:, None]) & (stopt >= 0)[:, None]
+        first_stop = torch.where(stop_hits, gj[None, :],
+                                 torch.full_like(out, G + 1)).min(dim=1).values
+        n_emit = torch.minimum(n_emit, first_stop + 1)
         n_emit = torch.where(act, n_emit, torch.zeros_like(n_emit))
-        stop_hit = (stopt >= 0) & (out == stopt) & (n_emit > 0)
-        finished = act & ((outc + n_emit >= maxn) | stop_hit)
-        last = torch.where(act, out, st["last"])
-        still = act & ~finished
-        packed = torch.stack([out, n_emit, finished.long(),
-                              torch.zeros_like(out)], dim=1).flatten()
+        finished = act & ((outc + n_emit >= maxn) | (first_stop < n_emit))
+        last_idx = torch.clamp(n_emit - 1, min=0)
+        last = torch.where(act, torch.gather(out, 1, last_idx[:, None])[:, 0],
+                           st["last"])
+        packed = torch.cat([out, n_emit[:, None], finished.long()[:, None],
+                            accept[:, None]], dim=1).flatten()
         st["last"].copy_(last)
         st["positions"].add_(n_emit)
         st["outc"].add_(n_emit)
-        st["active"].copy_(still)
+        st["active"].copy_(act & ~finished)
         if fused:
             C = self.prefill_chunk
             c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
@@ -590,15 +774,6 @@ class DecodeEngine:
             "expert_bytes": 0,
         }
 
-    def prefill_to_store(self, prompt: List[int],
-                         timeout: float = 60.0) -> int:
-        """The prefill half of prefill/decode disaggregation needs the DFS
-        KV tier (ROADMAP Queue A 3); like a reference replica without one,
-        this raises ``ValueError``."""
-        raise ValueError("DFS KV tier disabled (set serving.kv.dfs.enable "
-                         "for prefill-role replicas; the PyTorch engine "
-                         "has no DFS tier yet, ROADMAP Queue A 3)")
-
     @property
     def idle(self) -> bool:
         """Nothing queued and nothing running."""
@@ -620,32 +795,58 @@ class DecodeEngine:
             "evictions": self.prefix_evictions,
             "inserted_blocks": self.prefix_inserted_blocks,
             "prefill_chunk": self.prefill_chunk,
-            # the reference's per-tier and speculation keys: HBM only,
-            # no speculation (ROADMAP Queue A 3)
-            "tiers": {"host_enabled": False, "dfs_enabled": False,
-                      "codec": "raw", "hits_hbm": self.prefix_hit_blocks,
-                      "hits_host": 0, "hits_dfs": 0, "demotions": 0,
-                      "promotions": 0, "host_resident": 0,
-                      "host_capacity_blocks": 0, "dfs_persists": 0,
-                      "dfs_persist_failures": 0, "chain_ingested": 0,
-                      "fetch_window": 4},
-            "speculate": {"k": 0, "proposed": 0, "accepted": 0,
-                          "accept_rate": 0.0},
+            # per-tier traffic: HBM radix hits vs host-ring and DFS
+            # recoveries, demotions/promotions/persists
+            "tiers": self.kvstore.stats(),
+            # speculation lane: draft tokens proposed vs accepted
+            "speculate": {
+                "k": self.spec_k,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "accept_rate": (self.spec_accepted / self.spec_proposed)
+                               if self.spec_proposed else 0.0,
+            },
         }
 
     # ------------------------------------------------------ the scheduler
 
     def step(self) -> int:
         """One scheduler iteration: admit waiting requests into free
-        slots (mapping any cached prefix), ensure every decoding request
-        has a page for this step's token, run the fused step, retire
-        finished requests. Returns the number of tokens emitted."""
+        slots (mapping any cached prefix, from HBM or a cold tier),
+        propose draft tokens for the speculation lane, ensure every
+        decoding request has pages for this step's tokens, run the fused
+        step, retire finished requests. Returns the number of tokens
+        emitted."""
         with self._sched_lock:
             self._admit()
+            self._propose_drafts()
             self._ensure_blocks()
             emitted = self._run_step()
             self._publish_metrics()
             return emitted
+
+    def _propose_drafts(self) -> None:
+        """Fill the per-lane draft buffers from each running request's
+        n-gram index, clamped so speculation can never out-emit the
+        request's remaining token budget (each step emits at most
+        draft_len + 1 tokens; the last budgeted token must come from a
+        verified sample, so a lane with 1 token left proposes none)."""
+        if self.spec_k == 0:
+            return
+        self._draft_lens[:] = 0
+        for slot, req in enumerate(self._slots):
+            if req is None or req._prefill_pos is not None or \
+                    not self._active[slot]:
+                continue
+            budget = min(self.spec_k,
+                         req.sampling.max_new_tokens
+                         - len(req.out_tokens) - 1)
+            if budget <= 0:
+                continue
+            toks = req._proposer.propose(budget)
+            if toks:
+                self._draft_tokens[slot, :len(toks)] = toks
+                self._draft_lens[slot] = len(toks)
 
     def _admit(self) -> None:
         while True:
@@ -662,48 +863,78 @@ class DecodeEngine:
             # needs one more page slot for its token
             ctx = req.prompt + req.out_tokens
             shared: List[int] = []
+            nodes = []
+            cold = []
+            limit = 0
             if self.prefix_cache is not None:
                 # cap the match below the full context: the last token
                 # must always be prefilled so its logits exist to
                 # sample the first output token from
                 limit = (len(ctx) - 1) // self.block_size
-                shared = self.prefix_cache.match(ctx)[:limit]
-                if shared:
+                nodes = self.prefix_cache.match_nodes(ctx)[:limit]
+                if nodes:
+                    shared = [n.block for n in nodes]
                     # pin before any eviction this admission might do
                     self.pool.incref(shared)
             need = -(-(len(ctx) + 1) // self.block_size) - len(shared)
             private = self._try_alloc(need)
             if private is None:
                 # running requests outrank waiting ones: wait for
-                # retirements to return pages
+                # retirements to return pages (the cold walk has not run
+                # yet, so a saturated pool reads no cold tier)
                 if shared:
                     self.pool.decref(shared)
                 return
+            if self.prefix_cache is not None:
+                # a radix miss consults host RAM, then the DFS store, for
+                # the next chunks of the chain — only the still-uncached
+                # tail falls back to prefill; the matched node's digest
+                # seeds the walk
+                cold = self.kvstore.fetch_cold(
+                    ctx, len(nodes), limit, parent_ctx=req.trace_ctx,
+                    start_digest=nodes[-1].digest if nodes else None)
             with self._cond:
                 self._pending.popleft()
-            reused = len(shared) * self.block_size
+            if cold:
+                # cold payloads land in the first of the freshly
+                # allocated pages (ref 1, owned by this request) and
+                # re-register in the radix so siblings share them from
+                # HBM; an eviction above could only have taken OTHER
+                # zero-ref pages — the shared span is pinned
+                cold_pages = private[:len(cold)]
+                for page, hit in zip(cold_pages, cold):
+                    self._inject_block(page, hit.k, hit.v)
+                span = shared + cold_pages
+                self.prefix_cache.insert(
+                    ctx[:len(span) * self.block_size], span)
+                self.kvstore.mark_promoted(cold, cold_pages)
+            self.kvstore.note_match(nodes, parent_ctx=req.trace_ctx,
+                                    count=req.preemptions == 0)
+            reused = (len(shared) + len(cold)) * self.block_size
             req.prefix_tokens_reused = reused
             if req.preemptions == 0:
                 # hit-rate counts cross-request reuse only
                 self.prefix_tokens_seen += len(ctx)
                 self.prefix_tokens_matched += reused
-                self.prefix_hit_blocks += len(shared)
                 if self.metrics and reused:
                     self.metrics.prefix_tokens_reused.incr(reused)
-                if self.metrics and shared:
-                    self.metrics.kv_hits_hbm.incr(len(shared))
-            self._place(req, slot, shared + private, ctx, len(shared))
+            self._place(req, slot, shared + private, ctx,
+                        len(shared) + len(cold))
 
     def _try_alloc(self, n: int) -> Optional[List[int]]:
         """Allocate ``n`` pages, evicting LRU zero-ref cached blocks to
-        make room before giving up (cold cache yields to live work)."""
+        make room before giving up (cold cache yields to live work).
+        Victims demote to the host-RAM ring on their way out (the
+        ``on_evict`` hook copies the payload while the page is still
+        valid)."""
         if n <= 0:
             return []
         got = self.pool.alloc(n)
         if got is not None or self.prefix_cache is None:
             return got
         evicted = self.prefix_cache.evict(n - self.pool.num_free,
-                                          self.pool.refcount)
+                                          self.pool.refcount,
+                                          on_evict=self.kvstore.demote)
         if not evicted:
             return None
         self.pool.free(evicted)
@@ -717,9 +948,12 @@ class DecodeEngine:
         req.state = RUNNING
         req._slot = slot
         req._blocks = blocks
+        req._shared_blocks = shared_blocks
         req._ctx = ctx
         req._prefill_pos = shared_blocks * self.block_size
         req._admit_seq = next(self._admit_counter)
+        if self.spec_k:
+            req._proposer = NgramProposer(ctx, max_n=self.spec_ngram)
         self._slots[slot] = req
         row = np.zeros((self.blocks_per_seq,), np.int64)
         row[:len(blocks)] = blocks
@@ -737,7 +971,11 @@ class DecodeEngine:
     def _ensure_blocks(self) -> None:
         """Every decoding slot must own the page its next token lands
         in; allocate at block boundaries (evicting cold cache first),
-        preempting the youngest request when everything is dry."""
+        preempting the youngest request when everything is dry. Draft
+        rows scatter K/V too, so a speculating lane best-effort
+        allocates through its furthest draft position — and on a dry
+        pool the drafts are CLAMPED to the owned pages rather than
+        evicting or preempting anything: speculation degrades first."""
         for slot, req in enumerate(self._slots):
             if req is None or req._prefill_pos is not None:
                 continue     # prefilling slots pre-allocated at admit
@@ -753,6 +991,21 @@ class DecodeEngine:
                 victim = max((r for r in self._slots if r is not None),
                              key=lambda r: r._admit_seq)
                 self._preempt(victim)
+            lens = int(self._draft_lens[slot]) if self.spec_k else 0
+            if req._slot is None or not lens:
+                continue
+            want = (int(self._seq_lens[slot]) + lens) \
+                // self.block_size + 1
+            while len(req._blocks) < want:
+                # pool.alloc, NOT _try_alloc: a possibly-rejected draft
+                # page must never evict a cached prefix
+                got = self.pool.alloc(1)
+                if got is None:
+                    break
+                self._append_block(slot, req, got[0])
+            self._draft_lens[slot] = min(
+                lens, len(req._blocks) * self.block_size
+                - int(self._seq_lens[slot]) - 1)
 
     def _append_block(self, slot: int, req: GenRequest,
                       block: int) -> None:
@@ -848,6 +1101,7 @@ class DecodeEngine:
             drop = released
         self.pool.free(drop)
         req._blocks = []
+        req._shared_blocks = 0
         req._ctx = []
         req._prefill_pos = None
         req._slot = None
@@ -856,6 +1110,7 @@ class DecodeEngine:
         self._seq_lens[slot] = 0
         self._tables[slot] = 0
         self._last_tokens[slot] = 0
+        self._draft_lens[slot] = 0     # stale drafts must not dispatch
         self._push_slot(slot, None)    # release event: clear the lane
 
     def _run_step(self) -> int:
@@ -869,7 +1124,15 @@ class DecodeEngine:
             return 0
         n_valid = 0
         fused = pre is not None
-        B = self.max_batch
+        B, G = self.max_batch, self.spec_k + 1
+        proposed = int(self._draft_lens.sum())
+        if proposed:
+            # the step's only draft upload: tokens and lengths at once
+            self._spec_in.copy_(torch.from_numpy(np.concatenate(
+                [self._draft_tokens, self._draft_lens[:, None]], axis=1)))
+            self.spec_uploads += 1
+        elif self.spec_k:
+            self._spec_in.zero_()           # on the device: no upload
         t0 = time.monotonic()
         if fused:
             c = self.prefill_chunk
@@ -880,16 +1143,19 @@ class DecodeEngine:
             chunk[c:] = (pre._slot, start, n_valid)
             self._chunk_in.copy_(torch.from_numpy(chunk))
         self._row_counts["fused" if fused else "decode"].add(
-            B + self.prefill_chunk if fused else B)
-        # the ONE device→host read of the step
+            B * G + self.prefill_chunk if fused else B * G)
+        # the ONE device→host read of the step: [B, G+3] =
+        # tokens | emit count | finished | accept length
         flat = self._launch_step(fused).cpu().numpy()
-        packed = flat[:B * 4].reshape(B, 4)
+        packed = flat[:B * (G + 3)].reshape(B, G + 3)
         self.steps += 1
         self._chunk_fill = n_valid
         emitted = 0
         self.occupancy_log.append(self.num_active)
         if len(self.occupancy_log) > 100_000:
             del self.occupancy_log[:50_000]
+        accepted = 0
+        spec_parent = None
         step_exemplar = None   # any sampled request names this step
         for slot, req in enumerate(self._slots):
             if req is None or not self._active[slot]:
@@ -897,23 +1163,47 @@ class DecodeEngine:
             if step_exemplar is None and req.trace_ctx is not None \
                     and req.trace_ctx.sampled:
                 step_exemplar = req.trace_ctx.trace_id
-            n = int(packed[slot, 1])
+            n = int(packed[slot, G])
             if n <= 0:
                 continue
             toks = packed[slot, :n]
+            if self.spec_k:
+                # the verifier's accept count, not the delivered n-1: a
+                # stop-token or budget clamp truncates the burst but must
+                # not read as the proposer guessing wrong
+                acc = int(packed[slot, G + 2])
+                accepted += acc
+                if self._draft_lens[slot]:
+                    if self.metrics:
+                        self.metrics.spec_accept_len.add(acc)
+                    if spec_parent is None:
+                        spec_parent = req.trace_ctx
             # mirrors advance with the device state
             self._seq_lens[slot] += n
             self._last_tokens[slot] = int(toks[-1])
             emitted += self._deliver_burst(req, toks)
-            if packed[slot, 2] or self._exhausted(req):
+            if packed[slot, G + 1] or self._exhausted(req):
                 self._release_slot(req)
                 self._finish_request(req, FINISHED)
+        if proposed:
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            if self.metrics:
+                self.metrics.spec_proposed.incr(proposed)
+                if accepted:
+                    self.metrics.spec_accepted.incr(accepted)
+            # joins a speculating request's trace (a root span per step
+            # would flood the collector with one-span traces)
+            ssp = self.tracer.span("serving.speculate", parent=spec_parent)
+            ssp.add_kv("proposed", str(proposed))
+            ssp.add_kv("accepted", str(accepted))
+            ssp.finish()
         if pre is not None:
             pre._prefill_pos += n_valid
             if pre._prefill_pos >= len(pre._ctx):
                 # the chunk's last valid row sat at the final context
                 # position — its sample is the first output token
-                self._finish_prefill(pre, int(flat[B * 4]))
+                self._finish_prefill(pre, int(flat[B * (G + 3)]))
                 emitted += 1
         self.tokens_generated += emitted
         if self.metrics:
@@ -925,8 +1215,9 @@ class DecodeEngine:
         return emitted
 
     def _deliver_burst(self, req: GenRequest, toks) -> int:
-        """Deliver a step's tokens in order, never past
-        ``max_new_tokens`` and nothing past a ``stop_token`` hit."""
+        """Deliver a step's accepted tokens in order, never past
+        ``max_new_tokens`` and nothing past a ``stop_token`` hit (the
+        step already truncates; this is the host's check on it)."""
         sp = req.sampling
         n = 0
         for t in toks:
@@ -934,6 +1225,8 @@ class DecodeEngine:
                 break
             tok = int(t)
             req._deliver(tok)
+            if req._proposer is not None:
+                req._proposer.append(tok)
             n += 1
             if sp.stop_token is not None and tok == sp.stop_token:
                 break
@@ -963,6 +1256,8 @@ class DecodeEngine:
                     req._ctx[:full * self.block_size], req._blocks[:full])
         first = req.first_token_at is None
         req._deliver(tok)
+        if req._proposer is not None:
+            req._proposer.append(tok)
         if first:
             ttft = req.first_token_at - req.submitted_at
             if self.metrics:
@@ -1016,8 +1311,10 @@ class DecodeEngine:
 
     def stop(self, drain: bool = False, timeout: float = 30.0) -> None:
         """``drain=True``: keep decoding until every queued and running
-        request completes, then stop. Requests still in flight after
-        that fail with "engine stopped"."""
+        request completes, then (with ``drain_persist`` and a DFS tier)
+        persist every resident cached prefix to the store, so another
+        replica maps them instead of prefilling; then stop. Requests
+        still in flight after that fail with "engine stopped"."""
         if drain and self._thread is not None:
             deadline = time.monotonic() + timeout
             with self._cond:
@@ -1026,6 +1323,9 @@ class DecodeEngine:
                     if remaining <= 0:
                         break
                     self._cond.wait(remaining)
+            if self.drain_persist and self.kvstore.dfs_enabled:
+                self.persist_cache(
+                    timeout=max(1.0, deadline - time.monotonic()))
         self._stop.set()
         with self._cond:
             self._cond.notify_all()
@@ -1054,6 +1354,63 @@ class DecodeEngine:
         finally:
             if locked:
                 self._sched_lock.release()
+        self.kvstore.close()
+
+    def persist_cache(self, timeout: float = 30.0) -> int:
+        """Force-persist every resident cached block (HBM radix + host
+        ring) to the DFS tier and wait for durability — the drain half
+        of affinity-aware scale-in. Returns the number of blocks
+        enqueued; best-effort on timeout (whatever went durable is
+        durable, the rest is recomputable)."""
+        if not self.kvstore.dfs_enabled:
+            return 0
+        with self._sched_lock:
+            n = self.kvstore.persist_resident()
+            watermark = self.kvstore.persists_enqueued
+        if n and not self.kvstore.flush(timeout, up_to=watermark):
+            log.warning("drain persist did not finish in %.1fs "
+                        "(%d blocks enqueued)", timeout, n)
+        return n
+
+    # ------------------------------------------------ disaggregation face
+
+    def prefill_to_store(self, prompt: List[int],
+                         timeout: float = 60.0) -> int:
+        """Prefill ``prompt`` and force-persist its full-block KV span to
+        the DFS tier — the prefill half of prefill/decode disaggregation:
+        the decode replica's admission maps the span back and prefills
+        only the tail. Returns the number of tokens durable on return,
+        re-verified against the radix after the flush, so a refused write
+        is never reported as a persisted handoff. Raises ``ValueError``
+        without a DFS tier and ``RuntimeError`` when nothing went
+        durable."""
+        if not self.kvstore.dfs_enabled:
+            raise ValueError("DFS KV tier disabled (set "
+                             "serving.kv.dfs.enable for prefill-role "
+                             "replicas)")
+        req = self.submit(prompt, SamplingParams(max_new_tokens=1))
+        if self._thread is None:
+            # offline/test mode: no scheduler thread, drive it here
+            deadline = time.monotonic() + timeout
+            while not req.done.is_set():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"prefill {req.id} not done")
+                self.step()
+        req.wait(timeout)
+        with self._sched_lock:
+            blocks = self.kvstore.persist_prefix(prompt,
+                                                 parent_ctx=req.trace_ctx)
+            # flush to THIS handoff's watermark, not the queue's tail
+            watermark = self.kvstore.persists_enqueued
+        if not self.kvstore.flush(timeout, up_to=watermark):
+            raise TimeoutError("DFS KV persist did not drain in "
+                               f"{timeout}s")
+        with self._sched_lock:
+            durable = self.kvstore.persisted_span(prompt)
+        if blocks and not durable:
+            raise RuntimeError(
+                f"handoff persist failed: 0/{blocks} blocks durable")
+        return durable * self.block_size
 
     def _run_loop(self) -> None:
         while not self._stop.is_set():
@@ -1077,7 +1434,9 @@ class DecodeEngine:
                         self._release_slot(req)
                         self._finish_request(req, FAILED,
                                              f"decode failed: {e}")
-                    # the radix indexed pages that died with the pools
+                    # the radix indexed pages that died with the pools:
+                    # purge it without demotion (the bytes are gone; the
+                    # host/DFS copies are digest-keyed and survive)
                     if self.prefix_cache is not None:
                         self.pool.free(self.prefix_cache.evict(
                             len(self.prefix_cache), self.pool.refcount))

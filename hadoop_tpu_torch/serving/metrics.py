@@ -3,10 +3,9 @@
 The counterpart of ``hadoop_tpu/serving/metrics.py``, whole: the same
 source (``serving.engine``), metric names, descriptions and label sets,
 registered into the port's process-wide ``metrics_system()`` and exposed
-on the door's ``/jmx`` and ``/prom``. The families of features the port
-does not have yet (speculation, the host/DFS KV tiers, the long-context
-plane) are registered and stay at zero, so a scrape reads the same
-families from either package.
+on the door's ``/jmx`` and ``/prom``. The families of the long-context
+plane, which the port does not have yet, are registered and stay at
+zero, so a scrape reads the same families from either package.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ router built for a ``hadoop_tpu`` replica cannot tell the two apart:
     POST /v1/generate   {"tokens": [...], "max_new_tokens": 8,
                          "temperature": 0.7, "top_k": 40,
                          "stream": true, "timeout": 300}
-    POST /v1/prefill    {"tokens": [...]}: 400, no DFS KV tier yet
+    POST /v1/prefill    {"tokens": [...]}: prefill and persist the prompt's
+                        full-block KV span to the DFS tier; 200 with
+                        ``persisted_tokens``, 400 without a DFS tier
     GET  /v1/health     liveness and load: queue depth, occupancy, free
                         KV pages, prefix cache, weights, HBM ledger, QoS
     POST /v1/admin/drain  graceful drain, 202 at once, idempotent
@@ -228,11 +230,11 @@ class ServingServer:
 
     def _prefill(self, query: Dict, body):
         """The prefill half of prefill/decode disaggregation: prefill
-        the prompt and persist its full-block KV span to the DFS tier.
-        400 when this replica has no DFS tier (the port's engine has
-        none yet, ROADMAP Queue A 3), so a router probing a
-        misconfigured fleet fails fast instead of retrying the handoff
-        everywhere."""
+        the prompt and persist its full-block KV span to the DFS tier
+        (durable on return — the decode replica the router picks next
+        maps it back at once). 400 when this replica has no DFS tier, so
+        a router probing a misconfigured fleet fails fast instead of
+        retrying the handoff everywhere."""
         if self._draining.is_set():
             return 503, {"RemoteException": {
                 "exception": "RetriableException",

@@ -15,7 +15,19 @@ a service registry and refresh it, and on SIGTERM or SIGINT (or
 flight, unregister, exit 0. ``-D key=value`` sets a conf key (the door's
 ``serving.http.auth.secret``, the engine sizes ``serving.max.batch``,
 ``serving.kv.block.size``, ``serving.kv.num.blocks``,
-``serving.max.context``, ``serving.prefill.chunk``, ...).
+``serving.max.context``, ``serving.prefill.chunk``, the KV tiers'
+``serving.kv.host.bytes``, ``serving.kv.dfs.enable``, ``serving.kv.dfs.dir``,
+``serving.kv.dfs.min-refs``, ``serving.kv.codec``,
+``serving.kv.fetch.window``, ``serving.kv.drain.persist``, speculation's
+``serving.speculate.k`` and ``serving.speculate.ngram``, ...).
+
+``serving.role`` (or ``--role``) is ``mixed`` (the default), ``prefill``
+or ``decode``, as the reference's: any explicit role turns the DFS KV
+tier on unless ``serving.kv.dfs.enable`` says otherwise, and a prefill
+replica refuses to start without it. The store is the filesystem the
+checkpoint is read from (the ``fs=`` an in-process caller passes, or the
+local disk), and the registry record carries ``role``,
+``kv_host_bytes`` and ``kv_dfs`` for a router's prefill offload.
 
 The device is the card unless ``--device`` names another (``cpu`` for
 tests); without a CUDA device and without ``--device`` it raises.
@@ -28,10 +40,8 @@ exits 2 for one. ``registry=`` takes any ``RegistryLike`` (``hadoop_tpu``'s
 port does not have and exits 2. Features the port has not ported are
 refused with ``NotImplementedError`` naming their ROADMAP item (the
 command line exits 2), never ignored: ``serving.parity=relaxed`` and
-``serving.kv.hbm.bytes`` (Queue A 4), ``serving.speculate.k``,
-``serving.kv.host.bytes``, ``serving.kv.dfs.enable`` and a prefill or
-decode ``serving.role`` (A 3), ``serving.longctx.enabled`` (A 7) and a
-MoE preset (A 5). The YARN packaging (``serving_service_spec``,
+``serving.kv.hbm.bytes`` (Queue A 4), ``serving.longctx.enabled`` (A 7)
+and a MoE preset (A 5). The YARN packaging (``serving_service_spec``,
 ``autoscaler_service_spec``) is Queue A 9.
 """
 
@@ -78,18 +88,6 @@ def refuse_unported(conf: ConfLike, cfg) -> None:
         _refuse("serving.parity=relaxed (the int8 weight plane)", "4")
     if conf.get_int("serving.kv.hbm.bytes", 0):
         _refuse("serving.kv.hbm.bytes (HBM-budget sizing)", "4")
-    if conf.get_int("serving.speculate.k", 0):
-        _refuse("serving.speculate.k (speculative decoding)", "3")
-    if conf.get_int("serving.kv.host.bytes", 0):
-        _refuse("serving.kv.host.bytes (the host-RAM KV tier)", "3")
-    role = conf.get("serving.role", "mixed")
-    if role not in ("prefill", "decode", "mixed"):
-        raise ValueError(f"serving.role must be prefill/decode/mixed, "
-                         f"got {role!r}")
-    if role != "mixed":
-        _refuse(f"serving.role={role} (prefill/decode disaggregation)", "3")
-    if conf.get_bool("serving.kv.dfs.enable", False):
-        _refuse("serving.kv.dfs.enable (the DFS KV tier)", "3")
     if conf.get_bool("serving.longctx.enabled", False):
         _refuse("serving.longctx.enabled (the long-context plane)", "7")
     if cfg.is_moe:
@@ -134,6 +132,23 @@ class ServingReplica:
             device=self.device)
         self.load_seconds = round(time.monotonic() - t0, 3)
         self.step = step
+        # the tiered KV cache: the host ring's byte budget, and the DFS
+        # prefix store on the filesystem the checkpoint came from; a
+        # prefill-role replica needs the store to hand its KV over
+        self.role = conf.get("serving.role", "mixed")
+        if self.role not in ("prefill", "decode", "mixed"):
+            raise ValueError(f"serving.role must be prefill/decode/"
+                             f"mixed, got {self.role!r}")
+        self.kv_host_bytes = conf.get_int("serving.kv.host.bytes", 0)
+        # any explicitly role'd replica defaults the DFS tier on: the
+        # handoff needs the prefill side writing and the decode side
+        # reading the same store
+        kv_dfs = conf.get_bool("serving.kv.dfs.enable",
+                               self.role != "mixed")
+        if self.role == "prefill" and not kv_dfs:
+            raise ValueError("a prefill-role replica needs the DFS KV "
+                             "tier (serving.kv.dfs.enable)")
+        self.kv_dfs_enabled = kv_dfs
         metrics = ServingMetrics()
         # door QoS: the decay scheduler and the fair admission queue
         # exist before the engine (the queue is its pending queue), the
@@ -153,6 +168,15 @@ class ServingReplica:
             prefill_chunk=conf.get_int("serving.prefill.chunk", 16),
             prefix_cache=conf.get_bool("serving.prefix_cache.enabled",
                                        True),
+            kv_host_bytes=self.kv_host_bytes,
+            kv_store_fs=fs if kv_dfs else None,
+            kv_store_dir=conf.get("serving.kv.dfs.dir", "/kvcache"),
+            kv_dfs_min_refs=conf.get_int("serving.kv.dfs.min-refs", 1),
+            kv_codec=conf.get("serving.kv.codec", "raw"),
+            kv_fetch_window=conf.get_int("serving.kv.fetch.window", 4),
+            speculate_k=conf.get_int("serving.speculate.k", 0),
+            speculate_ngram=conf.get_int("serving.speculate.ngram", 3),
+            drain_persist=conf.get_bool("serving.kv.drain.persist", True),
             device=self.device, admission_queue=qos_queue,
             metrics=metrics)
         qos_gate = QoSGate(conf, self.engine, metrics=metrics,
@@ -199,14 +223,15 @@ class ServingReplica:
                             "experts": str(plane["experts"]),
                             "expert_shards": str(plane["expert_shards"]),
                             "expert_bytes": str(plane["expert_bytes"]),
-                            "role": "mixed",
-                            "kv_host_bytes": "0",
+                            "role": self.role,
+                            "kv_host_bytes": str(self.kv_host_bytes),
                             "kv_block_bytes": str(eng.block_nbytes),
                             "kv_block_size": str(eng.block_size),
                             "kv_hbm_blocks": str(eng.pool.num_usable),
                             "longctx": "0",
                             "longctx_max_tokens": "0",
-                            "kv_dfs": "0"})
+                            "kv_dfs": "1" if self.kv_dfs_enabled
+                                      else "0"})
             # the heartbeat below refreshes the record (stamp + live
             # load): it is the renewal, so no auto_renew twin
             self.reg.register(self.record, ttl_s=self._record_ttl,

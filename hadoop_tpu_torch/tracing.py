@@ -12,7 +12,9 @@ through a ``SpanContext``) inherit it, so a trace is delivered whole or
 not at all. The active span lives in a contextvar; engine-side spans run
 on the scheduler thread, so their parent context rides the request.
 Finished sampled spans go to the tracer's in-memory ``finished`` list and
-to every receiver added with ``add_receiver``.
+to every receiver added with ``add_receiver``. ``carry_context`` wraps a
+callable so the caller's active span survives into the thread that runs
+it (the KV tier's DFS writer).
 """
 
 from __future__ import annotations
@@ -102,6 +104,17 @@ def current_context() -> Optional[SpanContext]:
     """Wire context of the active span, if any."""
     sp = _active.get()
     return sp.context() if sp is not None else None
+
+
+def carry_context(fn: Callable) -> Callable:
+    """Capture the CALLER's contextvars (the active span among them) and
+    run ``fn`` under them in whatever thread eventually calls the
+    wrapper, so spans made there parent into the spawning trace."""
+    ctx = contextvars.copy_context()
+
+    def run(*args, **kwargs):
+        return ctx.run(fn, *args, **kwargs)
+    return run
 
 
 class Tracer:

@@ -639,11 +639,6 @@ def test_command_line_serves_health_and_exits_0_on_sigterm(tmp_path):
 @pytest.mark.parametrize("key,value,item", [
     ("serving.parity", "relaxed", "A 4"),
     ("serving.kv.hbm.bytes", "1000000000", "A 4"),
-    ("serving.speculate.k", "2", "A 3"),
-    ("serving.kv.host.bytes", "1048576", "A 3"),
-    ("serving.kv.dfs.enable", "true", "A 3"),
-    ("serving.role", "prefill", "A 3"),
-    ("serving.role", "decode", "A 3"),
     ("serving.longctx.enabled", "true", "A 7"),
     ("preset", "tiny-moe", "A 5"),
 ])
@@ -661,6 +656,46 @@ def test_unported_features_are_refused(tmp_path, key, value, item):
     argv += ["--preset", value] if key == "preset" else \
         ["-D", f"{key}={value}"]
     assert service.replica_main(argv, Configuration()) == 2
+
+
+@pytest.mark.parametrize("key,value,check", [
+    ("serving.speculate.k", "2", lambda r: r.engine.spec_k == 2),
+    ("serving.kv.host.bytes", "1048576",
+     lambda r: r.engine.kvstore.host is not None
+     and r.kv_host_bytes == 1048576),
+    ("serving.kv.dfs.enable", "true",
+     lambda r: r.engine.kvstore.dfs_enabled and r.role == "mixed"),
+    ("serving.role", "prefill",
+     lambda r: r.engine.kvstore.dfs_enabled and r.role == "prefill"),
+    ("serving.role", "decode",
+     lambda r: r.engine.kvstore.dfs_enabled and r.role == "decode"),
+])
+def test_tier_and_speculation_keys_reach_the_engine(tmp_path, key, value,
+                                                    check):
+    """The keys of ROADMAP Queue A 3, once refused, now configure the
+    engine as the reference's replica does (an explicit role turns the DFS
+    tier on, on the checkpoint's filesystem)."""
+    save_checkpoint(LocalFileSystem(), f"{tmp_path}/ckpt", 1,
+                    {"params": _tiny()["params"]})
+    conf = _conf(serving_kv_block_size="4", serving_max_context="48",
+                 serving_kv_dfs_dir=f"{tmp_path}/kv")
+    conf.set(key, value)
+    replica = service.ServingReplica(conf, name="x", preset="tiny",
+                                     checkpoint=f"{tmp_path}/ckpt",
+                                     device="cpu")
+    try:
+        assert check(replica)
+    finally:
+        replica.server.stop()
+
+
+def test_prefill_role_without_the_dfs_tier_is_refused(tmp_path):
+    save_checkpoint(LocalFileSystem(), f"{tmp_path}/ckpt", 1,
+                    {"params": _tiny()["params"]})
+    conf = _conf(serving_role="prefill", serving_kv_dfs_enable="false")
+    with pytest.raises(ValueError, match="DFS KV tier"):
+        service.ServingReplica(conf, name="x", preset="tiny",
+                               checkpoint=f"{tmp_path}/ckpt", device="cpu")
 
 
 @pytest.mark.parametrize("argv", [

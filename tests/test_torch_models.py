@@ -276,6 +276,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.serving.qos\n"
         "import hadoop_tpu_torch.serving.server\n"
         "import hadoop_tpu_torch.serving.service\n"
+        "import hadoop_tpu_torch.serving.speculate\n"
+        "import hadoop_tpu_torch.serving.kvstore.tiered\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -304,7 +306,10 @@ def test_port_sources_name_no_jax():
                 "conf.py", "tracing.py", "metrics.py", "obs/slo.py",
                 "registry.py", "http/server.py", "security/http_auth.py",
                 "serving/metrics.py", "serving/qos.py", "serving/server.py",
-                "serving/service.py"):
+                "serving/service.py", "serving/speculate.py",
+                "serving/kvstore/radix.py", "serving/kvstore/codec.py",
+                "serving/kvstore/hosttier.py", "serving/kvstore/dfstier.py",
+                "serving/kvstore/tiered.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

@@ -341,8 +341,7 @@ def test_sampled_tokens_lie_in_the_top_k_set():
 
 def test_unported_features_are_refused():
     _, jparams, cfg, params, _ = _model("tiny")
-    for kw in (dict(speculate_k=2), dict(kv_host_bytes=1 << 20),
-               dict(hbm_bytes=1 << 30), dict(plan=object())):
+    for kw in (dict(hbm_bytes=1 << 30), dict(plan=object())):
         with pytest.raises(NotImplementedError):
             DecodeEngine(params, cfg, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
