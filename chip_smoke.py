@@ -63,6 +63,7 @@ is float32 outside them too).
 from __future__ import annotations
 
 import contextlib
+import gc
 import http.client
 import json
 import math
@@ -86,7 +87,8 @@ from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
                               make_train_step)
 import hadoop_tpu_torch.models.decoder as decoder_module
 from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
-                                             head_matrix, run_layers_kv)
+                                             head_matrix, layer_forward,
+                                             layer_slices, run_layers_kv)
 from hadoop_tpu_torch.conf import Configuration
 from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
 from hadoop_tpu_torch.fs import LocalFileSystem
@@ -100,9 +102,12 @@ from hadoop_tpu_torch.serving.kvstore import DFSTier
 from hadoop_tpu_torch.serving.loader import load_serving_params
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
                                               run_prefill_ab)
+from hadoop_tpu_torch.serving import engine as engine_module
+from hadoop_tpu_torch.serving import weightplane
 from hadoop_tpu_torch.serving.service import ServingReplica
 from hadoop_tpu_torch.tracing import global_tracer
-from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
+from hadoop_tpu_torch.tools.profile_flagship import (_kernels_under,
+                                                    decoding_engine, trace)
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -284,6 +289,37 @@ SPECULATE = dict(k=4, ngram=3, requests=16, greedy=12, head=8, template=24,
 KVTIERS = dict(host_bytes=128 << 20, prompts=32, heads=8, head=192,
                tails=(64, 108), max_new=32, wave=8, replay=8, handoff=600,
                ttft_prompt=300, timed_pages=32)
+# The weight plane (serving.parity=relaxed): int8 matmul weights with one
+# f32 scale per group of ``group`` elements along the contraction dim,
+# the embedding, head, norms and router left in the model's dtype.
+WEIGHTS_INT8 = weightplane.WeightPlaneConfig(tier="relaxed", group=64)
+# The weightplane phase: the step-6 checkpoint (flagship-1b bf16) through
+# quantized_load; its A/B guard against the bf16 parameters; the int8
+# engine at SERVE_KW's sizes through its graphs and its eager step on
+# ``prompts`` greedy requests of ``max_new`` tokens; float32 int8 greedy
+# tokens against the plain greedy loop over dequantize_params (near-ties
+# as the serving phase's, TIE_REL); decode-only and fused step times int8
+# against bf16 on the door's requests; sizing at ``budget`` bytes with
+# ``max_lanes``; ``door`` requests through ServingReplica with
+# serving.parity=relaxed against the in-process int8 engine's tokens.
+WEIGHTPLANE = dict(prompts=5, max_new=32, budget=int(2.5e9), max_lanes=64,
+                   door=8, alloc_slack=0.01)
+# The moe phase: mixtral-8x7b at full width and all 32 layers from an int8
+# plane built on the card (group 64), DecodeEngine with ``hbm_bytes``,
+# ``max_lanes``, block 16, ``max_context`` and chunk 64, speculation off;
+# ``requests`` greedy requests of ``max_new`` tokens on prompts of
+# ``prompt_lengths``, at capacity factor ``no_drop`` (n_experts / top_k:
+# C >= T, no token can drop) and again at the preset's 1.25. The
+# layer-streamed plain forward over the dequantized plane runs in float32
+# (the reference) and in bf16 (its calibration: ``cal`` is the largest
+# |bf16 - float32| logit over the compared rows); each emitted token's
+# gap to the float32 reference's maximum must stay within
+# ``cal_factor`` times ``cal``. Graph against eager on one request of
+# ``eager_new`` tokens.
+MOE = dict(model="mixtral-8x7b", hbm_bytes=int(70e9), max_lanes=8,
+           block=16, max_context=4096, chunk=64, requests=16, max_new=64,
+           prompt_lengths=(24, 40, 57, 71, 96, 120, 33, 64), no_drop=4.0,
+           cal_factor=2.0, eager_new=16)
 
 
 class SmokeFailure(RuntimeError):
@@ -297,6 +333,14 @@ def require(cond: bool, msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def free_device() -> None:
+    """Return what dropped tensors held to the card: collect the reference
+    cycles that keep an engine (and its captured graphs) alive, then empty
+    the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1526,6 +1570,29 @@ def _serve_steps(params, cfg, requests, graphs: bool):
     return tokens, rec
 
 
+def _greedy_f32_gate(eng_tokens, params, cfg, prompts, new):
+    """The serving phase's float32 rule: each greedy request's tokens
+    equal the plain greedy loop over ``params`` but at a near-tie (the
+    two logits within TIE_REL), after which the stream is not compared.
+    Returns (tokens compared equal, ties)."""
+    ties, compared = [], 0
+    for i, (prompt, got) in enumerate(zip(prompts, eng_tokens)):
+        ref, rows = _reference_greedy(params, cfg, prompt, new)
+        for j, (a, b) in enumerate(zip(got, ref)):
+            if a == b:
+                compared += 1
+                continue
+            la, lb = rows[j][a].item(), rows[j][b].item()
+            rel = abs(la - lb) / max(abs(la), abs(lb), 1e-30)
+            require(rel < TIE_REL,
+                    f"prompt {i} token {j}: engine {a} vs forward {b}, "
+                    f"reference logits {la} vs {lb} (rel {rel})")
+            ties.append({"prompt": i, "index": j, "engine": a,
+                         "forward": b, "rel": rel})
+            break
+    return compared, ties
+
+
 def phase_serving(cfg32, p32, cfg16, p16):
     prompts, sampled_prompt = _prompts(cfg32.vocab_size)
     new = 32
@@ -1540,21 +1607,7 @@ def phase_serving(cfg32, p32, cfg16, p16):
     f32_seconds = time.monotonic() - t0
     require(len(extra) == new and all(0 <= t < cfg32.vocab_size
                                       for t in extra), "bad sampled tokens")
-    ties, compared = [], 0
-    for i, (prompt, got) in enumerate(zip(prompts, outs)):
-        ref, rows = _reference_greedy(p32, cfg32, prompt, new)
-        for j, (a, b) in enumerate(zip(got, ref)):
-            if a == b:
-                compared += 1
-                continue
-            la, lb = rows[j][a].item(), rows[j][b].item()
-            rel = abs(la - lb) / max(abs(la), abs(lb), 1e-30)
-            require(rel < TIE_REL,
-                    f"prompt {i} token {j}: engine {a} vs forward {b}, "
-                    f"reference logits {la} vs {lb} (rel {rel})")
-            ties.append({"prompt": i, "index": j, "engine": a,
-                         "forward": b, "rel": rel})
-            break                         # stream not compared further
+    compared, ties = _greedy_f32_gate(outs, p32, cfg32, prompts, new)
     emit({"phase": "serving", "dtype": "float32", "requests": 5,
           "greedy_tokens_equal": compared, "near_ties": ties,
           "steps": eng.steps, "seconds": f32_seconds,
@@ -1646,14 +1699,25 @@ def _spec_prompts(vocab):
 
 def _spec_run(params, cfg, prompts, samplings, k):
     """Serve ``prompts`` through ``DecodeEngine.step`` with speculate_k
-    ``k`` (submitted together, stepped until done), after a warm-up that
-    captures both step shapes. Per step: the shape, the wall ms of
-    ``step()``, the device ms of the graph replay (CUDA events around
-    the launch), whether the step carried proposals and the draft
-    uploads it made. Returns the tokens and a record."""
+    ``k`` at SERVE_KW's sizes (``_timed_run``). Returns the tokens and a
+    record."""
     eng = DecodeEngine(params, cfg, speculate_k=k,
                        speculate_ngram=SPECULATE["ngram"], **SERVE_KW)
-    eng.generate([[1]], SamplingParams(max_new_tokens=2))
+    out = _timed_run(eng, prompts, samplings)
+    out[1]["k"] = k
+    del eng
+    return out
+
+
+def _timed_run(eng, prompts, samplings, warm=True):
+    """Serve ``prompts`` through ``eng.step`` (submitted together, stepped
+    until done), after a warm-up that captures both step shapes (``warm``).
+    Per step: the shape, the wall ms of ``step()``, the device ms of the
+    graph replay (CUDA events around the launch), whether the step
+    carried proposals and the draft uploads it made. Returns the tokens
+    and a record."""
+    if warm:
+        eng.generate([[1]], SamplingParams(max_new_tokens=2))
     real_launch, real_run = eng._launch_step, eng._run_step
     launches, steps = [], []
 
@@ -1687,6 +1751,7 @@ def _spec_run(params, cfg, prompts, samplings, k):
             walls.append((launches[-1][0], (time.perf_counter() - s0) * 1e3))
     wall = time.monotonic() - t0
     torch.cuda.synchronize()
+    eng._launch_step, eng._run_step = real_launch, real_run
     tokens = [r.wait(0) for r in reqs]
     n_tokens = sum(len(t) for t in tokens)
     by_shape = {}
@@ -1699,7 +1764,7 @@ def _spec_run(params, cfg, prompts, samplings, k):
     proposing = sum(1 for p, _ in steps if p)
     proposed = eng.spec_proposed - proposed0
     accepted = eng.spec_accepted - accepted0
-    rec = {"k": k, "steps": len(steps), "seconds": wall, "tokens": n_tokens,
+    rec = {"steps": len(steps), "seconds": wall, "tokens": n_tokens,
            "tokens_per_s": n_tokens / wall, "proposed": proposed,
            "accepted": accepted,
            "accept_rate": accepted / proposed if proposed else 0.0,
@@ -1711,7 +1776,6 @@ def _spec_run(params, cfg, prompts, samplings, k):
            "draft_uploads_per_step": sum(u for _, u in steps) / len(steps),
            "uploads_on_steps_without_proposals":
                sum(u for p, u in steps if not p)}
-    del eng
     return tokens, rec
 
 
@@ -2223,24 +2287,45 @@ def _reference(params, cfg, full, n, head, cos, sin):
     return out
 
 
-def phase_longctx():
+def phase_longctx(int8: bool = False, bf16_ms=None):
     """llama3-8b at full width and depth and its published context: CP
     prefill (sp 4 on this card, block 16) of three prompts against the
-    single-device forward (the causal kernel at S 8192). Returns the
-    main path's launches (causal, partial) of the 8192-token prefill."""
+    single-device forward (the causal kernel at S 8192). With ``int8``
+    (phase ``longctx_int8``) the prefiller holds the weight plane's int8
+    tree (group 64: every local matmul through ``qdot``, the head through
+    ``qhead``) and the single-device forward runs over its
+    ``dequantize_params`` reconstruction, for the 8192-token prompt.
+    Returns the main path's launches (causal, partial) of the 8192-token
+    prefill and its ms (``bf16_ms``: the bf16 prefill's, recorded beside
+    the int8 one's)."""
     cfg = get_config(LONGCTX["model"])
     sp = LONGCTX["sp"]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(p.numel() for p in tree_leaves(params))
+    plane = {}
+    cp_params = params
+    if int8:
+        plane["weight_bytes_bf16"] = weightplane.resident_weight_bytes(
+            params)
+        cp_params, report = weightplane.quantize_params(
+            params, cfg, WEIGHTS_INT8)
+        del params
+        torch.cuda.empty_cache()
+        params = weightplane.dequantize_params(cp_params, cfg)
+        plane.update(weight_bytes=report["weight_bytes"],
+                     quantize_seconds=report["quantize_seconds"],
+                     group=WEIGHTS_INT8.group)
     head = head_matrix(params, cfg)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device="cuda")
-    pre = ContextParallelPrefiller(params, cfg, block_size=LONGCTX["block"],
+    pre = ContextParallelPrefiller(cp_params, cfg,
+                                   block_size=LONGCTX["block"],
                                    pad_tokens=cfg.max_seq, sp=sp)
     local = pre.pad_tokens // sp
     want_launches = (cfg.n_layers, 0, 0, (sp - 1) * cfg.n_layers)
-    main_launches = None
-    for i, n in enumerate(LONGCTX["tokens"]):
+    main_launches = main_ms = None
+    prompts = LONGCTX["tokens"][:1] if int8 else LONGCTX["tokens"]
+    for i, n in enumerate(prompts):
         full = torch.randint(0, cfg.vocab_size, (cfg.max_seq,),
                              generator=torch.Generator(device="cuda")
                              .manual_seed(SEED + 9 + i), device="cuda")
@@ -2277,7 +2362,8 @@ def phase_longctx():
                     for es, cs in zip(err, cal) for e, c in zip(es, cs))
         rank0_equal = all(torch.equal(g[:, :local], w[:, :local])
                           for g, w in zip(got_kv, kernel[1:]))
-        rec = {"phase": "longctx", "model": LONGCTX["model"],
+        rec = {"phase": "longctx_int8" if int8 else "longctx",
+               **plane, "model": LONGCTX["model"],
                "dtype": cfg.dtype, "params": n_params, "prompt_tokens": n,
                "pad_tokens": pre.pad_tokens, "sp": sp,
                "block_size": LONGCTX["block"], "full_blocks": n_blocks,
@@ -2301,11 +2387,12 @@ def phase_longctx():
         if i == 0:
             ms = cuda_ms(lambda: pre.cp_prefill(prompt), LONGCTX["timed"])
             rec.update(ms=ms, tokens_per_s=n / (ms / 1e3),
+                       bf16_ms_same_run=bf16_ms,
                        single_device_forward_ms=cuda_ms(
                            lambda: final_hidden(params, forward_hidden(
                                params, full[None], cfg)[0, -1], cfg) @ head,
                            2))
-            main_launches = (launches[0], launches[3])
+            main_launches, main_ms = (launches[0], launches[3]), ms
         emit(rec)
         require(tuple(launches) == want_launches,
                 f"CP prefill launches (fwd, dq, dkv, partial) {launches}, "
@@ -2326,8 +2413,409 @@ def phase_longctx():
         del ref, got_kv
     require(pre.prefill_compiles == 1 and pre.head_compiles == 1,
             "the CP prefill ran at more than one shape")
-    del params, pre
-    return main_launches
+    del params, cp_params, pre
+    free_device()
+    return main_launches, main_ms
+
+
+# ------------------------------------------------------- the weight plane
+
+def _reckon_weight_bytes(cfg, group):
+    """The int8 plane's resident bytes from the config's shapes alone:
+    each layer matmul's elements at 1 B plus one f32 scale per ``group``
+    of them, every other leaf (embed, head, router, norms) at the
+    model's dtype."""
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    total = 0
+    for name, leaf in shapes["layers"].items():
+        if name in weightplane.LAYER_MATMULS:
+            total += leaf.numel() + leaf.numel() // group * 4
+        else:
+            total += leaf.numel() * item
+    for name, leaf in shapes.items():
+        if name != "layers":
+            total += leaf.numel() * item
+    return total
+
+
+def phase_weightplane(fs, root):
+    """flagship-1b's step-6 checkpoint on the int8 weight plane
+    (WEIGHTS_INT8; see WEIGHTPLANE): quantize-at-load, the A/B guard,
+    graph against eager, float32 exactness against the dequantized
+    forward, step times and sizing against bf16, and the door."""
+    W = WEIGHTPLANE
+    cfg = get_config("flagship-1b")
+    free_device()          # nothing an earlier phase dropped frees below
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    qparams, step, report = weightplane.quantized_load(
+        fs, f"{root}/resumed", cfg, WEIGHTS_INT8,
+        io_workers=TRAINER["io_workers"])
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    want_bytes = _reckon_weight_bytes(cfg, WEIGHTS_INT8.group)
+    params, _ = load_serving_params(fs, f"{root}/resumed", cfg,
+                                    io_workers=TRAINER["io_workers"])
+    ab = weightplane.run_weight_ab(cfg, params, qparams, wp=WEIGHTS_INT8)
+    emit({"phase": "weightplane", "part": "load", "step": step,
+          "report": report, "weight_bytes_reckoned": want_bytes,
+          "allocator_delta_bytes": delta,
+          "weight_bytes_bf16": weightplane.resident_weight_bytes(params),
+          "ab": ab})
+    require(step == TRAINER["steps"], f"loaded step {step}")
+    require(report["weight_bytes"] == want_bytes,
+            f"int8 weight bytes {report['weight_bytes']}, reckoned "
+            f"{want_bytes}")
+    require(abs(delta - want_bytes) <= W["alloc_slack"] * want_bytes,
+            f"the allocator grew by {delta} B for {want_bytes} B of "
+            f"weights")
+    require(all(math.isfinite(ab[k]) for k in ("max_abs", "max_rel"))
+            and ab["max_rel"] <= WEIGHTS_INT8.guard_rel_tol,
+            f"weight A/B guard: {ab}")
+
+    # the int8 engine through its graphs and its eager step
+    prompts, _ = _prompts(cfg.vocab_size)
+    prompts = prompts[:W["prompts"]]
+    greedy = SamplingParams(max_new_tokens=W["max_new"])
+    requests = [(p, greedy) for p in prompts]
+    runs = {mode: _serve_steps(qparams, cfg, requests, mode == "graph")
+            for mode in ("graph", "eager")}
+    free_device()
+    equal = [a == b for a, b in zip(runs["graph"][0], runs["eager"][0])]
+    emit({"phase": "weightplane", "part": "graphs",
+          "tokens_equal_per_request": equal, "graph": runs["graph"][1],
+          "eager": runs["eager"][1]})
+    require(all(equal), f"int8 graph tokens differ from eager: {equal}")
+    require(runs["graph"][1]["graphs_captured"] == 2
+            and all(r[1]["decode_shapes"] == 1 and r[1]["fused_shapes"] == 1
+                    for r in runs.values()),
+            "the int8 engine captured or stepped at more than two shapes")
+
+    # float32 int8: the engine's greedy tokens against the plain greedy
+    # loop over the reconstruction
+    cfg32 = get_config("flagship-1b", dtype="float32")
+    q32, _ = weightplane.quantize_params(_cast(params, torch.float32), cfg32,
+                                         WEIGHTS_INT8)
+    eng = DecodeEngine(q32, cfg32, **SERVE_KW)
+    outs = eng.generate(prompts, greedy)
+    del eng
+    free_device()
+    compared, ties = _greedy_f32_gate(
+        outs, weightplane.dequantize_params(q32, cfg32), cfg32, prompts,
+        W["max_new"])
+    emit({"phase": "weightplane", "part": "float32", "requests": len(outs),
+          "greedy_tokens_equal": compared, "near_ties": ties})
+    del q32
+    free_device()
+
+    # step times, int8 against bf16, on the door's requests
+    door_prompts = _door_prompts(cfg.vocab_size)
+    door_greedy = [SamplingParams(max_new_tokens=DOOR["max_new"])] * len(
+        door_prompts)
+    timed = {}
+    for name, tree in (("bf16", params), ("int8", qparams)):
+        eng = DecodeEngine(tree, cfg, **SERVE_KW)
+        timed[name] = _timed_run(eng, door_prompts, door_greedy)[1]
+        del eng
+        free_device()
+    # sizing at one budget
+    sizing = {}
+    for name, tree in (("bf16", params), ("int8", qparams)):
+        eng = DecodeEngine(tree, cfg, block_size=SERVE_KW["block_size"],
+                           max_context=SERVE_KW["max_context"],
+                           prefill_chunk=SERVE_KW["prefill_chunk"],
+                           hbm_bytes=W["budget"], max_lanes=W["max_lanes"])
+        plane = eng.weight_plane()
+        sizing[name] = {k: plane[k] for k in (
+            "weight_bytes", "lanes", "kv_capacity_tokens",
+            "lanes_x_context")}
+        sizing[name]["num_blocks"] = eng.pool.num_blocks
+        del eng
+    emit({"phase": "weightplane", "part": "steps", "timed": timed,
+          "sizing_budget_bytes": W["budget"], "sizing": sizing})
+    for name, rec in timed.items():
+        require(rec["graphs_captured"] == 2 and rec["decode_shapes"] == 1
+                and rec["fused_shapes"] == 1,
+                f"{name}: more than one capture per step shape")
+    require(sizing["int8"]["lanes_x_context"]
+            > sizing["bf16"]["lanes_x_context"],
+            f"the int8 plane bought no capacity: {sizing}")
+
+    # the door with serving.parity=relaxed against the in-process engine
+    conf = Configuration()
+    for key, value in (("serving.http.auth.secret", DOOR["secret"]),
+                       ("serving.parity", "relaxed"),
+                       ("serving.weights.group", WEIGHTS_INT8.group),
+                       ("serving.max.batch", SERVE_KW["max_batch"]),
+                       ("serving.kv.block.size", SERVE_KW["block_size"]),
+                       ("serving.max.context", SERVE_KW["max_context"]),
+                       ("serving.prefill.chunk", SERVE_KW["prefill_chunk"]),
+                       ("serving.loader.io.workers", TRAINER["io_workers"])):
+        conf.set(key, value)
+    replica = ServingReplica(conf, name="chip-smoke-int8",
+                             preset="flagship-1b",
+                             checkpoint=f"{root}/resumed", fs=fs)
+    replica.start()
+    try:
+        door, _, wall = _door_round(replica.server.port,
+                                    door_prompts[:W["door"]])
+        status, body = _http(replica.server.port, "GET", "/v1/health")
+        health = json.loads(body)["weights"]
+    finally:
+        replica.drain_and_stop()
+    eng = DecodeEngine(qparams, cfg, **SERVE_KW)
+    local = eng.generate(door_prompts[:W["door"]],
+                         SamplingParams(max_new_tokens=DOOR["max_new"]))
+    del eng
+    emit({"phase": "weightplane", "part": "door", "requests": len(door),
+          "seconds": wall, "tokens_equal": door == local,
+          "health_weights": health})
+    require(status == 200 and health["parity"] == "relaxed"
+            and health["weight_bytes"] == want_bytes,
+            f"door health weights {health}")
+    require(door == local, "door tokens differ from the in-process int8 "
+            "engine's")
+    del params, qparams
+    free_device()
+
+
+# -------------------------------------------------------------------- MoE
+
+def build_int8_model(cfg, group, seed):
+    """``cfg``'s int8 weight plane built on the card one layer slice at a
+    time, with no float copy of the model: each matmul leaf's slice drawn
+    with init_params' fan-in scaling from a seeded CUDA generator, cast to
+    the model's dtype, quantized by ``weightplane.quantize_weight`` and
+    written into preallocated int8 and f32 stacks; the other leaves
+    (embed, head, router, norms) drawn whole in the model's dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = cfg.torch_dtype
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+
+    def draw(shape, fan_in):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device="cuda")
+        return (w * fan_in ** -0.5).to(dt)
+
+    def leaf(name, meta):
+        """A norm weight (ones) or a [.., fan_in, N] matrix."""
+        if name.endswith("norm_w"):
+            return torch.ones(meta.shape, dtype=dt, device="cuda")
+        return draw(meta.shape, meta.shape[-2])
+
+    layers = {}
+    for name, meta in shapes["layers"].items():
+        if name not in weightplane.LAYER_MATMULS:
+            layers[name] = leaf(name, meta)
+            continue
+        L, *lead, din, dout = meta.shape
+        q = torch.empty((L, *lead, dout, din // group, group),
+                        dtype=torch.int8, device="cuda")
+        s = torch.empty((L, *lead, dout, din // group), dtype=torch.float32,
+                        device="cuda")
+        for i in range(L):
+            qw = weightplane.quantize_weight(draw(meta.shape[1:], din), group,
+                                             transpose=True)
+            q[i].copy_(qw["q"])
+            s[i].copy_(qw["s"])
+            del qw
+        layers[name] = {"q": q, "s": s}
+    params = {"layers": layers}
+    for name, meta in shapes.items():
+        if name == "embed":
+            params[name] = draw(meta.shape, meta.shape[-1])
+        elif name != "layers":
+            params[name] = leaf(name, meta)
+    torch.cuda.synchronize()
+    return params
+
+
+def _moe_prompts(vocab):
+    gen = torch.Generator().manual_seed(SEED + 31)
+    lengths = MOE["prompt_lengths"] * MOE["requests"]
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in lengths[:MOE["requests"]]]
+
+
+def _moe_engine(params, cfg, factor, **kw):
+    return DecodeEngine(params, cfg, hbm_bytes=MOE["hbm_bytes"],
+                        max_lanes=MOE["max_lanes"], block_size=MOE["block"],
+                        max_context=MOE["max_context"],
+                        prefill_chunk=MOE["chunk"],
+                        moe_capacity_factor=factor, **kw)
+
+
+@torch.no_grad()
+def _moe_reference_rows(qparams, cfg, seqs, firsts):
+    """The layer-streamed plain forward over the dequantized plane, in
+    float32 and in the model's dtype, teacher-forced over each sequence of
+    ``seqs``: per layer, that layer's leaves dequantized (``dequantize_
+    weight``), each sequence's hidden state through ``layer_forward``
+    (plain attention, ``moe_mlp`` routing the sequence's tokens at the
+    config's capacity factor), the layer freed. Returns, per sequence,
+    the float32 logits rows from position ``firsts[i]`` on, in both
+    dtypes."""
+    dtypes = (torch.float32, cfg.torch_dtype)
+    cfgs = [get_config(MOE["model"], dtype="float32",
+                       capacity_factor=MOE["no_drop"]),
+            get_config(MOE["model"], capacity_factor=MOE["no_drop"])]
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device="cuda")
+    hs = [[qparams["embed"][torch.tensor(s, device="cuda")][None].to(dt)
+           for s in seqs] for dt in dtypes]
+    for lp in layer_slices(qparams["layers"], cfg.n_layers):
+        f32 = {k: weightplane.dequantize_weight(v, transpose=True)
+               if weightplane.is_qtensor(v) else v.float()
+               for k, v in lp.items()}
+        for d, (dt, c) in enumerate(zip(dtypes, cfgs)):
+            w = {k: v.to(dt) for k, v in f32.items()}
+            hs[d] = [layer_forward(h, w, c, cos, sin, attn_impl="ref")
+                     for h in hs[d]]
+            del w
+        del f32
+    out = []
+    for d, (dt, c) in enumerate(zip(dtypes, cfgs)):
+        top = {k: v.to(dt) for k, v in qparams.items() if k != "layers"}
+        out.append([(final_hidden(top, h[0, f:], c)
+                     @ head_matrix(top, c)).float()
+                    for h, f in zip(hs[d], firsts)])
+    return out
+
+
+def _dequant_share(eng):
+    """One eager decode-only step under torch.profiler, with the weight
+    plane's dequantize (``weightplane._dequant``: the f32 multiply and the
+    casts around it) under its own range: that range's kernels' device
+    ms, the step's, and the share."""
+    real = weightplane._dequant
+
+    def marked(q, s, dtype):
+        with torch.profiler.record_function("weightplane.dequantize"):
+            return real(q, s, dtype)
+
+    weightplane._dequant = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._step_eager(False)
+            torch.cuda.synchronize()
+    finally:
+        weightplane._dequant = real
+    deq = [k for e in prof.events() if e.name == "weightplane.dequantize"
+           for k in _kernels_under(e)]
+    deq_ms = sum(k.duration for k in deq) / 1e3
+    step_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.key != "weightplane.dequantize") / 1e3
+    return {"dequantize_device_ms": deq_ms, "step_device_ms": step_ms,
+            "dequantize_kernels": len(deq),
+            "share": deq_ms / step_ms if step_ms else None}
+
+
+def phase_moe():
+    """mixtral-8x7b served at full width and depth from an int8 plane on
+    this card (see MOE): the plane's measured bytes against the reckoning,
+    the engine's sizing, 16 greedy requests through the captured steps at
+    the no-drop capacity factor and at the preset's, graph against eager,
+    the tokens against the layer-streamed reference, the dequantize's
+    share of a decode step."""
+    cfg = get_config(MOE["model"])
+    free_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    qparams = build_int8_model(cfg, WEIGHTS_INT8.group, SEED + 30)
+    build_s = time.monotonic() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    want_bytes = _reckon_weight_bytes(cfg, WEIGHTS_INT8.group)
+    prompts = _moe_prompts(cfg.vocab_size)
+    greedy = [SamplingParams(max_new_tokens=MOE["max_new"])] * len(prompts)
+    runs = {}
+    for factor in (MOE["no_drop"], cfg.capacity_factor):
+        torch.cuda.reset_peak_memory_stats()
+        eng = _moe_engine(qparams, cfg, factor)
+        plane = eng.weight_plane()
+        tokens, rec = _timed_run(eng, prompts, greedy)
+        rec.update(plane=plane, num_blocks=eng.pool.num_blocks,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   hbm_ledger=hbm_ledger().report()["components"])
+        eng.stop()
+        del eng
+        free_device()
+        runs[factor] = (tokens, rec)
+        emit({"phase": "moe", "part": "serve", "model": MOE["model"],
+              "capacity_factor": factor, "build_seconds": build_s,
+              "build_peak_bytes": build_peak,
+              "weight_bytes_reckoned": want_bytes, **rec})
+        require(plane["weight_bytes"] == want_bytes,
+                f"mixtral int8 weight bytes {plane['weight_bytes']}, "
+                f"reckoned {want_bytes}")
+        require(rec["graphs_captured"] == 2 and rec["decode_shapes"] == 1
+                and rec["fused_shapes"] == 1,
+                f"factor {factor}: more than one capture per step shape")
+        require(all(len(t) == MOE["max_new"] for t in tokens)
+                and all(0 <= x < cfg.vocab_size for t in tokens for x in t),
+                f"factor {factor}: bad tokens")
+
+    # graph against eager on one request (no prefix cache: the second run
+    # prefills as the first did), then one eager decode step profiled
+    eng = _moe_engine(qparams, cfg, MOE["no_drop"], prefix_cache=False)
+    one = [prompts[0]], [SamplingParams(max_new_tokens=MOE["eager_new"])]
+    graph_tokens = _timed_run(eng, *one)[0]
+    eng._launch_step = eng._step_eager
+    finite = []
+    real_sample = engine_module._sample
+
+    def sample(logits, temps, topks, generator):
+        finite.append(bool(torch.isfinite(logits).all()))
+        return real_sample(logits, temps, topks, generator)
+
+    engine_module._sample = sample
+    try:
+        eager_tokens = _timed_run(eng, *one, warm=False)[0]
+    finally:
+        engine_module._sample = real_sample
+    req = eng.submit(prompts[1], SamplingParams(max_new_tokens=8))
+    while req._prefill_pos is not None or not eng._active.any():
+        eng.step()
+    share = _dequant_share(eng)
+    eng.stop()
+    del eng
+    free_device()
+
+    # the tokens of the no-drop run against the layer-streamed reference
+    tokens = runs[MOE["no_drop"]][0]
+    seqs = [p + t[:-1] for p, t in zip(prompts, tokens)]
+    ref32, ref16 = _moe_reference_rows(qparams, cfg, seqs,
+                                       [len(p) - 1 for p in prompts])
+    cal = max(float((a - b).abs().max()) for a, b in zip(ref32, ref16))
+    gaps, argmax_equal = [], 0
+    for rows, t in zip(ref32, tokens):
+        idx = torch.tensor(t, device=rows.device)
+        gap = rows.max(-1).values - rows[torch.arange(len(t)), idx]
+        gaps.append(float(gap.max()))
+        argmax_equal += int((rows.argmax(-1) == idx).sum())
+    emit({"phase": "moe", "part": "check", "graph_equal_eager":
+          graph_tokens == eager_tokens, "eager_logits_finite": all(finite),
+          "eager_samples": len(finite), "dequantize": share,
+          "reference_argmax_equal": argmax_equal,
+          "tokens_compared": sum(len(t) for t in tokens),
+          "gap_max": max(gaps), "calibration": cal,
+          "cal_factor": MOE["cal_factor"],
+          "reference_finite": all(bool(torch.isfinite(r).all())
+                                  for r in ref32 + ref16)})
+    require(graph_tokens == eager_tokens,
+            f"graph tokens {graph_tokens} differ from eager {eager_tokens}")
+    require(finite and all(finite), "non-finite engine logits")
+    require(max(gaps) <= MOE["cal_factor"] * cal,
+            f"emitted tokens lie up to {max(gaps)} below the reference's "
+            f"maximum, past {MOE['cal_factor']} x the bf16 calibration "
+            f"{cal}")
+    del qparams, ref32, ref16
+    free_device()
 
 
 def main() -> int:
@@ -2351,6 +2839,7 @@ def main() -> int:
         del host
         phase_door(fs, root)
         phase_kvtiers(fs, root)
+        phase_weightplane(fs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()
@@ -2362,16 +2851,21 @@ def main() -> int:
     phase_longctx_exact(cfg32, p32)
     del cfg32, p32, cfg16, p16          # free flagship-1b for llama3-8b
     torch.cuda.empty_cache()
-    _, cp_partial = phase_longctx()
+    (_, cp_partial), cp_ms = phase_longctx()
+    int8_launches, _ = phase_longctx(int8=True, bf16_ms=cp_ms)
+    phase_moe()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     # launches: on each kernel's path of an earlier slice (the forward,
-    # the train phase's 7 steps, one CP prefill); launches_trainer: on
-    # this slice's, the trainer phase's 12 steps through Trainer
+    # the train phase's 7 steps, one CP prefill); launches_trainer: the
+    # trainer phase's 12 steps through Trainer; launches_longctx_int8: one
+    # 8192-token CP prefill on the int8 plane (this slice's path)
     by_trainer = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                            "adamw", "grad_sq"), trainer_launches))
+    by_int8 = dict(zip(("flash_fwd", "flash_fwd_partial"), int8_launches))
     emit({"kernels": [dict(rec, launches_trainer=by_trainer.get(
-        rec["name"], 0)) for rec in [{
+        rec["name"], 0), launches_longctx_int8=by_int8.get(rec["name"], 0))
+        for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",
         "launches": fwd_launches, "max_abs_err": record["max_abs_err"],

@@ -1,4 +1,5 @@
-"""Model families of the PyTorch port (llama and gpt2, single device)."""
+"""Model families of the PyTorch port (llama, gpt2 and mixtral MoE,
+single device)."""
 
 from hadoop_tpu_torch.models.config import PRESETS, ModelConfig, get_config
 from hadoop_tpu_torch.models.convert import params_from_numpy

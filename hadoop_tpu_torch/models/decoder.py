@@ -3,13 +3,17 @@
 The counterpart of ``hadoop_tpu/models/decoder.py``: the same
 layer-stacked parameter tree (every per-layer weight one tensor with a
 leading ``n_layers`` dim), here a plain dict of tensors walked by a
-Python loop. Families llama and gpt2. ``ParallelCtx`` carries the
-context-parallel ring only: under a ring ctx the activations are
-``[R*B, S_local, ...]`` with rank r's sequence shard on rows
-r*B..(r+1)*B-1 (all ranks on one device, ``parallel/ring_attention.py``),
-RoPE and learned positions take each rank's absolute offset, and
-attention is ring attention. MoE, tensor/expert parallelism and the
-quantized weight seams come in later slices.
+Python loop. Families llama, gpt2 and mixtral (MoE, ``models/moe.py``).
+``ParallelCtx`` carries the context-parallel ring and the relaxed tier's
+quantized weights: under a ring ctx the activations are ``[R*B, S_local,
+...]`` with rank r's sequence shard on rows r*B..(r+1)*B-1 (all ranks on
+one device, ``parallel/ring_attention.py``), RoPE and learned positions
+take each rank's absolute offset, attention is ring attention, and a MoE
+layer routes each rank's tokens on their own, as each rank of the
+reference's ``shard_map`` does. With ``relaxed_qweights`` a matmul whose
+leaf is a weight-plane qtensor (``serving/weightplane.py``) runs through
+``qdot``, and a quantized embedding through ``qrows``. Tensor and expert
+parallelism come with multi-GPU parallelism (ROADMAP Queue A 6).
 
 Attention goes through ``ops.attention.causal_attention``, which takes
 the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
@@ -30,26 +34,33 @@ from torch.utils.checkpoint import (checkpoint,
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
+from hadoop_tpu_torch.models.moe import moe_mlp
 from hadoop_tpu_torch.ops import (apply_rope, causal_attention, gelu,
                                   layer_norm, rms_norm, rope_frequencies,
                                   swiglu)
+from hadoop_tpu_torch.serving.weightplane import is_qtensor, qdot, qrows
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """The context-parallel ring the current run is under (None =
-    single device). Only the reference's ring fields exist here: tensor,
-    expert and the relaxed-tier fields come with multi-GPU parallelism
-    (ROADMAP Queue A 6), and naming one is a TypeError.
+    single device), and whether quantized weights may be contracted.
+    The tensor, expert and wire-codec fields come with multi-GPU
+    parallelism (ROADMAP Queue A 6), and naming one is a TypeError.
 
     ring:      name of the context-parallel axis (the reference's
         ``ring_axis``), e.g. "sp".
     ring_size: ranks on the ring.
     sp_mode:   "ring" only; "ulysses" is not ported (ROADMAP Queue A 7).
+    relaxed_qweights: the relaxed tier's opt-in (``serving.parity``):
+        matmul leaves that are weight-plane qtensors route through the
+        dequantizing matmul. False (the bitwise tier): a qtensor leaf
+        fails at its first use.
     """
     ring: Optional[str] = None
     ring_size: int = 1
     sp_mode: str = "ring"
+    relaxed_qweights: bool = False
 
     def __post_init__(self):
         if self.sp_mode != "ring":
@@ -70,11 +81,6 @@ def _ring_positions(ctx: ParallelCtx, seq: int, device) -> torch.Tensor:
     return rank * seq + torch.arange(seq, device=device)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not ported yet")
-
-
 # ----------------------------------------------------------------- params
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -82,7 +88,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Initialize the full parameter tree on ``device`` (default: the
     GPU) from ``generator``, which must live on the same device type.
     Leaf names, shapes and fan-in scaling follow the JAX package."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     D, L, F, V = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.vocab_size
@@ -110,7 +115,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.use_rmsnorm:
         layers["attn_norm_b"] = zeros(L, D)
         layers["mlp_norm_b"] = zeros(L, D)
-    if cfg.use_swiglu:
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers["router"] = winit((L, D, E), D)
+        layers["w_gate"] = winit((L, E, D, F), D)
+        layers["w_up"] = winit((L, E, D, F), D)
+        layers["w_down"] = winit((L, E, F, D), F)
+    elif cfg.use_swiglu:
         layers["w_gate"] = winit((L, D, F), D)
         layers["w_up"] = winit((L, D, F), D)
         layers["w_down"] = winit((L, F, D), F)
@@ -142,6 +153,17 @@ def _norm(x, w, b, cfg: ModelConfig):
     return layer_norm(x, w, b, cfg.norm_eps)
 
 
+def _relaxed_qready(w, ctx: ParallelCtx) -> bool:
+    """Does this matmul take the weight plane's dequantizing route? Only
+    when the run opted in and the leaf is a qtensor."""
+    return ctx.relaxed_qweights and is_qtensor(w)
+
+
+def _dot(h, w, ctx: ParallelCtx):
+    """``h @ w``, or ``qdot`` for a qtensor under the relaxed tier."""
+    return qdot(h, w) if _relaxed_qready(w, ctx) else h @ w
+
+
 def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
                      attn_impl: str = "auto", ctx: ParallelCtx = SINGLE,
                      return_kv: bool = False):
@@ -152,9 +174,9 @@ def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
     resid = x
     h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg)
     B, S, _ = h.shape
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = _dot(h, lp["wq"], ctx).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = _dot(h, lp["wk"], ctx).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = _dot(h, lp["wv"], ctx).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
         positions = None if ctx.ring is None else \
             _ring_positions(ctx, S, h.device)
@@ -165,18 +187,29 @@ def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
         attn = ring_attention(q, k, v, ctx.ring_size, impl=attn_impl)
     else:
         attn = causal_attention(q, k, v, impl=attn_impl)
-    out = attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    out = _dot(attn.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"],
+               ctx)
     y = resid + out.to(resid.dtype)
     return (y, (k, v)) if return_kv else y
 
 
-def _mlp_block(x, lp, cfg: ModelConfig):
+def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
     resid = x
     h = _norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
-    if cfg.use_swiglu:
-        out = swiglu(h @ lp["w_gate"], h @ lp["w_up"]) @ lp["w_down"]
+    if cfg.is_moe:
+        if ctx.ring is None:
+            out = moe_mlp(h, lp, cfg)
+        else:
+            # each rank routes its own B*S_local tokens, at the capacity
+            # of that count, never the folded batch's
+            out = torch.cat([moe_mlp(hr, lp, cfg)
+                             for hr in h.chunk(ctx.ring_size, dim=0)])
+    elif cfg.use_swiglu:
+        out = _dot(swiglu(_dot(h, lp["w_gate"], ctx),
+                          _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx)
     else:
-        out = gelu(h @ lp["w_in"] + lp["b_in"]) @ lp["w_out"] + lp["b_out"]
+        out = _dot(gelu(_dot(h, lp["w_in"], ctx) + lp["b_in"]), lp["w_out"],
+                   ctx) + lp["b_out"]
     return resid + out.to(resid.dtype)
 
 
@@ -193,7 +226,7 @@ def layer_forward_kv(x, lp, cfg: ModelConfig, cos, sin,
     ``(k, v)``."""
     x, kv = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx,
                              return_kv=True)
-    return _mlp_block(x, lp, cfg), kv
+    return _mlp_block(x, lp, cfg, ctx), kv
 
 
 # matmul outputs, the ops "dots" keeps (the counterpart of JAX's
@@ -221,6 +254,15 @@ def _layer_fn(remat):
                      f"'dots')")
 
 
+def _unbind(leaf):
+    """A stacked leaf's per-layer views; a qtensor's payload and scales
+    unbind together (the reference's ``qslice`` pairing)."""
+    if is_qtensor(leaf):
+        return [{"q": q, "s": s}
+                for q, s in zip(leaf["q"].unbind(0), leaf["s"].unbind(0))]
+    return leaf.unbind(0)
+
+
 def layer_slices(layers, n_layers: int):
     """Each layer's weights, as views of the stacked ``[L, ...]`` leaves:
     every leaf is unbound once, so the backward of a stack is one
@@ -228,7 +270,7 @@ def layer_slices(layers, n_layers: int):
     writes each layer's slice once), where taking ``w[i]`` in each layer
     would add up L zero-filled full-size gradients."""
     names = list(layers)
-    views = zip(*(layers[name].unbind(0) for name in names))
+    views = zip(*(_unbind(layers[name]) for name in names))
     slices = [dict(zip(names, ws)) for ws in views]
     if len(slices) != n_layers:
         raise ValueError(f"stacked leaves hold {len(slices)} layers, "
@@ -268,7 +310,10 @@ def embed_tokens(params, tokens, cfg: ModelConfig,
                  ctx: ParallelCtx = SINGLE):
     """Token (+ learned position) embedding. tokens: [B, S] integer
     ([R*B, S_local] under a ring ctx, each rank's positions offset)."""
-    h = params["embed"][tokens]
+    if _relaxed_qready(params["embed"], ctx):
+        h = qrows(params["embed"], tokens, cfg.torch_dtype)
+    else:
+        h = params["embed"][tokens]
     if not cfg.use_rope:
         seq = tokens.shape[1]
         if ctx.ring is None:
@@ -312,7 +357,6 @@ def forward(params, tokens, cfg: ModelConfig, *,
     """Full forward to logits [B, S, V] on ``device`` (default: the GPU;
     the parameters must already lie there). ``tokens``: [B, S] integers
     as a tensor, array or nested list."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     check_on(params["embed"], dev, "params")
     tokens = torch.as_tensor(tokens, device=dev).long()

@@ -1,0 +1,83 @@
+"""Mixture-of-experts MLP with capacity-based one-hot dispatch.
+
+The counterpart of ``hadoop_tpu/models/moe.py`` on one device. Routing
+is dense one-hot algebra with static shapes (Switch-Transformer style):
+top-k experts per token with renormalised gates, and each expert takes
+at most ``C = max(4, ceil(T * k / E * capacity_factor))`` of the ``T``
+tokens routed together, in token-major order; a token past its expert's
+capacity gets no output from it (its residual passes through). The
+serving engine's fused step routes through :func:`route` too, so the
+capacity rule and the drop order are one.
+
+Expert parallelism (an ``ep`` axis and its all-to-all exchange) is
+multi-GPU work, ROADMAP Queue A 6: a ``ctx`` that names one raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from hadoop_tpu_torch.models.config import ModelConfig
+from hadoop_tpu_torch.ops import swiglu
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    c = math.ceil(n_tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(4, int(c))
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Per-expert slot count C for a ``n_tokens``-row dispatch."""
+    return _capacity(n_tokens, cfg)
+
+
+def route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch and combine tensors for ``x2d`` [T, D]: ``dispatch``
+    [T, E, C] of 0/1 and ``combine`` [T, E, C] of gate weights, f32."""
+    T = x2d.shape[0]
+    E, K, C = cfg.n_experts, cfg.top_k, _capacity(T, cfg)
+    logits = (x2d @ router_w).float()                      # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.topk(probs, K, dim=-1)       # [T, K]
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    # one-hot expert choice per (token, k): [T, K, E]
+    choice = torch.nn.functional.one_hot(top_idx, E).float()
+    # position of each (t, k) in its expert's queue, token-major priority
+    flat = choice.reshape(T * K, E)
+    pos = (torch.cumsum(flat, dim=0) - flat).reshape(T, K, E)
+    keep = (pos < C) & (choice > 0)
+    # slot one-hot [T, K, E, C]; a position past C keeps no slot
+    slot = torch.nn.functional.one_hot(
+        torch.clamp(pos.long(), max=C), C + 1)[..., :C].float()
+    slot = slot * keep[..., None].float()
+    dispatch = slot.sum(dim=1)                             # [T, E, C]
+    combine = (slot * top_vals[:, :, None, None]).sum(dim=1)
+    return dispatch, combine
+
+
+def _expert_ffn(xe: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+    """Each expert's SwiGLU MLP. xe: [E, C, D]."""
+    gate = torch.bmm(xe, lp["w_gate"])
+    up = torch.bmm(xe, lp["w_up"])
+    return torch.bmm(swiglu(gate, up), lp["w_down"])
+
+
+def moe_mlp(h: torch.Tensor, lp, cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """Routed MLP over ``h`` [B, S, D], every token routed together.
+    ``lp``: one layer's ``router`` [D, E] and expert stacks
+    ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
+    if getattr(ctx, "ep_axis", None) is not None:
+        raise NotImplementedError(
+            "expert parallelism (an ep axis) is multi-GPU serving, "
+            "ROADMAP Queue A 6")
+    B, S, D = h.shape
+    x2d = h.reshape(B * S, D)
+    dispatch, combine = route(x2d, lp["router"], cfg)
+    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2d)
+    ye = _expert_ffn(xe, lp, cfg)
+    y2d = torch.einsum("tec,ecd->td", combine, ye.float())
+    return y2d.reshape(B, S, D).to(h.dtype)

@@ -352,7 +352,8 @@ def read_manifest(fs: FileSystemLike, base_dir: str, step: int
 def load_checkpoint(fs: FileSystemLike, base_dir: str, like, *,
                     step: Optional[int] = None, io_workers: int = 1,
                     device=None, mesh=None, specs=None,
-                    leaf_transform=None):
+                    leaf_transform: Optional[Callable[[str, torch.Tensor],
+                                                      Any]] = None):
     """Load a checkpoint into the structure of ``like``, a tree of
     tensors (any device, ``"meta"`` included: only shapes are read) and
     ints. Returns ``(tree, step)``: each tensor leaf becomes a tensor of
@@ -363,17 +364,20 @@ def load_checkpoint(fs: FileSystemLike, base_dir: str, like, *,
     ``io_workers > 1`` fetches the shard files of the requested leaves
     through a bounded thread pool; only the shards of leaves present in
     ``like`` are read (a serving load never reads optimizer shards).
-    Sharded placement (``mesh``/``specs``) is ROADMAP Queue A 6 and the
-    streaming ``leaf_transform`` mode Queue A 4; both raise.
+
+    ``leaf_transform(name, tensor)`` switches the load to the
+    reference's streaming mode: one leaf at a time (its shards fetched
+    concurrently) is assembled on the host and handed to the transform
+    as a CPU tensor; its result, a tensor or a dict of tensors (the
+    weight plane's int8 payload and scales), is what lands on
+    ``device``, and the assembled buffer is dropped at once, so host
+    memory holds about the largest leaf, never the checkpoint. Sharded
+    placement (``mesh``/``specs``) is ROADMAP Queue A 6 and raises.
     """
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "sharded placement (mesh/specs): the port loads onto one "
             "device; multi-GPU placement is ROADMAP Queue A 6")
-    if leaf_transform is not None:
-        raise NotImplementedError(
-            "leaf_transform (streaming load): the weight plane's seam, "
-            "ROADMAP Queue A 4")
     dev = resolve_device(device)
     if step is None:
         step = latest_step(fs, base_dir)
@@ -381,6 +385,9 @@ def load_checkpoint(fs: FileSystemLike, base_dir: str, like, *,
             raise FileNotFoundError(f"no checkpoints under {base_dir}")
     ckpt_dir = f"{base_dir}/step_{step:012d}"
     manifest = read_manifest(fs, base_dir, step)
+    if leaf_transform is not None:
+        return _load_streaming(fs, ckpt_dir, manifest, like, step, dev,
+                               io_workers, leaf_transform)
 
     raw_by_file: Dict[str, bytes] = {}
     if io_workers > 1:
@@ -394,32 +401,72 @@ def load_checkpoint(fs: FileSystemLike, base_dir: str, like, *,
                 lambda f: fs.read_all(f"{ckpt_dir}/{f}"), needed)))
 
     def build(name, leaf):
-        entry = manifest["leaves"].get(name)
-        if entry is None:
-            raise KeyError(f"checkpoint {ckpt_dir} missing leaf {name}")
-        shape = tuple(entry["shape"])
-        if _shape(leaf) != shape:
-            raise ValueError(f"shape mismatch for {name}: checkpoint "
-                             f"{shape} vs expected {_shape(leaf)}")
-        dtype = _bits_dtype(entry["dtype"])
-        out = np.empty(shape, dtype)
-        for sh in entry["shards"]:
-            # pop, don't get: the prefetched bytes free as each leaf is
-            # assembled, so peak memory stays ~one checkpoint, not two
-            raw = raw_by_file.pop(sh["file"], None)
-            if raw is None:
-                raw = fs.read_all(f"{ckpt_dir}/{sh['file']}")
-            idx = tuple(slice(a, b) for a, b in sh["index"])
-            sub_shape = tuple(b - a for a, b in sh["index"])
-            out[idx] = np.frombuffer(raw, dtype).reshape(sub_shape)
+        entry = _leaf_entry(manifest, ckpt_dir, name, leaf)
+        # pop, don't get: the prefetched bytes free as each leaf is
+        # assembled, so peak memory stays ~one checkpoint, not two
+        raws = [raw_by_file.pop(sh["file"], None) or
+                fs.read_all(f"{ckpt_dir}/{sh['file']}")
+                for sh in entry["shards"]]
+        out = _assemble(entry, raws)
         if _is_int(leaf):
             return int(out)
-        t = torch.from_numpy(out)
-        if entry["dtype"] == "bfloat16":
-            t = t.view(torch.bfloat16)
-        return t.to(dev)
+        return out.to(dev)
 
     return map_with_path(build, like), step
+
+
+def _leaf_entry(manifest: Dict[str, Any], ckpt_dir: str, name: str, leaf
+                ) -> Dict[str, Any]:
+    """The manifest entry of leaf ``name``, checked against ``like``'s."""
+    entry = manifest["leaves"].get(name)
+    if entry is None:
+        raise KeyError(f"checkpoint {ckpt_dir} missing leaf {name}")
+    shape = tuple(entry["shape"])
+    if _shape(leaf) != shape:
+        raise ValueError(f"shape mismatch for {name}: checkpoint "
+                         f"{shape} vs expected {_shape(leaf)}")
+    return entry
+
+
+def _assemble(entry: Dict[str, Any], raws: List[bytes]) -> torch.Tensor:
+    """One leaf from its shards' bytes, as a host tensor of the
+    checkpoint's dtype (bf16 from its 16-bit patterns)."""
+    dtype = _bits_dtype(entry["dtype"])
+    out = np.empty(tuple(entry["shape"]), dtype)
+    for sh, raw in zip(entry["shards"], raws):
+        idx = tuple(slice(a, b) for a, b in sh["index"])
+        sub_shape = tuple(b - a for a, b in sh["index"])
+        out[idx] = np.frombuffer(raw, dtype).reshape(sub_shape)
+    t = torch.from_numpy(out)
+    if entry["dtype"] == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t
+
+
+def _load_streaming(fs: FileSystemLike, ckpt_dir: str, manifest: Dict,
+                    like, step: int, dev: torch.device, io_workers: int,
+                    leaf_transform: Callable[[str, torch.Tensor], Any]):
+    """The ``leaf_transform`` mode of :func:`load_checkpoint`: one leaf
+    in flight (its shard files fetched concurrently), the transform's
+    result placed on ``dev``, the host assembly dropped."""
+    with ThreadPoolExecutor(max_workers=max(1, io_workers)) as ex:
+        def build(name, leaf):
+            entry = _leaf_entry(manifest, ckpt_dir, name, leaf)
+            raws = list(ex.map(
+                lambda sh: fs.read_all(f"{ckpt_dir}/{sh['file']}"),
+                entry["shards"]))
+            out = _assemble(entry, raws)
+            del raws
+            if _is_int(leaf):
+                return int(out)
+            res = leaf_transform(name, out)
+            del out
+            if isinstance(res, dict):
+                return {k: v.to(dev) for k, v in res.items()}
+            return res.to(dev)
+
+        tree = map_with_path(build, like)
+    return tree, step
 
 
 # ----------------------------------------------------- manifest plan block

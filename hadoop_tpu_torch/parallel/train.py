@@ -21,7 +21,7 @@ from torch.profiler import record_function
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
-from hadoop_tpu_torch.models.decoder import (_check_dense, _layer_fn,
+from hadoop_tpu_torch.models.decoder import (_layer_fn,
                                              final_hidden, forward_hidden,
                                              head_matrix, init_params)
 from hadoop_tpu_torch.ops.cross_entropy import chunked_lm_cross_entropy
@@ -37,6 +37,15 @@ def _loss_from_h(params, h, targets, cfg: ModelConfig, chunk: int = 256):
     h = final_hidden(params, h, cfg)
     head = head_matrix(params, cfg, h.dtype)
     return chunked_lm_cross_entropy(h, head, targets, chunk)
+
+
+def refuse_moe_training(cfg) -> None:
+    """Training a MoE model is not held against the reference yet: raise
+    (serving MoE is ported; training it is ROADMAP Queue A 5)."""
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "training a MoE model is not ported yet (ROADMAP Queue A 5: "
+            "MoE serving is ported, MoE training is not)")
 
 
 def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
@@ -63,7 +72,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
             "plans, ZeRO-1 and pipelining are ROADMAP Queue A 6")
     if optimizer not in ("adamw", "sgd"):
         raise ValueError(f"optimizer={optimizer!r} (choices: adamw, sgd)")
-    _check_dense(cfg)
+    refuse_moe_training(cfg)
     _layer_fn(remat)                      # refuse an unknown mode now
     dev = resolve_device(device)
 

@@ -63,7 +63,8 @@ from hadoop_tpu_torch.parallel.checkpoint import (AsyncCheckpointWriter,
 from hadoop_tpu_torch.parallel.data import TokenDataset
 from hadoop_tpu_torch.parallel.mesh import MeshPlan
 from hadoop_tpu_torch.parallel.optimizer import AdamWState
-from hadoop_tpu_torch.parallel.train import init_train_state, make_train_step
+from hadoop_tpu_torch.parallel.train import (init_train_state, make_train_step,
+                                             refuse_moe_training)
 
 log = logging.getLogger(__name__)
 
@@ -101,6 +102,7 @@ class Trainer:
                 f"Trainer arguments {refused}: ZeRO-1, microbatching, "
                 f"pipelines, the overlap and parity passes and the elastic "
                 f"plane are {_A6}")
+        refuse_moe_training(cfg)
         self.cfg, self.plan, self.fs = cfg, plan, fs
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir

@@ -12,12 +12,38 @@ keeping its semantics:
   so a workload that keeps to the two shapes reads 1 and 1. Unlike the
   reference, which runs the fused step's rows as one batch, the lanes
   and the chunk run as two row groups of fixed size inside it, so each
-  row meets the same op shapes in every step and a request's tokens do
-  not depend on the rest of the batch (in bf16 on the GPU, a lane's
-  rounding otherwise changed with the step shape that carried it). A
-  preempted request's tokens, recomputed as prompt rows, may still
-  round otherwise. The chunk's rows, all of one request, gather that
-  request's paged context once, not once per row.
+  row meets the same op shapes in every step and, in a dense model, a
+  request's tokens do not depend on the rest of the batch (in bf16 on
+  the GPU, a lane's rounding otherwise changed with the step shape that
+  carried it). A preempted request's tokens, recomputed as prompt rows,
+  may still round otherwise. The chunk's rows, all of one request,
+  gather that request's paged context once, not once per row. In each
+  layer both groups scatter their K/V, lanes first, before either
+  gathers: the reference's scatter-all-then-gather order over its one
+  batch.
+- **MoE** (``models/moe.py``): a MoE layer routes the step's rows once,
+  lanes then chunk, as the reference's one batch is routed: the
+  capacity ``capacity(T)`` of the step's T rows (``moe_capacity_factor``
+  overrides the config's) and the token-major slot order decide which
+  tokens drop, inactive rows (empty lanes, draft rows past their
+  length, chunk padding) taking slots as in the reference. So in a MoE
+  model a lane's expert output depends on the step's rows, as it does
+  in the reference; the dense layers keep their per-group shapes. One
+  expert shard: ``moe_shards`` above 1 is expert-parallel serving
+  across GPUs (ROADMAP Queue A 6) and raises.
+- **The weight plane** (``serving/weightplane.py``): a params tree whose
+  matmul leaves are int8 qtensors (``serving.parity=relaxed``) runs each
+  matmul through ``qdot`` (the expert stacks through ``qedot``, a
+  quantized embedding through ``qrows``, a quantized head through
+  ``qhead``), and, with ``moe_a2a_codec`` int8, takes the reference's
+  int8 round trip of the expert payloads. The int8 stacks and scales
+  are engine-lifetime parameters; each step materialises the
+  dequantized weights in the graph's pool (shared by the two shapes).
+  ``hbm_bytes`` sizes the KV pool, and the lanes when ``max_batch`` is
+  unset (capped by ``max_lanes``), against the measured resident weight
+  bytes; ``weight_plane()`` reports the reference's keys, and the HBM
+  ledger carries the expert stacks as ``moe_experts`` beside
+  ``weights``.
 - **Paged KV cache.** K/V live in a pool ``[L, num_blocks, block_size,
   Hkv, Dh]``; each running request owns a block table. Each step
   scatters the new rows' K/V into ``table[pos // bs], pos % bs`` and
@@ -96,14 +122,16 @@ keeping its semantics:
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the int8 weight plane, MoE, the long-context plane, tensor-parallel
-``plan`` and ``hbm_bytes`` sizing. ``prefill_to_store`` raises the
-reference's ``ValueError`` for an engine without a DFS tier.
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item when asked for: the long-context plane (Queue A 7), a
+tensor-parallel ``plan`` and more than one expert shard (A 6).
+``prefill_to_store`` raises the reference's ``ValueError`` for an engine
+without a DFS tier.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import queue
@@ -119,10 +147,22 @@ import torch
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.models.decoder import _norm, head_matrix, layer_slices
-from hadoop_tpu_torch.obs.hbm import hbm_ledger, tree_nbytes
+# MoE serving shares models/moe.py's dispatch math: the capacity padding
+# keeps the step's shapes fixed
+from hadoop_tpu_torch.models.moe import _expert_ffn, route
+from hadoop_tpu_torch.models.moe import capacity as moe_capacity
+from hadoop_tpu_torch.obs.hbm import hbm_ledger
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
+from hadoop_tpu_torch.parallel.lowp.quant import (moe_combine_quantized,
+                                                  moe_dispatch_quantized)
 from hadoop_tpu_torch.serving.kvstore import BlockPool, TieredKVCache
 from hadoop_tpu_torch.serving.speculate import NgramProposer
+from hadoop_tpu_torch.serving.weightplane import (describe_tree,
+                                                  expert_shard_count,
+                                                  expert_weight_bytes,
+                                                  is_qtensor,
+                                                  is_quantized_tree, qdot,
+                                                  qedot, qhead, qrows)
 from hadoop_tpu_torch.tracing import current_context, global_tracer
 
 log = logging.getLogger(__name__)
@@ -302,9 +342,9 @@ def _from_host(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _refuse(what: str) -> None:
+def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported to the PyTorch engine "
-                              "yet (see ROADMAP.md)")
+                              f"yet (ROADMAP Queue A {item})")
 
 
 # ----------------------------------------------------------------- engine
@@ -316,7 +356,7 @@ class DecodeEngine:
     or by calling ``step()`` directly (tests, offline runs)."""
 
     def __init__(self, params, cfg: ModelConfig, *,
-                 max_batch: int = 4, block_size: int = 8,
+                 max_batch: Optional[int] = None, block_size: int = 8,
                  num_blocks: Optional[int] = None,
                  max_context: Optional[int] = None,
                  prefill_chunk: int = 16,
@@ -328,19 +368,27 @@ class DecodeEngine:
                  kv_fetch_window: int = 4,
                  speculate_k: int = 0, speculate_ngram: int = 3,
                  admission_queue=None, drain_persist: bool = True,
-                 hbm_bytes: int = 0, plan=None,
-                 metrics=None, tracer=None):
-        if hbm_bytes:
-            _refuse("hbm_bytes sizing")
+                 hbm_bytes: int = 0, max_lanes: int = 16,
+                 quantize_seconds: float = 0.0,
+                 moe_capacity_factor: float = 0.0, moe_shards: int = 0,
+                 moe_a2a_codec: str = "int8",
+                 plan=None, metrics=None, tracer=None):
         if plan is not None:
-            _refuse("tensor-parallel serving")
-        if cfg.is_moe:
-            _refuse("MoE serving")
-        if any(isinstance(w, dict) for w in params["layers"].values()):
-            _refuse("the int8 weight plane")
+            _refuse("tensor-parallel serving", "6")
         self.device = resolve_device(device)
-        check_on(params["embed"], self.device, "params")
+        check_on(params["embed"]["q"] if is_qtensor(params["embed"])
+                 else params["embed"], self.device, "params")
         self.cfg = cfg
+        # the expert plane: every row of a step routes through
+        # models/moe.py's capacity-padded dispatch, together
+        if moe_a2a_codec not in ("int8", "none"):
+            raise ValueError(f"serving.moe.a2a.codec={moe_a2a_codec!r} "
+                             "(choices: int8, none)")
+        self._moe_a2a_codec = moe_a2a_codec
+        self._moe_cfg = cfg
+        if cfg.is_moe and moe_capacity_factor:
+            self._moe_cfg = dataclasses.replace(
+                cfg, capacity_factor=float(moe_capacity_factor))
         self.params = params
         self.block_size = block_size
         self.prefill_chunk = max(1, int(prefill_chunk))
@@ -355,6 +403,50 @@ class DecodeEngine:
                 raise ValueError(f"block_size {block_size} exceeds the "
                                  f"model's max_seq {cfg.max_seq}")
             self.s_max = self.blocks_per_seq * block_size
+        # the weight plane: under serving.parity=relaxed the matmul
+        # leaves are int8 + scales, and the measured resident bytes
+        # decide the KV budget
+        self._relaxed_weights = is_quantized_tree(params)
+        self._q_embed = is_qtensor(params.get("embed"))
+        self._q_head = is_qtensor(params["embed"]) if cfg.tie_embeddings \
+            else is_qtensor(params.get("lm_head"))
+        # fixed at construction: health scrapes read it from a handler
+        # thread and touch no tensor
+        self._weight_desc = describe_tree(params)
+        self.weight_bytes = self._weight_desc["weight_bytes"]
+        self.quantize_seconds = quantize_seconds
+        self.expert_bytes = expert_weight_bytes(params, cfg)
+        # the replica's devices: the GPUs, or the one CPU
+        n_devices = torch.cuda.device_count() \
+            if self.device.type == "cuda" else 1
+        self.expert_shards = expert_shard_count(
+            cfg.n_experts, int(moe_shards), n_devices) if cfg.is_moe else 0
+        if self.expert_shards > 1:
+            _refuse(f"{self.expert_shards} expert shards (expert-parallel "
+                    f"serving across GPUs)", "6")
+        self.hbm_bytes = int(hbm_bytes or 0)
+        self.block_nbytes = (2 * cfg.n_layers * block_size * cfg.n_kv_heads
+                             * cfg.head_dim * cfg.torch_dtype.itemsize)
+        if self.hbm_bytes:
+            # capacity = budget minus what the weights measurably occupy;
+            # lanes sized so that each can hold a full context
+            kv_budget = self.hbm_bytes - self.weight_bytes
+            min_blocks = self.blocks_per_seq + 2  # one lane + scratch
+            if kv_budget < min_blocks * self.block_nbytes:
+                raise ValueError(
+                    f"serving.kv.hbm.bytes={self.hbm_bytes} leaves "
+                    f"{kv_budget} bytes of KV after {self.weight_bytes} "
+                    f"bytes of resident weights — below one "
+                    f"{self.s_max}-token lane "
+                    f"({min_blocks * self.block_nbytes} bytes)")
+            if num_blocks is None:
+                num_blocks = int(kv_budget // self.block_nbytes)
+            if max_batch is None:
+                max_batch = max(1, min(int(max_lanes),
+                                       (num_blocks - 1)
+                                       // self.blocks_per_seq))
+        if max_batch is None:
+            max_batch = 4
         self.max_batch = max_batch
         if num_blocks is None:
             num_blocks = max_batch * self.blocks_per_seq + 1
@@ -364,19 +456,10 @@ class DecodeEngine:
         self._kp = torch.zeros(pool_shape, dtype=cfg.torch_dtype,
                                device=self.device)
         self._vp = torch.zeros_like(self._kp)
-        # the HBM ledger (obs/hbm.py): the weights and the K/V pool sized
-        # beside them, unregistered in stop(). The providers return
-        # numbers, so an engine never stopped pins no tensor there.
-        self.weight_bytes = tree_nbytes(params)
-        # the weight plane's description, fixed at construction: health
-        # scrapes read it from a handler thread and touch no tensor
-        self._weight_dtype = str(params["embed"].dtype).replace("torch.", "")
         self.metrics = metrics
         if metrics:
             metrics.weight_bytes.set(self.weight_bytes)
         self.tracer = tracer or global_tracer()
-        self.block_nbytes = 2 * self._kp[:, 0].numel() * \
-            self._kp.element_size()
         # the tier manager owns the radix index and the cold tiers; the
         # engine stays the device owner (the page movers below)
         self.kvstore = TieredKVCache(
@@ -389,14 +472,22 @@ class DecodeEngine:
             tracer=self.tracer, extract=self._extract_block,
             pin=self.device.type == "cuda")
         self.prefix_cache = self.kvstore.radix
+        # the HBM ledger (obs/hbm.py): the weights (the expert stacks as
+        # their own component) and the K/V pool sized beside them,
+        # unregistered in stop(). The providers return numbers, so an
+        # engine never stopped pins no tensor there.
         kv_pool_bytes = num_blocks * self.block_nbytes
         # trailing separator: unregister_prefix("engine@123") must not
         # also match a coexisting "engine@1234..." owner
         self._hbm_owner = f"engine@{id(self)}."
         led = hbm_ledger()
-        weight_bytes = self.weight_bytes
+        dense_bytes = self.weight_bytes - self.expert_bytes
+        expert_bytes = self.expert_bytes
         led.register(f"{self._hbm_owner}weights", "weights",
-                     lambda: weight_bytes)
+                     lambda: dense_bytes)
+        if cfg.is_moe:
+            led.register(f"{self._hbm_owner}experts", "moe_experts",
+                         lambda: expert_bytes)
         led.register(f"{self._hbm_owner}kv", "kv_pool",
                      lambda: kv_pool_bytes)
         self._layers = layer_slices(params["layers"], cfg.n_layers)
@@ -436,6 +527,7 @@ class DecodeEngine:
         self._graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
         self._graph_out: Dict[bool, torch.Tensor] = {}
         self._graph_stream = None
+        self._graph_pool = None
 
         # the admission seam: a deque, or any deque-shaped queue
         # (append/appendleft/popleft/len/[0]) such as the door's QoS
@@ -460,7 +552,7 @@ class DecodeEngine:
         self.prefix_inserted_blocks = 0
 
     def attach_longctx(self, plane) -> None:
-        _refuse("the long-context plane")
+        _refuse("the long-context plane", "7")
 
     @property
     def decode_compiles(self) -> int:
@@ -491,30 +583,61 @@ class DecodeEngine:
 
     # ----------------------------------------------------------- the step
 
+    def _wdot(self, x, w):
+        """One serving matmul, weight-plane aware: ``qdot`` against an
+        int8 weight under ``serving.parity=relaxed``, else ``x @ w``."""
+        if self._relaxed_weights:
+            return qdot(x, w)
+        return x @ w
+
     def _mlp(self, x, lp):
         if self.cfg.use_swiglu:
-            return swiglu(x @ lp["w_gate"], x @ lp["w_up"]) @ lp["w_down"]
-        return gelu(x @ lp["w_in"] + lp["b_in"]) @ lp["w_out"] + lp["b_out"]
+            return self._wdot(swiglu(self._wdot(x, lp["w_gate"]),
+                                     self._wdot(x, lp["w_up"])),
+                              lp["w_down"])
+        return self._wdot(gelu(self._wdot(x, lp["w_in"]) + lp["b_in"]),
+                          lp["w_out"]) + lp["b_out"]
 
-    def _rows(self, tokens, positions, active, tables, group: int = 1,
-              one_context: bool = False) -> torch.Tensor:
-        """Float32 logits [t, V] of one group of rows, each "one token at
-        one position": K/V scattered into ``table[pos // bs], pos % bs``
-        (block 0 for inactive rows), then gathered back through the
-        tables. Scatter-all-then-gather makes earlier rows' K/V visible to
-        later positions of the group; the mask ``kpos <= pos`` does the
-        rest. ``tables`` [n, blocks_per_seq] holds one table for each run
-        of ``group`` consecutive rows (a speculating lane's k+1 rows),
-        whose context is gathered once and shared; ``one_context``: every
-        row belongs to one request, whose table ([1, blocks_per_seq]) is
-        gathered once."""
-        cfg = self.cfg
+    def _moe_mlp(self, x, lp):
+        """The routed expert MLP over every row of the step, ``x`` [T,
+        D] (the lanes, then the chunk), through models/moe.py's
+        capacity-padded dispatch: T is fixed per step shape, so the
+        capacity is too. A token past its expert's capacity (inactive
+        rows take slots like any other) gets a zero combine row. Under
+        the relaxed tier the expert products run against the int8 stacks
+        (``qedot``) and, with ``moe_a2a_codec`` int8, both exchange legs
+        take the int8 round trip the reference's single-device replica
+        takes."""
+        dispatch, combine = route(x, lp["router"], self._moe_cfg)
+        xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
+        codec = self._relaxed_weights and self._moe_a2a_codec != "none"
+        if codec:
+            xe = moe_dispatch_quantized(xe)
+        if self._relaxed_weights:
+            ye = qedot(swiglu(qedot(xe, lp["w_gate"]),
+                              qedot(xe, lp["w_up"])), lp["w_down"])
+        else:
+            ye = _expert_ffn(xe, lp, self._moe_cfg)
+        if codec:
+            ye = moe_combine_quantized(ye)
+        return torch.einsum("tec,ecd->td", combine, ye.float()).to(x.dtype)
+
+    def _group(self, tokens, positions, active, tables, group: int = 1,
+               one_context: bool = False) -> Dict[str, Any]:
+        """One row group's fixed inputs, each row "one token at one
+        position": its embedded rows, the page and offset its K/V lands
+        in (block 0 for inactive rows), its visibility mask. ``tables``
+        [n, blocks_per_seq] holds one table for each run of ``group``
+        consecutive rows (a speculating lane's k+1 rows), whose context
+        is gathered once and shared; ``one_context``: every row belongs to
+        one request, whose table ([1, blocks_per_seq]) is gathered once."""
+        cfg, params = self.cfg, self.params
         t = tokens.shape[0]
         pos = torch.clamp(positions, max=self.s_max - 1)
-        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        rep = hq // hkv
-        params = self.params
-        h = params["embed"][tokens]
+        if self._relaxed_weights and self._q_embed:
+            h = qrows(params["embed"], tokens, cfg.torch_dtype)
+        else:
+            h = params["embed"][tokens]
         if not cfg.use_rope:
             h = h + params["pos_embed"][torch.clamp(pos, 0, cfg.max_seq - 1)]
         if one_context:
@@ -524,84 +647,141 @@ class DecodeEngine:
             blk = torch.gather(tables, 1, (pos // self.block_size).view(
                 tables.shape[0], group)).reshape(t)
         blk = torch.where(active, blk, torch.zeros_like(blk))
-        off = pos % self.block_size
-        scale = 1.0 / (dh ** 0.5)
         visible = torch.arange(self.s_max, device=self.device)[None, :] \
             <= pos[:, None]                                  # [t, S_max]
+        return {"h": h, "pos": pos, "blk": blk,
+                "off": pos % self.block_size, "tables": tables,
+                "group": group, "one_context": one_context,
+                "visible": visible}
 
+    def _attend(self, g, q, kc, vc) -> torch.Tensor:
+        """Attention of a group's rows ``q`` [t, Hq, Dh] over their paged
+        context, gathered back through the tables: rows that share a
+        table (a one-request chunk, a speculating lane's group) share its
+        single view. Returns [t, Hq * Dh]."""
+        cfg = self.cfg
+        t = q.shape[0]
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        rep = hq // hkv
+        kctx = kc[g["tables"]].reshape(-1, self.s_max, hkv, dh)
+        vctx = vc[g["tables"]].reshape(-1, self.s_max, hkv, dh)
+        qs, ctx = "tgrd", "tkgd"
+        qr = q.reshape(t, hkv, rep, dh)
+        if g["one_context"]:
+            kctx, vctx, ctx = kctx[0], vctx[0], "kgd"
+        elif g["group"] > 1:
+            qs, ctx = "njgrd", "nkgd"
+            qr = q.reshape(-1, g["group"], hkv, rep, dh)
+        ps = qs[:-1] + "k"
+        logits = torch.einsum(f"{qs},{ctx}->{ps}", qr.float(),
+                              kctx.float()) * (1.0 / (dh ** 0.5))
+        logits = logits.reshape(t, hkv, rep, self.s_max).masked_fill(
+            ~g["visible"][:, None, None, :], _NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(vctx.dtype)
+        attn = torch.einsum(f"{ps},{ctx}->{qs}",
+                            probs.reshape(qr.shape[:-1] + (-1,)), vctx)
+        return attn.reshape(t, hq * dh)
+
+    def _rows(self, groups: List[Dict[str, Any]]) -> List[torch.Tensor]:
+        """Float32 logits [t, V] of each row group (``_group``), run
+        through the layers together. In each layer every group's K/V is
+        scattered, in row order (the lanes, then the chunk), before any
+        group gathers its context back: the reference's
+        scatter-all-then-gather over one batch, so earlier rows' K/V are
+        visible to later positions and the mask ``kpos <= pos`` does the
+        rest. Attention and the dense matmuls run per group, each at its
+        own fixed size; a MoE layer routes the step's rows once, in the
+        reference's row order, and splits the result back."""
+        cfg = self.cfg
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        sizes = [g["h"].shape[0] for g in groups]
         for li, lp in enumerate(self._layers):
             kc, vc = self._kp[li], self._vp[li]
-            x = _norm(h, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg)
-            q = (x @ lp["wq"]).reshape(t, hq, dh)
-            k = (x @ lp["wk"]).reshape(t, hkv, dh)
-            v = (x @ lp["wv"]).reshape(t, hkv, dh)
-            if cfg.use_rope:
-                q = _rope_at(q, self._cos, self._sin, pos)
-                k = _rope_at(k, self._cos, self._sin, pos)
-            kc[blk, off] = k.to(kc.dtype)
-            vc[blk, off] = v.to(vc.dtype)
-            # paged gather: each table's pages back into a contiguous
-            # [S_max] context view; rows that share a table (a one-request
-            # chunk, a speculating lane's group) share its single view
-            kctx = kc[tables].reshape(-1, self.s_max, hkv, dh)
-            vctx = vc[tables].reshape(-1, self.s_max, hkv, dh)
-            qs, ctx = "tgrd", "tkgd"
-            qr = q.reshape(t, hkv, rep, dh)
-            if one_context:
-                kctx, vctx, ctx = kctx[0], vctx[0], "kgd"
-            elif group > 1:
-                qs, ctx = "njgrd", "nkgd"
-                qr = q.reshape(-1, group, hkv, rep, dh)
-            ps = qs[:-1] + "k"
-            logits = torch.einsum(f"{qs},{ctx}->{ps}", qr.float(),
-                                  kctx.float()) * scale
-            logits = logits.reshape(t, hkv, rep, self.s_max).masked_fill(
-                ~visible[:, None, None, :], _NEG_INF)
-            probs = torch.softmax(logits, dim=-1).to(vctx.dtype)
-            attn = torch.einsum(f"{ps},{ctx}->{qs}",
-                                probs.reshape(qr.shape[:-1] + (-1,)), vctx)
-            h2 = h + (attn.reshape(t, hq * dh) @ lp["wo"]).to(h.dtype)
-            x2 = _norm(h2, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
-            h = h2 + self._mlp(x2, lp).to(h.dtype)
-        h = _norm(h, params["final_norm_w"], params.get("final_norm_b"), cfg)
-        return (h @ head_matrix(params, cfg, h.dtype)).float()
+            qs = []
+            for g in groups:
+                t = g["h"].shape[0]
+                x = _norm(g["h"], lp["attn_norm_w"], lp.get("attn_norm_b"),
+                          cfg)
+                q = self._wdot(x, lp["wq"]).reshape(t, hq, dh)
+                k = self._wdot(x, lp["wk"]).reshape(t, hkv, dh)
+                v = self._wdot(x, lp["wv"]).reshape(t, hkv, dh)
+                if cfg.use_rope:
+                    q = _rope_at(q, self._cos, self._sin, g["pos"])
+                    k = _rope_at(k, self._cos, self._sin, g["pos"])
+                kc[g["blk"], g["off"]] = k.to(kc.dtype)
+                vc[g["blk"], g["off"]] = v.to(vc.dtype)
+                qs.append(q)
+            for g, q in zip(groups, qs):
+                g["h"] = g["h"] + self._wdot(self._attend(g, q, kc, vc),
+                                             lp["wo"]).to(g["h"].dtype)
+            xs = [_norm(g["h"], lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
+                  for g in groups]
+            if cfg.is_moe:
+                ys = self._moe_mlp(torch.cat(xs), lp).split(sizes)
+            else:
+                ys = [self._mlp(x, lp) for x in xs]
+            for g, y in zip(groups, ys):
+                g["h"] = g["h"] + y.to(g["h"].dtype)
+        out = []
+        for g in groups:
+            h = _norm(g["h"], self.params["final_norm_w"],
+                      self.params.get("final_norm_b"), cfg)
+            if self._relaxed_weights and self._q_head:
+                out.append(qhead(self.params, h, cfg).float())
+            else:
+                out.append((h @ head_matrix(self.params, cfg, h.dtype)
+                            ).float())
+        return out
 
     @torch.no_grad()
     def _step_impl(self, fused: bool) -> torch.Tensor:
         """One step over the decode lanes plus, when ``fused``, one prompt
         chunk, read from ``_chunk_in``. The lanes ([B (k+1)] rows: each
         lane's last token, then its k drafts from ``_spec_in`` when
-        speculating) and the chunk ([C] rows) run as two row groups, each
-        always at its own size, so every op a row goes through has the
-        same shape in every step: a request's tokens do not depend on what
-        else the batch holds or on which step shape carried it (the groups
-        touch disjoint pages: a lane writes its own private pages, the
-        chunk the prefilling slot's). A lane's rows share one gather of
-        its context, and so do the chunk's. Returns the packed readback,
-        flat int64: per lane k+1 tokens | emit count | finished | accept
-        length ([B (k+4)]), then, when fused, the chunk's first sampled
-        token. It reads only tensors that live as long as the engine and
-        writes the step state in place, so one call can be captured as a
-        CUDA graph."""
+        speculating) and the chunk ([C] rows) are two row groups
+        (``_rows``), each always at its own size, so every dense op a
+        row goes through has the same shape in every step: in a dense
+        model a request's tokens do not depend on what else the batch
+        holds or on which step shape carried it. A MoE layer routes both
+        groups' rows together, as the reference does, so there a lane's
+        expert output depends on the step's rows, as in the reference.
+        A lane's rows share one gather of its context, and so do the
+        chunk's. Returns the packed readback, flat int64: per lane k+1
+        tokens | emit count | finished | accept length ([B (k+4)]),
+        then, when fused, the chunk's first sampled token. It reads only
+        tensors that live as long as the engine and writes the step
+        state in place, so one call can be captured as a CUDA graph."""
         st = self._dstate
         B, S = self.max_batch, self.spec_k
         G = S + 1
         gj = torch.arange(G, device=self.device)
         if S == 0:
-            logits = self._rows(st["last"], st["positions"], st["active"],
-                                st["tables"])
-            out = _sample(logits, st["temps"], st["topks"], self._gen)[:, None]
-            accept = torch.zeros_like(st["last"])
+            groups = [self._group(st["last"], st["positions"], st["active"],
+                                  st["tables"])]
         else:
             drafts, dlens = self._spec_in[:, :S], self._spec_in[:, S]
             tokens = torch.cat([st["last"][:, None], drafts], dim=1)
             positions = st["positions"][:, None] + gj[None, :]
             active = st["active"][:, None] & (gj[None, :] <= dlens[:, None])
-            logits = self._rows(tokens.reshape(B * G),
-                                positions.reshape(B * G),
-                                active.reshape(B * G), st["tables"],
-                                group=G)
-            out, accept = _verify(logits.view(B, G, -1), drafts, dlens,
+            groups = [self._group(tokens.reshape(B * G),
+                                  positions.reshape(B * G),
+                                  active.reshape(B * G), st["tables"],
+                                  group=G)]
+        if fused:
+            C = self.prefill_chunk
+            c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
+            c_start, c_n = self._chunk_in[C + 1:C + 2], self._chunk_in[C + 2:]
+            cj = torch.arange(C, device=self.device)
+            groups.append(self._group(c_tok, c_start + cj, cj < c_n,
+                                      st["tables"].index_select(0, c_slot),
+                                      one_context=True))
+        logits = self._rows(groups)
+        if S == 0:
+            out = _sample(logits[0], st["temps"], st["topks"],
+                          self._gen)[:, None]
+            accept = torch.zeros_like(st["last"])
+        else:
+            out, accept = _verify(logits[0].view(B, G, -1), drafts, dlens,
                                   st["temps"], st["topks"], self._gen)
 
         # on-device stop-condition scan over each lane's group: budget
@@ -626,14 +806,7 @@ class DecodeEngine:
         st["outc"].add_(n_emit)
         st["active"].copy_(act & ~finished)
         if fused:
-            C = self.prefill_chunk
-            c_tok, c_slot = self._chunk_in[:C], self._chunk_in[C:C + 1]
-            c_start, c_n = self._chunk_in[C + 1:C + 2], self._chunk_in[C + 2:]
-            cj = torch.arange(C, device=self.device)
-            c_logits = self._rows(c_tok, c_start + cj, cj < c_n,
-                                  st["tables"].index_select(0, c_slot),
-                                  one_context=True)
-            c_out = _sample(c_logits,
+            c_out = _sample(logits[1],
                             st["temps"].index_select(0, c_slot).expand(C),
                             st["topks"].index_select(0, c_slot).expand(C),
                             self._gen)
@@ -677,9 +850,13 @@ class DecodeEngine:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
         # thread_local: other threads (the caller's, a door's) may use the
-        # device while the scheduler thread captures
-        with torch.cuda.graph(graph, stream=side,
+        # device while the scheduler thread captures. The two shapes share
+        # one memory pool: they never run at once, and each step's output
+        # is read before the other shape replays
+        with torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
                               capture_error_mode="thread_local"):
             static_out = self._step_impl(fused)
         self._graphs[fused] = graph
@@ -756,23 +933,30 @@ class DecodeEngine:
 
     def weight_plane(self) -> Dict[str, Any]:
         """The resident-weight policy and the capacity it bought, with the
-        reference's keys: the bitwise tier (the checkpoint's own dtype;
-        the int8 plane is ROADMAP Queue A 4) and no experts."""
-        return {
-            "parity": "bitwise",
-            "dtype": self._weight_dtype,
+        reference's keys: dtype, measured weight bytes, quantize-at-load
+        seconds, the lanes x context the KV budget admits at those bytes,
+        and the expert placement."""
+        desc = self._weight_desc
+        plane = {
+            "parity": "relaxed" if self._relaxed_weights else "bitwise",
+            "dtype": desc["dtype"],
             "weight_bytes": self.weight_bytes,
-            "quantize_seconds": 0.0,
-            "quantized_leaves": 0,
-            "hbm_bytes": 0,
+            "quantize_seconds": self.quantize_seconds,
+            "quantized_leaves": desc["int8_leaves"],
+            "hbm_bytes": self.hbm_bytes,
             "lanes": self.max_batch,
             "max_context": self.s_max,
             "kv_capacity_tokens": self.pool.num_usable * self.block_size,
             "lanes_x_context": self.max_batch * self.s_max,
-            "experts": 0,
-            "expert_shards": 0,
-            "expert_bytes": 0,
+            "experts": self.cfg.n_experts,
+            "expert_shards": self.expert_shards,
+            "expert_bytes": self.expert_bytes,
         }
+        if self.cfg.is_moe:
+            plane["expert_capacity"] = moe_capacity(
+                self.max_batch * (self.spec_k + 1), self._moe_cfg)
+            plane["a2a_codec"] = self._moe_a2a_codec
+        return plane
 
     @property
     def idle(self) -> bool:

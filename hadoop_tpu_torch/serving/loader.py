@@ -53,17 +53,17 @@ def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
     Every leaf's shape and dtype is checked against ``cfg`` before a
     shard is read, from a parameter tree on the meta device (no model is
     allocated); a mismatch raises ``ValueError``. Raises
-    ``FileNotFoundError`` when no complete checkpoint exists. Sharded
-    placement (``mesh``/``specs``) is ROADMAP Queue A 6 and the streaming
-    ``leaf_transform`` (quantize at load) Queue A 4; both raise.
+    ``FileNotFoundError`` when no complete checkpoint exists.
+    ``leaf_transform`` switches ``load_checkpoint`` to its streaming
+    per-leaf mode, the weight plane's quantize-at-load seam
+    (``serving/weightplane.py``): each assembled leaf is consumed as its
+    shards arrive, so the float model never lies whole on the host.
+    Sharded placement (``mesh``/``specs``) is ROADMAP Queue A 6 and
+    raises.
     """
     if mesh is not None or specs is not None:
         raise NotImplementedError(
             "mesh/specs: sharded serving placement is ROADMAP Queue A 6")
-    if leaf_transform is not None:
-        raise NotImplementedError(
-            "leaf_transform: quantize-at-load belongs to the weight plane, "
-            "ROADMAP Queue A 4")
     t0 = time.monotonic()
     if step is None:
         step = latest_step(fs, base_dir)
@@ -80,9 +80,10 @@ def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
                          f"the parameters of this config: {bad[:3]}")
     tree, step = load_checkpoint(fs, base_dir, like, step=step,
                                  io_workers=max(1, io_workers),
-                                 device=device)
+                                 device=device,
+                                 leaf_transform=leaf_transform)
     params = tree["params"] if wrapped else tree
-    n = sum(p.numel() for p in tree_leaves(params))
+    n = sum(p.numel() for p in tree_leaves(shapes))
     log.info("loaded %d-param checkpoint step %d from %s in %.2fs "
              "(%d io workers)", n, step, base_dir,
              time.monotonic() - t0, max(1, io_workers))

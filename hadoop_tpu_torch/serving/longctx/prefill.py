@@ -15,9 +15,14 @@ The reference jits the job at its pinned shape; the port runs eagerly,
 so ``prefill_compiles`` and ``head_compiles`` count the distinct shapes
 the layer stack and the head ran at (1 each when the pinned shape
 holds), the meaning the engine's step counters have in this port.
-Left out: the comm-ledger and tracer hooks (as the engine left them
-out), and int8 weight trees, refused until the weight plane is ported
-(ROADMAP Queue A 4).
+
+An int8 weight-plane tree (``serving/weightplane.py``, the engine's own
+plane, shared) runs every local matmul through ``qdot`` (the ctx's
+``relaxed_qweights``) and the head through ``qhead``. A MoE config
+routes each rank's tokens on their own (``models/decoder.py``), at the
+capacity of that rank's count, as each rank of the reference's
+``shard_map`` does. Left out: the comm-ledger and tracer hooks (as the
+engine left them out).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from hadoop_tpu_torch.models.decoder import (ParallelCtx, embed_tokens,
                                              run_layers_kv)
 from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.serving.longctx.plan import choose_sp_mode, cp_mesh
+from hadoop_tpu_torch.serving.weightplane import (is_qtensor,
+                                                  is_quantized_tree, qhead)
 
 log = logging.getLogger(__name__)
 
@@ -58,15 +65,6 @@ class PrefillResult:
     prompt_tokens: int = 0
 
 
-def _is_quantized_tree(node) -> bool:
-    """Does any leaf carry the reference weight plane's quantized layout
-    (a ``{"q", "s"}`` dict)?"""
-    if isinstance(node, dict):
-        return set(node) == {"q", "s"} or any(
-            _is_quantized_tree(v) for v in node.values())
-    return False
-
-
 class ContextParallelPrefiller:
     """One replica's CP prefill: a ring at one pinned shape, reused for
     every long prompt. ``devices``: None for the current GPU, or devices
@@ -76,12 +74,6 @@ class ContextParallelPrefiller:
     def __init__(self, params, cfg: ModelConfig, *, block_size: int,
                  pad_tokens: int, sp: int = 0, sp_mode: str = "ring",
                  devices=None):
-        if _is_quantized_tree(params):
-            raise NotImplementedError(
-                "int8 weight trees come with the weight plane "
-                "(ROADMAP Queue A 4)")
-        if cfg.is_moe:
-            raise NotImplementedError("MoE models are not ported yet")
         self.sp = int(sp) if sp else (len(devices) if devices else 1)
         self.cfg = cfg
         self.params = params
@@ -110,9 +102,13 @@ class ContextParallelPrefiller:
                 "rejected per-request", self.pad_tokens, cfg.max_seq,
                 quantum)
         self.ring = cp_mesh(self.sp, devices)
-        check_on(params["embed"], self.ring.device, "params")
+        embed = params["embed"]
+        check_on(embed["q"] if is_qtensor(embed) else embed,
+                 self.ring.device, "params")
+        # the relaxed tier's opt-in: a quantized tree's matmuls dequantize
         self.ctx = ParallelCtx(ring="sp", ring_size=self.sp,
-                               sp_mode=self.sp_mode)
+                               sp_mode=self.sp_mode,
+                               relaxed_qweights=is_quantized_tree(params))
         self._cos, self._sin = rope_frequencies(
             cfg.head_dim, cfg.max_seq, cfg.rope_theta,
             device=self.ring.device)
@@ -144,7 +140,12 @@ class ContextParallelPrefiller:
     @torch.no_grad()
     def _head(self, row: torch.Tensor) -> torch.Tensor:
         self._shapes["head"].add(tuple(row.shape))
-        return (row @ head_matrix(self.params, self.cfg, row.dtype)).float()
+        cfg = self.cfg
+        head = self.params["embed"] if cfg.tie_embeddings \
+            else self.params.get("lm_head")
+        if is_qtensor(head):
+            return qhead(self.params, row, cfg).float()
+        return (row @ head_matrix(self.params, cfg, row.dtype)).float()
 
     def cp_prefill(self, tokens: List[int]) -> PrefillResult:
         """Prefill ``tokens`` across the ring."""

@@ -19,7 +19,16 @@ flight, unregister, exit 0. ``-D key=value`` sets a conf key (the door's
 ``serving.kv.host.bytes``, ``serving.kv.dfs.enable``, ``serving.kv.dfs.dir``,
 ``serving.kv.dfs.min-refs``, ``serving.kv.codec``,
 ``serving.kv.fetch.window``, ``serving.kv.drain.persist``, speculation's
-``serving.speculate.k`` and ``serving.speculate.ngram``, ...).
+``serving.speculate.k`` and ``serving.speculate.ngram``, the weight
+plane's ``serving.parity``, ``serving.weights.*``, ``serving.kv.hbm.bytes``
+and ``serving.max.lanes``, MoE's ``serving.moe.capacity.factor``,
+``serving.moe.shards`` and ``serving.moe.a2a.codec``, ...).
+
+``serving.parity=relaxed`` loads through ``weightplane.quantized_load``:
+each checkpoint leaf is quantized to int8 on the device as it streams
+in, and the engine sizes its KV pool (and its lanes, when
+``serving.max.batch`` is unset) against the measured resident bytes
+when ``serving.kv.hbm.bytes`` is set.
 
 ``serving.role`` (or ``--role``) is ``mixed`` (the default), ``prefill``
 or ``decode``, as the reference's: any explicit role turns the DFS KV
@@ -39,10 +48,9 @@ exits 2 for one. ``registry=`` takes any ``RegistryLike`` (``hadoop_tpu``'s
 ``RegistryClient`` fits); ``--registry HOST:PORT`` needs an RPC client the
 port does not have and exits 2. Features the port has not ported are
 refused with ``NotImplementedError`` naming their ROADMAP item (the
-command line exits 2), never ignored: ``serving.parity=relaxed`` and
-``serving.kv.hbm.bytes`` (Queue A 4), ``serving.longctx.enabled`` (A 7)
-and a MoE preset (A 5). The YARN packaging (``serving_service_spec``,
-``autoscaler_service_spec``) is Queue A 9.
+command line exits 2), never ignored: ``serving.longctx.enabled`` (A 7)
+and more than one expert shard (A 6). The YARN packaging
+(``serving_service_spec``, ``autoscaler_service_spec``) is Queue A 9.
 """
 
 from __future__ import annotations
@@ -72,6 +80,8 @@ from hadoop_tpu_torch.serving.metrics import ServingMetrics
 from hadoop_tpu_torch.serving.qos import (DecayCostScheduler,
                                           FairAdmissionQueue, QoSGate)
 from hadoop_tpu_torch.serving.server import ServingServer
+from hadoop_tpu_torch.serving.weightplane import (quantized_load,
+                                                  weightplane_from_conf)
 
 log = logging.getLogger(__name__)
 
@@ -81,17 +91,11 @@ def _refuse(what: str, item: str) -> None:
                               f"yet (ROADMAP Queue A {item})")
 
 
-def refuse_unported(conf: ConfLike, cfg) -> None:
-    """Raise ``NotImplementedError`` for every conf key (or preset) that
-    asks for a serving feature the port does not have."""
-    if conf.get("serving.parity", "bitwise") != "bitwise":
-        _refuse("serving.parity=relaxed (the int8 weight plane)", "4")
-    if conf.get_int("serving.kv.hbm.bytes", 0):
-        _refuse("serving.kv.hbm.bytes (HBM-budget sizing)", "4")
+def refuse_unported(conf: ConfLike) -> None:
+    """Raise ``NotImplementedError`` for every conf key that asks for a
+    serving feature the port does not have."""
     if conf.get_bool("serving.longctx.enabled", False):
         _refuse("serving.longctx.enabled (the long-context plane)", "7")
-    if cfg.is_moe:
-        _refuse("a MoE preset (expert-parallel serving)", "5")
 
 
 def checkpoint_location(checkpoint: str, fs: Optional[FileSystemLike]
@@ -123,13 +127,26 @@ class ServingReplica:
             f"{socket.gethostname()}-{uuid.uuid4().hex[:8]}"
         serving_read_defaults(conf)
         cfg = get_config(preset)
-        refuse_unported(conf, cfg)
+        refuse_unported(conf)
         self.device = resolve_device(device)
         fs, ckpt_dir = checkpoint_location(checkpoint, fs)
+        # the weight plane: serving.parity picks the tier. bitwise (the
+        # default) loads the checkpoint's own dtypes; relaxed quantizes
+        # each leaf as it streams in
+        weights = weightplane_from_conf(conf)
         t0 = time.monotonic()
-        params, step = load_serving_params(
-            fs, ckpt_dir, cfg, io_workers=conf.get_int(IO_WORKERS_KEY, 4),
-            device=self.device)
+        self.quantize_seconds = 0.0
+        if weights.relaxed:
+            params, step, wreport = quantized_load(
+                fs, ckpt_dir, cfg, weights,
+                io_workers=conf.get_int(IO_WORKERS_KEY, 4),
+                device=self.device)
+            self.quantize_seconds = wreport["quantize_seconds"]
+        else:
+            params, step = load_serving_params(
+                fs, ckpt_dir, cfg,
+                io_workers=conf.get_int(IO_WORKERS_KEY, 4),
+                device=self.device)
         self.load_seconds = round(time.monotonic() - t0, 3)
         self.step = step
         # the tiered KV cache: the host ring's byte budget, and the DFS
@@ -161,7 +178,9 @@ class ServingReplica:
             qos_queue = FairAdmissionQueue(qos_sched)
         self.engine = DecodeEngine(
             params, cfg,
-            max_batch=conf.get_int("serving.max.batch", 0) or 4,
+            # unset: 4, or lanes from the budget when
+            # serving.kv.hbm.bytes is set
+            max_batch=conf.get_int("serving.max.batch", 0) or None,
             block_size=conf.get_int("serving.kv.block.size", 16),
             num_blocks=conf.get_int("serving.kv.num.blocks", 0) or None,
             max_context=conf.get_int("serving.max.context", 0) or None,
@@ -177,6 +196,17 @@ class ServingReplica:
             speculate_k=conf.get_int("serving.speculate.k", 0),
             speculate_ngram=conf.get_int("serving.speculate.ngram", 3),
             drain_persist=conf.get_bool("serving.kv.drain.persist", True),
+            # a fixed HBM budget: the KV pool (and the lanes, capped by
+            # serving.max.lanes) sized against the measured weight bytes
+            hbm_bytes=conf.get_int("serving.kv.hbm.bytes", 0),
+            max_lanes=conf.get_int("serving.max.lanes", 16),
+            quantize_seconds=self.quantize_seconds,
+            # MoE: the capacity-factor override (0 = the config's), the
+            # expert shard count (0 = auto) and the a2a payload codec
+            moe_capacity_factor=conf.get_float(
+                "serving.moe.capacity.factor", 0.0),
+            moe_shards=conf.get_int("serving.moe.shards", 0),
+            moe_a2a_codec=conf.get("serving.moe.a2a.codec", "int8"),
             device=self.device, admission_queue=qos_queue,
             metrics=metrics)
         qos_gate = QoSGate(conf, self.engine, metrics=metrics,
@@ -219,7 +249,8 @@ class ServingReplica:
                             "load_seconds": str(self.load_seconds),
                             "weight_dtype": plane["dtype"],
                             "weight_bytes": str(eng.weight_bytes),
-                            "quantize_seconds": "0.0",
+                            "quantize_seconds":
+                                str(self.quantize_seconds),
                             "experts": str(plane["experts"]),
                             "expert_shards": str(plane["expert_shards"]),
                             "expert_bytes": str(plane["expert_bytes"]),

@@ -637,10 +637,7 @@ def test_command_line_serves_health_and_exits_0_on_sigterm(tmp_path):
 # ----------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("key,value,item", [
-    ("serving.parity", "relaxed", "A 4"),
-    ("serving.kv.hbm.bytes", "1000000000", "A 4"),
     ("serving.longctx.enabled", "true", "A 7"),
-    ("preset", "tiny-moe", "A 5"),
 ])
 def test_unported_features_are_refused(tmp_path, key, value, item):
     conf = Configuration()
@@ -687,6 +684,100 @@ def test_tier_and_speculation_keys_reach_the_engine(tmp_path, key, value,
         assert check(replica)
     finally:
         replica.server.stop()
+
+
+@pytest.mark.parametrize("preset,keys,check", [
+    ("tiny", {"serving.parity": "relaxed"},
+     lambda r: r.engine.weight_plane()["parity"] == "relaxed"
+     and r.engine.weight_plane()["dtype"] == "int8"
+     and r.quantize_seconds >= 0.0),
+    ("tiny", {"serving.parity": "relaxed", "serving.weights.group": "32",
+              "serving.weights.embed": "true",
+              "serving.weights.head": "true"},
+     lambda r: r.engine._q_embed and r.engine._q_head
+     and r.engine.params["layers"]["wq"]["q"].shape[-1] == 32),
+    ("tiny", {"serving.kv.hbm.bytes": "3000000", "serving.max.lanes": "2"},
+     lambda r: r.engine.hbm_bytes == 3_000_000 and r.engine.max_batch == 2),
+    ("tiny-moe", {"serving.moe.capacity.factor": "2.0",
+                  "serving.moe.a2a.codec": "none",
+                  "serving.moe.shards": "1"},
+     lambda r: r.engine.weight_plane()["experts"] == 4
+     and r.engine._moe_cfg.capacity_factor == 2.0
+     and r.engine.weight_plane()["a2a_codec"] == "none"
+     and r.engine.expert_shards == 1),
+], ids=["relaxed", "relaxed-group-embed-head", "hbm-bytes", "moe"])
+def test_weight_plane_and_moe_keys_reach_the_engine(tmp_path, preset, keys,
+                                                    check):
+    """The keys of ROADMAP Queue A 4 and 5, once refused, now configure
+    the replica as the reference's does."""
+    jcfg = jconfig.get_config(preset)
+    cfg = config.get_config(preset)
+    jparams = jdecoder.init_params(jax.random.PRNGKey(0), jcfg)
+    save_checkpoint(LocalFileSystem(), f"{tmp_path}/ckpt", 1, {
+        "params": params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                           jparams),
+                                    cfg, device="cpu")})
+    conf = _conf(serving_kv_block_size="4", serving_max_context="48")
+    for key, value in keys.items():
+        conf.set(key, value)
+    replica = service.ServingReplica(conf, name="x", preset=preset,
+                                     checkpoint=f"{tmp_path}/ckpt",
+                                     device="cpu")
+    try:
+        assert check(replica)
+    finally:
+        replica.server.stop()
+
+
+def test_relaxed_replica_equals_the_reference_replica(tmp_path):
+    """serving.parity=relaxed (int8 group 16, embed and head quantized):
+    the port's replica and the reference's on one checkpoint serve the
+    same greedy tokens, /v1/health carries the same weight plane, and the
+    registry record the reference's weight keys."""
+    from hadoop_tpu.fs import LocalFileSystem as JLocalFileSystem
+    from hadoop_tpu.parallel.checkpoint import save_checkpoint as jsave
+    from hadoop_tpu.registry import RegistryClient, RegistryServer
+    from hadoop_tpu.serving.service import ServingReplica as JReplica
+    m = _tiny()
+    jsave(JLocalFileSystem(), f"{tmp_path}/ckpt", 2,
+          {"params": m["jparams"], "opt": {}})
+    keys = dict(serving_kv_block_size="4", serving_max_context="48",
+                serving_parity="relaxed", serving_weights_group="16",
+                serving_weights_embed="true", serving_weights_head="true",
+                serving_qos_enabled="false")
+    jconf = _conf(JConfiguration, **keys)
+    reg_srv = RegistryServer(jconf)
+    reg_srv.init(jconf)
+    reg_srv.start()
+    ref = JReplica(jconf, name="ref", checkpoint=f"file://{tmp_path}/ckpt",
+                   preset="tiny", instance="r0")
+    reg = RegistryClient(("127.0.0.1", reg_srv.port), jconf)
+    port = service.ServingReplica(
+        _conf(**keys), name="int8", checkpoint=f"file://{tmp_path}/ckpt",
+        preset="tiny", registry=reg, instance="p0", device="cpu")
+    ref.start()
+    port.start()
+    try:
+        tokens = {}
+        for name, r in (("ref", ref), ("port", port)):
+            tokens[name] = [_post(r.server.port, "/v1/generate",
+                                  {"tokens": p, "max_new_tokens": n})[1][
+                                      "tokens"] for p, n in PROMPTS]
+        assert tokens["port"] == tokens["ref"]
+        got = _health(port.server.port)["weights"]
+        want = _health(ref.server.port)["weights"]
+        assert got.pop("quantize_seconds") >= 0.0
+        want.pop("quantize_seconds")
+        assert got == want and got["dtype"] == "int8"
+        (rec,) = reg_srv.list("/services/serving/int8")
+        assert rec.attributes["weight_dtype"] == "int8"
+        assert int(rec.attributes["weight_bytes"]) == got["weight_bytes"]
+        assert float(rec.attributes["quantize_seconds"]) == \
+            port.quantize_seconds
+    finally:
+        port.drain_and_stop(timeout=15)
+        ref.drain_and_stop(timeout=15)
+        reg_srv.stop()
 
 
 def test_prefill_role_without_the_dfs_tier_is_refused(tmp_path):

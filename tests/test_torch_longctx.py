@@ -10,6 +10,8 @@ reference's own (tests/test_flash.py); 1e-4 for logits, hidden states
 and K/V after a float32 layer stack (tests/test_torch_models.py's).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +24,13 @@ from hadoop_tpu.models import config as jconfig
 from hadoop_tpu.models import decoder as jdecoder
 from hadoop_tpu.parallel.ring_attention import ring_attention as jring
 from hadoop_tpu.serving import longctx as jlongctx
+from hadoop_tpu.serving import weightplane as jwp
 from hadoop_tpu_torch.models import config, decoder, params_from_numpy
 from hadoop_tpu_torch.ops import attention, flash
 from hadoop_tpu_torch.parallel import ring_attention as ra
 from hadoop_tpu_torch.serving import longctx
-from hadoop_tpu_torch.serving.longctx import prefill as port_prefill
+from hadoop_tpu_torch.models import moe
+from hadoop_tpu_torch.serving import weightplane
 
 TOL = 1e-4
 
@@ -206,6 +210,56 @@ def test_cp_prefill_matches_jax(tiny, sp):
     assert pre.prefill_compiles == 1 and pre.head_compiles == 1
 
 
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("plane", ["tiny-int8", "tiny-int8-embed-head",
+                                   "tiny-moe"])
+def test_cp_prefill_on_int8_and_moe_matches_jax(plane, sp):
+    """The weight plane's int8 tree (every local matmul through qdot, the
+    head through qhead) and a MoE config (each rank routing its own
+    tokens) through cp_prefill, against the JAX package's on the same
+    tree: last logits, every streamed block and the tail; the exact A-B
+    guard against the forward over the dequantized tree accepts."""
+    preset = "tiny-moe" if plane == "tiny-moe" else "tiny"
+    jcfg, jparams, cfg, params = _models(preset, max_seq=512)
+    ref_params = params
+    if plane.startswith("tiny-int8"):
+        q_both = plane.endswith("embed-head")
+        jparams, _ = jwp.quantize_params(jparams, jcfg, jwp.WeightPlaneConfig(
+            tier="relaxed", group=16, quant_embed=q_both, quant_head=q_both))
+        params = params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                          jparams),
+                                   cfg, device="cpu")
+        ref_params = weightplane.dequantize_params(params, cfg)
+        assert weightplane.is_quantized_tree(params)
+    prompt = _prompt(150)
+    jres = jlongctx.ContextParallelPrefiller(
+        jparams, jcfg, block_size=8, pad_tokens=160, sp=sp).cp_prefill(prompt)
+    pre = longctx.ContextParallelPrefiller(params, cfg, block_size=8,
+                                           pad_tokens=160, sp=sp,
+                                           devices=["cpu"])
+    assert pre.ctx.relaxed_qweights == plane.startswith("tiny-int8")
+    res = pre.cp_prefill(prompt)
+    np.testing.assert_allclose(res.last_logits, jres.last_logits,
+                               atol=TOL, rtol=TOL)
+    got, want = list(res.blocks), list(jres.blocks)
+    assert len(got) == len(want) == 18
+    for (gk, gv), (wk, wv) in zip(got, want):
+        np.testing.assert_allclose(gk.numpy(), wk, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(gv.numpy(), wv, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(res.tail_k.numpy(), jres.tail_k, atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(res.tail_v.numpy(), jres.tail_v, atol=TOL,
+                               rtol=TOL)
+    if plane != "tiny-moe":
+        # (a MoE rank routes its own tokens at its own capacity, so its
+        # drops are not the single-device forward's: there the JAX
+        # package's cp_prefill above is the comparison)
+        report = longctx.run_prefill_ab(ref_params, cfg, prompt, pre,
+                                        mode="exact")
+        assert report["accepted"] and report["argmax_agree"]
+    assert pre.prefill_compiles == 1 and pre.head_compiles == 1
+
+
 def test_cp_prefill_kernel_path_equals_chunk_path_on_cpu(tiny, monkeypatch):
     """The ring's fused path (the partials' plain versions on the CPU,
     forced here; "auto" takes it on the GPU) against the chunk path
@@ -333,9 +387,10 @@ def test_choose_sp_mode(tiny):
 # --------------------------------------------------------- what must raise
 
 def test_refusals(tiny):
-    """Ulysses, a ring over distinct devices and int8 trees raise
-    NotImplementedError; without a GPU the prefill's default device and
-    the partial kernel raise."""
+    """Ulysses, a ring over distinct devices, tensor and expert axes
+    raise; int8 trees and MoE configs are ported (the cp_prefill tests
+    below); without a GPU the prefill's default device and the partial
+    kernel raise."""
     _, _, cfg, params = tiny
     kw = dict(block_size=8, pad_tokens=160, sp=2)
     with pytest.raises(NotImplementedError, match="Queue A 7"):
@@ -348,10 +403,14 @@ def test_refusals(tiny):
     assert (ring.size, ring.device) == (4, torch.device("cpu"))
     qtree = dict(params, embed={"q": torch.zeros(2, dtype=torch.int8),
                                 "s": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        longctx.ContextParallelPrefiller(qtree, cfg, devices=["cpu"], **kw)
-    assert port_prefill._is_quantized_tree(qtree)
-    assert not port_prefill._is_quantized_tree(params)
+    assert weightplane.is_quantized_tree(qtree)
+    assert not weightplane.is_quantized_tree(params)
+    for field in ("tp_axis", "ep_axis"):
+        with pytest.raises(TypeError):
+            decoder.ParallelCtx(**{field: "x"})
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        moe.moe_mlp(torch.zeros(1, 2, 64), {}, config.get_config(
+            "tiny-moe"), types.SimpleNamespace(ep_axis="ep"))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):

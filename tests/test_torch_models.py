@@ -242,9 +242,18 @@ def test_entry_points_refuse_a_missing_gpu():
 
 
 def test_moe_is_refused():
+    """MoE serving is ported; training a MoE model is not (ROADMAP Queue
+    A 5), and both training entry points say so."""
+    from hadoop_tpu_torch.parallel import Trainer, make_train_step
+    from hadoop_tpu_torch.parallel.mesh import MeshPlan
     cfg = config.get_config("tiny-moe")
-    with pytest.raises(NotImplementedError):
-        decoder.init_params(cfg, torch.Generator(), device="cpu")
+    params = decoder.init_params(cfg, torch.Generator(), device="cpu")
+    assert params["layers"]["router"].shape == (2, 64, 4)
+    with pytest.raises(NotImplementedError, match="Queue A 5"):
+        make_train_step(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 5"):
+        Trainer(cfg, MeshPlan(), None, "/none", "/none", batch=1,
+                device="cpu")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -278,6 +287,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.serving.service\n"
         "import hadoop_tpu_torch.serving.speculate\n"
         "import hadoop_tpu_torch.serving.kvstore.tiered\n"
+        "import hadoop_tpu_torch.serving.weightplane\n"
+        "import hadoop_tpu_torch.models.moe\n"
+        "import hadoop_tpu_torch.parallel.lowp.quant\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -309,7 +321,8 @@ def test_port_sources_name_no_jax():
                 "serving/service.py", "serving/speculate.py",
                 "serving/kvstore/radix.py", "serving/kvstore/codec.py",
                 "serving/kvstore/hosttier.py", "serving/kvstore/dfstier.py",
-                "serving/kvstore/tiered.py"):
+                "serving/kvstore/tiered.py", "serving/weightplane.py",
+                "models/moe.py", "parallel/lowp/quant.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

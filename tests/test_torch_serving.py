@@ -16,7 +16,7 @@ import torch
 from hadoop_tpu.models import config as jconfig
 from hadoop_tpu.models import decoder as jdecoder
 from hadoop_tpu.serving import engine as jengine
-from hadoop_tpu_torch.models import config, params_from_numpy
+from hadoop_tpu_torch.models import config, decoder, params_from_numpy
 from hadoop_tpu_torch.serving import engine
 from hadoop_tpu_torch.serving.engine import DecodeEngine, SamplingParams
 from hadoop_tpu_torch.serving.kvstore import BlockPool, PrefixCache
@@ -339,17 +339,31 @@ def test_sampled_tokens_lie_in_the_top_k_set():
     assert len(seen) > 5                             # it does sample
 
 
-def test_unported_features_are_refused():
+def test_unported_features_are_refused(monkeypatch):
+    """What the engine still refuses names its ROADMAP item: a
+    tensor-parallel plan and more than one expert shard (A 6), the
+    long-context plane (A 7). hbm_bytes sizing, MoE and the int8 plane
+    are ported (tests/test_torch_weightplane.py, test_torch_moe.py)."""
     _, jparams, cfg, params, _ = _model("tiny")
-    for kw in (dict(hbm_bytes=1 << 30), dict(plan=object())):
-        with pytest.raises(NotImplementedError):
-            DecodeEngine(params, cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(params, config.get_config("tiny-moe"), device="cpu")
-    quantized = dict(params, layers=dict(params["layers"],
-                                         wq={"q": None, "s": None}))
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(quantized, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        DecodeEngine(params, cfg, device="cpu", plan=object())
+    moe_cfg = config.get_config("tiny-moe")
+    moe_params = decoder.init_params(moe_cfg, torch.Generator(),
+                                     device="cpu")
+    with pytest.raises(ValueError, match="exceeds"):
+        DecodeEngine(moe_params, moe_cfg, device="cpu", moe_shards=2)
+    monkeypatch.setattr(engine, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    monkeypatch.setattr(engine, "check_on", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        DecodeEngine(moe_params, moe_cfg, moe_shards=2)
+    monkeypatch.undo()
+    with pytest.raises(ValueError):
+        DecodeEngine(moe_params, moe_cfg, device="cpu",
+                     moe_a2a_codec="fp8")
+    assert DecodeEngine(moe_params, moe_cfg, device="cpu").expert_shards \
+        == 1
     eng = DecodeEngine(params, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
         eng.attach_longctx(object())

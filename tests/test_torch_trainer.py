@@ -236,9 +236,12 @@ def test_refusals_name_their_queue_item(fs, token_file):
         t.apply_plan(MeshPlan())
     t.save()
     like = {"params": t.params}
+    # the streaming leaf_transform is ported (tests/test_torch_weightplane
+    # .py); with sharded placement it still raises
     for kw, item in ((dict(mesh=object()), "Queue A 6"),
                      (dict(specs={}), "Queue A 6"),
-                     (dict(leaf_transform=lambda n, a: a), "Queue A 4")):
+                     (dict(leaf_transform=lambda n, a: a, mesh=object()),
+                      "Queue A 6")):
         with pytest.raises(NotImplementedError, match=item):
             ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
                                  **kw)
