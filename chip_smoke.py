@@ -38,7 +38,18 @@ exact A-B guard (sp 4 and sp 2); and prefills three prompts of
 llama3-8b (8192, 8100 and 8000 tokens) at full width and depth with
 ``ContextParallelPrefiller`` (sp 4 ranks on the one card), holding every
 layer's ring attention against the causal kernel on the same inputs,
-and its logits and every layer's K/V against the single-device forward.
+and its logits and every layer's K/V against the single-device forward;
+then decodes long prompts through the long-context plane attached to a
+``DecodeEngine`` as ``ServingReplica`` attaches it (phase
+``longctx_decode``: llama3-8b bf16 and its int8 plane, an 8192-token
+prompt through CP prefill, the page-locked host ring and 32 tokens of
+working-set decode, each token's logits against the single-device
+forward, the legacy loop's tokens against the pipelined path's; and
+flagship-1b in float32, the plane's tokens against the fused step's).
+Two kernels that are repairs, not TPU kernels, are held against their
+plain versions first: the int8 dequantize (phase ``dequant``, bit for
+bit) and RMSNorm's forward and backward (phase ``rmsnorm``); the train
+phase pins their launches per step too.
 Weights are random, made from a seeded ``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
@@ -90,7 +101,7 @@ from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
                                              head_matrix, layer_forward,
                                              layer_slices, run_layers_kv)
 from hadoop_tpu_torch.conf import Configuration
-from hadoop_tpu_torch.ops import _build, flash, rope_frequencies
+from hadoop_tpu_torch.ops import _build, flash, norms, rope_frequencies
 from hadoop_tpu_torch.fs import LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
@@ -101,13 +112,15 @@ from hadoop_tpu_torch.parallel.ring_attention import ring_attention
 from hadoop_tpu_torch.serving.kvstore import DFSTier
 from hadoop_tpu_torch.serving.loader import load_serving_params
 from hadoop_tpu_torch.serving.longctx import (ContextParallelPrefiller,
+                                              WorkingSetDecoder,
+                                              longctx_plane_from_conf,
                                               run_prefill_ab)
+from hadoop_tpu_torch.serving.longctx import decode as decode_module
 from hadoop_tpu_torch.serving import engine as engine_module
 from hadoop_tpu_torch.serving import weightplane
 from hadoop_tpu_torch.serving.service import ServingReplica
 from hadoop_tpu_torch.tracing import global_tracer
-from hadoop_tpu_torch.tools.profile_flagship import (_kernels_under,
-                                                    decoding_engine, trace)
+from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -337,9 +350,14 @@ def emit(obj) -> None:
 
 def free_device() -> None:
     """Return what dropped tensors held to the card: collect the reference
-    cycles that keep an engine (and its captured graphs) alive, then empty
-    the allocator's cache."""
+    cycles that keep an engine (and its captured graphs) alive, drop the
+    cuBLAS workspaces PyTorch keeps for every (handle, stream) it has
+    seen (each engine and decoder captures on a stream of its own: 32 MiB
+    each, never freed otherwise), then empty the allocator's cache. The
+    moe phase fills the card to within a few GB, and what earlier phases
+    leave there changes which GEMM algorithms its eager step gets."""
     gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -419,15 +437,38 @@ def optimizer_counts():
     return optimizer.launches, optimizer.launches_grad_sq
 
 
+def norm_counts():
+    return norms.launches_fwd, norms.launches_bwd
+
+
+def train_counts():
+    """A training run's launches: (fwd, dq, dkv, adamw, grad_sq,
+    rms_norm_fwd, rms_norm_bwd)."""
+    return counts()[:3] + optimizer_counts() + norm_counts()
+
+
+def train_counts_want(cfg, n_leaves):
+    """One full-remat training step's launches, as ``train_counts`` lists
+    them: the causal kernel in the forward and its recompute, one dQ and
+    one dK/dV per layer, AdamW per leaf, the squared norm per leaf plus
+    its finish; RMSNorm's forward 2 per layer in the forward and again in
+    the recompute plus the final norm's (4L + 1), and its backward (pass
+    and dw finish) for each of the 2L + 1 norms."""
+    L = cfg.n_layers
+    return [2 * L, L, L, n_leaves, n_leaves + 1, 4 * L + 1, 2 * (2 * L + 1)]
+
+
 def zero_counts():
     flash.launches = flash.launches_bwd_dq = flash.launches_bwd_dkv = 0
     flash.launches_partial = 0
     optimizer.launches = optimizer.launches_grad_sq = 0
+    norms.launches_fwd = norms.launches_bwd = 0
+    weightplane.launches_dequant = 0
 
 
 # ------------------------------------------------------------------ phases
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "adamw"]
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "adamw", "dequant", "rmsnorm"]
 
 
 def ptxas_report(log):
@@ -665,16 +706,15 @@ def phase_train():
     losses, step_ms, per_step = [], [], []
     zero_counts()                             # the main path's run
     for _ in range(TRAIN["warmup"] + TRAIN["timed"]):
-        before = counts()[:3] + optimizer_counts()
+        before = train_counts()
         start.record()
         params, opt, metrics = step(params, opt, tokens, targets)
         end.record()
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(metrics["loss"].item())
-        per_step.append([a - b for a, b in zip(
-            counts()[:3] + optimizer_counts(), before)])
-    launches = counts()[:3] + optimizer_counts()
+        per_step.append([a - b for a, b in zip(train_counts(), before)])
+    launches = train_counts()
     peak = torch.cuda.max_memory_allocated()
     grad_norm = metrics["grad_norm"].item()
     timed_ms = sum(step_ms[TRAIN["warmup"]:]) / TRAIN["timed"]
@@ -686,17 +726,16 @@ def phase_train():
           "timed_step_ms": timed_ms, "tokens_per_s": tokens_per_s,
           "mfu": _mfu(cfg, n_params, tokens_per_s, seq),
           "peak_memory_bytes": peak,
-          "launches_per_step_fwd_dq_dkv_adamw_grad_sq": per_step})
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq_normf_normb":
+              per_step})
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
             f"first loss {losses[0]}, ln(V) {math.log(cfg.vocab_size)}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    n_leaves = len(tree_leaves(params))
-    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, n_leaves,
-            n_leaves + 1]
+    want = train_counts_want(cfg, len(tree_leaves(params)))
     require(all(c == want for c in per_step),
-            f"launches per step (fwd, dq, dkv, adamw, grad_sq) {per_step}, "
-            f"expected {want}")
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm "
+            f"fwd, rms_norm bwd) {per_step}, expected {want}")
     del params, opt, step
     return launches, {"timed_step_ms": timed_ms,
                       "tokens_per_s": tokens_per_s}
@@ -710,20 +749,20 @@ def _mfu(cfg, n_params, tokens_per_s, seq):
 
 
 def _counted_steps(trainer, log):
-    """Wrap ``trainer``'s step so each call appends its launches (fwd, dq,
-    dkv, adamw, grad_sq) and a pair of CUDA events around it to ``log``;
+    """Wrap ``trainer``'s step so each call appends its launches
+    (``train_counts``) and a pair of CUDA events around it to ``log``;
     the run itself is unchanged."""
     step = trainer.step_fn
 
     def counted(*args):
-        before = counts()[:3] + optimizer_counts()
+        before = train_counts()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = step(*args)
         end.record()
-        log.append(([a - b for a, b in zip(counts()[:3] + optimizer_counts(),
-                                           before)], start, end))
+        log.append(([a - b for a, b in zip(train_counts(), before)], start,
+                    end))
         return out
 
     trainer.step_fn = counted
@@ -826,7 +865,7 @@ def phase_trainer(train_rec, fs, root):
     t0 = time.monotonic()
     b.save()
     save_ms = (time.monotonic() - t0) * 1e3
-    launches = counts()[:3] + optimizer_counts()
+    launches = train_counts()
     b_anatomy = _anatomy(b)
     require(list_checkpoints(fs, f"{root}/resumed") == [steps],
             "retention kept more than the newest checkpoint")
@@ -841,9 +880,7 @@ def phase_trainer(train_rec, fs, root):
     tokens_per_s = batch * seq / (timed_ms / 1e3)
     want_losses = losses[crash_at:]
     rel = [abs(g - w) / abs(w) for g, w in zip(resumed, want_losses)]
-    n_leaves = len(tree_leaves(host))
-    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, n_leaves,
-            n_leaves + 1]
+    want = train_counts_want(cfg, len(tree_leaves(host)))
     emit({"phase": "trainer", "model": "flagship-1b", "dtype": cfg.dtype,
           "tokens": [batch, seq], "remat": TRAIN["remat"],
           "optimizer": "adamw", "params": n_params,
@@ -868,7 +905,7 @@ def phase_trainer(train_rec, fs, root):
           "checkpoint_files": len(sizes), "hbm_ledger_bytes": ledger,
           "free_disk_bytes": free_disk, "host_mem_available_bytes":
               mem_avail,
-          "launches_per_step_fwd_dq_dkv_adamw_grad_sq":
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq_normf_normb":
               [c for c, _, _ in per_step]})
     require(len(losses) == steps and len(crashed) == crash_at and
             len(resumed) == steps - crash_at, "steps lost")
@@ -879,8 +916,8 @@ def phase_trainer(train_rec, fs, root):
     require(max(rel) <= TRAINER["loss_rtol"],
             f"resumed losses {resumed} vs {want_losses}")
     require(all(c == want for c, _, _ in per_step),
-            f"launches per step (fwd, dq, dkv, adamw, grad_sq), expected "
-            f"{want}")
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm "
+            f"fwd, rms_norm bwd), expected {want}")
     require(len(per_step) == 2 * steps, f"{len(per_step)} steps counted")
     require(shard_bytes == ckpt_bytes,
             f"checkpoint shards {shard_bytes} B, expected {ckpt_bytes}")
@@ -2129,6 +2166,170 @@ def phase_adamw():
     return records
 
 
+# The int8 dequantize (dequant.cu) against its plain version
+# (weightplane._dequant), bit for bit, on one layer's leaves of
+# flagship-1b, llama3-8b and mixtral-8x7b at group 64 ([N, G, gs]; the
+# expert stacks [E, N, G, gs]), in bf16 and float32; its timed shape is
+# llama3-8b's w_gate, the largest dense leaf the longctx_decode phase's
+# int8 run dequantizes per layer per token.
+DEQUANT_SHAPES = {
+    "flagship-1b": {"wq": (2048, 32, 64), "wk": (1024, 32, 64),
+                    "w_gate": (5632, 32, 64), "w_down": (2048, 88, 64)},
+    "llama3-8b": {"wq": (4096, 64, 64), "w_gate": (14336, 64, 64),
+                  "w_down": (4096, 224, 64)},
+    "mixtral-8x7b": {"wk": (1024, 64, 64), "w_gate": (8, 14336, 64, 64),
+                     "w_down": (8, 4096, 224, 64)},
+}
+DEQUANT_TIMED = ("llama3-8b", "w_gate")
+# rmsnorm.cu against its plain versions (norms.rms_norm_ref_fwd/_bwd):
+# float32 within RMS_F32_TOL of max |value| (the kernels sum the squares,
+# g·x and dw in another order), bf16 and float16 (the float16 forward's
+# norms) within one rounding at the largest value (the kernels and the
+# plain version round the same float32 values once, which differ by those
+# sums). Rows of 8192 are the widest the kernels take (d_model 8192 at
+# float32: eight vectors a thread). Timed shapes: the forward at the
+# llama3-8b prefill's rows, the backward at flagship-1b's training rows.
+RMS_SHAPES = [(4, 2048, 2048), (1, 8192, 4096), (1, 1024, 8192)]
+RMS_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+RMS_F32_TOL = 1e-6
+RMS_TIMED = {"fwd": (1, 8192, 4096), "bwd": (4, 2048, 2048)}
+
+
+def phase_dequant():
+    """dequant.cu bit-equal to ``_dequant`` on every DEQUANT_SHAPES leaf
+    in bf16 and float32 (random int8 payload and scales from a seed); ms
+    against its bound (int8 read, one float32 scale per 64, the output
+    written), the plain version, per bf16 leaf. Returns the timed leaf's
+    record for the kernels line (no PyTorch call computes it: no library
+    time)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    leaves, timed = [], None
+    for model, shapes in DEQUANT_SHAPES.items():
+        for name, shape in shapes.items():
+            q = torch.randint(-127, 128, shape, generator=gen,
+                              device="cuda", dtype=torch.int8)
+            s = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05
+            for dtype in (torch.bfloat16, torch.float32):
+                got = weightplane._launch_dequant(q, s, dtype)
+                want = weightplane._dequant(q, s, dtype)
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                rec = {"model": model, "leaf": name, "shape": list(shape),
+                       "dtype": str(dtype).replace("torch.", ""),
+                       "bit_equal": torch.equal(got.view(bits),
+                                                want.view(bits)),
+                       "max_abs_err": (got.float() - want.float()).abs()
+                       .max().item()}
+                del got, want
+                if dtype == torch.bfloat16:
+                    n = q.numel()
+                    rec.update(add_rates({
+                        "ms": cuda_ms(lambda: weightplane._launch_dequant(
+                            q, s, dtype), 10),
+                        "plain_ms": cuda_ms(lambda: weightplane._dequant(
+                            q, s, dtype), 3),
+                        "library_ms": None},
+                        _bound(n + 4 * s.numel() + 2 * n, 2 * n,
+                               torch.float32)))
+                    if (model, name) == DEQUANT_TIMED:
+                        timed = rec
+                leaves.append(rec)
+            del q, s
+    torch.cuda.empty_cache()
+    emit({"phase": "dequant", "group": 64, "leaves": leaves})
+    bad = [(r["model"], r["leaf"], r["dtype"]) for r in leaves
+           if not r["bit_equal"]]
+    require(not bad, f"dequant.cu differs from _dequant on {bad}")
+    return timed
+
+
+def _one_rounding(got, want):
+    """Is max |got - want| at most one ulp of want's dtype (bf16 or
+    float16) at max |want|?"""
+    top = want.float().abs().max()
+    bits = {torch.bfloat16: 7, torch.float16: 10}[want.dtype]
+    ulp = 2.0 ** (math.floor(math.log2(top.item())) - bits)
+    return (got.float() - want.float()).abs().max().item() <= ulp
+
+
+def phase_rmsnorm():
+    """rmsnorm.cu's forward (y, 1/rms) and backward (dx, dw) against their
+    plain versions at RMS_SHAPES in RMS_DTYPES (x, dy random, w near
+    1, from a seed), and once through the autograd Function (the same
+    bits as the launches); ms against the bytes bound, the plain version
+    and ``torch.nn.functional.rms_norm`` (forward; its autograd backward).
+    Returns the records of the two kernels for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    cases, records = [], {}
+    for shape in RMS_SHAPES:
+        for dtype in RMS_DTYPES:
+            d = shape[-1]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+                 ).to(dtype)
+            y, x2, r = norms._launch_fwd(x, w, 1e-5)
+            dx, dw = norms._launch_bwd(dy, x2, w, r)
+            dx = dx.view(shape)
+            yr, rr = norms.rms_norm_ref_fwd(x, w, 1e-5)
+            dxr, dwr = norms.rms_norm_ref_bwd(dy, x, w, rr)
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            ya = norms.rms_norm(xa, wa, 1e-5)
+            ya.backward(dy)
+            rec = {"shape": list(shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "function_equal": bool(torch.equal(ya, y) and torch.equal(
+                       xa.grad, dx) and torch.equal(wa.grad, dw))}
+            ok = rec["function_equal"]
+            for name, got, want in (("y", y, yr), ("r", r.view(rr.shape), rr),
+                                    ("dx", dx, dxr), ("dw", dw, dwr)):
+                rel = ((got.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                rec[f"{name}_rel_err"] = rel
+                if dtype == torch.float32 or name == "r":
+                    ok = ok and rel <= RMS_F32_TOL
+                else:
+                    rec[f"{name}_one_rounding"] = _one_rounding(got, want)
+                    ok = ok and rec[f"{name}_one_rounding"]
+            rec["ok"] = ok
+            rows, elt = x.numel() // d, x.element_size()
+            wb = w.numel() * w.element_size()
+            if dtype == torch.bfloat16 and tuple(shape) == RMS_TIMED["fwd"]:
+                records["fwd"] = add_rates({
+                    "shape": list(shape),
+                    "ms": cuda_ms(lambda: norms._launch_fwd(x, w, 1e-5), 20),
+                    "plain_ms": cuda_ms(
+                        lambda: norms.rms_norm_ref_fwd(x, w, 1e-5), 5),
+                    "library_ms": cuda_ms(lambda: F.rms_norm(
+                        x, (d,), w, 1e-5), 20),
+                    "max_abs_err": (y.float() - yr.float()).abs().max()
+                    .item()},
+                    _bound(2 * elt * x.numel() + wb + 4 * rows,
+                           4 * x.numel(), torch.float32))
+            if dtype == torch.bfloat16 and tuple(shape) == RMS_TIMED["bwd"]:
+                xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+                yl = F.rms_norm(xl, (d,), wl, 1e-5)
+                records["bwd"] = add_rates({
+                    "shape": list(shape),
+                    "ms": cuda_ms(lambda: norms._launch_bwd(dy, x2, w, r), 20),
+                    "plain_ms": cuda_ms(
+                        lambda: norms.rms_norm_ref_bwd(dy, x, w, rr), 5),
+                    "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                        yl, (xl, wl), dy, retain_graph=True), 20),
+                    "max_abs_err": (dx.float() - dxr.float()).abs().max()
+                    .item()},
+                    _bound(3 * elt * x.numel() + 2 * wb + 4 * rows,
+                           8 * x.numel(), torch.float32))
+                del xl, wl, yl
+            cases.append(rec)
+            del x, dy, w, y, x2, r, dx, dw, yr, rr, dxr, dwr, xa, wa, ya
+    torch.cuda.empty_cache()
+    emit({"phase": "rmsnorm", "f32_tol": RMS_F32_TOL, "cases": cases,
+          **records})
+    bad = [(c["shape"], c["dtype"]) for c in cases if not c["ok"]]
+    require(not bad, f"rmsnorm.cu differs from its plain version on {bad}")
+    return records
+
+
 def _fold(x, sp):
     """[B, S, H, D] -> [sp*B, S/sp, H, D], rank r's shard on rows
     r*B..(r+1)*B-1."""
@@ -2418,6 +2619,290 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
     return main_launches, main_ms
 
 
+# ------------------------------------------------- long-context decode
+
+# Phase longctx_decode: the long-context plane (serving/longctx) attached
+# to a DecodeEngine the way ServingReplica attaches it
+# (longctx_plane_from_conf under serving.parity=relaxed). llama3-8b at
+# full width and depth (bf16, random weights from seed 0; then its int8
+# plane, group 64): an 8192-token prompt through engine.submit → CP
+# prefill at sp 4, block 16 → the chain ingested into the page-locked
+# host ring → working-set decode of `new` greedy tokens on the pipelined
+# path with the device sampler. The config's max_seq is 8192 + 128: the
+# rope table covers the generated positions past the published 8192 (and
+# the reference's padding to a multiple of 128). Each decoded token's
+# logits (a host-sampler decoder on the same chain, whose tokens must
+# equal the device sampler's) are held against the single-device forward
+# over prompt + generated tokens, teacher-forced, by the longctx phase's
+# calibration: the same forward with plain attention; at most
+# `cal_factor` times its distance, value by value per token. The legacy
+# loop decodes `legacy_new` tokens on the same chain: its tokens equal
+# the pipelined path's but at a near-tie (TIE_REL). flagship-1b in
+# float32: a 1536-token prompt (min.tokens 1024) through the plane
+# against the same prompt through the fused step of an engine with
+# max_context 2048: equal tokens, a difference only at a near-tie of the
+# float32 greedy loop (the serving phase's rule).
+LONGCTX_DECODE = dict(model="llama3-8b", sp=4, block=16, tokens=8192,
+                      min_tokens=4096, new=32, legacy_new=8,
+                      window_blocks=4, tail=256,
+                      cal_factor=2.0, flagship_prompt=1536,
+                      flagship_min_tokens=1024, flagship_context=2048,
+                      flagship_new=16)
+
+
+def _longctx_engine(params, cfg, chain_tokens, max_context, **keys):
+    """A one-lane DecodeEngine (block 16) with a page-locked host ring for
+    a chain of ``chain_tokens`` plus the pool's churn slack, and the
+    long-context plane from the conf keys, as ServingReplica wires it."""
+    bs = LONGCTX_DECODE["block"]
+    block_bytes = (2 * cfg.n_layers * bs * cfg.n_kv_heads * cfg.head_dim
+                   * cfg.torch_dtype.itemsize)
+    ring = (chain_tokens // bs + max_context // bs + 8) * block_bytes
+    eng = DecodeEngine(params, cfg, max_batch=1, block_size=bs,
+                       max_context=max_context, prefill_chunk=64,
+                       kv_host_bytes=ring)
+    conf = Configuration(load_defaults=False)
+    conf.set("serving.parity", "relaxed")
+    conf.set("serving.longctx.enabled", "true")
+    conf.set("serving.longctx.chips", str(LONGCTX_DECODE["sp"]))
+    conf.set("serving.longctx.decode.window.blocks",
+             str(LONGCTX_DECODE["window_blocks"]))
+    conf.set("serving.longctx.decode.tail.tokens",
+             str(LONGCTX_DECODE["tail"]))
+    for key, value in keys.items():
+        conf.set(key, str(value))
+    eng.attach_longctx(longctx_plane_from_conf(conf, cfg, eng))
+    require(eng.kvstore.host is not None and
+            torch.from_numpy(eng.kvstore.host._k).is_pinned(),
+            "the host ring is not page-locked")
+    return eng
+
+
+def _plane_run(eng, prompt, new):
+    """One request through ``eng.submit`` (routed to the plane), counted:
+    the tokens and a record of TTFT, the decode's host-clock split,
+    dispatches and slab transfers per token, launches, and the working
+    set against the bytes its buffers requested of the allocator
+    (``requested_bytes`` of ``torch.cuda.memory_stats``: a cached block
+    handed out whole may be larger than the request)."""
+    plane = eng._relaxed_longctx
+    dec = plane.decoder
+    d0, f0, t0 = dec.dispatches, dec.window_fetches, dec.tokens_decoded
+    torch.cuda.synchronize()
+    zero_counts()                              # the main path's run
+    req = eng.submit(prompt, SamplingParams(max_new_tokens=new))
+    toks = req.wait(1800)
+    torch.cuda.synchronize()
+    n = dec.tokens_decoded - t0
+    n_slabs = -(-(len(prompt) // dec.block_size * dec.block_size)
+                // (dec.fetch_windows * dec.win))
+    timing = dec.last_timing
+    rec = {"prompt_tokens": len(prompt), "tokens": len(toks),
+           "ttft_s": req.first_token_at - req.submitted_at,
+           "decode_chain_s": timing["chain_s"],
+           "decode_pack_s": timing["pack_s"],
+           "ms_per_token": timing["tokens_s"] * 1e3 / timing["tokens"],
+           "tokens_per_s": timing["tokens"] / timing["tokens_s"],
+           "dispatches_per_token": (dec.dispatches - d0) / n,
+           "dispatch_budget": dec.cfg.n_layers * n_slabs
+           + dec.cfg.n_layers + 1,
+           "slab_transfers_per_token": (dec.window_fetches - f0) / n,
+           "slabs_per_layer": n_slabs,
+           "slab_bytes": dec.slab_bytes,
+           "hbm_window_bytes": dec.hbm_window_bytes,
+           "hbm_tail_bytes": dec.tail_cap * dec._per_tok_bytes,
+           "sampler_state_bytes": dec.sampler_state_bytes,
+           "hbm_working_set_bytes": dec.hbm_working_set_bytes,
+           "allocator_requested_bytes": dec.last_alloc_bytes,
+           "launches_fwd_partial": [flash.launches, flash.launches_partial],
+           "launches_rms_norm_fwd": norms.launches_fwd,
+           "launches_dequant": weightplane.launches_dequant,
+           "stats": {k: v for k, v in plane.stats().items()
+                     if k not in ("decode_traces", "decode_dispatch_counts")},
+           "kv_tiers": eng.kvstore.stats()}
+    require(rec["dispatches_per_token"] == rec["dispatch_budget"],
+            f"dispatches per token {rec['dispatches_per_token']}, budget "
+            f"{rec['dispatch_budget']}")
+    require(rec["slab_transfers_per_token"] == dec.cfg.n_layers * n_slabs,
+            f"slab transfers per token {rec['slab_transfers_per_token']}")
+    require(rec["allocator_requested_bytes"] == rec["hbm_working_set_bytes"],
+            f"working set {rec['hbm_working_set_bytes']} B against the "
+            f"{rec['allocator_requested_bytes']} B requested of the "
+            f"allocator")
+    return toks, rec
+
+
+def _decoder_logits(eng, prompt, first, new, **kw):
+    """A host-sampler decoder on ``eng``'s tiers (the plane's chain) from
+    ``first``: its tokens and each decoded token's logits [V]."""
+    plane = eng._relaxed_longctx
+    dec = WorkingSetDecoder(plane.decoder.params, plane.decoder.cfg,
+                            eng.kvstore, block_size=eng.block_size,
+                            window_blocks=LONGCTX_DECODE["window_blocks"],
+                            tail_tokens=LONGCTX_DECODE["tail"],
+                            sampler="host", **kw)
+    rows, out = [], []
+    real = decode_module._host_sample
+
+    def sample(logits, temperature, top_k, rng):
+        rows.append(torch.from_numpy(np.array(logits)))
+        return real(logits, temperature, top_k, rng)
+
+    decode_module._host_sample = sample
+    try:
+        dec.paged_decode(prompt, first, SamplingParams(max_new_tokens=new),
+                         deliver=out.append, seed=0)
+    finally:
+        decode_module._host_sample = real
+    return [first] + out, rows
+
+
+def _teacher_forced(params, cfg, prompt, toks):
+    """The single-device forward over prompt + toks[:-1], padded to a
+    multiple of 128 (causal: the padding reaches no earlier row), for the
+    kernel forward ("auto") and plain attention ("ref"): the logits rows
+    that produced toks[1:], float32 on the host."""
+    full = prompt + toks[:-1]
+    n = -(-len(full) // 128) * 128
+    x = torch.tensor([full + [0] * (n - len(full))], device="cuda")
+    head = head_matrix(params, cfg)
+    s = len(prompt)
+    out = {}
+    with torch.no_grad():
+        for impl in ("auto", "ref"):
+            h = forward_hidden(params, x, cfg, attn_impl=impl)
+            out[impl] = (final_hidden(params, h[0, s:s + len(toks) - 1], cfg)
+                         @ head).float().cpu()
+            del h
+            torch.cuda.empty_cache()
+    return out
+
+
+def _near_tie(rows, j, a, b):
+    la, lb = rows[j][a].item(), rows[j][b].item()
+    return abs(la - lb) / max(abs(la), abs(lb), 1e-30) < TIE_REL
+
+
+def _tokens_agree(got, want, rows):
+    """got equals want, or first differs at a near-tie of ``rows`` (the
+    logits row behind each decoded token: row j for token j + 1)."""
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return j > 0 and _near_tie(rows, j - 1, a, b)
+    return True
+
+
+def _llama_decode_part(params, ref_params, cfg, prompt, label):
+    """The plane's run on ``params`` (bf16 or the int8 plane), its
+    logits against ``ref_params``' teacher-forced forward, the legacy
+    loop's tokens. Returns the record."""
+    new = LONGCTX_DECODE["new"]
+    eng = _longctx_engine(params, cfg, len(prompt), 256, **{
+        "serving.longctx.min.tokens": LONGCTX_DECODE["min_tokens"],
+        "serving.longctx.max.tokens": LONGCTX_DECODE["tokens"]})
+    toks, rec = _plane_run(eng, prompt, new)
+    host_toks, rows = _decoder_logits(eng, prompt, toks[0], new)
+    legacy = None
+    if label == "bf16":
+        legacy, legacy_rows = _decoder_logits(
+            eng, prompt, toks[0], LONGCTX_DECODE["legacy_new"] + 1,
+            pipeline=False)
+        rec["legacy_tokens_equal"] = legacy == toks[:len(legacy)]
+        rec["legacy_vs_pipelined_logits_rel"] = max(
+            _max_rel(a, b) for a, b in zip(legacy_rows, rows))
+        require(_tokens_agree(legacy, toks, rows),
+                f"legacy tokens {legacy} against pipelined {toks}")
+    eng.stop()
+    del eng
+    free_device()
+    ref = _teacher_forced(ref_params, cfg, prompt, toks)
+    err = [_max_rel(g, k) for g, k in zip(rows, ref["auto"])]
+    cal = [_max_rel(p, k) for p, k in zip(ref["ref"], ref["auto"])]
+    ratio = max(e / c if c else (0.0 if e == 0 else math.inf)
+                for e, c in zip(err, cal))
+    argmax = sum(int(int(r.argmax()) == t)
+                 for r, t in zip(ref["auto"], toks[1:]))
+    rec.update(part=label, host_sampler_tokens_equal=host_toks == toks,
+               logits_rel_err=err, logits_rel_err_calibration=cal,
+               calibration_ratio_max=ratio,
+               cal_factor=LONGCTX_DECODE["cal_factor"],
+               reference_argmax_equal=argmax, tokens_out=toks,
+               logits_finite=all(bool(torch.isfinite(r).all())
+                                 for r in rows))
+    require(host_toks == toks, f"host-sampler tokens {host_toks} differ "
+            f"from the device sampler's {toks}")
+    require(rec["logits_finite"] and len(rows) == new - 1,
+            "decoded logits missing or not finite")
+    require(ratio <= LONGCTX_DECODE["cal_factor"],
+            f"{label} decode logits up to {ratio} times the calibration's "
+            f"distance from the single-device forward")
+    return rec
+
+
+def phase_longctx_decode():
+    """llama3-8b's bf16 and int8 planes through the long-context lane (see
+    LONGCTX_DECODE). Returns the launches of the bf16 run (RMSNorm
+    forward) and of the int8 run (dequantize)."""
+    cfg = get_config(LONGCTX_DECODE["model"],
+                     max_seq=LONGCTX_DECODE["tokens"] + 128)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.randint(0, cfg.vocab_size, (LONGCTX_DECODE["tokens"],),
+                           generator=torch.Generator().manual_seed(SEED + 30)
+                           ).tolist()
+    rec = _llama_decode_part(params, params, cfg, prompt, "bf16")
+    emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
+          "dtype": cfg.dtype, "sp": LONGCTX_DECODE["sp"],
+          "block_size": LONGCTX_DECODE["block"], **rec})
+    rms_launches = rec["launches_rms_norm_fwd"]
+    qparams, report = weightplane.quantize_params(params, cfg, WEIGHTS_INT8)
+    del params
+    free_device()
+    ref_params = weightplane.dequantize_params(qparams, cfg)
+    rec = _llama_decode_part(qparams, ref_params, cfg, prompt, "int8")
+    emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
+          "dtype": "int8", "group": WEIGHTS_INT8.group,
+          "weight_bytes": report["weight_bytes"],
+          "sp": LONGCTX_DECODE["sp"], "block_size": LONGCTX_DECODE["block"],
+          **rec})
+    dequant_launches = rec["launches_dequant"]
+    del qparams, ref_params
+    free_device()
+    return rms_launches, dequant_launches
+
+
+def phase_longctx_decode_flagship(cfg32, p32):
+    """flagship-1b in float32: the plane's greedy tokens for a 1536-token
+    prompt against the fused step's for the same prompt."""
+    c = LONGCTX_DECODE
+    prompt = torch.randint(0, cfg32.vocab_size, (c["flagship_prompt"],),
+                           generator=torch.Generator().manual_seed(SEED + 31)
+                           ).tolist()
+    plain = DecodeEngine(p32, cfg32, max_batch=1, block_size=c["block"],
+                         max_context=c["flagship_context"], prefill_chunk=64)
+    want = plain.generate([prompt], SamplingParams(
+        max_new_tokens=c["flagship_new"]))[0]
+    del plain
+    free_device()
+    eng = _longctx_engine(p32, cfg32, len(prompt), c["flagship_context"], **{
+        "serving.longctx.min.tokens": c["flagship_min_tokens"]})
+    got, rec = _plane_run(eng, prompt, c["flagship_new"])
+    eng.stop()
+    del eng
+    free_device()
+    ties = []
+    if got != want:
+        # each must equal the float32 greedy loop but at a near-tie
+        # (_greedy_f32_gate raises otherwise), and one of them met one
+        for toks in (want, got):
+            ties += _greedy_f32_gate([toks], p32, cfg32, [prompt],
+                                     c["flagship_new"])[1]
+    emit({"phase": "longctx_decode", "part": "flagship-1b-f32",
+          "model": "flagship-1b", "dtype": cfg32.dtype, "engine_tokens": want,
+          "plane_tokens": got, "equal": got == want, "ties": ties, **rec})
+    require(got == want or ties, f"plane tokens {got} differ from the fused "
+            f"step's {want} away from a near-tie")
+
+
 # ------------------------------------------------------- the weight plane
 
 def _reckon_weight_bytes(cfg, group):
@@ -2684,34 +3169,22 @@ def _moe_reference_rows(qparams, cfg, seqs, firsts):
 
 
 def _dequant_share(eng):
-    """One eager decode-only step under torch.profiler, with the weight
-    plane's dequantize (``weightplane._dequant``: the f32 multiply and the
-    casts around it) under its own range: that range's kernels' device
-    ms, the step's, and the share."""
-    real = weightplane._dequant
-
-    def marked(q, s, dtype):
-        with torch.profiler.record_function("weightplane.dequantize"):
-            return real(q, s, dtype)
-
-    weightplane._dequant = marked
-    try:
+    """One eager decode-only step under torch.profiler: the device ms of
+    the weight plane's dequantize (dequant.cu's kernel, by name), the
+    step's, and the share."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._step_eager(False)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng._step_eager(False)
-            torch.cuda.synchronize()
-    finally:
-        weightplane._dequant = real
-    deq = [k for e in prof.events() if e.name == "weightplane.dequantize"
-           for k in _kernels_under(e)]
-    deq_ms = sum(k.duration for k in deq) / 1e3
-    step_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and e.key != "weightplane.dequantize") / 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    deq = [e for e in kernels if "dequant_kernel" in e.key]
+    deq_ms = sum(e.self_device_time_total for e in deq) / 1e3
+    step_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return {"dequantize_device_ms": deq_ms, "step_device_ms": step_ms,
-            "dequantize_kernels": len(deq),
+            "dequantize_kernels": sum(e.count for e in deq),
             "share": deq_ms / step_ms if step_ms else None}
 
 
@@ -2761,11 +3234,10 @@ def phase_moe():
                 f"factor {factor}: bad tokens")
 
     # graph against eager on one request (no prefix cache: the second run
-    # prefills as the first did), then one eager decode step profiled
+    # prefills as the first did), as the engine serves; then one eager
+    # decode step profiled
     eng = _moe_engine(qparams, cfg, MOE["no_drop"], prefix_cache=False)
     one = [prompts[0]], [SamplingParams(max_new_tokens=MOE["eager_new"])]
-    graph_tokens = _timed_run(eng, *one)[0]
-    eng._launch_step = eng._step_eager
     finite = []
     real_sample = engine_module._sample
 
@@ -2773,6 +3245,8 @@ def phase_moe():
         finite.append(bool(torch.isfinite(logits).all()))
         return real_sample(logits, temps, topks, generator)
 
+    graph_tokens = _timed_run(eng, *one)[0]
+    eng._launch_step = eng._step_eager
     engine_module._sample = sample
     try:
         eager_tokens = _timed_run(eng, *one, warm=False)[0]
@@ -2799,7 +3273,9 @@ def phase_moe():
         gaps.append(float(gap.max()))
         argmax_equal += int((rows.argmax(-1) == idx).sum())
     emit({"phase": "moe", "part": "check", "graph_equal_eager":
-          graph_tokens == eager_tokens, "eager_logits_finite": all(finite),
+          graph_tokens == eager_tokens, "graph_tokens": graph_tokens,
+          "eager_tokens": eager_tokens,
+          "eager_logits_finite": all(finite),
           "eager_samples": len(finite), "dequantize": share,
           "reference_argmax_equal": argmax_equal,
           "tokens_compared": sum(len(t) for t in tokens),
@@ -2829,9 +3305,11 @@ def main() -> int:
     bwd = phase_backward()
     partial = phase_partial()
     adamw = phase_adamw()
+    dequant = phase_dequant()
+    rms = phase_rmsnorm()
     phase_ring()
-    (_, train_dq, train_dkv, train_adamw, train_grad_sq), train_rec = \
-        phase_train()
+    (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
+     train_norm_bwd), train_rec = phase_train()
     fs, root = LocalFileSystem(), tempfile.mkdtemp(prefix="htpu-trainer-")
     try:
         trainer_launches, host = phase_trainer(train_rec, fs, root)
@@ -2849,19 +3327,27 @@ def main() -> int:
     phase_speculate(cfg32, p32, cfg16, p16)
     phase_parity(cfg32, p32)
     phase_longctx_exact(cfg32, p32)
+    phase_longctx_decode_flagship(cfg32, p32)
     del cfg32, p32, cfg16, p16          # free flagship-1b for llama3-8b
-    torch.cuda.empty_cache()
+    free_device()
     (_, cp_partial), cp_ms = phase_longctx()
     int8_launches, _ = phase_longctx(int8=True, bf16_ms=cp_ms)
+    norm_launches, dequant_launches = phase_longctx_decode()
     phase_moe()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     # launches: on each kernel's path of an earlier slice (the forward,
-    # the train phase's 7 steps, one CP prefill); launches_trainer: the
-    # trainer phase's 12 steps through Trainer; launches_longctx_int8: one
-    # 8192-token CP prefill on the int8 plane (this slice's path)
+    # the train phase's 7 steps, one CP prefill); for this slice's
+    # kernels: the longctx_decode phase's llama3-8b request (RMSNorm's
+    # forward in the bf16 run, the dequantize in the int8 run: the CP
+    # prefill's, then the decoder's warm-up and capture of its CUDA
+    # graphs, whose replays launch them uncounted) and the train phase's
+    # 7 steps (RMSNorm's backward); launches_trainer: the trainer phase's
+    # 12 steps through Trainer; launches_longctx_int8: one 8192-token CP
+    # prefill on the int8 plane
     by_trainer = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                           "adamw", "grad_sq"), trainer_launches))
+                           "adamw", "grad_sq", "rms_norm_fwd",
+                           "rms_norm_bwd"), trainer_launches))
     by_int8 = dict(zip(("flash_fwd", "flash_fwd_partial"), int8_launches))
     emit({"kernels": [dict(rec, launches_trainer=by_trainer.get(
         rec["name"], 0), launches_longctx_int8=by_int8.get(rec["name"], 0))
@@ -2897,7 +3383,23 @@ def main() -> int:
             "bound_by": adamw[name]["bound_by"],
             "library_ms": adamw[name]["library_ms"]}
         for name, line, n in (("adamw", 62, train_adamw),
-                              ("grad_sq", 56, train_grad_sq))]]})
+                              ("grad_sq", 56, train_grad_sq))] + [{
+            "name": "dequant_int8", "route": "cuda",
+            "source": "hadoop_tpu_torch/ops/csrc/dequant.cu",
+            "replaces": "hadoop_tpu/serving/weightplane.py:461",
+            "launches": dequant_launches,
+            "max_abs_err": dequant["max_abs_err"], "ms": dequant["ms"],
+            "plain_ms": dequant["plain_ms"], "bound_ms": dequant["bound_ms"],
+            "bound_by": dequant["bound_by"], "library_ms": None}] + [{
+            "name": f"rms_norm_{key}", "route": "cuda",
+            "source": "hadoop_tpu_torch/ops/csrc/rmsnorm.cu",
+            "replaces": "hadoop_tpu/ops/norms.py:12",
+            "launches": n, "max_abs_err": rms[key]["max_abs_err"],
+            "ms": rms[key]["ms"], "plain_ms": rms[key]["plain_ms"],
+            "bound_ms": rms[key]["bound_ms"],
+            "bound_by": rms[key]["bound_by"],
+            "library_ms": rms[key]["library_ms"]}
+        for key, n in (("fwd", norm_launches), ("bwd", train_norm_bwd))]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

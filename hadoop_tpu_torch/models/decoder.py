@@ -51,7 +51,8 @@ class ParallelCtx:
     ring:      name of the context-parallel axis (the reference's
         ``ring_axis``), e.g. "sp".
     ring_size: ranks on the ring.
-    sp_mode:   "ring" only; "ulysses" is not ported (ROADMAP Queue A 7).
+    sp_mode:   "ring" only; "ulysses" needs an all-to-all and comes with
+        multi-GPU parallelism (ROADMAP Queue A 6).
     relaxed_qweights: the relaxed tier's opt-in (``serving.parity``):
         matmul leaves that are weight-plane qtensors route through the
         dequantizing matmul. False (the bitwise tier): a qtensor leaf
@@ -66,7 +67,7 @@ class ParallelCtx:
         if self.sp_mode != "ring":
             raise NotImplementedError(
                 f"sp_mode={self.sp_mode!r}: only ring attention is ported "
-                f"(ulysses: ROADMAP Queue A 7)")
+                f"(ulysses: ROADMAP Queue A 6)")
         if self.ring_size < 1 or (self.ring is None and self.ring_size != 1):
             raise ValueError(f"ring={self.ring!r}, ring_size={self.ring_size}")
 

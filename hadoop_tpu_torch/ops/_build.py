@@ -38,7 +38,7 @@ _libs: Dict[str, ctypes.CDLL] = {}      # guarded-by: _lock
 build_logs: Dict[str, str] = {}         # nvcc's output (ptxas registers, smem)
 
 # Each C entry returning int, by its arguments in order: tensor pointers,
-# ints, floats, the stream.
+# ints (C ints, or the ctypes types given), floats, the stream.
 # name: (library, pointer args, int args, float args, stream)
 SIGNATURES = {
     "htpu_flash_fwd": ("flash_fwd", 5, 6, 1, True),
@@ -50,6 +50,12 @@ SIGNATURES = {
     "htpu_adamw": ("adamw", 5, 3, 9, True),
     "htpu_grad_sq_partial": ("adamw", 2, 3, 0, True),
     "htpu_grad_sq_finish": ("adamw", 2, 1, 0, True),
+    "htpu_dequant_int8": ("dequant", 3,
+                          (ctypes.c_longlong, ctypes.c_int, ctypes.c_int), 0,
+                          True),
+    "htpu_rms_norm_fwd": ("rmsnorm", 4, 3, 1, True),
+    "htpu_rms_norm_bwd": ("rmsnorm", 6, 4, 0, True),
+    "htpu_rms_norm_dw": ("rmsnorm", 2, 3, 0, True),
 }
 ERR_NOT_BUILT = -1          # a dtype, head dim or size it was not built for
 ERR_TENSOR_MAP = -2         # the driver refused a TMA descriptor
@@ -121,8 +127,10 @@ def bind(fn, name: str):
     """Give the C entry ``fn`` the ctypes types of ``SIGNATURES[name]``:
     pointers and the stream as ``c_void_p`` (ctypes would cut them to 32
     bits otherwise), ints, floats, an int result."""
-    _, n_ptr, n_int, n_float, stream = SIGNATURES[name]
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+    _, n_ptr, ints, n_float, stream = SIGNATURES[name]
+    if isinstance(ints, int):
+        ints = (ctypes.c_int,) * ints
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + list(ints)
                    + [ctypes.c_float] * n_float + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn

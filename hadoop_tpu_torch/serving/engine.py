@@ -32,13 +32,15 @@ keeping its semantics:
   expert shard: ``moe_shards`` above 1 is expert-parallel serving
   across GPUs (ROADMAP Queue A 6) and raises.
 - **The weight plane** (``serving/weightplane.py``): a params tree whose
-  matmul leaves are int8 qtensors (``serving.parity=relaxed``) runs each
-  matmul through ``qdot`` (the expert stacks through ``qedot``, a
-  quantized embedding through ``qrows``, a quantized head through
-  ``qhead``), and, with ``moe_a2a_codec`` int8, takes the reference's
-  int8 round trip of the expert payloads. The int8 stacks and scales
-  are engine-lifetime parameters; each step materialises the
-  dequantized weights in the graph's pool (shared by the two shapes).
+  matmul leaves are int8 qtensors (``serving.parity=relaxed``) has each
+  layer's dense weights (and a quantized head) dequantized once per step
+  through ``weightplane.dequant`` (the dequantize kernel on the GPU) and
+  every row group multiplies that one tensor, the bits ``qdot`` gives;
+  the expert stacks go through ``qedot``, a quantized embedding through
+  ``qrows``; with ``moe_a2a_codec`` int8 the expert payloads take the
+  reference's int8 round trip. The int8 stacks and scales are
+  engine-lifetime parameters; the dequantized weights live in the
+  graph's pool (shared by the two shapes).
   ``hbm_bytes`` sizes the KV pool, and the lanes when ``max_batch`` is
   unset (capped by ``max_lanes``), against the measured resident weight
   bytes; ``weight_plane()`` reports the reference's keys, and the HBM
@@ -119,12 +121,19 @@ keeping its semantics:
   radix only ever sees accepted, block-aligned tokens. ``speculate_k=0``
   is exactly the step without speculation.
 
+- **Long-context lane.** With a ``serving/longctx`` plane attached
+  (``attach_longctx``, under ``serving.parity=relaxed`` only: the CP
+  softmax reassociation is not bitwise), prompts of at least
+  ``serving.longctx.min.tokens`` bypass the fused step: ``submit`` and
+  ``prefill_to_store`` route them to the plane, ``idle`` and
+  ``stop(drain=)`` wait for it, ``longctx_stats`` reports it.
+
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: the long-context plane (Queue A 7), a
-tensor-parallel ``plan`` and more than one expert shard (A 6).
+ROADMAP item when asked for: a tensor-parallel ``plan`` and more than
+one expert shard (A 6).
 ``prefill_to_store`` raises the reference's ``ValueError`` for an engine
 without a DFS tier.
 """
@@ -155,14 +164,15 @@ from hadoop_tpu_torch.obs.hbm import hbm_ledger
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
 from hadoop_tpu_torch.parallel.lowp.quant import (moe_combine_quantized,
                                                   moe_dispatch_quantized)
+from hadoop_tpu_torch.serving import weightplane
 from hadoop_tpu_torch.serving.kvstore import BlockPool, TieredKVCache
 from hadoop_tpu_torch.serving.speculate import NgramProposer
 from hadoop_tpu_torch.serving.weightplane import (describe_tree,
                                                   expert_shard_count,
                                                   expert_weight_bytes,
                                                   is_qtensor,
-                                                  is_quantized_tree, qdot,
-                                                  qedot, qhead, qrows)
+                                                  is_quantized_tree, qedot,
+                                                  qrows)
 from hadoop_tpu_torch.tracing import current_context, global_tracer
 
 log = logging.getLogger(__name__)
@@ -550,9 +560,26 @@ class DecodeEngine:
         self.prefix_tokens_matched = 0
         self.prefix_evictions = 0
         self.prefix_inserted_blocks = 0
+        # the long-context plane (serving/longctx), attached after
+        # construction (it reads this engine's kvstore) and only under
+        # serving.parity=relaxed: the CP softmax reassociation is not
+        # bitwise
+        self._relaxed_longctx = None
 
     def attach_longctx(self, plane) -> None:
-        _refuse("the long-context plane", "7")
+        """Wire the long-context plane (``serving/longctx``): prompts at
+        least ``plane.min_tokens`` long route to it from ``submit``
+        instead of the fused step. The caller is the relaxed-tier gate
+        (``longctx_plane_from_conf`` re-validates)."""
+        self._relaxed_longctx = plane
+
+        def wake() -> None:
+            # a drain parked on `idle` in stop() waits on the scheduler
+            # condition: a completion on the plane's worker wakes it
+            with self._cond:
+                self._cond.notify_all()
+
+        plane.on_done = wake
 
     @property
     def decode_compiles(self) -> int:
@@ -583,20 +610,30 @@ class DecodeEngine:
 
     # ----------------------------------------------------------- the step
 
-    def _wdot(self, x, w):
-        """One serving matmul, weight-plane aware: ``qdot`` against an
-        int8 weight under ``serving.parity=relaxed``, else ``x @ w``."""
-        if self._relaxed_weights:
-            return qdot(x, w)
-        return x @ w
+    def _layer_weights(self, lp):
+        """This layer's weights for the step, each dense matmul operand as
+        ``[in, out]`` of ``x @ w``. Under ``serving.parity=relaxed`` each
+        int8 dense weight is dequantized once (``weightplane.dequant``, in
+        the model's dtype, the activations' own) and every row group
+        multiplies that one tensor: the bits ``qdot`` would give each
+        group, for one dequantize instead of one per group. The MoE expert
+        stacks stay int8 (``_moe_mlp`` routes the step's rows once)."""
+        if not self._relaxed_weights:
+            return lp
+        names = weightplane.LAYER_MATMULS
+        if self.cfg.is_moe:
+            names = names - weightplane.EXPERT_STACKS
+        out = dict(lp)
+        for name in names:
+            if name in lp and is_qtensor(lp[name]):
+                out[name] = weightplane.dequant(lp[name],
+                                                self.cfg.torch_dtype).t()
+        return out
 
-    def _mlp(self, x, lp):
+    def _mlp(self, x, lw):
         if self.cfg.use_swiglu:
-            return self._wdot(swiglu(self._wdot(x, lp["w_gate"]),
-                                     self._wdot(x, lp["w_up"])),
-                              lp["w_down"])
-        return self._wdot(gelu(self._wdot(x, lp["w_in"]) + lp["b_in"]),
-                          lp["w_out"]) + lp["b_out"]
+            return swiglu(x @ lw["w_gate"], x @ lw["w_up"]) @ lw["w_down"]
+        return gelu(x @ lw["w_in"] + lw["b_in"]) @ lw["w_out"] + lw["b_out"]
 
     def _moe_mlp(self, x, lp):
         """The routed expert MLP over every row of the step, ``x`` [T,
@@ -647,12 +684,23 @@ class DecodeEngine:
             blk = torch.gather(tables, 1, (pos // self.block_size).view(
                 tables.shape[0], group)).reshape(t)
         blk = torch.where(active, blk, torch.zeros_like(blk))
+        off = pos % self.block_size
+        src = None
+        if cfg.is_moe:
+            # inactive rows share block 0's slots; on CUDA, which of the
+            # rows scattering to one slot lands is a race. Routing couples
+            # a MoE step's rows (the inactive rows that read block 0 take
+            # expert slots ahead of live ones), so there each slot takes
+            # its last writer's row, as a serial scatter does
+            slot = blk * self.block_size + off
+            rows = torch.arange(t, device=self.device)
+            src = torch.where(slot[:, None] == slot[None, :], rows[None, :],
+                              -1).amax(dim=1)
         visible = torch.arange(self.s_max, device=self.device)[None, :] \
             <= pos[:, None]                                  # [t, S_max]
-        return {"h": h, "pos": pos, "blk": blk,
-                "off": pos % self.block_size, "tables": tables,
-                "group": group, "one_context": one_context,
-                "visible": visible}
+        return {"h": h, "pos": pos, "blk": blk, "off": off, "src": src,
+                "tables": tables, "group": group,
+                "one_context": one_context, "visible": visible}
 
     def _attend(self, g, q, kc, vc) -> torch.Tensor:
         """Attention of a group's rows ``q`` [t, Hq, Dh] over their paged
@@ -697,40 +745,46 @@ class DecodeEngine:
         sizes = [g["h"].shape[0] for g in groups]
         for li, lp in enumerate(self._layers):
             kc, vc = self._kp[li], self._vp[li]
+            lw = self._layer_weights(lp)
             qs = []
             for g in groups:
                 t = g["h"].shape[0]
                 x = _norm(g["h"], lp["attn_norm_w"], lp.get("attn_norm_b"),
                           cfg)
-                q = self._wdot(x, lp["wq"]).reshape(t, hq, dh)
-                k = self._wdot(x, lp["wk"]).reshape(t, hkv, dh)
-                v = self._wdot(x, lp["wv"]).reshape(t, hkv, dh)
+                q = (x @ lw["wq"]).reshape(t, hq, dh)
+                k = (x @ lw["wk"]).reshape(t, hkv, dh)
+                v = (x @ lw["wv"]).reshape(t, hkv, dh)
                 if cfg.use_rope:
                     q = _rope_at(q, self._cos, self._sin, g["pos"])
                     k = _rope_at(k, self._cos, self._sin, g["pos"])
+                if g["src"] is not None:
+                    k, v = k[g["src"]], v[g["src"]]
                 kc[g["blk"], g["off"]] = k.to(kc.dtype)
                 vc[g["blk"], g["off"]] = v.to(vc.dtype)
                 qs.append(q)
             for g, q in zip(groups, qs):
-                g["h"] = g["h"] + self._wdot(self._attend(g, q, kc, vc),
-                                             lp["wo"]).to(g["h"].dtype)
+                g["h"] = g["h"] + (self._attend(g, q, kc, vc) @ lw["wo"]
+                                   ).to(g["h"].dtype)
             xs = [_norm(g["h"], lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
                   for g in groups]
             if cfg.is_moe:
                 ys = self._moe_mlp(torch.cat(xs), lp).split(sizes)
             else:
-                ys = [self._mlp(x, lp) for x in xs]
+                ys = [self._mlp(x, lw) for x in xs]
             for g, y in zip(groups, ys):
                 g["h"] = g["h"] + y.to(g["h"].dtype)
+        if self._relaxed_weights and self._q_head:
+            # the quantized head, dequantized once for every group
+            leaf = self.params["embed"] if cfg.tie_embeddings \
+                else self.params["lm_head"]
+            head = weightplane.dequant(leaf, cfg.torch_dtype).t()
+        else:
+            head = head_matrix(self.params, cfg, cfg.torch_dtype)
         out = []
         for g in groups:
             h = _norm(g["h"], self.params["final_norm_w"],
                       self.params.get("final_norm_b"), cfg)
-            if self._relaxed_weights and self._q_head:
-                out.append(qhead(self.params, h, cfg).float())
-            else:
-                out.append((h @ head_matrix(self.params, cfg, h.dtype)
-                            ).float())
+            out.append((h @ head).float())
         return out
 
     @torch.no_grad()
@@ -874,6 +928,14 @@ class DecodeEngine:
         if sampling.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (prefill "
                              "always emits the first token)")
+        if self._relaxed_longctx is not None and \
+                len(prompt) >= self._relaxed_longctx.min_tokens:
+            # the long-context lane: CP prefill, KV streamed into the
+            # cold tiers, working-set decode; the prompt never has to
+            # fit this engine's pool or s_max
+            return self._relaxed_longctx.longctx_submit(
+                prompt, sampling, trace_ctx=trace_ctx or current_context(),
+                tenant=tenant)
         if len(prompt) + sampling.max_new_tokens > self.s_max:
             raise ValueError(
                 f"prompt({len(prompt)}) + max_new({sampling.max_new_tokens})"
@@ -927,9 +989,10 @@ class DecodeEngine:
         return total
 
     def longctx_stats(self) -> Dict[str, Any]:
-        """The long-context plane's face: the port attaches none
-        (ROADMAP Queue A 7)."""
-        return {"enabled": False}
+        """The long-context plane's face (health, the registry record):
+        ``{"enabled": False}`` when no plane is attached."""
+        lc = self._relaxed_longctx
+        return lc.stats() if lc is not None else {"enabled": False}
 
     def weight_plane(self) -> Dict[str, Any]:
         """The resident-weight policy and the capacity it bought, with the
@@ -959,11 +1022,19 @@ class DecodeEngine:
         return plane
 
     @property
-    def idle(self) -> bool:
-        """Nothing queued and nothing running."""
+    def _local_idle(self) -> bool:
+        """Nothing queued and nothing running in the fused step: what the
+        scheduler thread waits for."""
         with self._cond:
             has_pending = bool(self._pending)
         return not has_pending and all(r is None for r in self._slots)
+
+    @property
+    def idle(self) -> bool:
+        """Nothing in flight anywhere (the fused step and the long-context
+        plane): the drain/stop predicate."""
+        lc = self._relaxed_longctx
+        return self._local_idle and (lc is None or lc.idle)
 
     def cache_stats(self) -> Dict[str, Any]:
         """Prefix-cache + chunked-prefill counters."""
@@ -1538,6 +1609,10 @@ class DecodeEngine:
         finally:
             if locked:
                 self._sched_lock.release()
+        if self._relaxed_longctx is not None:
+            # the drain above waited for the plane through `idle`; this
+            # stops its worker and fails anything queued
+            self._relaxed_longctx.stop(drain=drain, timeout=timeout)
         self.kvstore.close()
 
     def persist_cache(self, timeout: float = 30.0) -> int:
@@ -1572,6 +1647,12 @@ class DecodeEngine:
             raise ValueError("DFS KV tier disabled (set "
                              "serving.kv.dfs.enable for prefill-role "
                              "replicas)")
+        if self._relaxed_longctx is not None and \
+                len(prompt) >= self._relaxed_longctx.min_tokens:
+            # a long handoff: CP prefill + streamed tier ingest; the radix
+            # never sees these blocks, so the radix-walking persist below
+            # would report 0 durable tokens for a chain that is durable
+            return self._relaxed_longctx.prefill_to_store(prompt, timeout)
         req = self.submit(prompt, SamplingParams(max_new_tokens=1))
         if self._thread is None:
             # offline/test mode: no scheduler thread, drive it here
@@ -1599,7 +1680,9 @@ class DecodeEngine:
     def _run_loop(self) -> None:
         while not self._stop.is_set():
             with self._cond:
-                while self.idle and not self._stop.is_set():
+                # _local_idle, not idle: a busy long-context plane must
+                # not spin the fused step
+                while self._local_idle and not self._stop.is_set():
                     self._cond.wait(0.05)
             if self._stop.is_set():
                 return

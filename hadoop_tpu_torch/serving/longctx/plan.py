@@ -73,8 +73,8 @@ def choose_sp_mode(cfg, sp: int, requested: str = "ring") -> str:
     """Validate the requested CP attention strategy against the model's
     head counts, as the reference does: an impossible ulysses request
     degrades to ring with a loud log. A request that would run ulysses
-    raises ``NotImplementedError``: ulysses is not ported (ROADMAP
-    Queue A 7)."""
+    raises ``NotImplementedError``: ulysses needs an all-to-all and
+    comes with multi-GPU parallelism (ROADMAP Queue A 6)."""
     if requested not in ("ring", "ulysses"):
         raise ValueError("serving.longctx.sp.mode must be ring|ulysses, "
                          f"got {requested!r}")
@@ -87,5 +87,6 @@ def choose_sp_mode(cfg, sp: int, requested: str = "ring") -> str:
         return "ring"
     if requested == "ulysses":
         raise NotImplementedError(
-            "sp_mode=ulysses is not ported (ROADMAP Queue A 7); use ring")
+            "sp_mode=ulysses is not ported: it needs an all-to-all "
+            "(ROADMAP Queue A 6); use ring")
     return requested

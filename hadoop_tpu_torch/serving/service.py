@@ -48,8 +48,10 @@ exits 2 for one. ``registry=`` takes any ``RegistryLike`` (``hadoop_tpu``'s
 ``RegistryClient`` fits); ``--registry HOST:PORT`` needs an RPC client the
 port does not have and exits 2. Features the port has not ported are
 refused with ``NotImplementedError`` naming their ROADMAP item (the
-command line exits 2), never ignored: ``serving.longctx.enabled`` (A 7)
-and more than one expert shard (A 6). The YARN packaging
+command line exits 2), never ignored: more than one expert shard (A 6).
+``serving.longctx.enabled`` attaches the long-context plane
+(``serving/longctx``) under ``serving.parity=relaxed`` and raises the
+reference's ``ValueError`` without it. The YARN packaging
 (``serving_service_spec``, ``autoscaler_service_spec``) is Queue A 9.
 """
 
@@ -73,6 +75,8 @@ from hadoop_tpu_torch.registry import (HEARTBEAT_ATTR, RegistryLike,
                                        ServiceRecord, record_ttl,
                                        replica_path)
 from hadoop_tpu_torch.serving.engine import DecodeEngine
+from hadoop_tpu_torch.serving.longctx import (ENABLED_KEY,
+                                              longctx_plane_from_conf)
 from hadoop_tpu_torch.serving.loader import (IO_WORKERS_KEY,
                                              load_serving_params,
                                              serving_read_defaults)
@@ -89,13 +93,6 @@ log = logging.getLogger(__name__)
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported to hadoop_tpu_torch "
                               f"yet (ROADMAP Queue A {item})")
-
-
-def refuse_unported(conf: ConfLike) -> None:
-    """Raise ``NotImplementedError`` for every conf key that asks for a
-    serving feature the port does not have."""
-    if conf.get_bool("serving.longctx.enabled", False):
-        _refuse("serving.longctx.enabled (the long-context plane)", "7")
 
 
 def checkpoint_location(checkpoint: str, fs: Optional[FileSystemLike]
@@ -127,7 +124,6 @@ class ServingReplica:
             f"{socket.gethostname()}-{uuid.uuid4().hex[:8]}"
         serving_read_defaults(conf)
         cfg = get_config(preset)
-        refuse_unported(conf)
         self.device = resolve_device(device)
         fs, ckpt_dir = checkpoint_location(checkpoint, fs)
         # the weight plane: serving.parity picks the tier. bitwise (the
@@ -212,6 +208,19 @@ class ServingReplica:
         qos_gate = QoSGate(conf, self.engine, metrics=metrics,
                            scheduler=qos_sched) if self.qos_enabled \
             else None
+        # the long-context plane (serving/longctx): CP prefill, streamed
+        # tier ingest and working-set decode for prompts of at least
+        # serving.longctx.min.tokens; relaxed tier only (the CP softmax
+        # reassociation is not bitwise)
+        self.longctx_enabled = conf.get_bool(ENABLED_KEY, False)
+        if self.longctx_enabled and weights.relaxed:
+            self.engine.attach_longctx(
+                longctx_plane_from_conf(conf, cfg, self.engine))
+        elif self.longctx_enabled:
+            raise ValueError(
+                "serving.longctx.enabled requires serving.parity="
+                "relaxed (context-parallel prefill reassociates the "
+                "softmax — not bitwise vs the single-device step)")
         self.server = ServingServer(self.engine, conf, bind=bind,
                                     qos=qos_gate,
                                     # /v1/admin/drain retires the whole
@@ -259,8 +268,13 @@ class ServingReplica:
                             "kv_block_bytes": str(eng.block_nbytes),
                             "kv_block_size": str(eng.block_size),
                             "kv_hbm_blocks": str(eng.pool.num_usable),
-                            "longctx": "0",
-                            "longctx_max_tokens": "0",
+                            "longctx": "1" if self.longctx_enabled
+                                       else "0",
+                            # the plane's pinned prompt budget: a router
+                            # treats a longctx replica as unbounded only
+                            # up to it
+                            "longctx_max_tokens": str(
+                                eng.longctx_stats().get("max_tokens", 0)),
                             "kv_dfs": "1" if self.kv_dfs_enabled
                                       else "0"})
             # the heartbeat below refreshes the record (stamp + live

@@ -23,11 +23,16 @@ quantizes on the GPU writes the bytes numpy would.
 
 The in-graph entry points (``qdot``, ``qrows``, ``qhead``, ``qedot``)
 keep the reference's order of operations: the int8 payload widened to
-f32 and multiplied by its scales (``_dequant``), the product cast to the
-activations' dtype, then the matmul. In eager PyTorch the dequantized
-weight is materialised (an f32 and a cast copy of each weight, every
-call) where XLA fuses the convert and scale into the matmul's operand
-read; PERF.md measures what that costs.
+f32 and multiplied by its scales, the product cast to the activations'
+dtype, then the matmul. Each reaches the dequantized operand through
+``dequant``: on CUDA tensors one pass of the hand-written kernel
+``ops/csrc/dequant.cu`` (int8 and scales in, the activations' dtype
+out, ~3 B an element), on CPU tensors its plain version ``_dequant``;
+the two agree bit for bit. XLA fuses the convert and scale into the
+matmul's operand read; here the dequantized weight is written once and
+read by the GEMM. ``launches_dequant`` counts the kernel's launches. The
+engine dequantizes each dense weight once per layer per step through
+``dequant`` and multiplies every row group against it.
 
 Quantize-at-load streams: :func:`quantized_load` hands the checkpoint
 loader a ``leaf_transform`` (:func:`make_load_quantizer`) that quantizes
@@ -55,6 +60,7 @@ import torch
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.obs.hbm import tree_nbytes
+from hadoop_tpu_torch.ops import _build
 
 WEIGHTS_PARITY_KEY = "serving.parity"
 TIERS = ("bitwise", "relaxed")
@@ -398,28 +404,63 @@ def dequantize_params(qparams, cfg: ModelConfig) -> dict:
 
 # ------------------------------------------------- in-graph entry points
 
+_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches_dequant = 0        # dequant.cu launches
+
+
 def _dequant(q: torch.Tensor, s: torch.Tensor,
              dtype: torch.dtype) -> torch.Tensor:
     """``q [..., N, G, gs]`` times its scales ``s [..., N, G]`` in f32,
-    cast to ``dtype``, as ``[..., N, G * gs]``: the dequantized weight
-    each in-graph entry point materialises."""
+    cast to ``dtype``, as ``[..., N, G * gs]``: the plain version of the
+    dequantize kernel (and the CPU's dequantize)."""
     w = q.float() * s[..., None]
     return w.reshape(*q.shape[:-2], -1).to(dtype)
+
+
+def _launch_dequant(q: torch.Tensor, s: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``_dequant`` by the kernel, in one launch."""
+    global launches_dequant
+    *lead, g, gs = q.shape
+    if not (q.is_cuda and s.device == q.device and q.dtype == torch.int8
+            and s.dtype == torch.float32 and tuple(s.shape) == (*lead, g)
+            and dtype in _OUT_DTYPES):
+        raise ValueError(
+            f"dequant kernel: q {q.dtype} {tuple(q.shape)} on {q.device}, "
+            f"s {s.dtype} {tuple(s.shape)} on {s.device}, out {dtype}; it "
+            f"takes int8 q [..., G, gs] and float32 s [..., G] on one CUDA "
+            f"device and an output dtype among {list(_OUT_DTYPES)}")
+    out = torch.empty(*lead, g * gs, dtype=dtype, device=q.device)
+    _build.launch("htpu_dequant_int8", q.contiguous(), s.contiguous(), out,
+                  q.numel(), gs, _OUT_DTYPES[dtype])
+    launches_dequant += 1
+    return out
+
+
+def dequant(qw: Dict[str, torch.Tensor], dtype: torch.dtype
+            ) -> torch.Tensor:
+    """The dequantized operand ``[..., N, G * gs]`` of a quantized weight
+    ``{"q": int8 [..., N, G, gs], "s": f32 [..., N, G]}`` in ``dtype``:
+    the kernel for CUDA tensors, ``_dequant`` for CPU tensors (the same
+    bits)."""
+    if qw["q"].is_cuda:
+        return _launch_dequant(qw["q"], qw["s"], dtype)
+    return _dequant(qw["q"], qw["s"], dtype)
 
 
 def qdot(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Weight-only int8 matmul: ``x [..., D] @ w`` against ``{"q": int8
     [N, G, gs], "s": f32 [N, G]}``: dequantize in f32, cast to
     ``x.dtype``, multiply."""
-    return x @ _dequant(qw["q"], qw["s"], x.dtype).t()
+    return x @ dequant(qw, x.dtype).t()
 
 
 def qrows(qe: Dict[str, torch.Tensor], tokens: torch.Tensor,
           dtype: torch.dtype) -> torch.Tensor:
     """Quantized embedding gather: each token's int8 row and its scale
     groups, dequantized (``qe`` = {"q": [V, G, gs], "s": [V, G]})."""
-    rows = qe["q"][tokens].float() * qe["s"][tokens][..., None]
-    return rows.reshape(*rows.shape[:-2], -1).to(dtype)
+    return dequant({"q": qe["q"][tokens], "s": qe["s"][tokens]}, dtype)
 
 
 def qslice(qw: Dict[str, torch.Tensor], l) -> Dict[str, torch.Tensor]:
@@ -439,7 +480,7 @@ def qedot(x: torch.Tensor, qw: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Expert-batched int8 matmul: ``x [E, C, D]`` against a quantized
     expert stack ``{"q": int8 [E, N, G, gs], "s": f32 [E, N, G]}``, each
     expert against its own scales."""
-    return torch.bmm(x, _dequant(qw["q"], qw["s"], x.dtype).transpose(1, 2))
+    return torch.bmm(x, dequant(qw, x.dtype).transpose(1, 2))
 
 
 # -------------------------------------------------- logits/output guard
@@ -525,7 +566,8 @@ __all__ = [
     "quantize_weight", "dequantize_weight", "is_qtensor",
     "is_quantized_tree", "resident_weight_bytes", "describe_tree",
     "quantize_params", "make_load_quantizer", "quantized_load",
-    "dequantize_params", "qdot", "qrows", "qhead", "qslice", "qedot",
+    "dequantize_params", "dequant", "qdot", "qrows", "qhead", "qslice",
+    "qedot",
     "expert_weight_bytes", "expert_shard_count",
     "weight_ab_report", "run_weight_ab",
 ]

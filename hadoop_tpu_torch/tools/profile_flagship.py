@@ -1,7 +1,8 @@
 """Where the time goes on the GPU: flagship-1b forward, decode and
 training steps, and the llama3-8b context-parallel prefill.
 
-    python -m hadoop_tpu_torch.tools.profile_flagship [--train | --longctx]
+    python -m hadoop_tpu_torch.tools.profile_flagship [--train | --longctx |
+        --longctx-decode]
 
 Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
 [1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
@@ -15,9 +16,15 @@ on autograd's thread, so it is split by autograd node) and the kernels
 that took the most of each; with ``--longctx`` instead,
 one ``ContextParallelPrefiller.cp_prefill`` of an 8192-token prompt on
 llama3-8b (bf16, full width and depth, sp 4 ranks on the one card, block
-16), after one untraced prefill. For each it prints one JSON line:
+16), after one untraced prefill; with ``--longctx-decode`` instead, one
+token of the working-set decoder's pipelined path over an 8192-token
+llama3-8b chain (bf16; the chain prefilled at sp 4 and ingested into a
+page-locked host ring), after one untraced token, and then the
+host-to-device rate of its slab copies from page-locked and from
+pageable memory. For each it prints one JSON line:
 host wall time per call, the summed device time of the CUDA kernels per
-call, the device's idle share (1 - device / wall), the kernels the
+call (copies included; ``memcpy_htod_ms`` is their host-to-device
+part), the device's idle share (1 - device / wall), the kernels the
 device ran and the runtime-API launch calls the host made per call (a
 graph replay is one launch call for all of its kernels; cuBLAS launches
 through the driver API, which the trace does not list), the kernels
@@ -123,9 +130,12 @@ def trace(fn, calls: int, label: str, ranges=()) -> dict:
         return [{"kernel": e.key[:80], "ms": e.self_device_time_total
                  / 1e3 / calls, "count": e.count // calls} for e in events]
 
+    copies = [e for e in kernels if e.key.startswith("Memcpy HtoD")]
     record = {
         "profile": label, "calls": calls, "wall_ms": wall_ms,
         "device_ms": device_ms,
+        "memcpy_htod_ms": sum(e.self_device_time_total for e in copies)
+        / 1e3 / calls,
         "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "kernel_launches": sum(e.count for e in kernels) // calls,
         "host_launch_calls": sum(
@@ -172,6 +182,67 @@ def _longctx(gen) -> None:
         "partial": flash.launches_partial // 2}}))
 
 
+def _longctx_decode(gen) -> None:
+    """One token of the working-set decoder's pipelined path on llama3-8b
+    (bf16, an 8192-token chain in a page-locked host ring), traced; then
+    the host-to-device rate of the slab copies alone (page-locked) and of
+    the same bytes from pageable memory."""
+    from hadoop_tpu_torch.serving.engine import SamplingParams as SP
+    from hadoop_tpu_torch.serving.engine import _to_host
+    from hadoop_tpu_torch.serving.longctx.decode import WorkingSetDecoder
+    from hadoop_tpu_torch.serving.kvstore import BlockPool, TieredKVCache
+    cfg = get_config("llama3-8b", max_seq=8192 + 128)
+    params = init_params(cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (8192,), generator=gen,
+                           device="cuda").tolist()
+    pre = ContextParallelPrefiller(params, cfg, block_size=16,
+                                   pad_tokens=8192, sp=4)
+    res = pre.cp_prefill(prompt)
+    block_bytes = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    store = TieredKVCache(BlockPool(2, 16), layers=cfg.n_layers,
+                          kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                          dtype=cfg.torch_dtype,
+                          host_bytes=(512 + 8) * block_bytes, pin=True)
+    store.ingest_chain(prompt, ((_to_host(k), _to_host(v))
+                                for k, v in res.blocks))
+    dec = WorkingSetDecoder(params, cfg, store, block_size=16,
+                            window_blocks=4, tail_tokens=256)
+    hits = store.read_chain(prompt, 512)
+    kvh = dec._pack_chain(hits, 8192)
+    st = dec._state()
+    st["base"].fill_(8192)
+    st["chain"].fill_(8192)
+    bufs = st["bufs"]
+    state = {"tok": int(res.last_logits.argmax()), "pos": 8192}
+
+    def one():
+        out = dec._token_fused(st, state["tok"], state["pos"], kvh,
+                               state["pos"] - 8192, SP(), 0)
+        state["tok"] = int(out)
+        state["pos"] += 1
+
+    rec = trace(one, 4, "longctx decode token llama3-8b bf16, chain 8192, "
+                "pipelined (CUDA graphs), device sampler")
+    slabs = [kvh[l, s] for l in range(kvh.shape[0])
+             for s in range(kvh.shape[1])]
+    nbytes = sum(t.numel() * t.element_size() for t in slabs)
+    rates = {}
+    for name, src in (("pinned", slabs),
+                      ("pageable", [t.clone() for t in slabs[:16]])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, t in enumerate(src):
+            bufs[i % 2].copy_(t, non_blocking=True)
+        torch.cuda.synchronize()
+        moved = nbytes * len(src) / len(slabs)
+        rates[name] = moved / (time.perf_counter() - t0)
+    print(json.dumps({"slab_bytes_per_token": nbytes,
+                      "htod_bytes_per_s": rates,
+                      "token_ms": rec["wall_ms"],
+                      "memcpy_htod_ms_per_token": rec["memcpy_htod_ms"]}),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -180,17 +251,22 @@ def main(argv=None) -> int:
                       "and decode steps")
     mode.add_argument("--longctx", action="store_true",
                       help="trace one llama3-8b CP prefill instead")
+    mode.add_argument("--longctx-decode", action="store_true",
+                      help="trace one token of the llama3-8b working-set "
+                      "decoder instead, and time the slab copies")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_flagship: no CUDA device", file=sys.stderr)
         return 2
     cfg = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.train or args.longctx:
+    if args.train or args.longctx or args.longctx_decode:
         if args.train:
             _train(cfg, gen)
-        else:
+        elif args.longctx:
             _longctx(gen)
+        else:
+            _longctx_decode(gen)
         print(json.dumps({"device": torch.cuda.get_device_name(0)}))
         return 0
     params = init_params(cfg, gen)

@@ -637,22 +637,108 @@ def test_command_line_serves_health_and_exits_0_on_sigterm(tmp_path):
 # ----------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("key,value,item", [
-    ("serving.longctx.enabled", "true", "A 7"),
+    ("checkpoint", "htpu://nn:8020/models/x", "A 9"),
 ])
 def test_unported_features_are_refused(tmp_path, key, value, item):
+    """What the replica still refuses names its ROADMAP item, in process
+    and on the command line (exit 2): a DFS checkpoint URI without an
+    ``fs=`` (the port has no DFS client). ``serving.longctx.enabled`` is
+    ported (``test_longctx_key_*`` below)."""
     conf = Configuration()
-    preset = "tiny"
-    if key == "preset":
-        preset = value
-    else:
-        conf.set(key, value)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
-        service.ServingReplica(conf, name="x", preset=preset,
-                               checkpoint=f"{tmp_path}/none", device="cpu")
-    argv = ["--checkpoint", f"{tmp_path}/none", "--device", "cpu"]
-    argv += ["--preset", value] if key == "preset" else \
-        ["-D", f"{key}={value}"]
+        service.ServingReplica(conf, name="x", preset="tiny",
+                               checkpoint=value, device="cpu")
+    argv = ["--checkpoint", value, "--device", "cpu"]
     assert service.replica_main(argv, Configuration()) == 2
+
+
+class _Registry:
+    """A ``RegistryLike`` that keeps the records in a dict."""
+
+    def __init__(self):
+        self.records = {}
+
+    def register(self, record, ttl_s=10.0, auto_renew=False):
+        self.records[record.path] = record
+
+    def unregister(self, path):
+        self.records.pop(path, None)
+
+    def close(self):
+        pass
+
+
+def _save_tiny(tmp_path):
+    save_checkpoint(LocalFileSystem(), f"{tmp_path}/ckpt", 1,
+                    {"params": _tiny()["params"]})
+    return f"{tmp_path}/ckpt"
+
+
+def _greedy_int8(prompt, max_new):
+    """A repeated single-device forward of the port over the relaxed
+    replica's int8 plane, dequantized (what its matmuls multiply)."""
+    from hadoop_tpu_torch.models import decoder
+    from hadoop_tpu_torch.serving import weightplane
+    m = _tiny()
+    q, _ = weightplane.quantize_params(
+        m["params"], m["cfg"],
+        weightplane.WeightPlaneConfig(tier="relaxed"))
+    params = weightplane.dequantize_params(q, m["cfg"])
+    seq = list(prompt)
+    for _ in range(max_new):
+        logits = decoder.forward(params, [seq], m["cfg"], device="cpu")
+        seq.append(int(torch.argmax(logits[0, -1])))
+    return seq[len(prompt):]
+
+
+def _longctx_conf(relaxed: bool):
+    conf = Configuration()
+    conf.set("serving.longctx.enabled", "true")
+    conf.set("serving.longctx.min.tokens", "40")
+    conf.set("serving.longctx.chips", "2")
+    conf.set("serving.kv.host.bytes", str(1 << 22))
+    conf.set("serving.kv.block.size", "4")
+    conf.set("serving.max.context", "48")
+    if relaxed:
+        conf.set("serving.parity", "relaxed")
+    return conf
+
+
+def test_longctx_key_attaches_the_plane(tmp_path):
+    """``serving.longctx.enabled`` under ``serving.parity=relaxed``: the
+    replica attaches the long-context plane, /v1/health carries its
+    stats, the registry record advertises it, and a long prompt decodes
+    to a repeated single-device forward's tokens over the replica's int8
+    plane."""
+    ckpt = _save_tiny(tmp_path)
+    rep = service.ServingReplica(_longctx_conf(True), name="lc",
+                                 checkpoint=ckpt, preset="tiny",
+                                 registry=_Registry(), device="cpu")
+    rep.start()
+    try:
+        health = _health(rep.server.port)
+        assert health["longctx"]["enabled"] is True
+        assert health["longctx"]["chips"] == 2
+        assert rep.record.attributes["longctx"] == "1"
+        assert rep.record.attributes["longctx_max_tokens"] == \
+            str(health["longctx"]["max_tokens"])
+        prompt = np.random.default_rng(5).integers(0, 256, 60).tolist()
+        toks = rep.engine.submit(prompt, SamplingParams(
+            max_new_tokens=4)).wait(120)
+        assert toks == _greedy_int8(prompt, 4)
+        assert rep.engine.longctx_stats()["requests"] == 1
+    finally:
+        rep.drain_and_stop(timeout=30)
+
+
+def test_longctx_key_requires_relaxed_parity(tmp_path):
+    """Without ``serving.parity=relaxed`` the key raises the reference's
+    ValueError: the CP softmax reassociation is not bitwise."""
+    ckpt = _save_tiny(tmp_path)
+    with pytest.raises(ValueError, match="relaxed"):
+        service.ServingReplica(_longctx_conf(False), name="lc",
+                               checkpoint=ckpt, preset="tiny",
+                               device="cpu")
 
 
 @pytest.mark.parametrize("key,value,check", [

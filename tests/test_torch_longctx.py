@@ -171,7 +171,7 @@ def test_parallel_ctx_carries_the_ring_only():
     assert decoder.SINGLE.ring is None and decoder.SINGLE.ring_size == 1
     with pytest.raises(TypeError):
         decoder.ParallelCtx(tp_axis="tp")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
         decoder.ParallelCtx(ring="sp", ring_size=2, sp_mode="ulysses")
     with pytest.raises(ValueError):
         decoder.ParallelCtx(ring_size=2)
@@ -378,7 +378,7 @@ def test_choose_sp_mode(tiny):
     # tiny has 2 kv heads: ulysses over 4 ranks falls back, as in JAX
     assert longctx.choose_sp_mode(cfg, 4, "ulysses") == \
         jlongctx.choose_sp_mode(cfg, 4, "ulysses") == "ring"
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
         longctx.choose_sp_mode(cfg, 2, "ulysses")
     with pytest.raises(ValueError):
         longctx.choose_sp_mode(cfg, 2, "diagonal")
@@ -393,7 +393,7 @@ def test_refusals(tiny):
     kernel raise."""
     _, _, cfg, params = tiny
     kw = dict(block_size=8, pad_tokens=160, sp=2)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
         longctx.ContextParallelPrefiller(params, cfg, sp_mode="ulysses",
                                          devices=["cpu"], **kw)
     with pytest.raises(NotImplementedError, match="Queue A 6"):

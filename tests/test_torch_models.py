@@ -270,6 +270,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.parallel.train\n"
         "import hadoop_tpu_torch.tools.profile_flagship\n"
         "import hadoop_tpu_torch.tools.ab_flash\n"
+        "import hadoop_tpu_torch.tools.moe_graph_eager\n"
         "import hadoop_tpu_torch.serving.longctx\n"
         "import hadoop_tpu_torch.parallel.ring_attention\n"
         "import hadoop_tpu_torch.fs, hadoop_tpu_torch.parallel.data\n"

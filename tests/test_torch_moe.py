@@ -180,3 +180,34 @@ def test_engine_ledgers_the_expert_stacks_and_sizes_like_the_reference():
     eng.stop()
     after = hbm_ledger().report()["components"].get("moe_experts", 0)
     assert after == comps["moe_experts"] - eng.expert_bytes
+
+
+def test_scratch_page_writes_resolve_to_the_last_writer():
+    """Inactive rows all scatter into block 0, so several rows of a step
+    may write one slot; on CUDA which of them lands is a race, and a MoE
+    step's routing couples rows (the inactive rows that read block 0
+    take expert slots). A MoE group therefore writes each slot with its
+    last writer's row: every row of a shared slot carries the same
+    source, the one a serial scatter (the reference's) keeps; a row
+    alone in its slot writes itself. A dense model's rows never meet, and
+    its groups scatter as they are."""
+    _, _, cfg, params = _model()
+    eng = DecodeEngine(params, cfg, device="cpu", max_batch=3,
+                       block_size=4, prefill_chunk=8)
+    table = torch.zeros(1, eng.blocks_per_seq, dtype=torch.int64)
+    table[0, :4] = torch.tensor([5, 6, 7, 8])
+    positions = torch.arange(5, 13)          # blocks 1..3 of the table
+    active = positions < 8                   # rows 3.. inactive: block 0
+    g = eng._group(torch.arange(8), positions, active, table,
+                   one_context=True)
+    assert g["blk"].tolist() == [6, 6, 6, 0, 0, 0, 0, 0]
+    assert g["off"].tolist() == [1, 2, 3, 0, 1, 2, 3, 0]
+    # rows 3 and 7 share block 0's slot 0: both write row 7
+    assert g["src"].tolist() == [0, 1, 2, 7, 4, 5, 6, 7]
+    dense = config.get_config("tiny")
+    dparams = decoder.init_params(dense, torch.Generator().manual_seed(0),
+                                  device="cpu")
+    deng = DecodeEngine(dparams, dense, device="cpu", max_batch=3,
+                        block_size=4, prefill_chunk=8)
+    assert deng._group(torch.arange(8), positions, active, table,
+                       one_context=True)["src"] is None

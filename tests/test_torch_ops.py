@@ -9,6 +9,7 @@ backward's plain version against the Pallas backward, the reference's
 own gradient tolerance there.
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -53,6 +54,99 @@ def test_norms_match_jax():
     _close(norms.layer_norm(tx, tw, tb, 1e-5),
            jnorms.layer_norm(jnp.asarray(x), jnp.asarray(w),
                              jnp.asarray(b), 1e-5), 1e-6)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", [(3, 5, 64), (2, 4, 256)])
+def test_rms_norm_plain_forward_backward_match_jax_vjp(dtype, tol, shape):
+    """The RMSNorm kernels' plain versions (``rms_norm_ref_fwd``, and
+    ``rms_norm_ref_bwd`` from the forward's 1/rms) against ``jax.vjp`` of
+    the reference's ``rms_norm``: y, dx and dw, in float32 and bf16 (one
+    bf16 rounding: the reference casts once at the end too). On the CPU
+    ``rms_norm``'s autograd gives the same gradients."""
+    import jax
+    x, dy = _randn(11, *shape), _randn(12, *shape)
+    w = 1 + 0.1 * _randn(13, shape[-1])
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    jx, jw, jdy = (jnp.asarray(a, jdt) for a in (x, w, dy))
+    jy, vjp = jax.vjp(lambda a, b: jnorms.rms_norm(a, b, 1e-5), jx, jw)
+    jdx, jdw = vjp(jdy)
+    tx, tw, tdy = (torch.from_numpy(a).to(tdt) for a in (x, w, dy))
+    y, r = norms.rms_norm_ref_fwd(tx, tw, 1e-5)
+    dx, dw = norms.rms_norm_ref_bwd(tdy, tx, tw, r)
+    assert r.shape == shape[:-1] and r.dtype == torch.float32
+    for got, want in ((y, jy), (dx, jdx), (dw, jdw)):
+        assert got.dtype == tdt
+        _close(got.float(), np.asarray(want, np.float32), tol)
+    ax, aw = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    norms.rms_norm(ax, aw, 1e-5).backward(tdy)
+    _close(ax.grad.float(), dx.float(), tol)
+    _close(aw.grad.float(), dw.float(), tol)
+
+
+def test_rms_norm_function_routes_cuda_tensors_to_the_kernels(monkeypatch):
+    """A (seemingly) CUDA tensor takes ``RMSNorm``: the forward and
+    backward kernels' launches (stood in for by their plain versions
+    here) give what autograd through the plain formula gives, for a
+    non-contiguous x and a weight unbound from a stacked leaf; a CPU
+    tensor launches nothing."""
+    launched = []
+
+    def fwd(x, weight, eps):
+        launched.append("fwd")
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        y, r = norms.rms_norm_ref_fwd(x2, weight, eps)
+        return y.view(x.shape), x2, r
+
+    def bwd(dy, x2, weight, r):
+        launched.append("bwd")
+        return norms.rms_norm_ref_bwd(dy.reshape(x2.shape), x2, weight, r)
+
+    monkeypatch.setattr(norms, "_launch_fwd", fwd)
+    monkeypatch.setattr(norms, "_launch_bwd", bwd)
+    base = torch.from_numpy(_randn(21, 6, 64, 3)).transpose(1, 2)
+    stack = (1 + 0.1 * torch.from_numpy(_randn(22, 2, 64)))
+    dy = torch.from_numpy(_randn(23, 6, 3, 64))
+    grads = []
+    for cuda in (True, False):
+        x = base.clone().requires_grad_()
+        w = stack.clone().requires_grad_()
+        xin = x.as_subclass(_LooksCuda) if cuda else x
+        y = norms.rms_norm(xin, w.unbind(0)[1], 1e-5)
+        y.as_subclass(torch.Tensor).backward(dy)
+        grads.append((y.as_subclass(torch.Tensor).detach(), x.grad, w.grad))
+    assert launched == ["fwd", "bwd"]
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,d,match", [
+    ("bfloat16", "float32", 64, "a weight of x's dtype"),
+    ("float16", "int8", 64, "a weight of x's dtype"),
+    ("float32", "float32", 8196, "at most 8192"),
+    ("bfloat16", "bfloat16", 8200, "at most 8192"),
+    ("float32", "float32", 62, "multiple of 4"),
+])
+def test_rms_norm_kernel_refuses_what_it_was_not_built_for(monkeypatch,
+                                                          x_dtype, w_dtype,
+                                                          d, match):
+    """On a (seemingly) CUDA tensor ``rms_norm`` takes the kernels, which
+    take x and w of one dtype and rows of at most 8192 (a multiple of 16
+    bytes): anything else raises before a launch, never falls back to the
+    plain formula. The widest rows of each dtype are taken."""
+    launched = []
+    monkeypatch.setattr(norms._build, "launch",
+                        lambda *a: launched.append(a[0]))
+    x = torch.zeros(2, d, dtype=getattr(torch, x_dtype))
+    w = torch.ones(d, dtype=getattr(torch, w_dtype))
+    with pytest.raises(ValueError, match=match):
+        norms.rms_norm(x.as_subclass(_LooksCuda), w, 1e-5)
+    assert launched == []
+    for dtype in ("float32", "bfloat16"):
+        x = torch.zeros(2, 8192, dtype=getattr(torch, dtype))
+        norms._check(x.as_subclass(_LooksCuda), torch.ones(8192, dtype=x.dtype))
 
 
 def test_rope_with_positions_matches_jax():
@@ -468,8 +562,8 @@ def test_build_target_hashes_headers_and_flags(tmp_path, monkeypatch):
 
 def _c_entries():
     """Each function of the ``extern "C"`` blocks of ops/csrc/*.cu: (file
-    stem, name) -> the kinds of its parameters in order (ptr, int, float,
-    stream)."""
+    stem, name) -> the kinds of its parameters in order (ptr, int, int64,
+    float, stream)."""
     entries = {}
     for path in sorted(_build._CSRC.glob("*.cu")):
         text = re.sub(r"//[^\n]*", "", path.read_text())
@@ -483,7 +577,8 @@ def _c_entries():
                 ptype += "*" * pname.count("*")
                 kinds.append("stream" if pname == "stream" else
                              "ptr" if "*" in ptype else
-                             {"int": "int", "float": "float"}[ptype])
+                             {"int": "int", "long long": "int64",
+                              "float": "float"}[ptype])
             entries[(path.stem, name)] = (ret.strip(), kinds)
     return entries
 
@@ -501,11 +596,13 @@ def test_c_entry_signatures_match_ctypes():
             assert kinds == ["int"] and "char" in ret, (lib, kinds, ret)
             continue
         assert name in _build.SIGNATURES, f"{lib}: {name} has no signature"
-        want_lib, n_ptr, n_int, n_float, stream = _build.SIGNATURES[name]
+        want_lib, n_ptr, ints, n_float, stream = _build.SIGNATURES[name]
+        ints = (["int"] * ints if isinstance(ints, int) else
+                [{ctypes.c_int: "int", ctypes.c_longlong: "int64"}[t]
+                 for t in ints])
         assert ret == "int", (name, ret)
         assert lib == want_lib, (name, lib, want_lib)
-        assert kinds == (["ptr"] * n_ptr + ["int"] * n_int
-                         + ["float"] * n_float + ["stream"] * stream), \
-            (name, kinds)
+        assert kinds == (["ptr"] * n_ptr + ints + ["float"] * n_float
+                         + ["stream"] * stream), (name, kinds)
         seen.add(name)
     assert seen == set(_build.SIGNATURES)

@@ -341,9 +341,11 @@ def test_sampled_tokens_lie_in_the_top_k_set():
 
 def test_unported_features_are_refused(monkeypatch):
     """What the engine still refuses names its ROADMAP item: a
-    tensor-parallel plan and more than one expert shard (A 6), the
-    long-context plane (A 7). hbm_bytes sizing, MoE and the int8 plane
-    are ported (tests/test_torch_weightplane.py, test_torch_moe.py)."""
+    tensor-parallel plan and more than one expert shard (A 6). hbm_bytes
+    sizing, MoE and the int8 plane are ported (tests/test_torch_
+    weightplane.py, test_torch_moe.py), and so is the long-context plane
+    (tests/test_torch_longctx_decode.py): ``attach_longctx`` takes one
+    and routes prompts of its ``min_tokens`` to it."""
     _, jparams, cfg, params, _ = _model("tiny")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         DecodeEngine(params, cfg, device="cpu", plan=object())
@@ -365,5 +367,15 @@ def test_unported_features_are_refused(monkeypatch):
     assert DecodeEngine(moe_params, moe_cfg, device="cpu").expert_shards \
         == 1
     eng = DecodeEngine(params, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        eng.attach_longctx(object())
+
+    class Plane:
+        min_tokens, idle, on_done = 10, True, None
+
+        def longctx_submit(self, prompt, sampling, trace_ctx, tenant):
+            return ("plane", len(prompt))
+
+    plane = Plane()
+    eng.attach_longctx(plane)
+    assert plane.on_done is not None
+    assert eng.submit(list(range(10))) == ("plane", 10)
+    assert eng.submit(list(range(9))).prompt == list(range(9))

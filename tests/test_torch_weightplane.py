@@ -379,3 +379,86 @@ def test_hbm_ledger_counts_the_int8_weights():
     comps = hbm_ledger().report()["components"]
     assert comps["weights"] >= wp.resident_weight_bytes(q)
     eng.stop()
+
+
+@pytest.mark.parametrize("preset,q_embed,q_head", [
+    ("tiny", False, False), ("tiny", True, True), ("tiny-moe", False, False)],
+    ids=["tiny", "tiny-embed-head", "tiny-moe"])
+def test_engine_dequantizes_each_weight_once_per_step(monkeypatch, preset,
+                                                      q_embed, q_head):
+    """The fused step (lanes + a prompt chunk, two row groups) and the
+    decode-only step dequantize each int8 matmul weight of each layer
+    once (``weightplane.dequant``), a quantized head once, each MoE
+    expert stack once; the tokens stay the reference engine's."""
+    jcfg, jq, cfg, q = _model(preset, q_embed, q_head)
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    weights = {}
+    for name in names:
+        for li in range(cfg.n_layers):
+            weights[q["layers"][name]["q"][li].data_ptr()] = (name, li)
+    if q_head:
+        head = q["embed"] if cfg.tie_embeddings else q["lm_head"]
+        weights[head["q"].data_ptr()] = ("head", 0)
+    calls = []
+    real = wp.dequant
+
+    def counting(qw, dtype):
+        calls.append(weights.get(qw["q"].data_ptr(), "rows"))
+        return real(qw, dtype)
+
+    monkeypatch.setattr(wp, "dequant", counting)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (11, 5)]
+    kw = dict(max_batch=3, block_size=4, prefill_chunk=8)
+    eng = DecodeEngine(q, cfg, device="cpu", **kw)
+    reqs = [eng.submit(p, SamplingParams(max_new_tokens=6))
+            for p in prompts]
+    fused = 0
+    while not all(r.done.is_set() for r in reqs):
+        calls.clear()
+        fused += eng.num_prefilling > 0
+        eng.step()
+        per_weight = [c for c in calls if c != "rows"]
+        assert sorted(per_weight) == sorted(weights.values())
+        assert calls.count("rows") <= 2 * q_embed     # one per row group
+    assert fused >= 2
+    want = jengine.DecodeEngine(jq, jcfg, **kw).generate(
+        prompts, jengine.SamplingParams(max_new_tokens=6))
+    assert [r.wait(0) for r in reqs] == want
+
+
+def test_dequant_kernel_wrapper_one_launch(monkeypatch):
+    """On a (seemingly) CUDA payload ``dequant`` launches the kernel once
+    for the whole leaf (the C entry counts in long long), with its scales;
+    the kernel is stood in for by its arithmetic, so the result must be
+    ``_dequant``'s bit for bit. An output dtype the kernel was not built
+    for is refused before any launch."""
+    class LooksCuda(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    def kernel(name, q, s, out, n, gs, dtype):
+        assert name == "htpu_dequant_int8" and n == q.numel()
+        launched.append(n)
+        w = q.as_subclass(torch.Tensor).float().view(-1) * \
+            s.as_subclass(torch.Tensor).view(-1).repeat_interleave(gs)
+        out.view(-1)[:] = w.to(out.dtype)
+
+    launched = []
+    monkeypatch.setattr(wp._build, "launch", kernel)
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.integers(-127, 128, (2, 7, 4, 16)).astype(
+        np.int8))
+    s = torch.from_numpy(rng.random((2, 7, 4)).astype(np.float32))
+    qw = {"q": q.as_subclass(LooksCuda), "s": s.as_subclass(LooksCuda)}
+    for dtype in (torch.bfloat16, torch.float32):
+        launched.clear()
+        got = wp.dequant(qw, dtype)
+        assert launched == [2 * 7 * 4 * 16]
+        want = wp._dequant(q, s, dtype)
+        assert got.dtype == dtype and torch.equal(got, want)
+    launched.clear()
+    with pytest.raises(ValueError, match="output dtype among"):
+        wp.dequant(qw, torch.float16)
+    assert launched == []
