@@ -48,16 +48,27 @@ forward, the legacy loop's tokens against the pipelined path's; and
 flagship-1b in float32, the plane's tokens against the fused step's).
 Two kernels that are repairs, not TPU kernels, are held against their
 plain versions first: the int8 dequantize (phase ``dequant``, bit for
-bit) and RMSNorm's forward and backward (phase ``rmsnorm``); the train
-phase pins their launches per step too.
+bit) and RMSNorm's forward and backward (phase ``rmsnorm``, bf16,
+float16 and float32); the train phase pins their launches per step too.
+Then the device Reed-Solomon coder (phase ``ec``): ``ec_gf256.cu`` on
+one 128 MiB-per-unit block group for each RS policy, through
+``encode_cells`` and ``decode_cells`` after each erasure pattern, bit
+for bit against its plain version and the numpy host coder. Last, MoE
+training: mixtral-8x7b at full width, 2 of its 32 layers, [1, 4096]
+tokens, through ``make_train_step`` (phase ``moe_train``: the flash
+kernels at its shape first, 6 steps with their launches pinned, one
+profiled) and through ``Trainer`` (phase ``moe_trainer``: crash, resume
+and the loader into a ``DecodeEngine``, on a filesystem in memory).
 Weights are random, made from a seeded ``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
 forward for ``flash_fwd``, the 7 training steps for the backward
 kernels and ``adamw``/``grad_sq``, one 8192-token llama3-8b CP prefill
-for ``flash_fwd_partial``) and on this slice's (``launches_trainer``:
-the trainer phase's 12 steps), its error and its times; the last line is
+for ``flash_fwd_partial``, the ec phase's encode and decode calls for
+``ec_gf256``) and on later slices' (``launches_trainer``: the trainer
+phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
+MoE phases' 6 and 12), its error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -76,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import http.client
+import io
 import json
 import math
 import re
@@ -85,6 +97,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -101,8 +114,12 @@ from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
                                              head_matrix, layer_forward,
                                              layer_slices, run_layers_kv)
 from hadoop_tpu_torch.conf import Configuration
-from hadoop_tpu_torch.ops import _build, flash, norms, rope_frequencies
-from hadoop_tpu_torch.fs import LocalFileSystem
+from hadoop_tpu_torch.io.erasurecode import (_cauchy_parity_matrix,
+                                             _gf_invert, _gf_matmul)
+from hadoop_tpu_torch.models.moe import capacity as moe_capacity
+from hadoop_tpu_torch.ops import _build, ec_device, flash, norms
+from hadoop_tpu_torch.ops import rope_frequencies
+from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel import optimizer
@@ -120,7 +137,11 @@ from hadoop_tpu_torch.serving import engine as engine_module
 from hadoop_tpu_torch.serving import weightplane
 from hadoop_tpu_torch.serving.service import ServingReplica
 from hadoop_tpu_torch.tracing import global_tracer
-from hadoop_tpu_torch.tools.profile_flagship import decoding_engine, trace
+from hadoop_tpu_torch.tools.profile_flagship import (MOE_RANGES,
+                                                     TRAIN_RANGES,
+                                                     decoding_engine,
+                                                     moe_train_config,
+                                                     trace, train_profile)
 
 MEM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -333,6 +354,52 @@ MOE = dict(model="mixtral-8x7b", hbm_bytes=int(70e9), max_lanes=8,
            block=16, max_context=4096, chunk=64, requests=16, max_new=64,
            prompt_lengths=(24, 40, 57, 71, 96, 120, 33, 64), no_drop=4.0,
            cal_factor=2.0, eager_new=16)
+# The moe_train phase: mixtral-8x7b at full width (d_model 4096, 32/8
+# heads of 128, d_ff 14336, 8 experts, top-2, vocab 32000, bf16, capacity
+# factor 1.25), cut to 2 of its 32 layers and to 4096 tokens of the
+# published 32768 context (profile_flagship's MOE_TRAIN_MODEL), on
+# [``batch``, ``seq``] tokens, full remat, AdamW at ``lr``. First the
+# flash kernels at its attention shape (1, 4096, 32, 8, 128) bf16 against
+# their plain versions with the kernel and backward phases' tolerances;
+# then ``steps`` make_train_step steps on one seeded batch, each step's
+# launches pinned, and ``profiled`` more traced by profile_flagship (the
+# step's ranges and the MoE MLP's "moe.route" and "moe.experts"). The
+# moe_trainer phase runs the same model through Trainer as the trainer
+# phase runs flagship-1b (TRAINER's steps, crash_at and loss_rtol; a
+# token file of ``file_batches`` batches), on a filesystem in memory: a
+# checkpoint of this model is 3.16e10 B (its largest file, one float32
+# moment of w_gate, 3.76e9 B), and the script keeps its writes to disk
+# under 45 GiB, of which the trainer phase's two flagship-1b checkpoints
+# take 1.97e10 B. So it writes one checkpoint, the crashed run's interval
+# save, which the resumed run restores and load_serving_params serves
+# into a DecodeEngine (SERVE_KW's sizes) against one on the crashed
+# trainer's parameters: the greedy tokens of ``prompts`` of the moe
+# phase's prompts, ``max_new`` each.
+MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
+                 max_new=16, file_batches=4.5, io_workers=4)
+# The ec phase: one striped block group of hadoop_tpu's default
+# dfs.blocksize (``unit_bytes`` per unit; hadoop_tpu/conf/registry.py) of
+# seeded random bytes for each RS policy of hadoop_tpu/io/erasurecode.py
+# (RS(3,2), RS(6,3), RS(10,4)), through encode_cells and decode_cells
+# (the main path: one launch each), the data restored after each erasure
+# pattern of EC_PATTERNS; then the kernel's parity against the plain
+# version's and the numpy host coder's (``_gf_matmul`` over column slices
+# in ``host_threads`` threads), byte for byte, and the same at odd
+# ``odd``-byte cells. GB/s of data: the kernel (CUDA events, ``timed``
+# launches), the plain version (one call), the host coder (encode on the
+# whole group; decode on the first ``host_slice`` bytes of each unit).
+EC = dict(unit_bytes=134217728, schemas=((3, 2), (6, 3), (10, 4)),
+          odd=1021, timed=10, host_slice=16 << 20, host_threads=8)
+# lost units per schema: two data units and one parity unit, data units
+# 0, 2 and 5 (tests/test_erasure_coding.py:234-262, cut to m losses), and
+# for RS(10,4) four data units
+EC_PATTERNS = {(3, 2): ((1, 4), (0, 2)),
+               (6, 3): ((1, 4, 8), (0, 2, 5)),
+               (10, 4): ((1, 4, 12), (0, 2, 5), (2, 5, 8, 9))}
+# the 32-bit integer units' rate, for the EC kernel's own operation count:
+# 64 a clock on each of the 132 SMs (NVIDIA Hopper architecture white
+# paper) at the 1980 MHz boost clock (H100 SXM data sheet)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -468,7 +535,8 @@ def zero_counts():
 
 # ------------------------------------------------------------------ phases
 
-KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "adamw", "dequant", "rmsnorm"]
+KERNEL_SOURCES = ["flash_fwd", "flash_bwd", "adamw", "dequant", "rmsnorm",
+                  "ec_gf256"]
 
 
 def ptxas_report(log):
@@ -529,6 +597,34 @@ def phase_build():
     return smi
 
 
+def fwd_record(q, k, v):
+    """The flash forward on q, k, v against its plain version: max |dO|
+    and |d lse|, the tolerance for the dtype, ms beside the plain version
+    and SDPA, and the rates against its bound."""
+    b, s, hq, d = q.shape
+    scale = d ** -0.5
+    o, lse = flash.flash_forward(q, k, v, scale)
+    o_ref, lse_ref = flash.flash_attention_ref(q, k, v, scale)
+    torch.cuda.synchronize()
+    rec = {"max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
+           "max_abs_err_lse": (lse - lse_ref).abs().max().item(),
+           "tol": list(TOLERANCE[q.dtype])}
+    del o, lse, o_ref, lse_ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec.update(
+        ms=cuda_ms(lambda: flash.flash_forward(q, k, v, scale), 20),
+        plain_ms=cuda_ms(lambda: flash.flash_attention_ref(q, k, v, scale),
+                         5),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 20))
+    return add_rates(rec, flash_bound(b, s, hq, k.shape[2], d, q.dtype))
+
+
+def fwd_ok(rec):
+    tol_o, tol_lse = rec["tol"]
+    return rec["max_abs_err"] <= tol_o and rec["max_abs_err_lse"] <= tol_lse
+
+
 def phase_kernel():
     """Kernel against its plain version at every listed shape; returns
     the flagship bf16 record for the kernels line."""
@@ -540,36 +636,17 @@ def phase_kernel():
                                      device="cuda")).to(dtype)
             k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
             v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
-            scale = d ** -0.5
-            o, lse = flash.flash_forward(q, k, v, scale)
-            o_ref, lse_ref = flash.flash_attention_ref(q, k, v, scale)
-            torch.cuda.synchronize()
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_lse = (lse - lse_ref).abs().max().item()
-            tol_o, tol_lse = TOLERANCE[dtype]
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            rec = {
-                "phase": "kernel", "name": "flash_fwd",
-                "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
-                "q_scale": q_mul,
-                "max_abs_err": err_o, "max_abs_err_lse": err_lse,
-                "tol": [tol_o, tol_lse],
-                "ms": cuda_ms(lambda: flash.flash_forward(q, k, v, scale),
-                              20),
-                "plain_ms": cuda_ms(
-                    lambda: flash.flash_attention_ref(q, k, v, scale), 5),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=scale,
-                    enable_gqa=True), 20),
-            }
-            add_rates(rec, flash_bound(b, s, hq, hkv, d, dtype))
+            rec = {"phase": "kernel", "name": "flash_fwd",
+                   "shape": [b, s, hq, hkv, d], "dtype": str(dtype),
+                   "q_scale": q_mul, **fwd_record(q, k, v)}
             emit(rec)
-            require(err_o <= tol_o and err_lse <= tol_lse,
+            require(fwd_ok(rec),
                     f"flash_fwd disagrees with its plain version at "
-                    f"{rec['shape']} {dtype}: O {err_o}, LSE {err_lse}")
+                    f"{rec['shape']} {dtype}: O {rec['max_abs_err']}, LSE "
+                    f"{rec['max_abs_err_lse']}")
             if flagship is None:
                 flagship = rec
-            del q, k, v, o, lse, o_ref, lse_ref
+            del q, k, v
     return flagship
 
 
@@ -588,6 +665,43 @@ def sdpa_backward_ms(q, k, v, do, scale):
     return both - cuda_ms(fwd, 10)
 
 
+def bwd_record(q, k, v, do):
+    """Both backward kernels on q, k, v, dO (O and lse from the forward
+    kernel) against their plain version: max |d grad| and its share of
+    max |grad| per gradient, the tolerance for the dtype, the plain
+    version's and SDPA's backward ms, and per kernel its ms and rates.
+    Returns the record and (o, lse, (dq, dk, dv))."""
+    b, s, hq, d = q.shape
+    hkv, dtype, scale = k.shape[2], q.dtype, d ** -0.5
+    o, lse = flash.flash_forward(q, k, v, scale)
+    got = flash.flash_backward(q, k, v, o, lse, do, scale)
+    want = flash.flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    err = {n: (g.float() - w.float()).abs().max().item()
+           for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    rel = {n: err[n] / w.float().abs().max().item()
+           for n, w in zip(("dq", "dk", "dv"), want)}
+    del want
+    _, delta = flash._launch_bwd_dq(q, k, v, o, lse, do, scale)
+    rec = {"max_abs_err": err, "rel_err": rel, "tol": BWD_TOLERANCE[dtype],
+           "plain_ms": cuda_ms(lambda: flash.flash_attention_bwd_ref(
+               q, k, v, o, lse, do, scale), 3),
+           "library_ms": sdpa_backward_ms(q, k, v, do, scale)}
+    for name, fn in (
+            ("dq", lambda: flash._launch_bwd_dq(q, k, v, o, lse, do, scale)),
+            ("dkv", lambda: flash._launch_bwd_dkv(q, k, v, lse, delta, do,
+                                                  scale))):
+        rec[name] = add_rates({"ms": cuda_ms(fn, 10)}, bwd_bound(
+            b, s, hq, hkv, d, dtype, name))
+    rec["dq"]["max_abs_err"] = err["dq"]
+    rec["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
+    return rec, (o, lse, got)
+
+
+def bwd_ok(rec):
+    return all(r <= rec["tol"] for r in rec["rel_err"].values())
+
+
 def phase_backward():
     """Both backward kernels against their plain version at every listed
     shape, and once through ``FlashAttention`` with autograd; returns the
@@ -601,45 +715,23 @@ def phase_backward():
                      for m in (q_mul, 1))
             k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda")
                     .to(dtype) for _ in range(2))
-            scale = d ** -0.5
-            o, lse = flash.flash_forward(q, k, v, scale)
-            got = flash.flash_backward(q, k, v, o, lse, do, scale)
-            want = flash.flash_attention_bwd_ref(q, k, v, o, lse, do, scale)
-            torch.cuda.synchronize()
-            err = {n: (g.float() - w.float()).abs().max().item()
-                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-            rel = {n: err[n] / w.float().abs().max().item()
-                   for n, w in zip(("dq", "dk", "dv"), want)}
-            tol = BWD_TOLERANCE[dtype]
-            _, delta = flash._launch_bwd_dq(q, k, v, o, lse, do, scale)
+            got, (o, lse, grads) = bwd_record(q, k, v, do)
             rec = {"phase": "backward", "shape": [b, s, hq, hkv, d],
-                   "dtype": str(dtype), "q_scale": q_mul,
-                   "max_abs_err": err,
-                   "rel_err": rel, "tol": tol,
-                   "plain_ms": cuda_ms(lambda: flash.flash_attention_bwd_ref(
-                       q, k, v, o, lse, do, scale), 3),
-                   "library_ms": sdpa_backward_ms(q, k, v, do, scale)}
-            for name, fn in (
-                    ("dq", lambda: flash._launch_bwd_dq(
-                        q, k, v, o, lse, do, scale)),
-                    ("dkv", lambda: flash._launch_bwd_dkv(
-                        q, k, v, lse, delta, do, scale))):
-                rec[name] = add_rates({"ms": cuda_ms(fn, 10)}, bwd_bound(
-                    b, s, hq, hkv, d, dtype, name))
-            rec["dq"]["max_abs_err"] = err["dq"]
-            rec["dkv"]["max_abs_err"] = max(err["dk"], err["dv"])
+                   "dtype": str(dtype), "q_scale": q_mul, **got}
             emit(rec)
-            require(all(r <= tol for r in rel.values()),
+            require(bwd_ok(rec),
                     f"flash backward disagrees with its plain version at "
-                    f"{rec['shape']} {dtype}: {rel} (tolerance {tol})")
+                    f"{rec['shape']} {dtype}: {rec['rel_err']} (tolerance "
+                    f"{rec['tol']})")
             if (b, s, dtype) == (TRAIN["batch"], TRAIN["seq"],
                                  torch.bfloat16):
-                check_function(q, k, v, do, scale, o, got)
+                scale = d ** -0.5
+                check_function(q, k, v, do, scale, o, grads)
                 emit({"phase": "gqa_rounding", "shape": rec["shape"],
                       "rel_diff": gqa_rounding(q, k, v, o, lse, do, scale,
-                                               got)})
+                                               grads)})
                 training = rec
-            del q, k, v, do, o, lse, got, want, delta
+            del q, k, v, do, o, lse, grads
     require(training is not None, "no backward record at the training shape")
     return training
 
@@ -788,6 +880,12 @@ def _ledger_bytes():
             "memory_allocated": torch.cuda.memory_allocated()}
 
 
+def _mem_available():
+    """The host's available memory in bytes (/proc/meminfo)."""
+    return int(re.search(r"MemAvailable:\s+(\d+) kB", open(
+        "/proc/meminfo").read()).group(1)) * 1024
+
+
 def phase_trainer(train_rec, fs, root):
     """flagship-1b through ``Trainer`` (this slice's main path), on ``fs``
     under the directory ``root``: the uninterrupted run, the crashed run
@@ -809,8 +907,7 @@ def phase_trainer(train_rec, fs, root):
     require(free_disk > 2.2 * ckpt_bytes,
             f"{free_disk} B free under {root}: two checkpoints of "
             f"{ckpt_bytes} B do not fit")
-    mem_avail = int(re.search(r"MemAvailable:\s+(\d+) kB", open(
-        "/proc/meminfo").read()).group(1)) * 1024
+    mem_avail = _mem_available()
     require(mem_avail > 2 * ckpt_bytes,
             f"{mem_avail} B of host memory available for snapshots of "
             f"{ckpt_bytes} B")
@@ -2062,7 +2159,8 @@ def phase_adamw():
     """adamw.cu's update and squared norm against their plain versions
     on flagship-1b's leaves (bf16; random gradients and moments from a
     seed; step ``ADAMW["count"]``), timed against the plain versions and,
-    as a yardstick, ``torch.optim.AdamW(fused=True)`` over the same
+    as a yardstick of another function (no library time: no PyTorch call
+    computes this one), ``torch.optim.AdamW(fused=True)`` over the same
     leaves (decay groups split by ndim; its moments in bf16 and no clip);
     the squared norm against ``torch.nn.utils.get_total_norm(grads, 2.0)``
     squared. Returns the records of the two kernels for the kernels
@@ -2136,7 +2234,12 @@ def phase_adamw():
         "adamw": add_rates({
             "ms": cuda_ms(lambda: run(optimizer._launch_adamw), 5),
             "plain_ms": cuda_ms(lambda: run(optimizer.adamw_leaf_ref), 2),
-            "library_ms": cuda_ms(lib.step, 5),
+            # no PyTorch call computes this update: the fused AdamW keeps
+            # its moments in the parameters' dtype (bf16: 14 B a
+            # parameter against 22) and clips nothing; timed beside it as
+            # a yardstick of another function
+            "library_ms": None,
+            "fused_adamw_bf16_moments_ms": cuda_ms(lib.step, 5),
             "max_abs_err": p_err},
             _bound(upd_bytes, ADAMW_FLOPS * n, torch.float32)),
         "grad_sq": add_rates({
@@ -3294,6 +3397,545 @@ def phase_moe():
     free_device()
 
 
+# ------------------------------------------------------- MoE training
+
+def _flash_case(b, s, hq, hkv, d, dtype):
+    """The flash forward, dQ and dK/dV kernels at one shape against their
+    plain versions, as the kernel and backward phases hold them. Returns
+    the records {"fwd", "bwd"}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    q, do = (torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out = {"fwd": fwd_record(q, k, v), "bwd": bwd_record(q, k, v, do)[0]}
+    del q, k, v, do
+    free_device()
+    require(fwd_ok(out["fwd"]) and bwd_ok(out["bwd"]),
+            f"flash kernels disagree with their plain versions at "
+            f"{[b, s, hq, hkv, d]} {dtype}: {out}")
+    return out
+
+
+def _moe_step_flops(cfg, t):
+    """(all, f32 combine) model FLOPs of one full-remat training step on
+    ``t`` tokens: each layer's forward runs twice and its backward costs
+    two forwards; the head's forward once and its backward two. A layer's
+    forward: the q/k/v/o projections, causal attention over the
+    t(t+1)/2 visible pairs, the router, the dispatch and combine einsums
+    over the E·C capacity slots, and the experts' three GEMMs on them.
+    The combine (float32) is 2·t·E·C·D of it."""
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff
+    C = moe_capacity(t, cfg)
+    dkv = cfg.n_kv_heads * cfg.head_dim
+    attn = 2 * t * D * (2 * D + 2 * dkv) + \
+        4 * cfg.n_heads * cfg.head_dim * t * (t + 1) / 2
+    combine = 2 * t * E * C * D
+    layer = attn + 2 * t * D * E + 2 * combine + 3 * 2 * E * C * D * F
+    return (cfg.n_layers * 4 * layer + 3 * 2 * t * D * cfg.vocab_size,
+            cfg.n_layers * 4 * combine)
+
+
+def _reckon_moe_peak(cfg, t):
+    """Device bytes the step should peak at, reckoned before the run: the
+    parameters, two float32 moments and the gradients; the expert stacks'
+    gradients once more (each layer's slices are stacked into the leaf's
+    gradient while they are alive); and one layer's routing tensors in
+    the recompute (the int64 slot one-hot [t, K, E, C + 1], three float32
+    [t, K, E, C] products and the float32 [t, E, C] dispatch and
+    combine)."""
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    n = sum(p.numel() for p in tree_leaves(shapes))
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    experts = sum(shapes["layers"][k].numel()
+                  for k in ("w_gate", "w_up", "w_down"))
+    K, E, C = cfg.top_k, cfg.n_experts, moe_capacity(t, cfg)
+    route = t * K * E * (C + 1) * 8 + 3 * t * K * E * C * 4 + \
+        2 * t * E * C * 4
+    return {"state": n * (2 * elt + 8), "expert_grads_stacked":
+            experts * elt, "routing_one_layer": route,
+            "total": n * (2 * elt + 8) + experts * elt + route}
+
+
+def phase_moe_train():
+    """mixtral-8x7b (MOE_TRAIN) through ``make_train_step``: the flash
+    kernels at its shape, then 6 steps on one seeded batch (finite losses,
+    the last below the first, each step's launches pinned), step ms from
+    CUDA events, tokens/s and peak memory beside the reckoning, and one
+    profiled step. Returns the launches of the 6 steps (train_counts)."""
+    free_device()
+    cfg = moe_train_config()
+    b, t = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    kernels = _flash_case(b, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.torch_dtype)
+    reckoned = _reckon_moe_peak(cfg, b * t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    params, opt = init_train_state(cfg, gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device="cuda",
+                           generator=gen)
+    targets = torch.roll(tokens, -1, dims=1)
+    step = make_train_step(cfg, MeshPlan(), lr=MOE_TRAIN["lr"],
+                           remat="full")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses, step_ms, per_step = [], [], []
+    zero_counts()                             # the main path's run
+    for _ in range(MOE_TRAIN["steps"]):
+        before = train_counts()
+        start.record()
+        params, opt, metrics = step(params, opt, tokens, targets)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+        per_step.append([a - b for a, b in zip(train_counts(), before)])
+    launches = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timed_ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    flops, combine_flops = _moe_step_flops(cfg, b * t)
+    prof = train_profile(cfg, params, opt, tokens, MOE_TRAIN["profiled"],
+                         "train step mixtral-8x7b 2 layers bf16 [1,4096] "
+                         "remat full adamw", TRAIN_RANGES + MOE_RANGES)
+    ranges = prof["ranges"]
+    want = train_counts_want(cfg, len(tree_leaves(params)))
+    emit({"phase": "moe_train", "model": "mixtral-8x7b", "dtype": cfg.dtype,
+          "reduced": {"n_layers": [cfg.n_layers, 32],
+                      "context": [t, 32768]},
+          "tokens": [b, t], "remat": "full", "optimizer": "adamw",
+          "lr": MOE_TRAIN["lr"], "params": n_params,
+          "capacity": moe_capacity(b * t, cfg),
+          "capacity_factor": cfg.capacity_factor,
+          "flash": {"shape": [b, t, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim], **kernels},
+          "losses": losses, "grad_norm": metrics["grad_norm"].item(),
+          "step_ms": step_ms, "timed_step_ms": timed_ms,
+          "tokens_per_s": b * t / (timed_ms / 1e3),
+          "model_flops_per_step": flops,
+          "f32_combine_flops_per_step": combine_flops,
+          "tflops": flops / (timed_ms * 1e-3) / 1e12,
+          "peak_memory_bytes": peak, "peak_reckoned_bytes": reckoned,
+          "profiled_device_ms": prof["device_ms"],
+          "profiled_idle_share": prof["idle_share"],
+          "range_kernel_ms": {k: ranges[k].get("kernel_ms")
+                              for k in TRAIN_RANGES + MOE_RANGES},
+          "route_share": ranges["moe.route"]["kernel_ms"]
+          / prof["device_ms"],
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq_normf_normb":
+              per_step, "launches_per_step_expected": want})
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    require(all(c == want for c in per_step),
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm "
+            f"fwd, rms_norm bwd) {per_step}, expected {want}")
+    del params, opt, step, metrics
+    free_device()
+    return launches
+
+
+def _pinned_bytes(nbytes):
+    """Page-locked bytes the caching host allocator hands out for blocks
+    of these sizes: each rounded up to a power of two."""
+    return sum(1 << (n - 1).bit_length() for n in nbytes)
+
+
+class MemoryFileSystem:
+    """A filesystem in this process's memory, with the nine methods of
+    ``hadoop_tpu_torch.fs.FileSystemLike``: where the moe_trainer phase
+    keeps its token file and checkpoint (see MOE_TRAIN)."""
+
+    def __init__(self):
+        self.files = {}
+        self.dirs = {""}
+
+    def mkdirs(self, path):
+        parts = path.rstrip("/").split("/")
+        self.dirs.update("/".join(parts[:i]) for i in range(len(parts) + 1))
+        return True
+
+    def write_all(self, path, data, overwrite=True):
+        self.mkdirs(path.rsplit("/", 1)[0])
+        self.files[path] = bytes(data)
+
+    def read_all(self, path):
+        if path not in self.files:
+            raise FileNotFoundError(path)
+        return self.files[path]
+
+    def open(self, path):
+        return io.BytesIO(self.read_all(path))
+
+    def exists(self, path):
+        path = path.rstrip("/")
+        return path in self.files or path in self.dirs
+
+    def get_file_status(self, path):
+        path = path.rstrip("/")
+        if path in self.files:
+            return FileStatus(path, False, len(self.files[path]))
+        if path in self.dirs:
+            return FileStatus(path, True)
+        raise FileNotFoundError(path)
+
+    def list_status(self, path):
+        st = self.get_file_status(path)
+        if not st.is_dir:
+            return [st]
+        head = st.path + "/"
+        names = {p[len(head):].split("/", 1)[0]
+                 for p in list(self.files) + list(self.dirs)
+                 if p.startswith(head) and p != head}
+        return [self.get_file_status(head + n) for n in sorted(names)]
+
+    def delete(self, path, recursive=False):
+        path = path.rstrip("/")
+        under = [p for p in self.files if p.startswith(path + "/")]
+        if not self.exists(path):
+            return False
+        if under and not recursive:
+            raise OSError(f"{path} is non-empty")
+        for p in under + [path]:
+            self.files.pop(p, None)
+        self.dirs = {d for d in self.dirs
+                     if d != path and not d.startswith(path + "/")}
+        return True
+
+    def rename(self, src, dst):
+        self.files[dst] = self.files.pop(src)
+        return True
+
+
+def phase_moe_trainer():
+    """The moe_train model through ``Trainer`` as the trainer phase runs
+    flagship-1b, on an in-memory filesystem (MOE_TRAIN says why): the
+    uninterrupted run, the run that crashes after its interval save and
+    the fresh Trainer that resumes from it (losses within TRAINER's
+    loss_rtol, launches pinned per step); the checkpoint's bytes, write,
+    fence and restore times; then ``load_serving_params`` on that
+    checkpoint into a ``DecodeEngine`` against an engine on the crashed
+    trainer's parameters as it saved them. Returns the launches of the
+    three runs (train_counts)."""
+    free_device()
+    torch._C._host_emptyCache()          # earlier phases' page-locked cache
+    cfg = moe_train_config()
+    batch, seq = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    n_params = sum(p.numel() for p in tree_leaves(shapes))
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    ckpt_bytes = n_params * (elt + 4 + 4) + 4 + 8
+    leaf_bytes = [p.numel() * k for p in tree_leaves(shapes)
+                  for k in (elt, 4, 4)]
+    # the checkpoint, its page-locked snapshot, and a write's or a
+    # restore's copies of the largest leaf
+    host_need = ckpt_bytes + _pinned_bytes(leaf_bytes) + 2 * max(leaf_bytes)
+    mem_avail = _mem_available()
+    require(mem_avail > host_need,
+            f"{mem_avail} B of host memory available, {host_need} B needed "
+            f"for a checkpoint of {ckpt_bytes} B in memory")
+    fs, root = MemoryFileSystem(), "/moe"
+    n_tokens = int(MOE_TRAIN["file_batches"] * batch * (seq + 1))
+    data = f"{root}/tokens.bin"
+    fs.write_all(data, torch.randint(
+        0, cfg.vocab_size, (n_tokens,),
+        generator=torch.Generator().manual_seed(SEED + 42)).numpy()
+        .astype(np.uint16).tobytes())
+
+    def trainer(path, **kw):
+        return Trainer(cfg, MeshPlan(), fs, data, f"{root}/{path}",
+                       batch=batch, lr=MOE_TRAIN["lr"], remat="full",
+                       seed=SEED, **kw)
+
+    steps, crash_at = TRAINER["steps"], TRAINER["crash_at"]
+    per_step = []
+    zero_counts()                             # the main path's run
+    u = trainer("uninterrupted", ckpt_interval=0)
+    _counted_steps(u, per_step)
+    losses = u.train(steps)
+    torch.cuda.synchronize()
+    step_ms = [st.elapsed_time(e) for _, st, e in per_step]
+    u_anatomy = _anatomy(u)
+    u.close()
+    del u
+    free_device()
+
+    a = trainer("resumed", ckpt_interval=crash_at, keep=1)
+    _counted_steps(a, per_step)
+    t0 = time.monotonic()
+    crashed = a.train(crash_at)             # the exit fence included
+    crashed_wall = time.monotonic() - t0
+    require(list_checkpoints(fs, f"{root}/resumed") == [crash_at],
+            "the interval save is not durable at train()'s exit")
+    host = tree_map(lambda x: x.cpu(), a.params)
+    a_anatomy = _anatomy(a)
+    a.close()
+    del a                                     # as a crash leaves it
+    free_device()
+    torch._C._host_emptyCache()               # the snapshot's pages
+    step_dir = f"{root}/resumed/step_{crash_at:012d}"
+    sizes = {st.path.rsplit("/", 1)[-1]: st.length
+             for st in fs.list_status(step_dir)}
+    shard_bytes = sum(n for f, n in sizes.items() if f != "manifest.json")
+    largest_shard = max(sizes.values())
+
+    b = trainer("resumed", ckpt_interval=0, keep=1)
+    _counted_steps(b, per_step)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    restored = b.try_restore()
+    torch.cuda.synchronize()
+    restore_ms = (time.monotonic() - t0) * 1e3
+    require(restored and b.step == crash_at,
+            f"try_restore: {restored}, step {b.step}")
+    resumed = b.train(steps - crash_at)
+    ledger = _ledger_bytes()
+    launches = train_counts()
+    b_anatomy = _anatomy(b)
+    b.close()
+    del b
+    free_device()
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params, step = load_serving_params(fs, f"{root}/resumed", cfg,
+                                       io_workers=MOE_TRAIN["io_workers"])
+    torch.cuda.synchronize()
+    load_ms = (time.monotonic() - t0) * 1e3
+    unequal = [i for i, (x, y) in enumerate(zip(tree_leaves(params),
+                                                tree_leaves(host)))
+               if x.dtype != y.dtype or not torch.equal(x.cpu(), y)]
+    del fs
+    prompts = _moe_prompts(cfg.vocab_size)[:MOE_TRAIN["prompts"]]
+    greedy = SamplingParams(max_new_tokens=MOE_TRAIN["max_new"])
+    served = []
+    for tree in (params, tree_map(lambda x: x.cuda(), host)):
+        eng = DecodeEngine(tree, cfg, **SERVE_KW)
+        served.append(eng.generate(prompts, greedy))
+        eng.stop()
+        del eng, tree
+    del params, host
+    free_device()
+
+    rel = [abs(g - w) / abs(w) for g, w in zip(resumed, losses[crash_at:])]
+    want = train_counts_want(cfg, len(tree_leaves(shapes)))
+    emit({"phase": "moe_trainer", "model": "mixtral-8x7b", "dtype": cfg.dtype,
+          "reduced": {"n_layers": [cfg.n_layers, 32],
+                      "context": [seq, 32768]},
+          "filesystem": "in memory", "tokens": [batch, seq],
+          "remat": "full", "optimizer": "adamw", "params": n_params,
+          "data_tokens": n_tokens,
+          "losses_uninterrupted": losses, "losses_crashed": crashed,
+          "losses_resumed": resumed, "resumed_rel_err": rel,
+          "resumed_bit_equal": resumed == losses[crash_at:],
+          "step_ms": step_ms,
+          "tokens_per_s": batch * seq / (sum(step_ms[1:]) / (steps - 1)
+                                         / 1e3),
+          "crashed_train_wall_ms": crashed_wall * 1e3,
+          "anatomy": {"uninterrupted": u_anatomy, "crashed": a_anatomy,
+                      "resumed": b_anatomy},
+          "restore_ms": restore_ms,
+          "checkpoint_shard_bytes": shard_bytes,
+          "checkpoint_largest_file_bytes": largest_shard,
+          "checkpoint_manifest_bytes": sizes.get("manifest.json"),
+          "checkpoint_files": len(sizes), "hbm_ledger_bytes": ledger,
+          "host_mem_available_bytes": mem_avail,
+          "host_bytes_needed": host_need,
+          "loader": {"step": step, "load_ms": load_ms,
+                     "params_bit_equal": not unequal,
+                     "prompt_tokens": [len(p) for p in prompts],
+                     "tokens_loaded": served[0],
+                     "tokens_in_memory": served[1]},
+          "launches_per_step_fwd_dq_dkv_adamw_grad_sq_normf_normb":
+              [c for c, _, _ in per_step]})
+    require(len(losses) == steps and len(crashed) == crash_at and
+            len(resumed) == steps - crash_at, "steps lost")
+    require(all(math.isfinite(x) for x in losses + crashed + resumed),
+            "non-finite loss")
+    require(max(abs(g - w) / abs(w) for g, w in zip(crashed, losses)) <=
+            TRAINER["loss_rtol"], "the crashed run left the curve")
+    require(max(rel) <= TRAINER["loss_rtol"],
+            f"resumed losses {resumed} vs {losses[crash_at:]}")
+    require(all(c == want for c, _, _ in per_step),
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm "
+            f"fwd, rms_norm bwd), expected {want}")
+    require(len(per_step) == 2 * steps, f"{len(per_step)} steps counted")
+    require(shard_bytes == ckpt_bytes,
+            f"checkpoint shards {shard_bytes} B, expected {ckpt_bytes}")
+    require(largest_shard > 2 ** 31, f"largest shard {largest_shard} B")
+    require(ledger["params"] == elt * n_params and
+            ledger["opt_state"] == 8 * n_params, f"ledger {ledger}")
+    require(step == crash_at and not unequal,
+            f"loaded step {step}; leaves {unequal} differ from the "
+            "crashed trainer's")
+    require(served[0] == served[1], "greedy tokens differ")
+    return launches
+
+
+# --------------------------------------------------------- EC coding
+
+def _host_coder(mat, cells, threads):
+    """The numpy host coder (``_gf_matmul``) over ``threads`` column
+    slices of ``cells`` [k, n] uint8 at once (numpy's gathers and XORs
+    run outside the GIL); the same bytes as one call."""
+    n = cells.shape[1]
+    edges = [n * i // threads for i in range(threads + 1)]
+    with ThreadPoolExecutor(threads) as ex:
+        parts = list(ex.map(lambda i: _gf_matmul(
+            mat, cells[:, edges[i]:edges[i + 1]]), range(threads)))
+    return np.concatenate(parts, axis=1)
+
+
+def _ec_bound(k, r, w):
+    """(bound_ms, bound_by, ops) of applying an [r, k] matrix to W word
+    columns: each data word read once and each output word written once
+    at the memory rate, the floor of any implementation (no PyTorch call
+    and no table rate bounds GF(256) work lower); beside it the kernel's
+    own count, 4 integer operations a term, 8·k·r terms a column."""
+    nbytes = (k + r) * 4 * w
+    ops = 32 * k * r * w
+    return (nbytes / MEM_BYTES_PER_S * 1e3, "bytes", ops)
+
+
+def phase_ec():
+    """ec_gf256.cu on one block group per RS policy (EC): encode_cells and
+    decode_cells as a user calls them (launches counted), the data
+    restored after each pattern of EC_PATTERNS; then the kernel against
+    its plain version and the host coder, bit for bit, and timed; odd
+    1021-byte cells. Returns the RS(6,3) encode's record for the kernels
+    line."""
+    unit, threads = EC["unit_bytes"], EC["host_threads"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    schemas, main_launches, record = [], 0, None
+    for k, m in EC["schemas"]:
+        words = torch.randint(-2 ** 31, 2 ** 31, (k, unit // 4),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+        host = words.cpu().numpy().view(np.uint8)             # [k, unit]
+        cells = [host[i].tobytes() for i in range(k)]
+        # the main path: the user's entry points, one launch each
+        ec_device.launches = 0
+        t0 = time.monotonic()
+        parity = ec_device.encode_cells(k, m, cells)
+        encode_s = time.monotonic() - t0
+        restored = {}
+        for lost in EC_PATTERNS[(k, m)]:
+            shards = [None if u in lost else c
+                      for u, c in enumerate(cells + parity)]
+            t0 = time.monotonic()
+            restored[str(lost)] = (ec_device.decode_cells(k, m, shards)
+                                   == cells, time.monotonic() - t0)
+        launches = ec_device.launches
+        main_launches += launches
+        del shards
+
+        # the kernel against its plain version and the host coder
+        mat = _cauchy_parity_matrix(k, m)
+        enc = ec_device.device_encoder(k, m)
+        got = enc(words)
+        plain = ec_device.apply_matrix_ref(enc.consts, words)
+        t0 = time.monotonic()
+        host_parity = _host_coder(mat, host, threads)
+        host_encode_s = time.monotonic() - t0
+        got_bytes = got.cpu().numpy().view(np.uint8)
+        rec = add_rates({
+            "ms": cuda_ms(lambda: enc(words), EC["timed"]),
+            "plain_ms": cuda_ms(lambda: ec_device.apply_matrix_ref(
+                enc.consts, words), 1),
+            "library_ms": None,
+            "max_abs_err": 0 if torch.equal(got, plain) else None},
+            _ec_bound(k, m, unit // 4))
+        rec["int_tops"] = rec.pop("tflops")     # 10^12 integer ops / s
+        rec["design_ops_ms"] = 32 * k * m * (unit // 4) / INT32_OPS_PER_S \
+            * 1e3
+        full = torch.cat([words, got])
+        decodes = {}
+        for lost in EC_PATTERNS[(k, m)]:
+            fn, rows = ec_device.device_decode(
+                k, m, [u for u in range(k + m) if u not in lost])
+            surv = full[rows]
+            back = fn(surv)
+            inv = _gf_invert(np.vstack([np.eye(k, dtype=np.uint8),
+                                        mat])[rows])
+            cut = EC["host_slice"]
+            slices = surv[:, :cut // 4].cpu().numpy().view(np.uint8)
+            t0 = time.monotonic()
+            host_back = _host_coder(inv, slices, threads)
+            host_s = time.monotonic() - t0
+            decodes[str(lost)] = {
+                "kernel_equal_data": torch.equal(back, words),
+                "plain_equal_kernel": torch.equal(
+                    ec_device.apply_matrix_ref(fn.consts, surv), back),
+                "host_equal_data_slice": np.array_equal(
+                    host_back, host[:, :cut]),
+                "ms": cuda_ms(lambda: fn(surv), EC["timed"]),
+                "host_gb_per_s": k * cut / host_s / 1e9}
+            del surv, back
+        rec.update(schema=[k, m], unit_bytes=unit,
+                   data_bytes=k * unit,
+                   launches_main_path=launches,
+                   encode_cells_s=encode_s,
+                   decode_cells=restored,
+                   parity_equal_plain=torch.equal(got, plain),
+                   parity_equal_host=np.array_equal(got_bytes, host_parity),
+                   encode_cells_equal_host=[c == h.tobytes() for c, h in
+                                            zip(parity, host_parity)],
+                   gb_per_s=k * unit / rec["ms"] / 1e6,
+                   plain_gb_per_s=k * unit / rec["plain_ms"] / 1e6,
+                   host_gb_per_s=k * unit / host_encode_s / 1e9,
+                   decode=decodes,
+                   decode_gb_per_s={p: k * unit / d["ms"] / 1e6
+                                    for p, d in decodes.items()})
+        del words, got, plain, full, host, cells, parity, host_parity
+        free_device()
+        schemas.append(rec)
+        if (k, m) == (6, 3):
+            record = rec
+
+    # odd 1021-byte cells through the entry points, device and CPU
+    odd = []
+    rng = np.random.default_rng(SEED + 51)
+    for k, m in EC["schemas"]:
+        cells = [rng.integers(0, 256, EC["odd"], dtype=np.uint8).tobytes()
+                 for _ in range(k)]
+        parity = ec_device.encode_cells(k, m, cells)
+        host_parity = _gf_matmul(_cauchy_parity_matrix(k, m), np.stack(
+            [np.frombuffer(c, np.uint8) for c in cells]))
+        restored = []
+        for lost in EC_PATTERNS[(k, m)]:
+            shards = [None if u in lost else c
+                      for u, c in enumerate(cells + parity)]
+            restored.append(ec_device.decode_cells(k, m, shards) == cells)
+        odd.append({"schema": [k, m], "cell_bytes": EC["odd"],
+                    "equal_host": parity == [r.tobytes()
+                                             for r in host_parity],
+                    "equal_plain": parity == ec_device.encode_cells(
+                        k, m, cells, device="cpu"),
+                    "restored": restored})
+    emit({"phase": "ec", "schemas": schemas, "odd": odd,
+          "int32_ops_per_s": INT32_OPS_PER_S})
+    for rec in schemas:
+        tag = f"RS{tuple(rec['schema'])}"
+        require(rec["parity_equal_plain"] and rec["parity_equal_host"]
+                and all(rec["encode_cells_equal_host"]),
+                f"{tag}: the kernel's parity differs from the plain "
+                "version's or the host coder's")
+        require(all(ok for ok, _ in rec["decode_cells"].values()),
+                f"{tag}: decode_cells did not restore the data "
+                f"{rec['decode_cells']}")
+        require(all(d["kernel_equal_data"] and d["plain_equal_kernel"]
+                    and d["host_equal_data_slice"]
+                    for d in rec["decode"].values()),
+                f"{tag}: a decode differs {rec['decode']}")
+        require(rec["launches_main_path"] == 1 + len(rec["decode_cells"]),
+                f"{tag}: {rec['launches_main_path']} launches for one "
+                "encode and each decode")
+    require(all(o["equal_host"] and o["equal_plain"] and all(o["restored"])
+                for o in odd), f"odd cells: {odd}")
+    record["launches"] = main_launches
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3307,6 +3949,7 @@ def main() -> int:
     adamw = phase_adamw()
     dequant = phase_dequant()
     rms = phase_rmsnorm()
+    ec = phase_ec()
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -3334,6 +3977,8 @@ def main() -> int:
     int8_launches, _ = phase_longctx(int8=True, bf16_ms=cp_ms)
     norm_launches, dequant_launches = phase_longctx_decode()
     phase_moe()
+    moe_train_launches = phase_moe_train()
+    moe_trainer_launches = phase_moe_trainer()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     # launches: on each kernel's path of an earlier slice (the forward,
@@ -3344,13 +3989,20 @@ def main() -> int:
     # graphs, whose replays launch them uncounted) and the train phase's
     # 7 steps (RMSNorm's backward); launches_trainer: the trainer phase's
     # 12 steps through Trainer; launches_longctx_int8: one 8192-token CP
-    # prefill on the int8 plane
-    by_trainer = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                           "adamw", "grad_sq", "rms_norm_fwd",
-                           "rms_norm_bwd"), trainer_launches))
+    # prefill on the int8 plane; launches_moe_train: the moe_train phase's
+    # 6 mixtral-8x7b steps; launches_moe_trainer: the moe_trainer phase's
+    # 12 steps through Trainer; ec_gf256's launches: the ec phase's
+    # encode_cells and decode_cells calls on its three block groups
+    train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
+                   "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
+    by_trainer = dict(zip(train_names, trainer_launches))
+    by_moe_train = dict(zip(train_names, moe_train_launches))
+    by_moe_trainer = dict(zip(train_names, moe_trainer_launches))
     by_int8 = dict(zip(("flash_fwd", "flash_fwd_partial"), int8_launches))
     emit({"kernels": [dict(rec, launches_trainer=by_trainer.get(
-        rec["name"], 0), launches_longctx_int8=by_int8.get(rec["name"], 0))
+        rec["name"], 0), launches_longctx_int8=by_int8.get(rec["name"], 0),
+        launches_moe_train=by_moe_train.get(rec["name"], 0),
+        launches_moe_trainer=by_moe_trainer.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",
@@ -3399,7 +4051,14 @@ def main() -> int:
             "bound_ms": rms[key]["bound_ms"],
             "bound_by": rms[key]["bound_by"],
             "library_ms": rms[key]["library_ms"]}
-        for key, n in (("fwd", norm_launches), ("bwd", train_norm_bwd))]]})
+        for key, n in (("fwd", norm_launches), ("bwd", train_norm_bwd))] + [{
+            "name": "ec_gf256", "route": "cuda",
+            "source": "hadoop_tpu_torch/ops/csrc/ec_gf256.cu",
+            "replaces": "hadoop_tpu/ops/ec_device.py:63",
+            "launches": ec["launches"], "max_abs_err": ec["max_abs_err"],
+            "ms": ec["ms"], "plain_ms": ec["plain_ms"],
+            "bound_ms": ec["bound_ms"], "bound_by": ec["bound_by"],
+            "library_ms": None}]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,6 +9,13 @@ capacity gets no output from it (its residual passes through). The
 serving engine's fused step routes through :func:`route` too, so the
 capacity rule and the drop order are one.
 
+In training, gradients reach the router only through the renormalised
+top-k gate values in ``combine`` (the reference's ``jax.lax.top_k``):
+the dispatch one-hots carry none. There is no auxiliary loss, as in the
+reference. ``moe_mlp`` runs under two ``record_function`` ranges,
+"moe.route" (the routing and the dispatch and combine einsums) and
+"moe.experts" (the expert FFN), so a profile gives each its share.
+
 Expert parallelism (an ``ep`` axis and its all-to-all exchange) is
 multi-GPU work, ROADMAP Queue A 6: a ``ctx`` that names one raises.
 """
@@ -19,6 +26,7 @@ import math
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.ops import swiglu
@@ -76,8 +84,11 @@ def moe_mlp(h: torch.Tensor, lp, cfg: ModelConfig, ctx=None) -> torch.Tensor:
             "ROADMAP Queue A 6")
     B, S, D = h.shape
     x2d = h.reshape(B * S, D)
-    dispatch, combine = route(x2d, lp["router"], cfg)
-    xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2d)
-    ye = _expert_ffn(xe, lp, cfg)
-    y2d = torch.einsum("tec,ecd->td", combine, ye.float())
+    with record_function("moe.route"):
+        dispatch, combine = route(x2d, lp["router"], cfg)
+        xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2d)
+    with record_function("moe.experts"):
+        ye = _expert_ffn(xe, lp, cfg)
+    with record_function("moe.route"):
+        y2d = torch.einsum("tec,ecd->td", combine, ye.float())
     return y2d.reshape(B, S, D).to(h.dtype)

@@ -56,6 +56,9 @@ SIGNATURES = {
     "htpu_rms_norm_fwd": ("rmsnorm", 4, 3, 1, True),
     "htpu_rms_norm_bwd": ("rmsnorm", 6, 4, 0, True),
     "htpu_rms_norm_dw": ("rmsnorm", 2, 3, 0, True),
+    "htpu_ec_gf256_apply": ("ec_gf256", 3,
+                            (ctypes.c_longlong, ctypes.c_int, ctypes.c_int),
+                            0, True),
 }
 ERR_NOT_BUILT = -1          # a dtype, head dim or size it was not built for
 ERR_TENSOR_MAP = -2         # the driver refused a TMA descriptor

@@ -8,8 +8,12 @@ AdamW (or plain SGD) update. PyTorch runs it eagerly; the step updates
 the parameters and the optimizer state in place. Its four parts run under
 ``torch.profiler.record_function`` ranges ("forward", "loss",
 "backward", "optimizer"), which a profile shows beside the kernels
-(``tools/profile_flagship.py --train``). Plans of more than one
-device, ZeRO-1 and microbatching come with the multi-GPU slice.
+(``tools/profile_flagship.py --train``; ``--train-moe`` also shows the
+MoE MLP's "moe.route" and "moe.experts"). A MoE model trains as the
+reference's single-device step does: no auxiliary loss, the router
+learning only through the renormalised top-k gates of ``combine``.
+Plans of more than one device (expert parallelism included), ZeRO-1
+and microbatching come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -39,15 +43,6 @@ def _loss_from_h(params, h, targets, cfg: ModelConfig, chunk: int = 256):
     return chunked_lm_cross_entropy(h, head, targets, chunk)
 
 
-def refuse_moe_training(cfg) -> None:
-    """Training a MoE model is not held against the reference yet: raise
-    (serving MoE is ported; training it is ROADMAP Queue A 5)."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "training a MoE model is not ported yet (ROADMAP Queue A 5: "
-            "MoE serving is ported, MoE training is not)")
-
-
 def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
                     lr: float = 3e-4, n_microbatches: int = 1,
                     remat=False, optimizer: str = "adamw",
@@ -69,10 +64,10 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
         raise NotImplementedError(
             f"plan {plan} with zero1={zero1}, n_microbatches="
             f"{n_microbatches}: the port trains on one device; parallel "
-            "plans, ZeRO-1 and pipelining are ROADMAP Queue A 6")
+            "plans (expert parallelism included), ZeRO-1 and pipelining "
+            "are ROADMAP Queue A 6")
     if optimizer not in ("adamw", "sgd"):
         raise ValueError(f"optimizer={optimizer!r} (choices: adamw, sgd)")
-    refuse_moe_training(cfg)
     _layer_fn(remat)                      # refuse an unknown mode now
     dev = resolve_device(device)
 

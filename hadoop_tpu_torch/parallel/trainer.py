@@ -25,6 +25,10 @@ an uninterrupted run.
   ``profile_all_threads``). ``step_metrics`` counts the step anatomy, and
   the HBM ledger holds the parameters and the optimizer state.
 
+A MoE model trains here like a dense one: its router [L, D, E] and
+expert stacks [L, E, D, F] / [L, E, F, D] are leaves of the parameters,
+the moments and the checkpoints like any other.
+
 Initialisation draws from a ``torch.Generator`` seeded with ``seed``; the
 reference draws from ``PRNGKey(0)``, a different stream, so the two
 packages start from the same state only through a checkpoint. Plans of
@@ -63,8 +67,7 @@ from hadoop_tpu_torch.parallel.checkpoint import (AsyncCheckpointWriter,
 from hadoop_tpu_torch.parallel.data import TokenDataset
 from hadoop_tpu_torch.parallel.mesh import MeshPlan
 from hadoop_tpu_torch.parallel.optimizer import AdamWState
-from hadoop_tpu_torch.parallel.train import (init_train_state, make_train_step,
-                                             refuse_moe_training)
+from hadoop_tpu_torch.parallel.train import init_train_state, make_train_step
 
 log = logging.getLogger(__name__)
 
@@ -102,7 +105,6 @@ class Trainer:
                 f"Trainer arguments {refused}: ZeRO-1, microbatching, "
                 f"pipelines, the overlap and parity passes and the elastic "
                 f"plane are {_A6}")
-        refuse_moe_training(cfg)
         self.cfg, self.plan, self.fs = cfg, plan, fs
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir

@@ -1,8 +1,8 @@
 """Where the time goes on the GPU: flagship-1b forward, decode and
 training steps, and the llama3-8b context-parallel prefill.
 
-    python -m hadoop_tpu_torch.tools.profile_flagship [--train | --longctx |
-        --longctx-decode]
+    python -m hadoop_tpu_torch.tools.profile_flagship [--train | --train-moe |
+        --longctx | --longctx-decode]
 
 Traces, with ``torch.profiler``, (a) three flagship-1b bf16 forwards at
 [1, 512] tokens and (b) ten decode-only ``DecodeEngine`` steps with four
@@ -13,7 +13,13 @@ with ``--train`` instead, three flagship-1b training steps at
 AdamW), with each step's device time split by the step's own
 ``record_function`` ranges (forward, loss, optimizer; the backward runs
 on autograd's thread, so it is split by autograd node) and the kernels
-that took the most of each; with ``--longctx`` instead,
+that took the most of each; with ``--train-moe`` instead, three
+training steps of mixtral-8x7b at ``chip_smoke.py``'s moe_train
+configuration (full width, 2 of its 32 layers, bf16, [1, 4096], full
+remat, AdamW), split the same way and by the MoE MLP's ranges
+"moe.route" (routing, dispatch and combine einsums: the combine's in
+float32) and "moe.experts" (the experts' GEMMs), in the forward and its
+recompute; with ``--longctx`` instead,
 one ``ContextParallelPrefiller.cp_prefill`` of an 8192-token prompt on
 llama3-8b (bf16, full width and depth, sp 4 ranks on the one card, block
 16), after one untraced prefill; with ``--longctx-decode`` instead, one
@@ -55,6 +61,10 @@ from hadoop_tpu_torch.serving.longctx import ContextParallelPrefiller
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cuGraphLaunch")
 TRAIN_RANGES = ("forward", "loss", "backward", "optimizer")
+MOE_RANGES = ("moe.route", "moe.experts")
+# chip_smoke.py's moe_train model: mixtral-8x7b at full width, cut to 2 of
+# its 32 layers and to 4096 tokens of context
+MOE_TRAIN_MODEL = dict(name="mixtral-8x7b", n_layers=2, max_seq=4096)
 
 
 def _kernels_under(evt):
@@ -80,7 +90,9 @@ def _tally(groups, calls: int, n: int):
 def _by_range(prof, averages, names, calls: int):
     """Per ``record_function`` range of ``names``: its span on the device
     (ms per call, kineto's device-side copy of the range), and the
-    kernels of the ops run under it on the calling thread, by kernel.
+    kernels of the ops run under it (on any thread: a range entered in
+    the backward's recompute counts too), in all (``kernel_ms``) and by
+    kernel.
     The backward's ops run on autograd's device thread, outside the
     caller's range: they are tallied by autograd node, with the kernels
     each node's evaluation launched (the recomputed forward included)."""
@@ -94,6 +106,8 @@ def _by_range(prof, averages, names, calls: int):
         by_kernel = {}
         for k in kernels:
             by_kernel.setdefault(k.name, []).append(k)
+        out[name]["kernel_ms"] = sum(k.duration for k in kernels) / 1e3 \
+            / calls
         out[name]["aten_kernels"] = _tally(by_kernel.items(), calls, 6)
     by_node = {}
     for e in prof.events():
@@ -150,10 +164,17 @@ def trace(fn, calls: int, label: str, ranges=()) -> dict:
     return record
 
 
-def _train(cfg, gen) -> None:
-    params, opt = init_train_state(cfg, gen)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 2048), generator=gen,
-                           device="cuda")
+def moe_train_config():
+    """The moe_train model's config (``MOE_TRAIN_MODEL``)."""
+    kw = dict(MOE_TRAIN_MODEL)
+    return get_config(kw.pop("name"), **kw)
+
+
+def train_profile(cfg, params, opt, tokens, calls: int, label: str,
+                  ranges=TRAIN_RANGES) -> dict:
+    """Trace ``calls`` full-remat AdamW steps of ``cfg`` on ``tokens``
+    (targets: the tokens shifted by one), after one untraced step; the
+    parameters and moments are updated in place."""
     targets = torch.roll(tokens, -1, dims=1)
     step = make_train_step(cfg, remat="full")
     state = {"params": params, "opt": opt}
@@ -162,8 +183,15 @@ def _train(cfg, gen) -> None:
         state["params"], state["opt"], _ = step(state["params"],
                                                 state["opt"], tokens, targets)
 
-    trace(one, 3, "train step flagship-1b bf16 [4,2048] remat full adamw",
-          TRAIN_RANGES)
+    return trace(one, calls, label, ranges)
+
+
+def _train(cfg, gen, batch, seq, label, ranges=TRAIN_RANGES) -> None:
+    params, opt = init_train_state(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    train_profile(cfg, params, opt, tokens, 3, f"train step {label} bf16 "
+                  f"[{batch},{seq}] remat full adamw", ranges)
 
 
 def _longctx(gen) -> None:
@@ -249,6 +277,9 @@ def main(argv=None) -> int:
     mode.add_argument("--train", action="store_true",
                       help="trace training steps instead of the forward "
                       "and decode steps")
+    mode.add_argument("--train-moe", action="store_true",
+                      help="trace mixtral-8x7b (2 layers) training steps "
+                      "instead")
     mode.add_argument("--longctx", action="store_true",
                       help="trace one llama3-8b CP prefill instead")
     mode.add_argument("--longctx-decode", action="store_true",
@@ -260,9 +291,12 @@ def main(argv=None) -> int:
         return 2
     cfg = get_config("flagship-1b")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.train or args.longctx or args.longctx_decode:
+    if args.train or args.train_moe or args.longctx or args.longctx_decode:
         if args.train:
-            _train(cfg, gen)
+            _train(cfg, gen, 4, 2048, "flagship-1b")
+        elif args.train_moe:
+            _train(moe_train_config(), gen, 1, MOE_TRAIN_MODEL["max_seq"],
+                   "mixtral-8x7b 2 layers", TRAIN_RANGES + MOE_RANGES)
         elif args.longctx:
             _longctx(gen)
         else:

@@ -241,19 +241,30 @@ def test_entry_points_refuse_a_missing_gpu():
         decoder.forward(params, [[1, 2, 3]], cfg, device="meta")
 
 
-def test_moe_is_refused():
-    """MoE serving is ported; training a MoE model is not (ROADMAP Queue
-    A 5), and both training entry points say so."""
+def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
+    """Both training entry points take tiny-moe on ``MeshPlan()`` (ROADMAP
+    Queue A 5), and still refuse an expert-parallel plan, which is
+    multi-GPU work (Queue A 6)."""
+    from hadoop_tpu_torch.fs import LocalFileSystem
     from hadoop_tpu_torch.parallel import Trainer, make_train_step
     from hadoop_tpu_torch.parallel.mesh import MeshPlan
     cfg = config.get_config("tiny-moe")
-    params = decoder.init_params(cfg, torch.Generator(), device="cpu")
-    assert params["layers"]["router"].shape == (2, 64, 4)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        Trainer(cfg, MeshPlan(), None, "/none", "/none", batch=1,
+    fs, data = LocalFileSystem(), str(tmp_path / "tokens.bin")
+    fs.write_all(data, np.arange(4 * (cfg.max_seq + 1),
+                                 dtype=np.uint16).tobytes())
+    step = make_train_step(cfg, MeshPlan(), device="cpu")
+    t = Trainer(cfg, MeshPlan(), fs, data, str(tmp_path / "ckpt"), batch=1,
                 device="cpu")
+    assert t.params["layers"]["router"].shape == (2, 64, 4)
+    assert t.opt.mu["layers"]["w_gate"].shape == (2, 4, 64, 128)
+    _, _, m = step(t.params, t.opt, *(torch.zeros(1, 8, dtype=torch.long),) * 2)
+    assert torch.isfinite(m["loss"])
+    t.close()
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        make_train_step(cfg, MeshPlan(ep=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        Trainer(cfg, MeshPlan(ep=2), fs, data, str(tmp_path / "ep"),
+                batch=1, device="cpu")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -290,6 +301,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.serving.kvstore.tiered\n"
         "import hadoop_tpu_torch.serving.weightplane\n"
         "import hadoop_tpu_torch.models.moe\n"
+        "import hadoop_tpu_torch.io.erasurecode\n"
+        "import hadoop_tpu_torch.ops.ec_device\n"
         "import hadoop_tpu_torch.parallel.lowp.quant\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
@@ -323,7 +336,9 @@ def test_port_sources_name_no_jax():
                 "serving/kvstore/radix.py", "serving/kvstore/codec.py",
                 "serving/kvstore/hosttier.py", "serving/kvstore/dfstier.py",
                 "serving/kvstore/tiered.py", "serving/weightplane.py",
-                "models/moe.py", "parallel/lowp/quant.py"):
+                "models/moe.py", "parallel/lowp/quant.py",
+                "io/erasurecode.py", "ops/ec_device.py",
+                "ops/csrc/ec_gf256.cu"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

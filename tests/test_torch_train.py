@@ -188,8 +188,11 @@ def test_train_step_refusals():
                      (MeshPlan(), {"n_microbatches": 2})]:
         with pytest.raises(NotImplementedError, match="Queue A 6"):
             make_train_step(cfg, plan, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        make_train_step(config.get_config("tiny-moe"), device="cpu")
+    # MoE trains on one device; expert parallelism is multi-GPU work
+    make_train_step(config.get_config("tiny-moe"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 6"):
+        make_train_step(config.get_config("tiny-moe"), MeshPlan(ep=2),
+                        device="cpu")
     with pytest.raises(ValueError):
         make_train_step(cfg, remat="everything", device="cpu")
     with pytest.raises(ValueError):
