@@ -49,11 +49,15 @@ flagship-1b in float32, the plane's tokens against the fused step's).
 Two kernels that are repairs, not TPU kernels, are held against their
 plain versions first: the int8 dequantize (phase ``dequant``, bit for
 bit) and RMSNorm's forward and backward (phase ``rmsnorm``, bf16,
-float16 and float32); the train phase pins their launches per step too.
+float16 and float32; the backward timed at both trained models' rows,
+its pass and its dw finish apart); the train phase pins their launches
+per step too.
 Then the device Reed-Solomon coder (phase ``ec``): ``ec_gf256.cu`` on
 one 128 MiB-per-unit block group for each RS policy, through
 ``encode_cells`` and ``decode_cells`` after each erasure pattern, bit
-for bit against its plain version and the numpy host coder. Last, MoE
+for bit against its plain version and the numpy host coder, its time
+beside its own integer and table-load counts and on all-zero words (no
+shared-memory bank conflicts). Last, MoE
 training: mixtral-8x7b at full width, 2 of its 32 layers, [1, 4096]
 tokens, through ``make_train_step`` (phase ``moe_train``: the flash
 kernels at its shape first, 6 steps with their launches pinned, one
@@ -118,6 +122,7 @@ from hadoop_tpu_torch.io.erasurecode import (_cauchy_parity_matrix,
                                              _gf_invert, _gf_matmul)
 from hadoop_tpu_torch.models.moe import capacity as moe_capacity
 from hadoop_tpu_torch.ops import _build, ec_device, flash, norms
+from hadoop_tpu_torch.tools.ab_ec_rmsnorm import graph_ms
 from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
@@ -398,8 +403,10 @@ EC_PATTERNS = {(3, 2): ((1, 4), (0, 2)),
                (10, 4): ((1, 4, 12), (0, 2, 5), (2, 5, 8, 9))}
 # the 32-bit integer units' rate, for the EC kernel's own operation count:
 # 64 a clock on each of the 132 SMs (NVIDIA Hopper architecture white
-# paper) at the 1980 MHz boost clock (H100 SXM data sheet)
+# paper) at the 1980 MHz boost clock (H100 SXM data sheet); and shared
+# memory's, for its table loads: 32 banks of 4 bytes a clock on each SM
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+SHARED_BYTES_PER_S = 128 * 132 * 1.98e9
 
 
 class SmokeFailure(RuntimeError):
@@ -2291,11 +2298,14 @@ DEQUANT_TIMED = ("llama3-8b", "w_gate")
 # plain version round the same float32 values once, which differ by those
 # sums). Rows of 8192 are the widest the kernels take (d_model 8192 at
 # float32: eight vectors a thread). Timed shapes: the forward at the
-# llama3-8b prefill's rows, the backward at flagship-1b's training rows.
-RMS_SHAPES = [(4, 2048, 2048), (1, 8192, 4096), (1, 1024, 8192)]
+# llama3-8b prefill's rows, the backward at flagship-1b's and
+# mixtral-8x7b's training rows (its pass and its dw finish apart too).
+RMS_SHAPES = [(4, 2048, 2048), (1, 8192, 4096), (1, 4096, 4096),
+              (1, 1024, 8192)]
 RMS_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 RMS_F32_TOL = 1e-6
-RMS_TIMED = {"fwd": (1, 8192, 4096), "bwd": (4, 2048, 2048)}
+RMS_TIMED = {"fwd": (1, 8192, 4096), "bwd": (4, 2048, 2048),
+             "bwd_mixtral": (1, 4096, 4096)}
 
 
 def phase_dequant():
@@ -2354,13 +2364,60 @@ def _one_rounding(got, want):
     return (got.float() - want.float()).abs().max().item() <= ulp
 
 
+def _rms_bwd_record(x, dy, w, x2, r, rr, dx, dxr):
+    """The backward's timed record at x's shape (bf16): ms of both
+    launches as device time alone (CUDA graph replays, ``graph_ms``: an
+    eager loop of them is bound by their host launches, ``eager_ms``)
+    against the bytes bound (dy and x read, dx written, w read and dw
+    written, the 1/rms read), the plain version and the autograd backward
+    of ``torch.nn.functional.rms_norm`` (eager); and each launch alone on
+    the grid ``_launch_bwd`` takes (``kernel_ms`` the pass, ``finish_ms``
+    the dw finish, from graph replays; ``eager_kernel_ms``,
+    ``eager_finish_ms``)."""
+    d, elt = x.shape[-1], x.element_size()
+    rows, wb = x.numel() // d, w.numel() * w.element_size()
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yl = F.rms_norm(xl, (d,), wl, 1e-5)
+    blocks, per = norms._bwd_grid(rows, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    dy2, code = dy.reshape(rows, d), norms._DTYPES[x.dtype]
+    dx_t, dw_t = torch.empty_like(x2), torch.empty_like(w)
+    partials = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
+    calls = {
+        "": lambda: norms._launch_bwd(dy, x2, w, r),
+        "kernel_": lambda: _build.launch(
+            "htpu_rms_norm_bwd", dy2, x2, w, r, dx_t, partials, rows, d,
+            blocks, code),
+        "finish_": lambda: _build.launch(
+            "htpu_rms_norm_dw", partials, dw_t, blocks, d, code)}
+    times = {}
+    for key, fn in calls.items():
+        times[f"{key}ms"] = graph_ms(fn, 20)
+        times[f"eager_{key}ms"] = cuda_ms(fn, 20)
+    rec = add_rates({
+        "shape": list(x.shape),
+        **times,
+        "plain_ms": cuda_ms(
+            lambda: norms.rms_norm_ref_bwd(dy, x, w, rr), 5),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), dy, retain_graph=True), 20),
+        "max_abs_err": (dx.float() - dxr.float()).abs().max().item()},
+        _bound(3 * elt * x.numel() + 2 * wb + 4 * rows, 8 * x.numel(),
+               torch.float32))
+    rec["grid"] = [blocks, per]
+    return rec
+
+
 def phase_rmsnorm():
     """rmsnorm.cu's forward (y, 1/rms) and backward (dx, dw) against their
     plain versions at RMS_SHAPES in RMS_DTYPES (x, dy random, w near
-    1, from a seed), and once through the autograd Function (the same
-    bits as the launches); ms against the bytes bound, the plain version
-    and ``torch.nn.functional.rms_norm`` (forward; its autograd backward).
-    Returns the records of the two kernels for the kernels line."""
+    1, from a seed), once through the autograd Function (the same bits
+    as the launches) and the backward twice (the same bits again); ms
+    against the bytes bound, the plain version and
+    ``torch.nn.functional.rms_norm`` (forward; its autograd backward).
+    Returns the records of the kernels for the kernels line (the
+    backward's at flagship-1b's rows, ``bwd``, and mixtral-8x7b's,
+    ``bwd_mixtral``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     cases, records = [], {}
     for shape in RMS_SHAPES:
@@ -2378,11 +2435,15 @@ def phase_rmsnorm():
             xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
             ya = norms.rms_norm(xa, wa, 1e-5)
             ya.backward(dy)
+            dx2, dw2 = norms._launch_bwd(dy, x2, w, r)
             rec = {"shape": list(shape),
                    "dtype": str(dtype).replace("torch.", ""),
                    "function_equal": bool(torch.equal(ya, y) and torch.equal(
-                       xa.grad, dx) and torch.equal(wa.grad, dw))}
-            ok = rec["function_equal"]
+                       xa.grad, dx) and torch.equal(wa.grad, dw)),
+                   "repeat_equal": bool(torch.equal(dx2.view(shape), dx)
+                                        and torch.equal(dw2, dw))}
+            del dx2, dw2
+            ok = rec["function_equal"] and rec["repeat_equal"]
             for name, got, want in (("y", y, yr), ("r", r.view(rr.shape), rr),
                                     ("dx", dx, dxr), ("dw", dw, dwr)):
                 rel = ((got.float() - want.float()).abs().max()
@@ -2408,21 +2469,10 @@ def phase_rmsnorm():
                     .item()},
                     _bound(2 * elt * x.numel() + wb + 4 * rows,
                            4 * x.numel(), torch.float32))
-            if dtype == torch.bfloat16 and tuple(shape) == RMS_TIMED["bwd"]:
-                xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
-                yl = F.rms_norm(xl, (d,), wl, 1e-5)
-                records["bwd"] = add_rates({
-                    "shape": list(shape),
-                    "ms": cuda_ms(lambda: norms._launch_bwd(dy, x2, w, r), 20),
-                    "plain_ms": cuda_ms(
-                        lambda: norms.rms_norm_ref_bwd(dy, x, w, rr), 5),
-                    "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                        yl, (xl, wl), dy, retain_graph=True), 20),
-                    "max_abs_err": (dx.float() - dxr.float()).abs().max()
-                    .item()},
-                    _bound(3 * elt * x.numel() + 2 * wb + 4 * rows,
-                           8 * x.numel(), torch.float32))
-                del xl, wl, yl
+            for key in ("bwd", "bwd_mixtral"):
+                if dtype == torch.bfloat16 and tuple(shape) == RMS_TIMED[key]:
+                    records[key] = _rms_bwd_record(x, dy, w, x2, r, rr, dx,
+                                                   dxr)
             cases.append(rec)
             del x, dy, w, y, x2, r, dx, dw, yr, rr, dxr, dwr, xa, wa, ya
     torch.cuda.empty_cache()
@@ -3786,15 +3836,24 @@ def _host_coder(mat, cells, threads):
     return np.concatenate(parts, axis=1)
 
 
+def _ec_design(k, r):
+    """ec_gf256.cu's own count per word column for an [r, k] matrix:
+    (integer operations, shared-memory bytes). Each of the 4k data bytes
+    costs a byte extract, an address and one XOR per group of four rows
+    (G = ceil(r/4)), and its table entry, S words (S = G, 4 for G = 3);
+    each group's 4x4 byte transpose, eight byte permutes per four words."""
+    g = -(-r // 4)
+    return 4 * k * (2 + g) + 8 * g, 4 * k * 4 * ec_device._entry_words(r)
+
+
 def _ec_bound(k, r, w):
     """(bound_ms, bound_by, ops) of applying an [r, k] matrix to W word
     columns: each data word read once and each output word written once
     at the memory rate, the floor of any implementation (no PyTorch call
     and no table rate bounds GF(256) work lower); beside it the kernel's
-    own count, 4 integer operations a term, 8·k·r terms a column."""
+    own integer operations (``_ec_design``)."""
     nbytes = (k + r) * 4 * w
-    ops = 32 * k * r * w
-    return (nbytes / MEM_BYTES_PER_S * 1e3, "bytes", ops)
+    return (nbytes / MEM_BYTES_PER_S * 1e3, "bytes", _ec_design(k, r)[0] * w)
 
 
 def phase_ec():
@@ -3846,8 +3905,15 @@ def phase_ec():
             "max_abs_err": 0 if torch.equal(got, plain) else None},
             _ec_bound(k, m, unit // 4))
         rec["int_tops"] = rec.pop("tflops")     # 10^12 integer ops / s
-        rec["design_ops_ms"] = 32 * k * m * (unit // 4) / INT32_OPS_PER_S \
-            * 1e3
+        ops, lds = _ec_design(k, m)
+        rec["design_ops_ms"] = ops * (unit // 4) / INT32_OPS_PER_S * 1e3
+        # the table loads with no bank conflict, and the kernel's time on
+        # all-zero words, where every lane of a warp reads one entry (a
+        # broadcast): random bytes' extra time is the banks' conflicts
+        rec["design_lds_ms"] = lds * (unit // 4) / SHARED_BYTES_PER_S * 1e3
+        zeros = torch.zeros_like(words)
+        rec["ms_zero_words"] = cuda_ms(lambda: enc(zeros), EC["timed"])
+        del zeros
         full = torch.cat([words, got])
         decodes = {}
         for lost in EC_PATTERNS[(k, m)]:
@@ -3913,7 +3979,8 @@ def phase_ec():
                         k, m, cells, device="cpu"),
                     "restored": restored})
     emit({"phase": "ec", "schemas": schemas, "odd": odd,
-          "int32_ops_per_s": INT32_OPS_PER_S})
+          "int32_ops_per_s": INT32_OPS_PER_S,
+          "shared_bytes_per_s": SHARED_BYTES_PER_S})
     for rec in schemas:
         tag = f"RS{tuple(rec['schema'])}"
         require(rec["parity_equal_plain"] and rec["parity_equal_host"]

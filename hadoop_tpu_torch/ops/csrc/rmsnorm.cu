@@ -9,19 +9,29 @@
 //
 // Bound: bytes. The forward reads x and w and writes y (and one float32
 // 1/rms per row, kept for the backward); the backward reads dy, x, w and
-// the 1/rms and writes dx and dw. Design: one block of 256 threads per
-// row in the forward, each thread holding up to NV vectors of 16 bytes
-// of the row in registers (so x is read once; rows of up to 8192, NV up
-// to 4 in the 2-byte dtypes and 8 in float32), a fixed-order block sum
-// of the squares, then the output. The backward gives each block a fixed
-// share of consecutive rows: per row a block sum of g·x (g = dy·w), then
-// dx; dw's partial over the share stays in shared memory (each thread
-// its own columns) and is written once per block; a finish kernel sums
-// the blocks' partials per column in block order, in float64 (up to 528
-// partials: a float32 running sum would add their roundings up). Fixed
-// grids, fixed order, no atomics: the same bits on every call (the
-// pattern of adamw.cu's squared norm). x, w, y, dy, dx and dw share one
-// dtype: float32, bfloat16 or float16.
+// the 1/rms and writes dx and dw. Forward: one block of 256 threads per
+// row, each thread holding up to NV vectors of 16 bytes of the row in
+// registers (so x is read once; rows of up to 8192, NV up to 4 in the
+// 2-byte dtypes and 8 in float32), a fixed-order block sum of the
+// squares, then the output.
+//
+// Backward: a fixed grid of about two blocks an SM, each with a fixed
+// share of consecutive rows (the wrapper's grid, ops/norms.py
+// `_bwd_grid`). A block takes R rows at a time (R·NV = 4 vectors of 16
+// bytes each of dy and x per thread) and starts the next R rows' loads
+// before it works on these, so every thread keeps 64 to 128 bytes in
+// flight. It sums g·x of each row by a butterfly within each warp, and
+// after one barrier every thread adds the eight warps' sums in warp
+// order itself (the warp sums double-buffered in shared memory: one
+// barrier a group of R rows). dw's partial over the share stays in each
+// thread's registers (its own columns, rows in order) and is written
+// once per block. A finish kernel sums the blocks' partials per column,
+// 32 columns a block and d/32 blocks: warp v of a block takes partials
+// v, v+8, ... in order, in float64 (a float32 running sum would add the
+// roundings up), and the eight warps' sums are added in warp order.
+// Fixed grids, fixed order, no atomics: the same bits on every call
+// (the pattern of adamw.cu's squared norm). x, w, y, dy, dx and dw share
+// one dtype: float32, bfloat16 or float16.
 //
 // Numerics: float32 throughout, the reference's cast points:
 //   r  = 1 / sqrt(sum(x²) / D + eps)          (per row, float32)
@@ -33,6 +43,8 @@
 // intrinsics keep nvcc from contracting them); the sums run in another
 // order than PyTorch's, so the plain version (ops/norms.py) agrees to a
 // few float32 ulps of the row's largest term.
+//
+// Launches of the backward: two (the pass and the dw finish).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -44,7 +56,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxNV = 8;               // vectors of 16 bytes per thread
 constexpr int kMaxD = 8192;             // the widest row taken
-constexpr int kFinishThreads = 256;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -127,74 +138,150 @@ rms_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Rows [blockIdx.x * per_block, +per_block) of dx, and the block's dw
-// partial over them into partials[blockIdx.x * d ...].
+// The R rows of dy and x a backward group takes: R·NV = 4 vectors of 16
+// bytes of each per thread (one row at 8192 wide, or 4096 in float32)
+template <int NV>
+__host__ __device__ constexpr int rows_in_flight() {
+  return NV < 4 ? 4 / NV : 1;
+}
+
+// Rows [row0, row0 + R) of dy and x (those before `last`) into
+// registers, in their own type, and their 1/rms.
+template <typename T, int VEC, int NV, int R>
+__device__ __forceinline__ void load_rows(
+    const T* __restrict__ dy, const T* __restrict__ x,
+    const float* __restrict__ rrms, int row0, int last, int d, int nvec,
+    Vec<T, VEC> (&dyv)[R][NV], Vec<T, VEC> (&xin)[R][NV], float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = row0 + i;
+    r[i] = row < last ? rrms[row] : 0.f;
+    const Vec<T, VEC>* dyr =
+        reinterpret_cast<const Vec<T, VEC>*>(dy + (long long)row * d);
+    const Vec<T, VEC>* xr =
+        reinterpret_cast<const Vec<T, VEC>*>(x + (long long)row * d);
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int v = threadIdx.x + k * kThreads;
+      if (row < last && v < nvec) {
+        dyv[i][k] = dyr[v];
+        xin[i][k] = xr[v];
+      }
+    }
+  }
+}
+
+// Tell the compiler the vector may have changed: the values widened from
+// it before are not kept in registers for a later use (it widens again).
+template <typename T, int VEC>
+__device__ __forceinline__ void reload(Vec<T, VEC>& v) {
+  uint4& u = reinterpret_cast<uint4&>(v);
+  asm volatile("" : "+r"(u.x), "+r"(u.y), "+r"(u.z), "+r"(u.w));
+}
+
+// Rows [blockIdx.x * per_block, +per_block) of dx, R at a time with the
+// next R rows' loads in flight, and the block's dw partial over them into
+// partials[blockIdx.x * d ...]. Two resident blocks an SM (128 registers
+// a thread), one for rows of 32 elements a thread (dw's partial alone
+// then takes 32 registers).
 template <typename T, int NV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, NV * 16 / sizeof(T) < 32 ? 2 : 1)
 rms_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                const T* __restrict__ w, const float* __restrict__ rrms,
                T* __restrict__ dx, float* __restrict__ partials, int rows,
                int d, int per_block) {
   constexpr int VEC = 16 / sizeof(T);
-  // the block's dw partial, column j of vector v at [j * nvec + v]: each
-  // thread owns its columns (no sharing, no barrier), and neighbouring
-  // threads touch neighbouring words
-  extern __shared__ float dw[];
+  constexpr int R = rows_in_flight<NV>();
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float warp_dots[2][R][kWarps];      // double-buffered
   const int nvec = d / VEC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Vec<T, VEC>* wr = reinterpret_cast<const Vec<T, VEC>*>(w);
+  Vec<T, VEC> wv[NV];
+  float dw[NV][VEC];
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int v = threadIdx.x + k * kThreads;
-    if (v < nvec) {
+    if (v < nvec) wv[k] = wr[v];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) dw[j * nvec + v] = 0.f;
-    }
+    for (int j = 0; j < VEC; ++j) dw[k][j] = 0.f;
   }
   const int first = blockIdx.x * per_block;
   const int last = min(rows, first + per_block);
-  // one row at a time (not unrolled: the row's dy and x stay in
-  // registers in their own type, widened again for dx; w is read again
-  // per row, from L1)
+  Vec<T, VEC> dyv[R][NV], xin[R][NV];
+  float r[R];
+  load_rows<T, VEC, NV, R>(dy, x, rrms, first, last, d, nvec, dyv, xin, r);
+  int buf = 0;
 #pragma unroll 1
-  for (int row = first; row < last; ++row) {
-    const long long base = (long long)row * d;
-    const Vec<T, VEC>* dyr = reinterpret_cast<const Vec<T, VEC>*>(dy + base);
-    const Vec<T, VEC>* xr = reinterpret_cast<const Vec<T, VEC>*>(x + base);
-    const float r = rrms[row];
-    Vec<T, VEC> dyv[NV], xin[NV];
-    float dot = 0.f;
+  for (int row0 = first; row0 < last; row0 += R, buf ^= 1) {
+    Vec<T, VEC> dyn[R][NV], xn[R][NV];
+    float rn[R];
+    load_rows<T, VEC, NV, R>(dy, x, rrms, row0 + R, last, d, nvec, dyn, xn,
+                             rn);
+    float dot[R];
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const int v = threadIdx.x + k * kThreads;
-      if (v < nvec) {
-        dyv[k] = dyr[v];
-        xin[k] = xr[v];
-        const Vec<T, VEC> wv = wr[v];
+    for (int i = 0; i < R; ++i) {
+      dot[i] = 0.f;
+      if (row0 + i >= last) continue;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float dyf = to_f(dyv[k].v[j]);
-          const float xf = to_f(xin[k].v[j]);
-          dot = fmaf(__fmul_rn(dyf, to_f(wv.v[j])), xf, dot);
-          dw[j * nvec + v] = fmaf(dyf, __fmul_rn(xf, r), dw[j * nvec + v]);
+      for (int k = 0; k < NV; ++k) {
+        const int v = threadIdx.x + k * kThreads;
+        if (v < nvec) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float dyf = to_f(dyv[i][k].v[j]);
+            const float xf = to_f(xin[i][k].v[j]);
+            dot[i] = fmaf(__fmul_rn(dyf, to_f(wv[k].v[j])), xf, dot[i]);
+            dw[k][j] = fmaf(dyf, __fmul_rn(xf, r[i]), dw[k][j]);
+          }
         }
       }
     }
-    const float mean = __fdiv_rn(block_sum(dot), (float)d);
-    const float c = __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), mean);
-    Vec<T, VEC>* dxr = reinterpret_cast<Vec<T, VEC>*>(dx + base);
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const int v = threadIdx.x + k * kThreads;
-      if (v < nvec) {
-        const Vec<T, VEC> wv = wr[v];
-        Vec<T, VEC> out;
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float g = __fmul_rn(to_f(dyv[k].v[j]), to_f(wv.v[j]));
-          out.v[j] = from_f<T>(__fsub_rn(__fmul_rn(r, g),
-                                         __fmul_rn(to_f(xin[k].v[j]), c)));
+      for (int k = 0; k < NV; ++k) {
+        reload(dyv[i][k]);
+        reload(xin[i][k]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
+      if (lane == 0) warp_dots[buf][i][warp] = dot[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = row0 + i;
+      if (row >= last) break;
+      float total = warp_dots[buf][i][0];
+#pragma unroll
+      for (int v = 1; v < kWarps; ++v) total += warp_dots[buf][i][v];
+      const float mean = __fdiv_rn(total, (float)d);
+      const float c = __fmul_rn(__fmul_rn(__fmul_rn(r[i], r[i]), r[i]), mean);
+      Vec<T, VEC>* dxr = reinterpret_cast<Vec<T, VEC>*>(dx + (long long)row * d);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int v = threadIdx.x + k * kThreads;
+        if (v < nvec) {
+          Vec<T, VEC> out;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            const float g = __fmul_rn(to_f(dyv[i][k].v[j]), to_f(wv[k].v[j]));
+            out.v[j] = from_f<T>(__fsub_rn(__fmul_rn(r[i], g),
+                                           __fmul_rn(to_f(xin[i][k].v[j]), c)));
+          }
+          dxr[v] = out;
         }
-        dxr[v] = out;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      r[i] = rn[i];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        dyv[i][k] = dyn[i][k];
+        xin[i][k] = xn[i][k];
       }
     }
   }
@@ -204,24 +291,35 @@ rms_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     const int v = threadIdx.x + k * kThreads;
     if (v < nvec) {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) part[v * VEC + j] = dw[j * nvec + v];
+      for (int j = 0; j < VEC; ++j) part[v * VEC + j] = dw[k][j];
     }
   }
 }
 
+// dw[c] for 32 columns a block: warp v sums partials v, v + 8, ... in
+// order (float64), then the eight warps' sums are added in warp order.
 template <typename T>
-__global__ void __launch_bounds__(kFinishThreads)
+__global__ void __launch_bounds__(kThreads)
 rms_dw_finish_kernel(const float* __restrict__ partials, T* __restrict__ dw,
                      int blocks, int d) {
-  const int col = blockIdx.x * kFinishThreads + threadIdx.x;
-  if (col >= d) return;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ double sums[kWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
   double acc = 0.0;
-  for (int b = 0; b < blocks; ++b) acc += partials[(long long)b * d + col];
-  dw[col] = from_f<T>((float)acc);
-}
-
-bool aligned(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  if (col < d) {
+#pragma unroll 4
+    for (int b = warp; b < blocks; b += kWarps)
+      acc += partials[(long long)b * d + col];
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    double total = sums[0][lane];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) total += sums[v][lane];
+    dw[col] = from_f<T>((float)total);
+  }
 }
 
 // vectors of 16 bytes each thread holds for a row of d elements of T:
@@ -276,23 +374,22 @@ int launch_bwd(const void* dy, const void* x, const void* w, const void* rrms,
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(partials);
   const int per = (rows + blocks - 1) / blocks;
-  const size_t smem = (size_t)d * sizeof(float);   // <= 32 KB: d <= 8192
   switch (vectors_per_thread<T>(d)) {
     case 1:
-      rms_bwd_kernel<T, 1><<<blocks, kThreads, smem, st>>>(
+      rms_bwd_kernel<T, 1><<<blocks, kThreads, 0, st>>>(
           dyp, xp, wp, rp, dxp, pp, rows, d, per);
       break;
     case 2:
-      rms_bwd_kernel<T, 2><<<blocks, kThreads, smem, st>>>(
+      rms_bwd_kernel<T, 2><<<blocks, kThreads, 0, st>>>(
           dyp, xp, wp, rp, dxp, pp, rows, d, per);
       break;
     case 4:
-      rms_bwd_kernel<T, 4><<<blocks, kThreads, smem, st>>>(
+      rms_bwd_kernel<T, 4><<<blocks, kThreads, 0, st>>>(
           dyp, xp, wp, rp, dxp, pp, rows, d, per);
       break;
     case 8:
       if constexpr (sizeof(T) == 4) {
-        rms_bwd_kernel<T, 8><<<blocks, kThreads, smem, st>>>(
+        rms_bwd_kernel<T, 8><<<blocks, kThreads, 0, st>>>(
             dyp, xp, wp, rp, dxp, pp, rows, d, per);
         break;
       }
@@ -305,8 +402,7 @@ int launch_bwd(const void* dy, const void* x, const void* w, const void* rrms,
 template <typename T>
 int launch_finish(const void* partials, void* dw, int blocks, int d,
                   cudaStream_t st) {
-  rms_dw_finish_kernel<T><<<(d + kFinishThreads - 1) / kFinishThreads,
-                            kFinishThreads, 0, st>>>(
+  rms_dw_finish_kernel<T><<<(d + 31) / 32, kThreads, 0, st>>>(
       static_cast<const float*>(partials), static_cast<T*>(dw), blocks, d);
   return (int)cudaGetLastError();
 }
@@ -329,7 +425,6 @@ extern "C" {
 // does not take. All pointers 16-byte aligned; x, dy, dx contiguous
 // [rows, d]; w, dw [d], in x's dtype; rrms float32 [rows]. A row width
 // is taken when d % (16 / itemsize) == 0 and d <= 8192.
-// itemsize).
 
 // y = (x · r) · w per row, r = 1 / sqrt(mean(x²) + eps) into rrms.
 int htpu_rms_norm_fwd(const void* x, const void* w, void* y, void* rrms,
@@ -343,8 +438,8 @@ int htpu_rms_norm_fwd(const void* x, const void* w, void* y, void* rrms,
 }
 
 // dx per row, and `blocks` dw partials [blocks, d] float32 over fixed
-// shares of consecutive rows; 1 <= blocks <= rows (the wrapper takes
-// min(rows, 4 per SM)).
+// shares of ceil(rows / blocks) consecutive rows; 1 <= blocks <= rows
+// (the wrapper's `_bwd_grid`: about two blocks an SM, none empty).
 int htpu_rms_norm_bwd(const void* dy, const void* x, const void* w,
                       const void* rrms, void* dx, void* partials, int rows,
                       int d, int blocks, int dtype, void* stream) {

@@ -2,24 +2,27 @@
 
 The counterpart of ``hadoop_tpu/ops/ec_device.py``. When striped data
 already lies in device memory, encode and decode run on the card instead
-of on the host coder. A multiply by the constant ``c`` decomposes over
-the bits of the data byte,
-
-    gf_mul(c, b) = XOR over set bits s of b of gf_mul(c, 2**s),
-
-so with bytes packed four to a word each term is
-``((word >> s) & 0x01010101) * gf_mul(c, 2**s)`` (a 0/1 byte-lane mask
-times a byte constant: no carry crosses a lane), and an output word is
-the XOR of ``8 * k`` such terms. Same Cauchy matrix and same byte-wise
-math as the host coders, so the parity is theirs bit for bit.
+of on the host coder. Same Cauchy matrix and same byte-wise math as the
+host coders, so the parity is theirs bit for bit.
 
 Words live in a ``torch.int32`` tensor [k, W], four bytes each (the
 reference's uint32 words, the same bits). On a CUDA tensor a matrix is
 applied by the hand-written kernel ``ops/csrc/ec_gf256.cu``, one launch
-(``launches`` counts them); on a CPU tensor by its plain version
+(``launches`` counts them), which looks its products up in tables built
+here (``_tables``): for data unit j and byte value b, an entry of S
+32-bit words whose word g holds gf_mul(M[4g + q][j], b) in byte q, so
+one shared-memory load gives the products of b with four rows at once
+(with all of them, up to sixteen).
+
+On a CPU tensor the matrix is applied by the kernel's plain version
 ``apply_matrix_ref``, the reference's ``_apply_matrix`` in int32 torch
-ops. Arithmetic ``>>`` on int32 is safe there: for s ≤ 7 the mask reads
-only original bits, and the lane-3 product wraps as uint32 would.
+ops: a multiply by the constant ``c`` decomposes over the bits of the
+data byte, gf_mul(c, b) = XOR over set bits s of b of gf_mul(c, 2**s),
+so each term is ``((word >> s) & 0x01010101) * gf_mul(c, 2**s)`` (a 0/1
+byte-lane mask times a byte constant: no carry crosses a lane) and an
+output word is the XOR of ``8 * k`` such terms. Arithmetic ``>>`` on
+int32 is safe there: for s ≤ 7 the mask reads only original bits, and
+the lane-3 product wraps as uint32 would.
 
 Decode inverts the k×k survivor matrix on the host (Gauss-Jordan on a
 small uint8 matrix) and applies the recovery matrix with the same
@@ -77,27 +80,48 @@ def apply_matrix_ref(consts: np.ndarray, words: torch.Tensor
     return torch.stack(rows)
 
 
-def _launch_apply(consts: torch.Tensor, words: torch.Tensor
+def _entry_words(r: int) -> int:
+    """Words of one table entry for r output rows: one per group of
+    four rows, three groups padded to four (a 16-byte load)."""
+    groups = -(-r // 4)
+    return 4 if groups == 3 else groups
+
+
+def _tables(mat: np.ndarray) -> np.ndarray:
+    """[r, k] GF matrix → the kernel's product tables, [k, 256, S] int32:
+    byte q of word g of entry [j, b] is gf_mul(mat[4g + q, j], b), 0 past
+    the last row (S = ``_entry_words(r)``)."""
+    r, k = mat.shape
+    s = _entry_words(r)
+    prod = np.zeros((4 * s, k, 256), np.uint8)
+    prod[:r] = _MUL[mat.astype(np.intp)]               # [r, k, 256]
+    # [group, byte q, k, b] → [k, b, group, byte q]: four bytes a word,
+    # byte q the q-th in memory (little-endian, as the kernel reads it)
+    lanes = prod.reshape(s, 4, k, 256).transpose(2, 3, 0, 1)
+    return np.ascontiguousarray(lanes).view("<i4")[..., 0]
+
+
+def _launch_apply(tables: torch.Tensor, words: torch.Tensor, r: int
                   ) -> torch.Tensor:
-    """``apply_matrix_ref`` by the kernel, in one launch; ``consts`` is
-    the [r, k, 8] int32 table on the words' device."""
+    """``apply_matrix_ref`` by the kernel, in one launch, for an [r, k]
+    matrix; ``tables`` is its [k, 256, S] int32 product tables
+    (``_tables``) on the words' device."""
     global launches
-    r, k, _ = consts.shape
-    if not (words.is_cuda and consts.device == words.device
-            and words.dtype == torch.int32 and consts.dtype == torch.int32
-            and words.dim() == 2 and words.shape[0] == k
-            and tuple(consts.shape) == (r, k, 8)
-            and 1 <= k <= _MAX_UNITS and 1 <= r <= _MAX_UNITS):
+    k = words.shape[0] if words.dim() == 2 else 0
+    if not (words.is_cuda and tables.device == words.device
+            and words.dtype == torch.int32 and tables.dtype == torch.int32
+            and 1 <= k <= _MAX_UNITS and 1 <= r <= _MAX_UNITS
+            and tuple(tables.shape) == (k, 256, _entry_words(r))):
         raise ValueError(
             f"ec_gf256 kernel: words {words.dtype} {tuple(words.shape)} on "
-            f"{words.device}, constants {consts.dtype} {tuple(consts.shape)} "
-            f"on {consts.device}; it takes int32 words [k, W] and int32 "
-            f"constants [r, k, 8] on one CUDA device, k and r in 1.."
-            f"{_MAX_UNITS}")
+            f"{words.device}, tables {tables.dtype} {tuple(tables.shape)} "
+            f"on {tables.device} for {r} rows; it takes int32 words [k, W] "
+            f"and int32 tables [k, 256, S] on one CUDA device, k and r in "
+            f"1..{_MAX_UNITS}")
     words = words.contiguous()
     out = torch.empty(r, words.shape[1], dtype=torch.int32,
                       device=words.device)
-    _build.launch("htpu_ec_gf256_apply", words, consts.contiguous(), out,
+    _build.launch("htpu_ec_gf256_apply", words, tables.contiguous(), out,
                   words.shape[1], k, r)
     launches += 1
     return out
@@ -106,22 +130,26 @@ def _launch_apply(consts: torch.Tensor, words: torch.Tensor
 class GFMatrix:
     """One GF(256) matrix as the coder applies it: ``[k, W]`` int32 words
     → ``[r, W]``. Its bit constants stay on the host for the plain
-    version and are copied to each CUDA device once, for the kernel."""
+    version; its product tables are copied to each CUDA device once, for
+    the kernel."""
 
     def __init__(self, mat: np.ndarray):
+        self.rows = mat.shape[0]
         self.consts = _bit_consts(mat)
+        self.tables = _tables(mat)
         self._on: Dict[torch.device, torch.Tensor] = {}
 
-    def constants_on(self, device: torch.device) -> torch.Tensor:
+    def tables_on(self, device: torch.device) -> torch.Tensor:
         t = self._on.get(device)
         if t is None:
             t = self._on.setdefault(device, torch.from_numpy(
-                self.consts).to(device))
+                self.tables).to(device))
         return t
 
     def __call__(self, words: torch.Tensor) -> torch.Tensor:
         if words.is_cuda:
-            return _launch_apply(self.constants_on(words.device), words)
+            return _launch_apply(self.tables_on(words.device), words,
+                                 self.rows)
         if words.device.type != "cpu":
             raise ValueError(f"words on {words.device}: the coder runs on "
                              "a CUDA device, or its plain version on the "

@@ -2,7 +2,8 @@
 
 ``rms_norm`` on CUDA tensors is the hand-written kernel pair
 ``ops/csrc/rmsnorm.cu`` (the forward one pass; the backward one pass
-plus a finish that sums dw's per-block partials in a fixed order)
+over a fixed grid of about two blocks an SM, ``_bwd_grid``, plus a
+finish that sums dw's per-block partials in a fixed order)
 through the autograd Function ``RMSNorm``, which keeps x and one float32
 1/rms per row for the backward. The reference's norms are jnp that XLA
 fuses (``hadoop_tpu/ops/norms.py``); eagerly, the formula would be one
@@ -22,7 +23,7 @@ from hadoop_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_D = 8192                       # rmsnorm.cu's widest row
-_BWD_BLOCKS = 132 * 4               # row shares of the backward, at most
+_BWD_BLOCKS_PER_SM = 2              # the backward's resident blocks an SM
 
 launches_fwd = 0
 launches_bwd = 0
@@ -96,6 +97,15 @@ def _launch_fwd(x, weight, eps: float):
     return y.view(x.shape), x2, r
 
 
+def _bwd_grid(rows: int, sms: int):
+    """(blocks, rows per block) of the backward pass for rows >= 1 on a
+    card of ``sms`` SMs: fixed shares of consecutive rows, about two
+    blocks an SM (one wave), no block without rows. The kernel takes the
+    share as ceil(rows / blocks), which is the same."""
+    per = -(-rows // min(rows, _BWD_BLOCKS_PER_SM * sms))
+    return -(-rows // per), per
+
+
 def _launch_bwd(dy, x2, weight, r):
     """The backward kernel and the dw finish: (dx [rows, D], dw like w)."""
     global launches_bwd
@@ -106,7 +116,8 @@ def _launch_bwd(dy, x2, weight, r):
     dw = torch.empty_like(w)
     if rows == 0:
         return dx, dw.zero_()
-    blocks = min(rows, _BWD_BLOCKS)
+    blocks, _ = _bwd_grid(rows, torch.cuda.get_device_properties(
+        x2.device).multi_processor_count)
     partials = torch.empty(blocks, d, dtype=torch.float32, device=x2.device)
     _build.launch("htpu_rms_norm_bwd", dy2, x2, w, r, dx, partials, rows, d,
                   blocks, _DTYPES[x2.dtype])

@@ -128,10 +128,12 @@ def test_refusals():
         pdev.decode_cells(6, 3, cells, device="cpu")
     with pytest.raises(ValueError, match="need 6 surviving"):
         pdev.device_decode(6, 3, [0, 1, 2, 3, 4])
-    consts = torch.from_numpy(pdev.device_encoder(6, 3).consts)
+    tables = torch.from_numpy(pdev.device_encoder(6, 3).tables)
     words = torch.zeros(6, 16, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        pdev._launch_apply(consts, words)
+        pdev._launch_apply(tables, words, 3)
+    with pytest.raises(ValueError, match=r"tables \[k, 256, S\]"):
+        pdev._launch_apply(tables, words.as_subclass(_LooksCuda), 5)
     with pytest.raises(ValueError, match="words on meta"):
         pdev.device_encoder(6, 3)(words.to("meta"))
     if not torch.cuda.is_available():
@@ -154,3 +156,126 @@ def test_plain_version_is_the_reference_arithmetic_at_word_extremes():
     consts = pdev.device_encoder(k, m).consts
     got = pdev.apply_matrix_ref(consts, torch.from_numpy(words.view(np.int32)))
     assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
+# ------------------------------------------- the kernel's product tables
+
+class _LooksCuda(torch.Tensor):
+    """A CPU tensor that reports itself as CUDA, to reach the kernel
+    wrapper's checks without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays: byte n of the
+    result is byte ``(sel >> 4n) & 7`` of the eight bytes of (y:x)."""
+    src = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x, dtype=np.uint32)
+    for n in range(4):
+        pick = (sel >> (4 * n)) & 7
+        byte = (src >> np.uint64(8 * pick)) & np.uint64(0xFF)
+        out |= byte.astype(np.uint32) << np.uint32(8 * n)
+    return out
+
+
+def _emulate_kernel(tables, words, r):
+    """ec_gf256.cu's arithmetic in numpy: for each data unit and byte lane
+    p, the byte (``__byte_perm(w, 0, 0x4440 | p)``) looks up its entry,
+    whose word g is XORed into the lane accumulator (g, p); then the 4x4
+    byte transpose of each group (the kernel's eight ``__byte_perm``)
+    gives the output rows. [k, 256, S] uint32 tables × [k, W] uint32 →
+    [r, W] uint32."""
+    k, w = words.shape
+    groups = -(-r // 4)
+    acc = np.zeros((groups, 4, w), np.uint32)
+    zero = np.zeros(w, np.uint32)
+    for j in range(k):
+        for p in range(4):
+            entry = tables[j][_byte_perm(words[j], zero, 0x4440 | p)]
+            for g in range(groups):
+                acc[g, p] ^= entry[:, g]
+    out = np.zeros((4 * groups, w), np.uint32)
+    for g in range(groups):
+        a = acc[g]
+        t0 = _byte_perm(a[0], a[1], 0x5140)
+        t1 = _byte_perm(a[0], a[1], 0x7362)
+        t2 = _byte_perm(a[2], a[3], 0x5140)
+        t3 = _byte_perm(a[2], a[3], 0x7362)
+        out[4 * g:4 * g + 4] = [_byte_perm(t0, t2, 0x5410),
+                                _byte_perm(t0, t2, 0x7632),
+                                _byte_perm(t1, t3, 0x5410),
+                                _byte_perm(t1, t3, 0x7632)]
+    return out[:r]
+
+
+def _table_matrices():
+    """(id, [r, k] matrix): the three schemas' encode matrices, the
+    decode matrices of each schema's ``_patterns``, and a 16×16 matrix
+    (the largest the kernel takes: four row groups)."""
+    out = []
+    for k, m in SCHEMAS:
+        gen = pec._cauchy_parity_matrix(k, m)
+        out.append((f"encode-{k}-{m}", gen))
+        full = np.vstack([np.eye(k, dtype=np.uint8), gen])
+        for lost in _patterns(k, m):
+            rows = [u for u in range(k + m) if u not in lost][:k]
+            out.append((f"decode-{k}-{m}-{'-'.join(map(str, lost))}",
+                        pec._gf_invert(full[rows])))
+    out.append(("cauchy-16x16", pec._cauchy_parity_matrix(16, 16)))
+    return out
+
+
+@pytest.mark.parametrize("mat", [m for _, m in _table_matrices()],
+                         ids=[i for i, _ in _table_matrices()])
+def test_table_lookups_equal_the_reference_bit_for_bit(mat):
+    """The product tables as the kernel reads them (its lookups and lane
+    transpose, emulated) give the reference's ``_apply_matrix`` and the
+    host coder's bytes exactly, on random words and on words at the
+    extremes (0, 0xFFFFFFFF, 0x80000000, every byte value in each
+    lane)."""
+    r, k = mat.shape
+    rng = np.random.default_rng(r * 100 + k)
+    lanes = np.arange(256, dtype=np.uint32)
+    extremes = np.concatenate([
+        np.array([0, 0xFFFFFFFF, 0x80000000], np.uint32), lanes * 0x01010101,
+        lanes << np.uint32(24), lanes])
+    words = np.concatenate([
+        rng.integers(0, 2 ** 32, (k, 61), dtype=np.uint64).astype(np.uint32),
+        np.stack([np.roll(extremes, 7 * j) for j in range(k)])], axis=1)
+    tables = pdev._tables(mat).view(np.uint32)
+    assert tables.shape == (k, 256, pdev._entry_words(r))
+    got = _emulate_kernel(tables, words, r)
+    want = np.asarray(jdev._apply_matrix(jdev._bit_consts(mat), words))
+    assert np.array_equal(got, want)
+    host = pec._gf_matmul(mat, words.view(np.uint8).reshape(k, -1))
+    assert np.array_equal(got.view(np.uint8).reshape(r, -1), host)
+
+
+def test_tables_hold_the_products_lane_by_lane():
+    """Entry [j, b], word g, byte q is gf_mul(M[4g + q, j], b), and 0 past
+    the last row; S is 1, 2, 4, 4 words for 1-4, 5-8, 9-12, 13-16 rows; a
+    GFMatrix keeps the tables beside the plain version's constants."""
+    assert [pdev._entry_words(r) for r in (1, 4, 5, 8, 9, 12, 13, 16)] == \
+        [1, 1, 2, 2, 4, 4, 4, 4]
+    for r, k in ((3, 6), (10, 10), (5, 9), (16, 16), (1, 1)):
+        mat = np.random.default_rng(r + k).integers(0, 256, (r, k),
+                                                    dtype=np.uint8)
+        tables = pdev._tables(mat).view(np.uint32)
+        s = pdev._entry_words(r)
+        assert tables.shape == (k, 256, s) and tables.dtype == np.uint32
+        lanes = tables.view(np.uint8).reshape(k, 256, s, 4)
+        for j in range(k):
+            for g in range(s):
+                for q in range(4):
+                    i = 4 * g + q
+                    want = (pec._MUL[mat[i, j]] if i < r
+                            else np.zeros(256, np.uint8))
+                    assert np.array_equal(lanes[j, :, g, q], want), (j, g, q)
+    mat = pec._cauchy_parity_matrix(6, 3)
+    fn = pdev.GFMatrix(mat)
+    assert fn.rows == 3
+    assert np.array_equal(fn.tables, pdev._tables(mat))
+    assert np.array_equal(fn.consts, pdev._bit_consts(mat))

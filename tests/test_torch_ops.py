@@ -149,6 +149,130 @@ def test_rms_norm_kernel_refuses_what_it_was_not_built_for(monkeypatch,
         norms._check(x.as_subclass(_LooksCuda), torch.ones(8192, dtype=x.dtype))
 
 
+# the kernels' tolerance in float32 against the plain version, relative to
+# max |value| (chip_smoke.py's RMS_F32_TOL: a few float32 ulps of the
+# largest term, the sums taken in another order)
+RMS_F32_TOL = 1e-6
+
+
+def _fma(a, b, c):
+    """fmaf in float32: the exact product and sum in float64, rounded."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _emulate_rms_bwd(dy, x, w, r, blocks, per, vec):
+    """rmsnorm.cu's backward in float32 torch ops, in the kernel's order:
+    thread t of 256 owns the 16-byte vectors t, t + 256, ... of a row
+    (``vec`` elements each) and sums g·x over them in order by fmaf; a
+    butterfly within each warp; the eight warps' sums added in warp order.
+    dw: each block's fmaf running sum over its rows in order, then the
+    finish: warp v sums partials v, v + 8, ... in float64, the warps'
+    sums added in order. [rows, d] float32 → (dx, dw) float32."""
+    rows, d = x.shape
+    nvec = d // vec
+    nv = 1
+    while nv * 256 < nvec:
+        nv *= 2
+    # element order of each thread: its vectors in order, then lanes
+    cols = torch.full((256, nv * vec), -1, dtype=torch.long)
+    for t in range(256):
+        for k in range(nv):
+            v = t + 256 * k
+            if v < nvec:
+                cols[t, k * vec:(k + 1) * vec] = torch.arange(v * vec,
+                                                              (v + 1) * vec)
+    g = dy * w
+    dot = torch.zeros(rows, 256)
+    for e in range(nv * vec):
+        c = cols[:, e]
+        live = c >= 0
+        cc = c.clamp(min=0)
+        step = _fma(g[:, cc], x[:, cc], dot)
+        dot = torch.where(live, step, dot)
+    lanes = dot.view(rows, 8, 32)
+    idx = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ off]
+    total = lanes[:, 0, 0]
+    for v in range(1, 8):
+        total = total + lanes[:, v, 0]
+    mean = total / d
+    c = ((r * r) * r) * mean
+    dx = r[:, None] * g - x * c[:, None]
+    parts = torch.zeros(blocks, d)
+    for b in range(blocks):
+        acc = torch.zeros(d)
+        for row in range(b * per, min(rows, (b + 1) * per)):
+            acc = _fma(dy[row], x[row] * r[row], acc)
+        parts[b] = acc
+    sums = []
+    for v in range(8):          # in order, as the kernel: no pairwise sum
+        acc = torch.zeros(d, dtype=torch.float64)
+        for b in range(v, blocks, 8):
+            acc = acc + parts[b].double()
+        sums.append(acc)
+    dw = sums[0]
+    for v in range(1, 8):
+        dw = dw + sums[v]
+    return dx, dw.float()
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("layout", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_rms_bwd_kernel_order_matches_plain_and_jax(d, layout):
+    """The backward kernel's reduction order (emulated above, in float32
+    on the CPU; ``layout`` sets the vector width, 4 or 8 elements, and
+    rounds the inputs to bf16 for the bfloat16 path) against the plain
+    version and ``jax.vjp`` of the reference's ``rms_norm``, on the same
+    float32 inputs: dx and dw within RMS_F32_TOL of max |value|, at the
+    widths of flagship-1b and mixtral-8x7b, over several row shares."""
+    import jax
+    rows = 96
+    vec = 4 if layout == "float32" else 8
+    tdt = getattr(torch, layout)
+    x, dy = (torch.from_numpy(_randn(s, rows, d)).to(tdt).float()
+             for s in (31, 32))
+    w = (1 + 0.1 * torch.from_numpy(_randn(33, d))).to(tdt).float()
+    blocks, per = norms._bwd_grid(rows, 5)
+    assert (blocks, per) == (10, 10)
+    _, r = norms.rms_norm_ref_fwd(x, w, 1e-5)
+    dx, dw = _emulate_rms_bwd(dy, x, w, r, blocks, per, vec)
+    dxr, dwr = norms.rms_norm_ref_bwd(dy, x, w, r)
+    assert _rel(dx, dxr) <= RMS_F32_TOL
+    assert _rel(dw, dwr) <= RMS_F32_TOL
+    _, vjp = jax.vjp(lambda a, b: jnorms.rms_norm(a, b, 1e-5),
+                     jnp.asarray(x.numpy()), jnp.asarray(w.numpy()))
+    jdx, jdw = vjp(jnp.asarray(dy.numpy()))
+    assert _rel(dx, jdx) <= RMS_F32_TOL
+    assert _rel(dw, jdw) <= RMS_F32_TOL
+
+
+@pytest.mark.parametrize("rows,sms", [(1, 132), (7, 132), (263, 132),
+                                      (264, 132), (265, 132), (4096, 132),
+                                      (8192, 132), (8191, 132), (100, 3),
+                                      (1000, 114)])
+def test_rms_bwd_grid_covers_every_row_once(rows, sms):
+    """``_bwd_grid``: at most two blocks an SM and one a row, shares of
+    consecutive rows that cover every row once with no empty block, and
+    the share the kernel computes (ceil(rows / blocks)) is the grid's."""
+    blocks, per = norms._bwd_grid(rows, sms)
+    assert 1 <= blocks <= min(rows, 2 * sms)
+    assert blocks * per >= rows and (blocks - 1) * per < rows
+    assert -(-rows // blocks) == per
+
+
+def test_rms_bwd_grid_at_the_main_path_shapes():
+    """flagship-1b's [4, 2048] and mixtral-8x7b's [1, 4096] training rows
+    on an H100's 132 SMs: 256 blocks of 32 and of 16 rows, one wave of two
+    blocks an SM."""
+    assert norms._bwd_grid(4 * 2048, 132) == (256, 32)
+    assert norms._bwd_grid(4096, 132) == (256, 16)
+
 def test_rope_with_positions_matches_jax():
     cos, sin = rope.rope_frequencies(16, 64, 10000.0)
     jcos, jsin = jrope.rope_frequencies(16, 64, 10000.0)
