@@ -63,7 +63,19 @@ tokens, through ``make_train_step`` (phase ``moe_train``: the flash
 kernels at its shape first, 6 steps with their launches pinned, one
 profiled) and through ``Trainer`` (phase ``moe_trainer``: crash, resume
 and the loader into a ``DecodeEngine``, on a filesystem in memory).
-Weights are random, made from a seeded ``torch.Generator``. Each phase
+Ulysses context parallelism (phase ``ulysses``): the three llama3-8b
+prompts through ``ContextParallelPrefiller(sp_mode="ulysses")`` beside
+the ring's, and the long-context plane with
+``serving.longctx.sp.mode=ulysses``. The parallel training plans, last
+(phases ``dist_parity`` and ``dist_train``): flagship-1b at full width
+on four ranks started by ``spmd.launch``, each a process on this one
+card in a gloo world (NCCL takes no two ranks on one GPU; the
+collectives travel through host memory), dp2×tp2, with Megatron-SP,
+dp2×sp2 as ring and as Ulysses, and ZeRO-1 dp4: one float32 step
+against the single-device step, then three bf16 AdamW steps with their
+launches pinned per rank; ``dist_shapes`` times the flash kernels at
+those ranks' shapes. Weights are random, made from a seeded
+``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
@@ -72,7 +84,9 @@ kernels and ``adamw``/``grad_sq``, one 8192-token llama3-8b CP prefill
 for ``flash_fwd_partial``, the ec phase's encode and decode calls for
 ``ec_gf256``) and on later slices' (``launches_trainer``: the trainer
 phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
-MoE phases' 6 and 12), its error and its times; the last line is
+MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
+prefill; ``launches_dist``: rank 0's in dist_train's five plans of three
+steps), its error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -110,6 +124,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import hadoop_tpu_torch.parallel.ring_attention as ring_module
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.tools import dist_plans
 from hadoop_tpu_torch import (DecodeEngine, SamplingParams, forward,
                               get_config, init_params, init_train_state,
                               make_train_step)
@@ -201,11 +217,13 @@ TRAIN = dict(batch=4, seq=2048, warmup=2, timed=5, lr=3e-4, remat="full")
 # batch) first, then flagship-1b's at sp 4 ([2048]), one Sq < Skv case and
 # one at D 64; then Hq/Hkv 1 with one 128-row tile, Hq/Hkv 4 with Sq > Skv
 # and an odd count of tiles, Sq < Skv the other way round, and q scaled by
-# 8 (scores of large range); each in bf16 and float32
+# 8 (scores of large range); last a rank of dist_train's dp2 x sp2 ring
+# (flagship-1b, [4, 2048]); each in bf16 and float32
 PARTIAL_SHAPES = [(4, 2048, 2048, 32, 8, 128, 1), (4, 512, 512, 16, 8, 128, 1),
                   (2, 256, 512, 8, 2, 128, 1), (2, 256, 256, 4, 2, 64, 1),
                   (2, 128, 128, 4, 4, 128, 1), (1, 384, 128, 8, 2, 128, 1),
-                  (1, 128, 384, 8, 2, 128, 1), (1, 512, 1024, 8, 2, 128, 8)]
+                  (1, 128, 384, 8, 2, 128, 1), (1, 512, 1024, 8, 2, 128, 8),
+                  (2, 1024, 1024, 16, 8, 128, 1)]
 # the partial against its plain version: max |dO| over max |O|, and max
 # |d lse|. bf16: P is rounded per key tile against the running max in
 # the kernel, once against the row max in the plain version (as for the
@@ -393,6 +411,55 @@ MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
 # ``odd``-byte cells. GB/s of data: the kernel (CUDA events, ``timed``
 # launches), the plain version (one call), the host coder (encode on the
 # whole group; decode on the first ``host_slice`` bytes of each unit).
+# Phases dist_parity and dist_train: the parallel plans of
+# parallel/train.py on four ranks, each a process started by spmd.launch
+# (spawn) on this one card. NCCL refuses a communicator whose ranks share
+# a GPU, so the ranks join a gloo world and every collective of a CUDA
+# tensor travels through host memory (parallel/spmd.py): the kernels and
+# shapes are each rank's, the times are four ranks on one card, not a
+# multi-GPU deployment's. Both run flagship-1b at full width and `layers`
+# of its 18 layers: at 4 layers the two phases took 75 and 85 s of host
+# transport and setup (on an H100 80GB HBM3), so full depth would add
+# ~470 s to a script that ran ~480. dist_parity: float32, one step from
+# the seed-0 weights on the train phase's [4, 2048] batch (SGD at lr
+# 1e-2; ZeRO-1 dp4 AdamW at TRAIN's lr), loss
+# and grad norm at rtol `parity_tol` against the single-device step, and
+# at `sample` flat indices of every leaf, gathered: the updated values
+# (max |d| over max |value| <= parity_tol) and the updates, max |d| over
+# max |update|: for SGD <= PARITY_TOL, the parity phase's rule; for AdamW
+# <= `adamw_update_tol`. A first AdamW step moves each element by
+# lr * (g/(|g| + eps) [+ wd * p]), so an element whose clipped gradient is
+# near eps turns the sums' reordering into a visible share of lr: the
+# sound reading was 1.35e-2 (final_norm_w, on an H100 80GB HBM3), while an
+# update left out reads 1.0 by this rule. The phase also reads that
+# control (the state left unchanged) and fails unless every leaf's
+# control exceeds the limit, and it records, for each leaf's worst
+# element, |g|/eps as the single device's update implies it.
+# dist_train: the same plans in bf16 with AdamW, `train_steps` steps each,
+# per rank the step time (CUDA events), the flash launches per step
+# (exact, by plan), peak memory and the bytes each axis put on the wire;
+# losses within `loss_rtol` of the single-device bf16 step's at the same
+# depth (bf16 sums in other orders: 2.6e-4 at most at 4 layers).
+DIST = dict(model="flagship-1b", layers=6, world=4, backend="gloo",
+            sample=4096,
+            sgd_lr=1e-2, parity_tol=5e-4, adamw_update_tol=0.1,
+            adamw_eps=1e-8, adamw_wd=0.1, train_steps=3, loss_rtol=1e-2,
+            timeout=1200)
+DIST_PLANS = [("dp2_tp2", {"dp": 2, "tp": 2}),
+              ("dp2_tp2_megatron_sp", {"dp": 2, "tp": 2,
+                                       "megatron_sp": True}),
+              ("dp2_sp2_ring", {"dp": 2, "sp": 2}),
+              ("dp2_sp2_ulysses", {"dp": 2, "sp": 2, "sp_mode": "ulysses"}),
+              ("zero1_dp4", {"dp": 4})]
+# The flash kernels at the new main-path shapes (B, S, Hq, Hkv, D) of
+# this slice, bf16: the Ulysses prefill of llama3-8b at sp 4 folded, the
+# tp2 and Ulysses dp2 x sp2 training ranks, the ring's diagonal in ring
+# training (forward only: the ring's backward is the plain partial's),
+# the ZeRO-1 dp4 rank.
+DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
+               ("tp2_ulysses_train", (2, 2048, 8, 4, 128), True),
+               ("ring_train_diagonal", (2, 1024, 16, 8, 128), False),
+               ("zero1_dp4_train", (1, 2048, 16, 8, 128), True)]
 EC = dict(unit_bytes=134217728, schemas=((3, 2), (6, 3), (10, 4)),
           odd=1021, timed=10, host_slice=16 << 20, host_threads=8)
 # lost units per schema: two data units and one parity unit, data units
@@ -2071,11 +2138,12 @@ def _sliced_layers(on: bool):
         return
     unbound = decoder_module.run_layers
 
-    def sliced(x, layers, cfg, cos, sin, attn_impl="auto", remat=False):
+    def sliced(x, layers, cfg, cos, sin, attn_impl="auto", remat=False,
+               ctx=decoder_module.SINGLE):
         body = decoder_module._layer_fn(remat)
         for i in range(cfg.n_layers):
             x = body(x, {name: w[i] for name, w in layers.items()}, cfg,
-                     cos, sin, attn_impl)
+                     cos, sin, attn_impl, ctx)
         return x
 
     decoder_module.run_layers = sliced
@@ -2641,6 +2709,80 @@ def _reference(params, cfg, full, n, head, cos, sin):
     return out
 
 
+def _cp_errors(got, got_kv, ref, local):
+    """A CP prefill and the calibration against the kernel forward:
+    logits, then K and V per layer from position ``local`` on; and the
+    largest ratio of an error to its calibration."""
+    kernel, plain = ref["auto"], ref["ref"]
+    err = [[_max_rel(got, kernel[0])]]
+    cal = [[_max_rel(plain[0], kernel[0])]]
+    for j in (1, 2):
+        if got_kv[j - 1].shape != kernel[j].shape:
+            raise SmokeFailure(f"streamed K/V {tuple(got_kv[j - 1].shape)}"
+                               f", expected {tuple(kernel[j].shape)}")
+        err.append(_rel_per_layer(got_kv[j - 1][:, local:],
+                                  kernel[j][:, local:]))
+        cal.append(_rel_per_layer(plain[j][:, local:],
+                                  kernel[j][:, local:]))
+    ratio = max(e / c if c else (0.0 if e == 0 else math.inf)
+                for es, cs in zip(err, cal) for e, c in zip(es, cs))
+    return err, cal, ratio
+
+
+def _ulysses_prefill(upre, prompt, ref, local, cfg, ring_ms):
+    """Phase ``ulysses``: the Ulysses CP prefill of ``prompt`` (its sp
+    ranks folded on this card: the all-to-alls are permutes of the
+    stacked ranks, one causal kernel launch a layer over all of them)
+    against the single-device forward by the ring's calibration rule;
+    timed beside the ring's ms when ``ring_ms`` is given. Returns its
+    launches (fwd, dq, dkv, partial)."""
+    n = len(prompt)
+    sp = upre.sp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                              # the main path's run
+    res = upre.cp_prefill(prompt)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    got_kv, n_blocks = _streamed_kv(res)
+    got = torch.from_numpy(res.last_logits)
+    del res
+    err, cal, ratio = _cp_errors(got, got_kv, ref, local)
+    kernel = ref["auto"]
+    rec = {"phase": "ulysses", "model": LONGCTX["model"], "dtype": cfg.dtype,
+           "prompt_tokens": n, "pad_tokens": upre.pad_tokens, "sp": sp,
+           "sp_mode": upre.sp_mode, "block_size": LONGCTX["block"],
+           "full_blocks": n_blocks,
+           "kernel_shape": [sp, upre.pad_tokens, cfg.n_heads // sp,
+                            cfg.n_kv_heads // sp, cfg.head_dim],
+           "kv_bit_equal_to_single_device": all(
+               torch.equal(g, w) for g, w in zip(got_kv, kernel[1:])),
+           "logits_rel_err": err[0][0],
+           "logits_rel_err_calibration": cal[0][0],
+           "argmax_agree": int(got.argmax()) == int(kernel[0].argmax()),
+           "k_rel_err_max": max(err[1]), "v_rel_err_max": max(err[2]),
+           "calibration_ratio_max": ratio,
+           "cal_factor": LONGCTX["cal_factor"],
+           "launches_fwd_dq_dkv_partial": list(launches),
+           "peak_memory_bytes": peak,
+           "shapes": [upre.prefill_compiles, upre.head_compiles]}
+    if ring_ms is not None:
+        ms = cuda_ms(lambda: upre.cp_prefill(prompt), LONGCTX["timed"])
+        rec.update(ms=ms, tokens_per_s=n / (ms / 1e3), ring_ms_same_run=ring_ms)
+    emit(rec)
+    want = (cfg.n_layers, 0, 0, 0)
+    require(tuple(launches) == want,
+            f"Ulysses prefill launches (fwd, dq, dkv, partial) {launches}, "
+            f"expected {want}")
+    require(ratio <= LONGCTX["cal_factor"],
+            f"Ulysses prefill of {n} tokens vs the single-device forward: "
+            f"up to {ratio} times the calibration's distance")
+    require(bool(torch.isfinite(got).all()), "non-finite Ulysses logits")
+    require(n_blocks == n // LONGCTX["block"], "wrong block count")
+    return launches
+
+
 def phase_longctx(int8: bool = False, bf16_ms=None):
     """llama3-8b at full width and depth and its published context: CP
     prefill (sp 4 on this card, block 16) of three prompts against the
@@ -2649,9 +2791,12 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
     tree (group 64: every local matmul through ``qdot``, the head through
     ``qhead``) and the single-device forward runs over its
     ``dequantize_params`` reconstruction, for the 8192-token prompt.
+    The bf16 run also prefills each prompt through Ulysses (phase
+    ``ulysses``, ``_ulysses_prefill``) against the same references.
     Returns the main path's launches (causal, partial) of the 8192-token
-    prefill and its ms (``bf16_ms``: the bf16 prefill's, recorded beside
-    the int8 one's)."""
+    prefill, its ms (``bf16_ms``: the bf16 prefill's, recorded beside
+    the int8 one's) and the Ulysses prefill's launches (causal,
+    partial)."""
     cfg = get_config(LONGCTX["model"])
     sp = LONGCTX["sp"]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -2675,9 +2820,12 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
     pre = ContextParallelPrefiller(cp_params, cfg,
                                    block_size=LONGCTX["block"],
                                    pad_tokens=cfg.max_seq, sp=sp)
+    upre = None if int8 else ContextParallelPrefiller(
+        cp_params, cfg, block_size=LONGCTX["block"],
+        pad_tokens=cfg.max_seq, sp=sp, sp_mode="ulysses")
     local = pre.pad_tokens // sp
     want_launches = (cfg.n_layers, 0, 0, (sp - 1) * cfg.n_layers)
-    main_launches = main_ms = None
+    main_launches = main_ms = uly_launches = None
     prompts = LONGCTX["tokens"][:1] if int8 else LONGCTX["tokens"]
     for i, n in enumerate(prompts):
         full = torch.randint(0, cfg.vocab_size, (cfg.max_seq,),
@@ -2699,21 +2847,8 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
         attn = []
         with _probe_ring(sp, attn):
             pre.cp_prefill(prompt)
-        # the CP prefill and the calibration against the kernel forward:
-        # logits, then K and V per layer from position S/sp on
-        kernel, plain = ref["auto"], ref["ref"]
-        err = [[_max_rel(got, kernel[0])]]
-        cal = [[_max_rel(plain[0], kernel[0])]]
-        for j in (1, 2):
-            if got_kv[j - 1].shape != kernel[j].shape:
-                raise SmokeFailure(f"streamed K/V {tuple(got_kv[j - 1].shape)}"
-                                   f", expected {tuple(kernel[j].shape)}")
-            err.append(_rel_per_layer(got_kv[j - 1][:, local:],
-                                      kernel[j][:, local:]))
-            cal.append(_rel_per_layer(plain[j][:, local:],
-                                      kernel[j][:, local:]))
-        ratio = max(e / c if c else (0.0 if e == 0 else math.inf)
-                    for es, cs in zip(err, cal) for e, c in zip(es, cs))
+        kernel = ref["auto"]
+        err, cal, ratio = _cp_errors(got, got_kv, ref, local)
         rank0_equal = all(torch.equal(g[:, :local], w[:, :local])
                           for g, w in zip(got_kv, kernel[1:]))
         rec = {"phase": "longctx_int8" if int8 else "longctx",
@@ -2764,12 +2899,20 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
         require(bool(torch.isfinite(got).all()), "non-finite CP logits")
         require(n_blocks == n // LONGCTX["block"] and
                 tail == n % LONGCTX["block"], "wrong block count")
-        del ref, got_kv
+        del got_kv
+        if upre is not None:
+            launches = _ulysses_prefill(upre, prompt, ref, local, cfg,
+                                        main_ms if i == 0 else None)
+            if i == 0:
+                uly_launches = (launches[0], launches[3])
+        del ref
     require(pre.prefill_compiles == 1 and pre.head_compiles == 1,
             "the CP prefill ran at more than one shape")
-    del params, cp_params, pre
+    require(upre is None or (upre.prefill_compiles, upre.head_compiles)
+            == (1, 1), "the Ulysses prefill ran at more than one shape")
+    del params, cp_params, pre, upre
     free_device()
-    return main_launches, main_ms
+    return main_launches, main_ms, uly_launches
 
 
 # ------------------------------------------------- long-context decode
@@ -2975,6 +3118,7 @@ def _llama_decode_part(params, ref_params, cfg, prompt, label):
                 for e, c in zip(err, cal))
     argmax = sum(int(int(r.argmax()) == t)
                  for r, t in zip(ref["auto"], toks[1:]))
+    rec["rows"] = rows
     rec.update(part=label, host_sampler_tokens_equal=host_toks == toks,
                logits_rel_err=err, logits_rel_err_calibration=cal,
                calibration_ratio_max=ratio,
@@ -2992,6 +3136,33 @@ def _llama_decode_part(params, ref_params, cfg, prompt, label):
     return rec
 
 
+def _ulysses_plane(params, cfg, prompt, ring_toks, ring_rows):
+    """Phase ``ulysses`` through the plane: ``serving.longctx.sp.mode=
+    ulysses`` on the replica conf, the prompt through ``engine.submit``:
+    its greedy tokens against the ring plane's (equal, or first apart at
+    a near-tie of the ring run's logits), no partial launch."""
+    new = LONGCTX_DECODE["new"]
+    eng = _longctx_engine(params, cfg, len(prompt), 256, **{
+        "serving.longctx.min.tokens": LONGCTX_DECODE["min_tokens"],
+        "serving.longctx.max.tokens": LONGCTX_DECODE["tokens"],
+        "serving.longctx.sp.mode": "ulysses"})
+    require(eng._relaxed_longctx.prefiller.sp_mode == "ulysses",
+            "the conf key did not select Ulysses")
+    toks, rec = _plane_run(eng, prompt, new)
+    eng.stop()
+    del eng
+    free_device()
+    emit({"phase": "ulysses", "part": "plane", "model":
+          LONGCTX_DECODE["model"], "dtype": cfg.dtype,
+          "sp": LONGCTX_DECODE["sp"], "tokens_equal_ring": toks == ring_toks,
+          "tokens_out": toks, **rec})
+    require(_tokens_agree(toks, ring_toks, ring_rows),
+            f"Ulysses plane tokens {toks} against the ring's {ring_toks}")
+    require(rec["launches_fwd_partial"][1] == 0,
+            f"the Ulysses plane launched the partial: "
+            f"{rec['launches_fwd_partial']}")
+
+
 def phase_longctx_decode():
     """llama3-8b's bf16 and int8 planes through the long-context lane (see
     LONGCTX_DECODE). Returns the launches of the bf16 run (RMSNorm
@@ -3003,15 +3174,18 @@ def phase_longctx_decode():
                            generator=torch.Generator().manual_seed(SEED + 30)
                            ).tolist()
     rec = _llama_decode_part(params, params, cfg, prompt, "bf16")
+    rows = rec.pop("rows")
     emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
           "dtype": cfg.dtype, "sp": LONGCTX_DECODE["sp"],
           "block_size": LONGCTX_DECODE["block"], **rec})
     rms_launches = rec["launches_rms_norm_fwd"]
+    _ulysses_plane(params, cfg, prompt, rec["tokens_out"], rows)
     qparams, report = weightplane.quantize_params(params, cfg, WEIGHTS_INT8)
     del params
     free_device()
     ref_params = weightplane.dequantize_params(qparams, cfg)
     rec = _llama_decode_part(qparams, ref_params, cfg, prompt, "int8")
+    del rec["rows"]
     emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
           "dtype": "int8", "group": WEIGHTS_INT8.group,
           "weight_bytes": report["weight_bytes"],
@@ -4003,6 +4177,239 @@ def phase_ec():
     return record
 
 
+def phase_dist_shapes():
+    """The flash forward (and both backward kernels where the path
+    differentiates through them) at DIST_SHAPES against their plain
+    versions, timed beside them and SDPA, with their bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    for name, (b, s, hq, hkv, d), backward in DIST_SHAPES:
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+        rec = {"phase": "dist_shapes", "name": name,
+               "shape": [b, s, hq, hkv, d], "dtype": "bfloat16",
+               "fwd": fwd_record(q, k, v)}
+        if backward:
+            rec["bwd"] = bwd_record(q, k, v, do)[0]
+        emit(rec)
+        require(fwd_ok(rec["fwd"]) and (not backward or bwd_ok(rec["bwd"])),
+                f"flash kernels disagree with their plain versions at "
+                f"{name} {rec['shape']}")
+        del q, k, v, do
+        free_device()
+
+
+def _dist_job(cfg_over, tokens, sample, plans):
+    return {"preset": DIST["model"],
+            "overrides": dict(cfg_over, n_layers=DIST["layers"]), "seed": SEED,
+            "device": "cuda", "sample": sample,
+            "tokens": tokens.cpu().numpy(),
+            "targets": torch.roll(tokens, -1, dims=1).cpu().numpy(),
+            "plans": plans}
+
+
+def _train_tokens(cfg):
+    """The train phase's batch."""
+    return torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]),
+                         device="cuda", generator=torch.Generator(
+                             device="cuda").manual_seed(SEED + 3))
+
+
+def _per_rank(recs, i):
+    """Plan i's records on every rank, with the transport named."""
+    return [r[i] for r in recs]
+
+
+def _leaf_rel(got, want, base=None):
+    """Per sampled leaf: max |got - want| over max |want| (both minus
+    ``base`` when given: the updates)."""
+    out = {}
+    for key, g, w, b in zip(tree_leaves(_names(want)), tree_leaves(got),
+                            tree_leaves(want), tree_leaves(
+                                base if base is not None else want)):
+        if base is not None:
+            g, w = g - b, w - b
+        out[key] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    return out
+
+
+def _adamw_worst(got, want, base, ndims, lr):
+    """Per sampled leaf, at the element where the plan's update is
+    furthest from the single device's: both updates and |g|/eps, g the
+    clipped gradient the single device's first AdamW update implies
+    (|a|/(1-|a|), a = -update/lr - wd*p0 on decayed leaves:
+    g/(|g| + eps) at step 1)."""
+    out = {}
+    for key, g, w, b in zip(tree_leaves(_names(want)), tree_leaves(got),
+                            tree_leaves(want), tree_leaves(base)):
+        dg, dw = g.astype(np.float64) - b, w.astype(np.float64) - b
+        i = int(np.abs(dg - dw).argmax())
+        a = -dw[i] / lr - (DIST["adamw_wd"] * b[i] if ndims[key] >= 2
+                           else 0.0)
+        a = min(abs(a), 1.0 - 1e-12)
+        out[key] = {"index": i, "update_plan": float(dg[i]),
+                    "update_single": float(dw[i]),
+                    "grad_over_eps": float(a / (1.0 - a))}
+    return out
+
+
+def phase_dist_parity():
+    """DIST_PLANS in float32 against the single-device step (see DIST)."""
+    free_device()                  # the ranks share the card with this one
+    cfg = get_config(DIST["model"], dtype="float32", n_layers=DIST["layers"])
+    tokens = _train_tokens(cfg)
+    targets = torch.roll(tokens, -1, dims=1)
+    ref = {}
+    for opt, lr in (("sgd", DIST["sgd_lr"]), ("adamw", TRAIN["lr"])):
+        params, state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        p0 = dist_plans.sample_tree(params, DIST["sample"])
+        ndims = {key: p.ndim for key, p in zip(tree_leaves(_names(params)),
+                                              tree_leaves(params))}
+        step = make_train_step(cfg, MeshPlan(), lr=lr, optimizer=opt,
+                               remat=TRAIN["remat"])
+        params, state, m = step(params, state, tokens, targets)
+        ref[opt] = (m["loss"].item(), m["grad_norm"].item(),
+                    dist_plans.sample_tree(params, DIST["sample"]))
+        del params, state, step, m
+        free_device()
+    plans = [{"plan": kw, "steps": 1, "remat": TRAIN["remat"],
+              **({"optimizer": "adamw", "zero1": True, "lr": TRAIN["lr"]}
+                 if name.startswith("zero1") else
+                 {"optimizer": "sgd", "lr": DIST["sgd_lr"]})}
+             for name, kw in DIST_PLANS]
+    t0 = time.monotonic()
+    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
+                       backend=DIST["backend"],
+                       args=([_dist_job({"dtype": "float32"}, tokens,
+                                        DIST["sample"], plans)],),
+                       timeout=DIST["timeout"])
+    seconds = time.monotonic() - t0
+    for i, (name, kw) in enumerate(DIST_PLANS):
+        ranks = _per_rank(recs, i)
+        opt = ranks[0]["plan"]["optimizer"]
+        loss, gnorm, want = ref[opt]
+        got = ranks[0]["params"]
+        value_rel = _leaf_rel(got, want)
+        update_rel = _leaf_rel(got, want, base=p0)
+        update_tol = PARITY_TOL if opt == "sgd" else DIST["adamw_update_tol"]
+        control = _leaf_rel(p0, want, base=p0)
+        rec = {"phase": "dist_parity", "plan": name, "mesh": kw,
+               "optimizer": opt, "dtype": "float32", "layers": cfg.n_layers,
+               "tokens": [TRAIN["batch"], TRAIN["seq"]],
+               "transport": "gloo, collectives through host memory",
+               "world_seconds": seconds,
+               "loss": [r["losses"][0] for r in ranks], "loss_single": loss,
+               "grad_norm": [r["grad_norms"][0] for r in ranks],
+               "grad_norm_single": gnorm,
+               "value_rel_err": value_rel, "update_rel_err": update_rel,
+               "tol": DIST["parity_tol"], "update_tol": update_tol,
+               "control_update_rel_err": control,
+               "step_ms_per_rank": [r["step_ms"][0] for r in ranks],
+               "peak_memory_bytes_per_rank": [r["peak_bytes"] for r in ranks]}
+        if opt == "adamw":
+            rec["worst_update"] = _adamw_worst(got, want, p0, ndims,
+                                               TRAIN["lr"])
+        emit(rec)
+        require(all(math.isclose(x, loss, rel_tol=DIST["parity_tol"])
+                    for x in rec["loss"]) and all(
+            math.isclose(x, gnorm, rel_tol=DIST["parity_tol"])
+            for x in rec["grad_norm"]),
+            f"{name}: loss {rec['loss']} / grad norm {rec['grad_norm']} "
+            f"against the single device's {loss} / {gnorm}")
+        require(max(value_rel.values()) <= DIST["parity_tol"],
+                f"{name}: updated leaves against the single device's: "
+                f"{value_rel}")
+        require(max(update_rel.values()) <= update_tol,
+                f"{name}: updates against the single device's: {update_rel}")
+        require(min(control.values()) > update_tol,
+                f"{name}: the unchanged state passes the update check: "
+                f"{control}")
+
+
+def _dist_want(cfg, kw):
+    """A full-remat step's flash launches per rank (fwd, partial, dq,
+    dkv, the first four of ``dist_plans.COUNTERS``): the causal kernel in
+    the forward and its recompute and one dQ
+    and dK/dV per layer; on the ring, the diagonal's causal partial and
+    sp - 1 non-causal partials per layer, twice, and no backward kernel
+    (the ring's backward differentiates the plain partial)."""
+    L = cfg.n_layers
+    if kw.get("sp", 1) > 1 and kw.get("sp_mode", "ring") == "ring":
+        return [2 * L, 2 * L * (kw["sp"] - 1), 0, 0]
+    return [2 * L, 0, L, L]
+
+
+def phase_dist_train():
+    """DIST_PLANS in bf16 with AdamW (see DIST), against the single-device
+    step at the same depth. Returns rank 0's launches over all plans'
+    steps, by kernel name (``dist_plans.COUNTERS``)."""
+    free_device()
+    cfg = get_config(DIST["model"], n_layers=DIST["layers"])
+    tokens = _train_tokens(cfg)
+    params, state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    step = make_train_step(cfg, MeshPlan(), lr=TRAIN["lr"],
+                           remat=TRAIN["remat"])
+    train_losses, single_ms = [], []
+    for _ in range(DIST["train_steps"]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, state, m = step(params, state, tokens,
+                                torch.roll(tokens, -1, dims=1))
+        ev[1].record()
+        train_losses.append(m["loss"].item())
+        single_ms.append(ev[0].elapsed_time(ev[1]))
+    del params, state, step, m
+    free_device()
+    plans = [{"plan": kw, "steps": DIST["train_steps"], "lr": TRAIN["lr"],
+              "optimizer": "adamw", "zero1": name.startswith("zero1"),
+              "remat": TRAIN["remat"]} for name, kw in DIST_PLANS]
+    t0 = time.monotonic()
+    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
+                       backend=DIST["backend"],
+                       args=([_dist_job({}, tokens, 16, plans)],),
+                       timeout=DIST["timeout"])
+    seconds = time.monotonic() - t0
+    total = dict.fromkeys(dist_plans.COUNTERS, 0)
+    for i, (name, kw) in enumerate(DIST_PLANS):
+        ranks = _per_rank(recs, i)
+        want = _dist_want(cfg, kw)
+        losses = ranks[0]["losses"]
+        single = train_losses[:len(losses)]
+        div = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
+        rec = {"phase": "dist_train", "plan": name, "mesh": kw,
+               "optimizer": "adamw", "zero1": name.startswith("zero1"),
+               "dtype": cfg.dtype, "layers": cfg.n_layers,
+               "tokens": [TRAIN["batch"], TRAIN["seq"]],
+               "remat": TRAIN["remat"],
+               "transport": "gloo, collectives through host memory",
+               "world_seconds": seconds, "losses": losses,
+               "losses_single_device": single, "loss_rel_divergence": div,
+               "step_ms_single_device": single_ms,
+               "loss_rtol": DIST["loss_rtol"],
+               "step_ms_per_rank": [r["step_ms"] for r in ranks],
+               "launches_per_step": {"counters": dist_plans.COUNTERS,
+                                     "per_rank": [r["launches"]
+                                                  for r in ranks]},
+               "launches_want": want,
+               "peak_memory_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+               "wire_bytes_per_step_by_axis": [r["traffic"] for r in ranks]}
+        emit(rec)
+        require(all(per[:4] == want for r in ranks for per in r["launches"]),
+                f"{name}: flash launches per step per rank "
+                f"{rec['launches_per_step']}, expected {want} (fwd, "
+                f"partial, dq, dkv)")
+        require(all(r["losses"] == losses for r in ranks),
+                f"{name}: the ranks' losses differ")
+        require(max(div) <= DIST["loss_rtol"],
+                f"{name}: losses {losses} against the single device's "
+                f"{single}")
+        for per in ranks[0]["launches"]:
+            for key, n in zip(dist_plans.COUNTERS, per):
+                total[key] += n
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4017,6 +4424,7 @@ def main() -> int:
     dequant = phase_dequant()
     rms = phase_rmsnorm()
     ec = phase_ec()
+    phase_dist_shapes()
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -4040,12 +4448,14 @@ def main() -> int:
     phase_longctx_decode_flagship(cfg32, p32)
     del cfg32, p32, cfg16, p16          # free flagship-1b for llama3-8b
     free_device()
-    (_, cp_partial), cp_ms = phase_longctx()
-    int8_launches, _ = phase_longctx(int8=True, bf16_ms=cp_ms)
+    (_, cp_partial), cp_ms, uly_launches = phase_longctx()
+    int8_launches, _, _ = phase_longctx(int8=True, bf16_ms=cp_ms)
     norm_launches, dequant_launches = phase_longctx_decode()
     phase_moe()
     moe_train_launches = phase_moe_train()
     moe_trainer_launches = phase_moe_trainer()
+    phase_dist_parity()
+    dist_launches = phase_dist_train()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     # launches: on each kernel's path of an earlier slice (the forward,
@@ -4059,17 +4469,22 @@ def main() -> int:
     # prefill on the int8 plane; launches_moe_train: the moe_train phase's
     # 6 mixtral-8x7b steps; launches_moe_trainer: the moe_trainer phase's
     # 12 steps through Trainer; ec_gf256's launches: the ec phase's
-    # encode_cells and decode_cells calls on its three block groups
+    # encode_cells and decode_cells calls on its three block groups;
+    # launches_ulysses: the 8192-token Ulysses prefill's; launches_dist:
+    # rank 0's over dist_train's five plans of three steps
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))
     by_moe_train = dict(zip(train_names, moe_train_launches))
     by_moe_trainer = dict(zip(train_names, moe_trainer_launches))
     by_int8 = dict(zip(("flash_fwd", "flash_fwd_partial"), int8_launches))
+    by_ulysses = dict(zip(("flash_fwd", "flash_fwd_partial"), uly_launches))
     emit({"kernels": [dict(rec, launches_trainer=by_trainer.get(
         rec["name"], 0), launches_longctx_int8=by_int8.get(rec["name"], 0),
         launches_moe_train=by_moe_train.get(rec["name"], 0),
-        launches_moe_trainer=by_moe_trainer.get(rec["name"], 0))
+        launches_moe_trainer=by_moe_trainer.get(rec["name"], 0),
+        launches_ulysses=by_ulysses.get(rec["name"], 0),
+        launches_dist=dist_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

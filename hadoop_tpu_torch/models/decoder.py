@@ -4,16 +4,25 @@ The counterpart of ``hadoop_tpu/models/decoder.py``: the same
 layer-stacked parameter tree (every per-layer weight one tensor with a
 leading ``n_layers`` dim), here a plain dict of tensors walked by a
 Python loop. Families llama, gpt2 and mixtral (MoE, ``models/moe.py``).
-``ParallelCtx`` carries the context-parallel ring and the relaxed tier's
-quantized weights: under a ring ctx the activations are ``[R*B, S_local,
-...]`` with rank r's sequence shard on rows r*B..(r+1)*B-1 (all ranks on
-one device, ``parallel/ring_attention.py``), RoPE and learned positions
-take each rank's absolute offset, attention is ring attention, and a MoE
-layer routes each rank's tokens on their own, as each rank of the
-reference's ``shard_map`` does. With ``relaxed_qweights`` a matmul whose
-leaf is a weight-plane qtensor (``serving/weightplane.py``) runs through
-``qdot``, and a quantized embedding through ``qrows``. Tensor and expert
-parallelism come with multi-GPU parallelism (ROADMAP Queue A 6).
+``ParallelCtx`` carries the axes the run is under (``parallel/spmd.py``)
+and the relaxed tier's quantized weights. Under a context-parallel ctx
+each rank holds a sequence shard, RoPE and learned positions take each
+rank's absolute offset, and attention is ring attention or Ulysses
+(``ctx.sp_mode``); on a folded ring (all ranks on one device) the
+activations are ``[R*B, S_local, ...]`` with rank r's shard on rows
+r*B..(r+1)*B-1, and a MoE layer routes each rank's tokens on their own,
+as each rank of the reference's ``shard_map`` does. Under a tp axis (a
+process group, one rank per process) the weights are this rank's
+shards: column-parallel q/k/v and gate/up, row-parallel out and down
+projections reduced by ``ops/collective_matmul.py``, a vocab-parallel
+embedding and head; with ``megatron_sp`` the activations between blocks
+are sequence shards, gathered before each block and reduce-scattered
+after it. Where the reference's vma tracking inserts the gradient sum
+of a value every tp rank holds, here ``spmd.copy_to`` does. With
+``relaxed_qweights`` a matmul whose leaf is a weight-plane qtensor
+(``serving/weightplane.py``) runs through ``qdot``, and a quantized
+embedding through ``qrows``. Expert parallelism, and MoE layers under
+tp, are ROADMAP Queue A 6.
 
 Attention goes through ``ops.attention.causal_attention``, which takes
 the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
@@ -38,21 +47,28 @@ from hadoop_tpu_torch.models.moe import moe_mlp
 from hadoop_tpu_torch.ops import (apply_rope, causal_attention, gelu,
                                   layer_norm, rms_norm, rope_frequencies,
                                   swiglu)
+from hadoop_tpu_torch.ops.collective_matmul import row_parallel_project
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel import ring_attention as ring_module
+from hadoop_tpu_torch.parallel.ulysses import ulysses_attention
 from hadoop_tpu_torch.serving.weightplane import is_qtensor, qdot, qrows
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """The context-parallel ring the current run is under (None =
-    single device), and whether quantized weights may be contracted.
-    The tensor, expert and wire-codec fields come with multi-GPU
-    parallelism (ROADMAP Queue A 6), and naming one is a TypeError.
+    """The axes the current run is under (None = single device), and
+    whether quantized weights may be contracted. The expert and
+    wire-codec fields come with ROADMAP Queue A 6, and naming one is a
+    TypeError.
 
     ring:      name of the context-parallel axis (the reference's
         ``ring_axis``), e.g. "sp".
-    ring_size: ranks on the ring.
-    sp_mode:   "ring" only; "ulysses" needs an all-to-all and comes with
-        multi-GPU parallelism (ROADMAP Queue A 6).
+    ring_size: ranks on it.
+    ring_group: the axis as a process group (``spmd.Axis``); None: the
+        ranks are folded into the batch on one device.
+    sp_mode:   "ring" or "ulysses" (``parallel/ulysses.py``).
+    tp:        the tensor-parallel axis, a process group (``spmd.Axis``).
+    megatron_sp: sequence parallelism on the tp axis.
     relaxed_qweights: the relaxed tier's opt-in (``serving.parity``):
         matmul leaves that are weight-plane qtensors route through the
         dequantizing matmul. False (the bitwise tier): a qtensor leaf
@@ -62,24 +78,57 @@ class ParallelCtx:
     ring_size: int = 1
     sp_mode: str = "ring"
     relaxed_qweights: bool = False
+    ring_group: Optional[spmd.Axis] = None
+    tp: Optional[spmd.Axis] = None
+    megatron_sp: bool = False
 
     def __post_init__(self):
-        if self.sp_mode != "ring":
-            raise NotImplementedError(
-                f"sp_mode={self.sp_mode!r}: only ring attention is ported "
-                f"(ulysses: ROADMAP Queue A 6)")
+        if self.sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"sp_mode={self.sp_mode!r} (ring | ulysses)")
         if self.ring_size < 1 or (self.ring is None and self.ring_size != 1):
             raise ValueError(f"ring={self.ring!r}, ring_size={self.ring_size}")
+        if self.ring_group is not None and (
+                self.ring != self.ring_group.name or
+                self.ring_size != self.ring_group.size):
+            raise ValueError(f"ring {self.ring!r}/{self.ring_size} is not "
+                             f"its group {self.ring_group}")
+        if self.megatron_sp and self.tp is None:
+            raise ValueError("megatron_sp needs a tp axis")
+        if self.tp is not None and self.tp.folded:
+            raise ValueError(f"tp {self.tp}: tensor parallelism needs a "
+                             f"process group")
+
+    @property
+    def ring_axis(self) -> Optional[spmd.Axis]:
+        """The context-parallel axis: its group, or the folded ranks."""
+        if self.ring is None:
+            return None
+        return self.ring_group or spmd.folded(self.ring, self.ring_size)
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.tp.size
 
 
 SINGLE = ParallelCtx()
 
 
 def _ring_positions(ctx: ParallelCtx, seq: int, device) -> torch.Tensor:
-    """Absolute positions [R, S_local] of each rank's shard:
+    """Absolute positions [R, S_local] of the shards of the ring ranks
+    this process holds (all R of a folded ring, its own of a group):
     ``rank * S_local + arange(S_local)``."""
-    rank = torch.arange(ctx.ring_size, device=device)[:, None]
+    rank = spmd.local_ranks(ctx.ring_axis, device)[:, None]
     return rank * seq + torch.arange(seq, device=device)
+
+
+def _tp_enter(h: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """A block's normed input where it meets the tp-sharded weights: the
+    whole sequence gathered under Megatron-SP (whose backward
+    reduce-scatters), else marked with ``copy_to`` so its gradient sums
+    every tp rank's part."""
+    if ctx.megatron_sp:
+        return spmd.all_gather(h, ctx.tp, 1)
+    return spmd.copy_to(h, ctx.tp)
 
 
 # ----------------------------------------------------------------- params
@@ -156,13 +205,29 @@ def _norm(x, w, b, cfg: ModelConfig):
 
 def _relaxed_qready(w, ctx: ParallelCtx) -> bool:
     """Does this matmul take the weight plane's dequantizing route? Only
-    when the run opted in and the leaf is a qtensor."""
-    return ctx.relaxed_qweights and is_qtensor(w)
+    when the run opted in and the leaf is a qtensor; never under tp (a
+    qtensor is the whole weight)."""
+    if not (ctx.relaxed_qweights and is_qtensor(w)):
+        return False
+    if ctx.tp is not None:
+        raise NotImplementedError(
+            "quantized resident weights compose with tp-free runs only; "
+            "shard the float view under tensor parallelism")
+    return True
 
 
 def _dot(h, w, ctx: ParallelCtx):
     """``h @ w``, or ``qdot`` for a qtensor under the relaxed tier."""
     return qdot(h, w) if _relaxed_qready(w, ctx) else h @ w
+
+
+def _down(x, w, ctx: ParallelCtx, bias=None):
+    """A row-parallel projection, ``x @ w (+ bias)``: reduced over tp
+    (``ops/collective_matmul.py``) under a tp axis."""
+    if ctx.tp is not None:
+        return row_parallel_project(x, w, ctx, bias)
+    y = _dot(x, w, ctx)
+    return y if bias is None else y + bias
 
 
 def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
@@ -173,52 +238,58 @@ def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
     post-RoPE ``(k, v)`` [B, S, Hkv, Dh], the rows the long-context
     prefill streams out."""
     resid = x
-    h = _norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg)
+    h = _tp_enter(_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg),
+                  ctx)
     B, S, _ = h.shape
-    q = _dot(h, lp["wq"], ctx).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = _dot(h, lp["wk"], ctx).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = _dot(h, lp["wv"], ctx).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    hq, hkv = cfg.n_heads // ctx.tp_size, cfg.n_kv_heads // ctx.tp_size
+    q = _dot(h, lp["wq"], ctx).reshape(B, S, hq, cfg.head_dim)
+    k = _dot(h, lp["wk"], ctx).reshape(B, S, hkv, cfg.head_dim)
+    v = _dot(h, lp["wv"], ctx).reshape(B, S, hkv, cfg.head_dim)
     if cfg.use_rope:
         positions = None if ctx.ring is None else \
             _ring_positions(ctx, S, h.device)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-    if ctx.ring is not None:
-        from hadoop_tpu_torch.parallel.ring_attention import ring_attention
-        attn = ring_attention(q, k, v, ctx.ring_size, impl=attn_impl)
+    if ctx.ring is not None and ctx.sp_mode == "ulysses":
+        attn = ulysses_attention(q, k, v, ctx.ring_axis, impl=attn_impl)
+    elif ctx.ring is not None:
+        attn = ring_module.ring_attention(
+            q, k, v, ctx.ring_group or ctx.ring_size, impl=attn_impl)
     else:
         attn = causal_attention(q, k, v, impl=attn_impl)
-    out = _dot(attn.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"],
-               ctx)
+    out = _down(attn.reshape(B, S, hq * cfg.head_dim), lp["wo"], ctx)
     y = resid + out.to(resid.dtype)
     return (y, (k, v)) if return_kv else y
 
 
 def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
     resid = x
-    h = _norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
+    h = _tp_enter(_norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg),
+                  ctx)
     if cfg.is_moe:
-        if ctx.ring is None:
-            out = moe_mlp(h, lp, cfg)
-        else:
-            # each rank routes its own B*S_local tokens, at the capacity
-            # of that count, never the folded batch's
-            out = torch.cat([moe_mlp(hr, lp, cfg)
-                             for hr in h.chunk(ctx.ring_size, dim=0)])
+        if ctx.tp is not None:
+            raise NotImplementedError("MoE layers under tensor parallelism "
+                                      "come with expert parallelism, "
+                                      "ROADMAP Queue A 6")
+        # each rank routes its own B*S_local tokens, at the capacity of
+        # that count: a folded ring holds every rank's rows
+        ranks = ctx.ring_size if ctx.ring_group is None else 1
+        out = moe_mlp(h, lp, cfg) if ranks == 1 else torch.cat(
+            [moe_mlp(hr, lp, cfg) for hr in h.chunk(ranks, dim=0)])
     elif cfg.use_swiglu:
-        out = _dot(swiglu(_dot(h, lp["w_gate"], ctx),
-                          _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx)
+        out = _down(swiglu(_dot(h, lp["w_gate"], ctx),
+                           _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx)
     else:
-        out = _dot(gelu(_dot(h, lp["w_in"], ctx) + lp["b_in"]), lp["w_out"],
-                   ctx) + lp["b_out"]
+        out = _down(gelu(_dot(h, lp["w_in"], ctx) + lp["b_in"]), lp["w_out"],
+                    ctx, lp["b_out"])
     return resid + out.to(resid.dtype)
 
 
 def layer_forward(x, lp, cfg: ModelConfig, cos, sin,
-                  attn_impl: str = "auto"):
+                  attn_impl: str = "auto", ctx: ParallelCtx = SINGLE):
     """One transformer block. lp: this layer's weights (no leading L dim)."""
-    x = _attention_block(x, lp, cfg, cos, sin, attn_impl)
-    return _mlp_block(x, lp, cfg)
+    x = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx)
+    return _mlp_block(x, lp, cfg, ctx)
 
 
 def layer_forward_kv(x, lp, cfg: ModelConfig, cos, sin,
@@ -280,11 +351,12 @@ def layer_slices(layers, n_layers: int):
 
 
 def run_layers(x, layers, cfg: ModelConfig, cos, sin,
-               attn_impl: str = "auto", remat=False):
+               attn_impl: str = "auto", remat=False,
+               ctx: ParallelCtx = SINGLE):
     """Run the stacked layers over x, one layer slice at a time."""
     body = _layer_fn(remat)
     for lp in layer_slices(layers, cfg.n_layers):
-        x = body(x, lp, cfg, cos, sin, attn_impl)
+        x = body(x, lp, cfg, cos, sin, attn_impl, ctx)
     return x
 
 
@@ -310,24 +382,43 @@ def run_layers_kv(x, layers, cfg: ModelConfig, cos, sin,
 def embed_tokens(params, tokens, cfg: ModelConfig,
                  ctx: ParallelCtx = SINGLE):
     """Token (+ learned position) embedding. tokens: [B, S] integer
-    ([R*B, S_local] under a ring ctx, each rank's positions offset)."""
-    if _relaxed_qready(params["embed"], ctx):
-        h = qrows(params["embed"], tokens, cfg.torch_dtype)
+    ([R*B, S_local] under a folded ring, each rank's positions offset).
+    Vocab-parallel under tp: this rank's rows of the table, the rest
+    zero, summed over tp in float32 (reduce-scattered over the sequence
+    under Megatron-SP)."""
+    embed = params["embed"]
+    if ctx.tp is not None:
+        vl = embed.shape[0]
+        local_ids = tokens - spmd.axis_index(ctx.tp) * vl
+        ok = (local_ids >= 0) & (local_ids < vl)
+        h = torch.where(ok[..., None], embed[local_ids.clamp(0, vl - 1)],
+                        0).float()
+        h = (spmd.psum_scatter(h, ctx.tp, 1) if ctx.megatron_sp
+             else spmd.psum(h, ctx.tp)).to(embed.dtype)
+    elif _relaxed_qready(embed, ctx):
+        h = qrows(embed, tokens, cfg.torch_dtype)
     else:
-        h = params["embed"][tokens]
+        h = embed[tokens]
     if not cfg.use_rope:
         seq = tokens.shape[1]
-        if ctx.ring is None:
-            return h + params["pos_embed"][:seq][None]
-        pos = params["pos_embed"][_ring_positions(ctx, seq, tokens.device)]
-        h = h + pos.repeat_interleave(tokens.shape[0] // ctx.ring_size,
-                                      dim=0)
+        if ctx.ring is not None:
+            pos = params["pos_embed"][_ring_positions(ctx, seq,
+                                                      tokens.device)]
+            return h + pos.repeat_interleave(h.shape[0] // pos.shape[0],
+                                             dim=0)
+        if ctx.megatron_sp:
+            sl = seq // ctx.tp_size
+            lo = spmd.axis_index(ctx.tp) * sl
+            return h + params["pos_embed"][lo:lo + sl][None]
+        h = h + params["pos_embed"][:seq][None]
     return h
 
 
-def final_hidden(params, h, cfg: ModelConfig):
-    """Final norm: the hidden states the LM head consumes."""
-    return _norm(h, params["final_norm_w"], params.get("final_norm_b"), cfg)
+def final_hidden(params, h, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
+    """Final norm: the hidden states the LM head consumes (the whole
+    sequence again under Megatron-SP: the exit gather)."""
+    return _tp_enter(_norm(h, params["final_norm_w"],
+                           params.get("final_norm_b"), cfg), ctx)
 
 
 def head_matrix(params, cfg: ModelConfig, dtype=None):
@@ -344,12 +435,14 @@ def lm_logits(params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------- forward
 
 def forward_hidden(params, tokens, cfg: ModelConfig,
-                   attn_impl: str = "auto", remat=False):
+                   attn_impl: str = "auto", remat=False,
+                   ctx: ParallelCtx = SINGLE):
     """Embed + layer stack (everything before the LM head)."""
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=params["embed"].device)
-    h = embed_tokens(params, tokens, cfg)
-    return run_layers(h, params["layers"], cfg, cos, sin, attn_impl, remat)
+    h = embed_tokens(params, tokens, cfg, ctx)
+    return run_layers(h, params["layers"], cfg, cos, sin, attn_impl, remat,
+                      ctx)
 
 
 def forward(params, tokens, cfg: ModelConfig, *,

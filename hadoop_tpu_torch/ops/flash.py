@@ -316,6 +316,40 @@ def flash_backward(q, k, v, o, lse, do, scale: Optional[float] = None
     return dq, dk, dv
 
 
+def _partial_forward(q, k, v, scale: float, causal: bool):
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return flash_attention_partial_ref(q, k, v, scale, causal)
+    if not causal:
+        return _launch_partial(q, k, v, scale)
+    o, lse = _launch(q, k, v, scale)
+    return o.float(), lse.transpose(1, 2).contiguous()
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """The partial with the reference's custom VJP: the kernel forward,
+    and a backward that differentiates the plain partial
+    (``flash_attention_partial_ref``) on the saved q, k, v: no backward
+    kernel, one chunk's scores rematerialised at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, causal)
+        return _partial_forward(q, k, v, scale, causal)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o, lse = flash_attention_partial_ref(*leaves, *ctx.args)
+            grads = torch.autograd.grad((o, lse), leaves, (do, dlse),
+                                        allow_unused=True)
+        return (*(torch.zeros_like(t) if g is None else g
+                  for g, t in zip(grads, (q, k, v))), None, None)
+
+
 def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: float, causal: bool
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -324,19 +358,13 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
     ``ops.attention.merge_attention``. ``causal=True`` is the diagonal
     chunk (Sq == Skv), ``causal=False`` a fully visible chunk. The
     kernels for CUDA tensors (or raise), the plain version for CPU
-    tensors. Raises when a gradient would be wanted."""
+    tensors. Differentiable through ``FlashAttentionPartial`` when grad
+    mode is on and an input requires grad."""
+    scale = float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention_partial has no backward yet: context-parallel "
-            "training comes with multi-GPU parallelism (ROADMAP Queue A 6)")
-    scale = float(scale)
-    if q.device.type == "cpu":
-        return flash_attention_partial_ref(q, k, v, scale, causal)
-    if not causal:
-        return _launch_partial(q, k, v, scale)
-    o, lse = _launch(q, k, v, scale)
-    return o.float(), lse.transpose(1, 2).contiguous()
+        return FlashAttentionPartial.apply(q, k, v, scale, causal)
+    return _partial_forward(q, k, v, scale, causal)
 
 
 class FlashAttention(torch.autograd.Function):

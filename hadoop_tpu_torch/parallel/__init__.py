@@ -1,15 +1,25 @@
-"""Training on one device: the mesh plan's names, AdamW, the train step,
-the token stream, checkpoints and the trainer that drives them
-(counterparts of ``hadoop_tpu/parallel/{mesh,optimizer,train,data,
-checkpoint,trainer}.py``). Multi-GPU parallelism comes in a later
-slice."""
+"""Training: the mesh plan and its process groups, the collectives, AdamW
+and ZeRO-1, the train step, the token stream, checkpoints and the
+trainer that drives them (counterparts of ``hadoop_tpu/parallel/{mesh,
+optimizer,overlap,train,data,checkpoint,trainer}.py``). Names resolve
+on first use, so the model modules can import ``parallel.spmd`` without
+pulling in the train step that imports them."""
 
-from hadoop_tpu_torch.parallel.mesh import MeshPlan
-from hadoop_tpu_torch.parallel.optimizer import (AdamWState, adamw_init,
-                                                 adamw_update)
-from hadoop_tpu_torch.parallel.train import init_train_state, make_train_step
-from hadoop_tpu_torch.parallel.data import TokenDataset
-from hadoop_tpu_torch.parallel.trainer import Trainer
+import importlib
 
-__all__ = ["MeshPlan", "AdamWState", "adamw_init", "adamw_update",
-           "init_train_state", "make_train_step", "TokenDataset", "Trainer"]
+_EXPORTS = {
+    "MeshPlan": "mesh", "make_mesh": "mesh",
+    "AdamWState": "optimizer", "adamw_init": "optimizer",
+    "adamw_update": "optimizer",
+    "init_train_state": "train", "make_train_step": "train",
+    "TokenDataset": "data", "Trainer": "trainer",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                   name)

@@ -1,19 +1,38 @@
-"""Mesh plans: the names of the five parallel axes.
+"""Mesh plans, the process groups of a mesh, and parameter sharding.
 
-A copy of the ``MeshPlan`` dataclass of ``hadoop_tpu/parallel/mesh.py``
-(its fields, their checks and ``n_devices``), so that callers of the port
-name a plan as they do in the reference. The port runs on one device:
-there is no mesh and no collective here, and the train step refuses any
-plan of more than one device until the multi-GPU slice.
+The counterpart of ``hadoop_tpu/parallel/mesh.py``. A ``MeshPlan`` names
+the five parallel axes; ``make_mesh`` lays the world's ranks out as the
+reference reshapes its devices, row-major over (dp, pp, tp, ep, sp), and
+makes one ``torch.distributed`` process group per axis of size > 1
+(``parallel/spmd.py``); ``plan.ctx`` hands the model the axes it
+collects over. ``param_specs`` names, per dim of each leaf, the axis
+that shards it (a tuple per leaf where the reference has a
+``PartitionSpec``); ``shard_params`` cuts a full tree (from
+``init_params`` or ``params_from_numpy``) into this rank's shards and
+``gather_params`` puts the full tree back together on every rank.
 
 Axis roles: ``dp`` data, ``pp`` pipeline, ``tp`` tensor (Megatron
 sequence parallelism rides it), ``ep`` expert, ``sp`` context (ring or
-Ulysses attention).
+Ulysses attention). Pipelines and experts (pp, vpp, ep > 1) are ROADMAP
+Queue A 6: a plan may name them and ``validate`` checks them as the
+reference does, but the train step refuses them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from hadoop_tpu_torch.models.config import ModelConfig
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel.ulysses import supports as _ulysses_supports
+
+AXES = ("dp", "pp", "tp", "ep", "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,3 +63,191 @@ class MeshPlan:
     @property
     def n_devices(self) -> int:
         return self.dp * self.pp * self.tp * self.ep * self.sp
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(AXES, (self.dp, self.pp, self.tp, self.ep, self.sp)))
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """Mesh axes that shard the batch (grad-allreduce axes)."""
+        return ("dp", "ep") if self.ep > 1 else ("dp",)
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """Axes whose ranks see different tokens: a replicated leaf's
+        gradient sums over these (tp only under Megatron-SP, where each
+        tp rank holds a sequence shard between blocks)."""
+        axes = self.batch_axes + ("sp",)
+        return axes + ("tp",) if self.megatron_sp else axes
+
+    def ctx(self, cfg: ModelConfig, mesh: "Mesh"):
+        """The ``ParallelCtx`` the model runs under on ``mesh``."""
+        from hadoop_tpu_torch.models.decoder import ParallelCtx
+        sp = mesh.axis("sp")
+        return ParallelCtx(
+            ring=None if sp is None else "sp",
+            ring_size=self.sp if sp is not None else 1,
+            ring_group=sp, sp_mode=self.sp_mode,
+            tp=mesh.axis("tp"), megatron_sp=self.megatron_sp)
+
+    def validate(self, cfg: ModelConfig, batch: int, seq: int,
+                 n_microbatches: int = 1) -> None:
+        checks = [
+            (cfg.n_layers % self.pp == 0, "n_layers %% pp"),
+            (cfg.vocab_size % self.tp == 0, "vocab %% tp"),
+            (cfg.n_heads % self.tp == 0, "heads %% tp"),
+            (cfg.n_kv_heads % self.tp == 0, "kv heads %% tp"),
+            (cfg.d_ff % self.tp == 0, "d_ff %% tp"),
+            (batch % (self.dp * self.ep) == 0, "batch %% dp*ep"),
+            (seq % self.sp == 0, "seq %% sp"),
+            (self.sp_mode != "ulysses" or self.sp == 1 or
+             _ulysses_supports(cfg.n_heads // self.tp,
+                               cfg.n_kv_heads // self.tp, self.sp),
+             "heads %% sp (ulysses; after tp head split)"),
+            (not self.megatron_sp or seq % self.tp == 0, "seq %% tp (sp)"),
+            (not cfg.is_moe or cfg.n_experts % self.ep == 0, "experts %% ep"),
+            (self.ep == 1 or cfg.is_moe, "ep needs a MoE config"),
+            ((batch // (self.dp * self.ep)) % n_microbatches == 0,
+             "local batch %% microbatches"),
+        ]
+        for ok, what in checks:
+            if not ok:
+                raise ValueError(f"plan/config mismatch: {what} "
+                                 f"(plan={self}, cfg={cfg.family})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on a plan's mesh: its coordinate on each axis
+    and the axis (a process group) of each axis of size > 1."""
+    plan: MeshPlan
+    rank: int
+    coords: Dict[str, int]
+    axes: Dict[str, spmd.Axis]
+
+    def axis(self, name: str) -> Optional[spmd.Axis]:
+        return self.axes.get(name)
+
+    def index(self, name: str) -> int:
+        return self.coords[name]
+
+
+def make_mesh(plan: MeshPlan) -> Mesh:
+    """The mesh of ``plan`` over the initialised ``torch.distributed``
+    world, whose size must be ``plan.n_devices``. Every rank calls it,
+    with the same plan: it makes every group of every axis, in one
+    order."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs torch.distributed initialised "
+                           "(spmd.launch does it)")
+    world = dist.get_world_size()
+    if world != plan.n_devices:
+        raise ValueError(f"plan needs {plan.n_devices} ranks, the world "
+                         f"has {world}")
+    shape = tuple(plan.sizes[a] for a in AXES)
+    grid = np.arange(world).reshape(shape)
+    rank = dist.get_rank()
+    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(rank, shape))))
+    axes = {}
+    for i, name in enumerate(AXES):
+        if shape[i] == 1:
+            continue
+        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+        axes[name] = spmd.new_groups(name, lines.tolist())
+    return Mesh(plan, rank, coords, axes)
+
+
+def param_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, Any]:
+    """Per leaf of ``models.decoder.init_params``, the axis sharding each
+    dim (None: not sharded), as the reference's PartitionSpecs."""
+    layers: Dict[str, Tuple] = {
+        "attn_norm_w": ("pp", None),
+        "wq": ("pp", None, "tp"),
+        "wk": ("pp", None, "tp"),
+        "wv": ("pp", None, "tp"),
+        "wo": ("pp", "tp", None),
+        "mlp_norm_w": ("pp", None),
+    }
+    if not cfg.use_rmsnorm:
+        layers["attn_norm_b"] = ("pp", None)
+        layers["mlp_norm_b"] = ("pp", None)
+    if cfg.is_moe:
+        layers["router"] = ("pp", None, None)
+        layers["w_gate"] = ("pp", "ep", None, "tp")
+        layers["w_up"] = ("pp", "ep", None, "tp")
+        layers["w_down"] = ("pp", "ep", "tp", None)
+    elif cfg.use_swiglu:
+        layers["w_gate"] = ("pp", None, "tp")
+        layers["w_up"] = ("pp", None, "tp")
+        layers["w_down"] = ("pp", "tp", None)
+    else:
+        layers["w_in"] = ("pp", None, "tp")
+        layers["b_in"] = ("pp", "tp")
+        layers["w_out"] = ("pp", "tp", None)
+        layers["b_out"] = ("pp", None)
+
+    specs: Dict[str, Any] = {
+        "embed": ("tp", None),
+        "layers": layers,
+        "final_norm_w": (),
+    }
+    if not cfg.use_rmsnorm:
+        specs["final_norm_b"] = ()
+    if not cfg.use_rope:
+        specs["pos_embed"] = ()
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The axes a spec names, in dim order."""
+    return tuple(a for a in spec if a is not None)
+
+
+def _map_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, tree[k], specs[k]) for k in tree}
+    return fn(tree, specs)
+
+
+def shard_params(params, plan: MeshPlan, mesh: Mesh):
+    """This rank's shards of a full parameter tree, as contiguous
+    copies: each dim a spec names is cut ``size`` ways and the piece at
+    this rank's coordinate kept."""
+    sizes = plan.sizes
+    specs = param_specs_for(params, plan)
+
+    def cut(x, spec):
+        for dim, name in enumerate(spec):
+            if name is None or sizes[name] == 1:
+                continue
+            n = x.shape[dim] // sizes[name]
+            x = x.narrow(dim, mesh.index(name) * n, n)
+        return x.contiguous()
+    return _map_specs(cut, params, specs)
+
+
+def gather_params(params, plan: MeshPlan, mesh: Mesh):
+    """The full tree from every rank's shards (the inverse of
+    ``shard_params``), on every rank."""
+    specs = param_specs_for(params, plan)
+
+    def join(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                x = spmd.all_gather_raw(x, mesh.axis(name), dim)
+        return x
+    with torch.no_grad():
+        return _map_specs(join, params, specs)
+
+
+def param_specs_for(params, plan: MeshPlan):
+    """``param_specs`` for the leaves ``params`` holds (the config is
+    read off the tree: which optional leaves it has)."""
+    layers = params["layers"]
+    return param_specs(types.SimpleNamespace(
+        use_rmsnorm="attn_norm_b" not in layers, is_moe="router" in layers,
+        use_swiglu="w_gate" in layers, use_rope="pos_embed" not in params,
+        tie_embeddings="lm_head" not in params), plan)

@@ -6,8 +6,13 @@ clipped to global norm 1.0, decoupled weight decay 0.1 on tensors with
 ``ndim >= 2``, bias correction from ``count``. Moments are float32; the
 parameters stay in their own dtype with no master copy, as in the
 reference. Unlike the reference's pure function, ``adamw_update`` updates
-the parameters and moments in place and returns the same trees. ZeRO-1
-comes with the multi-GPU slice.
+the parameters and moments in place and returns the same trees.
+
+ZeRO-1 (``zero1_update``, the reference's Megatron-style distributed
+optimizer): a leaf replicated over the data axes keeps only its slice
+of the moments on each rank (``parallel/overlap.py`` defines the slice
+layout); each rank updates its slice of the parameter and the slices
+are gathered back into the whole leaf on every rank.
 
 On CUDA tensors the update of each leaf is one pass of the hand-written
 kernel ``ops/csrc/adamw.cu`` (the reference's step is fused by XLA; the
@@ -20,11 +25,13 @@ kernels' launches.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
 from hadoop_tpu_torch.ops import _build
+from hadoop_tpu_torch.parallel import overlap, spmd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CHUNK = 1 << 30            # elements per launch: the C entries count in int
@@ -198,3 +205,75 @@ def adamw_update(params, grads, state: AdamWState, lr: float,
 
     tree_map(leaf, params, grads, state.mu, state.nu)
     return params, AdamWState(count, state.mu, state.nu), gnorm
+
+
+# ------------------------------------------------------------------ ZeRO-1
+
+def zero1_leaf_plan(spec_axes: Sequence[str], data_axes: Sequence[str]
+                    ) -> Tuple[str, ...]:
+    """Data axes a leaf's state is partitioned over: the data axes the
+    leaf is not already sharded on."""
+    return tuple(a for a in data_axes if a not in spec_axes)
+
+
+def zero1_init_local(local_shape, z: int, device=None) -> torch.Tensor:
+    """Zeros for one leaf's per-rank (K,) moment slice."""
+    numel = 1
+    for n in local_shape:
+        numel *= n
+    return torch.zeros((-(-numel // z),), dtype=torch.float32,
+                       device=device)
+
+
+@torch.no_grad()
+def zero1_update(params, grads, state: AdamWState, lr: float, *,
+                 leaf_axes, gsq: torch.Tensor, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 gather_bucket_bytes: int = 0):
+    """One ZeRO-1 AdamW step, in place. ``leaf_axes``: per leaf, the
+    ``spmd.Axis`` tuple its state is partitioned over; ``grads`` are
+    this rank's (K,) slices of the gradients summed over the data axes,
+    ``state``'s moments its (K,) float32 slices. Each rank updates its
+    slice of each parameter (the kernel on CUDA tensors) and the slices are gathered into the whole leaves: through
+    ``overlap.bucketed_gather_slices`` when ``gather_bucket_bytes`` > 0,
+    else one ``all_gather`` per leaf. Returns ``(params, AdamWState,
+    grad_norm)``."""
+    count = state.count + 1
+    gnorm = torch.sqrt(gsq)
+    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    hyper = _hyper(count, lr, b1, b2, eps, weight_decay)
+    flat_p, rebuild = overlap.flatten(params)
+    flat_g, _ = overlap.flatten(grads)
+    flat_m, _ = overlap.flatten(state.mu)
+    flat_n, _ = overlap.flatten(state.nu)
+    flat_a, _ = overlap.flatten(leaf_axes)
+    slices = []
+    for p, g, m, n, axes in zip(flat_p, flat_g, flat_m, flat_n, flat_a):
+        ps = overlap.local_slice(p, axes).clone()
+        gs = g.contiguous()
+        m, n = m.view(-1), n.view(-1)
+        if ps.is_cuda:
+            _launch_adamw(ps, gs, m, n, scale, hyper, p.ndim >= 2)
+        else:
+            adamw_leaf_ref(ps, gs, m, n, scale, hyper, p.ndim >= 2)
+        slices.append(ps)
+    if gather_bucket_bytes > 0:
+        whole, _ = overlap.flatten(overlap.bucketed_gather_slices(
+            rebuild(slices), params, leaf_axes, gather_bucket_bytes))
+    else:
+        whole = [_gather_leaf(s, p, axes)
+                 for s, p, axes in zip(slices, flat_p, flat_a)]
+    for p, w in zip(flat_p, whole):
+        p.copy_(w)
+    return params, AdamWState(count, state.mu, state.nu), gnorm
+
+
+def _gather_leaf(piece: torch.Tensor, like: torch.Tensor, axes
+                 ) -> torch.Tensor:
+    """One leaf from every rank's slice (the last axis gathered first, so
+    the slices land in mixed-radix order)."""
+    buf = piece[None]
+    for a in reversed(axes):
+        buf = spmd.all_gather_raw(buf, a, 0)
+    return buf.reshape(-1)[:like.numel()].view(like.shape)

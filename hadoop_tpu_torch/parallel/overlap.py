@@ -1,0 +1,251 @@
+"""Communication overlap: bucketed gradient collectives and the ZeRO-1
+slice layout.
+
+The counterpart of ``hadoop_tpu/parallel/overlap.py``:
+
+- ``bucketed_psum``: leaves grouped by (reduce axes, dtype) and packed,
+  in the tree's flatten order, into buckets of at most ``bucket_bytes``;
+  each bucket is one flattened ``spmd.psum`` per axis. ``spmd``'s sums
+  add in rank order elementwise, so buckets give the per-leaf result
+  bit for bit: what changes is the number of collectives.
+- ``bucketed_psum_scatter``: the ZeRO-1 form. A rank that updates only
+  its slice of each leaf gets just that slice of the sum (the same bits
+  as psum-then-slice).
+- ``bucketed_gather_slices``: the updated slices back into whole leaves,
+  one ``all_gather`` per bucket instead of one per leaf.
+- The slice layout (``zero1_slice_meta``, ``zero1_slice_index``): a
+  leaf's local shard flattened and padded to Z*K, Z the product of the
+  sizes of the data axes its state is partitioned over; this rank's
+  slice is the K elements at its mixed-radix index over those axes.
+
+The knobs are fixed when the train step is built. Reading them from the
+``parallel.overlap.*`` keys of a Configuration (the reference's
+``overlap_from_conf``), the tp collective matmul's chunking and the
+relaxed tier's quantized buckets come with the slice that brings their
+caller (ROADMAP Queue A 6). Leaves are ``spmd.Axis`` tuples, not
+names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+from hadoop_tpu_torch.parallel import spmd
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapConfig:
+    """Static overlap knobs, fixed at train-step build time."""
+    enabled: bool = True
+    bucket_mb: int = 4
+
+    @property
+    def bucket_bytes(self) -> int:
+        return max(1, self.bucket_mb) * (1 << 20)
+
+
+DEFAULT_OVERLAP = OverlapConfig()
+OVERLAP_OFF = OverlapConfig(enabled=False)
+
+
+# ------------------------------------------------------------------ trees
+
+def flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
+    """The leaves of nested dicts in sorted-key order (the optimizer's
+    ``tree_leaves`` order), and the function that rebuilds the tree from
+    a list of new leaves."""
+    paths: List[Tuple[str, ...]] = []
+    leaves: List[Any] = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + (key,))
+        else:
+            paths.append(path)
+            leaves.append(node)
+    walk(tree, ())
+
+    def rebuild(new: List[Any]):
+        out: Dict[str, Any] = {}
+        for path, leaf in zip(paths, new):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf
+        return out
+    return leaves, rebuild
+
+
+def _live(axes) -> Tuple[spmd.Axis, ...]:
+    return tuple(a for a in axes if a is not None and a.size > 1)
+
+
+def _key(axes) -> Tuple[str, ...]:
+    return tuple(a.name for a in axes)
+
+
+# ---------------------------------------------------------------- bucketing
+
+def _pack_buckets(sizes: Sequence[int], itemsize: int,
+                  bucket_bytes: int) -> List[List[int]]:
+    """Greedy in-order packing of leaf positions into buckets; a leaf
+    larger than ``bucket_bytes`` gets its own."""
+    buckets: List[List[int]] = []
+    cur: List[int] = []
+    cur_bytes = 0
+    for i, n in enumerate(sizes):
+        nb = n * itemsize
+        if cur and cur_bytes + nb > bucket_bytes:
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nb
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def _groups(flat, axes_flat):
+    """Leaf positions by (axes, dtype), in first-seen order."""
+    groups: Dict[Any, List[int]] = {}
+    for i, (g, axes) in enumerate(zip(flat, axes_flat)):
+        axes = _live(axes)
+        if axes:
+            groups.setdefault((_key(axes), g.dtype), []).append(i)
+    return groups
+
+
+def _psum_axes(x: torch.Tensor, axes) -> torch.Tensor:
+    for a in axes:
+        x = spmd.psum_raw(x, a)
+    return x
+
+
+def bucketed_psum(tree, reduce_axes_tree, bucket_bytes: int):
+    """psum every leaf over its reduce axes (a tuple of ``spmd.Axis`` per
+    leaf; empty: the leaf passes through), same-signature leaves packed
+    into flattened buckets of at most ``bucket_bytes``. Bit for bit the
+    per-leaf result."""
+    flat, rebuild = flatten(tree)
+    axes_flat, _ = flatten(reduce_axes_tree)
+    out = list(flat)
+    for idxs in _groups(flat, axes_flat).values():
+        axes = _live(axes_flat[idxs[0]])
+        for bucket in _pack_buckets([flat[i].numel() for i in idxs],
+                                    flat[idxs[0]].element_size(),
+                                    bucket_bytes):
+            members = [idxs[j] for j in bucket]
+            buf = torch.cat([flat[i].reshape(-1) for i in members])
+            buf = _psum_axes(buf, axes)
+            for i, part in zip(members, buf.split(
+                    [flat[i].numel() for i in members])):
+                out[i] = part.view(flat[i].shape)
+    return rebuild(out)
+
+
+# --------------------------------------------------------- ZeRO-1 layout
+
+def zero1_slice_meta(numel: int, axes) -> Tuple[int, int]:
+    """(Z, K) of one leaf's slice layout: ``numel`` padded to Z*K, Z the
+    product of the sizes of the (live) axes partitioning its state."""
+    z = 1
+    for a in _live(axes):
+        z *= a.size
+    return z, -(-numel // z)
+
+
+def zero1_slice_index(axes) -> int:
+    """This rank's slice: mixed-radix (row-major) over the axes."""
+    idx = 0
+    for a in _live(axes):
+        idx = idx * a.size + a.index
+    return idx
+
+
+def pad_flat(x: torch.Tensor, z: int, k: int) -> torch.Tensor:
+    """x flattened and zero-padded to z*k elements."""
+    flat = x.reshape(-1)
+    pad = z * k - flat.numel()
+    return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+
+def local_slice(x: torch.Tensor, axes) -> torch.Tensor:
+    """This rank's (K,) slice of a whole leaf, padded."""
+    z, k = zero1_slice_meta(x.numel(), axes)
+    i = zero1_slice_index(axes)
+    return pad_flat(x, z, k)[i * k:(i + 1) * k]
+
+
+def bucketed_psum_scatter(tree, reduce_axes_tree, scatter_axes_tree,
+                          bucket_bytes: int):
+    """Each leaf summed over its reduce axes, as this rank's ZeRO-1 (K,)
+    slice: leaves whose state is partitioned over exactly one axis (which
+    they reduce over) go in buckets of [Z, K] rows, summed over the other
+    axes and reduce-scattered over that one; the rest take psum and the
+    local slice. The same bits as psum-then-slice."""
+    flat, rebuild = flatten(tree)
+    red_flat, _ = flatten(reduce_axes_tree)
+    sc_flat, _ = flatten(scatter_axes_tree)
+    out: List[Any] = [None] * len(flat)
+    groups: Dict[Any, List[int]] = {}
+    for i, (g, red, sc) in enumerate(zip(flat, red_flat, sc_flat)):
+        red, sc = _live(red), _live(sc)
+        if len(sc) != 1 or sc[0].name not in _key(red):
+            out[i] = local_slice(_psum_axes(g, red), sc)
+            continue
+        rest = tuple(a for a in red if a.name != sc[0].name)
+        groups.setdefault((_key(rest), sc[0].name, g.dtype), []).append(i)
+    for idxs in groups.values():
+        red = _live(red_flat[idxs[0]])
+        sc = _live(sc_flat[idxs[0]])[0]
+        rest = tuple(a for a in red if a.name != sc.name)
+        ks = [zero1_slice_meta(flat[i].numel(), (sc,))[1] for i in idxs]
+        for bucket in _pack_buckets(ks, flat[idxs[0]].element_size() *
+                                    sc.size, bucket_bytes):
+            members = [(idxs[j], ks[j]) for j in bucket]
+            buf = torch.cat([pad_flat(flat[i], sc.size, k).view(sc.size, k)
+                             for i, k in members], dim=1)
+            sl = spmd.psum_scatter_raw(_psum_axes(buf, rest), sc, 0)
+            for (i, _), part in zip(members, sl.reshape(-1).split(
+                    [k for _, k in members])):
+                out[i] = part
+    return rebuild(out)
+
+
+def bucketed_gather_slices(slices, params_like, leaf_axes,
+                           bucket_bytes: int):
+    """Whole leaves from every rank's (K,) slices: same-axes slices
+    concatenated into one row per bucket, gathered over the axes (the
+    last first, so rows land in mixed-radix order), each leaf's [Z, k]
+    block flattened and unpadded. Leaves with Z == 1 pass through
+    reshaped."""
+    flat_s, rebuild = flatten(slices)
+    flat_p, _ = flatten(params_like)
+    flat_a, _ = flatten(leaf_axes)
+    out: List[Any] = [None] * len(flat_s)
+    groups: Dict[Any, List[int]] = {}
+    for i, (sl, p, axes) in enumerate(zip(flat_s, flat_p, flat_a)):
+        axes = _live(axes)
+        if not axes:
+            out[i] = sl[:p.numel()].view(p.shape)
+            continue
+        groups.setdefault((_key(axes), sl.dtype), []).append(i)
+    for idxs in groups.values():
+        axes = _live(flat_a[idxs[0]])
+        z = zero1_slice_meta(1, axes)[0]
+        ks = [flat_s[i].numel() for i in idxs]
+        for bucket in _pack_buckets(ks, flat_s[idxs[0]].element_size() * z,
+                                    bucket_bytes):
+            members = [(idxs[j], ks[j]) for j in bucket]
+            buf = torch.cat([flat_s[i] for i, _ in members])[None]
+            for a in reversed(axes):
+                buf = spmd.all_gather_raw(buf, a, 0)
+            for (i, _), block in zip(members, buf.split(
+                    [k for _, k in members], dim=1)):
+                p = flat_p[i]
+                out[i] = block.reshape(-1)[:p.numel()].view(p.shape)
+    return rebuild(out)

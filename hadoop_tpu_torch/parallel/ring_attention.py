@@ -8,37 +8,36 @@ because each chunk is masked with absolute positions (or, on the fused
 path, weighted out of the merge); fully masked chunks merge as the
 identity.
 
-The ranks of one ring share one device here. The reference runs them
-under ``shard_map`` on an ``sp`` mesh with ``ppermute`` as the hop; the
-port folds the rank axis into the batch instead: q, k and v are
-``[R*B, S_local, H, D]`` with rank r's shard on rows r*B..(r+1)*B-1, a
-ring hop is a roll of that axis by one, and one kernel launch per ring
-step serves every rank. Each rank's kernel work is what an R-device
-deployment does (same shapes, same launches per rank, same numerics);
-the wall time is not an R-device time. Hops between distinct devices
-come with multi-GPU parallelism (ROADMAP Queue A 6).
+The ring is an ``spmd.Axis``. On a process group (one rank per process,
+``parallel/mesh.py``) a hop is ``spmd.ppermute``, a paired send and
+receive, as the reference's ``ppermute`` is. On a folded axis the ranks
+share one device: q, k and v are ``[R*B, S_local, H, D]`` with rank r's
+shard on rows r*B..(r+1)*B-1, a hop is a roll of that stack, and one
+kernel launch per ring step serves every rank; each rank's kernel work
+is what an R-device deployment does, the wall time is not. Both kinds
+run the code below, and both are differentiable (the fused partial's
+backward differentiates its plain version, as the reference's does).
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
 from hadoop_tpu_torch.ops import flash
 from hadoop_tpu_torch.ops.attention import (_kernel_takes, _repeat_kv,
                                             chunk_attention, merge_attention)
-
-
-def _hop(x: torch.Tensor, ring_size: int) -> torch.Tensor:
-    """One ring hop: rank r receives rank r-1's shard (``ppermute`` with
-    the permutation i -> i+1)."""
-    return torch.roll(x.reshape(ring_size, -1, *x.shape[1:]), 1,
-                      dims=0).reshape(x.shape)
+from hadoop_tpu_torch.parallel import spmd
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   ring_size: int, impl: str = "auto") -> torch.Tensor:
-    """q,k,v: [R*B, S_local, H(q|kv), D], rank-major. Returns
-    [R*B, S_local, Hq, D] in q's dtype.
+                   axis: Union[int, spmd.Axis], impl: str = "auto"
+                   ) -> torch.Tensor:
+    """q,k,v: [B, S_local, H(q|kv), D] on a process-group ``axis``, or
+    [R*B, S_local, ...] rank-major on a folded one (an int ``axis`` is a
+    folded ring of that many ranks). Returns [.., S_local, Hq, D] in
+    q's dtype.
 
     ``impl``: "flash" runs each ring step through the fused partial
     (``ops.flash.flash_attention_partial``): the step-0 diagonal is the
@@ -54,13 +53,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if impl not in ("auto", "flash", "ref"):
         raise ValueError(f"impl={impl!r} (choices: auto, flash, ref)")
+    if isinstance(axis, int):
+        axis = spmd.folded("sp", axis)
+    ring_size = axis.size
     rows, sl, hq, d = q.shape
-    if rows % ring_size:
+    ranks = spmd.local_ranks(axis, q.device)
+    if rows % ranks.numel():
         raise ValueError(f"{rows} rows do not fold {ring_size} ring ranks")
-    b = rows // ring_size
     scale = 1.0 / (d ** 0.5)
-    # rank of each row
-    my = torch.arange(ring_size, device=q.device).repeat_interleave(b)
+    my = ranks.repeat_interleave(rows // ranks.numel())   # rank of each row
     use_flash = impl == "flash" or (
         impl == "auto" and q.is_cuda and _kernel_takes(q, k, v)
         and flash.partial_supported(q.shape, k.shape))
@@ -69,7 +70,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, lse = flash.flash_attention_partial(q, k, v, scale, True)
         kc, vc = k, v
         for i in range(1, ring_size):
-            kc, vc = _hop(kc, ring_size), _hop(vc, ring_size)
+            kc, vc = spmd.ppermute(kc, axis), spmd.ppermute(vc, axis)
             src = (my - i) % ring_size
             o_i, l_i = flash.flash_attention_partial(q, kc, vc, scale, False)
             visible = (src < my)[:, None, None]
@@ -91,5 +92,5 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale, q_pos, kv_pos)
         out, lse = merge_attention(out, lse, o_i, l_i)
         if i + 1 < ring_size:
-            kc, vc = _hop(kc, ring_size), _hop(vc, ring_size)
+            kc, vc = spmd.ppermute(kc, axis), spmd.ppermute(vc, axis)
     return out.to(q.dtype)

@@ -1,75 +1,222 @@
-"""The single-device training step.
+"""The training step, on one device or on a mesh of process groups.
 
-The counterpart of ``hadoop_tpu/parallel/train.py``'s ``make_train_step``
-and ``init_sharded`` for ``MeshPlan()``: forward through the decoder
-(``remat`` as there), the chunked LM-head cross-entropy, the backward —
+The counterpart of ``hadoop_tpu/parallel/train.py``'s
+``make_train_step``, ``init_sharded``, ``make_data_sharding`` and
+``zero1_layout``: forward through the decoder (``remat`` as there), the
+chunked LM-head cross-entropy (vocab-parallel under tp), the backward —
 through the flash-attention backward kernels on a CUDA device — and an
-AdamW (or plain SGD) update. PyTorch runs it eagerly; the step updates
-the parameters and the optimizer state in place. Its four parts run under
-``torch.profiler.record_function`` ranges ("forward", "loss",
-"backward", "optimizer"), which a profile shows beside the kernels
-(``tools/profile_flagship.py --train``; ``--train-moe`` also shows the
-MoE MLP's "moe.route" and "moe.experts"). A MoE model trains as the
-reference's single-device step does: no auxiliary loss, the router
-learning only through the renormalised top-k gates of ``combine``.
-Plans of more than one device (expert parallelism included), ZeRO-1
-and microbatching come with the multi-GPU slice.
+AdamW (or plain SGD) update, ZeRO-1 on request. PyTorch runs it
+eagerly; the step updates the parameters and the optimizer state in
+place. Its four parts run under ``torch.profiler.record_function``
+ranges ("forward", "loss", "backward", "optimizer"), which a profile
+shows beside the kernels (``tools/profile_flagship.py --train``;
+``--train-moe`` also shows the MoE MLP's "moe.route" and "moe.experts").
+A MoE model trains as the reference's single-device step does: no
+auxiliary loss, the router learning only through the renormalised top-k
+gates of ``combine``.
+
+On a mesh (``parallel/mesh.py``: one process per rank, dp, tp with or
+without Megatron-SP, sp as ring or Ulysses, and their compositions)
+each rank runs the step on its shards and its slice of the batch
+(``make_data_sharding``). The gradient rule of the reference: each
+leaf's gradient is summed over every data axis (dp, sp, and tp under
+Megatron-SP: the axes whose ranks see different tokens) that its spec
+does not name, and divided by dp*sp so the loss is a mean over the
+global batch. Inside the model, ``spmd.copy_to`` supplies the sums the
+reference's vma tracking inserts for a value every tp rank holds.
+Pipelines (pp, vpp), expert parallelism (ep) and microbatching are
+ROADMAP Queue A 6 and raise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
 
 from hadoop_tpu_torch.device import check_on, resolve_device
 from hadoop_tpu_torch.models.config import ModelConfig
-from hadoop_tpu_torch.models.decoder import (_layer_fn,
+from hadoop_tpu_torch.models.decoder import (SINGLE, _layer_fn,
                                              final_hidden, forward_hidden,
                                              head_matrix, init_params)
 from hadoop_tpu_torch.ops.cross_entropy import chunked_lm_cross_entropy
-from hadoop_tpu_torch.parallel.mesh import MeshPlan
+from hadoop_tpu_torch.parallel import overlap as ov
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel.mesh import (Mesh, MeshPlan, param_specs,
+                                            shard_params, spec_axes)
 from hadoop_tpu_torch.parallel.optimizer import (AdamWState, adamw_init,
                                                  adamw_update, grad_sq,
-                                                 tree_leaves, tree_map)
+                                                 tree_leaves, tree_map,
+                                                 zero1_init_local,
+                                                 zero1_leaf_plan,
+                                                 zero1_update)
+
+_A6 = "ROADMAP Queue A 6"
 
 
-def _loss_from_h(params, h, targets, cfg: ModelConfig, chunk: int = 256):
+def _loss_from_h(params, h, targets, cfg: ModelConfig, ctx=SINGLE,
+                 chunk: int = 256):
     """LM loss from pre-head hidden states, chunked over the sequence so
-    the full [B, S, V] logits never materialize."""
-    h = final_hidden(params, h, cfg)
+    the full [B, S, V] logits never materialize; vocab-parallel under
+    tp."""
+    h = final_hidden(params, h, cfg, ctx)
     head = head_matrix(params, cfg, h.dtype)
+    if ctx.tp is not None:
+        return chunked_lm_cross_entropy(
+            h, head, targets, chunk, axis=ctx.tp,
+            vocab_shard_size=cfg.vocab_size // ctx.tp_size)
     return chunked_lm_cross_entropy(h, head, targets, chunk)
 
 
-def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
+def _refuse(plan: MeshPlan, n_microbatches: int) -> None:
+    """Pipelines, experts and microbatching: Queue A 6."""
+    if plan.pp > 1 or plan.vpp > 1 or plan.ep > 1 or n_microbatches > 1:
+        raise NotImplementedError(
+            f"plan {plan} with n_microbatches={n_microbatches}: pipelines "
+            f"(pp, vpp), expert parallelism (ep) and microbatching are "
+            f"{_A6}")
+
+
+def _map_leaves(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, tree[k], specs[k]) for k in tree}
+    return fn(tree, specs)
+
+
+def zero1_layout(cfg: ModelConfig, plan: MeshPlan):
+    """Per-leaf ZeRO-1 state layout, as the reference's: (data axes
+    partitioning the state, global state shape ``(*spec axis sizes,
+    *data axis sizes, K)``, the axes naming each of its leading dims,
+    the axis sizes). A rank holds one (K,) slice of each."""
+    shapes = tree_map(lambda t: tuple(t.shape),
+                      init_params(cfg, None, device="meta"))
+    specs = param_specs(cfg, plan)
+    sizes = plan.sizes
+
+    def leaf(shape, spec):
+        sp_ax = spec_axes(spec)
+        z_ax = zero1_leaf_plan(sp_ax, plan.batch_axes)
+        numel = 1
+        for n in shape:
+            numel *= n
+        denom = 1
+        for a in sp_ax:
+            denom *= sizes[a]
+        z = 1
+        for a in z_ax:
+            z *= sizes[a]
+        k = -(-max(1, numel // denom) // z)
+        return (z_ax, tuple(sizes[a] for a in sp_ax) +
+                tuple(sizes[a] for a in z_ax) + (k,), sp_ax + z_ax)
+
+    layout = _map_leaves(leaf, shapes, specs)
+    pick = lambda i: tree_map(lambda lo: lo[i], layout)  # noqa: E731
+    return pick(0), pick(1), pick(2), sizes
+
+
+def make_data_sharding(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The cut of a global [B, S] batch this rank trains on: its dp
+    rows (contiguous blocks of B/dp) and its sp sequence shard (the
+    reference's ``P(("dp", "ep"), "sp")``)."""
+    plan = mesh.plan
+
+    def cut(x: torch.Tensor) -> torch.Tensor:
+        b, s = x.shape[0] // plan.dp, x.shape[1] // plan.sp
+        i, j = mesh.index("dp"), mesh.index("sp")
+        return x[i * b:(i + 1) * b, j * s:(j + 1) * s]
+    return cut
+
+
+def _axes_of(mesh: Optional[Mesh], names) -> Tuple[spmd.Axis, ...]:
+    if mesh is None:
+        return ()
+    return tuple(a for a in (mesh.axis(n) for n in names) if a is not None)
+
+
+def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
+                    mesh: Optional[Mesh] = None, *,
                     lr: float = 3e-4, n_microbatches: int = 1,
                     remat=False, optimizer: str = "adamw",
-                    zero1: bool = False, attn_impl: str = "auto",
-                    device=None):
+                    zero1: bool = False,
+                    overlap: Optional[ov.OverlapConfig] = None,
+                    attn_impl: str = "auto", device=None):
     """The train step on ``device`` (default: the GPU; raises without one
-    unless ``device="cpu"``).
+    unless ``device="cpu"``), on ``mesh`` (``make_mesh(plan)``) when the
+    plan has more than one rank.
 
     Returns ``step(params, opt_state, tokens, targets) -> (params,
-    opt_state, {"loss", "grad_norm"})``: tokens and targets are [B, S]
-    integers; the returned trees are the ones passed in, updated in
-    place; the metrics are 0-d float32 tensors on the device (reading one
-    waits for the step). ``optimizer``: "adamw", or "sgd" (p - lr·g, the
-    reference's exact-parity mode). ``attn_impl`` as in
+    opt_state, {"loss", "grad_norm"})``: params and opt_state are this
+    rank's shards (``init_sharded``); tokens and targets are this rank's
+    [B_local, S_local] integers (``make_data_sharding``; the whole batch
+    on one device); the returned trees are the ones passed in, updated
+    in place; the metrics are 0-d float32 tensors on the device, the
+    same on every rank (reading one waits for the step). ``optimizer``:
+    "adamw", or "sgd" (p - lr·g, the reference's exact-parity mode).
+    ``zero1``: AdamW with its moments sliced over the data axes.
+    ``overlap`` (default on): bucketed gradient sums (reduce-scattered
+    into the ZeRO-1 slices) and bucketed ZeRO-1 gathers; on and off
+    give the same bits. ``attn_impl`` as in
     ``causal_attention``.
     """
     plan = MeshPlan() if plan is None else plan
-    if plan.n_devices > 1 or zero1 or n_microbatches > 1:
-        raise NotImplementedError(
-            f"plan {plan} with zero1={zero1}, n_microbatches="
-            f"{n_microbatches}: the port trains on one device; parallel "
-            "plans (expert parallelism included), ZeRO-1 and pipelining "
-            "are ROADMAP Queue A 6")
+    overlap = ov.DEFAULT_OVERLAP if overlap is None else overlap
+    _refuse(plan, n_microbatches)
+    if plan.n_devices > 1 and (mesh is None or mesh.plan != plan):
+        raise ValueError(f"plan {plan} needs its mesh (make_mesh(plan))")
     if optimizer not in ("adamw", "sgd"):
         raise ValueError(f"optimizer={optimizer!r} (choices: adamw, sgd)")
+    zero1 = zero1 and optimizer == "adamw"
+    if cfg.is_moe and plan.tp > 1:
+        raise NotImplementedError(f"MoE under tp: {_A6}")
     _layer_fn(remat)                      # refuse an unknown mode now
     dev = resolve_device(device)
+    ctx = plan.ctx(cfg, mesh) if mesh is not None else SINGLE
+    specs = param_specs(cfg, plan)
+    loss_div = plan.dp * plan.sp
+    # per leaf: the data axes its gradient sums over, the axes its norm
+    # sums over (those that shard it), and the ZeRO-1 state axes
+    red_axes = _map_leaves(lambda _, s: _axes_of(mesh, [
+        a for a in plan.data_axes if a not in spec_axes(s)]), specs, specs)
+    norm_axes = _map_leaves(lambda _, s: _axes_of(mesh, spec_axes(s)),
+                            specs, specs)
+    z1_axes = _map_leaves(lambda _, s: _axes_of(mesh, zero1_leaf_plan(
+        spec_axes(s), plan.batch_axes)), specs, specs)
+    metric_axes = _axes_of(mesh, ("dp", "sp"))
+
+    def reduce_grads(grads):
+        """Sums over the data axes (bucketed or per leaf), then the
+        mean-loss scale; ZeRO-1 keeps only this rank's slices."""
+        if zero1 and overlap.enabled:
+            grads = ov.bucketed_psum_scatter(grads, red_axes, z1_axes,
+                                             overlap.bucket_bytes)
+        elif overlap.enabled:
+            grads = ov.bucketed_psum(grads, red_axes, overlap.bucket_bytes)
+        else:
+            grads = tree_map(lambda g, axes: ov._psum_axes(g, axes),
+                             grads, red_axes)
+            if zero1:
+                grads = tree_map(ov.local_slice, grads, z1_axes)
+        if loss_div > 1:
+            grads = tree_map(lambda g: (g.float() / loss_div).to(g.dtype),
+                             grads)
+        return grads
+
+    def global_grad_sq(grads):
+        """Squared global norm: each group of leaves sharded alike (or
+        sliced alike, under ZeRO-1) summed locally, then over its axes."""
+        axes_tree = tree_map(lambda a, b: a + b, norm_axes, z1_axes) \
+            if zero1 else norm_axes
+        groups: Dict[Tuple[str, ...], list] = {}
+        for g, axes in zip(tree_leaves(grads), tree_leaves(axes_tree)):
+            groups.setdefault(axes, []).append(g)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for axes, gs in groups.items():
+            part = grad_sq(dict(enumerate(gs)))
+            for a in axes:
+                part = spmd.psum_raw(part, a)
+            total = total + part
+        return total
 
     def step(params, opt_state: AdamWState, tokens, targets
              ) -> Tuple[Dict[str, Any], AdamWState, Dict[str, torch.Tensor]]:
@@ -81,17 +228,29 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
         alias = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             with record_function("forward"):
-                h = forward_hidden(alias, tokens, cfg, attn_impl, remat)
+                h = forward_hidden(alias, tokens, cfg, attn_impl, remat, ctx)
             with record_function("loss"):
-                loss = _loss_from_h(alias, h, targets, cfg)
+                loss = _loss_from_h(alias, h, targets, cfg, ctx)
             leaves = tree_leaves(alias)
             with record_function("backward"):
                 flat = torch.autograd.grad(loss, leaves)
         grad_of = {id(a): g for a, g in zip(leaves, flat)}
         grads = tree_map(lambda a: grad_of[id(a)], alias)
         with record_function("optimizer"):
-            gsq = grad_sq(grads)
-            if optimizer == "sgd":
+            grads = reduce_grads(grads)
+            loss = loss.detach()
+            for a in metric_axes:
+                loss = spmd.psum_raw(loss, a)
+            loss = loss / loss_div
+            gsq = global_grad_sq(grads) if mesh is not None \
+                else grad_sq(grads)
+            if zero1:
+                params, opt_state, gnorm = zero1_update(
+                    params, grads, opt_state, lr, leaf_axes=z1_axes,
+                    gsq=gsq,
+                    gather_bucket_bytes=(overlap.bucket_bytes
+                                         if overlap.enabled else 0))
+            elif optimizer == "sgd":
                 with torch.no_grad():
                     tree_map(lambda p, g: p.copy_(p.float() - lr * g.float()),
                              params, grads)
@@ -101,7 +260,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None, *,
             else:
                 params, opt_state, gnorm = adamw_update(
                     params, grads, opt_state, lr, gsq=gsq)
-        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return step
 
@@ -112,3 +271,25 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     state, on ``device`` (default: the GPU)."""
     params = init_params(cfg, generator, device)
     return params, adamw_init(params)
+
+
+def init_sharded(params, cfg: ModelConfig, plan: MeshPlan, mesh: Mesh,
+                 zero1: bool = False) -> Tuple[Dict[str, Any], AdamWState]:
+    """This rank's shards of a full parameter tree (``init_params`` or
+    ``params_from_numpy`` on every rank, from one seed) and zero AdamW
+    state for them: moments shaped like the shards, or this rank's (K,)
+    ZeRO-1 slices with ``zero1``."""
+    shards = shard_params(params, plan, mesh)
+    if not zero1:
+        return shards, adamw_init(shards)
+    specs = param_specs(cfg, plan)
+    sizes = plan.sizes
+
+    def z(p, spec):
+        n = 1
+        for a in zero1_leaf_plan(spec_axes(spec), plan.batch_axes):
+            n *= sizes[a]
+        return zero1_init_local(p.shape, n, p.device)
+    mu = _map_leaves(z, shards, specs)
+    nu = _map_leaves(z, shards, specs)
+    return shards, AdamWState(0, mu, nu)

@@ -31,9 +31,11 @@ the moments and the checkpoints like any other.
 
 Initialisation draws from a ``torch.Generator`` seeded with ``seed``; the
 reference draws from ``PRNGKey(0)``, a different stream, so the two
-packages start from the same state only through a checkpoint. Plans of
-more than one device, ZeRO-1, microbatching, pipelines, the overlap and
-parity passes and the elastic plane are ROADMAP Queue A 6 and raise.
+packages start from the same state only through a checkpoint. The
+train step takes plans of more than one rank (``parallel/train.py``);
+the trainer, its checkpoints and its loader on such a mesh, ZeRO-1,
+microbatching, pipelines, the overlap and parity passes and the elastic
+plane are ROADMAP Queue A 6 and raise.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ class Trainer:
                  seed: int = 0, device=None):
         if plan != MeshPlan():
             raise NotImplementedError(
-                f"plan {plan}: the port trains on one device; {_A6}")
+                f"plan {plan}: Trainer, its checkpoints and loader on a "
+                f"mesh are {_A6}")
         refused = [name for name, off in (
             ("zero1", not zero1), ("n_microbatches", n_microbatches in
                                    (None, 1)),

@@ -2,12 +2,12 @@
 ``serving.longctx.min.tokens`` as a lane of their own.
 
 The counterpart of ``hadoop_tpu/serving/longctx``: the context-parallel
-prefill (ring flavour; the ranks share one device, ``plan.Ring``), its
+prefill (ring or Ulysses, ``serving.longctx.sp.mode``; the ranks share
+one device, ``plan.Ring``), its
 A-B guard, the working-set decoder (``decode.py``) that pages the
 streamed KV chain back from the host/DFS tiers through a fixed device
 window, and the plane (``plane.py``) that ties them into the engine's
-request lifecycle (``DecodeEngine.attach_longctx``). Ulysses needs an
-all-to-all and comes with multi-GPU parallelism (ROADMAP Queue A 6).
+request lifecycle (``DecodeEngine.attach_longctx``).
 """
 
 from hadoop_tpu_torch.serving.longctx.decode import (WorkingSetDecoder,

@@ -3,12 +3,11 @@
 The counterpart of ``hadoop_tpu/serving/longctx/plan.py``. A long-context
 prefill is a batch-of-one, sequence-sharded job on a one-axis ``sp``
 ring. The reference builds a ``jax.sharding.Mesh`` over sp devices; the
-port's ring (``Ring``) holds its sp ranks on one device
-(``parallel/ring_attention.py`` folds the rank axis into the batch and
-hops by a roll), so every rank's kernel work is that of an sp-device
-deployment while the wall time is one device's. A ring over distinct
-devices needs real hops (peer copies or NCCL) and comes with multi-GPU
-parallelism, ROADMAP Queue A 6.
+port's ring (``Ring``) holds its sp ranks on one device, folded into the
+batch (``parallel/spmd.py``: a ring hop is a roll, Ulysses' all-to-all a
+permute), so every rank's kernel work is that of an sp-device
+deployment while the wall time is one device's. Serving over distinct
+devices is ROADMAP Queue A 6.
 
 ``ring_order`` keeps the reference's rule for devices without
 ``coords``, which every ``torch.device`` is: id order. Its topology
@@ -25,6 +24,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from hadoop_tpu_torch.device import resolve_device
+from hadoop_tpu_torch.parallel.ulysses import supports
 
 log = logging.getLogger(__name__)
 
@@ -62,31 +62,19 @@ def cp_mesh(sp: int, devices: Optional[Sequence] = None) -> Ring:
     return Ring(sp, devs[0])
 
 
-def _ulysses_supports(n_q_heads: int, n_kv_heads: int, axis_size: int
-                      ) -> bool:
-    """The head transpose needs both head counts divisible by the axis
-    (``hadoop_tpu/parallel/ulysses.py`` ``supports``)."""
-    return n_q_heads % axis_size == 0 and n_kv_heads % axis_size == 0
-
-
 def choose_sp_mode(cfg, sp: int, requested: str = "ring") -> str:
     """Validate the requested CP attention strategy against the model's
-    head counts, as the reference does: an impossible ulysses request
-    degrades to ring with a loud log. A request that would run ulysses
-    raises ``NotImplementedError``: ulysses needs an all-to-all and
-    comes with multi-GPU parallelism (ROADMAP Queue A 6)."""
+    head counts, as the reference does: ulysses needs both head counts
+    divisible by the ring (``parallel/ulysses.py``); an impossible
+    ulysses request degrades to ring with a loud log."""
     if requested not in ("ring", "ulysses"):
         raise ValueError("serving.longctx.sp.mode must be ring|ulysses, "
                          f"got {requested!r}")
     if requested == "ulysses" and sp > 1 and \
-            not _ulysses_supports(cfg.n_heads, cfg.n_kv_heads, sp):
+            not supports(cfg.n_heads, cfg.n_kv_heads, sp):
         log.warning(
             "serving.longctx.sp.mode=ulysses needs n_heads(%d) and "
             "n_kv_heads(%d) divisible by the %d-rank axis; falling back "
             "to ring", cfg.n_heads, cfg.n_kv_heads, sp)
         return "ring"
-    if requested == "ulysses":
-        raise NotImplementedError(
-            "sp_mode=ulysses is not ported: it needs an all-to-all "
-            "(ROADMAP Queue A 6); use ring")
     return requested

@@ -1,11 +1,14 @@
 """Context-parallel prefill: one long prompt sharded over a ring.
 
-The counterpart of ``hadoop_tpu/serving/longctx/prefill.py`` (ring
-flavour). The prompt is padded to one pinned length, sequence-sharded
-over the ``sp`` ranks of a ring (``plan.cp_mesh``), and every rank runs
-the full layer stack on its shard with ring attention
-(``parallel/ring_attention.py``); the per-layer post-RoPE K/V of every
-position comes back as data (``models.decoder.run_layers_kv``). Causal
+The counterpart of ``hadoop_tpu/serving/longctx/prefill.py``. The
+prompt is padded to one pinned length, sequence-sharded over the ``sp``
+ranks of a ring (``plan.cp_mesh``), and every rank runs the full layer
+stack on its shard with ring attention (``parallel/ring_attention.py``)
+or Ulysses (``parallel/ulysses.py``: the heads exchanged for the
+sequence, one causal kernel launch a layer); the per-layer post-RoPE
+K/V of every position comes back as data
+(``models.decoder.run_layers_kv``), taken before any exchange, so both
+strategies stream the same layout. Causal
 masking keeps the padded tail invisible to real positions, and padded
 K/V is never streamed.
 

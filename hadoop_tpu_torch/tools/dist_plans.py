@@ -1,0 +1,257 @@
+"""Rank programs for ``spmd.launch``: the collectives drill and the plan
+runner.
+
+``collectives(rank, world, seed)`` runs every ``spmd`` collective (and
+the bucketed forms of ``parallel/overlap.py``) on inputs made from
+``seed``, forward and backward, and returns this rank's results as
+numpy arrays; on the folded kind it also runs the permutations over the
+whole stack, for a caller to hold the two kinds against each other.
+
+``train_plans(rank, world, jobs)`` trains each plan of each job in turn
+on one world: the mesh, this rank's shards of one full
+parameter tree (``job["weights"]``, a numpy tree, or ``job["seed"]``
+for ``init_params`` on every rank), ``n_steps`` steps on this rank's cut
+of ``job["tokens"]``/``job["targets"]``, then the trained tree gathered
+(every leaf, or a fixed sample of flat indices per leaf). Per plan it
+records losses, grad norms and, on a CUDA device, each step's time
+(CUDA events), the kernels' launches per step (``COUNTERS``), peak
+memory and the bytes each axis put on the wire. Both import only the port and
+torch (and numpy).
+
+    spmd.launch(dist_plans.train_plans, 4, backend="gloo", args=([job],))
+"""
+
+from __future__ import annotations
+
+import functools
+import sys
+import time
+import types
+import zlib
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from hadoop_tpu_torch.device import resolve_device
+from hadoop_tpu_torch.models import config as config_mod
+from hadoop_tpu_torch.models.convert import params_from_numpy
+from hadoop_tpu_torch.models.decoder import init_params
+from hadoop_tpu_torch.ops import collective_matmul, flash, norms
+from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
+from hadoop_tpu_torch.parallel.mesh import MeshPlan, gather_params, make_mesh
+from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
+from hadoop_tpu_torch.parallel.train import (init_sharded,
+                                             make_data_sharding,
+                                             make_train_step)
+
+SHAPE = (2, 4, 4, 3)        # one rank's value in the collectives drill
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _grad(fn, x: torch.Tensor, w: torch.Tensor):
+    """(fn(x), d sum(w * fn(x)) / dx)."""
+    x = x.clone().requires_grad_()
+    y = fn(x)
+    (dx,) = torch.autograd.grad((y * w).sum(), x)
+    return y.detach(), dx
+
+
+def drill_inputs(seed: int, world: int):
+    """The drill's inputs: every rank's x, stacked [world, *SHAPE]."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((world, *SHAPE)).astype(np.float32)
+
+
+def collectives(rank: int, world: int, seed: int) -> Dict[str, Any]:
+    torch.manual_seed(seed)
+    grid = np.arange(world)
+    axis = spmd.new_groups("x", [grid.tolist()])
+    xs = torch.from_numpy(drill_inputs(seed, world))
+    x = xs[rank]
+    rng = np.random.default_rng(seed + 1)
+    out: Dict[str, Any] = {}
+    ops = {
+        "psum": lambda t: spmd.copy_to(spmd.psum(t, axis), axis),
+        "all_gather": lambda t: spmd.all_gather(t, axis, 1),
+        "psum_scatter": lambda t: spmd.psum_scatter(t, axis, 2),
+        "all_to_all": lambda t: spmd.all_to_all(t, axis, 2, 1),
+        "ppermute": lambda t: spmd.ppermute(t, axis, 1),
+        "ppermute_back": lambda t: spmd.ppermute(t, axis, -1),
+    }
+    for name, fn in ops.items():
+        with torch.no_grad():
+            shape = fn(x).shape
+        ws = torch.from_numpy(rng.standard_normal(
+            (world, *shape)).astype(np.float32))
+        y, dx = _grad(fn, x, ws[rank])
+        out[name] = (_np(y), _np(dx), _np(ws))
+    # the copy_to / psum pair alone: identity backward, psum backward
+    y, dx = _grad(lambda t: spmd.psum(t, axis), x, x + 1)
+    out["psum_alone"] = (_np(y), _np(dx))
+    y, dx = _grad(lambda t: spmd.copy_to(t, axis), x, x + 1)
+    out["copy_to_alone"] = (_np(y), _np(dx))
+    out["pmax"] = _np(spmd.pmax_raw(x, axis))
+    out["axis_index"] = spmd.axis_index(axis)
+    # the folded kind: the same permutations over the whole stack
+    fold = spmd.folded("x", world)
+    stack = xs.reshape(world * SHAPE[0], *SHAPE[1:])
+    for name, fn in (("all_to_all", lambda t: spmd.all_to_all(t, fold, 2, 1)),
+                     ("ppermute", lambda t: spmd.ppermute(t, fold, 1))):
+        ws = torch.from_numpy(out[name][2])
+        w = ws.reshape(world * ws.shape[1], *ws.shape[2:])
+        y, dx = _grad(fn, stack, w)
+        out["folded_" + name] = (_np(y), _np(dx))
+    # bucketed sums, scatter and gather against their per-leaf forms
+    tree = {"a": xs[rank, 0], "b": {"c": xs[rank, 1, :3], "d": x * 2}}
+    axes = {"a": (axis,), "b": {"c": (axis,), "d": (axis,)}}
+    per_leaf = tree_map(lambda t: spmd.psum_raw(t, axis), tree)
+    for name, nbytes in (("bucketed", 64), ("bucketed_one", 1 << 20)):
+        got = overlap.bucketed_psum(tree, axes, nbytes)
+        out[name] = [bool(torch.equal(g, p)) for g, p in
+                     zip(tree_leaves(got), tree_leaves(per_leaf))]
+    sl = overlap.bucketed_psum_scatter(tree, axes, axes, 64)
+    out["scatter"] = [bool(torch.equal(s, overlap.local_slice(p, (axis,))))
+                      for s, p in zip(tree_leaves(sl), tree_leaves(per_leaf))]
+    back = overlap.bucketed_gather_slices(sl, tree, axes, 64)
+    out["gather"] = [bool(torch.equal(b, p)) for b, p in
+                     zip(tree_leaves(back), tree_leaves(per_leaf))]
+    # the row-parallel reduce: psum (backward the identity), and the
+    # sequence psum_scatter under Megatron-SP
+    y = torch.from_numpy(rng.standard_normal((4, 8, 6)).astype(np.float32)
+                         ) * (rank + 1)
+    for sp in (False, True):
+        ctx = types.SimpleNamespace(tp=axis, megatron_sp=sp)
+        fn = functools.partial(collective_matmul.reduce_row_parallel,
+                               ctx=ctx)
+        with torch.no_grad():
+            shape = fn(y).shape
+        ws = torch.from_numpy(rng.standard_normal(
+            (world, *shape)).astype(np.float32))
+        out[f"row_reduce_sp{int(sp)}"] = (_np(y),) + tuple(
+            map(_np, _grad(fn, y, ws[rank]))) + (_np(ws),)
+    # a psum cut in pieces against one whole
+    big = torch.from_numpy(rng.standard_normal(1000).astype(np.float32)
+                           ) * (rank + 1)
+    whole = spmd.psum_raw(big, axis)
+    spmd._PIECE_BYTES, saved = 256, spmd._PIECE_BYTES
+    out["psum_pieces"] = bool(torch.equal(spmd.psum_raw(big, axis), whole))
+    spmd._PIECE_BYTES = saved
+    out["traffic"] = dict(spmd.traffic)
+    out["foreign_modules"] = sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                      "hadoop_tpu"))
+    return out
+
+
+# ------------------------------------------------------------ plan runner
+
+def sample_tree(tree, n: int, keep: bool = True, _path: str = ""):
+    """Float32 numpy copies of a fixed sample of ``n`` flat indices of
+    each leaf (chosen by the leaf's path; every element when ``n`` is
+    0); None in place of each leaf unless ``keep``."""
+    if isinstance(tree, dict):
+        return {k: sample_tree(v, n, keep, f"{_path}/{k}")
+                for k, v in tree.items()}
+    if not keep:
+        return None
+    if n:
+        idx = np.sort(np.random.default_rng(zlib.crc32(_path.encode())
+                                            ).choice(tree.numel(),
+                                                     min(n, tree.numel()),
+                                                     replace=False))
+        tree = tree.reshape(-1)[torch.from_numpy(idx).to(tree.device)]
+    return tree.float().cpu().numpy()
+
+
+COUNTERS = ("flash_fwd", "flash_fwd_partial", "flash_bwd_dq",
+            "flash_bwd_dkv", "adamw", "grad_sq", "rms_norm_fwd",
+            "rms_norm_bwd")
+
+
+def _counts() -> List[int]:
+    """The launch counters of the port's kernels, in ``COUNTERS`` order."""
+    return [flash.launches, flash.launches_partial, flash.launches_bwd_dq,
+            flash.launches_bwd_dkv, optimizer.launches,
+            optimizer.launches_grad_sq, norms.launches_fwd,
+            norms.launches_bwd]
+
+
+def train_plans(rank: int, world: int, jobs: List[Dict[str, Any]]
+                ) -> List[Dict[str, Any]]:
+    """Train each plan of each job on this world, in order; see the
+    module doc. A job: ``preset`` (+ ``overrides``), ``weights`` or
+    ``seed``, ``tokens``/``targets`` [B, S] numpy, ``device`` (the card
+    unless it is "cpu"; raises without a card), ``sample`` (flat indices per leaf; 0 gathers every leaf
+    whole) and ``plans``: dicts of ``plan`` (MeshPlan kwargs),
+    ``optimizer``, ``zero1``, ``overlap`` (bool), ``steps``, ``lr``,
+    ``remat``. Returns one record per plan."""
+    return [rec for job in jobs for rec in _train_job(rank, job)]
+
+
+def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
+    cfg = config_mod.get_config(job["preset"], **job.get("overrides", {}))
+    dev = resolve_device(job.get("device"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    tokens = torch.from_numpy(job["tokens"])
+    targets = torch.from_numpy(job["targets"])
+    results = []
+    for spec in job["plans"]:
+        plan = MeshPlan(**spec["plan"])
+        plan.validate(cfg, tokens.shape[0], tokens.shape[1])
+        mesh = make_mesh(plan)
+        if "weights" in job:
+            full = params_from_numpy(job["weights"], cfg, device=dev)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(job["seed"])
+            full = init_params(cfg, gen, device=dev)
+        zero1 = spec.get("zero1", False)
+        params, opt = init_sharded(full, cfg, plan, mesh, zero1=zero1)
+        del full
+        if dev.type == "cuda":        # the card is shared by the ranks
+            torch.cuda.empty_cache()
+        step = make_train_step(
+            cfg, plan, mesh, lr=spec.get("lr", 1e-2),
+            optimizer=spec.get("optimizer", "sgd"), zero1=zero1,
+            remat=spec.get("remat", False),
+            overlap=(overlap.DEFAULT_OVERLAP if spec.get("overlap", True)
+                     else overlap.OVERLAP_OFF), device=dev)
+        cut = make_data_sharding(mesh)
+        tok, tgt = cut(tokens).to(dev), cut(targets).to(dev)
+        rec: Dict[str, Any] = {"plan": spec, "losses": [], "grad_norms": [],
+                               "step_ms": [], "launches": [], "traffic": []}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(spec.get("steps", 2)):
+            before, wire = _counts(), dict(spmd.traffic)
+            t0 = time.perf_counter()
+            if dev.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            params, opt, m = step(params, opt, tok, tgt)
+            if dev.type == "cuda":
+                ev[1].record()
+                torch.cuda.synchronize()
+                rec["step_ms"].append(ev[0].elapsed_time(ev[1]))
+            else:
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(m["loss"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+            rec["launches"].append([a - b for a, b in
+                                    zip(_counts(), before)])
+            rec["traffic"].append({k: v - wire.get(k, 0)
+                                   for k, v in spmd.traffic.items()})
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated() \
+            if dev.type == "cuda" else None
+        rec["params"] = sample_tree(gather_params(params, plan, mesh),
+                                    job.get("sample", 0), keep=rank == 0)
+        del params, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        results.append(rec)
+    return results
+

@@ -28,6 +28,7 @@ from hadoop_tpu.serving import weightplane as jwp
 from hadoop_tpu_torch.models import config, decoder, params_from_numpy
 from hadoop_tpu_torch.ops import attention, flash
 from hadoop_tpu_torch.parallel import ring_attention as ra
+from hadoop_tpu_torch.parallel import spmd, ulysses
 from hadoop_tpu_torch.serving import longctx
 from hadoop_tpu_torch.models import moe
 from hadoop_tpu_torch.serving import weightplane
@@ -168,13 +169,47 @@ def test_run_layers_kv_under_a_ring_matches_jax(preset, sp):
 
 
 def test_parallel_ctx_carries_the_ring_only():
+    """The ctx carries the ring (folded, or a process group), its
+    strategy (ring or Ulysses) and a tp process group; the expert axis
+    is Queue A 6 and naming it is a TypeError."""
     assert decoder.SINGLE.ring is None and decoder.SINGLE.ring_size == 1
+    assert decoder.SINGLE.ring_axis is None and decoder.SINGLE.tp_size == 1
     with pytest.raises(TypeError):
-        decoder.ParallelCtx(tp_axis="tp")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        decoder.ParallelCtx(ring="sp", ring_size=2, sp_mode="ulysses")
+        decoder.ParallelCtx(ep_axis="ep")
+    uly = decoder.ParallelCtx(ring="sp", ring_size=2, sp_mode="ulysses")
+    assert uly.ring_axis.folded and uly.ring_axis.size == 2
+    with pytest.raises(ValueError):
+        decoder.ParallelCtx(ring="sp", ring_size=2, sp_mode="diagonal")
     with pytest.raises(ValueError):
         decoder.ParallelCtx(ring_size=2)
+    with pytest.raises(ValueError):          # a group that is not the ring
+        decoder.ParallelCtx(ring="sp", ring_size=4,
+                            ring_group=spmd.folded("sp", 2))
+    with pytest.raises(ValueError, match="process group"):
+        decoder.ParallelCtx(tp=spmd.folded("tp", 2))
+    with pytest.raises(ValueError):
+        decoder.ParallelCtx(megatron_sp=True)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ulysses_attention_matches_causal_and_ring(sp):
+    """Ulysses over folded ranks: the causal attention of the whole
+    sequence, and the ring's output, on the same shards."""
+    rng = np.random.default_rng(sp)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, h, 16)).astype(
+        np.float32)) for h in (8, 4, 4))
+    want = attention.causal_attention(q, k, v)
+    axis = spmd.folded("sp", sp)
+    got = ulysses.ulysses_attention(_fold(q, sp), _fold(k, sp),
+                                    _fold(v, sp), axis)
+    np.testing.assert_allclose(_unfold(got, sp).numpy(), want.numpy(),
+                               atol=2e-5, rtol=2e-5)
+    ring = ra.ring_attention(_fold(q, sp), _fold(k, sp), _fold(v, sp), axis)
+    np.testing.assert_allclose(got.numpy(), ring.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        ulysses.ulysses_attention(_fold(q, sp), _fold(k[:, :, :1], sp),
+                                  _fold(v[:, :, :1], sp), axis)
 
 
 # ----------------------------------------------------------- the prefill
@@ -208,6 +243,42 @@ def test_cp_prefill_matches_jax(tiny, sp):
     report = longctx.run_prefill_ab(params, cfg, prompt, pre, mode="exact")
     assert report["accepted"] and report["argmax_agree"]
     assert pre.prefill_compiles == 1 and pre.head_compiles == 1
+
+
+def test_ulysses_cp_prefill_matches_jax(tiny):
+    """Ulysses at sp 2 on tiny (``tests/test_longctx.py``'s ulysses case):
+    last logits, every streamed block and the tail against the JAX
+    package's Ulysses cp_prefill; the exact A-B guard accepts; the K/V
+    equal the ring's, the layout the prefill streams."""
+    jcfg, jparams, cfg, params = tiny
+    prompt = _prompt(150)
+    jres = jlongctx.ContextParallelPrefiller(
+        jparams, jcfg, block_size=8, pad_tokens=160, sp=2,
+        sp_mode="ulysses").cp_prefill(prompt)
+    assert jres.sp_mode == "ulysses"
+    kw = dict(block_size=8, pad_tokens=160, sp=2, devices=["cpu"])
+    pre = longctx.ContextParallelPrefiller(params, cfg, sp_mode="ulysses",
+                                           **kw)
+    res = pre.cp_prefill(prompt)
+    ring = longctx.ContextParallelPrefiller(params, cfg, **kw).cp_prefill(
+        prompt)
+    assert (res.sp_mode, res.n_full_blocks, res.chips) == ("ulysses", 18, 2)
+    np.testing.assert_allclose(res.last_logits, jres.last_logits,
+                               atol=TOL, rtol=TOL)
+    got, want, rng = list(res.blocks), list(jres.blocks), list(ring.blocks)
+    assert len(got) == len(want) == len(rng) == 18
+    for (gk, gv), (wk, wv), (rk, rv) in zip(got, want, rng):
+        np.testing.assert_allclose(gk.numpy(), wk, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(gv.numpy(), wv, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(gk.numpy(), rk.numpy(), atol=TOL,
+                                   rtol=TOL)
+    for got_t, want_t in ((res.tail_k, jres.tail_k),
+                          (res.tail_v, jres.tail_v)):
+        np.testing.assert_allclose(got_t.numpy(), want_t, atol=TOL,
+                                   rtol=TOL)
+    report = longctx.run_prefill_ab(params, cfg, prompt, pre, mode="exact")
+    assert report["accepted"] and report["argmax_agree"]
+    assert report["sp_mode"] == "ulysses"
 
 
 @pytest.mark.parametrize("sp", [2, 4])
@@ -378,8 +449,8 @@ def test_choose_sp_mode(tiny):
     # tiny has 2 kv heads: ulysses over 4 ranks falls back, as in JAX
     assert longctx.choose_sp_mode(cfg, 4, "ulysses") == \
         jlongctx.choose_sp_mode(cfg, 4, "ulysses") == "ring"
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        longctx.choose_sp_mode(cfg, 2, "ulysses")
+    assert longctx.choose_sp_mode(cfg, 2, "ulysses") == \
+        jlongctx.choose_sp_mode(cfg, 2, "ulysses") == "ulysses"
     with pytest.raises(ValueError):
         longctx.choose_sp_mode(cfg, 2, "diagonal")
 
@@ -387,15 +458,14 @@ def test_choose_sp_mode(tiny):
 # --------------------------------------------------------- what must raise
 
 def test_refusals(tiny):
-    """Ulysses, a ring over distinct devices, tensor and expert axes
-    raise; int8 trees and MoE configs are ported (the cp_prefill tests
-    below); without a GPU the prefill's default device and the partial
-    kernel raise."""
+    """A ring over distinct devices and an expert axis raise; Ulysses,
+    int8 trees and MoE configs are ported (the cp_prefill tests); without
+    a GPU the prefill's default device and the partial kernel raise."""
     _, _, cfg, params = tiny
     kw = dict(block_size=8, pad_tokens=160, sp=2)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        longctx.ContextParallelPrefiller(params, cfg, sp_mode="ulysses",
-                                         devices=["cpu"], **kw)
+    pre = longctx.ContextParallelPrefiller(params, cfg, sp_mode="ulysses",
+                                           devices=["cpu"], **kw)
+    assert pre.sp_mode == pre.ctx.sp_mode == "ulysses"
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         longctx.cp_mesh(2, [torch.device("cuda", 0),
                             torch.device("cuda", 1)])
@@ -405,9 +475,8 @@ def test_refusals(tiny):
                                 "s": torch.ones(2)})
     assert weightplane.is_quantized_tree(qtree)
     assert not weightplane.is_quantized_tree(params)
-    for field in ("tp_axis", "ep_axis"):
-        with pytest.raises(TypeError):
-            decoder.ParallelCtx(**{field: "x"})
+    with pytest.raises(TypeError):
+        decoder.ParallelCtx(ep_axis="x")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         moe.moe_mlp(torch.zeros(1, 2, 64), {}, config.get_config(
             "tiny-moe"), types.SimpleNamespace(ep_axis="ep"))

@@ -603,8 +603,25 @@ def test_longctx_metrics_reach_prom():
 
 
 def test_ulysses_is_refused_with_queue_a6():
+    """No longer refused: ``serving.longctx.sp.mode=ulysses`` builds a
+    plane whose prefill runs Ulysses over the folded ranks, and a long
+    prompt submitted through the engine decodes the tokens of a repeated
+    single-device forward, as the ring's plane does."""
     m = _tiny()
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        longctx.ContextParallelPrefiller(m["params"], m["cfg"], block_size=8,
-                                         pad_tokens=160, sp=2,
-                                         sp_mode="ulysses", devices=["cpu"])
+    eng = _engine()
+    try:
+        conf = Configuration(load_defaults=False)
+        conf.set("serving.parity", "relaxed")
+        conf.set("serving.longctx.min.tokens", "100")
+        conf.set("serving.longctx.max.tokens", "256")
+        conf.set("serving.longctx.chips", "2")
+        conf.set("serving.longctx.sp.mode", "ulysses")
+        plane = longctx.longctx_plane_from_conf(conf, m["cfg"], eng)
+        assert plane.prefiller.sp_mode == "ulysses"
+        eng.attach_longctx(plane)
+        prompt = _prompt(120)
+        toks = eng.submit(prompt, SamplingParams(max_new_tokens=4)).wait(180)
+        assert toks == _greedy(m["params"], m["cfg"], prompt, 4)
+        assert plane.stats()["requests"] == 1 and eng.steps == 0
+    finally:
+        eng.stop()

@@ -304,6 +304,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.io.erasurecode\n"
         "import hadoop_tpu_torch.ops.ec_device\n"
         "import hadoop_tpu_torch.parallel.lowp.quant\n"
+        "import hadoop_tpu_torch.parallel.spmd, hadoop_tpu_torch.parallel.mesh\n"
+        "import hadoop_tpu_torch.parallel.ulysses\n"
+        "import hadoop_tpu_torch.parallel.overlap\n"
+        "import hadoop_tpu_torch.ops.collective_matmul\n"
+        "import hadoop_tpu_torch.tools.dist_plans\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -338,7 +343,9 @@ def test_port_sources_name_no_jax():
                 "serving/kvstore/tiered.py", "serving/weightplane.py",
                 "models/moe.py", "parallel/lowp/quant.py",
                 "io/erasurecode.py", "ops/ec_device.py",
-                "ops/csrc/ec_gf256.cu"):
+                "ops/csrc/ec_gf256.cu", "parallel/spmd.py",
+                "parallel/ulysses.py", "parallel/overlap.py",
+                "ops/collective_matmul.py", "tools/dist_plans.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

@@ -569,8 +569,8 @@ def test_partial_supported_matches_jax():
 
 def test_partial_wrapper_on_cpu_is_the_plain_version_uncounted():
     """On CPU tensors the wrapper computes the plain version and counts
-    no launch; the kernel path refuses CPU tensors; a gradient is
-    refused (the partial has no backward yet)."""
+    no launch; the kernel path refuses CPU tensors; its gradient is
+    that of the plain version (the reference's custom VJP)."""
     q, k, v = (torch.from_numpy(_randn(60 + i, 1, 128, h, 64))
                for i, h in enumerate((4, 2, 2)))
     before = (flash.launches, flash.launches_partial)
@@ -585,9 +585,17 @@ def test_partial_wrapper_on_cpu_is_the_plain_version_uncounted():
     assert (flash.launches, flash.launches_partial) == before
     with pytest.raises(ValueError):
         flash._launch_partial(q, k, v, 1.0)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        flash.flash_attention_partial(q.clone().requires_grad_(), k, v,
-                                      0.125, False)
+    for causal in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        refs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = flash.flash_attention_partial(*leaves, 0.125, causal)
+        ro, rlse = flash.flash_attention_partial_ref(*refs, 0.125, causal)
+        w = torch.from_numpy(_randn(80, *o.shape))
+        wl = torch.from_numpy(_randn(81, *lse.shape))
+        ((o * w).sum() + (lse * wl).sum()).backward()
+        ((ro * w).sum() + (rlse * wl).sum()).backward()
+        for got, want in zip(leaves, refs):
+            assert torch.equal(got.grad, want.grad)
 
 
 def test_partial_ref_rounds_o_to_the_input_dtype():

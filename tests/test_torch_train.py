@@ -182,12 +182,18 @@ def test_remat_recomputes_the_flash_forward(monkeypatch, remat, passes):
 
 
 def test_train_step_refusals():
+    """Pipelines, microbatching and expert parallelism still raise naming
+    Queue A 6; dp, tp and ZeRO-1 are ported (tests/test_torch_parallel.py)
+    and a plan of more than one rank needs its mesh."""
     cfg = config.get_config("tiny")
-    for plan, kw in [(MeshPlan(dp=2), {}), (MeshPlan(tp=2), {}),
-                     (MeshPlan(), {"zero1": True}),
+    for plan, kw in [(MeshPlan(pp=2), {}), (MeshPlan(pp=2, vpp=2), {}),
                      (MeshPlan(), {"n_microbatches": 2})]:
         with pytest.raises(NotImplementedError, match="Queue A 6"):
             make_train_step(cfg, plan, device="cpu", **kw)
+    for plan in (MeshPlan(dp=2), MeshPlan(tp=2)):
+        with pytest.raises(ValueError, match="mesh"):
+            make_train_step(cfg, plan, device="cpu")
+    make_train_step(cfg, MeshPlan(), zero1=True, device="cpu")
     # MoE trains on one device; expert parallelism is multi-GPU work
     make_train_step(config.get_config("tiny-moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
