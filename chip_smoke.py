@@ -66,15 +66,21 @@ and the loader into a ``DecodeEngine``, on a filesystem in memory).
 Ulysses context parallelism (phase ``ulysses``): the three llama3-8b
 prompts through ``ContextParallelPrefiller(sp_mode="ulysses")`` beside
 the ring's, and the long-context plane with
-``serving.longctx.sp.mode=ulysses``. The parallel training plans, last
-(phases ``dist_parity`` and ``dist_train``): flagship-1b at full width
-on four ranks started by ``spmd.launch``, each a process on this one
-card in a gloo world (NCCL takes no two ranks on one GPU; the
-collectives travel through host memory), dp2×tp2, with Megatron-SP,
-dp2×sp2 as ring and as Ulysses, and ZeRO-1 dp4: one float32 step
-against the single-device step, then three bf16 AdamW steps with their
-launches pinned per rank; ``dist_shapes`` times the flash kernels at
-those ranks' shapes. Weights are random, made from a seeded
+``serving.longctx.sp.mode=ulysses``. The parallel training plans
+(phases ``dist_parity`` and ``dist_train``, run after ``dist_shapes``,
+before the ring phase, while this process holds least of the card),
+at full width on four
+ranks started by ``spmd.launch``, each a process on this one card in a
+gloo world (NCCL takes no two ranks on one GPU; the collectives and
+pipeline hops travel through host memory): flagship-1b as dp2×tp2, with
+Megatron-SP, dp2×sp2 as ring and as Ulysses, ZeRO-1 dp4 (6 layers),
+and the pipelines pp4 1F1B, dp2×pp2×vpp2 interleaved, pp2×tp2 GPipe
+with Megatron-SP and ZeRO-1 dp2×pp2 (8 layers); mixtral-8x7b as
+dp2×ep2 and ep2×tp2 (1 layer): one float32 step against the
+single-device step at the same depth, then two bf16 AdamW steps with
+their launches pinned per rank and stage and the pipelines' stashed
+stage inputs bounded; ``dist_shapes`` times the flash kernels at those
+ranks' shapes. Weights are random, made from a seeded
 ``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
@@ -85,8 +91,8 @@ for ``flash_fwd_partial``, the ec phase's encode and decode calls for
 ``ec_gf256``) and on later slices' (``launches_trainer``: the trainer
 phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
 MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
-prefill; ``launches_dist``: rank 0's in dist_train's five plans of three
-steps), its error and its times; the last line is
+prefill; ``launches_dist``: rank 0's in dist_train's eleven plans of
+two steps), its error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -136,6 +142,7 @@ from hadoop_tpu_torch.models.decoder import (final_hidden, forward_hidden,
 from hadoop_tpu_torch.conf import Configuration
 from hadoop_tpu_torch.io.erasurecode import (_cauchy_parity_matrix,
                                              _gf_invert, _gf_matmul)
+import hadoop_tpu_torch.models.moe as moe_module
 from hadoop_tpu_torch.models.moe import capacity as moe_capacity
 from hadoop_tpu_torch.ops import _build, ec_device, flash, norms
 from hadoop_tpu_torch.tools.ab_ec_rmsnorm import graph_ms
@@ -145,7 +152,8 @@ from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.checkpoint import list_checkpoints
-from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
+from hadoop_tpu_torch.parallel.optimizer import (AdamWState, tree_leaves,
+                                                 tree_map)
 from hadoop_tpu_torch.parallel.ring_attention import ring_attention
 from hadoop_tpu_torch.serving.kvstore import DFSTier
 from hadoop_tpu_torch.serving.loader import load_serving_params
@@ -414,52 +422,95 @@ MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
 # Phases dist_parity and dist_train: the parallel plans of
 # parallel/train.py on four ranks, each a process started by spmd.launch
 # (spawn) on this one card. NCCL refuses a communicator whose ranks share
-# a GPU, so the ranks join a gloo world and every collective of a CUDA
-# tensor travels through host memory (parallel/spmd.py): the kernels and
-# shapes are each rank's, the times are four ranks on one card, not a
-# multi-GPU deployment's. Both run flagship-1b at full width and `layers`
-# of its 18 layers: at 4 layers the two phases took 75 and 85 s of host
-# transport and setup (on an H100 80GB HBM3), so full depth would add
-# ~470 s to a script that ran ~480. dist_parity: float32, one step from
-# the seed-0 weights on the train phase's [4, 2048] batch (SGD at lr
-# 1e-2; ZeRO-1 dp4 AdamW at TRAIN's lr), loss
-# and grad norm at rtol `parity_tol` against the single-device step, and
-# at `sample` flat indices of every leaf, gathered: the updated values
-# (max |d| over max |value| <= parity_tol) and the updates, max |d| over
-# max |update|: for SGD <= PARITY_TOL, the parity phase's rule; for AdamW
-# <= `adamw_update_tol`. A first AdamW step moves each element by
-# lr * (g/(|g| + eps) [+ wd * p]), so an element whose clipped gradient is
-# near eps turns the sums' reordering into a visible share of lr: the
-# sound reading was 1.35e-2 (final_norm_w, on an H100 80GB HBM3), while an
-# update left out reads 1.0 by this rule. The phase also reads that
-# control (the state left unchanged) and fails unless every leaf's
+# a GPU, so the ranks join a gloo world and every collective and every
+# pipeline hop of a CUDA tensor travels through host memory
+# (parallel/spmd.py): the kernels and shapes are each rank's, the times
+# are four ranks on one card, not a multi-GPU deployment's, and no
+# pipeline bubble a deployment would see. DIST_PLANS gives each plan its
+# model and depth (full width always): flagship-1b at 6 of its 18 layers
+# for the dp / tp / sp / ZeRO-1 plans (at 4 layers the two phases took 75
+# and 85 s of host transport and setup on an H100 80GB HBM3, so full
+# depth would add ~470 s), at 8 for the pipeline plans (18 layers divide
+# by neither pp 4 nor pp*vpp 4); mixtral-8x7b at 1 layer (a dp2 x ep2
+# rank holds ~1.0e9 parameters, ~1.2e10 B with AdamW, so four ranks fit
+# the card and not at 2 layers; ep2 x tp2 would fit 2, but the plans' two
+# phases ran 587 s at 2 and 3 steps, too long beside the script's other
+# ~650 s). dist_parity: float32, one step from the seed-0
+# weights on the train phase's [4, 2048] batch (SGD at lr 1e-2; ZeRO-1
+# AdamW at TRAIN's lr), MoE at capacity factor `parity_factor` (a rank
+# routes its own tokens at the capacity of their count; at 4.0 nothing
+# drops, so its routing is the whole batch's), loss and grad norm at
+# rtol `parity_tol` against the single-device step at the same depth,
+# and at `sample` flat indices of every leaf, gathered: the updated
+# values (max |d| over max |value| <= parity_tol) and the updates, max
+# |d| over max |update|: for SGD <= PARITY_TOL, the parity phase's rule;
+# for AdamW <= `adamw_update_tol`; or, where an update is too small for
+# its leaf's float32 values to show that share of it, <= its floor: the
+# spacing at the leaf's largest value over its largest update, one
+# rounding apart (mixtral's mlp_norm_w, ~1 + 1e-5 after one SGD step at
+# lr 1e-2, read exactly one spacing, 1.2e-2 of its update, on an H100
+# 80GB HBM3). A first AdamW step moves each element
+# by lr * (g/(|g| + eps) [+ wd * p]), so an element whose clipped
+# gradient is near eps turns the sums' reordering into a visible share of
+# lr: the sound reading was 1.35e-2 (final_norm_w, on an H100 80GB HBM3),
+# while an update left out reads 1.0 by this rule. The phase also reads
+# that control (the state left unchanged) and fails unless every leaf's
 # control exceeds the limit, and it records, for each leaf's worst
 # element, |g|/eps as the single device's update implies it.
-# dist_train: the same plans in bf16 with AdamW, `train_steps` steps each,
-# per rank the step time (CUDA events), the flash launches per step
-# (exact, by plan), peak memory and the bytes each axis put on the wire;
-# losses within `loss_rtol` of the single-device bf16 step's at the same
-# depth (bf16 sums in other orders: 2.6e-4 at most at 4 layers).
-DIST = dict(model="flagship-1b", layers=6, world=4, backend="gloo",
-            sample=4096,
+# dist_train: the same plans in bf16 with AdamW (MoE at the preset's
+# capacity factor), `train_steps` steps each (3 until the pipeline and
+# ep plans came: 2 keeps the script inside its time), per rank the step time
+# (CUDA events), the flash launches per step (exact, by plan, stage and
+# schedule), peak memory, the bytes each axis put on the wire, the stage,
+# the most stage inputs its schedule stashed at once (at most 2P - 1
+# under 1F1B, 2V under the interleaved one) and the share of token-expert
+# choices dropped at capacity; losses within `loss_rtol` of the
+# single-device bf16 step's at the same depth (bf16 sums in other
+# orders: 2.6e-4 at most at 4 layers). A MoE plan's drops are its ranks'
+# (each routes its own tokens at the capacity of their count) and not
+# the single device's, so only its first loss, from the same weights, is
+# held; the later ones train another function (6.2e-2 apart at step 2 on
+# an H100 80GB HBM3, dropped shares 0.21 a rank against 0.028) and are
+# recorded.
+DIST = dict(world=4, backend="gloo", sample=4096,
             sgd_lr=1e-2, parity_tol=5e-4, adamw_update_tol=0.1,
-            adamw_eps=1e-8, adamw_wd=0.1, train_steps=3, loss_rtol=1e-2,
-            timeout=1200)
-DIST_PLANS = [("dp2_tp2", {"dp": 2, "tp": 2}),
-              ("dp2_tp2_megatron_sp", {"dp": 2, "tp": 2,
-                                       "megatron_sp": True}),
-              ("dp2_sp2_ring", {"dp": 2, "sp": 2}),
-              ("dp2_sp2_ulysses", {"dp": 2, "sp": 2, "sp_mode": "ulysses"}),
-              ("zero1_dp4", {"dp": 4})]
+            adamw_eps=1e-8, adamw_wd=0.1, parity_factor=4.0,
+            train_steps=2, loss_rtol=1e-2, timeout=1200)
+# (name, model, layers, mesh, pipeline options); a "zero1" plan trains
+# with ZeRO-1 AdamW
+DIST_PLANS = [
+    ("dp2_tp2", "flagship-1b", 6, {"dp": 2, "tp": 2}, {}),
+    ("dp2_tp2_megatron_sp", "flagship-1b", 6,
+     {"dp": 2, "tp": 2, "megatron_sp": True}, {}),
+    ("dp2_sp2_ring", "flagship-1b", 6, {"dp": 2, "sp": 2}, {}),
+    ("dp2_sp2_ulysses", "flagship-1b", 6,
+     {"dp": 2, "sp": 2, "sp_mode": "ulysses"}, {}),
+    ("zero1_dp4", "flagship-1b", 6, {"dp": 4}, {}),
+    ("pp4_1f1b", "flagship-1b", 8, {"pp": 4}, {"n_microbatches": 4}),
+    ("dp2_pp2_vpp2_interleaved", "flagship-1b", 8,
+     {"dp": 2, "pp": 2, "vpp": 2},
+     {"n_microbatches": 2, "pipeline_schedule": "interleaved"}),
+    ("pp2_tp2_megatron_sp_gpipe", "flagship-1b", 8,
+     {"pp": 2, "tp": 2, "megatron_sp": True},
+     {"n_microbatches": 2, "pipeline_schedule": "gpipe"}),
+    ("zero1_dp2_pp2", "flagship-1b", 8, {"dp": 2, "pp": 2},
+     {"n_microbatches": 2}),
+    ("dp2_ep2", "mixtral-8x7b", 1, {"dp": 2, "ep": 2}, {}),
+    ("ep2_tp2", "mixtral-8x7b", 1, {"ep": 2, "tp": 2}, {}),
+]
 # The flash kernels at the new main-path shapes (B, S, Hq, Hkv, D) of
-# this slice, bf16: the Ulysses prefill of llama3-8b at sp 4 folded, the
-# tp2 and Ulysses dp2 x sp2 training ranks, the ring's diagonal in ring
-# training (forward only: the ring's backward is the plain partial's),
-# the ZeRO-1 dp4 rank.
+# PR 14 and this slice, bf16: the Ulysses prefill of llama3-8b at sp 4
+# folded, the tp2 and Ulysses dp2 x sp2 training ranks (and a pp2 x tp2
+# GPipe microbatch), the ring's diagonal in ring training (forward only:
+# the ring's backward is the plain partial's), a ZeRO-1 dp4 rank (and a
+# one-row pipeline microbatch), the mixtral dp2 x ep2 and ep2 x tp2
+# ranks.
 DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
                ("tp2_ulysses_train", (2, 2048, 8, 4, 128), True),
                ("ring_train_diagonal", (2, 1024, 16, 8, 128), False),
-               ("zero1_dp4_train", (1, 2048, 16, 8, 128), True)]
+               ("zero1_dp4_train", (1, 2048, 16, 8, 128), True),
+               ("mixtral_dp2_ep2_train", (1, 2048, 32, 8, 128), True),
+               ("mixtral_ep2_tp2_train", (2, 2048, 16, 4, 128), True)]
 EC = dict(unit_bytes=134217728, schemas=((3, 2), (6, 3), (10, 4)),
           odd=1021, timed=10, host_slice=16 << 20, host_threads=8)
 # lost units per schema: two data units and one parity unit, data units
@@ -4198,25 +4249,70 @@ def phase_dist_shapes():
         free_device()
 
 
-def _dist_job(cfg_over, tokens, sample, plans):
-    return {"preset": DIST["model"],
-            "overrides": dict(cfg_over, n_layers=DIST["layers"]), "seed": SEED,
+def _dist_groups():
+    """DIST_PLANS by (model, layers), in order of first appearance."""
+    groups = {}
+    for plan in DIST_PLANS:
+        groups.setdefault(plan[1:3], []).append(plan)
+    return groups
+
+
+def _dist_overrides(model, layers, parity):
+    """The config overrides of a group: its depth, and for the parity
+    phase float32 and (MoE) the no-drop capacity factor."""
+    over = {"n_layers": layers}
+    if parity:
+        over["dtype"] = "float32"
+        if get_config(model).is_moe:
+            over["capacity_factor"] = DIST["parity_factor"]
+    return over
+
+
+def _dist_job(model, over, tokens, sample, plans):
+    return {"preset": model, "overrides": over, "seed": SEED,
             "device": "cuda", "sample": sample,
             "tokens": tokens.cpu().numpy(),
             "targets": torch.roll(tokens, -1, dims=1).cpu().numpy(),
             "plans": plans}
 
 
+def _dist_spec(name, kw, opts, steps, parity):
+    """A ``dist_plans`` plan of DIST_PLANS: AdamW (ZeRO-1 for a "zero1"
+    plan), except SGD for the parity phase's other plans."""
+    zero1 = name.startswith("zero1")
+    opt = {"optimizer": "adamw", "zero1": zero1, "lr": TRAIN["lr"]}
+    if parity and not zero1:
+        opt = {"optimizer": "sgd", "lr": DIST["sgd_lr"]}
+    return dict({"plan": kw, "steps": steps, "remat": TRAIN["remat"]},
+                **opts, **opt)
+
+
+def _dist_world(parity, sample, steps):
+    """Every plan of DIST_PLANS on one world, a job a group; returns
+    (each plan's records on every rank, by name, and the world's
+    seconds)."""
+    jobs, names = [], []
+    for (model, layers), plans in _dist_groups().items():
+        over = _dist_overrides(model, layers, parity)
+        cfg = get_config(model, **over)
+        jobs.append(_dist_job(model, over, _train_tokens(cfg), sample, [
+            _dist_spec(name, kw, opts, steps, parity)
+            for name, _, _, kw, opts in plans]))
+        names += [p[0] for p in plans]
+    t0 = time.monotonic()
+    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
+                       backend=DIST["backend"], args=(jobs,),
+                       timeout=DIST["timeout"])
+    seconds = time.monotonic() - t0
+    return {name: [r[i] for r in recs] for i, name in enumerate(names)}, \
+        seconds
+
+
 def _train_tokens(cfg):
-    """The train phase's batch."""
+    """The train phase's batch (in the model's vocabulary)."""
     return torch.randint(0, cfg.vocab_size, (TRAIN["batch"], TRAIN["seq"]),
                          device="cuda", generator=torch.Generator(
                              device="cuda").manual_seed(SEED + 3))
-
-
-def _per_rank(recs, i):
-    """Plan i's records on every rank, with the transport named."""
-    return [r[i] for r in recs]
 
 
 def _leaf_rel(got, want, base=None):
@@ -4229,6 +4325,19 @@ def _leaf_rel(got, want, base=None):
         if base is not None:
             g, w = g - b, w - b
         out[key] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+    return out
+
+
+def _update_floor(want, base):
+    """Per sampled leaf: the float32 spacing at its largest updated value
+    over its largest update, the finest update difference the updated
+    values can show (two roundings of p - lr·g a spacing apart read
+    this much)."""
+    out = {}
+    for key, w, b in zip(tree_leaves(_names(want)), tree_leaves(want),
+                         tree_leaves(base)):
+        ulp = float(np.spacing(np.float32(np.abs(w).max())))
+        out[key] = ulp / max(float(np.abs(w - b).max()), 1e-30)
     return out
 
 
@@ -4252,59 +4361,76 @@ def _adamw_worst(got, want, base, ndims, lr):
     return out
 
 
-def phase_dist_parity():
-    """DIST_PLANS in float32 against the single-device step (see DIST)."""
-    free_device()                  # the ranks share the card with this one
-    cfg = get_config(DIST["model"], dtype="float32", n_layers=DIST["layers"])
+def _parity_reference(model, layers, optimizers):
+    """The single-device float32 step at a group's depth, for each
+    optimizer: (loss, grad norm, sampled tree), the sampled seed-0
+    weights and each leaf's ndim."""
+    cfg = get_config(model, **_dist_overrides(model, layers, True))
     tokens = _train_tokens(cfg)
-    targets = torch.roll(tokens, -1, dims=1)
     ref = {}
-    for opt, lr in (("sgd", DIST["sgd_lr"]), ("adamw", TRAIN["lr"])):
-        params, state = init_train_state(
-            cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    for opt in optimizers:
+        params = init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED))
         p0 = dist_plans.sample_tree(params, DIST["sample"])
         ndims = {key: p.ndim for key, p in zip(tree_leaves(_names(params)),
                                               tree_leaves(params))}
+        state = adamw_init(params) if opt == "adamw" else \
+            AdamWState(0, {}, {})         # SGD reads no moments
+        lr = TRAIN["lr"] if opt == "adamw" else DIST["sgd_lr"]
         step = make_train_step(cfg, MeshPlan(), lr=lr, optimizer=opt,
                                remat=TRAIN["remat"])
-        params, state, m = step(params, state, tokens, targets)
+        params, state, m = step(params, state, tokens,
+                                torch.roll(tokens, -1, dims=1))
         ref[opt] = (m["loss"].item(), m["grad_norm"].item(),
                     dist_plans.sample_tree(params, DIST["sample"]))
         del params, state, step, m
         free_device()
-    plans = [{"plan": kw, "steps": 1, "remat": TRAIN["remat"],
-              **({"optimizer": "adamw", "zero1": True, "lr": TRAIN["lr"]}
-                 if name.startswith("zero1") else
-                 {"optimizer": "sgd", "lr": DIST["sgd_lr"]})}
-             for name, kw in DIST_PLANS]
-    t0 = time.monotonic()
-    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
-                       backend=DIST["backend"],
-                       args=([_dist_job({"dtype": "float32"}, tokens,
-                                        DIST["sample"], plans)],),
-                       timeout=DIST["timeout"])
-    seconds = time.monotonic() - t0
-    for i, (name, kw) in enumerate(DIST_PLANS):
-        ranks = _per_rank(recs, i)
+    return ref, p0, ndims
+
+
+def phase_dist_parity():
+    """DIST_PLANS in float32 against the single-device step at each
+    plan's depth (see DIST)."""
+    phase_t0 = time.monotonic()
+    free_device()                  # the ranks share the card with this one
+    refs = {}
+    for (model, layers), plans in _dist_groups().items():
+        opts = ["sgd"] + (["adamw"] if any(p[0].startswith("zero1")
+                                           for p in plans) else [])
+        refs[model, layers] = _parity_reference(model, layers, opts)
+    recs, seconds = _dist_world(True, DIST["sample"], 1)
+    seconds = {"world": seconds, "phase": time.monotonic() - phase_t0}
+    for name, model, layers, kw, opts in DIST_PLANS:
+        ranks = recs[name]
         opt = ranks[0]["plan"]["optimizer"]
+        ref, p0, ndims = refs[model, layers]
         loss, gnorm, want = ref[opt]
         got = ranks[0]["params"]
         value_rel = _leaf_rel(got, want)
         update_rel = _leaf_rel(got, want, base=p0)
         update_tol = PARITY_TOL if opt == "sgd" else DIST["adamw_update_tol"]
+        floor = _update_floor(want, p0)
         control = _leaf_rel(p0, want, base=p0)
-        rec = {"phase": "dist_parity", "plan": name, "mesh": kw,
-               "optimizer": opt, "dtype": "float32", "layers": cfg.n_layers,
+        rec = {"phase": "dist_parity", "plan": name, "model": model,
+               "mesh": kw, **opts, "optimizer": opt, "dtype": "float32",
+               "layers": layers,
+               "overrides": _dist_overrides(model, layers, True),
                "tokens": [TRAIN["batch"], TRAIN["seq"]],
-               "transport": "gloo, collectives through host memory",
-               "world_seconds": seconds,
+               "transport": "gloo, collectives and hops through host "
+                            "memory",
+               "seconds": seconds,
                "loss": [r["losses"][0] for r in ranks], "loss_single": loss,
                "grad_norm": [r["grad_norms"][0] for r in ranks],
                "grad_norm_single": gnorm,
                "value_rel_err": value_rel, "update_rel_err": update_rel,
                "tol": DIST["parity_tol"], "update_tol": update_tol,
+               "update_floor": floor,
                "control_update_rel_err": control,
+               "dropped_share_per_rank": [r["dropped_share"]
+                                          for r in ranks],
                "step_ms_per_rank": [r["step_ms"][0] for r in ranks],
+               "setup_ms_per_rank": [r["setup_ms"] for r in ranks],
+               "gather_ms_per_rank": [r["gather_ms"] for r in ranks],
                "peak_memory_bytes_per_rank": [r["peak_bytes"] for r in ranks]}
         if opt == "adamw":
             rec["worst_update"] = _adamw_worst(got, want, p0, ndims,
@@ -4319,79 +4445,128 @@ def phase_dist_parity():
         require(max(value_rel.values()) <= DIST["parity_tol"],
                 f"{name}: updated leaves against the single device's: "
                 f"{value_rel}")
-        require(max(update_rel.values()) <= update_tol,
-                f"{name}: updates against the single device's: {update_rel}")
+        require(all(e <= max(update_tol, floor[k])
+                    for k, e in update_rel.items()),
+                f"{name}: updates against the single device's: "
+                f"{update_rel} (float32 floor {floor})")
         require(min(control.values()) > update_tol,
                 f"{name}: the unchanged state passes the update check: "
                 f"{control}")
+        require(all(d == 0.0 for r in ranks for d in r["dropped_share"]),
+                f"{name}: tokens dropped at capacity factor "
+                f"{DIST['parity_factor']}: {rec['dropped_share_per_rank']}")
 
 
-def _dist_want(cfg, kw):
-    """A full-remat step's flash launches per rank (fwd, partial, dq,
-    dkv, the first four of ``dist_plans.COUNTERS``): the causal kernel in
-    the forward and its recompute and one dQ
-    and dK/dV per layer; on the ring, the diagonal's causal partial and
-    sp - 1 non-causal partials per layer, twice, and no backward kernel
-    (the ring's backward differentiates the plain partial)."""
-    L = cfg.n_layers
+def _dist_want(cfg, kw, opts):
+    """A full-remat step's flash launches per rank of a DIST_PLANS plan
+    (fwd, partial, dq, dkv, the first four of ``dist_plans.COUNTERS``),
+    the same on every stage (each holds L/pp layers). Flat: the causal
+    kernel in the forward and its recompute and one dQ and dK/dV per
+    layer; on the ring, the diagonal's causal partial and sp - 1
+    non-causal partials per layer, twice, and no backward kernel (the
+    ring's backward differentiates the plain partial). Pipelined, per
+    microbatch and local layer: GPipe's forward with its graph and the
+    remat recompute; 1F1B's and the interleaved clock's forward, the
+    stage recompute of the backward half and the remat recompute inside
+    it; one dQ and dK/dV each."""
+    L = cfg.n_layers // kw.get("pp", 1)
     if kw.get("sp", 1) > 1 and kw.get("sp_mode", "ring") == "ring":
         return [2 * L, 2 * L * (kw["sp"] - 1), 0, 0]
-    return [2 * L, 0, L, L]
+    if kw.get("pp", 1) == 1:
+        return [2 * L, 0, L, L]
+    ml = opts["n_microbatches"] * L
+    passes = 2 if opts.get("pipeline_schedule") == "gpipe" else 3
+    return [passes * ml, 0, ml, ml]
 
 
-def phase_dist_train():
-    """DIST_PLANS in bf16 with AdamW (see DIST), against the single-device
-    step at the same depth. Returns rank 0's launches over all plans'
-    steps, by kernel name (``dist_plans.COUNTERS``)."""
-    free_device()
-    cfg = get_config(DIST["model"], n_layers=DIST["layers"])
+def _stash_bound(kw, opts):
+    """The most stage inputs a pipeline schedule may hold at once: 2P - 1
+    under 1F1B, 2V (V = vpp·P) under the interleaved clock; GPipe holds
+    every microbatch's graph (M); None without pp."""
+    p = kw.get("pp", 1)
+    if p == 1:
+        return None
+    if opts.get("pipeline_schedule") == "gpipe":
+        return opts["n_microbatches"]
+    if kw.get("vpp", 1) > 1 or opts.get("pipeline_schedule") == \
+            "interleaved":
+        return 2 * kw.get("vpp", 1) * p
+    return 2 * p - 1
+
+
+def _train_reference(model, layers):
+    """The single-device bf16 AdamW steps at a group's depth: losses, ms
+    (CUDA events) and, for MoE, the dropped share of each step."""
+    cfg = get_config(model, **_dist_overrides(model, layers, False))
     tokens = _train_tokens(cfg)
     params, state = init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(SEED))
     step = make_train_step(cfg, MeshPlan(), lr=TRAIN["lr"],
                            remat=TRAIN["remat"])
-    train_losses, single_ms = [], []
+    out = {"losses": [], "ms": [], "dropped_share": []}
     for _ in range(DIST["train_steps"]):
+        moe_module.drops = [] if cfg.is_moe else None
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         params, state, m = step(params, state, tokens,
                                 torch.roll(tokens, -1, dims=1))
         ev[1].record()
-        train_losses.append(m["loss"].item())
-        single_ms.append(ev[0].elapsed_time(ev[1]))
+        out["losses"].append(m["loss"].item())
+        out["ms"].append(ev[0].elapsed_time(ev[1]))
+        if moe_module.drops:
+            kept = float(sum(k for _, k in moe_module.drops))
+            out["dropped_share"].append(
+                1.0 - kept / sum(n for n, _ in moe_module.drops))
+    moe_module.drops = None
     del params, state, step, m
     free_device()
-    plans = [{"plan": kw, "steps": DIST["train_steps"], "lr": TRAIN["lr"],
-              "optimizer": "adamw", "zero1": name.startswith("zero1"),
-              "remat": TRAIN["remat"]} for name, kw in DIST_PLANS]
-    t0 = time.monotonic()
-    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
-                       backend=DIST["backend"],
-                       args=([_dist_job({}, tokens, 16, plans)],),
-                       timeout=DIST["timeout"])
-    seconds = time.monotonic() - t0
+    return out
+
+
+def phase_dist_train():
+    """DIST_PLANS in bf16 with AdamW (see DIST), against the single-device
+    step at each plan's depth. Returns rank 0's launches over all plans'
+    steps, by kernel name (``dist_plans.COUNTERS``)."""
+    phase_t0 = time.monotonic()
+    free_device()
+    refs = {group: _train_reference(*group) for group in _dist_groups()}
+    recs, seconds = _dist_world(False, None, DIST["train_steps"])
+    seconds = {"world": seconds, "phase": time.monotonic() - phase_t0}
     total = dict.fromkeys(dist_plans.COUNTERS, 0)
-    for i, (name, kw) in enumerate(DIST_PLANS):
-        ranks = _per_rank(recs, i)
-        want = _dist_want(cfg, kw)
+    for name, model, layers, kw, opts in DIST_PLANS:
+        ranks = recs[name]
+        cfg = get_config(model, n_layers=layers)
+        want = _dist_want(cfg, kw, opts)
+        bound = _stash_bound(kw, opts)
+        ref = refs[model, layers]
         losses = ranks[0]["losses"]
-        single = train_losses[:len(losses)]
+        single = ref["losses"][:len(losses)]
         div = [abs(a - b) / abs(b) for a, b in zip(losses, single)]
-        rec = {"phase": "dist_train", "plan": name, "mesh": kw,
-               "optimizer": "adamw", "zero1": name.startswith("zero1"),
-               "dtype": cfg.dtype, "layers": cfg.n_layers,
+        held = div[:1] if cfg.is_moe else div
+        rec = {"phase": "dist_train", "plan": name, "model": model,
+               "mesh": kw, **opts, "optimizer": "adamw",
+               "zero1": name.startswith("zero1"),
+               "dtype": cfg.dtype, "layers": layers,
                "tokens": [TRAIN["batch"], TRAIN["seq"]],
                "remat": TRAIN["remat"],
-               "transport": "gloo, collectives through host memory",
-               "world_seconds": seconds, "losses": losses,
+               "transport": "gloo, collectives and hops through host "
+                            "memory",
+               "seconds": seconds, "losses": losses,
                "losses_single_device": single, "loss_rel_divergence": div,
-               "step_ms_single_device": single_ms,
-               "loss_rtol": DIST["loss_rtol"],
+               "step_ms_single_device": ref["ms"],
+               "loss_rtol": DIST["loss_rtol"], "losses_held": len(held),
                "step_ms_per_rank": [r["step_ms"] for r in ranks],
+               "setup_ms_per_rank": [r["setup_ms"] for r in ranks],
                "launches_per_step": {"counters": dist_plans.COUNTERS,
                                      "per_rank": [r["launches"]
                                                   for r in ranks]},
                "launches_want": want,
+               "stage_per_rank": [r["stage"] for r in ranks],
+               "stash_peak_per_rank": [r["stash_peak"] for r in ranks],
+               "stash_bound": bound,
+               "dropped_share_per_rank": [r["dropped_share"]
+                                          for r in ranks],
+               "dropped_share_single_device": ref["dropped_share"],
                "peak_memory_bytes_per_rank": [r["peak_bytes"] for r in ranks],
                "wire_bytes_per_step_by_axis": [r["traffic"] for r in ranks]}
         emit(rec)
@@ -4399,9 +4574,13 @@ def phase_dist_train():
                 f"{name}: flash launches per step per rank "
                 f"{rec['launches_per_step']}, expected {want} (fwd, "
                 f"partial, dq, dkv)")
+        require(bound is None or all(
+            0 < n <= bound for r in ranks for n in r["stash_peak"]),
+            f"{name}: stage inputs stashed {rec['stash_peak_per_rank']}, "
+            f"bound {bound}")
         require(all(r["losses"] == losses for r in ranks),
                 f"{name}: the ranks' losses differ")
-        require(max(div) <= DIST["loss_rtol"],
+        require(max(held) <= DIST["loss_rtol"],
                 f"{name}: losses {losses} against the single device's "
                 f"{single}")
         for per in ranks[0]["launches"]:
@@ -4425,6 +4604,10 @@ def main() -> int:
     rms = phase_rmsnorm()
     ec = phase_ec()
     phase_dist_shapes()
+    # the dist phases before the rest: four ranks' trees share the card
+    # with this process, which holds least now
+    phase_dist_parity()
+    dist_launches = phase_dist_train()
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -4454,8 +4637,6 @@ def main() -> int:
     phase_moe()
     moe_train_launches = phase_moe_train()
     moe_trainer_launches = phase_moe_trainer()
-    phase_dist_parity()
-    dist_launches = phase_dist_train()
     source_fwd = "hadoop_tpu_torch/ops/csrc/flash_fwd.cu"
     source_bwd = "hadoop_tpu_torch/ops/csrc/flash_bwd.cu"
     # launches: on each kernel's path of an earlier slice (the forward,
@@ -4471,7 +4652,7 @@ def main() -> int:
     # 12 steps through Trainer; ec_gf256's launches: the ec phase's
     # encode_cells and decode_cells calls on its three block groups;
     # launches_ulysses: the 8192-token Ulysses prefill's; launches_dist:
-    # rank 0's over dist_train's five plans of three steps
+    # rank 0's over dist_train's eleven plans of two steps
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))

@@ -21,8 +21,10 @@ after it. Where the reference's vma tracking inserts the gradient sum
 of a value every tp rank holds, here ``spmd.copy_to`` does. With
 ``relaxed_qweights`` a matmul whose leaf is a weight-plane qtensor
 (``serving/weightplane.py``) runs through ``qdot``, and a quantized
-embedding through ``qrows``. Expert parallelism, and MoE layers under
-tp, are ROADMAP Queue A 6.
+embedding through ``qrows``. A MoE layer under an ``ep`` axis exchanges
+its expert batches with ``all_to_all`` (``models/moe.py``); under tp its
+experts' d_ff is sharded and its output is a partial sum that the
+row-parallel reduce completes, as the dense down-projection's.
 
 Attention goes through ``ops.attention.causal_attention``, which takes
 the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
@@ -47,7 +49,8 @@ from hadoop_tpu_torch.models.moe import moe_mlp
 from hadoop_tpu_torch.ops import (apply_rope, causal_attention, gelu,
                                   layer_norm, rms_norm, rope_frequencies,
                                   swiglu)
-from hadoop_tpu_torch.ops.collective_matmul import row_parallel_project
+from hadoop_tpu_torch.ops.collective_matmul import (reduce_row_parallel,
+                                                    row_parallel_project)
 from hadoop_tpu_torch.parallel import spmd
 from hadoop_tpu_torch.parallel import ring_attention as ring_module
 from hadoop_tpu_torch.parallel.ulysses import ulysses_attention
@@ -57,9 +60,8 @@ from hadoop_tpu_torch.serving.weightplane import is_qtensor, qdot, qrows
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """The axes the current run is under (None = single device), and
-    whether quantized weights may be contracted. The expert and
-    wire-codec fields come with ROADMAP Queue A 6, and naming one is a
-    TypeError.
+    whether quantized weights may be contracted. The wire-codec fields
+    come with ROADMAP Queue A 6, and naming one is a TypeError.
 
     ring:      name of the context-parallel axis (the reference's
         ``ring_axis``), e.g. "sp".
@@ -69,6 +71,8 @@ class ParallelCtx:
     sp_mode:   "ring" or "ulysses" (``parallel/ulysses.py``).
     tp:        the tensor-parallel axis, a process group (``spmd.Axis``).
     megatron_sp: sequence parallelism on the tp axis.
+    ep:        the expert-parallel axis, a process group (``spmd.Axis``):
+        MoE layers hold its rank's experts.
     relaxed_qweights: the relaxed tier's opt-in (``serving.parity``):
         matmul leaves that are weight-plane qtensors route through the
         dequantizing matmul. False (the bitwise tier): a qtensor leaf
@@ -81,6 +85,7 @@ class ParallelCtx:
     ring_group: Optional[spmd.Axis] = None
     tp: Optional[spmd.Axis] = None
     megatron_sp: bool = False
+    ep: Optional[spmd.Axis] = None
 
     def __post_init__(self):
         if self.sp_mode not in ("ring", "ulysses"):
@@ -94,9 +99,10 @@ class ParallelCtx:
                              f"its group {self.ring_group}")
         if self.megatron_sp and self.tp is None:
             raise ValueError("megatron_sp needs a tp axis")
-        if self.tp is not None and self.tp.folded:
-            raise ValueError(f"tp {self.tp}: tensor parallelism needs a "
-                             f"process group")
+        for name in ("tp", "ep"):
+            axis = getattr(self, name)
+            if axis is not None and axis.folded:
+                raise ValueError(f"{name} {axis}: needs a process group")
 
     @property
     def ring_axis(self) -> Optional[spmd.Axis]:
@@ -267,15 +273,13 @@ def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
     h = _tp_enter(_norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg),
                   ctx)
     if cfg.is_moe:
-        if ctx.tp is not None:
-            raise NotImplementedError("MoE layers under tensor parallelism "
-                                      "come with expert parallelism, "
-                                      "ROADMAP Queue A 6")
         # each rank routes its own B*S_local tokens, at the capacity of
-        # that count: a folded ring holds every rank's rows
+        # that count: a folded ring holds every rank's rows; under tp the
+        # result is a partial sum over the d_ff shards
         ranks = ctx.ring_size if ctx.ring_group is None else 1
-        out = moe_mlp(h, lp, cfg) if ranks == 1 else torch.cat(
-            [moe_mlp(hr, lp, cfg) for hr in h.chunk(ranks, dim=0)])
+        out = moe_mlp(h, lp, cfg, ctx) if ranks == 1 else torch.cat(
+            [moe_mlp(hr, lp, cfg, ctx) for hr in h.chunk(ranks, dim=0)])
+        out = reduce_row_parallel(out, ctx)
     elif cfg.use_swiglu:
         out = _down(swiglu(_dot(h, lp["w_gate"], ctx),
                            _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx)

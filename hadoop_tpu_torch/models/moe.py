@@ -16,8 +16,20 @@ reference. ``moe_mlp`` runs under two ``record_function`` ranges,
 "moe.route" (the routing and the dispatch and combine einsums) and
 "moe.experts" (the expert FFN), so a profile gives each its share.
 
-Expert parallelism (an ``ep`` axis and its all-to-all exchange) is
-multi-GPU work, ROADMAP Queue A 6: a ``ctx`` that names one raises.
+Under an ``ep`` axis (``ctx.ep``, a process group) a rank holds E/ep
+experts: the [E, C, D] expert batches it built go out with
+``all_to_all`` (split 0, concat 1) to [E/ep, ep·C, D], each rank's local
+experts run on every peer's batch, and the inverse exchange brings
+[E, C, D] back in expert order; the backward of each exchange is the
+other. Under tp the experts' d_ff is this rank's shard, so the output
+is a partial sum that the caller reduces (``reduce_row_parallel``), and
+the router, which every tp rank holds whole, gets the sum of every tp
+rank's part of its gradient (``spmd.copy_to``; under Megatron-SP the
+train step's sum over the tp data axis gives it).
+
+``drops``: while it is a list, each routing appends ``(choices,
+kept)``, the T·k token-expert choices and those within capacity (a
+0-d device tensor), for a caller to read the dropped share.
 """
 
 from __future__ import annotations
@@ -30,6 +42,9 @@ from torch.profiler import record_function
 
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.ops import swiglu
+from hadoop_tpu_torch.parallel import spmd
+
+drops = None
 
 
 def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -77,18 +92,25 @@ def _expert_ffn(xe: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
 def moe_mlp(h: torch.Tensor, lp, cfg: ModelConfig, ctx=None) -> torch.Tensor:
     """Routed MLP over ``h`` [B, S, D], every token routed together.
     ``lp``: one layer's ``router`` [D, E] and expert stacks
-    ``w_gate``/``w_up`` [E, D, F], ``w_down`` [E, F, D]."""
-    if getattr(ctx, "ep_axis", None) is not None:
-        raise NotImplementedError(
-            "expert parallelism (an ep axis) is multi-GPU serving, "
-            "ROADMAP Queue A 6")
+    ``w_gate``/``w_up`` [E_local, D, F_local], ``w_down`` [E_local,
+    F_local, D] (E/ep experts under ``ctx.ep``, d_ff/tp under
+    ``ctx.tp``: then the result is a partial sum over tp)."""
+    ep = getattr(ctx, "ep", None)
+    tp = getattr(ctx, "tp", None)
+    router = lp["router"]
+    if tp is not None and not ctx.megatron_sp:
+        router = spmd.copy_to(router, tp)
     B, S, D = h.shape
     x2d = h.reshape(B * S, D)
     with record_function("moe.route"):
-        dispatch, combine = route(x2d, lp["router"], cfg)
+        dispatch, combine = route(x2d, router, cfg)
+        if drops is not None:
+            drops.append((x2d.shape[0] * cfg.top_k, dispatch.detach().sum()))
         xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2d)
+        xe = spmd.all_to_all(xe, ep, 0, 1)          # [E/ep, ep*C, D]
     with record_function("moe.experts"):
         ye = _expert_ffn(xe, lp, cfg)
     with record_function("moe.route"):
+        ye = spmd.all_to_all(ye, ep, 1, 0)          # [E, C, D]
         y2d = torch.einsum("tec,ecd->td", combine, ye.float())
     return y2d.reshape(B, S, D).to(h.dtype)

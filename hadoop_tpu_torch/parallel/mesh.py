@@ -8,14 +8,16 @@ makes one ``torch.distributed`` process group per axis of size > 1
 collects over. ``param_specs`` names, per dim of each leaf, the axis
 that shards it (a tuple per leaf where the reference has a
 ``PartitionSpec``); ``shard_params`` cuts a full tree (from
-``init_params`` or ``params_from_numpy``) into this rank's shards and
-``gather_params`` puts the full tree back together on every rank.
+``init_params`` or ``params_from_numpy``) into this rank's shards.
+Under interleaved pipelines (vpp > 1) the stacked layer axis is
+permuted first (``physical_layer_order``), so the contiguous pp cut
+hands each rank its vpp model chunks; ``logical_layer_order`` (and
+``layer_order``'s index) puts a whole tree back in checkpoint order.
 
-Axis roles: ``dp`` data, ``pp`` pipeline, ``tp`` tensor (Megatron
-sequence parallelism rides it), ``ep`` expert, ``sp`` context (ring or
-Ulysses attention). Pipelines and experts (pp, vpp, ep > 1) are ROADMAP
-Queue A 6: a plan may name them and ``validate`` checks them as the
-reference does, but the train step refuses them.
+Axis roles: ``dp`` data, ``pp`` pipeline (``parallel/pipeline.py``),
+``tp`` tensor (Megatron sequence parallelism rides it), ``ep`` expert
+(a MoE layer's all-to-all dispatch; a batch axis besides), ``sp``
+context (ring or Ulysses attention).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.distributed as dist
 
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel.pipeline import interleaved_layer_permutation
 from hadoop_tpu_torch.parallel.ulysses import supports as _ulysses_supports
 
 AXES = ("dp", "pp", "tp", "ep", "sp")
@@ -89,7 +92,8 @@ class MeshPlan:
             ring=None if sp is None else "sp",
             ring_size=self.sp if sp is not None else 1,
             ring_group=sp, sp_mode=self.sp_mode,
-            tp=mesh.axis("tp"), megatron_sp=self.megatron_sp)
+            tp=mesh.axis("tp"), megatron_sp=self.megatron_sp,
+            ep=mesh.axis("ep") if cfg.is_moe else None)
 
     def validate(self, cfg: ModelConfig, batch: int, seq: int,
                  n_microbatches: int = 1) -> None:
@@ -229,18 +233,37 @@ def shard_params(params, plan: MeshPlan, mesh: Mesh):
     return _map_specs(cut, params, specs)
 
 
-def gather_params(params, plan: MeshPlan, mesh: Mesh):
-    """The full tree from every rank's shards (the inverse of
-    ``shard_params``), on every rank."""
-    specs = param_specs_for(params, plan)
+def layer_order(n_layers: int, plan: MeshPlan, logical: bool = False
+                ) -> Optional[torch.Tensor]:
+    """The index that lays a logically ordered layer stack out for the
+    plan (``stack[order]``), or with ``logical`` the one that puts it
+    back; None when vpp is 1 (no permutation)."""
+    if plan.vpp <= 1:
+        return None
+    perm = interleaved_layer_permutation(n_layers, plan.pp, plan.vpp)
+    return torch.from_numpy(np.argsort(perm) if logical else np.array(perm))
 
-    def join(x, spec):
-        for dim, name in enumerate(spec):
-            if name is not None:
-                x = spmd.all_gather_raw(x, mesh.axis(name), dim)
-        return x
-    with torch.no_grad():
-        return _map_specs(join, params, specs)
+
+def _permute_layers(params, order):
+    if order is None:
+        return params
+    out = dict(params)
+    out["layers"] = {k: v[order.to(v.device)].contiguous()
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def physical_layer_order(params, cfg: ModelConfig, plan: MeshPlan):
+    """The interleaved placement (vpp > 1): the stacked layer axis
+    permuted so the contiguous pp cut of ``shard_params`` hands rank s
+    its chunks {c·pp + s}. The tree itself when vpp is 1."""
+    return _permute_layers(params, layer_order(cfg.n_layers, plan))
+
+
+def logical_layer_order(params, cfg: ModelConfig, plan: MeshPlan):
+    """The inverse of ``physical_layer_order``: a gathered tree back in
+    checkpoint (single-device) layer order."""
+    return _permute_layers(params, layer_order(cfg.n_layers, plan, True))
 
 
 def param_specs_for(params, plan: MeshPlan):

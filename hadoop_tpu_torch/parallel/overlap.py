@@ -119,17 +119,19 @@ def _groups(flat, axes_flat):
     return groups
 
 
-def _psum_axes(x: torch.Tensor, axes) -> torch.Tensor:
+def _psum_axes(x: torch.Tensor, axes, inplace: bool = False
+               ) -> torch.Tensor:
     for a in axes:
-        x = spmd.psum_raw(x, a)
+        x = spmd.psum_raw(x, a, inplace)
     return x
 
 
 def bucketed_psum(tree, reduce_axes_tree, bucket_bytes: int):
     """psum every leaf over its reduce axes (a tuple of ``spmd.Axis`` per
     leaf; empty: the leaf passes through), same-signature leaves packed
-    into flattened buckets of at most ``bucket_bytes``. Bit for bit the
-    per-leaf result."""
+    into flattened buckets of at most ``bucket_bytes``; a leaf alone in
+    its bucket is summed in place (the caller's gradient buffers are
+    consumed). Bit for bit the per-leaf result."""
     flat, rebuild = flatten(tree)
     axes_flat, _ = flatten(reduce_axes_tree)
     out = list(flat)
@@ -139,6 +141,9 @@ def bucketed_psum(tree, reduce_axes_tree, bucket_bytes: int):
                                     flat[idxs[0]].element_size(),
                                     bucket_bytes):
             members = [idxs[j] for j in bucket]
+            if len(members) == 1 and flat[members[0]].is_contiguous():
+                out[members[0]] = _psum_axes(flat[members[0]], axes, True)
+                continue
             buf = torch.cat([flat[i].reshape(-1) for i in members])
             buf = _psum_axes(buf, axes)
             for i, part in zip(members, buf.split(

@@ -2,7 +2,9 @@
 
 The counterpart of the ``lax`` collectives that ``hadoop_tpu``'s layers
 call inside ``shard_map`` (``psum``, tiled ``all_gather``,
-``psum_scatter``, ``ppermute``, ``all_to_all``, ``axis_index``) and of
+``psum_scatter``, ``ppermute`` (and, as ``hop_raw``, its partial
+permutations: a pipeline tick's point-to-point hops), ``all_to_all``,
+``axis_index``) and of
 the job ``hadoop_tpu/ops/vma.py``'s tracking does there: JAX knows
 which mesh axes a value varies over and inserts the cotangent sums of a
 replicated value used on rank-divergent paths; PyTorch does not, so the
@@ -176,18 +178,22 @@ def _stack(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return _from_wire(out, x).view(axis.size, *x.shape)
 
 
-def psum_raw(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+def psum_raw(x: torch.Tensor, axis: Optional[Axis],
+             inplace: bool = False) -> torch.Tensor:
     """Sum of every rank's x, in rank order; no autograd. A tensor of
     more than ``_PIECE_BYTES`` goes in pieces of that size, so the
     gathered stack never holds more than ``size`` pieces (the sum is
-    elementwise: the bits do not depend on the cut)."""
+    elementwise: the bits do not depend on the cut). ``inplace``: the
+    sum overwrites x (contiguous), piece by piece, so a large gradient
+    is not held twice."""
     if not _live(axis):
         return x
     _need_group(axis, "psum")
     step = max(1, _PIECE_BYTES // x.element_size())
-    if x.numel() <= step:
+    if x.numel() <= step and not inplace:
         return _ordered_sum(_stack(x, axis), x.dtype)
-    flat, out = x.reshape(-1), torch.empty_like(x).view(-1)
+    flat = x.view(-1) if inplace else x.reshape(-1)
+    out = flat if inplace else torch.empty_like(x).view(-1)
     for start in range(0, flat.numel(), step):
         out[start:start + step] = _ordered_sum(
             _stack(flat[start:start + step], axis), x.dtype)
@@ -283,23 +289,49 @@ def all_to_all_raw(x: torch.Tensor, axis: Optional[Axis], split: int,
 def ppermute_raw(x: torch.Tensor, axis: Optional[Axis], shift: int = 1
                  ) -> torch.Tensor:
     """Rank i's x goes to rank (i + shift) mod size; no autograd. A group
-    pairs one ``isend`` with one ``irecv``, so no rank waits on another's
-    send."""
+    posts its send and its receive together (``hop_raw``), so no rank
+    waits on another's send."""
     if not _live(axis):
         return x
-    p = axis.size
     if axis.folded:
+        p = axis.size
         return torch.roll(x.reshape(p, -1, *x.shape[1:]), shift,
                           dims=0).reshape(x.shape)
-    w = _to_wire(x, axis)
-    out = torch.empty_like(w)
-    dst = axis.ranks[(axis.index + shift) % p]
-    src = axis.ranks[(axis.index - shift) % p]
-    reqs = [dist.isend(w, dst, group=axis.group),
-            dist.irecv(out, src, group=axis.group)]
+    return hop_raw(axis, [(x, shift, 0)], [(x, shift, 0)])[0]
+
+
+def hop_raw(axis: Optional[Axis],
+            sends: Sequence[Tuple[torch.Tensor, int, int]],
+            recvs: Sequence[Tuple[torch.Tensor, int, int]]
+            ) -> List[torch.Tensor]:
+    """One tick of point-to-point hops on a group axis, the counterpart of
+    ``lax.ppermute`` with a partial permutation: ``sends`` are
+    ``(x, shift, tag)`` (x to the rank ``shift`` places on, mod size),
+    ``recvs`` are ``(like, shift, tag)`` (a tensor shaped like ``like``
+    from the rank ``shift`` places back). Every send and receive is
+    posted before any is waited on, so ranks whose hops cross do not
+    wait on each other; the peers must post the matching hops, with the
+    same tags, in the same tick. Returns the received tensors in order;
+    no autograd."""
+    if not _live(axis):
+        raise ValueError(f"hop over {axis}: it needs a group of > 1 ranks")
+    _need_group(axis, "hop")
+    p = axis.size
+    reqs, wires, outs = [], [], []
+    for x, shift, tag in sends:
+        wires.append(_to_wire(x, axis))      # alive until the waits end
+        reqs.append(dist.isend(wires[-1],
+                               axis.ranks[(axis.index + shift) % p],
+                               group=axis.group, tag=tag))
+    for like, shift, tag in recvs:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if axis.host else like.device)
+        reqs.append(dist.irecv(buf, axis.ranks[(axis.index - shift) % p],
+                               group=axis.group, tag=tag))
+        outs.append((buf, like))
     for r in reqs:
         r.wait()
-    return _from_wire(out, x)
+    return [_from_wire(buf, like) for buf, like in outs]
 
 
 # ------------------------------------------- the differentiable forms

@@ -15,17 +15,20 @@ A MoE model trains as the reference's single-device step does: no
 auxiliary loss, the router learning only through the renormalised top-k
 gates of ``combine``.
 
-On a mesh (``parallel/mesh.py``: one process per rank, dp, tp with or
-without Megatron-SP, sp as ring or Ulysses, and their compositions)
-each rank runs the step on its shards and its slice of the batch
-(``make_data_sharding``). The gradient rule of the reference: each
-leaf's gradient is summed over every data axis (dp, sp, and tp under
-Megatron-SP: the axes whose ranks see different tokens) that its spec
-does not name, and divided by dp*sp so the loss is a mean over the
-global batch. Inside the model, ``spmd.copy_to`` supplies the sums the
-reference's vma tracking inserts for a value every tp rank holds.
-Pipelines (pp, vpp), expert parallelism (ep) and microbatching are
-ROADMAP Queue A 6 and raise.
+On a mesh (``parallel/mesh.py``: one process per rank; dp, tp with or
+without Megatron-SP, sp as ring or Ulysses, ep, pp, and their
+compositions) each rank runs the step on its shards and its slice of
+the batch (``make_data_sharding``). The gradient rule of the reference:
+each leaf's gradient is summed over every data axis (dp, ep, sp, and tp
+under Megatron-SP: the axes whose ranks see different tokens), and over
+pp when the plan has stages, that its spec does not name, and divided by
+dp·ep·sp so the loss is a mean over the global batch. Inside the model,
+``spmd.copy_to`` supplies the sums the reference's vma tracking inserts
+for a value every tp rank holds. With pp > 1 the step runs a pipeline
+schedule (``parallel/pipeline.py``: "1f1b", "gpipe", or "interleaved",
+which vpp > 1 selects) over ``n_microbatches`` microbatches of the
+local batch; at pp = 1 the step is the flat one whatever the count, as
+the reference's ``flat_loss`` (only ``validate`` reads it there).
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ from hadoop_tpu_torch.models.decoder import (SINGLE, _layer_fn,
                                              head_matrix, init_params)
 from hadoop_tpu_torch.ops.cross_entropy import chunked_lm_cross_entropy
 from hadoop_tpu_torch.parallel import overlap as ov
-from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel import pipeline, spmd
 from hadoop_tpu_torch.parallel.mesh import (Mesh, MeshPlan, param_specs,
+                                            physical_layer_order,
                                             shard_params, spec_axes)
 from hadoop_tpu_torch.parallel.optimizer import (AdamWState, adamw_init,
                                                  adamw_update, grad_sq,
@@ -51,8 +55,6 @@ from hadoop_tpu_torch.parallel.optimizer import (AdamWState, adamw_init,
                                                  zero1_init_local,
                                                  zero1_leaf_plan,
                                                  zero1_update)
-
-_A6 = "ROADMAP Queue A 6"
 
 
 def _loss_from_h(params, h, targets, cfg: ModelConfig, ctx=SINGLE,
@@ -67,15 +69,6 @@ def _loss_from_h(params, h, targets, cfg: ModelConfig, ctx=SINGLE,
             h, head, targets, chunk, axis=ctx.tp,
             vocab_shard_size=cfg.vocab_size // ctx.tp_size)
     return chunked_lm_cross_entropy(h, head, targets, chunk)
-
-
-def _refuse(plan: MeshPlan, n_microbatches: int) -> None:
-    """Pipelines, experts and microbatching: Queue A 6."""
-    if plan.pp > 1 or plan.vpp > 1 or plan.ep > 1 or n_microbatches > 1:
-        raise NotImplementedError(
-            f"plan {plan} with n_microbatches={n_microbatches}: pipelines "
-            f"(pp, vpp), expert parallelism (ep) and microbatching are "
-            f"{_A6}")
 
 
 def _map_leaves(fn, tree, specs):
@@ -116,14 +109,15 @@ def zero1_layout(cfg: ModelConfig, plan: MeshPlan):
 
 
 def make_data_sharding(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The cut of a global [B, S] batch this rank trains on: its dp
-    rows (contiguous blocks of B/dp) and its sp sequence shard (the
-    reference's ``P(("dp", "ep"), "sp")``)."""
+    """The cut of a global [B, S] batch this rank trains on: its rows
+    over (dp, ep), dp major (contiguous blocks of B/(dp·ep)), and its sp
+    sequence shard (the reference's ``P(("dp", "ep"), "sp")``)."""
     plan = mesh.plan
 
     def cut(x: torch.Tensor) -> torch.Tensor:
-        b, s = x.shape[0] // plan.dp, x.shape[1] // plan.sp
-        i, j = mesh.index("dp"), mesh.index("sp")
+        b, s = x.shape[0] // (plan.dp * plan.ep), x.shape[1] // plan.sp
+        i = mesh.index("dp") * plan.ep + mesh.index("ep")
+        j = mesh.index("sp")
         return x[i * b:(i + 1) * b, j * s:(j + 1) * s]
     return cut
 
@@ -137,6 +131,7 @@ def _axes_of(mesh: Optional[Mesh], names) -> Tuple[spmd.Axis, ...]:
 def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
                     mesh: Optional[Mesh] = None, *,
                     lr: float = 3e-4, n_microbatches: int = 1,
+                    pipeline_schedule: str = "1f1b",
                     remat=False, optimizer: str = "adamw",
                     zero1: bool = False,
                     overlap: Optional[ov.OverlapConfig] = None,
@@ -156,37 +151,46 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
     ``zero1``: AdamW with its moments sliced over the data axes.
     ``overlap`` (default on): bucketed gradient sums (reduce-scattered
     into the ZeRO-1 slices) and bucketed ZeRO-1 gathers; on and off
-    give the same bits. ``attn_impl`` as in
-    ``causal_attention``.
+    give the same bits. ``attn_impl`` as in ``causal_attention``.
+    ``n_microbatches`` and ``pipeline_schedule`` ("1f1b", "gpipe",
+    "interleaved") drive a plan with pp > 1 (``parallel/pipeline.py``);
+    after each step ``step.stats`` holds the schedule's stats (stage,
+    ticks, the most stage inputs stashed at once).
     """
     plan = MeshPlan() if plan is None else plan
     overlap = ov.DEFAULT_OVERLAP if overlap is None else overlap
-    _refuse(plan, n_microbatches)
+    clock = pipeline.make_clock(pipeline_schedule, n_microbatches, plan.pp,
+                                plan.vpp)
+    if plan.pp == 1:                      # the flat step
+        clock = None
     if plan.n_devices > 1 and (mesh is None or mesh.plan != plan):
         raise ValueError(f"plan {plan} needs its mesh (make_mesh(plan))")
     if optimizer not in ("adamw", "sgd"):
         raise ValueError(f"optimizer={optimizer!r} (choices: adamw, sgd)")
     zero1 = zero1 and optimizer == "adamw"
-    if cfg.is_moe and plan.tp > 1:
-        raise NotImplementedError(f"MoE under tp: {_A6}")
     _layer_fn(remat)                      # refuse an unknown mode now
     dev = resolve_device(device)
     ctx = plan.ctx(cfg, mesh) if mesh is not None else SINGLE
     specs = param_specs(cfg, plan)
-    loss_div = plan.dp * plan.sp
-    # per leaf: the data axes its gradient sums over, the axes its norm
-    # sums over (those that shard it), and the ZeRO-1 state axes
+    loss_div = plan.dp * plan.ep * plan.sp
+    # per leaf: the axes its gradient sums over (the data axes, and pp:
+    # the stages hold different parts of a leaf they do not shard), the
+    # axes its norm sums over (those that shard it), and the ZeRO-1 state
+    # axes
     red_axes = _map_leaves(lambda _, s: _axes_of(mesh, [
-        a for a in plan.data_axes if a not in spec_axes(s)]), specs, specs)
+        a for a in plan.data_axes + ("pp",) if a not in spec_axes(s)]),
+        specs, specs)
     norm_axes = _map_leaves(lambda _, s: _axes_of(mesh, spec_axes(s)),
                             specs, specs)
     z1_axes = _map_leaves(lambda _, s: _axes_of(mesh, zero1_leaf_plan(
         spec_axes(s), plan.batch_axes)), specs, specs)
-    metric_axes = _axes_of(mesh, ("dp", "sp"))
+    metric_axes = _axes_of(mesh, ("pp", "dp", "ep", "sp"))
 
-    def reduce_grads(grads):
-        """Sums over the data axes (bucketed or per leaf), then the
-        mean-loss scale; ZeRO-1 keeps only this rank's slices."""
+    def reduce_grads(grads, params):
+        """Sums over the reduce axes (bucketed or per leaf); ZeRO-1 keeps
+        only this rank's slices; then a pipeline's float32 accumulators
+        over M, cast to the parameters' dtypes, and the mean-loss
+        scale."""
         if zero1 and overlap.enabled:
             grads = ov.bucketed_psum_scatter(grads, red_axes, z1_axes,
                                              overlap.bucket_bytes)
@@ -197,9 +201,11 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
                              grads, red_axes)
             if zero1:
                 grads = tree_map(ov.local_slice, grads, z1_axes)
-        if loss_div > 1:
-            grads = tree_map(lambda g: (g.float() / loss_div).to(g.dtype),
-                             grads)
+        if clock is not None:
+            grads = tree_map(lambda g, p: (g / clock.M).to(p.dtype),
+                             grads, params)
+        if loss_div > 1:     # in place (a narrower float divides in float32)
+            tree_map(lambda g: g.div_(loss_div), grads)
         return grads
 
     def global_grad_sq(grads):
@@ -218,11 +224,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
             total = total + part
         return total
 
-    def step(params, opt_state: AdamWState, tokens, targets
-             ) -> Tuple[Dict[str, Any], AdamWState, Dict[str, torch.Tensor]]:
-        check_on(params["embed"], dev, "params")
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        targets = torch.as_tensor(targets, device=dev).long()
+    def flat_loss_and_grads(params, tokens, targets):
         # differentiate through aliases: the caller's tensors keep their
         # requires_grad flag, and the update below writes their storage
         alias = tree_map(lambda p: p.detach().requires_grad_(), params)
@@ -235,10 +237,24 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
             with record_function("backward"):
                 flat = torch.autograd.grad(loss, leaves)
         grad_of = {id(a): g for a, g in zip(leaves, flat)}
-        grads = tree_map(lambda a: grad_of[id(a)], alias)
+        return loss.detach(), tree_map(lambda a: grad_of[id(a)], alias)
+
+    def step(params, opt_state: AdamWState, tokens, targets
+             ) -> Tuple[Dict[str, Any], AdamWState, Dict[str, torch.Tensor]]:
+        check_on(params["embed"], dev, "params")
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        if clock is None:
+            loss, grads = flat_loss_and_grads(params, tokens, targets)
+        else:
+            with record_function("pipeline"):
+                loss, grads, step.stats = pipeline.run_schedule(
+                    params, tokens, targets, clock=clock, cfg=cfg, ctx=ctx,
+                    pp=mesh.axis("pp"), remat=remat, attn_impl=attn_impl,
+                    loss_from_h=_loss_from_h)
+            loss = loss / clock.M
         with record_function("optimizer"):
-            grads = reduce_grads(grads)
-            loss = loss.detach()
+            grads = reduce_grads(grads, params)
             for a in metric_axes:
                 loss = spmd.psum_raw(loss, a)
             loss = loss / loss_div
@@ -262,6 +278,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
                     params, grads, opt_state, lr, gsq=gsq)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
+    step.stats = None
     return step
 
 
@@ -274,12 +291,18 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 
 
 def init_sharded(params, cfg: ModelConfig, plan: MeshPlan, mesh: Mesh,
-                 zero1: bool = False) -> Tuple[Dict[str, Any], AdamWState]:
+                 zero1: bool = False, optimizer: str = "adamw"
+                 ) -> Tuple[Dict[str, Any], AdamWState]:
     """This rank's shards of a full parameter tree (``init_params`` or
-    ``params_from_numpy`` on every rank, from one seed) and zero AdamW
+    ``params_from_numpy`` on every rank, from one seed; laid out by
+    ``physical_layer_order`` first, as the reference's) and zero AdamW
     state for them: moments shaped like the shards, or this rank's (K,)
-    ZeRO-1 slices with ``zero1``."""
-    shards = shard_params(params, plan, mesh)
+    ZeRO-1 slices with ``zero1``; none for ``optimizer="sgd"``, which
+    reads none."""
+    shards = shard_params(physical_layer_order(params, cfg, plan), plan,
+                          mesh)
+    if optimizer == "sgd":
+        return shards, AdamWState(0, {}, {})
     if not zero1:
         return shards, adamw_init(shards)
     specs = param_specs(cfg, plan)

@@ -10,13 +10,17 @@ whole stack, for a caller to hold the two kinds against each other.
 ``train_plans(rank, world, jobs)`` trains each plan of each job in turn
 on one world: the mesh, this rank's shards of one full
 parameter tree (``job["weights"]``, a numpy tree, or ``job["seed"]``
-for ``init_params`` on every rank), ``n_steps`` steps on this rank's cut
-of ``job["tokens"]``/``job["targets"]``, then the trained tree gathered
-(every leaf, or a fixed sample of flat indices per leaf). Per plan it
-records losses, grad norms and, on a CUDA device, each step's time
-(CUDA events), the kernels' launches per step (``COUNTERS``), peak
-memory and the bytes each axis put on the wire. Both import only the port and
-torch (and numpy).
+for ``init_params`` on every rank; laid out for the plan's vpp by
+``init_sharded``), ``n_steps`` steps on this rank's cut of
+``job["tokens"]``/``job["targets"]``, then the trained tree in
+checkpoint layer order (every element, or a fixed sample of flat
+indices of each leaf, put together from the shards; or nothing). Per
+plan it records losses, grad norms and, on a CUDA device, each step's
+time (CUDA events), the kernels' launches per step (``COUNTERS``), peak
+memory and the bytes each axis put on the wire; under pp, the rank's stage and the most stage inputs its schedule
+stashed at once; for a MoE model, the share of token-expert choices
+dropped at capacity; the host ms of the plan's set-up (mesh, shards,
+step) and of its gather. Both import only the port and torch (and numpy).
 
     spmd.launch(dist_plans.train_plans, 4, backend="gloo", args=([job],))
 """
@@ -32,14 +36,17 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.models import config as config_mod
 from hadoop_tpu_torch.models.convert import params_from_numpy
+from hadoop_tpu_torch.models import moe
 from hadoop_tpu_torch.models.decoder import init_params
 from hadoop_tpu_torch.ops import collective_matmul, flash, norms
 from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
-from hadoop_tpu_torch.parallel.mesh import MeshPlan, gather_params, make_mesh
+from hadoop_tpu_torch.parallel.mesh import (MeshPlan, layer_order,
+                                            make_mesh, param_specs_for)
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.train import (init_sharded,
                                              make_data_sharding,
@@ -94,6 +101,13 @@ def collectives(rank: int, world: int, seed: int) -> Dict[str, Any]:
     out["psum_alone"] = (_np(y), _np(dx))
     y, dx = _grad(lambda t: spmd.copy_to(t, axis), x, x + 1)
     out["copy_to_alone"] = (_np(y), _np(dx))
+    # one tick of pipeline hops: a partial permutation each way (the
+    # first rank sends nothing back, the last nothing on), two tags
+    sends = [(x * 2, 1, 0)] if rank < world - 1 else []
+    sends += [(x * 3, -1, 1)] if rank > 0 else []
+    recvs = [(x, 1, 0)] if rank > 0 else []
+    recvs += [(x, -1, 1)] if rank < world - 1 else []
+    out["hop"] = [_np(t) for t in spmd.hop_raw(axis, sends, recvs)]
     out["pmax"] = _np(spmd.pmax_raw(x, axis))
     out["axis_index"] = spmd.axis_index(axis)
     # the folded kind: the same permutations over the whole stack
@@ -110,7 +124,8 @@ def collectives(rank: int, world: int, seed: int) -> Dict[str, Any]:
     axes = {"a": (axis,), "b": {"c": (axis,), "d": (axis,)}}
     per_leaf = tree_map(lambda t: spmd.psum_raw(t, axis), tree)
     for name, nbytes in (("bucketed", 64), ("bucketed_one", 1 << 20)):
-        got = overlap.bucketed_psum(tree, axes, nbytes)
+        got = overlap.bucketed_psum(tree_map(torch.clone, tree), axes,
+                                    nbytes)    # sums a lone leaf in place
         out[name] = [bool(torch.equal(g, p)) for g, p in
                      zip(tree_leaves(got), tree_leaves(per_leaf))]
     sl = overlap.bucketed_psum_scatter(tree, axes, axes, 64)
@@ -149,6 +164,15 @@ def collectives(rank: int, world: int, seed: int) -> Dict[str, Any]:
 
 # ------------------------------------------------------------ plan runner
 
+def _sample_index(path: str, numel: int, n: int) -> np.ndarray:
+    """The flat indices a sample of ``n`` takes from a leaf (fixed by its
+    path; every index when ``n`` is 0)."""
+    if not n:
+        return np.arange(numel)
+    return np.sort(np.random.default_rng(zlib.crc32(path.encode())).choice(
+        numel, min(n, numel), replace=False))
+
+
 def sample_tree(tree, n: int, keep: bool = True, _path: str = ""):
     """Float32 numpy copies of a fixed sample of ``n`` flat indices of
     each leaf (chosen by the leaf's path; every element when ``n`` is
@@ -159,12 +183,45 @@ def sample_tree(tree, n: int, keep: bool = True, _path: str = ""):
     if not keep:
         return None
     if n:
-        idx = np.sort(np.random.default_rng(zlib.crc32(_path.encode())
-                                            ).choice(tree.numel(),
-                                                     min(n, tree.numel()),
-                                                     replace=False))
+        idx = _sample_index(_path, tree.numel(), n)
         tree = tree.reshape(-1)[torch.from_numpy(idx).to(tree.device)]
     return tree.float().cpu().numpy()
+
+
+def gathered_sample(params, cfg, plan, mesh, n: int, keep: bool):
+    """``sample_tree`` of the full tree, in checkpoint layer order, from
+    this rank's shards: each rank takes the sampled elements its shard
+    holds (zeros elsewhere) and a psum over the axes that shard the leaf
+    puts the sample together, so no rank gathers a whole leaf."""
+    order = layer_order(cfg.n_layers, plan, logical=True)
+
+    def walk(tree, spec, path):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], spec[k], f"{path}/{k}") for k in tree}
+        ways = [plan.sizes[a] if a else 1 for a in spec]
+        ways += [1] * (tree.dim() - len(ways))
+        full = tuple(d * k for d, k in zip(tree.shape, ways))
+        idx = np.unravel_index(_sample_index(path, int(np.prod(full)), n),
+                               full)
+        if order is not None and path.startswith("/layers/"):
+            idx = (order.numpy()[idx[0]],) + idx[1:]   # logical → physical
+        mine = np.ones(idx[0].shape, dtype=bool)
+        local = []
+        for i, (d, name) in enumerate(zip(tree.shape, list(spec) +
+                                          [None] * tree.dim())):
+            if name is not None:
+                mine &= idx[i] // d == mesh.index(name)
+            local.append(torch.from_numpy(idx[i] % d).to(tree.device))
+        vals = torch.where(torch.from_numpy(mine).to(tree.device),
+                           tree[tuple(local)].float(), 0.0)
+        for name in spec:
+            if name is not None:
+                vals = spmd.psum_raw(vals, mesh.axis(name))
+        if not keep:
+            return None
+        vals = vals.cpu().numpy()
+        return vals.reshape(full) if not n else vals
+    return walk(params, param_specs_for(params, plan), "")
 
 
 COUNTERS = ("flash_fwd", "flash_fwd_partial", "flash_bwd_dq",
@@ -186,9 +243,10 @@ def train_plans(rank: int, world: int, jobs: List[Dict[str, Any]]
     module doc. A job: ``preset`` (+ ``overrides``), ``weights`` or
     ``seed``, ``tokens``/``targets`` [B, S] numpy, ``device`` (the card
     unless it is "cpu"; raises without a card), ``sample`` (flat indices per leaf; 0 gathers every leaf
-    whole) and ``plans``: dicts of ``plan`` (MeshPlan kwargs),
+    whole, None none) and ``plans``: dicts of ``plan`` (MeshPlan kwargs),
     ``optimizer``, ``zero1``, ``overlap`` (bool), ``steps``, ``lr``,
-    ``remat``. Returns one record per plan."""
+    ``remat``, ``n_microbatches``, ``pipeline_schedule``. Returns one
+    record per plan."""
     return [rec for job in jobs for rec in _train_job(rank, job)]
 
 
@@ -201,33 +259,48 @@ def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
     targets = torch.from_numpy(job["targets"])
     results = []
     for spec in job["plans"]:
+        t_setup = time.perf_counter()
         plan = MeshPlan(**spec["plan"])
-        plan.validate(cfg, tokens.shape[0], tokens.shape[1])
+        n_micro = spec.get("n_microbatches", 1)
+        plan.validate(cfg, tokens.shape[0], tokens.shape[1], n_micro)
         mesh = make_mesh(plan)
-        if "weights" in job:
-            full = params_from_numpy(job["weights"], cfg, device=dev)
-        else:
-            gen = torch.Generator(device=dev).manual_seed(job["seed"])
-            full = init_params(cfg, gen, device=dev)
         zero1 = spec.get("zero1", False)
-        params, opt = init_sharded(full, cfg, plan, mesh, zero1=zero1)
-        del full
-        if dev.type == "cuda":        # the card is shared by the ranks
-            torch.cuda.empty_cache()
+        opt_name = spec.get("optimizer", "sgd")
+        # the ranks hold the full tree one at a time: on a card they
+        # share, four full trees of a large model at once do not fit
+        for turn in range(dist.get_world_size()):
+            if turn == rank:
+                if "weights" in job:
+                    full = params_from_numpy(job["weights"], cfg, device=dev)
+                else:
+                    gen = torch.Generator(device=dev).manual_seed(
+                        job["seed"])
+                    full = init_params(cfg, gen, device=dev)
+                params, opt = init_sharded(full, cfg, plan, mesh,
+                                           zero1=zero1, optimizer=opt_name)
+                del full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
         step = make_train_step(
             cfg, plan, mesh, lr=spec.get("lr", 1e-2),
-            optimizer=spec.get("optimizer", "sgd"), zero1=zero1,
-            remat=spec.get("remat", False),
+            optimizer=opt_name, zero1=zero1,
+            remat=spec.get("remat", False), n_microbatches=n_micro,
+            pipeline_schedule=spec.get("pipeline_schedule", "1f1b"),
             overlap=(overlap.DEFAULT_OVERLAP if spec.get("overlap", True)
                      else overlap.OVERLAP_OFF), device=dev)
         cut = make_data_sharding(mesh)
         tok, tgt = cut(tokens).to(dev), cut(targets).to(dev)
         rec: Dict[str, Any] = {"plan": spec, "losses": [], "grad_norms": [],
-                               "step_ms": [], "launches": [], "traffic": []}
+                               "step_ms": [], "launches": [], "traffic": [],
+                               "stage": mesh.index("pp"), "stash_peak": [],
+                               "dropped_share": [], "setup_ms":
+                               (time.perf_counter() - t_setup) * 1e3}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         for _ in range(spec.get("steps", 2)):
             before, wire = _counts(), dict(spmd.traffic)
+            moe.drops = [] if cfg.is_moe else None
             t0 = time.perf_counter()
             if dev.type == "cuda":
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -245,10 +318,20 @@ def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                                     zip(_counts(), before)])
             rec["traffic"].append({k: v - wire.get(k, 0)
                                    for k, v in spmd.traffic.items()})
+            if step.stats is not None:
+                rec["stash_peak"].append(step.stats["stash_peak"])
+            if moe.drops:
+                choices = sum(n for n, _ in moe.drops)
+                kept = float(sum(k for _, k in moe.drops))
+                rec["dropped_share"].append(1.0 - kept / choices)
+            moe.drops = None
         rec["peak_bytes"] = torch.cuda.max_memory_allocated() \
             if dev.type == "cuda" else None
-        rec["params"] = sample_tree(gather_params(params, plan, mesh),
-                                    job.get("sample", 0), keep=rank == 0)
+        t_gather = time.perf_counter()
+        rec["params"] = None if job.get("sample", 0) is None else \
+            gathered_sample(params, cfg, plan, mesh, job.get("sample", 0),
+                            rank == 0)
+        rec["gather_ms"] = (time.perf_counter() - t_gather) * 1e3
         del params, opt, step
         if dev.type == "cuda":
             torch.cuda.empty_cache()

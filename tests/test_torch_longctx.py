@@ -10,7 +10,6 @@ reference's own (tests/test_flash.py); 1e-4 for logits, hidden states
 and K/V after a float32 layer stack (tests/test_torch_models.py's).
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -170,8 +169,9 @@ def test_run_layers_kv_under_a_ring_matches_jax(preset, sp):
 
 def test_parallel_ctx_carries_the_ring_only():
     """The ctx carries the ring (folded, or a process group), its
-    strategy (ring or Ulysses) and a tp process group; the expert axis
-    is Queue A 6 and naming it is a TypeError."""
+    strategy (ring or Ulysses) and tp and ep process groups
+    (``tests/test_torch_ep.py``); the reference's ``ep_axis`` name is
+    not a field, and naming it is a TypeError."""
     assert decoder.SINGLE.ring is None and decoder.SINGLE.ring_size == 1
     assert decoder.SINGLE.ring_axis is None and decoder.SINGLE.tp_size == 1
     with pytest.raises(TypeError):
@@ -458,9 +458,11 @@ def test_choose_sp_mode(tiny):
 # --------------------------------------------------------- what must raise
 
 def test_refusals(tiny):
-    """A ring over distinct devices and an expert axis raise; Ulysses,
-    int8 trees and MoE configs are ported (the cp_prefill tests); without
-    a GPU the prefill's default device and the partial kernel raise."""
+    """A ring over distinct devices and an expert axis folded on one
+    device raise (an ep axis is a process group: tests/test_torch_ep.py);
+    Ulysses, int8 trees and MoE configs are ported (the cp_prefill
+    tests); without a GPU the prefill's default device and the partial
+    kernel raise."""
     _, _, cfg, params = tiny
     kw = dict(block_size=8, pad_tokens=160, sp=2)
     pre = longctx.ContextParallelPrefiller(params, cfg, sp_mode="ulysses",
@@ -477,9 +479,9 @@ def test_refusals(tiny):
     assert not weightplane.is_quantized_tree(params)
     with pytest.raises(TypeError):
         decoder.ParallelCtx(ep_axis="x")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="process group"):
         moe.moe_mlp(torch.zeros(1, 2, 64), {}, config.get_config(
-            "tiny-moe"), types.SimpleNamespace(ep_axis="ep"))
+            "tiny-moe"), decoder.ParallelCtx(ep=spmd.folded("ep", 2)))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -243,8 +243,9 @@ def test_entry_points_refuse_a_missing_gpu():
 
 def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
     """Both training entry points take tiny-moe on ``MeshPlan()`` (ROADMAP
-    Queue A 5), and still refuse an expert-parallel plan, which is
-    multi-GPU work (Queue A 6)."""
+    Queue A 5); the train step takes an expert-parallel plan on its mesh
+    (``tests/test_torch_ep.py``), and ``Trainer`` still refuses it (a
+    mesh under ``Trainer`` is Queue A 6)."""
     from hadoop_tpu_torch.fs import LocalFileSystem
     from hadoop_tpu_torch.parallel import Trainer, make_train_step
     from hadoop_tpu_torch.parallel.mesh import MeshPlan
@@ -260,7 +261,7 @@ def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
     _, _, m = step(t.params, t.opt, *(torch.zeros(1, 8, dtype=torch.long),) * 2)
     assert torch.isfinite(m["loss"])
     t.close()
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(cfg, MeshPlan(ep=2), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         Trainer(cfg, MeshPlan(ep=2), fs, data, str(tmp_path / "ep"),
@@ -305,6 +306,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.ops.ec_device\n"
         "import hadoop_tpu_torch.parallel.lowp.quant\n"
         "import hadoop_tpu_torch.parallel.spmd, hadoop_tpu_torch.parallel.mesh\n"
+        "import hadoop_tpu_torch.parallel.pipeline\n"
         "import hadoop_tpu_torch.parallel.ulysses\n"
         "import hadoop_tpu_torch.parallel.overlap\n"
         "import hadoop_tpu_torch.ops.collective_matmul\n"
@@ -345,7 +347,8 @@ def test_port_sources_name_no_jax():
                 "io/erasurecode.py", "ops/ec_device.py",
                 "ops/csrc/ec_gf256.cu", "parallel/spmd.py",
                 "parallel/ulysses.py", "parallel/overlap.py",
-                "ops/collective_matmul.py", "tools/dist_plans.py"):
+                "ops/collective_matmul.py", "tools/dist_plans.py",
+                "parallel/pipeline.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

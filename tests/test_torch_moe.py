@@ -25,6 +25,7 @@ from hadoop_tpu.serving import engine as jengine
 from hadoop_tpu.serving import weightplane as jwp
 from hadoop_tpu_torch.models import config, decoder, moe, params_from_numpy
 from hadoop_tpu_torch.obs.hbm import hbm_ledger
+from hadoop_tpu_torch.parallel import spmd
 from hadoop_tpu_torch.serving import engine
 from hadoop_tpu_torch.serving.engine import DecodeEngine, SamplingParams
 
@@ -105,9 +106,11 @@ def test_moe_mlp_equals_the_reference_and_refuses_an_ep_axis():
     want = np.asarray(jmoe.moe_mlp(jnp.asarray(h), jlp, jcfg,
                                    jdecoder.SINGLE))
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    # an ep axis is a process group (tests/test_torch_ep.py): the ranks
+    # folded on one device are refused
+    with pytest.raises(ValueError, match="process group"):
         moe.moe_mlp(torch.from_numpy(h), lp, cfg,
-                    jdecoder.ParallelCtx(ep_axis="ep", ep_size=2))
+                    decoder.ParallelCtx(ep=spmd.folded("ep", 2)))
 
 
 # ----------------------------------------------------------------- engine

@@ -30,26 +30,21 @@ ZeRO-1 and the single-device step at 2e-4.
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from hadoop_tpu.models import config as jconfig
-from hadoop_tpu.models import decoder as jdecoder
 from hadoop_tpu.parallel import MeshPlan as JMeshPlan
-from hadoop_tpu.parallel import make_mesh as jmake_mesh
 from hadoop_tpu.parallel import mesh as jmesh
 from hadoop_tpu.parallel import train as jtrain
 from hadoop_tpu_torch.models import config
-from hadoop_tpu_torch.models.convert import params_from_numpy
 from hadoop_tpu_torch.parallel import mesh, spmd
-from hadoop_tpu_torch.parallel.optimizer import adamw_init
-from hadoop_tpu_torch.parallel.train import make_train_step, zero1_layout
+from hadoop_tpu_torch.parallel.train import zero1_layout
 from hadoop_tpu_torch.tools import dist_plans
+from torch_plans import (BATCH, LR, SEQ, TOL, WORLD, assert_tree_close,
+                         assert_tree_close_at, assert_tree_equal, jax_run,
+                         job, single)
 
-BATCH, SEQ, WORLD, LR = 8, 32, 4, 1e-2
-TOL = 2e-4
 HEADS8 = {"n_heads": 8, "n_kv_heads": 4}   # Ulysses x tp needs kv % 4
 
 # (id, preset, overrides, plan kwargs, run options)
@@ -91,109 +86,18 @@ EXTRA = [
 ]
 
 
-def _jax_model(preset, overrides):
-    jcfg = jconfig.get_config(preset, **overrides)
-    tree = jax.tree_util.tree_map(
-        np.asarray, jdecoder.init_params(jax.random.PRNGKey(0), jcfg))
-    tokens = jax.random.randint(jax.random.PRNGKey(7), (BATCH, SEQ), 0,
-                                jcfg.vocab_size, dtype=jnp.int32)
-    tokens = np.asarray(tokens).astype(np.int64)
-    return jcfg, tree, tokens, np.roll(tokens, -1, axis=1)
-
-
 @pytest.fixture(scope="module")
 def port_runs():
     """Every plan (PLANS and EXTRA) on one gloo world of four ranks."""
     jobs, ids = [], []
     for pid, preset, over, plan, opts in PLANS + EXTRA:
-        _, tree, tokens, targets = _jax_model(preset, over)
-        jobs.append({"preset": preset, "overrides": over, "weights": tree,
-                     "tokens": tokens, "targets": targets, "device": "cpu",
-                     "plans": [dict({"plan": plan, "lr": LR}, **opts)]})
+        jobs.append(job(preset, over, [dict({"plan": plan, "lr": LR},
+                                            **opts)]))
         ids.append(pid)
     recs = spmd.launch(dist_plans.train_plans, WORLD, backend="gloo",
                        args=(jobs,),
                        timeout=600)[0]
     return dict(zip(ids, recs))
-
-
-def _jax_run(preset, overrides, plan_kw, steps=2, optimizer="sgd",
-             zero1=False):
-    """``tests/test_parallel.py``'s ``_run_plan`` on the same weights and
-    batch: (losses, grad norms, gathered numpy tree)."""
-    jcfg, _, tokens, targets = _jax_model(preset, overrides)
-    plan = JMeshPlan(**plan_kw)
-    m = jmake_mesh(plan)
-    plan.validate(jcfg, BATCH, SEQ)
-    step = jtrain.make_train_step(jcfg, plan, m, lr=LR, donate=False,
-                                  optimizer=optimizer, zero1=zero1)
-    params, opt = jtrain.init_sharded(jax.random.PRNGKey(0), jcfg, plan, m,
-                                      zero1=zero1)
-    ds = jtrain.make_data_sharding(m)
-    tok = jax.device_put(jnp.asarray(tokens, jnp.int32), ds)
-    tgt = jax.device_put(jnp.asarray(targets, jnp.int32), ds)
-    losses, norms = [], []
-    for _ in range(steps):
-        params, opt, met = step(params, opt, tok, tgt)
-        losses.append(float(met["loss"]))
-        norms.append(float(met["grad_norm"]))
-    return losses, norms, jax.tree_util.tree_map(np.asarray,
-                                                 jax.device_get(params))
-
-
-_SINGLE = {}
-
-
-def _single(preset, overrides, steps=2, optimizer="sgd"):
-    """The port's single-device step on the whole batch."""
-    key = (preset, tuple(sorted(overrides.items())), steps, optimizer)
-    if key not in _SINGLE:
-        _, tree, tokens, targets = _jax_model(preset, overrides)
-        cfg = config.get_config(preset, **overrides)
-        params = params_from_numpy(tree, cfg, device="cpu")
-        opt = adamw_init(params)
-        step = make_train_step(cfg, lr=LR, optimizer=optimizer, device="cpu")
-        losses, norms = [], []
-        for _ in range(steps):
-            params, opt, met = step(params, opt, torch.from_numpy(tokens),
-                                    torch.from_numpy(targets))
-            losses.append(float(met["loss"]))
-            norms.append(float(met["grad_norm"]))
-        _SINGLE[key] = (losses, norms, _numpy(params))
-    return _SINGLE[key]
-
-
-def _numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _numpy(v) for k, v in tree.items()}
-    return tree.detach().float().numpy()
-
-
-def _assert_tree_close(got, want, tol=TOL, path=""):
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for k in want:
-            _assert_tree_close(got[k], want[k], tol, f"{path}/{k}")
-        return
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol,
-                               err_msg=f"mismatch at {path}")
-
-
-def _assert_tree_close_at(got, want, rtol, atol, path=""):
-    if isinstance(want, dict):
-        for k in want:
-            _assert_tree_close_at(got[k], want[k], rtol, atol, f"{path}/{k}")
-        return
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
-                               err_msg=f"mismatch at {path}")
-
-
-def _assert_tree_equal(got, want, path=""):
-    if isinstance(want, dict):
-        for k in want:
-            _assert_tree_equal(got[k], want[k], f"{path}/{k}")
-        return
-    assert np.array_equal(got, want), path
 
 
 @pytest.mark.parametrize("pid", SGD_IDS)
@@ -203,23 +107,23 @@ def test_plan_matches_jax_and_the_single_device_step(port_runs, pid):
     step."""
     _, preset, over, plan, _ = next(p for p in PLANS if p[0] == pid)
     got = port_runs[pid]
-    j_losses, j_norms, j_params = _jax_run(preset, over, plan)
+    j_losses, j_norms, j_params = jax_run(preset, over, plan)
     np.testing.assert_allclose(got["losses"], j_losses, rtol=TOL)
     np.testing.assert_allclose(got["grad_norms"], j_norms, rtol=TOL)
-    _assert_tree_close(got["params"], j_params)
+    assert_tree_close(got["params"], j_params)
     assert got["losses"][-1] < got["losses"][0]
     if preset in JAX_ONLY:
         return
-    s_losses, s_norms, s_params = _single(preset, over)
+    s_losses, s_norms, s_params = single(preset, over)
     np.testing.assert_allclose(got["losses"], s_losses, rtol=TOL)
     np.testing.assert_allclose(got["grad_norms"], s_norms, rtol=TOL)
-    _assert_tree_close(got["params"], s_params)
+    assert_tree_close(got["params"], s_params)
 
 
 def test_remat_replays_the_collectives_in_order(port_runs):
     """Full remat recomputes each layer, its Megatron gathers included,
     in the backward: the same step as without."""
-    _assert_tree_close(port_runs["dp2_tp2_sp_remat"]["params"],
+    assert_tree_close(port_runs["dp2_tp2_sp_remat"]["params"],
                        port_runs["dp2_tp2_sp"]["params"], tol=1e-6)
     np.testing.assert_allclose(port_runs["dp2_tp2_sp_remat"]["losses"],
                                port_runs["dp2_tp2_sp"]["losses"], rtol=1e-6)
@@ -234,7 +138,7 @@ def test_overlap_on_and_off_give_the_same_bits(port_runs, on, off):
     bit."""
     a, b = port_runs[on], port_runs[off]
     assert a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
-    _assert_tree_equal(a["params"], b["params"])
+    assert_tree_equal(a["params"], b["params"])
 
 
 @pytest.mark.parametrize("zero1, replicated, plan", [
@@ -249,22 +153,22 @@ def test_zero1_matches_replicated_adamw(port_runs, zero1, replicated, plan):
     z, r = port_runs[zero1], port_runs[replicated]
     np.testing.assert_allclose(z["losses"], r["losses"], rtol=1e-5)
     np.testing.assert_allclose(z["grad_norms"], r["grad_norms"], rtol=1e-5)
-    _assert_tree_close_at(z["params"], r["params"], rtol=1e-5, atol=1e-6)
-    j_losses, j_norms, j_params = _jax_run("tiny", {}, plan, steps=3,
+    assert_tree_close_at(z["params"], r["params"], rtol=1e-5, atol=1e-6)
+    j_losses, j_norms, j_params = jax_run("tiny", {}, plan, steps=3,
                                            optimizer="adamw", zero1=True)
-    s_losses, s_norms, s_params = _single("tiny", {}, steps=3,
+    s_losses, s_norms, s_params = single("tiny", {}, steps=3,
                                           optimizer="adamw")
     for losses, norms, params in ((j_losses, j_norms, j_params),
                                   (s_losses, s_norms, s_params)):
         np.testing.assert_allclose(z["losses"], losses, rtol=TOL)
         np.testing.assert_allclose(z["grad_norms"], norms, rtol=TOL)
-        _assert_tree_close(z["params"], params)
+        assert_tree_close(z["params"], params)
 
 
 def test_ulysses_matches_ring(port_runs):
     ring, uly = port_runs["dp2_sp2_ring"], port_runs["dp2_sp2_ulysses"]
     np.testing.assert_allclose(uly["losses"], ring["losses"], rtol=1e-5)
-    _assert_tree_close(uly["params"], ring["params"])
+    assert_tree_close(uly["params"], ring["params"])
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-gpt2", "tiny-moe"])

@@ -67,6 +67,20 @@ def test_collective_forward_and_gradient_match_one_process(drill, name):
         np.testing.assert_allclose(dx, dxs[r].numpy(), atol=TOL, rtol=TOL)
 
 
+def test_hop_is_a_partial_permutation_each_way(drill):
+    """``hop_raw``'s one tick: each rank gets 2x its predecessor's value
+    (tag 0) and 3x its successor's (tag 1), bit for bit; the first rank
+    has no predecessor and the last no successor, so each gets one."""
+    xs = _stacked().numpy()
+    for r in range(WORLD):
+        want = ([xs[r - 1] * 2] if r > 0 else []) + \
+            ([xs[r + 1] * 3] if r < WORLD - 1 else [])
+        got = drill[r]["hop"]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+
+
 def test_psum_adds_in_rank_order_and_backward_is_identity(drill):
     """psum's bits are the rank-order float32 sum on every rank; its
     gradient passes through unsummed (the result counts once), while

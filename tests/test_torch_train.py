@@ -182,21 +182,34 @@ def test_remat_recomputes_the_flash_forward(monkeypatch, remat, passes):
 
 
 def test_train_step_refusals():
-    """Pipelines, microbatching and expert parallelism still raise naming
-    Queue A 6; dp, tp and ZeRO-1 are ported (tests/test_torch_parallel.py)
-    and a plan of more than one rank needs its mesh."""
+    """Every plan is ported (dp, tp, ZeRO-1: tests/test_torch_parallel.py;
+    pp, vpp: test_torch_pipeline.py; ep: test_torch_ep.py) and a plan of
+    more than one rank needs its mesh; the interleaved schedule refuses
+    M % pp != 0 and an unknown schedule raises; microbatches at pp 1 run
+    the flat step."""
     cfg = config.get_config("tiny")
-    for plan, kw in [(MeshPlan(pp=2), {}), (MeshPlan(pp=2, vpp=2), {}),
-                     (MeshPlan(), {"n_microbatches": 2})]:
-        with pytest.raises(NotImplementedError, match="Queue A 6"):
-            make_train_step(cfg, plan, device="cpu", **kw)
-    for plan in (MeshPlan(dp=2), MeshPlan(tp=2)):
+    for plan, kw in [(MeshPlan(dp=2), {}), (MeshPlan(tp=2), {}),
+                     (MeshPlan(pp=2), {"n_microbatches": 2}),
+                     (MeshPlan(pp=2, vpp=2), {"n_microbatches": 2})]:
         with pytest.raises(ValueError, match="mesh"):
-            make_train_step(cfg, plan, device="cpu")
+            make_train_step(cfg, plan, device="cpu", **kw)
+    with pytest.raises(ValueError, match="divisible by pp"):
+        make_train_step(cfg, MeshPlan(pp=2, vpp=2), device="cpu")
+    with pytest.raises(ValueError, match="pipeline_schedule"):
+        make_train_step(cfg, pipeline_schedule="zb", device="cpu")
     make_train_step(cfg, MeshPlan(), zero1=True, device="cpu")
-    # MoE trains on one device; expert parallelism is multi-GPU work
+    # two microbatches on one device: the flat step, the same numbers
+    tokens, targets = _tokens(cfg.vocab_size, batch=2, seq=16)
+    got = []
+    for m in (1, 2):
+        params, opt = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu")
+        step = make_train_step(cfg, n_microbatches=m, optimizer="sgd",
+                               device="cpu")
+        got.append(float(step(params, opt, tokens, targets)[2]["loss"]))
+    assert got[0] == got[1]
     make_train_step(config.get_config("tiny-moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(config.get_config("tiny-moe"), MeshPlan(ep=2),
                         device="cpu")
     with pytest.raises(ValueError):
