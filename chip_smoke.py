@@ -80,7 +80,13 @@ dp2×ep2 and ep2×tp2 (1 layer): one float32 step against the
 single-device step at the same depth, then two bf16 AdamW steps with
 their launches pinned per rank and stage and the pipelines' stashed
 stage inputs bounded; ``dist_shapes`` times the flash kernels at those
-ranks' shapes. Weights are random, made from a seeded
+ranks' shapes. Then ``Trainer`` on a mesh (phase ``trainer_mesh``, see
+TRAINER_MESH): four ranks with checkpoints written by every rank under
+one manifest, a dp2×tp2 crash and bit-equal resume, a ZeRO-1 dp4
+checkpoint restored into dp2×tp2 through the reshard, an interleaved
+plan's checkpoint in logical layer order; per plan and rank the step,
+checkpoint and restore ms, bytes written, peak memory and the comm
+ledger's bytes beside the wire's. Weights are random, made from a seeded
 ``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
@@ -92,7 +98,8 @@ for ``flash_fwd_partial``, the ec phase's encode and decode calls for
 phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
 MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
 prefill; ``launches_dist``: rank 0's in dist_train's eleven plans of
-two steps), its error and its times; the last line is
+two steps; ``launches_trainer_mesh``: rank 0's over trainer_mesh's
+steps), its error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -511,6 +518,22 @@ DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
                ("zero1_dp4_train", (1, 2048, 16, 8, 128), True),
                ("mixtral_dp2_ep2_train", (1, 2048, 32, 8, 128), True),
                ("mixtral_ep2_tp2_train", (2, 2048, 16, 4, 128), True)]
+# The trainer_mesh phase: Trainer on four gloo ranks sharing the card
+# (spmd.launch, dist_plans.trainer_ops), flagship-1b at full width, bf16
+# AdamW, TRAIN's [4, 2048] global batch, full remat, checkpoints on the
+# port's LocalFileSystem under the phase's own temporary root. dp2×tp2
+# at ``layers``: ``steps`` uninterrupted, a run with ``interval`` saves
+# that crashes after ``crash_at`` (as the trainer phase's) and one that
+# resumes from step ``interval``; ZeRO-1 dp4 at ``layers``: ``z1_steps``,
+# a save, one more step, and a dp2×tp2 trainer (no ZeRO-1) restoring the
+# save through "reshard" and taking that step; dp2×pp2×vpp2 interleaved
+# (M 2) at ``vpp_layers`` (which pp·vpp divides): ``vpp_steps``, a save,
+# one more step, and a fresh trainer restoring and taking it. A token
+# file of ``file_batches`` batches; samples of ``sample`` flat indices a
+# leaf.
+TRAINER_MESH = dict(layers=6, vpp_layers=8, steps=4, crash_at=3,
+                    interval=2, z1_steps=2, vpp_steps=2, file_batches=4.5,
+                    sample=4096, timeout=1200)
 EC = dict(unit_bytes=134217728, schemas=((3, 2), (6, 3), (10, 4)),
           odd=1021, timed=10, host_slice=16 << 20, host_threads=8)
 # lost units per schema: two data units and one parity unit, data units
@@ -4526,13 +4549,15 @@ def _train_reference(model, layers):
 def phase_dist_train():
     """DIST_PLANS in bf16 with AdamW (see DIST), against the single-device
     step at each plan's depth. Returns rank 0's launches over all plans'
-    steps, by kernel name (``dist_plans.COUNTERS``)."""
+    steps, by kernel name (``dist_plans.COUNTERS``), and each plan's
+    launches per step on every rank."""
     phase_t0 = time.monotonic()
     free_device()
     refs = {group: _train_reference(*group) for group in _dist_groups()}
     recs, seconds = _dist_world(False, None, DIST["train_steps"])
     seconds = {"world": seconds, "phase": time.monotonic() - phase_t0}
     total = dict.fromkeys(dist_plans.COUNTERS, 0)
+    by_plan = {}
     for name, model, layers, kw, opts in DIST_PLANS:
         ranks = recs[name]
         cfg = get_config(model, n_layers=layers)
@@ -4586,7 +4611,391 @@ def phase_dist_train():
         for per in ranks[0]["launches"]:
             for key, n in zip(dist_plans.COUNTERS, per):
                 total[key] += n
-    return total
+        by_plan[name] = [r["launches"] for r in ranks]
+    return total, by_plan
+
+
+def _leaf_paths(tree, prefix=""):
+    """The "/a/b" path of every leaf of nested dicts, in ``tree_leaves``
+    order (``dist_plans.sample_tree``'s sample key)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def _mesh_ckpt_bytes(cfg):
+    """One checkpoint's bytes: parameters, two float32 moments (a ZeRO-1
+    slice's padding aside), count and data_pos."""
+    n = sum(p.numel() for p in tree_leaves(init_params(
+        cfg, torch.Generator(), device="meta")))
+    return n * (torch.finfo(cfg.torch_dtype).bits // 8 + 8) + 4 + 8, n
+
+
+def _step_dir(path):
+    steps = list_checkpoints(LocalFileSystem(), path)
+    return f"{path}/step_{steps[-1]:012d}"
+
+
+def _rank_file_bytes(step_dir, world):
+    """Bytes of each rank's shard files in a checkpoint directory."""
+    sizes = [0] * world
+    for st in LocalFileSystem().list_status(step_dir):
+        name = st.path.rsplit("/", 1)[-1]
+        m = re.match(r"shard_r(\d+)_", name)
+        if m:
+            sizes[int(m.group(1))] += st.length
+    return sizes
+
+
+def _assembled_leaf(base, step, manifest, name):
+    """One leaf of a checkpoint at its global shape, as a float32 numpy
+    array (``read_global_leaf``)."""
+    from hadoop_tpu_torch.parallel.checkpoint import read_global_leaf
+    return read_global_leaf(LocalFileSystem(), base, step, name,
+                            manifest).float().numpy()
+
+
+def _sampled(arr, path, n):
+    """``dist_plans.sample_tree``'s sample of one global array."""
+    return arr.reshape(-1)[dist_plans._sample_index(path, arr.size, n)]
+
+
+def _mesh_records(recs, op, name, which=0):
+    """Every rank's record of ``name``'s ``which``-th ``op``."""
+    found = [r for r in recs if (r[0]["op"], r[0]["name"]) == (op, name)]
+    return found[which]
+
+
+def phase_trainer_mesh(dist_launches):
+    """``Trainer`` on a mesh (this slice's main path; see TRAINER_MESH):
+    four gloo ranks on the card, checkpoints written by every rank under
+    one manifest, a same-plan resume bit for bit, a ZeRO-1 → plain
+    cross-plan restore through "reshard", and an interleaved plan's
+    checkpoint in logical layer order. Each rank-step's launches are
+    held to dist_train's for the plan (``dist_launches``). Returns rank
+    0's launches over the phase's steps, by kernel name."""
+    phase_t0 = time.monotonic()
+    free_device()
+    cfg6 = get_config("flagship-1b", n_layers=TRAINER_MESH["layers"])
+    cfg8 = get_config("flagship-1b", n_layers=TRAINER_MESH["vpp_layers"])
+    batch, seq = TRAIN["batch"], TRAIN["seq"]
+    bytes6, n6 = _mesh_ckpt_bytes(cfg6)
+    bytes8, n8 = _mesh_ckpt_bytes(cfg8)
+    root = tempfile.mkdtemp(prefix="htpu-trainer-mesh-")
+    try:
+        # one checkpoint on disk at a time (each plan's root goes when its
+        # checks are done); the ranks' snapshots of one lie in host memory
+        free_disk = shutil.disk_usage(root).free
+        require(free_disk > 1.2 * bytes8,
+                f"{free_disk} B free under {root}: a checkpoint of {bytes8} "
+                f"B does not fit")
+        mem_avail = _mem_available()
+        require(mem_avail > 2 * bytes8,
+                f"{mem_avail} B of host memory available for snapshots of "
+                f"{bytes8} B")
+        n_tokens = int(TRAINER_MESH["file_batches"] * batch * (seq + 1))
+        tokens = torch.randint(0, cfg6.vocab_size, (n_tokens,),
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 5))
+        data = f"{root}/tokens.bin"
+        LocalFileSystem().write_all(
+            data, tokens.numpy().astype(np.uint16).tobytes())
+        recs, seconds = _trainer_mesh_world(root, data)
+        seconds = {"world": seconds}
+        launches = dict.fromkeys(dist_plans.COUNTERS, 0)
+        for job, plans in (
+                (recs[0], (("c", "dp2_tp2"),
+                           ("tp", "dp2_tp2"), ("z", "zero1_dp4"),
+                           ("x", "dp2_tp2"))),
+                (recs[1], (("v", "dp2_pp2_vpp2_interleaved"),
+                           ("w", "dp2_pp2_vpp2_interleaved")))):
+            _mesh_launches(job, plans, dist_launches, launches)
+        _mesh_resume(recs[0], root, bytes6, seconds)
+        _mesh_reshard(recs[0], root, cfg6, bytes6)
+        _mesh_vpp(recs[1], root, bytes8)
+        require(all(r["foreign"] == [] for r in
+                    _mesh_records(recs[1], "modules", None)),
+                "a rank imported jax or hadoop_tpu")
+        emit({"phase": "trainer_mesh", "summary": True,
+              "model": "flagship-1b", "layers": [cfg6.n_layers,
+                                                 cfg8.n_layers],
+              "params": [n6, n8], "checkpoint_bytes": [bytes6, bytes8],
+              "free_disk_bytes": free_disk,
+              "host_mem_available_bytes": mem_avail,
+              "launches_rank0": launches,
+              "seconds": dict(seconds,
+                              phase=time.monotonic() - phase_t0)})
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _trainer_mesh_world(root, data):
+    """The phase's one world: two jobs (the 6- and the 8-layer model)."""
+    tm = TRAINER_MESH
+    tp, dp4 = {"dp": 2, "tp": 2}, {"dp": 4}
+    vpp = {"dp": 2, "pp": 2, "vpp": 2}
+
+    def make(name, plan, ckpt, **kw):
+        return {"op": "make", "name": name, "plan": plan,
+                "ckpt": f"{root}/{ckpt}", "kw": kw}
+
+    def op(kind, name, **kw):
+        return dict(kw, op=kind, name=name)
+
+    n = tm["sample"]
+    # "c" is the uninterrupted curve too: its steps past the crash point
+    # run with no save, so the checkpoint on disk is the one in flight
+    # when the crash came
+    six = [make("c", tp, "tp", ckpt_interval=tm["interval"], keep=1),
+           op("train", "c", steps=tm["crash_at"]),
+           op("train", "c", steps=tm["steps"] - tm["crash_at"],
+              ckpt_interval=0), op("crash", "c"),
+           make("tp", tp, "tp", ckpt_interval=0, keep=1),
+           op("restore", "tp"),
+           op("train", "tp", steps=tm["steps"] - tm["interval"]),
+           op("crash", "tp"),
+           make("z", dp4, "z1", zero1=True, ckpt_interval=0, keep=1),
+           op("train", "z", steps=tm["z1_steps"]), op("save", "z"),
+           op("gather", "z", sample=n), op("train", "z", steps=1),
+           op("crash", "z"),
+           make("x", tp, "z1", ckpt_interval=0, keep=1),
+           op("restore", "x"), op("gather", "x", sample=n),
+           op("gather", "x", which="mu", sample=n),
+           op("gather", "x", which="nu", sample=n),
+           op("train", "x", steps=1), op("crash", "x")]
+    eight = [make("v", vpp, "vpp", ckpt_interval=0, keep=1,
+                  n_microbatches=2, pipeline_schedule="interleaved"),
+             op("train", "v", steps=tm["vpp_steps"]), op("save", "v"),
+             op("gather", "v", sample=n), op("train", "v", steps=1),
+             op("crash", "v"),
+             make("w", vpp, "vpp", ckpt_interval=0, keep=1,
+                  n_microbatches=2, pipeline_schedule="interleaved"),
+             op("restore", "w"), op("train", "w", steps=1),
+             op("crash", "w")]
+    jobs = [{"preset": "flagship-1b", "overrides": {"n_layers": layers},
+             "data": data, "device": "cuda", "seed": SEED,
+             "trainer": {"batch": TRAIN["batch"], "lr": TRAIN["lr"],
+                         "remat": TRAIN["remat"]}, "ops": ops}
+            for layers, ops in ((tm["layers"], six),
+                                (tm["vpp_layers"], eight))]
+    t0 = time.monotonic()
+    recs = spmd.launch(dist_plans.trainer_ops, DIST["world"],
+                       backend=DIST["backend"], args=(jobs,),
+                       timeout=tm["timeout"])
+    seconds = time.monotonic() - t0
+    # per job, per op: every rank's record
+    return [[list(per_op) for per_op in zip(*(r[j] for r in recs))]
+            for j in range(len(jobs))], seconds
+
+
+def _mesh_launches(job, plans, dist_launches, total):
+    """Each rank-step's launches against dist_train's for the plan (its
+    first step on the same rank); rank 0's summed into ``total``."""
+    for name, plan in plans:
+        want = dist_launches[plan]
+        for recs in (r for r in job if r[0]["op"] == "train" and
+                     r[0]["name"] == name):
+            for rank, rec in enumerate(recs):
+                require(all(per == want[rank][0] for per in
+                            rec["launches"]),
+                        f"trainer_mesh {name}: launches {rec['launches']} "
+                        f"on rank {rank}, dist_train's {plan}: "
+                        f"{want[rank][0]} ({dist_plans.COUNTERS})")
+            for per in recs[0]["launches"]:
+                for key, n in zip(dist_plans.COUNTERS, per):
+                    total[key] += n
+
+
+def _mesh_plan_record(plan, recs_by_op, extra):
+    """One plan's line: per trainer and rank, step ms (CUDA events),
+    restore ms, the checkpoint anatomy (snapshot, write, fence ms), peak
+    memory, and per step the comm ledger's bytes by site beside the wire
+    bytes by axis."""
+    world = range(DIST["world"])
+    trainers = {}
+    for op, recs in recs_by_op:
+        t = trainers.setdefault(recs[0]["name"], {})
+        t.setdefault("peak_memory_bytes_per_rank", [0] * DIST["world"])
+        for i in world:
+            t["peak_memory_bytes_per_rank"][i] = max(
+                t["peak_memory_bytes_per_rank"][i],
+                recs[i].get("peak_bytes", 0))
+        if op == "restore":
+            t["restore_ms_per_rank"] = [r["ms"] for r in recs]
+        if op == "train":
+            t.setdefault("step_ms_per_rank", [[] for _ in world])
+            for i in world:
+                t["step_ms_per_rank"][i] += recs[i].get("step_ms", [])
+            t["comm_bytes_per_step_by_site_per_rank"] = [
+                r["comm"] for r in recs]
+            t["wire_bytes_per_step_by_axis_per_rank"] = [
+                r["traffic"] for r in recs]
+        if op in ("train", "save"):
+            ck = recs[0]["anatomy"]
+            ck = ck.get("ckpt", ck)
+            if any(v["num_ops"] for v in ck.values()):
+                t["ckpt_ms_per_rank"] = [
+                    {k: {"count": v["num_ops"],
+                         "mean_ms": v["avg_time"] * 1e3}
+                     for k, v in r["anatomy"].get("ckpt",
+                                                  r["anatomy"]).items()}
+                    for r in recs]
+    rec = {"phase": "trainer_mesh", "plan": plan, "model": "flagship-1b",
+           "dtype": "bfloat16", "tokens": [TRAIN["batch"], TRAIN["seq"]],
+           "remat": TRAIN["remat"], "optimizer": "adamw",
+           "transport": "gloo, collectives and hops through host memory",
+           "trainers": trainers}
+    rec.update(extra)
+    return rec
+
+
+def _ops_of(job, *names):
+    return [(r[0]["op"], r) for r in job if r[0]["name"] in names]
+
+
+def _mesh_resume(job, root, ckpt_bytes, seconds):
+    """dp2×tp2: the uninterrupted curve (the crashed run's steps, then
+    its steps past the crash point with no save) the same on every rank,
+    the resumed steps bit-equal to it."""
+    tm = TRAINER_MESH
+    crashed = _mesh_records(job, "train", "c")
+    past = _mesh_records(job, "train", "c", 1)
+    full = [{"losses": a["losses"] + b["losses"]}
+            for a, b in zip(crashed, past)]
+    resumed = _mesh_records(job, "train", "tp")
+    restored = _mesh_records(job, "restore", "tp")
+    step_dir = _step_dir(f"{root}/tp")
+    written = _rank_file_bytes(step_dir, DIST["world"])
+    losses = full[0]["losses"]
+    emit(_mesh_plan_record("dp2_tp2", _ops_of(job, "c", "tp"), {
+        "losses_uninterrupted": losses,
+        "losses_crashed": crashed[0]["losses"],
+        "losses_resumed": resumed[0]["losses"],
+        "resumed_bit_equal": all(r["losses"] == losses[tm["interval"]:]
+                                 for r in resumed),
+        "checkpoint_bytes_written_per_rank": written,
+        "checkpoint_bytes": ckpt_bytes, "seconds": seconds}))
+    require(all(r["restored"] and r["step"] == tm["interval"]
+                for r in restored), "the resume found no step-2 checkpoint")
+    require(all(math.isfinite(x) for x in losses), "non-finite loss")
+    require(len(losses) == tm["steps"] and
+            all(r["losses"] == losses for r in full),
+            "the ranks' losses left the curve")
+    require(all(r["losses"] == losses[tm["interval"]:] for r in resumed),
+            f"resumed losses {[r['losses'] for r in resumed]} against "
+            f"{losses[tm['interval']:]}")
+    require(sum(written) == ckpt_bytes,
+            f"checkpoint shards {written} B, expected {ckpt_bytes} in all")
+    shutil.rmtree(f"{root}/tp", ignore_errors=True)
+
+
+def _mesh_reshard(job, root, cfg, ckpt_bytes):
+    """ZeRO-1 dp4 → dp2×tp2: the parameters bit-equal to the saved ones,
+    the moments to ``zero1_state_to_global`` of the saved slices (on
+    samples), the next step within dist_parity's tolerance of the ZeRO-1
+    run's own."""
+    from hadoop_tpu_torch.parallel.checkpoint import read_manifest
+    from hadoop_tpu_torch.parallel.elastic.reshard import \
+        zero1_state_to_global
+    from hadoop_tpu_torch.parallel.mesh import param_specs
+    n = TRAINER_MESH["sample"]
+    z_train = [r for op, r in _ops_of(job, "z") if op == "train"]
+    step3_z1 = z_train[1][0]["losses"][0]
+    step3_x = _mesh_records(job, "train", "x")
+    saved = _mesh_records(job, "gather", "z")[0]["params"]
+    got = _mesh_records(job, "gather", "x")[0]["params"]
+    step_dir = _step_dir(f"{root}/z1")
+    written = _rank_file_bytes(step_dir, DIST["world"])
+    step = int(step_dir.rsplit("_", 1)[-1])
+    manifest = read_manifest(LocalFileSystem(), f"{root}/z1", step)
+    param_err = max(float(np.abs(a - b).max()) for a, b in zip(
+        tree_leaves(got), tree_leaves(saved)))
+    specs = param_specs(cfg, MeshPlan(dp=4))
+    moment_err = 0.0
+    for which in ("mu", "nu"):
+        mine = _mesh_records(job, "gather", "x", 1 + (which == "nu"))[0][
+            which]
+        for path, spec, leaf in zip(_leaf_paths(mine), tree_leaves(specs),
+                                    tree_leaves(mine)):
+            key = "".join(f"[{k!r}]" for k in path.split("/")[1:])
+            g = zero1_state_to_global(
+                _assembled_leaf(f"{root}/z1", step, manifest,
+                                f"['opt'].{which}{key}"),
+                spec, manifest["leaves"][f"['params']{key}"]["shape"],
+                MeshPlan(dp=4))
+            moment_err = max(moment_err, float(np.abs(
+                _sampled(g, path, n) - leaf).max()))
+            del g
+    rel = abs(step3_x[0]["losses"][0] - step3_z1) / abs(step3_z1)
+    emit(_mesh_plan_record("zero1_dp4_to_dp2_tp2", _ops_of(job, "z", "x"), {
+        "losses_zero1_dp4": [x for r in z_train for x in r[0]["losses"]],
+        "loss_step3_restored_dp2_tp2": step3_x[0]["losses"][0],
+        "loss_rel_err": rel, "loss_rtol": DIST["parity_tol"],
+        "param_sample_max_abs_err": param_err,
+        "moment_sample_max_abs_err": moment_err,
+        "checkpoint_bytes_written_per_rank": written,
+        "checkpoint_zero1_bytes": ckpt_bytes}))
+    require(all(r["restored"] and r["step"] == TRAINER_MESH["z1_steps"]
+                for r in _mesh_records(job, "restore", "x")),
+            "the dp2×tp2 trainer did not restore the ZeRO-1 checkpoint")
+    require(param_err == 0.0 and moment_err == 0.0,
+            f"resharded state: parameters {param_err}, moments "
+            f"{moment_err} from the saved ones")
+    require(all(math.isfinite(r["losses"][0]) and
+                r["losses"] == step3_x[0]["losses"] for r in step3_x),
+            "the restored step's losses")
+    require(rel <= DIST["parity_tol"],
+            f"step 3 after the reshard {step3_x[0]['losses'][0]} against "
+            f"the ZeRO-1 run's {step3_z1}")
+    shutil.rmtree(f"{root}/z1", ignore_errors=True)
+
+
+def _mesh_vpp(job, root, ckpt_bytes):
+    """dp2×pp2×vpp2: the restored step bit-equal to the uninterrupted
+    one, and the checkpoint's layer leaves the live parameters in
+    logical order (on samples)."""
+    from hadoop_tpu_torch.parallel.checkpoint import read_manifest
+    n = TRAINER_MESH["sample"]
+    v_train = [r for op, r in _ops_of(job, "v") if op == "train"]
+    step3 = v_train[1]
+    resumed = _mesh_records(job, "train", "w")
+    live = _mesh_records(job, "gather", "v")[0]["params"]
+    step_dir = _step_dir(f"{root}/vpp")
+    written = _rank_file_bytes(step_dir, DIST["world"])
+    step = int(step_dir.rsplit("_", 1)[-1])
+    manifest = read_manifest(LocalFileSystem(), f"{root}/vpp", step)
+    layer_err = 0.0
+    for path, leaf in zip(_leaf_paths(live), tree_leaves(live)):
+        if not path.startswith("/layers/"):
+            continue
+        key = "".join(f"[{k!r}]" for k in path.split("/")[1:])
+        arr = _assembled_leaf(f"{root}/vpp", step, manifest,
+                              f"['params']{key}")
+        layer_err = max(layer_err, float(np.abs(
+            _sampled(arr, path, n) - leaf).max()))
+    emit(_mesh_plan_record("dp2_pp2_vpp2_interleaved",
+                           _ops_of(job, "v", "w"), {
+        "n_microbatches": 2, "losses": [x for r in v_train
+                                        for x in r[0]["losses"]],
+        "loss_step3_resumed": resumed[0]["losses"],
+        "resumed_bit_equal": all(r["losses"] == s["losses"] for r, s in
+                                 zip(resumed, step3)),
+        "layers_logical_sample_max_abs_err": layer_err,
+        "checkpoint_bytes_written_per_rank": written,
+        "checkpoint_bytes": ckpt_bytes}))
+    require(all(r["restored"] and r["step"] == TRAINER_MESH["vpp_steps"]
+                for r in _mesh_records(job, "restore", "w")),
+            "the vpp trainer did not restore")
+    require(all(r["losses"] == s["losses"] for r, s in zip(resumed, step3)),
+            f"vpp resumed step {[r['losses'] for r in resumed]} against "
+            f"{[s['losses'] for s in step3]}")
+    require(layer_err == 0.0, f"the checkpoint's layer leaves are not the "
+            f"live parameters in logical order: {layer_err}")
+    require(sum(written) == ckpt_bytes,
+            f"checkpoint shards {written} B, expected {ckpt_bytes} in all")
+    shutil.rmtree(f"{root}/vpp", ignore_errors=True)
 
 
 def main() -> int:
@@ -4607,7 +5016,8 @@ def main() -> int:
     # the dist phases before the rest: four ranks' trees share the card
     # with this process, which holds least now
     phase_dist_parity()
-    dist_launches = phase_dist_train()
+    dist_launches, dist_by_plan = phase_dist_train()
+    mesh_launches = phase_trainer_mesh(dist_by_plan)
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -4652,7 +5062,8 @@ def main() -> int:
     # 12 steps through Trainer; ec_gf256's launches: the ec phase's
     # encode_cells and decode_cells calls on its three block groups;
     # launches_ulysses: the 8192-token Ulysses prefill's; launches_dist:
-    # rank 0's over dist_train's eleven plans of two steps
+    # rank 0's over dist_train's eleven plans of two steps;
+    # launches_trainer_mesh: rank 0's over the trainer_mesh phase's steps
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))
@@ -4665,7 +5076,8 @@ def main() -> int:
         launches_moe_train=by_moe_train.get(rec["name"], 0),
         launches_moe_trainer=by_moe_trainer.get(rec["name"], 0),
         launches_ulysses=by_ulysses.get(rec["name"], 0),
-        launches_dist=dist_launches.get(rec["name"], 0))
+        launches_dist=dist_launches.get(rec["name"], 0),
+        launches_trainer_mesh=mesh_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

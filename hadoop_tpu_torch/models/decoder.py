@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (checkpoint,
@@ -140,64 +140,77 @@ def _tp_enter(h: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
 # ----------------------------------------------------------------- params
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Dict[str, Any]:
+                device=None, keep: Optional[Callable[
+                    [Tuple[str, ...], torch.Tensor], torch.Tensor]] = None
+                ) -> Dict[str, Any]:
     """Initialize the full parameter tree on ``device`` (default: the
     GPU) from ``generator``, which must live on the same device type.
-    Leaf names, shapes and fan-in scaling follow the JAX package."""
+    Leaf names, shapes and fan-in scaling follow the JAX package.
+
+    ``keep(path, leaf)``, e.g. ``(("layers", "wq"), tensor)``, runs on
+    each leaf as it is drawn and the tree holds what it returns: a
+    rank's shard, so that no more than one full leaf is ever held (the
+    draws, and so the values, are the same)."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     D, L, F, V = cfg.d_model, cfg.n_layers, cfg.d_ff, cfg.vocab_size
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    where: Tuple[str, ...] = ()
 
-    def winit(shape, fan_in):
+    def put(name, t):
+        return keep(where + (name,), t) if keep is not None else t
+
+    def winit(name, shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (w * fan_in ** -0.5).to(dt)
+        return put(name, w.mul_(fan_in ** -0.5).to(dt))
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def ones(name, *shape):
+        return put(name, torch.ones(shape, dtype=dt, device=dev))
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+    def zeros(name, *shape):
+        return put(name, torch.zeros(shape, dtype=dt, device=dev))
 
+    where = ("layers",)
     layers: Dict[str, torch.Tensor] = {
-        "attn_norm_w": ones(L, D),
-        "wq": winit((L, D, Hq * Dh), D),
-        "wk": winit((L, D, Hkv * Dh), D),
-        "wv": winit((L, D, Hkv * Dh), D),
-        "wo": winit((L, Hq * Dh, D), Hq * Dh),
-        "mlp_norm_w": ones(L, D),
+        "attn_norm_w": ones("attn_norm_w", L, D),
+        "wq": winit("wq", (L, D, Hq * Dh), D),
+        "wk": winit("wk", (L, D, Hkv * Dh), D),
+        "wv": winit("wv", (L, D, Hkv * Dh), D),
+        "wo": winit("wo", (L, Hq * Dh, D), Hq * Dh),
+        "mlp_norm_w": ones("mlp_norm_w", L, D),
     }
     if not cfg.use_rmsnorm:
-        layers["attn_norm_b"] = zeros(L, D)
-        layers["mlp_norm_b"] = zeros(L, D)
+        layers["attn_norm_b"] = zeros("attn_norm_b", L, D)
+        layers["mlp_norm_b"] = zeros("mlp_norm_b", L, D)
     if cfg.is_moe:
         E = cfg.n_experts
-        layers["router"] = winit((L, D, E), D)
-        layers["w_gate"] = winit((L, E, D, F), D)
-        layers["w_up"] = winit((L, E, D, F), D)
-        layers["w_down"] = winit((L, E, F, D), F)
+        layers["router"] = winit("router", (L, D, E), D)
+        layers["w_gate"] = winit("w_gate", (L, E, D, F), D)
+        layers["w_up"] = winit("w_up", (L, E, D, F), D)
+        layers["w_down"] = winit("w_down", (L, E, F, D), F)
     elif cfg.use_swiglu:
-        layers["w_gate"] = winit((L, D, F), D)
-        layers["w_up"] = winit((L, D, F), D)
-        layers["w_down"] = winit((L, F, D), F)
+        layers["w_gate"] = winit("w_gate", (L, D, F), D)
+        layers["w_up"] = winit("w_up", (L, D, F), D)
+        layers["w_down"] = winit("w_down", (L, F, D), F)
     else:
-        layers["w_in"] = winit((L, D, F), D)
-        layers["b_in"] = zeros(L, F)
-        layers["w_out"] = winit((L, F, D), F)
-        layers["b_out"] = zeros(L, D)
+        layers["w_in"] = winit("w_in", (L, D, F), D)
+        layers["b_in"] = zeros("b_in", L, F)
+        layers["w_out"] = winit("w_out", (L, F, D), F)
+        layers["b_out"] = zeros("b_out", L, D)
 
+    where = ()
     params: Dict[str, Any] = {
-        "embed": winit((V, D), D),
+        "embed": winit("embed", (V, D), D),
         "layers": layers,
-        "final_norm_w": ones(D),
+        "final_norm_w": ones("final_norm_w", D),
     }
     if not cfg.use_rmsnorm:
-        params["final_norm_b"] = zeros(D)
+        params["final_norm_b"] = zeros("final_norm_b", D)
     if not cfg.use_rope:
-        params["pos_embed"] = winit((cfg.max_seq, D), D)
+        params["pos_embed"] = winit("pos_embed", (cfg.max_seq, D), D)
     if not cfg.tie_embeddings:
-        params["lm_head"] = winit((D, V), D)
+        params["lm_head"] = winit("lm_head", (D, V), D)
     return params
 
 

@@ -27,6 +27,9 @@ the router, which every tp rank holds whole, gets the sum of every tp
 rank's part of its gradient (``spmd.copy_to``; under Megatron-SP the
 train step's sum over the tp data axis gives it).
 
+Under ep each exchange records its bytes in the comm ledger
+(``obs/comm.py``: ``moe.dispatch``, ``moe.combine``).
+
 ``drops``: while it is a list, each routing appends ``(choices,
 kept)``, the T·k token-expert choices and those within capacity (a
 0-d device tensor), for a caller to read the dropped share.
@@ -42,6 +45,7 @@ from torch.profiler import record_function
 
 from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.ops import swiglu
+from hadoop_tpu_torch.obs.comm import record_comm, static_nbytes
 from hadoop_tpu_torch.parallel import spmd
 
 drops = None
@@ -107,10 +111,16 @@ def moe_mlp(h: torch.Tensor, lp, cfg: ModelConfig, ctx=None) -> torch.Tensor:
         if drops is not None:
             drops.append((x2d.shape[0] * cfg.top_k, dispatch.detach().sum()))
         xe = torch.einsum("tec,td->ecd", dispatch.to(h.dtype), x2d)
+        if ep is not None:
+            record_comm("moe.dispatch", static_nbytes(xe),
+                        static_nbytes(xe))
         xe = spmd.all_to_all(xe, ep, 0, 1)          # [E/ep, ep*C, D]
     with record_function("moe.experts"):
         ye = _expert_ffn(xe, lp, cfg)
     with record_function("moe.route"):
+        if ep is not None:
+            record_comm("moe.combine", static_nbytes(ye),
+                        static_nbytes(ye))
         ye = spmd.all_to_all(ye, ep, 1, 0)          # [E, C, D]
         y2d = torch.einsum("tec,ecd->td", combine, ye.float())
     return y2d.reshape(B, S, D).to(h.dtype)

@@ -9,7 +9,8 @@ pieces, and the T3-style per-chunk matmul) overlap nothing here:
 ``spmd``'s collectives are blocking, so a chunk's reduce waits for the
 whole product and delays the next. They come back with an asynchronous
 collective and an on/off measurement on more than one card (ROADMAP
-Queue A 6).
+Queue A 6). The reduce records its bytes in the comm ledger
+(``obs/comm.py``: ``tp.psum``, ``tp.scatter``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from hadoop_tpu_torch.obs.comm import record_comm, static_nbytes
 from hadoop_tpu_torch.parallel import spmd
 
 
@@ -26,6 +28,8 @@ def reduce_row_parallel(y: torch.Tensor, ctx) -> torch.Tensor:
     sequence (dim 1) under Megatron-SP; identity without tp."""
     if ctx.tp is None:
         return y
+    site = "tp.scatter" if ctx.megatron_sp else "tp.psum"
+    record_comm(site, static_nbytes(y), static_nbytes(y))
     if ctx.megatron_sp:
         return spmd.psum_scatter(y, ctx.tp, 1)
     return spmd.psum(y, ctx.tp)

@@ -1,8 +1,9 @@
 """Training: the mesh plan and its process groups, the collectives, AdamW
 and ZeRO-1, the pipeline schedules, the train step, the token stream,
-checkpoints and the trainer that drives them (counterparts of
-``hadoop_tpu/parallel/{mesh,optimizer,overlap,pipeline,train,data,
-checkpoint,trainer}.py``). Names resolve
+checkpoints, their reshard between plans and the trainer that drives
+them (counterparts of ``hadoop_tpu/parallel/{mesh,optimizer,overlap,
+pipeline,train,data,checkpoint,trainer}.py`` and
+``parallel/elastic/reshard.py``). Names resolve
 on first use, so the model modules can import ``parallel.spmd`` without
 pulling in the train step that imports them."""
 

@@ -137,6 +137,10 @@ class Mesh:
         return self.coords[name]
 
 
+# the layout of a one-device plan: every coordinate 0, no axis
+ONE_RANK = Mesh(MeshPlan(), 0, dict.fromkeys(AXES, 0), {})
+
+
 def make_mesh(plan: MeshPlan) -> Mesh:
     """The mesh of ``plan`` over the initialised ``torch.distributed``
     world, whose size must be ``plan.n_devices``. Every rank calls it,
@@ -216,21 +220,24 @@ def _map_specs(fn, tree, specs):
     return fn(tree, specs)
 
 
-def shard_params(params, plan: MeshPlan, mesh: Mesh):
-    """This rank's shards of a full parameter tree, as contiguous
-    copies: each dim a spec names is cut ``size`` ways and the piece at
+def shard_tensor(x: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's shard of one full leaf under ``spec``, as a contiguous
+    copy: each dim the spec names is cut ``size`` ways and the piece at
     this rank's coordinate kept."""
-    sizes = plan.sizes
-    specs = param_specs_for(params, plan)
+    sizes = mesh.plan.sizes
+    for dim, name in enumerate(spec):
+        if name is None or sizes[name] == 1:
+            continue
+        n = x.shape[dim] // sizes[name]
+        x = x.narrow(dim, mesh.index(name) * n, n)
+    return x.contiguous()
 
-    def cut(x, spec):
-        for dim, name in enumerate(spec):
-            if name is None or sizes[name] == 1:
-                continue
-            n = x.shape[dim] // sizes[name]
-            x = x.narrow(dim, mesh.index(name) * n, n)
-        return x.contiguous()
-    return _map_specs(cut, params, specs)
+
+def shard_params(params, plan: MeshPlan, mesh: Mesh):
+    """This rank's shards of a full parameter tree (``shard_tensor`` of
+    each leaf)."""
+    return _map_specs(lambda x, spec: shard_tensor(x, spec, mesh), params,
+                      param_specs_for(params, plan))
 
 
 def layer_order(n_layers: int, plan: MeshPlan, logical: bool = False

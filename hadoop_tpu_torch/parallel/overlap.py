@@ -18,12 +18,18 @@ The counterpart of ``hadoop_tpu/parallel/overlap.py``:
   sizes of the data axes its state is partitioned over; this rank's
   slice is the K elements at its mixed-radix index over those axes.
 
+The ZeRO-1 gather records its bytes in the comm ledger
+(``obs/comm.py``, ``zero1.gather``), as the reference's does. The
+bucketed sums record nothing: the train step's are the port's form of
+the sums the reference's autodiff inserts (its vma transposes), which
+its ledger does not see either.
+
 The knobs are fixed when the train step is built. Reading them from the
 ``parallel.overlap.*`` keys of a Configuration (the reference's
-``overlap_from_conf``), the tp collective matmul's chunking and the
-relaxed tier's quantized buckets come with the slice that brings their
-caller (ROADMAP Queue A 6). Leaves are ``spmd.Axis`` tuples, not
-names.
+``overlap_from_conf``, which has no caller in either package yet), the
+tp collective matmul's chunking and the relaxed tier's quantized buckets
+come with the slice that brings their caller (ROADMAP Queue A 6). Leaves
+are ``spmd.Axis`` tuples, not names.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from hadoop_tpu_torch.obs.comm import record_comm, static_nbytes
 from hadoop_tpu_torch.parallel import spmd
 
 
@@ -247,6 +254,10 @@ def bucketed_gather_slices(slices, params_like, leaf_axes,
                                     bucket_bytes):
             members = [(idxs[j], ks[j]) for j in bucket]
             buf = torch.cat([flat_s[i] for i, _ in members])[None]
+            # the reference's payload: its [Z, K] buffer (the wire
+            # carries this rank's row)
+            record_comm("zero1.gather", z * static_nbytes(buf),
+                        z * static_nbytes(buf))
             for a in reversed(axes):
                 buf = spmd.all_gather_raw(buf, a, 0)
             for (i, _), block in zip(members, buf.split(

@@ -28,6 +28,7 @@ import torch
 from hadoop_tpu_torch.ops import flash
 from hadoop_tpu_torch.ops.attention import (_kernel_takes, _repeat_kv,
                                             chunk_attention, merge_attention)
+from hadoop_tpu_torch.obs.comm import record_comm, static_nbytes
 from hadoop_tpu_torch.parallel import spmd
 
 
@@ -66,6 +67,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         impl == "auto" and q.is_cuda and _kernel_takes(q, k, v)
         and flash.partial_supported(q.shape, k.shape))
 
+    # the comm ledger: the K/V shards times the hops of the path, as the
+    # reference records them (the fused path skips the diagonal's)
+    kv_bytes = static_nbytes(k) + static_nbytes(v)
+    hops = ring_size - 1 if use_flash else ring_size
+    record_comm("cp.ring", hops * kv_bytes, hops * kv_bytes)
     if use_flash:
         out, lse = flash.flash_attention_partial(q, k, v, scale, True)
         kc, vc = k, v

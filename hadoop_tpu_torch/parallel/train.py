@@ -46,9 +46,11 @@ from hadoop_tpu_torch.models.decoder import (SINGLE, _layer_fn,
 from hadoop_tpu_torch.ops.cross_entropy import chunked_lm_cross_entropy
 from hadoop_tpu_torch.parallel import overlap as ov
 from hadoop_tpu_torch.parallel import pipeline, spmd
-from hadoop_tpu_torch.parallel.mesh import (Mesh, MeshPlan, param_specs,
+from hadoop_tpu_torch.parallel.mesh import (Mesh, MeshPlan, layer_order,
+                                            param_specs,
                                             physical_layer_order,
-                                            shard_params, spec_axes)
+                                            shard_params, shard_tensor,
+                                            spec_axes)
 from hadoop_tpu_torch.parallel.optimizer import (AdamWState, adamw_init,
                                                  adamw_update, grad_sq,
                                                  tree_leaves, tree_map,
@@ -191,6 +193,8 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
         only this rank's slices; then a pipeline's float32 accumulators
         over M, cast to the parameters' dtypes, and the mean-loss
         scale."""
+        # no comm-ledger site: these sums are the port's form of the ones
+        # the reference's autodiff inserts, which its ledger does not see
         if zero1 and overlap.enabled:
             grads = ov.bucketed_psum_scatter(grads, red_axes, z1_axes,
                                              overlap.bucket_bytes)
@@ -296,15 +300,40 @@ def init_sharded(params, cfg: ModelConfig, plan: MeshPlan, mesh: Mesh,
     """This rank's shards of a full parameter tree (``init_params`` or
     ``params_from_numpy`` on every rank, from one seed; laid out by
     ``physical_layer_order`` first, as the reference's) and zero AdamW
-    state for them: moments shaped like the shards, or this rank's (K,)
-    ZeRO-1 slices with ``zero1``; none for ``optimizer="sgd"``, which
-    reads none."""
+    state for them (``sharded_opt_state``)."""
     shards = shard_params(physical_layer_order(params, cfg, plan), plan,
                           mesh)
+    return shards, sharded_opt_state(shards, cfg, plan, zero1, optimizer)
+
+
+def shard_as_drawn(cfg: ModelConfig, plan: MeshPlan, mesh: Mesh):
+    """``init_params``'s ``keep``: each leaf, as it is drawn, laid out by
+    ``physical_layer_order`` and cut to this rank's shard, so a rank
+    holds one full leaf at most, never the tree. The shards are
+    ``init_sharded``'s of the full tree, bit for bit."""
+    specs = param_specs(cfg, plan)
+    order = layer_order(cfg.n_layers, plan)
+
+    def keep(path, x):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        if path[0] == "layers" and order is not None:
+            x = x[order.to(x.device)]
+        return shard_tensor(x, spec, mesh)
+    return keep
+
+
+def sharded_opt_state(shards, cfg: ModelConfig, plan: MeshPlan,
+                      zero1: bool = False, optimizer: str = "adamw"
+                      ) -> AdamWState:
+    """Zero AdamW state for this rank's shards: moments shaped like the
+    shards, or this rank's (K,) ZeRO-1 slices with ``zero1``; none for
+    ``optimizer="sgd"``, which reads none."""
     if optimizer == "sgd":
-        return shards, AdamWState(0, {}, {})
+        return AdamWState(0, {}, {})
     if not zero1:
-        return shards, adamw_init(shards)
+        return adamw_init(shards)
     specs = param_specs(cfg, plan)
     sizes = plan.sizes
 
@@ -315,4 +344,4 @@ def init_sharded(params, cfg: ModelConfig, plan: MeshPlan, mesh: Mesh,
         return zero1_init_local(p.shape, n, p.device)
     mu = _map_leaves(z, shards, specs)
     nu = _map_leaves(z, shards, specs)
-    return shards, AdamWState(0, mu, nu)
+    return AdamWState(0, mu, nu)

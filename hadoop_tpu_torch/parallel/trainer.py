@@ -1,16 +1,36 @@
-"""Training driver on one device: the train step, a token stream read
-from a filesystem, and checkpoints written to it.
+"""The trainer: the train step on one device or a mesh, a token
+stream read from a filesystem, and checkpoints written to it.
 
-The counterpart of ``hadoop_tpu/parallel/trainer.py``'s ``Trainer`` for
-``MeshPlan()``. It runs the port's train step over a ``TokenDataset``,
-checkpoints parameters, optimizer state and the data cursor on an
-interval (in the reference's format, so either package resumes the
-other's run), and resumes exactly after a crash: the same loss curve as
-an uninterrupted run.
+The counterpart of ``hadoop_tpu/parallel/trainer.py``'s ``Trainer``. It
+runs the port's train step over a ``TokenDataset``, checkpoints
+parameters, optimizer state and the data cursor on an interval (in the
+reference's format, so either package resumes the other's run), and
+resumes exactly after a crash: the same loss curve as an uninterrupted
+run.
 
+- **On a mesh** (a plan of more than one rank) each rank runs its own
+  ``Trainer`` in its own process, after ``torch.distributed`` is up
+  (``spmd.launch``, or any launcher): the rank comes from the process
+  group and the mesh is ``make_mesh(plan)``. Every rank draws the
+  parameters from ``seed`` leaf by leaf and keeps its shard of each as
+  it is drawn (``shard_as_drawn``: ``init_sharded``'s shards, never the
+  whole tree), reads the same global batch and trains on its cut
+  (``make_data_sharding``); the loss is the same on every rank. ZeRO-1,
+  microbatches, the pipeline schedules and the overlap config go to
+  ``make_train_step`` as there.
+- **Checkpoints on a mesh** are written by every rank under one
+  manifest (``parallel/checkpoint.py``: each global element once, rank
+  0 publishing), an interleaved plan's layers in logical order. A
+  restore agrees on the step across ranks (rank 0 reads it and
+  broadcasts, on the step loop's thread), then: the same plan loads this
+  rank's shards directly, bit for bit; another plan (``"reshard"``)
+  cuts the global parameters for this plan and converts the moments
+  leaf by leaf through their global layout (``elastic/reshard.py``:
+  ZeRO-1 slices ⇄ global moments), so no rank holds the whole state.
 - A background thread prefetches batches (a bounded queue of 2): it
-  reads and reshapes only, into pinned memory on a CUDA device; the step
-  loop copies each batch to the device on the step's own stream.
+  reads, cuts and reshapes only, into pinned memory on a CUDA device;
+  the step loop copies each batch to the device on the step's own
+  stream.
 - Each batch carries the dataset cursor as of its production, and a save
   records the cursor of the last batch a finished step consumed, so a
   save taken with batches in flight resumes exactly.
@@ -22,8 +42,10 @@ an uninterrupted run.
 - The step, snapshot and write run under ``record_function`` ranges
   ``trainer.step``, ``trainer.ckpt.snapshot`` and ``trainer.ckpt.write``
   (the last on the writer thread, which a profile records with
-  ``profile_all_threads``). ``step_metrics`` counts the step anatomy, and
-  the HBM ledger holds the parameters and the optimizer state.
+  ``profile_all_threads``). ``step_metrics`` counts the step anatomy,
+  the HBM ledger holds the parameters and the optimizer state, and each
+  step runs inside the comm ledger's ``comm.step("trainer.step")``
+  (``obs/comm.py``).
 
 A MoE model trains here like a dense one: its router [L, D, E] and
 expert stacks [L, E, D, F] / [L, E, F, D] are leaves of the parameters,
@@ -32,16 +54,16 @@ the moments and the checkpoints like any other.
 Initialisation draws from a ``torch.Generator`` seeded with ``seed``; the
 reference draws from ``PRNGKey(0)``, a different stream, so the two
 packages start from the same state only through a checkpoint. The
-train step takes plans of more than one rank (``parallel/train.py``);
-the trainer, its checkpoints and its loader on such a mesh, ZeRO-1,
-microbatching, pipelines, the overlap and parity passes and the elastic
-plane are ROADMAP Queue A 6 and raise.
+relaxed parity tier (``parity``) is ROADMAP Queue A 6 item 4; the elastic
+plane (``elastic``, ``doctor_poll``, ``apply_plan``) is item 3. Both
+raise.
 """
 
 from __future__ import annotations
 
 import logging
 import queue
+import secrets
 import threading
 import time
 import weakref
@@ -50,30 +72,44 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.fs import FileSystemLike
 from hadoop_tpu_torch.models.config import ModelConfig
+from hadoop_tpu_torch.models.decoder import init_params
+from hadoop_tpu_torch.obs.comm import comm_runtime
 from hadoop_tpu_torch.obs.hbm import hbm_ledger, tree_nbytes
 from hadoop_tpu_torch.obs.trainer import TrainerStepMetrics
 from hadoop_tpu_torch.parallel.checkpoint import (AsyncCheckpointWriter,
-                                                  latest_step,
+                                                  global_shape,
+                                                  latest_step, leaf_paths,
                                                   load_checkpoint,
                                                   manifest_meta,
-                                                  mismatched_leaves,
+                                                  mesh_pieces,
+                                                  rank_block,
+                                                  read_global_leaf,
                                                   read_manifest,
                                                   resolve_restore,
                                                   snapshot_tree,
+                                                  spec_paths,
                                                   write_snapshot)
 from hadoop_tpu_torch.parallel.data import TokenDataset
-from hadoop_tpu_torch.parallel.mesh import MeshPlan
-from hadoop_tpu_torch.parallel.optimizer import AdamWState
-from hadoop_tpu_torch.parallel.train import init_train_state, make_train_step
+from hadoop_tpu_torch.parallel.elastic.reshard import (convert_moment,
+                                                       zero1_state_shape)
+from hadoop_tpu_torch.parallel.mesh import (ONE_RANK, MeshPlan, make_mesh,
+                                            param_specs)
+from hadoop_tpu_torch.parallel.optimizer import AdamWState, tree_map
+from hadoop_tpu_torch.parallel.pipeline import interleaved_layer_permutation
+from hadoop_tpu_torch.parallel.train import (make_data_sharding,
+                                             make_train_step, shard_as_drawn,
+                                             sharded_opt_state, zero1_layout)
 
 log = logging.getLogger(__name__)
 
-_A6 = "ROADMAP Queue A 6 (multi-GPU parallelism)"
+_ELASTIC = "ROADMAP Queue A 6 item 3 (the elastic plane)"
+_PARITY = "ROADMAP Queue A 6 item 4 (the relaxed parity tier)"
 
 
 class Trainer:
@@ -92,44 +128,65 @@ class Trainer:
                  async_ckpt: bool = True, rank: int = 0,
                  elastic=None, doctor_poll=None,
                  seed: int = 0, device=None):
-        if plan != MeshPlan():
-            raise NotImplementedError(
-                f"plan {plan}: Trainer, its checkpoints and loader on a "
-                f"mesh are {_A6}")
-        refused = [name for name, off in (
-            ("zero1", not zero1), ("n_microbatches", n_microbatches in
-                                   (None, 1)),
-            ("pipeline_schedule", pipeline_schedule == "1f1b"),
-            ("overlap", overlap is None), ("parity", parity is None),
-            ("elastic", elastic is None),
-            ("doctor_poll", doctor_poll is None)) if not off]
+        if parity is not None:
+            raise NotImplementedError(f"Trainer argument parity: {_PARITY}")
+        refused = [name for name, arg in (("elastic", elastic),
+                                          ("doctor_poll", doctor_poll))
+                   if arg is not None]
         if refused:
-            raise NotImplementedError(
-                f"Trainer arguments {refused}: ZeRO-1, microbatching, "
-                f"pipelines, the overlap and parity passes and the elastic "
-                f"plane are {_A6}")
+            raise NotImplementedError(f"Trainer arguments {refused}: "
+                                      f"{_ELASTIC}")
         self.cfg, self.plan, self.fs = cfg, plan, fs
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
         self.ckpt_interval = ckpt_interval
         self.keep = keep
         self.batch = batch
-        self.zero1 = False
+        self.zero1 = zero1 and optimizer == "adamw"
+        if n_microbatches is None:
+            # pipeline plans need M > 1 (interleaved needs pp | M); a
+            # plan without stages runs unsplit
+            n_microbatches = max(1, plan.pp * plan.vpp)
+        plan.validate(cfg, batch, cfg.max_seq,
+                      n_microbatches=n_microbatches)
+        self.mesh = make_mesh(plan) if plan.n_devices > 1 else None
+        self.layout = self.mesh or ONE_RANK
+        self.world = dist.get_world_size() if self.mesh else 1
+        self.rank = dist.get_rank() if self.mesh else int(rank)
         self.async_ckpt = async_ckpt
         self._ckpt_writer = AsyncCheckpointWriter()
         self.data = TokenDataset(fs, data_path, batch=batch,
                                  seq=cfg.max_seq, dtype=data_dtype)
-        self.step_fn = make_train_step(cfg, plan, lr=lr, optimizer=optimizer,
-                                       remat=remat, device=self.device)
+        self.step_fn = make_train_step(
+            cfg, plan, self.mesh, lr=lr, optimizer=optimizer,
+            zero1=self.zero1, remat=remat, n_microbatches=n_microbatches,
+            pipeline_schedule=pipeline_schedule, overlap=overlap,
+            device=self.device)
+        # each leaf cut to this rank's shard as it is drawn: a model that
+        # needs the plan to fit a card never stands whole on one
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params, self.opt = init_train_state(cfg, gen, self.device)
+        self.params = init_params(cfg, gen, self.device,
+                                  keep=shard_as_drawn(cfg, plan, self.layout))
+        # moments in this plan's layout (ZeRO-1: (K,) rows) whatever the
+        # optimizer, as the reference's state tree
+        self.opt = sharded_opt_state(self.params, cfg, plan, zero1=self.zero1)
+        self._cut = make_data_sharding(self.mesh) if self.mesh else None
+        self._spec_of = spec_paths(self._target_spec_tree())
+        # a save's token, the same on every rank: the run's nonce (rank
+        # 0's, broadcast while every rank builds its trainer) and the
+        # save's number
+        self._nonce, self._saves = "0", 0
+        if self.mesh is not None:
+            box = [secrets.token_hex(8) if self.rank == 0 else None]
+            dist.broadcast_object_list(box, src=0)
+            self._nonce = box[0]
         self.step = 0
         self.losses: list = []
         # the newest loss per absolute step index
         self.loss_by_step: Dict[int, float] = {}
-        self.rank = int(rank)
         m = TrainerStepMetrics(rank=self.rank)
         self.step_metrics = m
+        self._comm = comm_runtime()
         # the ledger's providers hold a weak reference: a trainer that was
         # never closed must not pin its state in the process-wide ledger
         led = hbm_ledger()
@@ -150,45 +207,88 @@ class Trainer:
         self._zombie_producer: Optional[threading.Thread] = None
 
     def apply_plan(self, new_plan: MeshPlan) -> bool:
-        raise NotImplementedError(f"apply_plan (elastic replanning): {_A6}")
+        raise NotImplementedError(f"apply_plan (elastic replanning): "
+                                  f"{_ELASTIC}")
+
+    # ------------------------------------------------------------ layout
+
+    def _target_spec_tree(self):
+        """Placement specs of this plan's state tree: the parameters',
+        the moments' (a ZeRO-1 moment's spec names its leading dims, spec
+        axes then data axes), and replicated scalars."""
+        specs = param_specs(self.cfg, self.plan)
+        moments = specs
+        if self.zero1:
+            moments = tree_map(lambda names: tuple(names) + (None,),
+                               zero1_layout(self.cfg, self.plan)[2])
+        return {"params": specs, "opt": AdamWState((), moments, moments),
+                "data_pos": ()}
+
+    def _layer_perm(self, name: str):
+        """Axis 0's physical → logical layer order of a leaf laid out for
+        an interleaved plan (the parameters' layer stacks, and the
+        moments' without ZeRO-1, whose slices stay plan-locked), else
+        None."""
+        if self.plan.vpp <= 1:
+            return None
+        prefixes = ["['params']['layers']"]
+        if not self.zero1:
+            prefixes += ["['opt'].mu['layers']", "['opt'].nu['layers']"]
+        if not any(name.startswith(p) for p in prefixes):
+            return None
+        return interleaved_layer_permutation(self.cfg.n_layers,
+                                             self.plan.pp, self.plan.vpp)
+
+    def _pieces(self, name, leaf):
+        return mesh_pieces(self._spec_of[name], leaf, self.mesh,
+                           self._layer_perm(name))
 
     # -------------------------------------------------------- persistence
 
+    def _state_tree(self):
+        cursor = (self._inflight_cursor if self._inflight_cursor
+                  is not None else self.data.state())
+        pos = cursor["pos"] % max(self.data.total_tokens, 1)
+        # the data cursor rides as two int31 halves: a stream past 2**31
+        # tokens would overflow a single int32
+        return {"params": self.params, "opt": self.opt,
+                "data_pos": torch.tensor([pos >> 31, pos & 0x7FFFFFFF],
+                                         dtype=torch.int32)}
+
     def save(self, wait: Optional[bool] = None) -> str:
-        """Checkpoint the current state.
+        """Checkpoint the current state (on a mesh every rank calls it at
+        the same point; rank 0 publishes).
 
         ``wait=False`` (the step loop's interval saves): block for the
         device→host snapshot and a fence on any previous write; the write
         itself runs on the background writer, fenced at the next save,
         restore or ``train()`` exit. ``wait=None`` or True: durable on
-        return. ``async_ckpt=False`` makes every save synchronous."""
+        return (on a mesh, on rank 0). ``async_ckpt=False`` makes every
+        save synchronous."""
         if wait is None:
             wait = True
         m = self.step_metrics
         t_fence = time.monotonic()
         self._ckpt_writer.wait()   # surfaces a prior write's failure
         m.ckpt_fence.add(time.monotonic() - t_fence)
-        # the data cursor rides as two int31 halves: a stream past 2**31
-        # tokens would overflow a single int32
-        cursor = (self._inflight_cursor if self._inflight_cursor
-                  is not None else self.data.state())
-        pos = cursor["pos"] % max(self.data.total_tokens, 1)
-        tree = {"params": self.params, "opt": self.opt,
-                "data_pos": torch.tensor([pos >> 31, pos & 0x7FFFFFFF],
-                                         dtype=torch.int32)}
+        tree = self._state_tree()
         with record_function("trainer.ckpt.snapshot"):
             t_snap = time.monotonic()
-            snap = snapshot_tree(tree)
+            snap = snapshot_tree(tree, self._pieces if self.mesh else None)
             m.ckpt_snapshot.add(time.monotonic() - t_snap)
         step, fs, ckpt_dir, keep = self.step, self.fs, self.ckpt_dir, \
             self.keep
         meta = manifest_meta(self.plan, zero1=self.zero1)
+        where = dict(rank=self.rank, world=self.world,
+                     token=f"{self._nonce}.{self._saves}") \
+            if self.mesh else {}
+        self._saves += 1
 
         def write():
             with record_function("trainer.ckpt.write"):
                 t_w = time.monotonic()
                 path = write_snapshot(fs, ckpt_dir, step, snap, keep=keep,
-                                      meta=meta)
+                                      meta=meta, **where)
                 m.ckpt_write.add(time.monotonic() - t_w)
             log.info("checkpoint step %d -> %s", step, path)
 
@@ -212,46 +312,127 @@ class Trainer:
         hbm_ledger().unregister_prefix(self._hbm_owner)
 
     def try_restore(self) -> bool:
-        """Resume from the newest complete checkpoint, if any.
+        """Resume from the newest complete checkpoint, if any (on a mesh
+        every rank calls it at the same point: rank 0 names the step).
 
         The manifest's plan block decides the path, as in the reference:
-        "same-plan" and "legacy" (no plan block; a DeprecationWarning) load
-        directly. A checkpoint written under another plan without ZeRO-1
-        stores every leaf at its global shape, so its "reshard" is the
-        host assembly of the shards. A ZeRO-1 checkpoint, or one whose
-        leaves do not assemble to this trainer's shapes, is
-        ROADMAP Queue A 6 and raises."""
+        "same-plan" and "legacy" (no plan block; a DeprecationWarning)
+        load this rank's shards directly; "reshard" (another plan, or
+        the same one with ZeRO-1 switched) cuts the global parameters for
+        this plan and converts the moments through their global layout.
+        A leaf whose shape or dtype does not fit raises ValueError."""
         self._ckpt_writer.wait()  # a restore must see the newest save
         step = latest_step(self.fs, self.ckpt_dir)
+        if self.mesh is not None:
+            box = [step]
+            dist.broadcast_object_list(box, src=0)
+            step = box[0]
         if step is None:
             return False
         manifest = read_manifest(self.fs, self.ckpt_dir, step)
         mode, saved_plan, saved_zero1 = resolve_restore(
             manifest, self.plan, self.zero1)
-        if saved_zero1:
-            raise NotImplementedError(
-                f"checkpoint step {step} holds ZeRO-1 optimizer slices "
-                f"(plan {saved_plan}); converting them to global moments "
-                f"is {_A6}")
+        gshapes = tree_map(lambda t: tuple(t.shape), init_params(
+            self.cfg, None, device="meta"))
+        self._check_leaves(manifest, step, mode, saved_plan, saved_zero1,
+                           gshapes)
         like = {"params": self.params, "opt": self.opt,
                 "data_pos": torch.zeros(2, dtype=torch.int32)}
-        bad = mismatched_leaves(manifest, like)
-        if bad and mode == "reshard":
-            raise NotImplementedError(
-                f"checkpoint step {step} (plan {saved_plan}) does not "
-                f"assemble to this trainer's leaves ({bad[:3]}); "
-                f"relayouts beyond host assembly are {_A6}")
-        if bad:
-            raise ValueError(f"checkpoint step {step} does not match this "
-                             f"trainer's state: {bad[:3]}")
+        if mode == "reshard":        # the moments come leaf by leaf below
+            like["opt"] = AdamWState(self.opt.count, {}, {})
         tree, got = load_checkpoint(self.fs, self.ckpt_dir, like, step=step,
-                                    device=self.device)
-        self.params, self.opt = tree["params"], AdamWState(*tree["opt"])
+                                    device=self.device, mesh=self.layout,
+                                    specs=self._target_spec_tree(),
+                                    permute=self._layer_perm)
+        opt = AdamWState(*tree["opt"])
+        if mode == "reshard":
+            opt = AdamWState(opt.count, *(
+                self._resharded_moments(manifest, step, which, saved_plan,
+                                        saved_zero1, gshapes)
+                for which in ("mu", "nu")))
+        self.params, self.opt = tree["params"], opt
         hi, lo = tree["data_pos"].tolist()
         self.data.restore({"pos": (hi << 31) | lo})
         self.step = got
         log.info("restored step %d (%s) from %s", got, mode, self.ckpt_dir)
         return True
+
+    def _check_leaves(self, manifest, step: int, mode: str,
+                      saved_plan: Optional[MeshPlan], saved_zero1: bool,
+                      gshapes) -> None:
+        """Raise ValueError, before a shard is read, when a leaf the
+        restore needs is missing or stored at another global shape or
+        dtype than this plan's (a saved plan's ZeRO-1 layout, for the
+        moments of a reshard); the first three, in leaf order.
+        ``gshapes``: the parameters' global shapes."""
+        sizes = self.plan.sizes
+        pspecs = param_specs(self.cfg, self.plan)
+
+        def moment_shape(gshape, pspec):
+            if mode != "reshard" or not saved_zero1:
+                return gshape
+            return zero1_state_shape(pspec, gshape, saved_plan)
+
+        moments = spec_paths(tree_map(moment_shape, gshapes, pspecs)) \
+            if mode == "reshard" else None
+        bad = []
+        for name, leaf in leaf_paths(self._state_tree()):
+            if name.startswith("['opt'].mu") or name.startswith(
+                    "['opt'].nu"):
+                if moments is not None:
+                    want = moments[name[len("['opt'].mu"):]]
+                else:
+                    want = global_shape(tuple(leaf.shape),
+                                        self._spec_of[name], sizes)
+            elif isinstance(leaf, int):
+                want = ()
+            else:
+                want = global_shape(tuple(leaf.shape), self._spec_of[name],
+                                    sizes)
+            dtype = "int32" if isinstance(leaf, int) else \
+                str(leaf.dtype).replace("torch.", "")
+            entry = manifest["leaves"].get(name)
+            if entry is None:
+                bad.append(f"{name}: missing")
+            elif (tuple(entry["shape"]), entry["dtype"]) != (tuple(want),
+                                                             dtype):
+                bad.append(f"{name}: {entry['dtype']}{entry['shape']}, "
+                           f"expected {dtype}{list(want)}")
+        if bad:
+            raise ValueError(f"checkpoint step {step} does not match this "
+                             f"trainer's state: {bad[:3]}")
+
+    def _resharded_moments(self, manifest, step: int, which: str,
+                           saved_plan: MeshPlan, saved_zero1: bool,
+                           gshapes):
+        """This rank's ``which`` ("mu" or "nu") moments for this plan
+        from a checkpoint of ``saved_plan``, one leaf at a time: the
+        saved leaf read whole, converted to this plan's layout as
+        ``reshard_opt_state`` converts it (``convert_moment``: through
+        the global param-shaped array), and this rank's block of it kept
+        (a ZeRO-1 row, or the parameter's shard)."""
+        pspecs = param_specs(self.cfg, self.plan)
+        out_specs = self._target_spec_tree()["opt"].mu
+
+        def leaf(local, gshape, pspec, ospec, path):
+            name = f"['opt'].{which}{path}"
+            saved = read_global_leaf(self.fs, self.ckpt_dir, step, name,
+                                     manifest).numpy()
+            moment = convert_moment(saved, gshape, pspec, saved_plan,
+                                    self.plan, zero1_a=saved_zero1,
+                                    zero1_b=self.zero1)
+            block = rank_block(moment, ospec, self.layout,
+                               self._layer_perm(name))
+            return torch.from_numpy(block.reshape(local.shape)).to(
+                self.device)
+
+        def walk(local, gshape, pspec, ospec, path=""):
+            if isinstance(local, dict):
+                return {k: walk(local[k], gshape[k], pspec[k], ospec[k],
+                                f"{path}[{k!r}]") for k in local}
+            return leaf(local, gshape, pspec, ospec, path)
+
+        return walk(getattr(self.opt, which), gshapes, pspecs, out_specs)
 
     # -------------------------------------------------------------- train
 
@@ -278,6 +459,7 @@ class Trainer:
         q: queue.Queue = queue.Queue(maxsize=2)
         abort = threading.Event()
         pin = self.device.type == "cuda"
+        cut = self._cut
 
         def put(item) -> None:
             while not abort.is_set():
@@ -293,6 +475,8 @@ class Trainer:
                     rows = self.data.next_batch()
                     pair = [torch.from_numpy(np.ascontiguousarray(x))
                             for x in (rows[:, :-1], rows[:, 1:])]
+                    if cut is not None:      # this rank's rows and shard
+                        pair = [cut(x).contiguous() for x in pair]
                     if pin:
                         pair = [x.pin_memory() for x in pair]
                     put((*pair, self.data.state()))
@@ -318,17 +502,20 @@ class Trainer:
                     # after they land
                     tokens = tokens.to(self.device, non_blocking=True)
                     targets = targets.to(self.device, non_blocking=True)
-                    self.params, self.opt, metrics = self.step_fn(
-                        self.params, self.opt, tokens, targets)
-                    self.step += 1
-                    self._inflight_cursor = cursor
-                    pending.append((self.step, metrics["loss"]))
-                    while len(pending) > self.MAX_INFLIGHT:
-                        s, dev = pending.popleft()
-                        val = float(dev)
-                        out.append(val)
-                        self.losses.append(val)
-                        self.loss_by_step[s] = val
+                    # the comm ledger's step window: the collective sites
+                    # record this step's bytes under "trainer.step"
+                    with self._comm.step("trainer.step"):
+                        self.params, self.opt, metrics = self.step_fn(
+                            self.params, self.opt, tokens, targets)
+                        self.step += 1
+                        self._inflight_cursor = cursor
+                        pending.append((self.step, metrics["loss"]))
+                        while len(pending) > self.MAX_INFLIGHT:
+                            s, dev = pending.popleft()
+                            val = float(dev)
+                            out.append(val)
+                            self.losses.append(val)
+                            self.loss_by_step[s] = val
                     if self.ckpt_interval and \
                             self.step % self.ckpt_interval == 0:
                         self.save(wait=False)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from hadoop_tpu_torch.obs.comm import record_comm, static_nbytes
 from hadoop_tpu_torch.parallel import spmd
 
 
@@ -39,6 +40,9 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not supports(q.shape[2], k.shape[2], axis.size):
         raise ValueError(f"ulysses over {axis.size} ranks needs head counts "
                          f"{q.shape[2]}/{k.shape[2]} divisible by it")
+    # the comm ledger: q, k and v in, the output (q's size) back
+    a2a = 2 * static_nbytes(q) + static_nbytes(k) + static_nbytes(v)
+    record_comm("cp.all2all", a2a, a2a)
     q, k, v = (spmd.all_to_all(t, axis, 2, 1) for t in (q, k, v))
     attn = causal_attention(q, k, v, impl=impl)
     return spmd.all_to_all(attn, axis, 1, 2)

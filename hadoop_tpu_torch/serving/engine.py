@@ -1693,6 +1693,16 @@ class DecodeEngine:
                 # replica with clients blocked on .done forever
                 log.exception("decode step failed")
                 with self._sched_lock:
+                    # the requests this failure fails: those in the slots
+                    # and those pending now, taken BEFORE any is finished.
+                    # A client that a FAILED wakes may submit at once;
+                    # its request joined no failed step and waits for the
+                    # next loop iteration (the contract the reference's
+                    # comment states; its drain fails it instead)
+                    doomed = []
+                    with self._cond:
+                        while self._pending:
+                            doomed.append(self._pending.popleft())
                     # the failed step may have left the pools and lane
                     # state half written: rebuild them before the
                     # release path writes lane-clear events
@@ -1707,11 +1717,7 @@ class DecodeEngine:
                     if self.prefix_cache is not None:
                         self.pool.free(self.prefix_cache.evict(
                             len(self.prefix_cache), self.pool.refcount))
-                    while True:
-                        with self._cond:
-                            if not self._pending:
-                                break
-                            req = self._pending.popleft()
+                    for req in doomed:
                         self._finish_request(req, FAILED,
                                              f"decode failed: {e}")
 

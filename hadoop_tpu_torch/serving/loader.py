@@ -23,8 +23,11 @@ from hadoop_tpu_torch.models.config import ModelConfig
 from hadoop_tpu_torch.models.decoder import init_params
 from hadoop_tpu_torch.parallel.checkpoint import (latest_step,
                                                   load_checkpoint,
+                                                  local_shape,
+                                                  map_with_path,
                                                   mismatched_leaves,
-                                                  read_manifest)
+                                                  read_manifest,
+                                                  spec_paths)
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves
 
 log = logging.getLogger(__name__)
@@ -58,12 +61,18 @@ def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
     per-leaf mode, the weight plane's quantize-at-load seam
     (``serving/weightplane.py``): each assembled leaf is consumed as its
     shards arrive, so the float model never lies whole on the host.
-    Sharded placement (``mesh``/``specs``) is ROADMAP Queue A 6 and
-    raises.
+    With ``mesh`` (``make_mesh(plan)``) and ``specs``
+    (``param_specs(cfg, plan)``) it returns this rank's shards,
+    ``shard_params`` of the full load, reading only the shard files that
+    overlap them. The streaming mode does not take a mesh: its caller
+    there, the engine's tp plan, is ROADMAP Queue A 6 item 2.
     """
-    if mesh is not None or specs is not None:
+    if leaf_transform is not None and (mesh is not None or
+                                       specs is not None):
         raise NotImplementedError(
-            "mesh/specs: sharded serving placement is ROADMAP Queue A 6")
+            "leaf_transform with mesh/specs: quantize-at-load onto a mesh "
+            "comes with the serving engine's tp plan, ROADMAP Queue A 6 "
+            "item 2")
     t0 = time.monotonic()
     if step is None:
         step = latest_step(fs, base_dir)
@@ -78,9 +87,16 @@ def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
     if bad:
         raise ValueError(f"checkpoint {base_dir} step {step} does not hold "
                          f"the parameters of this config: {bad[:3]}")
+    if mesh is not None:            # this rank's shard shapes
+        spec_of = spec_paths(specs)
+        local = map_with_path(lambda name, t: torch.empty(
+            local_shape(t.shape, spec_of.get(name), mesh.plan.sizes),
+            dtype=t.dtype, device="meta"), shapes)
+        like = {"params": local} if wrapped else local
+        specs = {"params": specs} if wrapped else specs
     tree, step = load_checkpoint(fs, base_dir, like, step=step,
                                  io_workers=max(1, io_workers),
-                                 device=device,
+                                 device=device, mesh=mesh, specs=specs,
                                  leaf_transform=leaf_transform)
     params = tree["params"] if wrapped else tree
     n = sum(p.numel() for p in tree_leaves(shapes))

@@ -23,6 +23,14 @@ dropped at capacity; the host ms of the plan's set-up (mesh, shards,
 step) and of its gather. Both import only the port and torch (and numpy).
 
     spmd.launch(dist_plans.train_plans, 4, backend="gloo", args=([job],))
+
+``trainer_ops(rank, world, jobs)`` drives ``Trainer`` on one world: per
+job (a model), a list of operations (make a trainer on a plan, restore, train, save,
+crash, fill the state with distinct values, gather the parameters), each
+returning this rank's record: losses, the step and data cursor, per step
+the kernels' launches, the bytes each axis put on the wire and the comm
+ledger's bytes by site, CUDA-event step times on a card, the checkpoint
+anatomy and the bytes this rank wrote.
 """
 
 from __future__ import annotations
@@ -39,18 +47,24 @@ import torch
 import torch.distributed as dist
 
 from hadoop_tpu_torch.device import resolve_device
+from hadoop_tpu_torch.fs import LocalFileSystem
 from hadoop_tpu_torch.models import config as config_mod
 from hadoop_tpu_torch.models.convert import params_from_numpy
 from hadoop_tpu_torch.models import moe
 from hadoop_tpu_torch.models.decoder import init_params
 from hadoop_tpu_torch.ops import collective_matmul, flash, norms
 from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
+from hadoop_tpu_torch.obs.comm import comm_runtime
 from hadoop_tpu_torch.parallel.mesh import (MeshPlan, layer_order,
-                                            make_mesh, param_specs_for)
+                                            make_mesh, param_specs,
+                                            param_specs_for,
+                                            physical_layer_order,
+                                            shard_params, spec_axes)
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.train import (init_sharded,
                                              make_data_sharding,
                                              make_train_step)
+from hadoop_tpu_torch.parallel.trainer import Trainer
 
 SHAPE = (2, 4, 4, 3)        # one rank's value in the collectives drill
 
@@ -338,3 +352,187 @@ def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         results.append(rec)
     return results
 
+
+# --------------------------------------------------------- trainer runner
+
+def fill_values(cfg, plan: MeshPlan, layout):
+    """A full parameter tree with a distinct value in every element
+    (``arange`` over the leaves in flatten order, float32), this rank's
+    shards of it and, per leaf, the axes its ZeRO-1 row is cut over."""
+    shapes = init_params(cfg, None, device="meta")
+    offset = 0
+
+    def leaf(t):
+        nonlocal offset
+        out = torch.arange(offset, offset + t.numel(),
+                           dtype=torch.float32).reshape(t.shape)
+        offset += t.numel()
+        return out
+    full = tree_map(leaf, shapes)
+    shards = shard_params(physical_layer_order(full, cfg, plan), plan,
+                          layout)
+    z1 = tree_map(lambda spec: tuple(
+        a for a in (layout.axis(n) for n in optimizer.zero1_leaf_plan(
+            spec_axes(spec), plan.batch_axes)) if a is not None),
+        param_specs(cfg, plan))
+    return full, shards, z1
+
+
+def _fill(t: Trainer, cfg) -> None:
+    """Set the trainer's state from ``fill_values``: the parameters, mu
+    the same values and nu their negatives (ZeRO-1: each rank's row of
+    them, cut as the optimizer cuts)."""
+    _, shards, z1 = fill_values(cfg, t.plan, t.layout)
+    with torch.no_grad():
+        tree_map(lambda p, v: p.copy_(v), t.params, shards)
+        for moments, sign in ((t.opt.mu, 1.0), (t.opt.nu, -1.0)):
+            def put(m, v, axes):
+                v = overlap.local_slice(v, axes) if t.zero1 else v
+                m.copy_(sign * v.reshape(m.shape))
+            tree_map(put, moments, shards, z1)
+
+
+def _rank_bytes(path: str, rank: int) -> int:
+    """The bytes of this rank's shard files in a checkpoint directory."""
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.startswith(f"shard_r{rank}_"))
+
+
+def _count_steps(t: Trainer, log: List[Dict[str, Any]], cuda: bool) -> None:
+    """Wrap the trainer's step so each call appends its launches, wire
+    bytes by axis and (on a card) CUDA-event ms to ``log``."""
+    step = t.step_fn
+
+    def counted(*args):
+        before, wire = _counts(), dict(spmd.traffic)
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        out = step(*args)
+        rec = {"launches": [a - b for a, b in zip(_counts(), before)],
+               "traffic": {k: v - wire.get(k, 0)
+                           for k, v in spmd.traffic.items()}}
+        if cuda:
+            ev[1].record()
+            rec["events"] = ev
+        log.append(rec)
+        return out
+    t.step_fn = counted
+
+
+def trainer_ops(rank: int, world: int, jobs: List[Dict[str, Any]]
+                ) -> List[List[Dict[str, Any]]]:
+    """Run each job's ``ops`` in order on this rank; see the module doc.
+    Returns one list of records a job. A job: ``preset`` (+ ``overrides``), ``data`` (a token file on the local
+    filesystem), ``device`` (the card unless "cpu"), ``trainer`` (keyword
+    arguments of every ``Trainer``: batch, lr, remat, ...), ``seed`` and
+    ``ops``: dicts of ``op`` and ``name`` (the trainer's), and
+
+    - "make": ``plan`` (MeshPlan kwargs), ``ckpt`` (its directory),
+      ``kw`` (more Trainer kwargs); with ``check_init``, whether the
+      trainer's state is ``init_sharded`` of the full tree drawn from the
+      same seed, bit for bit (``init_equal``);
+    - "restore", "save" (``dir``: save under another directory), "crash"
+      (close and drop it, as a crash leaves it), "fill" (``_fill``);
+    - "train": ``steps`` (and ``ckpt_interval``, set first when given);
+    - "gather": ``which`` ("params", "mu" or "nu"; the moments of a
+      plan without ZeRO-1) in checkpoint layer order, a ``sample`` of
+      flat indices per leaf or every element (rank 0 keeps them).
+
+    The last job's list ends with a record (op "modules") of the foreign
+    modules the rank imported (``jax``, ``hadoop_tpu``): none."""
+    out = [_trainer_job(rank, job) for job in jobs]
+    out[-1].append({"op": "modules", "name": None, "foreign": sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                      "hadoop_tpu"))})
+    return out
+
+
+def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
+    cfg = config_mod.get_config(job["preset"], **job.get("overrides", {}))
+    dev = resolve_device(job.get("device"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    fs = LocalFileSystem()
+    live: Dict[str, Trainer] = {}
+    logs: Dict[str, List[Dict[str, Any]]] = {}
+    out = []
+    for op in job["ops"]:
+        kind, name = op["op"], op["name"]
+        rec: Dict[str, Any] = {"op": kind, "name": name}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t = live.get(name)
+        if kind == "make":
+            kw = dict(job.get("trainer", {}), **op.get("kw", {}))
+            t = live[name] = Trainer(cfg, MeshPlan(**op["plan"]), fs,
+                                     job["data"], op["ckpt"],
+                                     seed=job.get("seed", 0), device=dev,
+                                     **kw)
+            logs[name] = []
+            _count_steps(t, logs[name], cuda)
+            if op.get("check_init"):
+                gen = torch.Generator(device=dev).manual_seed(
+                    job.get("seed", 0))
+                want = init_sharded(init_params(cfg, gen, device=dev), cfg,
+                                    t.plan, t.layout, zero1=t.zero1)
+                got, ref = ([x for tree in (p, o.mu, o.nu)
+                             for x in tree_leaves(tree)]
+                            for p, o in ((t.params, t.opt), want))
+                rec["init_equal"] = len(got) == len(ref) and all(
+                    torch.equal(a, b) for a, b in zip(got, ref))
+        elif kind == "restore":
+            rec["restored"] = t.try_restore()
+        elif kind == "train":
+            if "ckpt_interval" in op:
+                t.ckpt_interval = op["ckpt_interval"]
+            del logs[name][:]
+            comm_runtime().reset_for_tests()
+            rec["losses"] = t.train(op["steps"])
+            if cuda:
+                torch.cuda.synchronize()
+            steps = logs[name]
+            rec["launches"] = [s["launches"] for s in steps]
+            rec["traffic"] = [s["traffic"] for s in steps]
+            if cuda:
+                rec["step_ms"] = [s["events"][0].elapsed_time(
+                    s["events"][1]) for s in steps]
+            rec["comm"] = {site: list(v) for site, v in
+                           comm_runtime().profile("trainer.step").items()}
+            rec["comm_report"] = comm_runtime().report()
+            rec["anatomy"] = t.step_metrics.anatomy()
+        elif kind == "save":
+            if "dir" in op:
+                t.ckpt_dir = op["dir"]
+            path = t.save()
+            if t.mesh is not None:
+                rec["bytes_written"] = _rank_bytes(path, rank)
+            rec["anatomy"] = t.step_metrics.anatomy()["ckpt"]
+        elif kind == "crash":
+            t.close()
+            del live[name], logs[name]
+        elif kind == "fill":
+            _fill(t, cfg)
+        elif kind == "gather":
+            which = op.get("which", "params")
+            tree = t.params if which == "params" else getattr(t.opt, which)
+            rec[which] = gathered_sample(tree, cfg, t.plan, t.layout,
+                                         op.get("sample", 0), rank == 0)
+        else:
+            raise ValueError(f"unknown op {kind!r}")
+        if cuda:
+            torch.cuda.synchronize()
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        if t is not None and kind != "crash":
+            rec["step"] = t.step
+            rec["pos"] = t.data.state()["pos"] % max(t.data.total_tokens, 1)
+        if cuda:
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out.append(rec)
+    for t in live.values():
+        t.close()
+    return out

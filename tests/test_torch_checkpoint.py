@@ -215,18 +215,46 @@ def test_multi_device_checkpoint_loads_and_resumes(fs, token_file):
 
 
 def test_zero1_checkpoint_is_refused(fs, token_file):
-    _reference_plan_checkpoint(fs, "/plans/z1", JMeshPlan(dp=2), True)
+    """Since the mesh slice a ZeRO-1 checkpoint restores (the name stays
+    from when it was refused): the reference's dp2 ZeRO-1 state, with
+    moments drawn with numpy, goes through the "reshard" outcome into
+    the port's one-device trainer, its moments equal the reference's
+    ``reshard_opt_state`` of the loaded slices, and it trains on."""
+    jplan = JMeshPlan(dp=2)
+    jcfg = jconfig.get_config("tiny")
+    jparams = _numpy(jdecoder.init_params(jax.random.PRNGKey(0), jcfg))
+    specs = jtrain.param_specs(jcfg, jplan)
+    rng = np.random.default_rng(5)
+    mu, nu = (jax.tree_util.tree_map(
+        lambda p, spec: jreshard.global_to_zero1_state(
+            rng.standard_normal(p.shape).astype(np.float32), spec, jplan),
+        jparams, specs) for _ in range(2))
+    opt = joptimizer.AdamWState(np.asarray(5, np.int32), mu, nu)
+    jckpt.save_checkpoint(fs, "/plans/z1", 5, {
+        "params": jparams, "opt": opt,
+        "data_pos": np.asarray([0, 4321], np.int32)},
+        meta=jreshard.manifest_meta(jplan, zero1=True))
+    want = jreshard.reshard_opt_state(opt, jparams, specs, jplan,
+                                      JMeshPlan(), zero1_a=True,
+                                      zero1_b=False)
     t = Trainer(config.get_config("tiny"), MeshPlan(), fs, token_file,
                 "/plans/z1", batch=BATCH, ckpt_interval=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        t.try_restore()
+    manifest = ckpt.read_manifest(fs, "/plans/z1", 5)
+    assert ckpt.resolve_restore(manifest, MeshPlan(), False)[0] == "reshard"
+    assert t.try_restore() and t.step == 5
+    assert t.data.state()["pos"] == 4321 and t.opt.count == 5
+    got = dict(ckpt.leaf_paths({"params": t.params, "opt": t.opt}))
+    for name, a in ckpt.leaf_paths({"params": jparams, "opt": want}):
+        np.testing.assert_array_equal(np.asarray(got[name]), a,
+                                      err_msg=name)
+    assert np.isfinite(t.train(1)).all() and t.step == 6
     t.close()
 
 
 def test_checkpoint_of_other_shapes_is_refused(fs, token_file):
-    """A same-plan checkpoint of another model raises ValueError; one of
-    another plan whose leaves do not assemble to the port's shapes is a
-    relayout the port does not have (Queue A 6)."""
+    """A checkpoint of another model raises ValueError naming the leaves
+    that do not fit, whether it was written under this plan or another
+    (the reference raises ValueError for a mismatched leaf as well)."""
     _, _, _, ptree = _state("float32")
     ckpt.save_checkpoint(fs, "/plans/other", 2, ptree,
                          meta=ckpt.manifest_meta(MeshPlan(), zero1=False))
@@ -234,12 +262,10 @@ def test_checkpoint_of_other_shapes_is_refused(fs, token_file):
                          meta=ckpt.manifest_meta(MeshPlan(dp=2),
                                                  zero1=False))
     cfg = config.get_config("tiny", d_ff=96)
-    for path, err, match in (("/plans/other", ValueError, "w_down"),
-                             ("/plans/other-dp2", NotImplementedError,
-                              "Queue A 6")):
+    for path in ("/plans/other", "/plans/other-dp2"):
         t = Trainer(cfg, MeshPlan(), fs, token_file, path, batch=BATCH,
                     ckpt_interval=0, device="cpu")
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError, match="w_down"):
             t.try_restore()
         t.close()
 

@@ -244,8 +244,10 @@ def test_entry_points_refuse_a_missing_gpu():
 def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
     """Both training entry points take tiny-moe on ``MeshPlan()`` (ROADMAP
     Queue A 5); the train step takes an expert-parallel plan on its mesh
-    (``tests/test_torch_ep.py``), and ``Trainer`` still refuses it (a
-    mesh under ``Trainer`` is Queue A 6)."""
+    (``tests/test_torch_ep.py``), and so does ``Trainer`` since the mesh
+    slice (the name stays from when it refused): it validates the plan
+    against the config and asks for the process group it runs on
+    (``tests/test_torch_trainer_mesh.py`` trains plans on one)."""
     from hadoop_tpu_torch.fs import LocalFileSystem
     from hadoop_tpu_torch.parallel import Trainer, make_train_step
     from hadoop_tpu_torch.parallel.mesh import MeshPlan
@@ -263,9 +265,12 @@ def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
     t.close()
     with pytest.raises(ValueError, match="mesh"):
         make_train_step(cfg, MeshPlan(ep=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="batch %% dp\\*ep"):
         Trainer(cfg, MeshPlan(ep=2), fs, data, str(tmp_path / "ep"),
                 batch=1, device="cpu")
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        Trainer(cfg, MeshPlan(ep=2), fs, data, str(tmp_path / "ep"),
+                batch=2, device="cpu")
 
 
 def test_port_imports_no_jax_and_no_jax_package():

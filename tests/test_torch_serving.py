@@ -268,6 +268,43 @@ def test_failed_step_resets_the_state_in_place():
     _assert_same_tensors(eng, held)
 
 
+def test_a_request_submitted_after_a_failure_is_not_failed():
+    """The failure handler fails the requests it holds when the step
+    fails, not one a client submits once the first FAILED wakes it: that
+    request joined no failed step and is served by the next iteration.
+    The client's submit runs inside the handler's first FAILED, so the
+    interleaving is forced, not left to the scheduler."""
+    _, _, cfg, params, _ = _model("tiny")
+    eng = DecodeEngine(params, cfg, max_batch=2, block_size=4,
+                       max_context=32, device="cpu")
+    real, calls = eng._step_impl, []
+
+    def flaky(fused):
+        calls.append(fused)
+        if len(calls) == 1:
+            raise RuntimeError("injected step failure")
+        return real(fused)
+
+    finish, late = eng._finish_request, []
+
+    def woken(req, state=engine.FINISHED, error=None):
+        finish(req, state, error)
+        if state == engine.FAILED and not late:
+            late.append(eng.submit([3, 17, 42],
+                                   SamplingParams(max_new_tokens=5)))
+
+    eng._step_impl, eng._finish_request = flaky, woken
+    eng.start()
+    try:
+        first = eng.submit([5, 6, 7], SamplingParams(max_new_tokens=5))
+        with pytest.raises(RuntimeError, match="injected"):
+            first.wait(60)
+        assert late[0].wait(60) == _reference_greedy("tiny", [3, 17, 42], 5)
+        assert late[0].state == engine.FINISHED
+    finally:
+        eng.stop(drain=True)
+
+
 def test_stop_token_and_submit_rejections():
     _, _, cfg, params, _ = _model("tiny")
     ref = _reference_greedy("tiny", [3, 17, 42], 8)

@@ -1,5 +1,6 @@
 """The PyTorch port's Trainer against the JAX package's, on the CPU,
-through a real ``MiniDFSCluster`` filesystem.
+through a real ``MiniDFSCluster`` filesystem (the mesh's own file is
+``tests/test_torch_trainer_mesh.py``).
 
 A run started in one package and resumed in the other continues the
 loss curve within rtol 5e-4 (the curve tolerance of
@@ -21,10 +22,16 @@ from hadoop_tpu.parallel import checkpoint as jckpt
 from hadoop_tpu.parallel.elastic import reshard as jreshard
 from hadoop_tpu.parallel.trainer import Trainer as JTrainer
 from hadoop_tpu.testing.minicluster import MiniDFSCluster
+from hadoop_tpu_torch.fs import LocalFileSystem
 from hadoop_tpu_torch.models import config
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer
 from hadoop_tpu_torch.parallel import checkpoint as ckpt
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel.mesh import (AXES, Mesh, param_specs,
+                                            shard_params)
+from hadoop_tpu_torch.parallel.overlap import OverlapConfig
 from hadoop_tpu_torch.serving import loader
+from hadoop_tpu_torch.tools import dist_plans
 
 BATCH = 8
 LR = 1e-2
@@ -216,38 +223,103 @@ def test_step_anatomy_and_ranges(fs, token_file):
     t.close()
 
 
-# --------------------------------------------------------------- refusals
+# ---------------------------------------------- what the mesh slice lifts
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The port's Trainer on dp2 and on tp2, two steps each, on a world
+    of two gloo ranks (``dist_plans.trainer_ops``), from this file's
+    token stream on the local disk: rank 0's losses by plan."""
+    root = str(tmp_path_factory.mktemp("two_ranks"))
+    toks = np.random.default_rng(0).integers(0, 256, 200_000,
+                                             dtype=np.uint16)
+    LocalFileSystem().write_all(f"{root}/tokens.bin", toks.tobytes())
+    ops = []
+    for name, plan in (("dp2", {"dp": 2}), ("tp2", {"tp": 2})):
+        ops += [{"op": "make", "name": name, "plan": plan,
+                 "ckpt": f"{root}/{name}", "kw": {"ckpt_interval": 0}},
+                {"op": "train", "name": name, "steps": 2}]
+    recs = spmd.launch(dist_plans.trainer_ops, 2, backend="gloo", args=(
+        [{"preset": "tiny", "data": f"{root}/tokens.bin", "device": "cpu",
+          "trainer": {"batch": BATCH, "lr": LR}, "ops": ops}],), timeout=300)
+    return {r["name"]: r["losses"] for r in recs[0][0]
+            if r["op"] == "train"}
+
 
 @pytest.mark.parametrize("kw", [
     dict(plan=MeshPlan(dp=2)), dict(plan=MeshPlan(tp=2)), dict(zero1=True),
     dict(n_microbatches=2), dict(pipeline_schedule="interleaved"),
-    dict(overlap=object()), dict(parity=object()), dict(elastic=object()),
-    dict(doctor_poll=lambda: None)], ids=lambda kw: next(iter(kw)))
-def test_trainer_refuses_what_queue_a6_brings(fs, token_file, kw):
+    dict(overlap=OverlapConfig(bucket_mb=1)), dict(parity=object()),
+    dict(elastic=object()), dict(doctor_poll=lambda: None)],
+    ids=lambda kw: next(iter(kw)))
+def test_trainer_refuses_what_queue_a6_brings(fs, token_file, port_curve,
+                                              request, kw):
+    """What ROADMAP Queue A 6 item 1 lifted now trains (the name stays
+    from when all of it raised): a plan of two ranks within the curve
+    tolerance of the one-device run (``tests/test_torch_trainer_mesh.py``
+    holds the mesh against the reference), and ZeRO-1, microbatches,
+    a pipeline schedule or an overlap config on one device exactly on its
+    curve. The relaxed parity tier (item 4) and the elastic plane (item
+    3) still raise, naming their items."""
     plan = kw.pop("plan", MeshPlan())
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    if plan != MeshPlan():
+        losses = request.getfixturevalue("two_ranks")[
+            "dp2" if plan.dp == 2 else "tp2"]
+        np.testing.assert_allclose(losses, port_curve[:2], rtol=2e-4)
+        return
+    lifted = {"zero1", "n_microbatches", "pipeline_schedule", "overlap"}
+    if set(kw) <= lifted:
+        t = _port(fs, token_file, "/pckpt/lifted", **kw)
+        np.testing.assert_allclose(t.train(2), port_curve[:2], rtol=1e-6)
+        t.close()
+        return
+    item = "item 4" if "parity" in kw else "item 3"
+    with pytest.raises(NotImplementedError, match=f"Queue A 6 {item}"):
         Trainer(config.get_config("tiny"), plan, fs, token_file, "/pckpt/r",
                 batch=BATCH, device="cpu", **kw)
 
 
 def test_refusals_name_their_queue_item(fs, token_file):
+    """``apply_plan`` (the elastic plane, item 3) and the streaming
+    ``leaf_transform`` onto a mesh (its caller is the engine's tp plan,
+    item 2) raise naming their items. The sharded placement the other
+    cases refused before the mesh slice now loads: on a one-rank layout
+    it gives the plain load's tensors, and on a rank of dp2×tp2 that
+    rank's shards (``shard_params``)."""
     t = _port(fs, token_file, "/pckpt/refuse")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(NotImplementedError, match="Queue A 6 item 3"):
         t.apply_plan(MeshPlan())
     t.save()
     like = {"params": t.params}
-    # the streaming leaf_transform is ported (tests/test_torch_weightplane
-    # .py); with sharded placement it still raises
-    for kw, item in ((dict(mesh=object()), "Queue A 6"),
-                     (dict(specs={}), "Queue A 6"),
-                     (dict(leaf_transform=lambda n, a: a, mesh=object()),
-                      "Queue A 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
-                                 **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            loader.load_serving_params(fs, "/pckpt/refuse", t.cfg,
-                                       device="cpu", **kw)
+    one = Mesh(MeshPlan(), 0, dict.fromkeys(AXES, 0), {})
+    specs = param_specs(t.cfg, MeshPlan())
+    with pytest.raises(NotImplementedError, match="Queue A 6 item 2"):
+        ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
+                             mesh=one, specs={"params": specs},
+                             leaf_transform=lambda n, a: a)
+    with pytest.raises(NotImplementedError, match="Queue A 6 item 2"):
+        loader.load_serving_params(fs, "/pckpt/refuse", t.cfg,
+                                   device="cpu", mesh=one, specs=specs,
+                                   leaf_transform=lambda n, a: a)
+    with pytest.raises(ValueError, match="go together"):
+        ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
+                             mesh=one)
+    plain, _ = ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu")
+    placed, _ = ckpt.load_checkpoint(fs, "/pckpt/refuse", like,
+                                     device="cpu", mesh=one,
+                                     specs={"params": specs})
+    for (name, a), (_, b) in zip(ckpt.leaf_paths(placed),
+                                 ckpt.leaf_paths(plain)):
+        assert torch.equal(a, b), name
+    plan = MeshPlan(dp=2, tp=2)
+    rank3 = Mesh(plan, 3, dict(dict.fromkeys(AXES, 0), dp=1, tp=1), {})
+    got, _ = loader.load_serving_params(fs, "/pckpt/refuse", t.cfg,
+                                        device="cpu", mesh=rank3,
+                                        specs=param_specs(t.cfg, plan))
+    want = shard_params(plain["params"], plan, rank3)
+    for (name, a), (_, b) in zip(ckpt.leaf_paths(got),
+                                 ckpt.leaf_paths(want)):
+        assert torch.equal(a, b), name
     t.close()
 
 
