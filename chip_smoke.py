@@ -86,8 +86,16 @@ one manifest, a dp2×tp2 crash and bit-equal resume, a ZeRO-1 dp4
 checkpoint restored into dp2×tp2 through the reshard, an interleaved
 plan's checkpoint in logical layer order; per plan and rank the step,
 checkpoint and restore ms, bytes written, peak memory and the comm
-ledger's bytes beside the wire's. Weights are random, made from a seeded
-``torch.Generator``. Each phase
+ledger's bytes beside the wire's; and, in the same world, the elastic
+plane (see ELASTIC): a ZeRO-1 dp4 run whose scripted doctor flags rank 2
+(a demote and its protective checkpoint), then marks it dead (an evict:
+the other three ranks shrink to dp3, reshard-restore the protective
+snapshot and re-run the lost steps), held against a dp4 twin restored
+from the same snapshot. The device shuffle (phase ``shuffle``, see
+SHUFFLE) runs on a folded axis of four ranks on the card: TeraSort and
+WordCount at Hadoop's own record sizes, a hash exchange and an
+overflowing one, each checked exactly. Weights are random, made from a
+seeded ``torch.Generator``. Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
@@ -157,6 +165,11 @@ from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
+from hadoop_tpu_torch.parallel.collectives import hash_partitioner
+from hadoop_tpu_torch.parallel.lowp.guard import loss_curve_report
+from hadoop_tpu_torch.mapreduce.device_shuffle import (device_group_reduce,
+                                                       device_shuffle,
+                                                       device_terasort)
 from hadoop_tpu_torch.parallel import optimizer
 from hadoop_tpu_torch.parallel.checkpoint import list_checkpoints
 from hadoop_tpu_torch.parallel.optimizer import (AdamWState, tree_leaves,
@@ -517,7 +530,9 @@ DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
                ("ring_train_diagonal", (2, 1024, 16, 8, 128), False),
                ("zero1_dp4_train", (1, 2048, 16, 8, 128), True),
                ("mixtral_dp2_ep2_train", (1, 2048, 32, 8, 128), True),
-               ("mixtral_ep2_tp2_train", (2, 2048, 16, 4, 128), True)]
+               ("mixtral_ep2_tp2_train", (2, 2048, 16, 4, 128), True),
+               ("elastic_dp4_train", (3, 2048, 16, 8, 128), True),
+               ("elastic_dp3_train", (4, 2048, 16, 8, 128), True)]
 # The trainer_mesh phase: Trainer on four gloo ranks sharing the card
 # (spmd.launch, dist_plans.trainer_ops), flagship-1b at full width, bf16
 # AdamW, TRAIN's [4, 2048] global batch, full remat, checkpoints on the
@@ -534,6 +549,40 @@ DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
 TRAINER_MESH = dict(layers=6, vpp_layers=8, steps=4, crash_at=3,
                     interval=2, z1_steps=2, vpp_steps=2, file_batches=4.5,
                     sample=4096, timeout=1200)
+# The elastic leg of the trainer_mesh world (the reference's
+# benchmarks/flight_smoke.py elastic leg at flagship-1b width): ZeRO-1
+# dp4 at ``layers`` and global batch [``batch``, 2048] (12 divides by 4
+# and by 3), bf16 AdamW, full remat, interval saves every ``interval``
+# steps, ``steps`` steps in all. The scripted doctor
+# (``dist_plans.scripted_doctor``) flags rank 2 from step ``flag_at``
+# (a demote at the second flagged poll, step ``flag_at`` + 1: the
+# protective checkpoint) and marks it dead from step ``dead_at`` (the
+# evict: dp3 over ranks 0, 1, 3 reshard-restores the protective snapshot
+# and re-runs the lost steps). The twin: a dp4 trainer restoring the
+# same snapshot (hard-linked into a directory of its own, where it is
+# the newest), for the steps after it. ``step_rtol``: each step after
+# the reshard against the twin's (the reference dryrun's acceptance,
+# __graft_entry__.py); ``guard_rel_tol``: loss_curve_report's, as the
+# reference's smoke.
+ELASTIC = dict(layers=6, batch=12, steps=8, interval=4, flag_at=4,
+               dead_at=6, file_batches=10.5, step_rtol=5e-4,
+               guard_rel_tol=0.25,
+               config=dict(enabled=True, poll_steps=1, min_dp=1,
+                           demote_windows=2, evict_windows=4,
+                           dead_windows=1, cooldown_polls=2))
+# The shuffle phase: the device shuffle on a folded axis of ``ranks``
+# ranks on the one card, at the sizes of Hadoop's own examples:
+# TeraSort's 100-byte records (hadoop-mapreduce-examples terasort; here
+# an int32 key in [0, ``key_bound``) and a uint8[``payload``] value whose
+# first 4 bytes carry the record's index) and WordCount's (word id, 1)
+# pairs (int32, int32; the ids drawn Zipf(``zipf``) over ``vocab`` ids),
+# ``records`` of each, at capacity factor ``factor``; one hash exchange
+# of the TeraSort records and one of the WordCount records at
+# ``overflow_factor`` (which overflows). ``peak_limit``: the most device
+# memory the phase may take; ``timed``: calls timed after a warm-up.
+SHUFFLE = dict(ranks=4, records=1 << 25, key_bound=1 << 30, payload=96,
+               vocab=1 << 20, zipf=1.1, factor=2.0, overflow_factor=0.5,
+               peak_limit=4e10, timed=3)
 EC = dict(unit_bytes=134217728, schemas=((3, 2), (6, 3), (10, 4)),
           odd=1021, timed=10, host_slice=16 << 20, host_threads=8)
 # lost units per schema: two data units and one parity unit, data units
@@ -559,7 +608,14 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries ``at_s``, the seconds
+    since the script started (the script must end within its limit)."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.monotonic() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -2415,7 +2471,65 @@ def phase_adamw():
     require(gsq_rel <= GRAD_SQ_TOL, f"grad_sq vs plain: {gsq_rel}")
     del params, grads, mu, nu, lib, lib_params, pk, mk, nk
     torch.cuda.empty_cache()
+    _adamw_zero1_slices()
     return records
+
+
+def _adamw_zero1_slices():
+    """adamw.cu and the squared norm at the elastic leg's shapes: one
+    rank's (K,) ZeRO-1 slice of every flagship-1b leaf (ELASTIC's depth)
+    at dp4 and at dp3 (K padded where dp does not divide the leaf),
+    against their plain versions, held as phase_adamw holds them."""
+    from hadoop_tpu_torch.parallel.train import zero1_layout
+    cfg = get_config("flagship-1b", n_layers=ELASTIC["layers"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    like = tree_leaves(init_params(cfg, None, device="meta"))
+    hyper = optimizer._hyper(ADAMW["count"], ADAMW["lr"], ADAMW["b1"],
+                             ADAMW["b2"], ADAMW["eps"],
+                             ADAMW["weight_decay"])
+    for dp in (4, 3):
+        ks = [shape[-1] for shape in tree_leaves(
+            zero1_layout(cfg, MeshPlan(dp=dp))[1])]
+        p0 = [torch.randn(k, generator=gen, device="cuda").to(cfg.torch_dtype)
+              for k in ks]
+        g = [(torch.randn(k, generator=gen, device="cuda")
+              * ADAMW["grad_scale"]).to(cfg.torch_dtype) for k in ks]
+        m0 = [torch.randn(k, generator=gen, device="cuda") * 1e-4
+              for k in ks]
+        v0 = [torch.randn(k, generator=gen, device="cuda").square() * 1e-8
+              for k in ks]
+        gsq = optimizer._launch_grad_sq(g)
+        gsq_ref = optimizer.grad_sq_ref(dict(enumerate(g)))
+        gsq_rel = abs(gsq.item() - gsq_ref.item()) / gsq_ref.item()
+        scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(gsq), min=1e-12),
+                            max=1.0)
+        sides = {}
+        for side, update in (("kernel", optimizer._launch_adamw),
+                             ("plain", optimizer.adamw_leaf_ref)):
+            state = [[x.clone() for x in t] for t in (p0, m0, v0)]
+            for p, gg, m, v, leaf in zip(*state[:1], g, *state[1:], like):
+                update(p, gg, m, v, scale, hyper, leaf.ndim >= 2)
+            sides[side] = state
+        torch.cuda.synchronize()
+        (pk, mk, nk), (pr, mr, nr) = sides["kernel"], sides["plain"]
+        n = sum(ks)
+        p_diff = sum(int((a != b).sum()) for a, b in zip(pk, pr))
+        p_ulps = max(_ulps(a, b, x).max().item()
+                     for a, b, x in zip(pk, pr, p0))
+        moment_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                         for a, b in zip(mk + nk, mr + nr))
+        emit({"phase": "adamw", "part": "zero1_slices", "dp": dp,
+              "layers": cfg.n_layers, "leaves": len(ks),
+              "slice_elements": n, "p_elements_differing": p_diff,
+              "p_max_ulps": p_ulps, "moment_rel_err": moment_rel,
+              "grad_sq_rel_err": gsq_rel})
+        require(p_ulps <= 1 and p_diff / n <= ADAMW_P_SHARE and
+                moment_rel <= ADAMW_MOMENT_TOL and gsq_rel <= GRAD_SQ_TOL,
+                f"adamw.cu at the ZeRO-1 dp{dp} slices: {p_diff} elements "
+                f"differ (up to {p_ulps} ulps), moments {moment_rel}, "
+                f"grad_sq {gsq_rel}")
+        del sides, pk, mk, nk, pr, mr, nr, p0, g, m0, v0
+    torch.cuda.empty_cache()
 
 
 # The int8 dequantize (dequant.cu) against its plain version
@@ -2442,8 +2556,10 @@ DEQUANT_TIMED = ("llama3-8b", "w_gate")
 # float32: eight vectors a thread). Timed shapes: the forward at the
 # llama3-8b prefill's rows, the backward at flagship-1b's and
 # mixtral-8x7b's training rows (its pass and its dw finish apart too).
-RMS_SHAPES = [(4, 2048, 2048), (1, 8192, 4096), (1, 4096, 4096),
-              (1, 1024, 8192)]
+# [3, 2048, 2048] is the rows of an elastic ZeRO-1 dp4 rank at batch 12
+# ([4, 2048, 2048] its dp3 rank's, and the train phase's).
+RMS_SHAPES = [(4, 2048, 2048), (3, 2048, 2048), (1, 8192, 4096),
+              (1, 4096, 4096), (1, 1024, 8192)]
 RMS_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 RMS_F32_TOL = 1e-6
 RMS_TIMED = {"fwd": (1, 8192, 4096), "bwd": (4, 2048, 2048),
@@ -4251,6 +4367,192 @@ def phase_ec():
     return record
 
 
+def _shuffle_bytes(n, key_bytes, value_bytes, rows, sort):
+    """The device bytes a shuffle moves on its records, by step (each
+    buffer written or read once; ``rows``: the padded rows, n_dev · cap
+    a rank, over every rank): the zeroed send buffers, the scatter of
+    the records into them, the exchange (a transpose copy on a folded
+    axis), and with ``sort`` the gather of the received rows in key
+    order. The partition and the index sorts over the keys are left
+    out (a few bytes a record)."""
+    rec = key_bytes + value_bytes + 1                 # key, value, mask
+    out = {"zero_fill": rows * rec, "scatter": 2 * n * rec,
+           "exchange": 2 * rows * rec}
+    if sort:
+        out["sort_gather"] = 2 * rows * rec
+    return out
+
+
+def _shuffle_record(run, n, record_bytes, ms, peak, moved, extra):
+    """One run's line: ms, GB/s of record bytes, the share of the bytes
+    floor (one read and one write of every record at the memory rate),
+    peak memory and the passes over the records the reckoning counts."""
+    floor_ms = 2 * n * record_bytes / MEM_BYTES_PER_S * 1e3
+    rec = {"phase": "shuffle", "run": run, "ranks": SHUFFLE["ranks"],
+           "records": n, "record_bytes": record_bytes, "ms": ms,
+           "gb_per_s": n * record_bytes / (ms * 1e-3) / 1e9,
+           "floor_ms": floor_ms, "floor_share": floor_ms / ms,
+           "peak_bytes": peak, "bytes_reckoned": moved,
+           "passes_reckoned": sum(moved.values()) / (2 * n * record_bytes),
+           "costliest_step": max(moved, key=moved.get)}
+    rec.update(extra)
+    return rec
+
+
+def _shuffle_peak(fn):
+    """(result, peak bytes allocated): one call from a reset peak, its
+    result kept for the checks (``cuda_ms`` times the run after them,
+    with the allocator's cache warm)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated()
+
+
+def phase_shuffle():
+    """The device shuffle (this slice's path, see SHUFFLE) on a folded
+    axis of four ranks: TeraSort, WordCount, a hash exchange and an
+    overflowing one, each checked exactly on the card."""
+    free_device()
+    sh = SHUFFLE
+    r, n, width = sh["ranks"], sh["records"], sh["payload"]
+    axis = spmd.folded("shuffle", r)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    # the reckoned peak of the TeraSort, before it runs: the input, two
+    # payload buffers at twice the records (capacity factor 2; send and
+    # receive, then receive and sorted), three of keys and masks, and
+    # four of int64 indices over the padded rows
+    rows = 2 * n
+    reckoned = n * (4 + width) + 2 * rows * width + 3 * rows * 5 + \
+        4 * rows * 8
+    keys = torch.randint(0, sh["key_bound"], (n,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    payload = torch.randint(0, 256, (n, width), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    payload[:, :4] = torch.arange(n, device="cuda", dtype=torch.int32
+                                  ).view(torch.uint8).view(n, 4)
+
+    def terasort():
+        return device_terasort(axis, keys, payload,
+                               capacity_factor=sh["factor"])
+    res, peak = _shuffle_peak(terasort)
+    per = res.keys.shape[0] // r
+    k2, m2 = res.keys.view(r, per), res.valid.view(r, per)
+    counts = m2.sum(1)
+    ordered = bool(((k2[:, 1:] >= k2[:, :-1]) | ~m2[:, 1:]).all())
+    ends = [(int(k2[i, c - 1]), int(k2[i, 0])) if c else None
+            for i, c in enumerate(counts.tolist())]
+    across = all(ends[i][0] <= ends[i + 1][1] for i in range(r - 1)
+                 if ends[i] and ends[i + 1])
+    got_k, got_v = res.keys[res.valid], res.values[res.valid]
+    dropped = int(res.dropped.sum())
+    del res, k2, m2
+    idx = got_v[:, :4].contiguous().view(torch.int32).view(-1).long()
+    in_range = bool((idx >= 0).all() and (idx < n).all())
+    seen = torch.zeros(n, dtype=torch.bool, device="cuda")
+    if in_range:
+        seen[idx] = True
+    perm = in_range and got_k.shape[0] == n and bool(seen.all())
+    rows_equal = perm and torch.equal(keys[idx], got_k) and \
+        torch.equal(payload[idx], got_v)
+    np_sorted = np.array_equal(got_k.cpu().numpy(),
+                               np.sort(keys.cpu().numpy()))
+    del idx, seen, got_k, got_v
+    ms = cuda_ms(terasort, SHUFFLE["timed"])
+    # which kernels the time goes to (printed as its own line)
+    trace(terasort, 1, "shuffle_terasort")
+    rec = _shuffle_record(
+        "terasort", n, 4 + width, ms, peak,
+        _shuffle_bytes(n, 4, width, rows, True),
+        {"capacity_factor": sh["factor"], "valid_per_rank": counts.tolist(),
+         "dropped": dropped, "runs_sorted": ordered,
+         "ranks_in_order": across, "indices_a_permutation": perm,
+         "rows_equal_input": rows_equal, "equals_numpy_sort": np_sorted,
+         "peak_reckoned": reckoned, "peak_limit": sh["peak_limit"]})
+    emit(rec)
+    require(dropped == 0 and int(counts.sum()) == n,
+            f"terasort: {dropped} records dropped")
+    require(ordered and across, "terasort: a rank's run is not sorted, or "
+            "the ranks are out of order")
+    require(perm and rows_equal and np_sorted,
+            "terasort: the records are not the input's, sorted")
+    require(peak < sh["peak_limit"], f"terasort peak {peak} B")
+
+    # the hash exchange of the same records, unsorted
+
+    def exchange():
+        return device_shuffle(axis, keys, payload,
+                              capacity_factor=sh["factor"],
+                              sort_output=False)
+    res, peak = _shuffle_peak(exchange)
+    per = res.keys.shape[0] // r
+    owner = hash_partitioner(r)(res.keys).view(r, per)
+    valid = res.valid.view(r, per)
+    placed = bool(((owner == torch.arange(r, device="cuda")[:, None])
+                   | ~valid).all())
+    n_valid, dropped = int(valid.sum()), int(res.dropped.sum())
+    del res, owner, valid
+    ms = cuda_ms(exchange, SHUFFLE["timed"])
+    emit(_shuffle_record(
+        "hash_exchange", n, 4 + width, ms, peak,
+        _shuffle_bytes(n, 4, width, rows, False),
+        {"capacity_factor": sh["factor"], "valid": n_valid,
+         "dropped": dropped, "rows_on_their_hash_rank": placed}))
+    require(placed and n_valid == n and dropped == 0,
+            f"hash exchange: {n_valid} valid, {dropped} dropped, rows on "
+            f"their rank: {placed}")
+    del keys, payload
+    free_device()
+
+    # WordCount: Zipf word ids, each with a count of 1
+    vocab = sh["vocab"]
+    cdf = torch.arange(1, vocab + 1, device="cuda",
+                       dtype=torch.float64).pow(-sh["zipf"]).cumsum(0)
+    cdf /= cdf[-1].clone()
+    ids = torch.searchsorted(cdf, torch.rand(
+        n, generator=gen, device="cuda", dtype=torch.float64)).clamp_(
+            max=vocab - 1).to(torch.int32)
+    ones = torch.ones(n, device="cuda", dtype=torch.int32)
+
+    def wordcount():
+        return device_group_reduce(axis, ids, ones, op="sum",
+                                   capacity_factor=sh["factor"])
+    res, peak = _shuffle_peak(wordcount)
+    words, counts_got = res.keys[res.valid], res.values[res.valid]
+    dropped = int(res.dropped.sum())
+    once = int(torch.unique(words).numel()) == int(words.numel())
+    want = np.bincount(ids.cpu().numpy(), minlength=vocab)
+    got = np.zeros(vocab, np.int64)
+    got[words.cpu().numpy()] = counts_got.cpu().numpy()
+    counts_equal = np.array_equal(got, want)
+    n_words = int(words.numel())
+    del res, words, counts_got
+    ms = cuda_ms(wordcount, SHUFFLE["timed"])
+    emit(_shuffle_record(
+        "wordcount", n, 8, ms, peak, _shuffle_bytes(n, 4, 4, rows, True),
+        {"capacity_factor": sh["factor"], "zipf": sh["zipf"],
+         "vocab": vocab, "distinct_words": n_words,
+         "top_word_share": float(want.max() / n), "dropped": dropped,
+         "each_word_once": once, "counts_equal_numpy_bincount":
+         counts_equal}))
+    require(dropped == 0 and once and counts_equal,
+            f"wordcount: {dropped} dropped, each word once: {once}, counts "
+            f"equal: {counts_equal}")
+
+    # an exchange that overflows: every record is still accounted for
+    res = device_shuffle(axis, ids, ones,
+                         capacity_factor=sh["overflow_factor"])
+    n_valid, dropped = int(res.valid.sum()), int(res.dropped.sum())
+    emit({"phase": "shuffle", "run": "overflow", "records": n,
+          "capacity_factor": sh["overflow_factor"], "valid": n_valid,
+          "dropped": dropped})
+    require(dropped > 0 and n_valid + dropped == n,
+            f"overflow: {n_valid} valid + {dropped} dropped of {n}")
+    del res, ids, ones, cdf
+    free_device()
+
+
 def phase_dist_shapes():
     """The flash forward (and both backward kernels where the path
     differentiates through them) at DIST_SHAPES against their plain
@@ -4701,6 +5003,14 @@ def phase_trainer_mesh(dist_launches):
         data = f"{root}/tokens.bin"
         LocalFileSystem().write_all(
             data, tokens.numpy().astype(np.uint16).tobytes())
+        el = ELASTIC
+        n_el = int(el["file_batches"] * el["batch"] * (seq + 1))
+        LocalFileSystem().write_all(f"{root}/elastic.bin", torch.randint(
+            0, cfg6.vocab_size, (n_el,), generator=torch.Generator(
+            ).manual_seed(SEED + 6)).numpy().astype(np.uint16).tobytes())
+        require(free_disk > 3.2 * bytes6,
+                f"{free_disk} B free under {root}: the elastic leg keeps "
+                f"three checkpoints of {bytes6} B")
         recs, seconds = _trainer_mesh_world(root, data)
         seconds = {"world": seconds}
         launches = dict.fromkeys(dist_plans.COUNTERS, 0)
@@ -4714,8 +5024,9 @@ def phase_trainer_mesh(dist_launches):
         _mesh_resume(recs[0], root, bytes6, seconds)
         _mesh_reshard(recs[0], root, cfg6, bytes6)
         _mesh_vpp(recs[1], root, bytes8)
+        _mesh_elastic(recs[2], root, dist_launches, launches)
         require(all(r["foreign"] == [] for r in
-                    _mesh_records(recs[1], "modules", None)),
+                    _mesh_records(recs[2], "modules", None)),
                 "a rank imported jax or hadoop_tpu")
         emit({"phase": "trainer_mesh", "summary": True,
               "model": "flagship-1b", "layers": [cfg6.n_layers,
@@ -4780,6 +5091,7 @@ def _trainer_mesh_world(root, data):
                          "remat": TRAIN["remat"]}, "ops": ops}
             for layers, ops in ((tm["layers"], six),
                                 (tm["vpp_layers"], eight))]
+    jobs.append(_elastic_job(root))
     t0 = time.monotonic()
     recs = spmd.launch(dist_plans.trainer_ops, DIST["world"],
                        backend=DIST["backend"], args=(jobs,),
@@ -4788,6 +5100,141 @@ def _trainer_mesh_world(root, data):
     # per job, per op: every rank's record
     return [[list(per_op) for per_op in zip(*(r[j] for r in recs))]
             for j in range(len(jobs))], seconds
+
+
+def _elastic_job(root):
+    """The elastic leg's job (see ELASTIC): the elastic trainer, then its
+    twin restoring the protective snapshot, linked into a directory of
+    its own."""
+    el = ELASTIC
+    feed = {"n": DIST["world"], "job": "chip-smoke-elastic",
+            "flag": [[2, el["flag_at"]]], "dead": [[2, el["dead_at"]]]}
+    protective = el["flag_at"] + 1
+    base = {"op": "make", "plan": {"dp": 4}, "ckpt": f"{root}/elastic"}
+    return {
+        "preset": "flagship-1b", "overrides": {"n_layers": el["layers"]},
+        "data": f"{root}/elastic.bin", "device": "cuda", "seed": SEED,
+        "trainer": {"batch": el["batch"], "lr": TRAIN["lr"],
+                    "remat": TRAIN["remat"]},
+        "ops": [dict(base, name="e", feed=feed, kw={
+                    "zero1": True, "ckpt_interval": el["interval"],
+                    "keep": 3, "elastic": el["config"]}),
+                {"op": "train", "name": "e", "steps": el["steps"]},
+                {"op": "crash", "name": "e"},
+                {"op": "link", "name": None, "src": f"{root}/elastic",
+                 "step": protective, "dst": f"{root}/twin"},
+                dict(base, name="twin", ckpt=f"{root}/twin",
+                     kw={"zero1": True, "ckpt_interval": 0, "keep": 3}),
+                {"op": "restore", "name": "twin"},
+                {"op": "train", "name": "twin",
+                 "steps": el["steps"] - protective},
+                {"op": "crash", "name": "twin"}]}
+
+
+def _mesh_elastic(job, root, dist_launches, total):
+    """The elastic leg (see ELASTIC): one demote, one evict and one
+    restoring resume on every surviving rank, ending at dp3 at the
+    target step with fewer lost steps than a restart from the last
+    interval save; the loss curve accepted by ``loss_curve_report``
+    against the twin's and each step after the reshard within
+    ``step_rtol`` of it; the flash launches of every rank-step exact at
+    both rank shapes; the evicted rank stops at the evict."""
+    el = ELASTIC
+    runs = _mesh_records(job, "train", "e")
+    twin = _mesh_records(job, "train", "twin")
+    restored = _mesh_records(job, "restore", "twin")
+    survivors, evicted = [0, 1, 3], 2
+    lead = runs[0]
+    events = lead["events"]
+    kinds = [e["decision"] for e in events]
+    evict = next((e for e in events if e["decision"] == "evict"), {})
+    resume = next((e for e in events if e["decision"] == "resume"), {})
+    protective = el["flag_at"] + 1
+    evict_at = evict.get("step", -1)
+    baseline = evict_at - (evict_at // el["interval"]) * el["interval"]
+    twin_curve = [lead["loss_by_step"][s] for s in range(1, protective + 1)
+                  ] + twin[0]["losses"]
+    curve = [lead["loss_by_step"][s] for s in range(1, el["steps"] + 1)]
+    guard = loss_curve_report(twin_curve, curve,
+                              rel_tol=el["guard_rel_tol"])
+    after = [abs(a - b) / abs(b) for a, b in zip(curve[protective:],
+                                                  twin_curve[protective:])]
+    # flash launches a rank-step (dist_plans.COUNTERS' first four): the
+    # forward and its full-remat recompute, no partial, dQ and dK/dV,
+    # one a layer each
+    want_flash = [2 * el["layers"], 0, el["layers"], el["layers"]]
+    flash_at = {}
+    for rank, rec in enumerate(runs + twin):
+        for dp, per in zip(rec["step_dp"], rec["launches"]):
+            flash_at.setdefault(dp, set()).add(tuple(per[:4]))
+    zero1 = dist_launches["zero1_dp4"][0][0]
+    for per in lead["launches"] + twin[0]["launches"]:
+        for key, n in zip(dist_plans.COUNTERS, per):
+            total[key] += n
+    shape = {4: [el["batch"] // 4, TRAIN["seq"], 16, 8, 128],
+             3: [el["batch"] // 3, TRAIN["seq"], 16, 8, 128]}
+    step_ms = {dp: [ms for r in survivors for d, ms in
+                    zip(runs[r]["step_dp"], runs[r]["step_ms"]) if d == dp]
+               for dp in (4, 3)}
+    ck = {r: runs[r]["anatomy"].get("ckpt", runs[r]["anatomy"])
+          for r in range(DIST["world"])}
+    emit({"phase": "trainer_mesh", "plan": "elastic_zero1_dp4_to_dp3",
+          "model": "flagship-1b", "layers": el["layers"],
+          "dtype": "bfloat16", "tokens": [el["batch"], TRAIN["seq"]],
+          "remat": TRAIN["remat"], "optimizer": "adamw", "zero1": True,
+          "config": el["config"], "events": events,
+          "evicted_rank_events": runs[evicted]["events"],
+          "plan_final": lead["plan"], "step_final": lead["step"],
+          "lost_steps": resume.get("lost_steps"),
+          "lost_steps_baseline": baseline,
+          "resume_seconds_per_rank": [runs[r]["resume_seconds"]
+                                      for r in survivors],
+          "losses_elastic": curve, "losses_twin": twin_curve,
+          "step_rel_err_after_reshard": after,
+          "step_rtol": el["step_rtol"], "guard": guard,
+          "rank_shapes": shape, "flash_launches_per_rank_step": {
+              dp: sorted(v) for dp, v in flash_at.items()},
+          "launches_zero1_dp4_dist_train": zero1,
+          "step_ms_per_rank_step": {dp: v for dp, v in step_ms.items()},
+          "twin_restore_ms_per_rank": [r["ms"] for r in restored],
+          "ckpt_ms_per_rank": {r: {k: {"count": v["num_ops"],
+                                       "mean_ms": v["avg_time"] * 1e3}
+                                   for k, v in c.items()}
+                               for r, c in ck.items()},
+          "checkpoints_on_disk": list_checkpoints(LocalFileSystem(),
+                                                  f"{root}/elastic"),
+          "peak_memory_bytes_per_rank": [r.get("peak_bytes", 0)
+                                         for r in runs],
+          "evicted_rank_steps": len(runs[evicted]["launches"])})
+    require(all(runs[r]["events"] == events for r in survivors),
+            "the surviving ranks took different decisions")
+    require(kinds == ["demote", "evict", "resume"] and resume.get(
+        "restored"), f"elastic decisions {kinds}")
+    require(lead["plan"]["dp"] == 3 and all(
+        runs[r]["step"] == el["steps"] for r in survivors),
+        f"elastic run ended at {lead['plan']} step {lead['step']}")
+    require(resume.get("lost_steps", baseline) < baseline,
+            f"lost {resume.get('lost_steps')} steps, a restart "
+            f"{baseline}")
+    require(evict_at // el["interval"] * el["interval"] in
+            list_checkpoints(LocalFileSystem(), f"{root}/elastic"),
+            "the restart baseline's interval checkpoint is missing")
+    require(bool(guard.get("accepted")), f"loss-curve guard: {guard}")
+    require(all(e <= el["step_rtol"] for e in after),
+            f"steps after the reshard against the twin: {after}")
+    require(all(r["restored"] and r["step"] == protective
+                for r in restored), "the twin did not restore")
+    require(set(flash_at) == {3, 4} and all(
+        v == {tuple(want_flash)} for v in flash_at.values()),
+        f"flash launches a rank-step {flash_at}, want {want_flash}")
+    ev = runs[evicted]
+    require(ev["left_mesh"] and ev["step"] == evict_at and
+            len(ev["launches"]) == evict_at and
+            ev["events"][-1]["decision"] == "leave",
+            f"the evicted rank ran on: step {ev['step']}, "
+            f"{len(ev['launches'])} steps")
+    for run in ("elastic", "twin"):
+        shutil.rmtree(f"{root}/{run}", ignore_errors=True)
 
 
 def _mesh_launches(job, plans, dist_launches, total):
@@ -5012,6 +5459,7 @@ def main() -> int:
     dequant = phase_dequant()
     rms = phase_rmsnorm()
     ec = phase_ec()
+    phase_shuffle()
     phase_dist_shapes()
     # the dist phases before the rest: four ranks' trees share the card
     # with this process, which holds least now
@@ -5064,6 +5512,7 @@ def main() -> int:
     # launches_ulysses: the 8192-token Ulysses prefill's; launches_dist:
     # rank 0's over dist_train's eleven plans of two steps;
     # launches_trainer_mesh: rank 0's over the trainer_mesh phase's steps
+    # (the elastic leg's, its twin's and its re-run steps among them)
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))

@@ -1,6 +1,7 @@
 """The relaxed parity tier's codecs (the counterpart of
 ``hadoop_tpu/parallel/lowp``): only the per-group int8 codec and the MoE
-expert payload round trip are ported, for the serving weight plane."""
+expert payload round trip are ported, for the serving weight plane, and
+the numpy half of the A-B guard (``lowp/guard.py``)."""
 
 from hadoop_tpu_torch.parallel.lowp.quant import (WIRE_CODECS,
                                                   dequantize_array,

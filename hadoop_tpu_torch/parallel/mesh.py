@@ -5,9 +5,11 @@ the five parallel axes; ``make_mesh`` lays the world's ranks out as the
 reference reshapes its devices, row-major over (dp, pp, tp, ep, sp), and
 makes one ``torch.distributed`` process group per axis of size > 1
 (``parallel/spmd.py``); ``plan.ctx`` hands the model the axes it
-collects over. ``param_specs`` names, per dim of each leaf, the axis
-that shards it (a tuple per leaf where the reference has a
-``PartitionSpec``); ``shard_params`` cuts a full tree (from
+collects over. A mesh may take part of the world (``make_mesh``'s
+``ranks``: the elastic plane's shrunken mesh over the healthy ranks).
+``param_specs`` names, per dim of each leaf, the axis that shards it
+(a tuple per leaf where the reference has a ``PartitionSpec``);
+``shard_params`` cuts a full tree (from
 ``init_params`` or ``params_from_numpy``) into this rank's shards.
 Under interleaved pipelines (vpp > 1) the stacked layer axis is
 permuted first (``physical_layer_order``), so the contiguous pp cut
@@ -24,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,12 +125,17 @@ class MeshPlan:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on a plan's mesh: its coordinate on each axis
-    and the axis (a process group) of each axis of size > 1."""
+    """This rank's place on a plan's mesh: its position in the grid
+    (``rank``), its coordinate on each axis and the axis (a process
+    group) of each axis of size > 1. ``ranks``: the world's ranks of the
+    grid, in grid order; ``group``: an axis over all of them when they
+    are part of the world (None: the default group)."""
     plan: MeshPlan
     rank: int
     coords: Dict[str, int]
     axes: Dict[str, spmd.Axis]
+    ranks: Tuple[int, ...] = (0,)
+    group: Optional[spmd.Axis] = None
 
     def axis(self, name: str) -> Optional[spmd.Axis]:
         return self.axes.get(name)
@@ -136,34 +143,60 @@ class Mesh:
     def index(self, name: str) -> int:
         return self.coords[name]
 
+    def broadcast(self, obj: Any) -> Any:
+        """``obj`` as the grid's position 0 holds it, on every rank of
+        the mesh (a collective over them)."""
+        if len(self.ranks) == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(
+            box, src=self.ranks[0],
+            group=None if self.group is None else self.group.group)
+        return box[0]
+
 
 # the layout of a one-device plan: every coordinate 0, no axis
 ONE_RANK = Mesh(MeshPlan(), 0, dict.fromkeys(AXES, 0), {})
 
 
-def make_mesh(plan: MeshPlan) -> Mesh:
-    """The mesh of ``plan`` over the initialised ``torch.distributed``
-    world, whose size must be ``plan.n_devices``. Every rank calls it,
-    with the same plan: it makes every group of every axis, in one
-    order."""
+def make_mesh(plan: MeshPlan, ranks: Optional[Sequence[int]] = None
+              ) -> Mesh:
+    """The mesh of ``plan`` over the world's ``ranks`` (default: the whole
+    initialised ``torch.distributed`` world), which fill its grid in
+    order; there must be ``plan.n_devices`` of them. Over the whole
+    world every process calls it with the same plan (``dist.new_group``
+    is collective over the world) and makes every group of every axis,
+    in one order. Over part of the world only the processes among
+    ``ranks`` call it: each makes its own line of each axis, in axis
+    order, and one group of the whole mesh, with local synchronisation,
+    so a mesh can shrink again without the processes that left it."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialised "
                            "(spmd.launch does it)")
     world = dist.get_world_size()
-    if world != plan.n_devices:
-        raise ValueError(f"plan needs {plan.n_devices} ranks, the world "
-                         f"has {world}")
+    ranks = tuple(range(world) if ranks is None else (int(r) for r in ranks))
+    if len(ranks) != plan.n_devices:
+        raise ValueError(f"plan needs {plan.n_devices} ranks, the mesh "
+                         f"has {len(ranks)} of the world's {world}")
+    me = dist.get_rank()
+    if me not in ranks:
+        raise ValueError(f"rank {me} is not among the mesh's ranks "
+                         f"{list(ranks)}")
+    part = len(ranks) < world
     shape = tuple(plan.sizes[a] for a in AXES)
-    grid = np.arange(world).reshape(shape)
-    rank = dist.get_rank()
-    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(rank, shape))))
+    grid = np.array(ranks).reshape(shape)
     axes = {}
     for i, name in enumerate(AXES):
         if shape[i] == 1:
             continue
         lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
-        axes[name] = spmd.new_groups(name, lines.tolist())
-    return Mesh(plan, rank, coords, axes)
+        axes[name] = spmd.new_groups(name, lines.tolist(),
+                                     members_only=part)
+    group = spmd.new_groups("mesh", [ranks], members_only=True) \
+        if part else None
+    pos = ranks.index(me)
+    coords = dict(zip(AXES, (int(c) for c in np.unravel_index(pos, shape))))
+    return Mesh(plan, pos, coords, axes, ranks, group)
 
 
 def param_specs(cfg: ModelConfig, plan: MeshPlan) -> Dict[str, Any]:

@@ -19,8 +19,9 @@ An ``Axis`` has one of two kinds:
   (``[R*B, ...]``, rank r's rows r*B..(r+1)*B-1), as
   ``parallel/ring_attention.py`` has always held a ring, and a
   collective is a permute of that stack. Only the permutations
-  (``ppermute``, ``all_to_all``) exist on it: they are what context
-  parallelism needs, and their transposes agree with a group's.
+  (``ppermute``, ``all_to_all``) and the raw ``all_gather`` exist on
+  it: they are what context parallelism and the device shuffle
+  (``parallel/collectives.py``) need, and they agree with a group's.
 - **group**: a ``torch.distributed`` process group; each process holds
   its own rank's value.
 
@@ -95,18 +96,28 @@ def folded(name: str, size: int) -> Axis:
     return Axis(name, size)
 
 
-def new_groups(name: str, rank_lists: Sequence[Sequence[int]]
-               ) -> Optional[Axis]:
-    """Make one process group per list of global ranks (every process
-    calls this with the same lists, in the same order, as
-    ``dist.new_group`` requires) and return the axis this process lies
-    on, or None if it lies on none."""
+def new_groups(name: str, rank_lists: Sequence[Sequence[int]],
+               members_only: bool = False) -> Optional[Axis]:
+    """Make one process group per list of global ranks and return the
+    axis this process lies on, or None if it lies on none. Every process
+    of the world calls this with the same lists, in the same order, as
+    ``dist.new_group`` requires; with ``members_only``, only the
+    processes on the lists do, and each makes only its own list's group
+    (``use_local_synchronization``: PyTorch names such a group after its
+    ranks and the number of groups its members hold, so the members must
+    have made the same groups before)."""
     me = dist.get_rank()
     host = dist.get_backend() not in _DEVICE_BACKENDS
     mine = None
     for ranks in rank_lists:
         ranks = tuple(int(r) for r in ranks)
-        group = dist.new_group(list(ranks))
+        if members_only:
+            if me not in ranks:
+                continue
+            group = dist.new_group(list(ranks),
+                                   use_local_synchronization=True)
+        else:
+            group = dist.new_group(list(ranks))
         if me in ranks:
             mine = Axis(name, len(ranks), group, ranks, ranks.index(me),
                         host)
@@ -120,7 +131,8 @@ def _live(axis: Optional[Axis]) -> bool:
 def _need_group(axis: Axis, what: str) -> None:
     if axis.folded:
         raise ValueError(f"{what} over {axis}: a folded axis has only the "
-                         f"permutations (ppermute, all_to_all)")
+                         f"permutations (ppermute, all_to_all) and "
+                         f"all_gather_raw")
 
 
 def axis_index(axis: Optional[Axis]) -> int:
@@ -211,10 +223,20 @@ def pmax_raw(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
 def all_gather_raw(x: torch.Tensor, axis: Optional[Axis], dim: int
                    ) -> torch.Tensor:
     """Tiled all_gather: every rank's x concatenated along ``dim`` in rank
-    order; no autograd."""
+    order; no autograd. On a folded axis every rank's value is already
+    in the stack: ``dim`` is a dim of one rank's value, and the result
+    is the gathered value once a rank, stacked."""
     if not _live(axis):
         return x
-    _need_group(axis, "all_gather")
+    if axis.folded:
+        p = axis.size
+        if x.shape[0] % p:
+            raise ValueError(f"folded all_gather of {tuple(x.shape)} over "
+                             f"{p} ranks")
+        each = x.reshape(p, x.shape[0] // p, *x.shape[1:])
+        one = torch.cat(list(each.unbind(0)), dim % x.dim())
+        return one.unsqueeze(0).expand(p, *one.shape).reshape(
+            p * one.shape[0], *one.shape[1:])
     dim = dim % x.dim()
     st = _stack(x, axis).movedim(0, dim)
     shape = list(x.shape)

@@ -51,12 +51,29 @@ A MoE model trains here like a dense one: its router [L, D, E] and
 expert stacks [L, E, D, F] / [L, E, F, D] are leaves of the parameters,
 the moments and the checkpoints like any other.
 
+**The elastic plane** (``elastic``, an enabled ``ElasticConfig``, with
+``doctor_poll``): an ``ElasticController`` polls every
+``poll_steps`` steps; on a mesh the grid's position 0 polls and
+broadcasts the report on the step loop's thread, so every rank takes the
+same decision at the same step. A demote's protective save is written by
+every rank of the mesh. An eviction ends the step segment (the prefetch
+thread drains, the cursor rewinds, the writer is fenced), and
+``apply_plan`` rebuilds the trainer for the shrunken plan over the
+surviving ranks, in rank order (they make the new groups among
+themselves), then restores the newest snapshot through "reshard".
+``train(n)`` then re-runs the lost steps: its target is absolute. An
+evicted process leaves the mesh (``left_mesh``), makes no group and
+runs no more steps. The mesh's own collectives (the
+restore's step, the run's nonce, the poll's report) and a save's part
+count go over the mesh's ranks, never the default group, and a save
+names each rank by its mesh position. ``apply_plan`` alone (no
+controller) rebuilds for a plan over the mesh's first ranks.
+
 Initialisation draws from a ``torch.Generator`` seeded with ``seed``; the
 reference draws from ``PRNGKey(0)``, a different stream, so the two
 packages start from the same state only through a checkpoint. The
-relaxed parity tier (``parity``) is ROADMAP Queue A 6 item 4; the elastic
-plane (``elastic``, ``doctor_poll``, ``apply_plan``) is item 3. Both
-raise.
+relaxed parity tier (``parity``) is ROADMAP Queue A 6 item 4, and
+raises.
 """
 
 from __future__ import annotations
@@ -96,6 +113,8 @@ from hadoop_tpu_torch.parallel.checkpoint import (AsyncCheckpointWriter,
                                                   spec_paths,
                                                   write_snapshot)
 from hadoop_tpu_torch.parallel.data import TokenDataset
+from hadoop_tpu_torch.parallel.elastic import ElasticConfig
+from hadoop_tpu_torch.parallel.elastic.controller import ElasticController
 from hadoop_tpu_torch.parallel.elastic.reshard import (convert_moment,
                                                        zero1_state_shape)
 from hadoop_tpu_torch.parallel.mesh import (ONE_RANK, MeshPlan, make_mesh,
@@ -108,7 +127,6 @@ from hadoop_tpu_torch.parallel.train import (make_data_sharding,
 
 log = logging.getLogger(__name__)
 
-_ELASTIC = "ROADMAP Queue A 6 item 3 (the elastic plane)"
 _PARITY = "ROADMAP Queue A 6 item 4 (the relaxed parity tier)"
 
 
@@ -126,60 +144,42 @@ class Trainer:
                  pipeline_schedule: str = "1f1b",
                  overlap=None, parity=None,
                  async_ckpt: bool = True, rank: int = 0,
-                 elastic=None, doctor_poll=None,
+                 elastic: Optional[ElasticConfig] = None, doctor_poll=None,
                  seed: int = 0, device=None):
         if parity is not None:
             raise NotImplementedError(f"Trainer argument parity: {_PARITY}")
-        refused = [name for name, arg in (("elastic", elastic),
-                                          ("doctor_poll", doctor_poll))
-                   if arg is not None]
-        if refused:
-            raise NotImplementedError(f"Trainer arguments {refused}: "
-                                      f"{_ELASTIC}")
-        self.cfg, self.plan, self.fs = cfg, plan, fs
+        self.cfg, self.fs = cfg, fs
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
         self.ckpt_interval = ckpt_interval
         self.keep = keep
         self.batch = batch
         self.zero1 = zero1 and optimizer == "adamw"
-        if n_microbatches is None:
-            # pipeline plans need M > 1 (interleaved needs pp | M); a
-            # plan without stages runs unsplit
-            n_microbatches = max(1, plan.pp * plan.vpp)
-        plan.validate(cfg, batch, cfg.max_seq,
-                      n_microbatches=n_microbatches)
-        self.mesh = make_mesh(plan) if plan.n_devices > 1 else None
-        self.layout = self.mesh or ONE_RANK
-        self.world = dist.get_world_size() if self.mesh else 1
-        self.rank = dist.get_rank() if self.mesh else int(rank)
+        # what the step's build needs, kept for apply_plan's rebuild
+        self._n_microbatches_arg = n_microbatches
+        self._build_kwargs = dict(
+            lr=lr, optimizer=optimizer, zero1=self.zero1, remat=remat,
+            pipeline_schedule=pipeline_schedule, overlap=overlap)
+        self._seed = seed
         self.async_ckpt = async_ckpt
         self._ckpt_writer = AsyncCheckpointWriter()
         self.data = TokenDataset(fs, data_path, batch=batch,
                                  seq=cfg.max_seq, dtype=data_dtype)
-        self.step_fn = make_train_step(
-            cfg, plan, self.mesh, lr=lr, optimizer=optimizer,
-            zero1=self.zero1, remat=remat, n_microbatches=n_microbatches,
-            pipeline_schedule=pipeline_schedule, overlap=overlap,
-            device=self.device)
-        # each leaf cut to this rank's shard as it is drawn: a model that
-        # needs the plan to fit a card never stands whole on one
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = init_params(cfg, gen, self.device,
-                                  keep=shard_as_drawn(cfg, plan, self.layout))
-        # moments in this plan's layout (ZeRO-1: (K,) rows) whatever the
-        # optimizer, as the reference's state tree
-        self.opt = sharded_opt_state(self.params, cfg, plan, zero1=self.zero1)
-        self._cut = make_data_sharding(self.mesh) if self.mesh else None
-        self._spec_of = spec_paths(self._target_spec_tree())
-        # a save's token, the same on every rank: the run's nonce (rank
-        # 0's, broadcast while every rank builds its trainer) and the
-        # save's number
+        self.left_mesh = False
+        self._build_for_plan(plan)
+        self.rank = dist.get_rank() if self.mesh else int(rank)
+        # a save's token, the same on every rank: the run's nonce (the
+        # grid's position 0's, broadcast while every rank builds its
+        # trainer) and the save's number
         self._nonce, self._saves = "0", 0
         if self.mesh is not None:
-            box = [secrets.token_hex(8) if self.rank == 0 else None]
-            dist.broadcast_object_list(box, src=0)
-            self._nonce = box[0]
+            self._nonce = self.mesh.broadcast(
+                secrets.token_hex(8) if self.mesh.rank == 0 else None)
+        self.elastic = None
+        if elastic is not None and elastic.enabled:
+            poll = None if doctor_poll is None else \
+                self._mesh_poll(doctor_poll)
+            self.elastic = ElasticController(self, elastic, poll_fn=poll)
         self.step = 0
         self.losses: list = []
         # the newest loss per absolute step index
@@ -206,9 +206,96 @@ class Trainer:
         self._inflight_cursor: Optional[Dict] = None
         self._zombie_producer: Optional[threading.Thread] = None
 
+    def _build_for_plan(self, plan: MeshPlan, ranks=None) -> None:
+        """The mesh, the step, the data cut and fresh state for one plan
+        (``ranks``: the world's ranks of the mesh, this process among
+        them; None, the whole world when the plan has more than one
+        rank). What ``apply_plan`` re-runs."""
+        n_microbatches = self._n_microbatches_arg
+        if n_microbatches is None:
+            # pipeline plans need M > 1 (interleaved needs pp | M); a
+            # plan without stages runs unsplit
+            n_microbatches = max(1, plan.pp * plan.vpp)
+        plan.validate(self.cfg, self.batch, self.cfg.max_seq,
+                      n_microbatches=n_microbatches)
+        self.plan = plan
+        self.mesh = make_mesh(plan, ranks) \
+            if plan.n_devices > 1 or ranks is not None else None
+        self.layout = self.mesh or ONE_RANK
+        # the save's part count: the mesh's ranks
+        self.world = len(self.mesh.ranks) if self.mesh else 1
+        self.step_fn = make_train_step(
+            self.cfg, plan, self.mesh, n_microbatches=n_microbatches,
+            device=self.device, **self._build_kwargs)
+        # each leaf cut to this rank's shard as it is drawn: a model that
+        # needs the plan to fit a card never stands whole on one
+        gen = torch.Generator(device=self.device).manual_seed(self._seed)
+        self.params = init_params(self.cfg, gen, self.device,
+                                  keep=shard_as_drawn(self.cfg, plan,
+                                                      self.layout))
+        # moments in this plan's layout (ZeRO-1: (K,) rows) whatever the
+        # optimizer, as the reference's state tree
+        self.opt = sharded_opt_state(self.params, self.cfg, plan,
+                                     zero1=self.zero1)
+        self._cut = make_data_sharding(self.mesh) if self.mesh else None
+        self._spec_of = spec_paths(self._target_spec_tree())
+
     def apply_plan(self, new_plan: MeshPlan) -> bool:
-        raise NotImplementedError(f"apply_plan (elastic replanning): "
-                                  f"{_ELASTIC}")
+        """Rebuild this trainer for ``new_plan`` and resume from the newest
+        snapshot through reshard-on-restore (the elastic controller's
+        actuation; callable directly for a manual reshard). Not under a
+        running ``train()``. On a mesh every process of it calls this:
+        the ranks the controller evicted are left out and the others fill
+        the new grid in rank order and make its groups among themselves;
+        a process left out drops its state, leaves the mesh and returns
+        False. Returns whether a checkpoint was restored; without one the
+        state is freshly initialised and the step is 0."""
+        self._ckpt_writer.wait()   # an in-flight write lands first
+        old_step = self.step
+        ranks = None
+        if self.mesh is not None:
+            gone = self.elastic.evicted_process_ranks \
+                if self.elastic is not None else set()
+            alive = [r for r in self.mesh.ranks if r not in gone]
+            if len(alive) < new_plan.n_devices:
+                raise ValueError(f"plan {new_plan} needs "
+                                 f"{new_plan.n_devices} ranks, "
+                                 f"{len(alive)} remain: {alive}")
+            ranks = alive[:new_plan.n_devices]
+            if self.rank not in ranks:
+                self.left_mesh = True
+                self.mesh = self.step_fn = self._cut = None
+                self.params, self.opt = {}, AdamWState(0, {}, {})
+                log.info("rank %d left the mesh at step %d (%s over ranks "
+                         "%s)", self.rank, old_step, new_plan, ranks)
+                return False
+        self._build_for_plan(new_plan, ranks)
+        restored = self.try_restore()
+        if not restored:
+            self.step = 0
+            log.warning("apply_plan(%s): no checkpoint to restore; "
+                        "reinitialised from step 0 (was step %d)",
+                        new_plan, old_step)
+        return restored
+
+    def _mesh_poll(self, poll_fn):
+        """The doctor poll on a mesh: the grid's position 0 polls and
+        broadcasts the report (or its failure, raised on every rank), on
+        the step loop's thread."""
+        def poll():
+            if self.mesh is None:
+                return poll_fn()
+            got = None
+            if self.mesh.rank == 0:
+                try:
+                    got = ("report", poll_fn())
+                except Exception as e:  # noqa: BLE001 — raised below
+                    got = ("error", f"{type(e).__name__}: {e}")
+            kind, value = self.mesh.broadcast(got)
+            if kind == "error":
+                raise IOError(f"doctor poll failed: {value}")
+            return value
+        return poll
 
     # ------------------------------------------------------------ layout
 
@@ -279,7 +366,7 @@ class Trainer:
         step, fs, ckpt_dir, keep = self.step, self.fs, self.ckpt_dir, \
             self.keep
         meta = manifest_meta(self.plan, zero1=self.zero1)
-        where = dict(rank=self.rank, world=self.world,
+        where = dict(rank=self.layout.rank, world=self.world,
                      token=f"{self._nonce}.{self._saves}") \
             if self.mesh else {}
         self._saves += 1
@@ -313,7 +400,8 @@ class Trainer:
 
     def try_restore(self) -> bool:
         """Resume from the newest complete checkpoint, if any (on a mesh
-        every rank calls it at the same point: rank 0 names the step).
+        every rank calls it at the same point: the grid's position 0
+        names the step).
 
         The manifest's plan block decides the path, as in the reference:
         "same-plan" and "legacy" (no plan block; a DeprecationWarning)
@@ -324,9 +412,7 @@ class Trainer:
         self._ckpt_writer.wait()  # a restore must see the newest save
         step = latest_step(self.fs, self.ckpt_dir)
         if self.mesh is not None:
-            box = [step]
-            dist.broadcast_object_list(box, src=0)
-            step = box[0]
+            step = self.mesh.broadcast(step)
         if step is None:
             return False
         manifest = read_manifest(self.fs, self.ckpt_dir, step)
@@ -438,7 +524,32 @@ class Trainer:
 
     def train(self, n_steps: int) -> list:
         """Run ``n_steps`` more steps; returns the losses of every step
-        executed (also appended to ``losses`` and ``loss_by_step``)."""
+        executed (also appended to ``losses`` and ``loss_by_step``).
+
+        Under the elastic plane the target is absolute: an eviction ends
+        the running segment, the controller reshards onto the shrunken
+        plan, and the loop re-runs the steps lost since the restored
+        snapshot, so the call returns at ``start + n_steps`` (the list
+        holds the re-run steps too; ``loss_by_step`` the newest loss of
+        each). A process that left the mesh runs no step."""
+        if self.elastic is None:
+            return self._train_segment(n_steps)
+        target = self.step + n_steps
+        out: list = []
+        while self.step < target and not self.left_mesh:
+            out.extend(self._train_segment(target - self.step))
+            if self.elastic.pending:
+                self.elastic.resume()
+        return out
+
+    def _step(self, *args):
+        """One step of the current plan's ``step_fn`` (the loop's one call
+        site: a rebuild replaces ``step_fn``, not this)."""
+        return self.step_fn(*args)
+
+    def _train_segment(self, n_steps: int) -> list:
+        """One uninterrupted run of the step loop; it ends early only when
+        the elastic controller marks an eviction pending."""
         zombie = self._zombie_producer
         if zombie is not None:
             if zombie.is_alive():
@@ -505,7 +616,7 @@ class Trainer:
                     # the comm ledger's step window: the collective sites
                     # record this step's bytes under "trainer.step"
                     with self._comm.step("trainer.step"):
-                        self.params, self.opt, metrics = self.step_fn(
+                        self.params, self.opt, metrics = self._step(
                             self.params, self.opt, tokens, targets)
                         self.step += 1
                         self._inflight_cursor = cursor
@@ -525,6 +636,13 @@ class Trainer:
                 step_wall = time.monotonic() - t_step
                 m.step_wall.add(step_wall)
                 m.step_wall_hist.add(step_wall)
+                if self.elastic is not None and \
+                        self.step % self.elastic.cfg.poll_steps == 0 and \
+                        self.elastic.on_step(self.step):
+                    # an eviction is pending: end the segment, so the
+                    # prefetch thread drains and the cursor rewinds before
+                    # the mesh is rebuilt
+                    break
         except BaseException:
             step_failed = True
             raise

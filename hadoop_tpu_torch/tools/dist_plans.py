@@ -24,6 +24,9 @@ step) and of its gather. Both import only the port and torch (and numpy).
 
     spmd.launch(dist_plans.train_plans, 4, backend="gloo", args=([job],))
 
+``shuffle_cases(rank, world, cases)`` runs the device shuffle's entry
+points on a group axis of the whole world.
+
 ``trainer_ops(rank, world, jobs)`` drives ``Trainer`` on one world: per
 job (a model), a list of operations (make a trainer on a plan, restore, train, save,
 crash, fill the state with distinct values, gather the parameters), each
@@ -35,10 +38,14 @@ anatomy and the bytes this rank wrote.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
+import os
 import sys
 import time
 import types
+import weakref
 import zlib
 from typing import Any, Dict, List
 
@@ -48,12 +55,18 @@ import torch.distributed as dist
 
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.fs import LocalFileSystem
+from hadoop_tpu_torch.mapreduce.device_shuffle import (device_group_reduce,
+                                                       device_shuffle,
+                                                       device_terasort,
+                                                       hash_partitioner,
+                                                       sample_split_points)
 from hadoop_tpu_torch.models import config as config_mod
 from hadoop_tpu_torch.models.convert import params_from_numpy
 from hadoop_tpu_torch.models import moe
 from hadoop_tpu_torch.models.decoder import init_params
 from hadoop_tpu_torch.ops import collective_matmul, flash, norms
 from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
+from hadoop_tpu_torch.parallel.elastic import ElasticConfig
 from hadoop_tpu_torch.obs.comm import comm_runtime
 from hadoop_tpu_torch.parallel.mesh import (MeshPlan, layer_order,
                                             make_mesh, param_specs,
@@ -394,31 +407,116 @@ def _fill(t: Trainer, cfg) -> None:
 
 def _rank_bytes(path: str, rank: int) -> int:
     """The bytes of this rank's shard files in a checkpoint directory."""
-    import os
     return sum(os.path.getsize(os.path.join(path, f))
                for f in os.listdir(path) if f.startswith(f"shard_r{rank}_"))
 
 
 def _count_steps(t: Trainer, log: List[Dict[str, Any]], cuda: bool) -> None:
-    """Wrap the trainer's step so each call appends its launches, wire
-    bytes by axis and (on a card) CUDA-event ms to ``log``."""
-    step = t.step_fn
+    """Wrap the trainer's step call, whatever plan's ``step_fn`` an
+    elastic rebuild installs, so each step appends its launches, wire
+    bytes by axis, the plan's dp and (on a card) CUDA-event ms to
+    ``log``. The wrapper holds the trainer weakly: a dropped trainer's
+    state leaves the card at once."""
+    ref = weakref.ref(t)
 
     def counted(*args):
+        tr = ref()
         before, wire = _counts(), dict(spmd.traffic)
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-        out = step(*args)
+        out = tr.step_fn(*args)
         rec = {"launches": [a - b for a, b in zip(_counts(), before)],
                "traffic": {k: v - wire.get(k, 0)
-                           for k, v in spmd.traffic.items()}}
+                           for k, v in spmd.traffic.items()},
+               "dp": tr.plan.dp}
         if cuda:
             ev[1].record()
             rec["events"] = ev
         log.append(rec)
         return out
-    t.step_fn = counted
+    t._step = counted
+
+
+def _link_snapshot(src: str, step: int, dst: str) -> None:
+    """Hard-link the snapshot of ``step`` under ``src`` into ``dst``, so a
+    trainer on ``dst`` restores it as its newest."""
+    name = f"step_{step:012d}"
+    os.makedirs(f"{dst}/{name}")
+    for f in os.listdir(f"{src}/{name}"):
+        os.link(f"{src}/{name}/{f}", f"{dst}/{name}/{f}")
+
+
+def partition_by_name(name: str, n_parts: int):
+    """The partitions a shuffle case names (a rank program takes no
+    closure): "hash" (``hash_partitioner``) or "mod" (key mod n)."""
+    if name == "hash":
+        return hash_partitioner(n_parts)
+    if name == "mod":
+        return lambda keys: torch.remainder(keys, n_parts).to(torch.int32)
+    raise ValueError(f"unknown partition {name!r}")
+
+
+def shuffle_cases(rank: int, world: int, cases: List[Dict[str, Any]]
+                  ) -> List[Any]:
+    """Run each shuffle case on a group axis of the whole world and return
+    this rank's results as numpy arrays. A case: ``fn``
+    ("device_shuffle", "device_group_reduce", "device_terasort" or
+    "sample_split_points"), ``keys`` and ``values`` (numpy, every rank's
+    rows in rank order: this rank takes its cut), ``kw`` (keyword
+    arguments; ``partition`` by name, ``partition_by_name``). The last
+    entry lists the foreign modules the rank imported: none."""
+    axis = spmd.new_groups("x", [list(range(world))])
+    out = []
+    for case in cases:
+        n = case["keys"].shape[0] // world
+        keys = torch.from_numpy(case["keys"][rank * n:(rank + 1) * n])
+        kw = dict(case.get("kw", {}))
+        if "partition" in kw:
+            kw["partition"] = partition_by_name(kw["partition"], world)
+        if case["fn"] == "sample_split_points":
+            out.append(_np(sample_split_points(axis, keys, **kw)))
+            continue
+        values = torch.from_numpy(case["values"][rank * n:(rank + 1) * n])
+        fn = {"device_shuffle": device_shuffle,
+              "device_group_reduce": device_group_reduce,
+              "device_terasort": device_terasort}[case["fn"]]
+        out.append({k: _np(v) for k, v in
+                    fn(axis, keys, values, **kw)._asdict().items()})
+    out.append(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "hadoop_tpu")))
+    return out
+
+
+def scripted_doctor(step_of, feed: Dict[str, Any]):
+    """A doctor poll scripted by the trainer's step (``step_of()``), in the
+    ``trainers`` shape of ``/ws/v1/fleet/doctor``: ``feed["n"]`` ranks
+    named ``rank-<r>``; a rank of ``feed["dead"]`` (``[rank, from
+    step]`` pairs) reads ``ok: false`` from that step on, and one of
+    ``feed["flag"]`` is flagged as a straggler from its step on, unless
+    it is dead."""
+    def poll() -> Dict[str, Any]:
+        step = step_of()
+        flagged, ranks = {}, {}
+        for r in range(feed["n"]):
+            dead = any(d == r and step >= at for d, at in feed.get("dead",
+                                                                 ()))
+            ranks[f"rank-{r}"] = {"ok": not dead, "rank": r,
+                                  "job": feed.get("job", "elastic")}
+            if not dead and any(f == r and step >= at
+                                for f, at in feed.get("flag", ())):
+                flagged[f"rank-{r}"] = {"node": f"rank-{r}",
+                                        "signals": ["trainer.step_wall"]}
+        return {"trainers": {"flagged": flagged, "ranks": ranks}}
+    return poll
+
+
+def elastic_events(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """A controller's events without their timing fields (``time``,
+    ``resume_seconds``) and the config each carries."""
+    return [{k: v for k, v in ev.items()
+             if k not in ("time", "resume_seconds", "config")}
+            for ev in events]
 
 
 def trainer_ops(rank: int, world: int, jobs: List[Dict[str, Any]]
@@ -430,12 +528,21 @@ def trainer_ops(rank: int, world: int, jobs: List[Dict[str, Any]]
     ``ops``: dicts of ``op`` and ``name`` (the trainer's), and
 
     - "make": ``plan`` (MeshPlan kwargs), ``ckpt`` (its directory),
-      ``kw`` (more Trainer kwargs); with ``check_init``, whether the
-      trainer's state is ``init_sharded`` of the full tree drawn from the
-      same seed, bit for bit (``init_equal``);
-    - "restore", "save" (``dir``: save under another directory), "crash"
-      (close and drop it, as a crash leaves it), "fill" (``_fill``);
+      ``kw`` (more Trainer kwargs; ``elastic``: ElasticConfig kwargs),
+      ``feed`` (a ``scripted_doctor`` feed, the elastic trainer's
+      doctor); with ``check_init``, whether the trainer's state is
+      ``init_sharded`` of the full tree drawn from the same seed, bit
+      for bit (``init_equal``);
+    - "restore", "save" (``dir``: save under another directory),
+      "crash" (close and drop it, as a crash leaves it), "fill"
+      (``_fill``);
+    - "link" (no trainer; rank 0): hard-link the snapshot of ``step``
+      under ``src`` into the directory ``dst``, before a later "make"
+      on it (whose collective orders the ranks after the link);
     - "train": ``steps`` (and ``ckpt_interval``, set first when given);
+      an elastic trainer's record adds its events (``elastic_events``),
+      its resumes' seconds, its plan, whether it left the mesh and its
+      newest loss by step;
     - "gather": ``which`` ("params", "mu" or "nu"; the moments of a
       plan without ZeRO-1) in checkpoint layer order, a ``sample`` of
       flat indices per leaf or every element (rank 0 keeps them).
@@ -469,6 +576,12 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         t = live.get(name)
         if kind == "make":
             kw = dict(job.get("trainer", {}), **op.get("kw", {}))
+            if "elastic" in kw:
+                kw["elastic"] = ElasticConfig(**kw["elastic"])
+            if "feed" in op:
+                kw["doctor_poll"] = scripted_doctor(
+                    functools.partial(lambda n: live[n].step, name),
+                    op["feed"])
             t = live[name] = Trainer(cfg, MeshPlan(**op["plan"]), fs,
                                      job["data"], op["ckpt"],
                                      seed=job.get("seed", 0), device=dev,
@@ -487,6 +600,9 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                     torch.equal(a, b) for a, b in zip(got, ref))
         elif kind == "restore":
             rec["restored"] = t.try_restore()
+        elif kind == "link":
+            if rank == 0:
+                _link_snapshot(op["src"], op["step"], op["dst"])
         elif kind == "train":
             if "ckpt_interval" in op:
                 t.ckpt_interval = op["ckpt_interval"]
@@ -498,9 +614,18 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
             steps = logs[name]
             rec["launches"] = [s["launches"] for s in steps]
             rec["traffic"] = [s["traffic"] for s in steps]
+            rec["step_dp"] = [s["dp"] for s in steps]
             if cuda:
                 rec["step_ms"] = [s["events"][0].elapsed_time(
                     s["events"][1]) for s in steps]
+            if t.elastic is not None:
+                rec["events"] = elastic_events(t.elastic.events)
+                rec["resume_seconds"] = [
+                    e["resume_seconds"] for e in t.elastic.events
+                    if e["decision"] == "resume"]
+                rec["plan"] = dataclasses.asdict(t.plan)
+                rec["left_mesh"] = t.left_mesh
+                rec["loss_by_step"] = dict(t.loss_by_step)
             rec["comm"] = {site: list(v) for site, v in
                            comm_runtime().profile("trainer.step").items()}
             rec["comm_report"] = comm_runtime().report()
@@ -515,6 +640,10 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         elif kind == "crash":
             t.close()
             del live[name], logs[name]
+            t = None
+            # an elastic trainer and its controller refer to each other:
+            # collect them now, so the state leaves the card
+            gc.collect()
         elif kind == "fill":
             _fill(t, cfg)
         elif kind == "gather":

@@ -316,6 +316,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.parallel.overlap\n"
         "import hadoop_tpu_torch.ops.collective_matmul\n"
         "import hadoop_tpu_torch.tools.dist_plans\n"
+        "import hadoop_tpu_torch.parallel.collectives\n"
+        "import hadoop_tpu_torch.mapreduce.device_shuffle\n"
+        "import hadoop_tpu_torch.parallel.elastic.controller\n"
+        "import hadoop_tpu_torch.parallel.lowp.guard\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -353,9 +357,22 @@ def test_port_sources_name_no_jax():
                 "ops/csrc/ec_gf256.cu", "parallel/spmd.py",
                 "parallel/ulysses.py", "parallel/overlap.py",
                 "ops/collective_matmul.py", "tools/dist_plans.py",
-                "parallel/pipeline.py"):
+                "parallel/pipeline.py", "parallel/collectives.py",
+                "mapreduce/device_shuffle.py",
+                "parallel/elastic/controller.py", "parallel/lowp/guard.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
         hits = bad.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A later top-level definition of a name in chip_smoke.py would
+    replace an earlier phase's helper for every caller."""
+    import ast
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [node.name for node in tree.body
+             if isinstance(node, (ast.FunctionDef, ast.ClassDef))]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, twice

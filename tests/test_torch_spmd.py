@@ -159,10 +159,16 @@ def test_spawned_ranks_import_no_jax_and_no_jax_package(drill):
 
 
 def test_folded_axis_has_only_the_permutations():
+    """A folded axis has the permutations and the raw all_gather (every
+    rank's value is already in the stack: the gathered value once a
+    rank, stacked), and refuses the sums and axis_index."""
     axis = spmd.folded("sp", 2)
-    x = torch.zeros(4, 2, 4, 2)
+    x = torch.arange(64.0).reshape(4, 2, 4, 2)
+    ranks = x.reshape(2, 2, 2, 4, 2)
+    one = torch.cat([ranks[0], ranks[1]], dim=1)
+    assert torch.equal(spmd.all_gather_raw(x, axis, 1),
+                       torch.cat([one, one]))
     for fn in (lambda: spmd.psum_raw(x, axis),
-               lambda: spmd.all_gather_raw(x, axis, 1),
                lambda: spmd.psum_scatter_raw(x, axis, 1),
                lambda: spmd.axis_index(axis)):
         with pytest.raises(ValueError, match="folded"):

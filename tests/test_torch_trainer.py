@@ -26,7 +26,8 @@ from hadoop_tpu_torch.fs import LocalFileSystem
 from hadoop_tpu_torch.models import config
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer
 from hadoop_tpu_torch.parallel import checkpoint as ckpt
-from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel import optimizer, spmd
+from hadoop_tpu_torch.parallel.elastic import ElasticConfig
 from hadoop_tpu_torch.parallel.mesh import (AXES, Mesh, param_specs,
                                             shard_params)
 from hadoop_tpu_torch.parallel.overlap import OverlapConfig
@@ -250,46 +251,69 @@ def two_ranks(tmp_path_factory):
     dict(plan=MeshPlan(dp=2)), dict(plan=MeshPlan(tp=2)), dict(zero1=True),
     dict(n_microbatches=2), dict(pipeline_schedule="interleaved"),
     dict(overlap=OverlapConfig(bucket_mb=1)), dict(parity=object()),
-    dict(elastic=object()), dict(doctor_poll=lambda: None)],
+    dict(elastic=ElasticConfig(enabled=True, poll_steps=1)),
+    dict(doctor_poll=lambda: {"trainers": {}})],
     ids=lambda kw: next(iter(kw)))
 def test_trainer_refuses_what_queue_a6_brings(fs, token_file, port_curve,
                                               request, kw):
-    """What ROADMAP Queue A 6 item 1 lifted now trains (the name stays
-    from when all of it raised): a plan of two ranks within the curve
-    tolerance of the one-device run (``tests/test_torch_trainer_mesh.py``
-    holds the mesh against the reference), and ZeRO-1, microbatches,
-    a pipeline schedule or an overlap config on one device exactly on its
-    curve. The relaxed parity tier (item 4) and the elastic plane (item
-    3) still raise, naming their items."""
+    """What ROADMAP Queue A 6 items 1 and 3 lifted now trains (the name
+    stays from when all of it raised): a plan of two ranks within the
+    curve tolerance of the one-device run
+    (``tests/test_torch_trainer_mesh.py`` holds the mesh against the
+    reference), and ZeRO-1, microbatches, a pipeline schedule, an
+    overlap config, an enabled elastic plane polling a clear doctor
+    feed every step, or a doctor poll without one, on one device exactly
+    on its curve (``tests/test_torch_elastic.py`` holds the plane
+    against the reference). The relaxed parity tier (item 4) still
+    raises, naming its item."""
     plan = kw.pop("plan", MeshPlan())
     if plan != MeshPlan():
         losses = request.getfixturevalue("two_ranks")[
             "dp2" if plan.dp == 2 else "tp2"]
         np.testing.assert_allclose(losses, port_curve[:2], rtol=2e-4)
         return
-    lifted = {"zero1", "n_microbatches", "pipeline_schedule", "overlap"}
+    lifted = {"zero1", "n_microbatches", "pipeline_schedule", "overlap",
+              "elastic", "doctor_poll"}
     if set(kw) <= lifted:
+        polls = []
+        if "elastic" in kw:       # a clear feed: no rank flagged or dead
+            kw["doctor_poll"] = lambda: polls.append(1) or {"trainers": {
+                "flagged": {}, "ranks": {"rank-0": {"ok": True}}}}
         t = _port(fs, token_file, "/pckpt/lifted", **kw)
         np.testing.assert_allclose(t.train(2), port_curve[:2], rtol=1e-6)
+        if "elastic" in kw:
+            assert len(polls) == 2 and t.elastic.events == []
+            assert t.plan == MeshPlan() and t.step == 2
+        else:
+            assert t.elastic is None
         t.close()
         return
-    item = "item 4" if "parity" in kw else "item 3"
+    item = "item 4"
     with pytest.raises(NotImplementedError, match=f"Queue A 6 {item}"):
         Trainer(config.get_config("tiny"), plan, fs, token_file, "/pckpt/r",
                 batch=BATCH, device="cpu", **kw)
 
 
 def test_refusals_name_their_queue_item(fs, token_file):
-    """``apply_plan`` (the elastic plane, item 3) and the streaming
-    ``leaf_transform`` onto a mesh (its caller is the engine's tp plan,
-    item 2) raise naming their items. The sharded placement the other
-    cases refused before the mesh slice now loads: on a one-rank layout
-    it gives the plain load's tensors, and on a rank of dp2×tp2 that
-    rank's shards (``shard_params``)."""
+    """The streaming ``leaf_transform`` onto a mesh (its caller is the
+    engine's tp plan, item 2) raises naming its item. ``apply_plan``
+    (the elastic plane, item 3, which raised here before) now rebuilds
+    the trainer and restores the newest save bit for bit on one device.
+    The sharded placement the other cases refused before the mesh slice
+    now loads: on a one-rank layout it gives the plain load's tensors,
+    and on a rank of dp2×tp2 that rank's shards (``shard_params``)."""
     t = _port(fs, token_file, "/pckpt/refuse")
-    with pytest.raises(NotImplementedError, match="Queue A 6 item 3"):
-        t.apply_plan(MeshPlan())
+    t.train(1)
     t.save()
+    saved = [x.clone() for x in optimizer.tree_leaves(t.params)] + [
+        x.clone() for m in (t.opt.mu, t.opt.nu)
+        for x in optimizer.tree_leaves(m)]
+    t.train(1)
+    assert t.apply_plan(MeshPlan()) and t.step == 1 and t.mesh is None
+    now = optimizer.tree_leaves(t.params) + [
+        x for m in (t.opt.mu, t.opt.nu) for x in optimizer.tree_leaves(m)]
+    assert len(now) == len(saved)
+    assert all(torch.equal(a, b) for a, b in zip(now, saved))
     like = {"params": t.params}
     one = Mesh(MeshPlan(), 0, dict.fromkeys(AXES, 0), {})
     specs = param_specs(t.cfg, MeshPlan())
