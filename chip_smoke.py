@@ -73,14 +73,27 @@ at full width on four
 ranks started by ``spmd.launch``, each a process on this one card in a
 gloo world (NCCL takes no two ranks on one GPU; the collectives and
 pipeline hops travel through host memory): flagship-1b as dp2×tp2, with
-Megatron-SP, dp2×sp2 as ring and as Ulysses, ZeRO-1 dp4 (6 layers),
-and the pipelines pp4 1F1B, dp2×pp2×vpp2 interleaved, pp2×tp2 GPipe
-with Megatron-SP and ZeRO-1 dp2×pp2 (8 layers); mixtral-8x7b as
+Megatron-SP, dp2×sp2 as ring and as Ulysses, ZeRO-1 dp4, and the
+pipelines pp4 1F1B, dp2×pp2×vpp2 interleaved, pp2×tp2 GPipe with
+Megatron-SP and ZeRO-1 dp2×pp2 (4 layers); mixtral-8x7b as
 dp2×ep2 and ep2×tp2 (1 layer): one float32 step against the
 single-device step at the same depth, then two bf16 AdamW steps with
 their launches pinned per rank and stage and the pipelines' stashed
 stage inputs bounded; ``dist_shapes`` times the flash kernels at those
-ranks' shapes. Then ``Trainer`` on a mesh (phase ``trainer_mesh``, see
+ranks' shapes. The four-rank phases (``tp_serving``, ``dist_parity``,
+``dist_train``, ``trainer_mesh``) share one world
+(``phase_dist_world``: the single-device references first, then the
+world's four stages, then each phase's gates; ``stages=`` runs a
+subset on a world of its own). First, serving on four ranks (phase
+``tp_serving``, see TP_SERVING): ``DecodeEngine`` under a tensor-parallel
+plan and over expert shards, one rank driving and three following,
+flagship-1b float32 at tp 2 and tp 4 (tokens equal the single-device
+engine's, every rank's steps bit-equal), llama3-70b at full width and 8
+layers at tp 4, mixtral-8x7b at 2 layers over 4 expert shards, under
+tp 2 and on the int8 plane (first-token logits within 2e-2 of the
+single-device engine's), with TTFT, step ms, tokens/s, peak memory and
+the wire bytes a step; a control leg (mixtral under tp 2 with a tp
+partial dropped) must read outside 2e-2. Then ``Trainer`` on a mesh (phase ``trainer_mesh``, see
 TRAINER_MESH): four ranks with checkpoints written by every rank under
 one manifest, a dp2×tp2 crash and bit-equal resume, a ZeRO-1 dp4
 checkpoint restored into dp2×tp2 through the reshard, an interleaved
@@ -107,7 +120,8 @@ phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
 MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
 prefill; ``launches_dist``: rank 0's in dist_train's eleven plans of
 two steps; ``launches_trainer_mesh``: rank 0's over trainer_mesh's
-steps), its error and its times; the last line is
+steps; ``launches_tp_serving``: rank 0's over tp_serving's legs), its
+error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
 prints no result. It needs a CUDA device and exits non-zero without
@@ -447,11 +461,12 @@ MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
 # (parallel/spmd.py): the kernels and shapes are each rank's, the times
 # are four ranks on one card, not a multi-GPU deployment's, and no
 # pipeline bubble a deployment would see. DIST_PLANS gives each plan its
-# model and depth (full width always): flagship-1b at 6 of its 18 layers
-# for the dp / tp / sp / ZeRO-1 plans (at 4 layers the two phases took 75
-# and 85 s of host transport and setup on an H100 80GB HBM3, so full
-# depth would add ~470 s), at 8 for the pipeline plans (18 layers divide
-# by neither pp 4 nor pp*vpp 4); mixtral-8x7b at 1 layer (a dp2 x ep2
+# model and depth (full width always): flagship-1b at 4 of its 18 layers
+# for every plan, which pp 4 and pp*vpp 4 divide (18 divides by neither;
+# the plans ran at 6 and 8 layers until the tp_serving phase needed their
+# time: at 4 layers the two phases took 75 and 85 s of host transport and
+# setup on an H100 80GB HBM3 before the pipeline plans came, so full
+# depth would add ~470 s); mixtral-8x7b at 1 layer (a dp2 x ep2
 # rank holds ~1.0e9 parameters, ~1.2e10 B with AdamW, so four ranks fit
 # the card and not at 2 layers; ep2 x tp2 would fit 2, but the plans' two
 # phases ran 587 s at 2 and 3 steps, too long beside the script's other
@@ -495,25 +510,25 @@ MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
 DIST = dict(world=4, backend="gloo", sample=4096,
             sgd_lr=1e-2, parity_tol=5e-4, adamw_update_tol=0.1,
             adamw_eps=1e-8, adamw_wd=0.1, parity_factor=4.0,
-            train_steps=2, loss_rtol=1e-2, timeout=1200)
+            train_steps=2, loss_rtol=1e-2)
 # (name, model, layers, mesh, pipeline options); a "zero1" plan trains
 # with ZeRO-1 AdamW
 DIST_PLANS = [
-    ("dp2_tp2", "flagship-1b", 6, {"dp": 2, "tp": 2}, {}),
-    ("dp2_tp2_megatron_sp", "flagship-1b", 6,
+    ("dp2_tp2", "flagship-1b", 4, {"dp": 2, "tp": 2}, {}),
+    ("dp2_tp2_megatron_sp", "flagship-1b", 4,
      {"dp": 2, "tp": 2, "megatron_sp": True}, {}),
-    ("dp2_sp2_ring", "flagship-1b", 6, {"dp": 2, "sp": 2}, {}),
-    ("dp2_sp2_ulysses", "flagship-1b", 6,
+    ("dp2_sp2_ring", "flagship-1b", 4, {"dp": 2, "sp": 2}, {}),
+    ("dp2_sp2_ulysses", "flagship-1b", 4,
      {"dp": 2, "sp": 2, "sp_mode": "ulysses"}, {}),
-    ("zero1_dp4", "flagship-1b", 6, {"dp": 4}, {}),
-    ("pp4_1f1b", "flagship-1b", 8, {"pp": 4}, {"n_microbatches": 4}),
-    ("dp2_pp2_vpp2_interleaved", "flagship-1b", 8,
+    ("zero1_dp4", "flagship-1b", 4, {"dp": 4}, {}),
+    ("pp4_1f1b", "flagship-1b", 4, {"pp": 4}, {"n_microbatches": 4}),
+    ("dp2_pp2_vpp2_interleaved", "flagship-1b", 4,
      {"dp": 2, "pp": 2, "vpp": 2},
      {"n_microbatches": 2, "pipeline_schedule": "interleaved"}),
-    ("pp2_tp2_megatron_sp_gpipe", "flagship-1b", 8,
+    ("pp2_tp2_megatron_sp_gpipe", "flagship-1b", 4,
      {"pp": 2, "tp": 2, "megatron_sp": True},
      {"n_microbatches": 2, "pipeline_schedule": "gpipe"}),
-    ("zero1_dp2_pp2", "flagship-1b", 8, {"dp": 2, "pp": 2},
+    ("zero1_dp2_pp2", "flagship-1b", 4, {"dp": 2, "pp": 2},
      {"n_microbatches": 2}),
     ("dp2_ep2", "mixtral-8x7b", 1, {"dp": 2, "ep": 2}, {}),
     ("ep2_tp2", "mixtral-8x7b", 1, {"ep": 2, "tp": 2}, {}),
@@ -545,10 +560,12 @@ DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
 # (M 2) at ``vpp_layers`` (which pp·vpp divides): ``vpp_steps``, a save,
 # one more step, and a fresh trainer restoring and taking it. A token
 # file of ``file_batches`` batches; samples of ``sample`` flat indices a
-# leaf.
-TRAINER_MESH = dict(layers=6, vpp_layers=8, steps=4, crash_at=3,
+# leaf. Both models at 4 layers, dist_train's depth, whose launches a
+# rank-step must equal (6 and 8 until the tp_serving phase needed the
+# time).
+TRAINER_MESH = dict(layers=4, vpp_layers=4, steps=4, crash_at=3,
                     interval=2, z1_steps=2, vpp_steps=2, file_batches=4.5,
-                    sample=4096, timeout=1200)
+                    sample=4096)
 # The elastic leg of the trainer_mesh world (the reference's
 # benchmarks/flight_smoke.py elastic leg at flagship-1b width): ZeRO-1
 # dp4 at ``layers`` and global batch [``batch``, 2048] (12 divides by 4
@@ -563,8 +580,9 @@ TRAINER_MESH = dict(layers=6, vpp_layers=8, steps=4, crash_at=3,
 # the newest), for the steps after it. ``step_rtol``: each step after
 # the reshard against the twin's (the reference dryrun's acceptance,
 # __graft_entry__.py); ``guard_rel_tol``: loss_curve_report's, as the
-# reference's smoke.
-ELASTIC = dict(layers=6, batch=12, steps=8, interval=4, flag_at=4,
+# reference's smoke. At 4 layers (6 until the tp_serving phase needed the
+# time).
+ELASTIC = dict(layers=4, batch=12, steps=8, interval=4, flag_at=4,
                dead_at=6, file_batches=10.5, step_rtol=5e-4,
                guard_rel_tol=0.25,
                config=dict(enabled=True, poll_steps=1, min_dp=1,
@@ -4574,6 +4592,420 @@ def phase_dist_shapes():
         free_device()
 
 
+# The tp_serving phase: DecodeEngine on four gloo ranks sharing the card
+# (spmd.launch, dist_plans.serve_plans; every collective through host
+# memory, the eager step), each leg against the port's single-device
+# engine on the same weights, run eagerly in this process first and
+# freed. (a) flagship-1b float32 at full depth at tp 2 (×dp 2: two
+# copies run the same steps; speculation k 2) and at tp 4: two prompts
+# share a ``head``-token head (the radix maps its pages), a small pool
+# forces a preemption, one request samples. (b) llama3-70b at full
+# width, bf16, ``depth`` of 80 layers, tp 4. (c) mixtral-8x7b at full
+# width, bf16, 2 of 32 layers (the moe_train cut): 4 expert shards over
+# the four ranks, MoE under tp 2 (×dp 2), and the int8 plane over 4
+# shards. (b) and (c): ``prompts`` prompts of ``prompt_len`` tokens,
+# ``max_new`` greedy tokens each; each prompt's first-token logits within
+# ``tol`` (max |d| / max |ref|) of the single device's, and the tokens
+# equal up to the first the single device decided by a top-2 gap under
+# ``tol`` of its row's largest logit.
+TP_SERVING = dict(tol=2e-2, seed=SEED + 50, block_size=16, device="cuda")
+TP_FLAGSHIP = dict(model="flagship-1b", head=64, tails=(16, 24), other=40,
+                   sampled=100, max_new=16, temperature=0.8, top_k=50,
+                   engine=dict(max_batch=2, num_blocks=9, prefill_chunk=16,
+                               max_context=256))
+TP_LARGE = dict(prompts=4, prompt_len=512, max_new=32,
+                engine=dict(max_batch=4, prefill_chunk=128,
+                            max_context=640))
+# (leg, model, layers, placement, int8, engine options)
+TP_LEGS = [
+    ("flagship_tp2_speculate", "flagship-1b", None, {"plan": {"tp": 2,
+                                                           "dp": 2}},
+     False, {"speculate_k": 2}),
+    ("flagship_tp4", "flagship-1b", None, {"plan": {"tp": 4}}, False, {}),
+    ("llama3_70b_tp4", "llama3-70b", 8, {"plan": {"tp": 4}}, False, {}),
+    ("mixtral_shards4", "mixtral-8x7b", 2, {"group": 4}, False,
+     {"moe_shards": 4}),
+    ("mixtral_tp2", "mixtral-8x7b", 2, {"plan": {"tp": 2, "dp": 2}}, False,
+     {}),
+    ("mixtral_int8_shards4", "mixtral-8x7b", 2, {"group": 4}, True,
+     {"moe_shards": 4}),
+]
+TP_CAVEAT = ("four ranks on one card, host transport, not a multi-GPU "
+             "number")
+# The control: ``of``'s job with each rank's attention output left out of
+# the other ranks' sum (every rank adds only its own partial). Its
+# first-token logits must fall outside ``tol`` of the single device's: how
+# far a wrong engine reads beside the legs that pass.
+TP_CONTROL = dict(leg="mixtral_tp2_dropped_partial", of="mixtral_tp2")
+
+
+def _tp_flagship_ops(vocab):
+    """Leg (a)'s script: A prefills; B (A's head, another tail) joins
+    after A's first token and is preempted when the pool runs dry; C and
+    a sampled request wait for a lane."""
+    f = TP_FLAGSHIP
+    gen = torch.Generator().manual_seed(SEED + 51)
+
+    def draw(n):
+        return torch.randint(0, vocab, (n,), generator=gen).tolist()
+    head = draw(f["head"])
+    a, b = (head + draw(n) for n in f["tails"])
+    return [{"op": "submit", "prompts": [a], "max_new": f["max_new"]},
+            {"op": "until_first", "req": 0},
+            {"op": "submit", "prompts": [b, draw(f["other"])],
+             "max_new": f["max_new"]},
+            {"op": "submit", "prompts": [draw(f["sampled"])],
+             "max_new": f["max_new"], "temperature": f["temperature"],
+             "top_k": f["top_k"]},
+            {"op": "drain"}]
+
+
+def _tp_large_ops(vocab):
+    gen = torch.Generator().manual_seed(SEED + 52)
+    t = TP_LARGE
+    return [{"op": "submit", "max_new": t["max_new"],
+             "prompts": [torch.randint(0, vocab, (t["prompt_len"],),
+                                       generator=gen).tolist()
+                         for _ in range(t["prompts"])]},
+            {"op": "drain"}]
+
+
+def _tp_leg_config(model, layers, flagship):
+    over = {"dtype": "float32"} if flagship else {"n_layers": layers}
+    return over, get_config(model, **over)
+
+
+def _tp_single(model, over, cfg, int8_from, kw, ops):
+    """The single-device engine's eager run of ``ops`` (the driver's own
+    code, ``StepProbe`` on it): its record, and the float tree it drew
+    (for the int8 plane's reference) unless it was the int8 run."""
+    dev = TP_SERVING["device"]
+    if int8_from is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            TP_SERVING["seed"]), device=dev)
+        run_params = params
+    else:
+        params = None
+        run_params, _ = weightplane.quantize_params(
+            int8_from, cfg, weightplane.WeightPlaneConfig(tier="relaxed"))
+    eng = DecodeEngine(run_params, cfg, block_size=TP_SERVING["block_size"],
+                       device=dev, **kw)
+    eng._launch_step = eng._step_eager
+    probe = dist_plans.StepProbe(eng)
+    rec = {"step_ms": [], "fused": [], "launches": [], "traffic": []}
+    t0 = time.monotonic()
+    dist_plans._drive(eng, {"ops": ops}, rec, dev == "cuda")
+    rec["serve_s"] = time.monotonic() - t0
+    rec["first_logits"] = [probe.first[i] for i in rec["ids"]]
+    rec["gaps"] = [probe.gaps[i] for i in rec["ids"]]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if dev == "cuda" else None
+    eng.stop()
+    del eng, probe, run_params
+    free_device()
+    return rec, params
+
+
+def _tp_references():
+    """Every leg's single-device run, by (model, int8), and the scripts."""
+    refs, ops = {}, {}
+    for leg, model, layers, _, int8, extra in TP_LEGS:
+        flagship = model == TP_FLAGSHIP["model"]
+        over, cfg = _tp_leg_config(model, layers, flagship)
+        ops[leg] = (_tp_flagship_ops if flagship else _tp_large_ops)(
+            cfg.vocab_size)
+        if (model, int8) in refs:
+            continue
+        kw = dict(TP_FLAGSHIP["engine"] if flagship else TP_LARGE["engine"])
+        if TP_SERVING["device"] == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        rec, params = _tp_single(model, over, cfg, None, kw, ops[leg])
+        refs[model, False] = rec
+        if any(m == model and q for _, m, _, _, q, _ in TP_LEGS):
+            if TP_SERVING["device"] == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            refs[model, True], _ = _tp_single(model, over, cfg, params, kw,
+                                              ops[leg])
+        del params
+        free_device()
+    return refs, ops
+
+
+def _agree(got, want, gaps, tie):
+    """How far ``got`` follows ``want``: the first index where they
+    differ (or their length), and whether every earlier token is equal
+    where the single device's top-2 gap was at least ``tie``."""
+    n = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    close = next((j for j, g in enumerate(gaps) if g < tie), len(gaps))
+    return n, n >= min(close, len(want))
+
+
+def _tp_record(leg, model, layers, where, int8, speculate, ranks, ref,
+               ops):
+    """One leg's line and gates, against its single-device run ``ref``."""
+    drv = ranks[0]
+    cfg = get_config(model, **_tp_leg_config(
+        model, layers, model == TP_FLAGSHIP["model"])[0])
+    decode = [ms for ms, f in zip(drv["step_ms"], drv["fused"]) if not f]
+    fused = [ms for ms, f in zip(drv["step_ms"], drv["fused"]) if f]
+    n_tok = sum(len(t) for t in drv["tokens"])
+    wire = {}
+    for step in drv["traffic"]:
+        for axis, b in step.items():
+            wire[axis] = wire.get(axis, 0) + b / len(drv["traffic"])
+    groups = [2 if f else 1 for f in drv["fused"]]
+    rms_want = [(2 * cfg.n_layers + 1) * g for g in groups]
+    deq_want = [7 * cfg.n_layers if int8 else 0] * len(groups)
+    rec = {"phase": "tp_serving", "leg": leg, "model": model,
+           "layers": cfg.n_layers, "dtype": cfg.dtype, "int8": int8,
+           "placement": where, "mesh": drv["mesh"], "caveat": TP_CAVEAT,
+           "transport": "gloo, collectives through host memory",
+           "tokens": drv["tokens"], "tokens_single_device": ref["tokens"],
+           "preemptions": drv["preemptions"],
+           "prefix_tokens_reused": drv["reused"],
+           "ttft_ms": drv["ttft_ms"],
+           "ttft_ms_single_device": ref["ttft_ms"],
+           "decode_step_ms": decode, "fused_step_ms": fused,
+           "decode_step_ms_mean": sum(decode) / max(1, len(decode)),
+           "decode_step_ms_single_device": [
+               ms for ms, f in zip(ref["step_ms"], ref["fused"]) if not f],
+           "tokens_per_s": n_tok / (drv["serve_ms"] / 1e3),
+           "tokens_per_s_single_device": n_tok / ref["serve_s"],
+           "serve_s_per_rank": [r["serve_ms"] / 1e3 for r in ranks],
+           "setup_s_per_rank": [r["setup_ms"] / 1e3 for r in ranks],
+           "peak_memory_bytes_per_rank": [r["peak_bytes"] for r in ranks],
+           "peak_memory_bytes_single_device": ref["peak_bytes"],
+           "wire_bytes_per_step_by_axis": wire,
+           "launches_per_step": drv["launches"],
+           "rms_norm_fwd_want": rms_want, "dequant_want": deq_want,
+           "weight_plane": drv["weight_plane"]}
+    require(all(r["error"] is None for r in ranks) and
+            [r["mesh"]["driver"] for r in ranks] == [True] + [False] * 3
+            and all(r["followed_steps"] == len(drv["step_ms"])
+                    for r in ranks[1:]),
+            f"{leg}: a rank failed or did not follow every step: "
+            f"{[r['error'] for r in ranks]}")
+    require([n for n, _ in drv["launches"]] == rms_want and
+            [n for _, n in drv["launches"]] == deq_want,
+            f"{leg}: RMSNorm / dequantize launches a step "
+            f"{drv['launches']}, expected {rms_want} / {deq_want}")
+    if model == TP_FLAGSHIP["model"]:
+        temps = [o.get("temperature", 0.0) for o in ops
+                 if o["op"] == "submit" for _ in o["prompts"]]
+        greedy = [i for i, t in enumerate(temps) if t <= 0]
+        agree = [_agree(drv["tokens"][i], ref["tokens"][i],
+                        ref["gaps"][i], TIE_REL) for i in greedy]
+        rec["tokens_agree"] = [n for n, _ in agree]
+        rec["ranks_digests_equal"] = all(r["digests"] == drv["digests"]
+                                         for r in ranks[1:])
+        emit(rec)
+        require(all(ok for _, ok in agree),
+                f"{leg}: greedy tokens {drv['tokens']} against the single "
+                f"device's {ref['tokens']} (a difference only at a "
+                f"near-tie of {TIE_REL})")
+        require(rec["ranks_digests_equal"] and len(drv["digests"]) ==
+                len(drv["step_ms"]),
+                f"{leg}: the ranks' step outputs or step state differ")
+        # speculation's accepted drafts finish A sooner: its run may
+        # never run the pool dry
+        require((max(drv["preemptions"]) >= 1 or speculate) and
+                max(drv["reused"]) >= TP_FLAGSHIP["head"],
+                f"{leg}: no preemption or no mapped head: "
+                f"{drv['preemptions']}, {drv['reused']}")
+        return
+    tol = TP_SERVING["tol"]
+    rel = [float(np.abs(g - w).max() / np.abs(w).max())
+           for g, w in zip(drv["first_logits"], ref["first_logits"])]
+    agree = [_agree(g, w, gaps, tol) for g, w, gaps in
+             zip(drv["tokens"], ref["tokens"], ref["gaps"])]
+    rec.update(first_logits_rel=rel, tol=tol,
+               tokens_agree=[n for n, _ in agree],
+               tokens_max_new=TP_LARGE["max_new"],
+               single_device_first_gap_under_tol=[
+                   next((j for j, g in enumerate(gaps) if g < tol), None)
+                   for gaps in ref["gaps"]])
+    emit(rec)
+    require(all(np.isfinite(x).all() for x in drv["first_logits"]) and
+            max(rel) <= tol,
+            f"{leg}: first-token logits {rel} of the single device's max")
+    require(all(ok for _, ok in agree),
+            f"{leg}: tokens {drv['tokens']} leave the single device's "
+            f"{ref['tokens']} before its first top-2 gap under {tol}")
+
+
+def _tp_prepare():
+    """tp_serving's single-device references (run here, then freed), its
+    scripts and the world's jobs."""
+    t0 = time.monotonic()
+    free_device()
+    refs, ops = _tp_references()
+    jobs = []
+    for leg, model, layers, where, int8, extra in TP_LEGS:
+        flagship = model == TP_FLAGSHIP["model"]
+        over, _ = _tp_leg_config(model, layers, flagship)
+        kw = dict(TP_FLAGSHIP["engine"] if flagship else TP_LARGE["engine"],
+                  block_size=TP_SERVING["block_size"], **extra)
+        job = dict(preset=model, overrides=over, seed=TP_SERVING["seed"],
+                   device=TP_SERVING["device"], engine=kw, ops=ops[leg],
+                   **where)
+        if int8:
+            job["relaxed"] = {}
+        job["digests" if flagship else "probe"] = True
+        jobs.append(job)
+    of = [leg[0] for leg in TP_LEGS].index(TP_CONTROL["of"])
+    jobs.append(dict(jobs[of], control="drop_tp_partial"))
+    return {"refs": refs, "ops": ops, "jobs": jobs,
+            "ref_s": time.monotonic() - t0}
+
+
+def _tp_control(prep, ranks):
+    """The control leg's record and gate (see TP_CONTROL)."""
+    leg = next(x for x in TP_LEGS if x[0] == TP_CONTROL["of"])
+    ref = prep["refs"][leg[1], leg[4]]
+    tol = TP_SERVING["tol"]
+    rel = [float(np.abs(g - w).max() / np.abs(w).max())
+           for g, w in zip(ranks[0]["first_logits"], ref["first_logits"])]
+    emit({"phase": "tp_serving", "leg": TP_CONTROL["leg"],
+          "control": "every rank's attention output left out of the "
+                     "others' tp sum", "model": leg[1],
+          "placement": leg[3], "first_logits_rel": rel, "tol": tol,
+          "min_over_tol": min(rel) / tol})
+    require(min(rel) > tol,
+            f"{TP_CONTROL['leg']}: a dropped partial reads {rel}, within "
+            f"the gate's {tol}")
+
+
+def _tp_split_rounding():
+    """How often a bf16 product on the card changes where the engine cuts
+    it, at mixtral-8x7b's widths, the fused step's rows (a 128-row chunk
+    and 4 lanes) and random values: the share of output elements unequal
+    to the uncut product's, for a column-parallel product at tp 2
+    (``w_gate``'s columns halved), a row-parallel one at tp 2 (``w_down``'s
+    rows halved, float32 partials summed and rounded once) and the
+    4-shard leg's expert product (2 of 8 experts). The legs' distance
+    from one device starts here; no gate."""
+    cfg = get_config("mixtral-8x7b")
+    d, f, t = cfg.d_model, cfg.d_ff, TP_LARGE["engine"]["prefill_chunk"] + 4
+    dev = TP_SERVING["device"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+
+    def draw(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=dev)
+                ).bfloat16()
+
+    def share(a, b):
+        return float((a != b).float().mean())
+    x, w = draw(t, d), draw(d, f)
+    cols = share((x @ w)[:, :f // 2], x @ w[:, :f // 2].contiguous())
+    h, w2 = draw(t, f), draw(f, d)
+    parts = h[:, :f // 2].float() @ w2[:f // 2].float() \
+        + h[:, f // 2:].float() @ w2[f // 2:].float()
+    rows = share(parts.bfloat16(), h @ w2)
+    del x, w, h, w2, parts
+    xe = draw(cfg.n_experts, moe_capacity(t, cfg), d)
+    we = draw(cfg.n_experts, d, f)
+    experts = share(torch.bmm(xe, we)[:2], torch.bmm(xe[:2], we[:2]))
+    del xe, we
+    free_device()
+    return {"rows": t, "columns_tp2": cols, "rows_tp2_f32_partials": rows,
+            "experts_2_of_8": experts}
+
+
+def _tp_check(prep, recs, world_s):
+    """Every leg's gates and records (``recs``: each rank's records);
+    returns rank 0's RMSNorm forward and dequantize launches over the
+    legs' steps."""
+    total = {"rms_norm_fwd": 0, "dequant_int8": 0}
+    for i, (leg, model, layers, where, int8, extra) in enumerate(TP_LEGS):
+        ranks = [r[i] for r in recs]
+        _tp_record(leg, model, layers, where, int8, "speculate_k" in extra,
+                   ranks, prep["refs"][model, int8], prep["ops"][leg])
+        for rms, deq in ranks[0]["launches"]:
+            total["rms_norm_fwd"] += rms
+            total["dequant_int8"] += deq
+    _tp_control(prep, [r[len(TP_LEGS)] for r in recs])
+    emit({"phase": "tp_serving", "summary": True,
+          "seconds": {"references": prep["ref_s"], "world": world_s},
+          "split_products_unequal_share": _tp_split_rounding(),
+          "foreign_modules": recs[0][-1]["foreign"],
+          "launches_rank0": total})
+    require(recs[0][-1]["foreign"] == [],
+            f"the ranks imported {recs[0][-1]['foreign']}")
+    return total
+
+
+# The four-rank phases share one world: its processes start, reach the
+# card and warm up once (``dist_plans.stages``). A stage's single-device
+# references run first, in this process (then freed), then the world's
+# stages, then each stage's gates, in DIST_STAGES' order. trainer_mesh
+# holds its launches to dist_train's, so it needs that stage.
+DIST_STAGES = ("tp_serving", "dist_parity", "dist_train", "trainer_mesh")
+DIST_WORLD_TIMEOUT = 1500
+
+
+def phase_dist_world(stages=DIST_STAGES):
+    """The ``stages`` of DIST_STAGES on one world of four ranks. Returns
+    rank 0's launches by kernel name, by stage (tp_serving's, dist_train's
+    and trainer_mesh's). One stage alone: ``phase_dist_world(
+    ("tp_serving",))``."""
+    stages = [s for s in DIST_STAGES if s in stages]
+    if "trainer_mesh" in stages and "dist_train" not in stages:
+        raise ValueError("trainer_mesh's launches are held to dist_train's")
+    phase_t0 = time.monotonic()
+    free_device()
+    root = tempfile.mkdtemp(prefix="htpu-trainer-mesh-")
+    try:
+        program, checks = [], []
+        for stage in stages:
+            if stage == "tp_serving":
+                tp = _tp_prepare()
+                program.append(("serve_plans", (tp["jobs"],)))
+                checks.append(lambda recs, s, tp=tp: _tp_check(tp, recs, s))
+            elif stage in ("dist_parity", "dist_train"):
+                parity = stage == "dist_parity"
+                refs = _parity_refs() if parity else {
+                    group: _train_reference(*group)
+                    for group in _dist_groups()}
+                jobs, names = _dist_jobs(parity, DIST["sample"] if parity
+                                         else None,
+                                         1 if parity else DIST["train_steps"])
+                program.append(("train_plans", (jobs,)))
+                check = _parity_check if parity else _train_check
+                checks.append(lambda recs, s, refs=refs, names=names,
+                              check=check: check(refs, _by_plan(recs, names),
+                                                 {"world_stage": s}))
+            else:
+                ctx = _trainer_mesh_prepare(root)
+                jobs = _trainer_mesh_jobs(root, ctx["data"])
+                program.append(("trainer_ops", (jobs,)))
+                checks.append(lambda recs, s, ctx=ctx, n=len(jobs):
+                              _trainer_mesh_check(
+                                  ctx, _mesh_regroup(recs, n), root,
+                                  launches["dist_train"][1],
+                                  {"world_stage": s}, phase_t0))
+        free_device()
+        refs_s = time.monotonic() - phase_t0
+        t0 = time.monotonic()
+        out = spmd.launch(dist_plans.stages, DIST["world"],
+                          backend=DIST["backend"], args=(program,),
+                          timeout=DIST_WORLD_TIMEOUT)
+        world_s = time.monotonic() - t0
+        stage_s = [max(r[i][1] for r in out) for i in range(len(stages))]
+        launches = {}
+        for i, (stage, check) in enumerate(zip(stages, checks)):
+            launches[stage] = check([r[i][0] for r in out], stage_s[i])
+        emit({"phase": "dist_world", "stages": stages,
+              "seconds": {"references": refs_s, "world": world_s,
+                          "stages": stage_s,
+                          "phase": time.monotonic() - phase_t0}})
+        if "dist_train" in launches:
+            launches["dist_train"] = launches["dist_train"][0]
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _dist_groups():
     """DIST_PLANS by (model, layers), in order of first appearance."""
     groups = {}
@@ -4612,10 +5044,14 @@ def _dist_spec(name, kw, opts, steps, parity):
                 **opts, **opt)
 
 
-def _dist_world(parity, sample, steps):
-    """Every plan of DIST_PLANS on one world, a job a group; returns
-    (each plan's records on every rank, by name, and the world's
-    seconds)."""
+def _by_plan(recs, names):
+    """``train_plans``' records of every rank, by plan name."""
+    return {name: [r[i] for r in recs] for i, name in enumerate(names)}
+
+
+def _dist_jobs(parity, sample, steps):
+    """``train_plans``' jobs for DIST_PLANS, one a group, and the plans'
+    names in the order of their records."""
     jobs, names = [], []
     for (model, layers), plans in _dist_groups().items():
         over = _dist_overrides(model, layers, parity)
@@ -4624,13 +5060,7 @@ def _dist_world(parity, sample, steps):
             _dist_spec(name, kw, opts, steps, parity)
             for name, _, _, kw, opts in plans]))
         names += [p[0] for p in plans]
-    t0 = time.monotonic()
-    recs = spmd.launch(dist_plans.train_plans, DIST["world"],
-                       backend=DIST["backend"], args=(jobs,),
-                       timeout=DIST["timeout"])
-    seconds = time.monotonic() - t0
-    return {name: [r[i] for r in recs] for i, name in enumerate(names)}, \
-        seconds
+    return jobs, names
 
 
 def _train_tokens(cfg):
@@ -4713,18 +5143,19 @@ def _parity_reference(model, layers, optimizers):
     return ref, p0, ndims
 
 
-def phase_dist_parity():
-    """DIST_PLANS in float32 against the single-device step at each
-    plan's depth (see DIST)."""
-    phase_t0 = time.monotonic()
-    free_device()                  # the ranks share the card with this one
+def _parity_refs():
+    """dist_parity's single-device references, by group."""
     refs = {}
     for (model, layers), plans in _dist_groups().items():
         opts = ["sgd"] + (["adamw"] if any(p[0].startswith("zero1")
                                            for p in plans) else [])
         refs[model, layers] = _parity_reference(model, layers, opts)
-    recs, seconds = _dist_world(True, DIST["sample"], 1)
-    seconds = {"world": seconds, "phase": time.monotonic() - phase_t0}
+    return refs
+
+
+def _parity_check(refs, recs, seconds):
+    """dist_parity's gates and records (``recs``: by plan, every rank's
+    record)."""
     for name, model, layers, kw, opts in DIST_PLANS:
         ranks = recs[name]
         opt = ranks[0]["plan"]["optimizer"]
@@ -4848,16 +5279,10 @@ def _train_reference(model, layers):
     return out
 
 
-def phase_dist_train():
-    """DIST_PLANS in bf16 with AdamW (see DIST), against the single-device
-    step at each plan's depth. Returns rank 0's launches over all plans'
-    steps, by kernel name (``dist_plans.COUNTERS``), and each plan's
-    launches per step on every rank."""
-    phase_t0 = time.monotonic()
-    free_device()
-    refs = {group: _train_reference(*group) for group in _dist_groups()}
-    recs, seconds = _dist_world(False, None, DIST["train_steps"])
-    seconds = {"world": seconds, "phase": time.monotonic() - phase_t0}
+def _train_check(refs, recs, seconds):
+    """dist_train's gates and records; returns rank 0's launches over all
+    plans' steps, by kernel name (``dist_plans.COUNTERS``), and each
+    plan's launches per step on every rank."""
     total = dict.fromkeys(dist_plans.COUNTERS, 0)
     by_plan = {}
     for name, model, layers, kw, opts in DIST_PLANS:
@@ -4969,81 +5394,82 @@ def _mesh_records(recs, op, name, which=0):
     return found[which]
 
 
-def phase_trainer_mesh(dist_launches):
-    """``Trainer`` on a mesh (this slice's main path; see TRAINER_MESH):
-    four gloo ranks on the card, checkpoints written by every rank under
-    one manifest, a same-plan resume bit for bit, a ZeRO-1 → plain
-    cross-plan restore through "reshard", and an interleaved plan's
-    checkpoint in logical layer order. Each rank-step's launches are
-    held to dist_train's for the plan (``dist_launches``). Returns rank
-    0's launches over the phase's steps, by kernel name."""
-    phase_t0 = time.monotonic()
-    free_device()
-    cfg6 = get_config("flagship-1b", n_layers=TRAINER_MESH["layers"])
-    cfg8 = get_config("flagship-1b", n_layers=TRAINER_MESH["vpp_layers"])
+def _trainer_mesh_prepare(root):
+    """The phase's token files under ``root``, after checking that its
+    checkpoints fit the disk and its snapshots the host memory."""
+    cfg = get_config("flagship-1b", n_layers=TRAINER_MESH["layers"])
+    cfg_vpp = get_config("flagship-1b", n_layers=TRAINER_MESH["vpp_layers"])
     batch, seq = TRAIN["batch"], TRAIN["seq"]
-    bytes6, n6 = _mesh_ckpt_bytes(cfg6)
-    bytes8, n8 = _mesh_ckpt_bytes(cfg8)
-    root = tempfile.mkdtemp(prefix="htpu-trainer-mesh-")
-    try:
-        # one checkpoint on disk at a time (each plan's root goes when its
-        # checks are done); the ranks' snapshots of one lie in host memory
-        free_disk = shutil.disk_usage(root).free
-        require(free_disk > 1.2 * bytes8,
-                f"{free_disk} B free under {root}: a checkpoint of {bytes8} "
-                f"B does not fit")
-        mem_avail = _mem_available()
-        require(mem_avail > 2 * bytes8,
-                f"{mem_avail} B of host memory available for snapshots of "
-                f"{bytes8} B")
-        n_tokens = int(TRAINER_MESH["file_batches"] * batch * (seq + 1))
-        tokens = torch.randint(0, cfg6.vocab_size, (n_tokens,),
-                               generator=torch.Generator().manual_seed(
-                                   SEED + 5))
-        data = f"{root}/tokens.bin"
-        LocalFileSystem().write_all(
-            data, tokens.numpy().astype(np.uint16).tobytes())
-        el = ELASTIC
-        n_el = int(el["file_batches"] * el["batch"] * (seq + 1))
-        LocalFileSystem().write_all(f"{root}/elastic.bin", torch.randint(
-            0, cfg6.vocab_size, (n_el,), generator=torch.Generator(
-            ).manual_seed(SEED + 6)).numpy().astype(np.uint16).tobytes())
-        require(free_disk > 3.2 * bytes6,
-                f"{free_disk} B free under {root}: the elastic leg keeps "
-                f"three checkpoints of {bytes6} B")
-        recs, seconds = _trainer_mesh_world(root, data)
-        seconds = {"world": seconds}
-        launches = dict.fromkeys(dist_plans.COUNTERS, 0)
-        for job, plans in (
-                (recs[0], (("c", "dp2_tp2"),
-                           ("tp", "dp2_tp2"), ("z", "zero1_dp4"),
-                           ("x", "dp2_tp2"))),
-                (recs[1], (("v", "dp2_pp2_vpp2_interleaved"),
-                           ("w", "dp2_pp2_vpp2_interleaved")))):
-            _mesh_launches(job, plans, dist_launches, launches)
-        _mesh_resume(recs[0], root, bytes6, seconds)
-        _mesh_reshard(recs[0], root, cfg6, bytes6)
-        _mesh_vpp(recs[1], root, bytes8)
-        _mesh_elastic(recs[2], root, dist_launches, launches)
-        require(all(r["foreign"] == [] for r in
-                    _mesh_records(recs[2], "modules", None)),
-                "a rank imported jax or hadoop_tpu")
-        emit({"phase": "trainer_mesh", "summary": True,
-              "model": "flagship-1b", "layers": [cfg6.n_layers,
-                                                 cfg8.n_layers],
-              "params": [n6, n8], "checkpoint_bytes": [bytes6, bytes8],
-              "free_disk_bytes": free_disk,
-              "host_mem_available_bytes": mem_avail,
-              "launches_rank0": launches,
-              "seconds": dict(seconds,
-                              phase=time.monotonic() - phase_t0)})
-        return launches
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    nbytes, n = _mesh_ckpt_bytes(cfg)
+    nbytes_vpp, n_vpp = _mesh_ckpt_bytes(cfg_vpp)
+    # one checkpoint on disk at a time (each plan's root goes when its
+    # checks are done); the ranks' snapshots of one lie in host memory
+    free_disk = shutil.disk_usage(root).free
+    require(free_disk > 1.2 * nbytes_vpp,
+            f"{free_disk} B free under {root}: a checkpoint of "
+            f"{nbytes_vpp} B does not fit")
+    mem_avail = _mem_available()
+    require(mem_avail > 2 * nbytes_vpp,
+            f"{mem_avail} B of host memory available for snapshots of "
+            f"{nbytes_vpp} B")
+    n_tokens = int(TRAINER_MESH["file_batches"] * batch * (seq + 1))
+    tokens = torch.randint(0, cfg.vocab_size, (n_tokens,),
+                           generator=torch.Generator().manual_seed(
+                               SEED + 5))
+    data = f"{root}/tokens.bin"
+    LocalFileSystem().write_all(
+        data, tokens.numpy().astype(np.uint16).tobytes())
+    el = ELASTIC
+    n_el = int(el["file_batches"] * el["batch"] * (seq + 1))
+    LocalFileSystem().write_all(f"{root}/elastic.bin", torch.randint(
+        0, cfg.vocab_size, (n_el,), generator=torch.Generator(
+        ).manual_seed(SEED + 6)).numpy().astype(np.uint16).tobytes())
+    require(free_disk > 3.2 * nbytes,
+            f"{free_disk} B free under {root}: the elastic leg keeps "
+            f"three checkpoints of {nbytes} B")
+    return {"cfg": cfg, "cfg_vpp": cfg_vpp, "bytes": nbytes,
+            "bytes_vpp": nbytes_vpp, "params": [n, n_vpp], "data": data,
+            "free_disk": free_disk, "mem_avail": mem_avail}
 
 
-def _trainer_mesh_world(root, data):
-    """The phase's one world: two jobs (the 6- and the 8-layer model)."""
+def _trainer_mesh_check(ctx, recs, root, dist_launches, seconds, phase_t0):
+    """The phase's gates and records (``recs``: per job, per op, every
+    rank's record); returns rank 0's launches, by kernel name."""
+    launches = dict.fromkeys(dist_plans.COUNTERS, 0)
+    for job, plans in (
+            (recs[0], (("c", "dp2_tp2"),
+                       ("tp", "dp2_tp2"), ("z", "zero1_dp4"),
+                       ("x", "dp2_tp2"))),
+            (recs[1], (("v", "dp2_pp2_vpp2_interleaved"),
+                       ("w", "dp2_pp2_vpp2_interleaved")))):
+        _mesh_launches(job, plans, dist_launches, launches)
+    _mesh_resume(recs[0], root, ctx["bytes"], seconds)
+    _mesh_reshard(recs[0], root, ctx["cfg"], ctx["bytes"])
+    _mesh_vpp(recs[1], root, ctx["bytes_vpp"])
+    _mesh_elastic(recs[2], root, dist_launches, launches)
+    require(all(r["foreign"] == [] for r in
+                _mesh_records(recs[2], "modules", None)),
+            "a rank imported jax or hadoop_tpu")
+    emit({"phase": "trainer_mesh", "summary": True,
+          "model": "flagship-1b", "layers": [ctx["cfg"].n_layers,
+                                             ctx["cfg_vpp"].n_layers],
+          "params": ctx["params"],
+          "checkpoint_bytes": [ctx["bytes"], ctx["bytes_vpp"]],
+          "free_disk_bytes": ctx["free_disk"],
+          "host_mem_available_bytes": ctx["mem_avail"],
+          "launches_rank0": launches,
+          "seconds": dict(seconds, phase=time.monotonic() - phase_t0)})
+    return launches
+
+
+def _mesh_regroup(recs, n_jobs):
+    """``trainer_ops``' records of every rank, per job, per op."""
+    return [[list(per_op) for per_op in zip(*(r[j] for r in recs))]
+            for j in range(n_jobs)]
+
+
+def _trainer_mesh_jobs(root, data):
+    """``trainer_ops``' jobs of the phase."""
     tm = TRAINER_MESH
     tp, dp4 = {"dp": 2, "tp": 2}, {"dp": 4}
     vpp = {"dp": 2, "pp": 2, "vpp": 2}
@@ -5059,47 +5485,40 @@ def _trainer_mesh_world(root, data):
     # "c" is the uninterrupted curve too: its steps past the crash point
     # run with no save, so the checkpoint on disk is the one in flight
     # when the crash came
-    six = [make("c", tp, "tp", ckpt_interval=tm["interval"], keep=1),
-           op("train", "c", steps=tm["crash_at"]),
-           op("train", "c", steps=tm["steps"] - tm["crash_at"],
-              ckpt_interval=0), op("crash", "c"),
-           make("tp", tp, "tp", ckpt_interval=0, keep=1),
-           op("restore", "tp"),
-           op("train", "tp", steps=tm["steps"] - tm["interval"]),
-           op("crash", "tp"),
-           make("z", dp4, "z1", zero1=True, ckpt_interval=0, keep=1),
-           op("train", "z", steps=tm["z1_steps"]), op("save", "z"),
-           op("gather", "z", sample=n), op("train", "z", steps=1),
-           op("crash", "z"),
-           make("x", tp, "z1", ckpt_interval=0, keep=1),
-           op("restore", "x"), op("gather", "x", sample=n),
-           op("gather", "x", which="mu", sample=n),
-           op("gather", "x", which="nu", sample=n),
-           op("train", "x", steps=1), op("crash", "x")]
-    eight = [make("v", vpp, "vpp", ckpt_interval=0, keep=1,
-                  n_microbatches=2, pipeline_schedule="interleaved"),
-             op("train", "v", steps=tm["vpp_steps"]), op("save", "v"),
-             op("gather", "v", sample=n), op("train", "v", steps=1),
-             op("crash", "v"),
-             make("w", vpp, "vpp", ckpt_interval=0, keep=1,
-                  n_microbatches=2, pipeline_schedule="interleaved"),
-             op("restore", "w"), op("train", "w", steps=1),
-             op("crash", "w")]
+    flat = [make("c", tp, "tp", ckpt_interval=tm["interval"], keep=1),
+            op("train", "c", steps=tm["crash_at"]),
+            op("train", "c", steps=tm["steps"] - tm["crash_at"],
+               ckpt_interval=0), op("crash", "c"),
+            make("tp", tp, "tp", ckpt_interval=0, keep=1),
+            op("restore", "tp"),
+            op("train", "tp", steps=tm["steps"] - tm["interval"]),
+            op("crash", "tp"),
+            make("z", dp4, "z1", zero1=True, ckpt_interval=0, keep=1),
+            op("train", "z", steps=tm["z1_steps"]), op("save", "z"),
+            op("gather", "z", sample=n), op("train", "z", steps=1),
+            op("crash", "z"),
+            make("x", tp, "z1", ckpt_interval=0, keep=1),
+            op("restore", "x"), op("gather", "x", sample=n),
+            op("gather", "x", which="mu", sample=n),
+            op("gather", "x", which="nu", sample=n),
+            op("train", "x", steps=1), op("crash", "x")]
+    interleaved = [
+        make("v", vpp, "vpp", ckpt_interval=0, keep=1, n_microbatches=2,
+             pipeline_schedule="interleaved"),
+        op("train", "v", steps=tm["vpp_steps"]), op("save", "v"),
+        op("gather", "v", sample=n), op("train", "v", steps=1),
+        op("crash", "v"),
+        make("w", vpp, "vpp", ckpt_interval=0, keep=1, n_microbatches=2,
+             pipeline_schedule="interleaved"),
+        op("restore", "w"), op("train", "w", steps=1), op("crash", "w")]
     jobs = [{"preset": "flagship-1b", "overrides": {"n_layers": layers},
              "data": data, "device": "cuda", "seed": SEED,
              "trainer": {"batch": TRAIN["batch"], "lr": TRAIN["lr"],
                          "remat": TRAIN["remat"]}, "ops": ops}
-            for layers, ops in ((tm["layers"], six),
-                                (tm["vpp_layers"], eight))]
+            for layers, ops in ((tm["layers"], flat),
+                                (tm["vpp_layers"], interleaved))]
     jobs.append(_elastic_job(root))
-    t0 = time.monotonic()
-    recs = spmd.launch(dist_plans.trainer_ops, DIST["world"],
-                       backend=DIST["backend"], args=(jobs,),
-                       timeout=tm["timeout"])
-    seconds = time.monotonic() - t0
-    # per job, per op: every rank's record
-    return [[list(per_op) for per_op in zip(*(r[j] for r in recs))]
-            for j in range(len(jobs))], seconds
+    return jobs
 
 
 def _elastic_job(root):
@@ -5463,9 +5882,9 @@ def main() -> int:
     phase_dist_shapes()
     # the dist phases before the rest: four ranks' trees share the card
     # with this process, which holds least now
-    phase_dist_parity()
-    dist_launches, dist_by_plan = phase_dist_train()
-    mesh_launches = phase_trainer_mesh(dist_by_plan)
+    by_stage = phase_dist_world()
+    tp_launches, dist_launches, mesh_launches = (
+        by_stage[s] for s in ("tp_serving", "dist_train", "trainer_mesh"))
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -5512,7 +5931,9 @@ def main() -> int:
     # launches_ulysses: the 8192-token Ulysses prefill's; launches_dist:
     # rank 0's over dist_train's eleven plans of two steps;
     # launches_trainer_mesh: rank 0's over the trainer_mesh phase's steps
-    # (the elastic leg's, its twin's and its re-run steps among them)
+    # (the elastic leg's, its twin's and its re-run steps among them);
+    # launches_tp_serving: rank 0's over the tp_serving phase's six legs
+    # (RMSNorm's forward, and the dequantize of the int8 leg)
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))
@@ -5526,7 +5947,8 @@ def main() -> int:
         launches_moe_trainer=by_moe_trainer.get(rec["name"], 0),
         launches_ulysses=by_ulysses.get(rec["name"], 0),
         launches_dist=dist_launches.get(rec["name"], 0),
-        launches_trainer_mesh=mesh_launches.get(rec["name"], 0))
+        launches_trainer_mesh=mesh_launches.get(rec["name"], 0),
+        launches_tp_serving=tp_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

@@ -87,10 +87,12 @@ def route(x2d: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig
 
 
 def _expert_ffn(xe: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
-    """Each expert's SwiGLU MLP. xe: [E, C, D]."""
+    """Each expert's SwiGLU MLP. xe: [E, C, D]. The down product in
+    ``w_down``'s dtype (a tp serving rank keeps it in float32)."""
     gate = torch.bmm(xe, lp["w_gate"])
     up = torch.bmm(xe, lp["w_up"])
-    return torch.bmm(swiglu(gate, up), lp["w_down"])
+    w = lp["w_down"]
+    return torch.bmm(swiglu(gate, up).to(w.dtype), w)
 
 
 def moe_mlp(h: torch.Tensor, lp, cfg: ModelConfig, ctx=None) -> torch.Tensor:

@@ -672,15 +672,14 @@ def load_checkpoint(fs: FileSystemLike, base_dir: str, like, *,
     weight plane's int8 payload and scales), is what lands on
     ``device``, and the assembled buffer is dropped at once, so host
     memory holds about the largest leaf, never the checkpoint. With
-    sharded placement it raises: its caller there is the engine's tp
-    plan, ROADMAP Queue A 6 item 2.
+    sharded placement it raises, as the reference's does: the transform
+    sees whole leaves on the host.
     """
     if leaf_transform is not None and (mesh is not None or
                                        specs is not None):
         raise NotImplementedError(
-            "leaf_transform with sharded placement (mesh/specs): its "
-            "caller, the serving engine's tp plan, is ROADMAP Queue A 6 "
-            "item 2")
+            "leaf_transform streams leaves through a host-side "
+            "transform and cannot compose with sharded placement")
     if (mesh is None) != (specs is None):
         raise ValueError("mesh and specs go together")
     dev = resolve_device(device)

@@ -212,6 +212,23 @@ def psum_raw(x: torch.Tensor, axis: Optional[Axis],
     return out.view(x.shape)
 
 
+def broadcast_raw(x: torch.Tensor, axis: Optional[Axis], src: int = 0
+                  ) -> torch.Tensor:
+    """Axis position ``src``'s x on every rank (the others pass a tensor
+    of its shape, dtype and device, which is not written); no autograd.
+    Only the sender hands bytes to the wire."""
+    if not _live(axis):
+        return x
+    _need_group(axis, "broadcast")
+    if axis.index == src:
+        w = _to_wire(x, axis)
+    else:
+        w = torch.empty(x.shape, dtype=x.dtype,
+                        device="cpu" if axis.host else x.device)
+    dist.broadcast(w, axis.ranks[src], group=axis.group)
+    return x if axis.index == src else _from_wire(w, x)
+
+
 def pmax_raw(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """Elementwise maximum over the axis; no autograd."""
     if not _live(axis):

@@ -28,9 +28,10 @@ keeping its semantics:
   tokens drop, inactive rows (empty lanes, draft rows past their
   length, chunk padding) taking slots as in the reference. So in a MoE
   model a lane's expert output depends on the step's rows, as it does
-  in the reference; the dense layers keep their per-group shapes. One
-  expert shard: ``moe_shards`` above 1 is expert-parallel serving
-  across GPUs (ROADMAP Queue A 6) and raises.
+  in the reference; the dense layers keep their per-group shapes.
+  ``moe_shards`` resolves against the engine's ranks (one for an engine
+  in one process): more than one splits the stacks on their expert
+  dimension across them (below).
 - **The weight plane** (``serving/weightplane.py``): a params tree whose
   matmul leaves are int8 qtensors (``serving.parity=relaxed``) has each
   layer's dense weights (and a quantized head) dequantized once per step
@@ -128,12 +129,49 @@ keeping its semantics:
   ``prefill_to_store`` route them to the plane, ``idle`` and
   ``stop(drain=)`` wait for it, ``longctx_stats`` reports it.
 
+- **Ranks: a tensor-parallel plan and expert shards.** The reference
+  is one process whose placement GSPMD partitions; here each rank is a
+  process of a ``torch.distributed`` world and the engine is built on
+  every one of them. ``plan=MeshPlan(tp=n[, dp=m])`` (``mesh``:
+  ``make_mesh(plan)``, made when not passed) places the weights by
+  ``param_specs`` (column-parallel q/k/v and gate/up/in, row-parallel
+  o/down/out, the vocabulary split in the embedding and the head, the
+  MoE stacks split on their FFN dimension) and the K/V pool on its head
+  dimension; ``params`` is the full tree (the engine keeps its shards)
+  or this rank's shards (``load_serving_params(mesh=, specs=)``), told
+  apart by shape. Without a plan, ``mesh=make_mesh(MeshPlan(dp=k))``
+  makes the ranks a group that the expert stacks split over
+  (``moe_shards`` > 1), payload and scales together; dense leaves stay
+  whole. The step's math is the unsharded graph's: the embedding sums
+  this rank's rows over tp, each row-parallel product is this rank's
+  float32 partial summed over tp (``spmd.psum_raw``, in rank order, so
+  every rank holds the same bits) and rounded once, as the single
+  device's product is, before gpt2's ``b_out`` is added once; the
+  head's vocabulary columns are gathered before sampling. A MoE layer
+  routes the step's rows on every rank; under tp each expert's product
+  over this rank's d_ff slice is summed likewise before the combine,
+  and over expert shards each rank combines its experts' outputs and
+  the float32 partial combines are summed once. Position 0 of the mesh
+  drives: it alone schedules (admission, the radix, the tiers,
+  speculation's drafts) and, each step, broadcasts the step's inputs
+  (the device step state, the chunk, the drafts, the step count and
+  shape) in one message; every other rank runs ``follow()``, which
+  executes what the driver sends (a step, a page injected or gathered,
+  fresh pools after a failed step) until it stops. A driver that stops,
+  or whose ``step()`` raises outside the step's collectives, releases
+  its followers. Over gloo a collective cannot sit in a CUDA graph (it
+  moves through host memory), so a multi-rank engine runs the eager
+  step (``mesh_stats()["path"]``). Sizes and reports (``weight_bytes``,
+  ``num_blocks``, ``weight_plane()``) are the reference's global ones;
+  the HBM ledger holds this rank's own bytes.
+
 Attention in the step is torch ops (the reference's is plain jnp too) —
 the flash kernel does not take paged, offset rows.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item when asked for: a tensor-parallel ``plan`` and more than
-one expert shard (A 6).
+Refused as the reference refuses: a plan with pp, sp or ep above 1
+(``ValueError``) and an int8 tree with a plan (``NotImplementedError``).
+Refused with ``NotImplementedError`` naming its ROADMAP item: the
+long-context plane on a multi-rank engine (A 6 item 5).
 ``prefill_to_store`` raises the reference's ``ValueError`` for an engine
 without a DFS tier.
 """
@@ -162,6 +200,9 @@ from hadoop_tpu_torch.models.moe import _expert_ffn, route
 from hadoop_tpu_torch.models.moe import capacity as moe_capacity
 from hadoop_tpu_torch.obs.hbm import hbm_ledger
 from hadoop_tpu_torch.ops import gelu, rope_frequencies, swiglu
+from hadoop_tpu_torch.parallel import spmd
+from hadoop_tpu_torch.parallel.mesh import (MeshPlan, make_mesh,
+                                            param_specs_for, shard_params)
 from hadoop_tpu_torch.parallel.lowp.quant import (moe_combine_quantized,
                                                   moe_dispatch_quantized)
 from hadoop_tpu_torch.serving import weightplane
@@ -172,7 +213,9 @@ from hadoop_tpu_torch.serving.weightplane import (describe_tree,
                                                   expert_weight_bytes,
                                                   is_qtensor,
                                                   is_quantized_tree, qedot,
-                                                  qrows)
+                                                  qrows,
+                                                  resident_weight_bytes,
+                                                  shard_expert_stacks)
 from hadoop_tpu_torch.tracing import current_context, global_tracer
 
 log = logging.getLogger(__name__)
@@ -357,6 +400,38 @@ def _refuse(what: str, item: str) -> None:
                               f"yet (ROADMAP Queue A {item})")
 
 
+def _engine_mesh(plan, mesh):
+    """The mesh an engine's ranks form (``make_mesh(plan)`` when only a
+    plan is given), or None for an engine in one process alone."""
+    if mesh is None:
+        if plan is None or plan.n_devices == 1:
+            return None
+        mesh = make_mesh(plan)
+    elif plan is not None and mesh.plan != plan:
+        raise ValueError(f"plan={plan} differs from the mesh's {mesh.plan}")
+    elif plan is None and mesh.plan.n_devices != mesh.plan.dp:
+        raise ValueError("a mesh without a plan is a group for the expert "
+                         "stacks, MeshPlan(dp=k); pass plan= for tp")
+    return mesh if len(mesh.ranks) > 1 else None
+
+
+def _spread_bytes(tree, specs, sizes) -> int:
+    """The bytes of the whole tree whose shards ``tree`` holds: each
+    leaf's bytes times the ranks that split it (``param_specs``)."""
+    if isinstance(tree, dict):
+        return sum(_spread_bytes(tree[k], specs[k], sizes) for k in tree)
+    ways = 1
+    for name in specs:
+        if name is not None:
+            ways *= sizes[name]
+    return tree.numel() * tree.element_size() * ways
+
+
+# the driver's commands to its followers (a message's first element)
+_STEP, _INJECT, _EXTRACT, _RESET, _STOP = range(1, 6)
+_HEAD = 4                   # command, step count, fused, argument
+
+
 # ----------------------------------------------------------------- engine
 
 class DecodeEngine:
@@ -382,9 +457,7 @@ class DecodeEngine:
                  quantize_seconds: float = 0.0,
                  moe_capacity_factor: float = 0.0, moe_shards: int = 0,
                  moe_a2a_codec: str = "int8",
-                 plan=None, metrics=None, tracer=None):
-        if plan is not None:
-            _refuse("tensor-parallel serving", "6")
+                 plan=None, mesh=None, metrics=None, tracer=None):
         self.device = resolve_device(device)
         check_on(params["embed"]["q"] if is_qtensor(params["embed"])
                  else params["embed"], self.device, "params")
@@ -399,7 +472,6 @@ class DecodeEngine:
         if cfg.is_moe and moe_capacity_factor:
             self._moe_cfg = dataclasses.replace(
                 cfg, capacity_factor=float(moe_capacity_factor))
-        self.params = params
         self.block_size = block_size
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.max_context = min(max_context or cfg.max_seq, cfg.max_seq)
@@ -420,20 +492,23 @@ class DecodeEngine:
         self._q_embed = is_qtensor(params.get("embed"))
         self._q_head = is_qtensor(params["embed"]) if cfg.tie_embeddings \
             else is_qtensor(params.get("lm_head"))
-        # fixed at construction: health scrapes read it from a handler
-        # thread and touch no tensor
-        self._weight_desc = describe_tree(params)
-        self.weight_bytes = self._weight_desc["weight_bytes"]
-        self.quantize_seconds = quantize_seconds
-        self.expert_bytes = expert_weight_bytes(params, cfg)
-        # the replica's devices: the GPUs, or the one CPU
-        n_devices = torch.cuda.device_count() \
-            if self.device.type == "cuda" else 1
+        if self._relaxed_weights and plan is not None:
+            raise NotImplementedError(
+                "tp sharding of int8 resident weights is not wired yet "
+                "(serving.parity=relaxed serves single-chip replicas)")
+        if plan is not None and (plan.pp != 1 or plan.sp != 1 or
+                                 plan.ep != 1):
+            raise ValueError("serving shards over tp (and dp) only; "
+                             f"got plan={plan}")
+        self._mesh = _engine_mesh(plan, mesh)
+        self.plan = self._mesh.plan if self._mesh is not None else MeshPlan()
+        # the engine's ranks: a mesh's, or this process alone (one
+        # device, whatever the host holds)
+        n_ranks = len(self._mesh.ranks) if self._mesh is not None else 1
         self.expert_shards = expert_shard_count(
-            cfg.n_experts, int(moe_shards), n_devices) if cfg.is_moe else 0
-        if self.expert_shards > 1:
-            _refuse(f"{self.expert_shards} expert shards (expert-parallel "
-                    f"serving across GPUs)", "6")
+            cfg.n_experts, int(moe_shards), n_ranks) if cfg.is_moe else 0
+        params = self._place_params(params, plan)
+        self.quantize_seconds = quantize_seconds
         self.hbm_bytes = int(hbm_bytes or 0)
         self.block_nbytes = (2 * cfg.n_layers * block_size * cfg.n_kv_heads
                              * cfg.head_dim * cfg.torch_dtype.itemsize)
@@ -461,7 +536,8 @@ class DecodeEngine:
         if num_blocks is None:
             num_blocks = max_batch * self.blocks_per_seq + 1
         self.pool = BlockPool(num_blocks, block_size)
-        pool_shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+        # the pool holds this rank's K/V heads
+        pool_shape = (cfg.n_layers, num_blocks, block_size, self._hkv,
                       cfg.head_dim)
         self._kp = torch.zeros(pool_shape, dtype=cfg.torch_dtype,
                                device=self.device)
@@ -486,13 +562,14 @@ class DecodeEngine:
         # their own component) and the K/V pool sized beside them,
         # unregistered in stop(). The providers return numbers, so an
         # engine never stopped pins no tensor there.
-        kv_pool_bytes = num_blocks * self.block_nbytes
+        # (this rank's bytes: its shards and its heads of the pool)
+        kv_pool_bytes = num_blocks * self.block_nbytes // self.plan.tp
         # trailing separator: unregister_prefix("engine@123") must not
         # also match a coexisting "engine@1234..." owner
         self._hbm_owner = f"engine@{id(self)}."
         led = hbm_ledger()
-        dense_bytes = self.weight_bytes - self.expert_bytes
-        expert_bytes = self.expert_bytes
+        expert_bytes = expert_weight_bytes(params, cfg)
+        dense_bytes = resident_weight_bytes(params) - expert_bytes
         led.register(f"{self._hbm_owner}weights", "weights",
                      lambda: dense_bytes)
         if cfg.is_moe:
@@ -566,11 +643,100 @@ class DecodeEngine:
         # bitwise
         self._relaxed_longctx = None
 
+    def _place_params(self, params, plan):
+        """This rank's placement of ``params`` and the engine's ranks: the
+        tp axis and this rank's heads, the expert group whose partial
+        combines a MoE layer sums, the driver's channel. Sets the weight
+        figures, the reference's global ones. Returns this rank's tree."""
+        cfg, mesh = self.cfg, self._mesh
+        tp = self.plan.tp
+        self._tp_axis = mesh.axis("tp") if mesh is not None else None
+        self._tp_index = spmd.axis_index(self._tp_axis)
+        self._hq, self._hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        self._moe_axis, self._expert_index = None, 0
+        self._channel = None
+        self._driver = mesh is None or mesh.rank == 0
+        self._released = False   # the followers were sent _STOP, or lost
+        desc = describe_tree(params)
+        expert_bytes = expert_weight_bytes(params, cfg)
+        if mesh is not None and plan is not None:
+            # the reference's placement (param_specs); the tree is whole
+            # or this rank's shards
+            self.plan.validate(cfg, self.plan.dp, 1)
+            rows = params["embed"].shape[0]
+            if tp > 1 and rows == cfg.vocab_size:
+                params = shard_params(params, self.plan, mesh)
+            elif rows != cfg.vocab_size // tp:
+                raise ValueError(f"embed has {rows} rows: neither the "
+                                 f"vocabulary nor its 1/{tp}")
+            specs = param_specs_for(params, self.plan)
+            desc["weight_bytes"] = _spread_bytes(params, specs,
+                                                 self.plan.sizes)
+            layers = params["layers"]
+            expert_bytes = sum(
+                _spread_bytes(layers[k], specs["layers"][k], self.plan.sizes)
+                for k in weightplane.EXPERT_STACKS
+                if k in layers) if cfg.is_moe else 0
+        elif mesh is not None and self.expert_shards > 1:
+            # the ranks are the expert group: each holds its experts
+            s, n = self.expert_shards, len(mesh.ranks)
+            if n % s:
+                raise ValueError(f"serving.moe.shards={s} does not divide "
+                                 f"the engine's {n} ranks")
+            self._expert_index = mesh.rank % s
+            self._moe_axis = mesh.axis("dp") if s == n else spmd.new_groups(
+                "moe", [list(mesh.ranks[g:g + s]) for g in range(0, n, s)],
+                members_only=mesh.group is not None)
+            stack = params["layers"]["w_gate"]
+            if (stack["q"] if is_qtensor(stack) else stack).shape[1] \
+                    == cfg.n_experts:
+                params = shard_expert_stacks(params, s, self._expert_index)
+            local = expert_weight_bytes(params, cfg)
+            expert_bytes = local * s
+            desc = describe_tree(params)
+            desc["weight_bytes"] += expert_bytes - local
+        if mesh is not None:
+            self._channel = spmd.new_groups(
+                "engine", [list(mesh.ranks)],
+                members_only=mesh.group is not None)
+        if self._tp_axis is not None and cfg.torch_dtype != torch.float32:
+            # the row-parallel weights in float32, once: this rank's
+            # partial product stays float32 until the tp sum, which rounds
+            # once, as one device's product does (the HBM ledger counts
+            # them at this size; the weight figures stay the reference's)
+            layers = dict(params["layers"])
+            for name in ("wo", "w_down", "w_out"):
+                if name in layers:
+                    layers[name] = layers[name].float()
+            params = dict(params, layers=layers)
+        # fixed at construction: health scrapes read it from a handler
+        # thread and touch no tensor
+        self._weight_desc = desc
+        self.weight_bytes = desc["weight_bytes"]
+        self.expert_bytes = expert_bytes
+        self.params = params
+        return params
+
+    def mesh_stats(self) -> Dict[str, Any]:
+        """The engine's ranks: their count, tp, dp, the expert shards,
+        whether this rank drives, and which step runs (``"graph"``: the
+        captured CUDA graphs; ``"eager"``: op by op, on the CPU and on a
+        multi-rank engine)."""
+        return {"ranks": 1 if self._mesh is None else len(self._mesh.ranks),
+                "tp": self.plan.tp, "dp": self.plan.dp,
+                "expert_shards": self.expert_shards,
+                "driver": self._driver,
+                "path": "graph" if self.device.type == "cuda" and
+                        self._channel is None else "eager"}
+
     def attach_longctx(self, plane) -> None:
         """Wire the long-context plane (``serving/longctx``): prompts at
         least ``plane.min_tokens`` long route to it from ``submit``
         instead of the fused step. The caller is the relaxed-tier gate
         (``longctx_plane_from_conf`` re-validates)."""
+        if self._channel is not None:
+            _refuse("the long-context plane on a multi-rank (tp or "
+                    "expert-sharded) engine", "6 item 5")
         self._relaxed_longctx = plane
 
         def wake() -> None:
@@ -596,17 +762,130 @@ class DecodeEngine:
     def _extract_block(self, blk: int):
         """One page's (K, V) payload ``[L, bs, Hkv, Dh]`` as host numpy
         (bf16 as uint16 bits) — the demotion and persistence copy. The
-        copy to the host synchronises, so the tier reads finished bytes."""
-        kv = torch.stack([self._kp[:, blk], self._vp[:, blk]]).cpu()
+        copy to the host synchronises, so the tier reads finished bytes.
+        Under tp the ranks' heads are gathered (a command)."""
+        if self._tp_axis is not None:
+            self._command(_EXTRACT, blk)
+        kv = self._gather_page(blk).cpu()
         return _to_host(kv[0]), _to_host(kv[1])
+
+    def _gather_page(self, blk: int) -> torch.Tensor:
+        """Page ``blk``'s [2, L, bs, Hkv, Dh], every head (gathered over
+        tp)."""
+        kv = torch.stack([self._kp[:, blk], self._vp[:, blk]])
+        return spmd.all_gather_raw(kv, self._tp_axis, 3)
 
     def _inject_block(self, blk: int, k, v) -> None:
         """Write a cold-tier payload into pool page ``blk``, in place: the
-        captured graphs keep reading the same pool tensors."""
+        captured graphs keep reading the same pool tensors. On a
+        multi-rank engine the payload goes to every rank (a command)."""
         kv = torch.stack([_from_host(k, self._kp.dtype),
                           _from_host(v, self._vp.dtype)]).to(self.device)
+        if self._channel is not None:
+            self._command(_INJECT, blk)
+            spmd.broadcast_raw(kv, self._channel)
+        self._write_page(blk, kv)
+
+    def _write_page(self, blk: int, kv: torch.Tensor) -> None:
+        """This rank's heads of a whole page payload [2, L, bs, Hkv, Dh]
+        into page ``blk``."""
+        kv = kv.narrow(3, self._tp_index * self._hkv, self._hkv)
         self._kp[:, blk].copy_(kv[0])
         self._vp[:, blk].copy_(kv[1])
+
+    # ------------------------------------------------- driver and followers
+
+    def _message(self, cmd: int, fused: bool = False, arg: int = 0
+                 ) -> torch.Tensor:
+        """The driver's one message: the command, the step count, the
+        step's shape and an argument, then (a step) its inputs: the
+        device step state, the chunk and the drafts, as int64 (the
+        temperatures' float32 bits)."""
+        head = torch.tensor([cmd, self.steps, int(fused), arg],
+                            dtype=torch.int64, device=self.device)
+        if cmd != _STEP:
+            return torch.cat([head, torch.zeros(
+                self._body_len, dtype=torch.int64, device=self.device)])
+        st = self._dstate
+        return torch.cat([head] + [
+            st[k].view(torch.int32).long() if k == "temps" else
+            st[k].long().reshape(-1) for k in st] + [
+            self._chunk_in, self._spec_in.reshape(-1)])
+
+    @property
+    def _body_len(self) -> int:
+        return sum(t.numel() for t in self._dstate.values()) \
+            + self._chunk_in.numel() + self._spec_in.numel()
+
+    def _command(self, cmd: int, arg: int = 0, fused: bool = False) -> None:
+        """Send one command to the followers (the driver's side)."""
+        if self._released:
+            raise RuntimeError("the engine's followers were released")
+        spmd.broadcast_raw(self._message(cmd, fused, arg), self._channel)
+
+    def _take_step(self, msg: torch.Tensor) -> bool:
+        """A follower's copy of the driver's step inputs; returns the
+        step's shape (fused)."""
+        body = msg[_HEAD:]
+        at = 0
+        for k, t in list(self._dstate.items()) + [
+                ("chunk", self._chunk_in), ("spec", self._spec_in)]:
+            piece = body[at:at + t.numel()].view(t.shape)
+            at += t.numel()
+            if k == "temps":
+                piece = piece.int().view(torch.float32)
+            t.copy_(piece.to(t.dtype))
+        self.steps = int(msg[1])
+        return bool(msg[2])
+
+    def follow(self) -> None:
+        """Run what the driver (mesh position 0) sends until it stops:
+        each step on the driver's inputs, pages injected or gathered,
+        fresh pools when the driver resets. Returns on the driver's stop. A
+        step that fails here raises: the other ranks may be inside the
+        step's collectives, which fail once this process's connections
+        close; a driver that is gone raises from the collective."""
+        if self._channel is None or self._driver:
+            raise RuntimeError("follow() runs on a follower rank of a "
+                               "multi-rank engine")
+        template = self._message(_STOP)
+        try:
+            while True:
+                msg = spmd.broadcast_raw(template, self._channel)
+                cmd, arg = int(msg[0]), int(msg[3])
+                if cmd == _STOP:
+                    return
+                if cmd == _STEP:
+                    self._step_eager(self._take_step(msg))
+                    self.steps += 1          # the driver's count
+                elif cmd == _INJECT:
+                    kv = spmd.broadcast_raw(torch.empty(
+                        (2, self.cfg.n_layers, self.block_size,
+                         self.cfg.n_kv_heads, self.cfg.head_dim),
+                        dtype=self._kp.dtype, device=self.device),
+                        self._channel)
+                    self._write_page(arg, kv)
+                elif cmd == _EXTRACT:
+                    self._gather_page(arg)
+                elif cmd == _RESET:
+                    self._reset_local()
+                else:
+                    raise RuntimeError(f"unknown command {cmd}")
+        finally:
+            hbm_ledger().unregister_prefix(self._hbm_owner)
+            self.kvstore.close()
+
+    def _release_followers(self) -> None:
+        """Send the followers _STOP, once."""
+        if self._channel is not None and self._driver and \
+                not self._released:
+            self._command(_STOP)
+            self._released = True
+
+    def _require_driver(self) -> None:
+        if not self._driver:
+            raise RuntimeError("a follower rank takes no requests: mesh "
+                               "position 0 drives, the others follow()")
 
     # ----------------------------------------------------------- the step
 
@@ -631,9 +910,22 @@ class DecodeEngine:
         return out
 
     def _mlp(self, x, lw):
+        """This rank's part of the dense MLP, before the tp sum (and
+        before gpt2's ``b_out``, which ``_rows`` adds once after it)."""
         if self.cfg.use_swiglu:
-            return swiglu(x @ lw["w_gate"], x @ lw["w_up"]) @ lw["w_down"]
-        return gelu(x @ lw["w_in"] + lw["b_in"]) @ lw["w_out"] + lw["b_out"]
+            w = lw["w_down"]
+            return swiglu(x @ lw["w_gate"], x @ lw["w_up"]).to(w.dtype) @ w
+        w = lw["w_out"]
+        return gelu(x @ lw["w_in"] + lw["b_in"]).to(w.dtype) @ w
+
+    def _tp_sum(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each row group's row-parallel product summed over tp, in one
+        collective for the groups (rank order: every rank gets the same
+        bits); the parts themselves without tp."""
+        if self._tp_axis is None:
+            return parts
+        total = spmd.psum_raw(torch.cat(parts), self._tp_axis)
+        return list(total.split([p.shape[0] for p in parts]))
 
     def _moe_mlp(self, x, lp):
         """The routed expert MLP over every row of the step, ``x`` [T,
@@ -646,6 +938,12 @@ class DecodeEngine:
         take the int8 round trip the reference's single-device replica
         takes."""
         dispatch, combine = route(x, lp["router"], self._moe_cfg)
+        if self._moe_axis is not None:
+            # this rank's experts: every rank routed the same rows
+            e = lp["router"].shape[-1] // self.expert_shards
+            lo = self._expert_index * e
+            dispatch = dispatch[:, lo:lo + e]
+            combine = combine[:, lo:lo + e]
         xe = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
         codec = self._relaxed_weights and self._moe_a2a_codec != "none"
         if codec:
@@ -654,10 +952,16 @@ class DecodeEngine:
             ye = qedot(swiglu(qedot(xe, lp["w_gate"]),
                               qedot(xe, lp["w_up"])), lp["w_down"])
         else:
-            ye = _expert_ffn(xe, lp, self._moe_cfg)
+            # under tp every expert's product over this rank's d_ff slice
+            # (float32, as w_down is), summed over tp and rounded once
+            ye = spmd.psum_raw(_expert_ffn(xe, lp, self._moe_cfg),
+                               self._tp_axis).to(x.dtype)
         if codec:
             ye = moe_combine_quantized(ye)
-        return torch.einsum("tec,ecd->td", combine, ye.float()).to(x.dtype)
+        # this rank's part of the combine (its experts), summed once in
+        # float32 over the expert group
+        part = torch.einsum("tec,ecd->td", combine, ye.float())
+        return spmd.psum_raw(part, self._moe_axis).to(x.dtype)
 
     def _group(self, tokens, positions, active, tables, group: int = 1,
                one_context: bool = False) -> Dict[str, Any]:
@@ -673,6 +977,17 @@ class DecodeEngine:
         pos = torch.clamp(positions, max=self.s_max - 1)
         if self._relaxed_weights and self._q_embed:
             h = qrows(params["embed"], tokens, cfg.torch_dtype)
+        elif self._tp_axis is not None:
+            # vocab-parallel: this rank's rows, the rest zero, summed
+            # over tp (one term is non-zero: exact)
+            embed = params["embed"]
+            vl = embed.shape[0]
+            local = tokens - self._tp_index * vl
+            ok = (local >= 0) & (local < vl)
+            h = spmd.psum_raw(torch.where(
+                ok[:, None], embed[local.clamp(0, vl - 1)],
+                torch.zeros((), dtype=embed.dtype, device=embed.device)),
+                self._tp_axis)
         else:
             h = params["embed"][tokens]
         if not cfg.use_rope:
@@ -706,10 +1021,9 @@ class DecodeEngine:
         """Attention of a group's rows ``q`` [t, Hq, Dh] over their paged
         context, gathered back through the tables: rows that share a
         table (a one-request chunk, a speculating lane's group) share its
-        single view. Returns [t, Hq * Dh]."""
-        cfg = self.cfg
+        single view. Returns [t, Hq * Dh] (this rank's heads)."""
         t = q.shape[0]
-        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hq, hkv, dh = self._hq, self._hkv, self.cfg.head_dim
         rep = hq // hkv
         kctx = kc[g["tables"]].reshape(-1, self.s_max, hkv, dh)
         vctx = vc[g["tables"]].reshape(-1, self.s_max, hkv, dh)
@@ -741,7 +1055,7 @@ class DecodeEngine:
         own fixed size; a MoE layer routes the step's rows once, in the
         reference's row order, and splits the result back."""
         cfg = self.cfg
-        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hq, hkv, dh = self._hq, self._hkv, cfg.head_dim
         sizes = [g["h"].shape[0] for g in groups]
         for li, lp in enumerate(self._layers):
             kc, vc = self._kp[li], self._vp[li]
@@ -762,15 +1076,19 @@ class DecodeEngine:
                 kc[g["blk"], g["off"]] = k.to(kc.dtype)
                 vc[g["blk"], g["off"]] = v.to(vc.dtype)
                 qs.append(q)
-            for g, q in zip(groups, qs):
-                g["h"] = g["h"] + (self._attend(g, q, kc, vc) @ lw["wo"]
-                                   ).to(g["h"].dtype)
+            wo = lw["wo"]
+            outs = self._tp_sum([self._attend(g, q, kc, vc).to(wo.dtype) @ wo
+                                 for g, q in zip(groups, qs)])
+            for g, o in zip(groups, outs):
+                g["h"] = g["h"] + o.to(g["h"].dtype)
             xs = [_norm(g["h"], lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg)
                   for g in groups]
             if cfg.is_moe:
-                ys = self._moe_mlp(torch.cat(xs), lp).split(sizes)
+                ys = self._moe_mlp(torch.cat(xs), lw).split(sizes)
             else:
-                ys = [self._mlp(x, lw) for x in xs]
+                ys = self._tp_sum([self._mlp(x, lw) for x in xs])
+                if not cfg.use_swiglu:
+                    ys = [y + lw["b_out"] for y in ys]
             for g, y in zip(groups, ys):
                 g["h"] = g["h"] + y.to(g["h"].dtype)
         if self._relaxed_weights and self._q_head:
@@ -780,12 +1098,15 @@ class DecodeEngine:
             head = weightplane.dequant(leaf, cfg.torch_dtype).t()
         else:
             head = head_matrix(self.params, cfg, cfg.torch_dtype)
-        out = []
-        for g in groups:
-            h = _norm(g["h"], self.params["final_norm_w"],
-                      self.params.get("final_norm_b"), cfg)
-            out.append((h @ head).float())
-        return out
+        out = [_norm(g["h"], self.params["final_norm_w"],
+                     self.params.get("final_norm_b"), cfg) @ head
+               for g in groups]
+        if self._tp_axis is not None:
+            # this rank's vocabulary columns: every rank samples from the
+            # whole row
+            out = list(spmd.all_gather_raw(torch.cat(out), self._tp_axis,
+                                           -1).split(sizes))
+        return [o.float() for o in out]
 
     @torch.no_grad()
     def _step_impl(self, fused: bool) -> torch.Tensor:
@@ -878,7 +1199,19 @@ class DecodeEngine:
 
     def _launch_step(self, fused: bool) -> torch.Tensor:
         """The step of this shape: on a CUDA device a replay of its graph
-        (captured at the shape's first step), else eager."""
+        (captured at the shape's first step), else eager. A multi-rank
+        engine sends the step's inputs to its followers and runs eager
+        (a gloo collective cannot sit in a CUDA graph)."""
+        if self._channel is not None:
+            self._command(_STEP, fused=fused)
+            try:
+                return self._step_eager(fused)
+            except BaseException:
+                # the followers may be inside the step's collectives: no
+                # command reaches them now (they fail as this process's
+                # connections close), and no later step may start
+                self._released = True
+                raise
         if self.device.type != "cuda":
             return self._step_eager(fused)
         with torch.cuda.device(self.device):
@@ -922,6 +1255,7 @@ class DecodeEngine:
     def submit(self, prompt: List[int],
                sampling: Optional[SamplingParams] = None,
                trace_ctx=None, tenant: str = "") -> GenRequest:
+        self._require_driver()
         sampling = sampling or SamplingParams()
         if not prompt:
             raise ValueError("empty prompt")
@@ -1071,14 +1405,31 @@ class DecodeEngine:
         propose draft tokens for the speculation lane, ensure every
         decoding request has pages for this step's tokens, run the fused
         step, retire finished requests. Returns the number of tokens
-        emitted."""
+        emitted. On a multi-rank engine only the driver steps; a
+        ``step()`` that raises outside the scheduler thread releases the
+        followers (the scheduler thread's recovery resets them instead),
+        unless the step itself raised: then they are lost."""
+        self._require_driver()
         with self._sched_lock:
-            self._admit()
-            self._propose_drafts()
-            self._ensure_blocks()
-            emitted = self._run_step()
+            try:
+                self._admit()
+                self._propose_drafts()
+                self._ensure_blocks()
+                emitted = self._run_step()
+            except BaseException:
+                if threading.current_thread() is not self._thread:
+                    self._release_quietly()
+                raise
             self._publish_metrics()
             return emitted
+
+    def _release_quietly(self) -> None:
+        """Release the followers on the way out of an error, which stays
+        the error raised."""
+        try:
+            self._release_followers()
+        except Exception:  # noqa: BLE001 — the first error is the one
+            log.exception("releasing the followers failed")
 
     def _propose_drafts(self) -> None:
         """Fill the per-lane draft buffers from each running request's
@@ -1288,7 +1639,13 @@ class DecodeEngine:
 
     def _reset_device_state(self) -> None:
         """Zero the K/V pools and clear every lane of the step state, in
-        place: the captured graphs go on reading the same tensors."""
+        place: the captured graphs go on reading the same tensors. The
+        followers do the same (a command)."""
+        if self._channel is not None and not self._released:
+            self._command(_RESET)
+        self._reset_local()
+
+    def _reset_local(self) -> None:
         self._kp.zero_()
         self._vp.zero_()
         for name, value in self._fresh_dstate().items():
@@ -1559,6 +1916,7 @@ class DecodeEngine:
     # --------------------------------------------------- replica lifecycle
 
     def start(self) -> None:
+        self._require_driver()
         self._stop.clear()
         self._thread = threading.Thread(target=self._run_loop,
                                         name="decode-engine", daemon=True)
@@ -1606,6 +1964,10 @@ class DecodeEngine:
                     req = self._pending.popleft()
                 if not req.done.is_set():
                     self._finish_request(req, FAILED, "engine stopped")
+            if locked:
+                # a step still running holds the lock: its collectives
+                # and the stop message must not interleave
+                self._release_followers()
         finally:
             if locked:
                 self._sched_lock.release()

@@ -64,15 +64,9 @@ def load_serving_params(fs: FileSystemLike, base_dir: str, cfg: ModelConfig,
     With ``mesh`` (``make_mesh(plan)``) and ``specs``
     (``param_specs(cfg, plan)``) it returns this rank's shards,
     ``shard_params`` of the full load, reading only the shard files that
-    overlap them. The streaming mode does not take a mesh: its caller
-    there, the engine's tp plan, is ROADMAP Queue A 6 item 2.
+    overlap them. The streaming mode does not take a mesh, as the
+    reference's does not (``load_checkpoint`` raises).
     """
-    if leaf_transform is not None and (mesh is not None or
-                                       specs is not None):
-        raise NotImplementedError(
-            "leaf_transform with mesh/specs: quantize-at-load onto a mesh "
-            "comes with the serving engine's tp plan, ROADMAP Queue A 6 "
-            "item 2")
     t0 = time.monotonic()
     if step is None:
         step = latest_step(fs, base_dir)

@@ -320,6 +320,37 @@ def expert_shard_count(n_experts: int, requested: int,
     return 1
 
 
+def shard_expert_stacks(params, shards: int, index: int):
+    """Rank ``index``'s share of the expert FFN stacks of ``shards``: the
+    reference's placement over its replica's chips
+    (``hadoop_tpu/serving/engine.py`` ``_shard_expert_stacks``) for one
+    of them. The leading layout is ``[L, E, ...]`` (float stacks) or
+    ``[L, E, N, G, gs]`` / ``[L, E, N, G]`` (qtensor payload / scales):
+    dim 1 is cut ``shards`` ways and piece ``index`` kept, as a
+    contiguous copy, so payload and scales split together. Dense leaves
+    (attention, norms, router) are the same tensors, whole."""
+    if shards <= 1:
+        return params
+
+    def cut(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] % shards:
+            raise ValueError(f"expert dim {x.shape[1]} does not split "
+                             f"{shards} ways")
+        n = x.shape[1] // shards
+        return x.narrow(1, index * n, n).contiguous()
+
+    layers = dict(params["layers"])
+    for k in EXPERT_STACKS:
+        if k not in layers:
+            continue
+        leaf = layers[k]
+        layers[k] = {"q": cut(leaf["q"]), "s": cut(leaf["s"])} \
+            if is_qtensor(leaf) else cut(leaf)
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
 def quantize_params(params, cfg: ModelConfig,
                     wp: WeightPlaneConfig) -> Tuple[dict, Dict[str, Any]]:
     """A loaded params tree → its weight-plane form + the load report

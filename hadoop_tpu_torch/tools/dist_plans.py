@@ -34,6 +34,15 @@ returning this rank's record: losses, the step and data cursor, per step
 the kernels' launches, the bytes each axis put on the wire and the comm
 ledger's bytes by site, CUDA-event step times on a card, the checkpoint
 anatomy and the bytes this rank wrote.
+
+``stages(rank, world, stages)`` runs several of these programs in turn
+on one world, so its processes start and warm up once.
+
+``serve_plans(rank, world, jobs)`` serves on one world: per job, a
+``DecodeEngine`` on a tp plan or on a group of ranks that the expert
+stacks split over, built on every rank from this rank's shards (drawn
+leaf by leaf, cut from a numpy tree, or loaded from a checkpoint);
+position 0 drives a script of operations and the others ``follow()``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import hashlib
 import os
 import sys
 import time
@@ -76,8 +86,12 @@ from hadoop_tpu_torch.parallel.mesh import (MeshPlan, layer_order,
 from hadoop_tpu_torch.parallel.optimizer import tree_leaves, tree_map
 from hadoop_tpu_torch.parallel.train import (init_sharded,
                                              make_data_sharding,
-                                             make_train_step)
+                                             make_train_step,
+                                             shard_as_drawn)
 from hadoop_tpu_torch.parallel.trainer import Trainer
+from hadoop_tpu_torch.serving import weightplane
+from hadoop_tpu_torch.serving.engine import DecodeEngine, SamplingParams
+from hadoop_tpu_torch.serving.loader import load_serving_params
 
 SHAPE = (2, 4, 4, 3)        # one rank's value in the collectives drill
 
@@ -664,4 +678,306 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         out.append(rec)
     for t in live.values():
         t.close()
+    return out
+
+
+# ---------------------------------------------------------- serving runner
+
+class StepProbe:
+    """What an engine's steps computed, per request (greedy lanes, no
+    speculation): the logits row behind its first token (``first``,
+    float32 numpy) and, for each token it got, its logits row's top-2
+    gap over the row's largest magnitude (``gaps``): the margin a token
+    comparison may assume. It wraps the engine's ``_rows`` and
+    ``_finish_prefill``, so it runs only on the eager step."""
+
+    def __init__(self, eng: DecodeEngine):
+        self.first: Dict[int, np.ndarray] = {}
+        self.gaps: Dict[int, List[float]] = {}
+        self._chunk = None
+        rows, finish = eng._rows, eng._finish_prefill
+
+        def probe_rows(groups):
+            out = rows(groups)
+            lanes = [r.id if r is not None and eng._active[i] else None
+                     for i, r in enumerate(eng._slots)]
+            for rid, g in zip(lanes, _gaps(out[0]).tolist()):
+                if rid is not None:
+                    self.gaps.setdefault(rid, []).append(g)
+            if len(out) > 1:
+                n = int(eng._chunk_in[eng.prefill_chunk + 2])
+                self._chunk = out[1][n - 1]
+            return out
+
+        def probe_finish(req, tok):
+            row = self._chunk
+            self.first[req.id] = row.cpu().numpy()
+            self.gaps.setdefault(req.id, []).append(
+                float(_gaps(row[None])[0]))
+            return finish(req, tok)
+
+        eng._rows, eng._finish_prefill = probe_rows, probe_finish
+
+
+def _gaps(logits: torch.Tensor) -> torch.Tensor:
+    top = logits.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]) / logits.abs().amax(-1).clamp_min(1e-30)
+
+
+def _delivered(eng: DecodeEngine, packed: torch.Tensor) -> torch.Tensor:
+    """What a step's packed readback delivers: each lane's emitted
+    tokens, emit count, finished flag and accept length, zeros past what
+    it emits (a lane that emits nothing sampled from rows that read the
+    scratch page, whose racing writes differ from process to process),
+    and the chunk's token."""
+    g = eng.spec_k + 1
+    lanes = packed[:eng.max_batch * (g + 3)].view(eng.max_batch, g + 3)
+    n = lanes[:, g:g + 1]
+    cols = torch.arange(g + 3, device=packed.device)[None, :]
+    keep = (cols < n) | ((cols >= g) & (n > 0)) | (cols == g)
+    return torch.cat([torch.where(keep, lanes, torch.zeros_like(lanes))
+                      .reshape(-1), packed[eng.max_batch * (g + 3):]])
+
+
+def _digest(*tensors: torch.Tensor) -> str:
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class InjectedFault(RuntimeError):
+    """The fault a serving job injects (``fault``)."""
+
+
+def _fail_mid_step(eng: DecodeEngine, rank: int, at_step: int) -> None:
+    """Make this rank's step ``at_step`` raise inside its layers, after
+    the embedding's collective and before the layers' sums."""
+    attend = eng._attend
+
+    def failing(*args):
+        if eng.steps == at_step:
+            raise InjectedFault(f"injected fault mid-step on rank {rank}")
+        return attend(*args)
+    eng._attend = failing
+
+
+def _serve_params(rank: int, job: Dict[str, Any], cfg, plan, mesh, dev):
+    """This rank's tree: loaded shards (``ckpt``), the numpy tree's
+    (``weights``), or drawn from ``seed`` (leaf by leaf, each cut to this
+    rank's shard at once under a tp plan; whole otherwise). ``relaxed``
+    ({"group": g}): quantized on the weight plane. The ranks take turns,
+    so one full leaf at a time sits on a shared card."""
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            if "ckpt" in job:
+                specs = param_specs(cfg, plan) if plan is not None else None
+                params, _ = load_serving_params(
+                    LocalFileSystem(), job["ckpt"], cfg, device=dev,
+                    mesh=mesh if plan is not None else None, specs=specs)
+            elif "weights" in job:
+                params = params_from_numpy(job["weights"], cfg, device=dev)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(job["seed"])
+                keep = shard_as_drawn(cfg, plan, mesh) \
+                    if plan is not None else None
+                params = init_params(cfg, gen, device=dev, keep=keep)
+            if "relaxed" in job:
+                params, _ = weightplane.quantize_params(
+                    params, cfg, weightplane.WeightPlaneConfig(
+                        tier="relaxed", **job["relaxed"]))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _requests(op: Dict[str, Any]):
+    sp = SamplingParams(max_new_tokens=op["max_new"],
+                        temperature=op.get("temperature", 0.0),
+                        top_k=op.get("top_k", 0))
+    return [(p, sp) for p in op["prompts"]]
+
+
+def _drive(eng: DecodeEngine, job: Dict[str, Any], rec: Dict[str, Any],
+           cuda: bool) -> None:
+    """The driver's script: ``submit`` (prompts, max_new, temperature,
+    top_k), ``until_first`` (step until request ``req`` has a token),
+    ``drain`` (step until every request is done), ``extract`` (the
+    payload of the first cached page of request ``req``'s prompt),
+    ``evict_all`` (every cached page demoted to the host ring). Each
+    step's wall ms and shape, and its RMSNorm and dequantize launches,
+    go to ``rec``."""
+    reqs = []
+    fault = job.get("fault")
+
+    def one_step():
+        if fault and not fault.get("mid_step") and \
+                eng.steps == fault["at_step"]:
+            raise InjectedFault("injected driver fault")
+        before = (norms.launches_fwd, weightplane.launches_dequant)
+        wire = dict(spmd.traffic)
+        t0 = time.perf_counter()
+        eng.step()
+        if cuda:
+            torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["fused"].append(eng._chunk_fill > 0)
+        rec["launches"].append([norms.launches_fwd - before[0],
+                                weightplane.launches_dequant - before[1]])
+        rec["traffic"].append({k: v - wire.get(k, 0)
+                               for k, v in spmd.traffic.items()})
+
+    for op in job["ops"]:
+        kind = op["op"]
+        if kind == "submit":
+            reqs += [eng.submit(p, sp) for p, sp in _requests(op)]
+        elif kind == "until_first":
+            r = reqs[op["req"]]
+            while not r.out_tokens and not r.done.is_set():
+                one_step()
+        elif kind == "drain":
+            while not all(r.done.is_set() for r in reqs):
+                one_step()
+        elif kind == "extract":
+            blk = eng.prefix_cache.match_nodes(
+                reqs[op["req"]].prompt)[0].block
+            rec["extracted"] = eng._extract_block(blk)
+        elif kind == "evict_all":
+            with eng._sched_lock:
+                freed = eng.prefix_cache.evict(
+                    len(eng.prefix_cache), eng.pool.refcount,
+                    on_evict=eng.kvstore.demote)
+                eng.pool.free(freed)
+            rec["evicted"] = len(freed)
+        else:
+            raise ValueError(f"unknown op {kind!r}")
+    rec["tokens"] = [r.wait(0) for r in reqs]
+    rec["ttft_ms"] = [(r.first_token_at - r.submitted_at) * 1e3
+                      for r in reqs]
+    rec["preemptions"] = [r.preemptions for r in reqs]
+    rec["reused"] = [r.prefix_tokens_reused for r in reqs]
+    rec["ids"] = [r.id for r in reqs]
+
+
+def serve_plans(rank: int, world: int, jobs: List[Dict[str, Any]]
+                ) -> List[Dict[str, Any]]:
+    """Serve each job on this world, in order; see the module doc. A job:
+    ``preset`` (+ ``overrides``), ``seed`` / ``weights`` (numpy) /
+    ``ckpt`` (a checkpoint directory on the local filesystem),
+    ``relaxed`` (weight plane kwargs), ``device`` (the card unless
+    "cpu"), ``plan`` (MeshPlan kwargs: a tp plan) or ``group`` (k: the
+    ranks as MeshPlan(dp=k), the expert stacks' group), ``engine``
+    (DecodeEngine kwargs), ``ops`` (the driver's script, ``_drive``),
+    ``probe`` (``StepProbe`` on the driver), ``digests`` (per step, on
+    every rank, a digest of the step's output and the device step
+    state after it), ``fault`` ({"at_step": n}: the driver raises before
+    that step and releases its followers; with ``"mid_step": True`` and
+    ``"rank": r``, rank r raises inside that step and the world fails),
+    ``control`` ("drop_tp_partial": each rank leaves the others' attention
+    outputs out of its tp sum, a wrong engine for a gate to reject),
+    ``longctx`` (try ``attach_longctx``). Returns one record
+    a job: the driver's tokens, TTFTs, step ms, launches and wire bytes
+    by axis a step; every rank's digests, placement and peak memory."""
+    out = [_serve_job(rank, job) for job in jobs]
+    out[-1]["foreign"] = sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "jaxlib", "hadoop_tpu"))
+    return out
+
+
+def _serve_job(rank: int, job: Dict[str, Any]) -> Dict[str, Any]:
+    cfg = config_mod.get_config(job["preset"], **job.get("overrides", {}))
+    dev = resolve_device(job.get("device"))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if "plan" in job:
+        plan = MeshPlan(**job["plan"])
+        mesh = make_mesh(plan)
+    else:
+        plan, mesh = None, make_mesh(MeshPlan(dp=job["group"]))
+    params = _serve_params(rank, job, cfg, plan, mesh, dev)
+    eng = DecodeEngine(params, cfg, device=dev, plan=plan, mesh=mesh,
+                       **job.get("engine", {}))
+    del params
+    rec: Dict[str, Any] = {"rank": rank, "mesh": eng.mesh_stats(),
+                           "weight_plane": eng.weight_plane(),
+                           "num_blocks": eng.pool.num_blocks,
+                           "setup_ms": (time.perf_counter() - t0) * 1e3,
+                           "step_ms": [], "fused": [], "launches": [],
+                           "traffic": [], "digests": [], "error": None}
+    if job.get("longctx"):
+        try:
+            eng.attach_longctx(types.SimpleNamespace(min_tokens=1))
+        except NotImplementedError as e:
+            rec["longctx_error"] = str(e)
+    if job.get("digests"):
+        impl = eng._step_impl
+
+        def digested(fused):
+            packed = impl(fused)
+            rec["digests"].append(_digest(_delivered(eng, packed),
+                                          *eng._dstate.values()))
+            return packed
+        eng._step_impl = digested
+    fault = job.get("fault") or {}
+    if fault.get("mid_step") and fault["rank"] == rank:
+        _fail_mid_step(eng, rank, fault["at_step"])
+    if job.get("control") == "drop_tp_partial":
+        eng._tp_sum = lambda parts: parts
+    probe = StepProbe(eng) if job.get("probe") and eng.mesh_stats()[
+        "driver"] else None
+    if cuda:
+        torch.cuda.synchronize()
+    t_serve = time.perf_counter()
+    if eng.mesh_stats()["driver"]:
+        try:
+            _drive(eng, job, rec, cuda)
+        except InjectedFault as e:
+            if fault.get("mid_step"):
+                raise
+            rec["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            eng.stop()
+    else:
+        eng.follow()
+        rec["followed_steps"] = eng.steps
+    rec["serve_ms"] = (time.perf_counter() - t_serve) * 1e3
+    if probe is not None and "ids" in rec:
+        rec["first_logits"] = [probe.first.get(i) for i in rec["ids"]]
+        rec["gaps"] = [probe.gaps.get(i, []) for i in rec["ids"]]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    del eng, probe
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+PROGRAMS = {"collectives": collectives, "train_plans": train_plans,
+            "shuffle_cases": shuffle_cases, "trainer_ops": trainer_ops,
+            "serve_plans": serve_plans}
+
+
+def stages(rank: int, world: int, stages: List[Any]) -> List[Any]:
+    """Run each ``(program, args)`` of ``stages`` in order on this world
+    (``program``: a name of ``PROGRAMS``); between two, the ranks free
+    what the last one left on the card and meet. Returns, a stage, its
+    result and this rank's seconds in it."""
+    out = []
+    for name, args in stages:
+        t0 = time.perf_counter()
+        result = PROGRAMS[name](rank, world, *args)
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        dist.barrier()
+        out.append((result, time.perf_counter() - t0))
     return out

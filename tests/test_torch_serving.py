@@ -377,26 +377,43 @@ def test_sampled_tokens_lie_in_the_top_k_set():
 
 
 def test_unported_features_are_refused(monkeypatch):
-    """What the engine still refuses names its ROADMAP item: a
-    tensor-parallel plan and more than one expert shard (A 6). hbm_bytes
-    sizing, MoE and the int8 plane are ported (tests/test_torch_
-    weightplane.py, test_torch_moe.py), and so is the long-context plane
-    (tests/test_torch_longctx_decode.py): ``attach_longctx`` takes one
-    and routes prompts of its ``min_tokens`` to it."""
+    """What the engine refuses is the reference's own refusals: a plan
+    with pp, sp or ep above 1, an int8 tree with a plan, more expert
+    shards than the engine's ranks (tests/test_torch_tp_serving.py
+    serves the tp plans and the expert shards the reference accepts).
+    An engine in one process is one rank, whatever the host holds: on a
+    host reporting four GPUs a MoE engine resolves its expert shards
+    against its one device. hbm_bytes sizing, MoE and the int8 plane
+    are ported (tests/test_torch_weightplane.py, test_torch_moe.py), and
+    so is the long-context plane (tests/test_torch_longctx_decode.py):
+    ``attach_longctx`` takes one and routes prompts of its
+    ``min_tokens`` to it."""
+    from hadoop_tpu_torch.parallel.mesh import MeshPlan
     _, jparams, cfg, params, _ = _model("tiny")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        DecodeEngine(params, cfg, device="cpu", plan=object())
+    for plan in (MeshPlan(pp=2), MeshPlan(sp=2), MeshPlan(ep=2)):
+        with pytest.raises(ValueError, match="serving shards over tp "
+                           r"\(and dp\) only"):
+            DecodeEngine(params, cfg, device="cpu", plan=plan)
     moe_cfg = config.get_config("tiny-moe")
     moe_params = decoder.init_params(moe_cfg, torch.Generator(),
                                      device="cpu")
-    with pytest.raises(ValueError, match="exceeds"):
+    with pytest.raises(ValueError, match="exceeds the replica's 1 local"):
         DecodeEngine(moe_params, moe_cfg, device="cpu", moe_shards=2)
     monkeypatch.setattr(engine, "resolve_device",
                         lambda device: torch.device("cuda", 0))
     monkeypatch.setattr(engine, "check_on", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="exceeds the replica's 1 local"):
         DecodeEngine(moe_params, moe_cfg, moe_shards=2)
+    resolved = []
+    real = engine.expert_shard_count
+    monkeypatch.setattr(engine, "expert_shard_count", lambda *a: resolved.
+                        append((a, real(*a))) or resolved[-1][1])
+    try:        # past the resolution a CPU build cannot allocate on cuda
+        DecodeEngine(moe_params, moe_cfg, moe_shards=0)
+    except (AssertionError, RuntimeError):
+        pass
+    assert resolved == [((4, 0, 1), 1)]
     monkeypatch.undo()
     with pytest.raises(ValueError):
         DecodeEngine(moe_params, moe_cfg, device="cpu",

@@ -295,8 +295,9 @@ def test_trainer_refuses_what_queue_a6_brings(fs, token_file, port_curve,
 
 
 def test_refusals_name_their_queue_item(fs, token_file):
-    """The streaming ``leaf_transform`` onto a mesh (its caller is the
-    engine's tp plan, item 2) raises naming its item. ``apply_plan``
+    """The streaming ``leaf_transform`` onto a mesh raises with the
+    reference's reason (it cannot compose with sharded placement), from
+    the checkpoint load and from the serving loader. ``apply_plan``
     (the elastic plane, item 3, which raised here before) now rebuilds
     the trainer and restores the newest save bit for bit on one device.
     The sharded placement the other cases refused before the mesh slice
@@ -317,11 +318,13 @@ def test_refusals_name_their_queue_item(fs, token_file):
     like = {"params": t.params}
     one = Mesh(MeshPlan(), 0, dict.fromkeys(AXES, 0), {})
     specs = param_specs(t.cfg, MeshPlan())
-    with pytest.raises(NotImplementedError, match="Queue A 6 item 2"):
+    with pytest.raises(NotImplementedError, match="cannot compose with "
+                       "sharded placement"):
         ckpt.load_checkpoint(fs, "/pckpt/refuse", like, device="cpu",
                              mesh=one, specs={"params": specs},
                              leaf_transform=lambda n, a: a)
-    with pytest.raises(NotImplementedError, match="Queue A 6 item 2"):
+    with pytest.raises(NotImplementedError, match="cannot compose with "
+                       "sharded placement"):
         loader.load_serving_params(fs, "/pckpt/refuse", t.cfg,
                                    device="cpu", mesh=one, specs=specs,
                                    leaf_transform=lambda n, a: a)
