@@ -81,10 +81,15 @@ single-device step at the same depth, then two bf16 AdamW steps with
 their launches pinned per rank and stage and the pipelines' stashed
 stage inputs bounded; ``dist_shapes`` times the flash kernels at those
 ranks' shapes. The four-rank phases (``tp_serving``, ``dist_parity``,
-``dist_train``, ``trainer_mesh``) share one world
+``dist_train``, ``trainer_mesh``, ``relaxed``) share one world
 (``phase_dist_world``: the single-device references first, then the
-world's four stages, then each phase's gates; ``stages=`` runs a
-subset on a world of its own). First, serving on four ranks (phase
+world's five stages, then each phase's gates; ``stages=`` runs a
+subset on a world of its own). The last, the relaxed parity tier (see
+RELAXED): the eager codec's device time against its bytes bound, then
+the loss-curve A-B of three legs (dp2×tp2 int8, ZeRO-1 dp4 fp8, a
+stale sync schedule) with their ledger ratio and dp wire cut held at
+≥ 2×, launches equal to the bitwise arm's and the card's codec equal to
+the CPU's byte for byte. First, serving on four ranks (phase
 ``tp_serving``, see TP_SERVING): ``DecodeEngine`` under a tensor-parallel
 plan and over expert shards, one rank driving and three following,
 flagship-1b float32 at tp 2 and tp 4 (tokens equal the single-device
@@ -120,7 +125,8 @@ phase's 12 steps; ``launches_moe_train``, ``launches_moe_trainer``: the
 MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
 prefill; ``launches_dist``: rank 0's in dist_train's eleven plans of
 two steps; ``launches_trainer_mesh``: rank 0's over trainer_mesh's
-steps; ``launches_tp_serving``: rank 0's over tp_serving's legs), its
+steps; ``launches_tp_serving``: rank 0's over tp_serving's legs;
+``launches_relaxed``: rank 0's over the relaxed stage), its
 error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
@@ -180,6 +186,10 @@ from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel.collectives import hash_partitioner
+from hadoop_tpu_torch.parallel import overlap
+from hadoop_tpu_torch.parallel.lowp import ParityConfig
+from hadoop_tpu_torch.parallel.mesh import param_specs
+from hadoop_tpu_torch.parallel.lowp import quant as lowp_quant
 from hadoop_tpu_torch.parallel.lowp.guard import loss_curve_report
 from hadoop_tpu_torch.mapreduce.device_shuffle import (device_group_reduce,
                                                        device_shuffle,
@@ -4935,20 +4945,227 @@ def _tp_check(prep, recs, world_s):
     return total
 
 
+# The relaxed stage (the relaxed parity tier, ``parallel/lowp``): the
+# loss-curve A-B (``run_loss_ab`` through ``dist_plans.relaxed_plans``)
+# on four gloo ranks sharing the card, at flagship-1b's full width and
+# ``layers`` deep (2: at 4 the stage took 104 s, past its share of the
+# script's limit), TRAIN's [4, 2048] batch, AdamW, full remat, in
+# float32: the tier's >= 2x byte contract is the reference's for 4-byte
+# payloads (a 2-byte bf16 bucket carries 2 / (1 + 4 / group) = 1.99x at
+# best, by the reference's own accounting). Legs (name, mesh, options,
+# ParityConfig keywords, the leg whose bitwise curve it reuses):
+# dp2 x tp2 with every consumer on (int8, tp_chunks 4); ZeRO-1 dp4 in
+# fp8 (its gradient scatter on the int8 wire, as the reference's falls
+# back; the gather in fp8); dp2 x tp2 at periodic:2 stale. The first two
+# also hold the first relaxed step's gradient buckets' int8 and fp8
+# codecs on the card against the CPU's, byte for byte. ``ratio_min``:
+# the ledger's first-step reference over payload bytes; ``cut_min``: the
+# dp axis's wire bytes (the gradient buckets and ZeRO-1 gather ride it),
+# bitwise arm over relaxed. ``bucket_mib`` and ``codec_iters``: the
+# eager codec's timing before the world (one 4 MiB bucket, and the
+# buckets of a full-depth flagship-1b dp2 x tp2 rank's step).
+RELAXED = dict(model="flagship-1b", layers=2, dtype="float32", steps=4,
+               ratio_min=2.0, cut_min=2.0, bucket_mib=4, codec_iters=10)
+RELAXED_LEGS = [
+    ("dp2_tp2_int8", {"dp": 2, "tp": 2}, {}, {"codec": "int8"}, None),
+    ("zero1_dp4_fp8", {"dp": 4}, {"zero1": True}, {"codec": "fp8"}, None),
+    ("dp2_tp2_periodic2_stale", {"dp": 2, "tp": 2}, {},
+     {"relaxed_sync": "periodic:2", "relaxed_sync_mode": "stale"}, 0),
+]
+RELAXED_CAVEAT = ("four ranks on one card, gloo, every collective through "
+                  "host memory: host wall a step (the loss read ends it), "
+                  "not a multi-GPU deployment's")
+
+
+def _relaxed_cfg():
+    return get_config(RELAXED["model"], n_layers=RELAXED["layers"],
+                      dtype=RELAXED["dtype"])
+
+
+def _codec_ms(x, codec):
+    """Device ms of one eager quantize-and-dequantize of ``x`` (the
+    relaxed collectives' codec, without the wire)."""
+    def run():
+        rows = lowp_quant._pad_rows(x, 1024)
+        qmax = 127 if codec == "int8" else lowp_quant._F8_MAX
+        scales = lowp_quant._wire_scales(rows.abs().amax(dim=1), qmax)
+        q = lowp_quant._quant_rows(rows, scales, qmax) if codec == "int8" \
+            else lowp_quant._to_f8(rows, scales)
+        return q.float() * scales[:, None]
+    return cuda_ms(run, RELAXED["codec_iters"])
+
+
+def _codec_bound_ms(n):
+    """Bytes the codec must move for ``n`` f32 elements: read them, write
+    the 1-byte values and the scales, read both back, write the result."""
+    g = -(-n // 1024)
+    return (4 * n + n + 4 * g + n + 4 * g + 4 * n) / MEM_BYTES_PER_S * 1e3
+
+
+def _step_buckets(cfg, plan):
+    """A rank's gradient bucket sizes (elements) under ``plan``'s relaxed
+    step: its shards grouped by spec axes, packed into 4 MiB buckets in
+    flatten order (``overlap``'s rule)."""
+    specs = param_specs(cfg, plan)
+    shapes = init_params(cfg, torch.Generator(), device="meta")
+    groups = {}
+    for leaf, spec in zip(tree_leaves(shapes), tree_leaves(specs)):
+        n = leaf.numel()
+        for a in spec:
+            if a is not None:
+                n //= plan.sizes[a]
+        groups.setdefault(tuple(sorted(a for a in spec if a)), []).append(n)
+    out = []
+    for sizes in groups.values():
+        for bucket in overlap._pack_buckets(sizes, 4, RELAXED["bucket_mib"]
+                                            << 20):
+            out.append(sum(sizes[i] for i in bucket))
+    return out
+
+
+def _relaxed_codec_timing(smi):
+    """The eager codec's device time against its bytes bound: one 4 MiB
+    bucket, and every bucket of a flagship-1b dp2 x tp2 rank's step."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    one = torch.randn((RELAXED["bucket_mib"] << 20) // 4, device="cuda",
+                      generator=gen)
+    cfg = get_config(RELAXED["model"], dtype="float32")
+    sizes = _step_buckets(cfg, MeshPlan(dp=2, tp=2))
+    step = [torch.randn(n, device="cuda", generator=gen) for n in sizes]
+    rec = {"phase": "relaxed_codec", "card": smi, "bucket_elements":
+           one.numel(), "step_buckets": len(sizes),
+           "step_elements": sum(sizes), "model": RELAXED["model"],
+           "step_layers": cfg.n_layers,
+           "bound_ms_bucket": _codec_bound_ms(one.numel()),
+           "bound_ms_step": sum(_codec_bound_ms(n) for n in sizes)}
+    for codec in ("int8", "fp8"):
+        rec[f"{codec}_ms_bucket"] = _codec_ms(one, codec)
+        rec[f"{codec}_ms_step"] = sum(_codec_ms(x, codec) for x in step)
+        rec[f"{codec}_bound_share_step"] = rec["bound_ms_step"] / \
+            rec[f"{codec}_ms_step"]
+    emit(rec)
+    del one, step
+    free_device()
+    return rec
+
+
+def _relaxed_prepare(smi):
+    """The codec timing (this process), then the stage's jobs."""
+    codec = _relaxed_codec_timing(smi)
+    cfg = _relaxed_cfg()
+    tokens = _train_tokens(cfg).cpu().numpy()
+    jobs = []
+    for name, plan, opts, pkw, reuse in RELAXED_LEGS:
+        job = dict({"plan": plan, "preset": RELAXED["model"],
+                    "overrides": {"n_layers": RELAXED["layers"],
+                                  "dtype": RELAXED["dtype"]},
+                    "steps": RELAXED["steps"], "lr": TRAIN["lr"],
+                    "remat": TRAIN["remat"], "seed": SEED,
+                    "tokens": tokens, "device": "cuda",
+                    "parity": ParityConfig(tier="relaxed", **pkw)}, **opts)
+        if reuse is None:
+            job["codec_check"] = True
+        else:
+            job["bitwise_from"] = reuse
+        jobs.append(job)
+    return {"jobs": jobs, "codec": codec, "cfg": cfg, "smi": smi}
+
+
+def _per_step(probe, steps):
+    return {k: v / steps for k, v in probe.items()}
+
+
+def _relaxed_check(ctx, recs, seconds):
+    """The relaxed stage's records and holds; returns rank 0's launches
+    over the stage, by kernel name."""
+    cfg, steps = ctx["cfg"], RELAXED["steps"]
+    for i, (name, plan, opts, pkw, reuse) in enumerate(RELAXED_LEGS):
+        ranks = [r[i] for r in recs]
+        rep, arms = ranks[0], [r["rank"] for r in ranks]
+        bit_arms = [recs[r][i if reuse is None else reuse]["rank"]["bitwise"]
+                    for r in range(len(recs))]
+        want = _dist_want(cfg, plan, {})
+        cut = [b["traffic"].get("dp", 0) / max(a["relaxed"]["traffic"].get(
+            "dp", 0), 1) for a, b in zip(arms, bit_arms)]
+        per = rep["comm"]["per_site"]
+        rec = {"phase": "relaxed", "leg": name, "mesh": plan, **opts,
+               "model": RELAXED["model"], "layers": RELAXED["layers"],
+               "dtype": RELAXED["dtype"], "optimizer": "adamw",
+               "tokens": [TRAIN["batch"], TRAIN["seq"]],
+               "remat": TRAIN["remat"], "parity": pkw, "card": ctx["smi"],
+               "transport": RELAXED_CAVEAT, "seconds": seconds,
+               "bitwise_losses": rep["bitwise_losses"],
+               "relaxed_losses": rep["relaxed_losses"],
+               "report": {k: rep.get(k) for k in (
+                   "accepted", "reason", "rel_tol", "max_rel_div",
+                   "mean_rel_div", "final_rel_div", "raw_max_rel_div")},
+               "ledger_first_step": rep["comm"],
+               "wire_bytes_bitwise_by_axis": [b["traffic"]
+                                              for b in bit_arms],
+               "wire_bytes_relaxed_by_axis": [a["relaxed"]["traffic"]
+                                              for a in arms],
+               "dp_wire_cut": cut,
+               "step_ms_bitwise_per_rank": [[t * 1e3 for t in b["step_s"]]
+                                            for b in bit_arms],
+               "step_ms_relaxed_per_rank": [[t * 1e3 for t in
+                                             a["relaxed"]["step_s"]]
+                                            for a in arms],
+               "peak_memory_bytes_per_rank": [a.get("peak_bytes")
+                                              for a in arms],
+               "launches_per_step_rank0": {
+                   "bitwise": _per_step(bit_arms[0]["probe"], steps),
+                   "relaxed": _per_step(arms[0]["relaxed"]["probe"],
+                                        steps)},
+               "codec_check": [a.get("codec_check") for a in arms]}
+        emit(rec)
+        require(all(np.isfinite(rep["bitwise_losses"] +
+                                rep["relaxed_losses"])),
+                f"relaxed {name}: a loss is not finite")
+        require(all(r["relaxed_losses"] == rep["relaxed_losses"]
+                    for r in ranks), f"relaxed {name}: the ranks differ")
+        for a, b in zip(arms, bit_arms):
+            got = [a["relaxed"]["probe"][k] for k in dist_plans.COUNTERS]
+            require(got == [b["probe"][k] for k in dist_plans.COUNTERS] and
+                    got[:4] == [steps * n for n in want],
+                    f"relaxed {name}: launches {a['relaxed']['probe']} "
+                    f"(bitwise arm {b['probe']}, flash a step {want})")
+        if reuse is None:
+            require(rep["comm"]["ratio"] >= RELAXED["ratio_min"],
+                    f"relaxed {name}: ledger ratio {rep['comm']['ratio']}")
+            require(min(cut) >= RELAXED["cut_min"],
+                    f"relaxed {name}: dp wire cut {cut}")
+            require(all(c["buckets"] > 0 and c["mismatched"] == 0
+                        for c in rec["codec_check"]),
+                    f"relaxed {name}: card codec against the CPU's "
+                    f"{rec['codec_check']}")
+        else:
+            modes = ("sync", "stale") * (RELAXED["layers"] // 2)
+            full = recs[0][reuse]["comm"]["per_site"]["tp.psum"]
+            require(per["tp.psum"]["executions"] == full["executions"] // 2
+                    and per["tp.psum"]["reference_bytes"] ==
+                    full["reference_bytes"] and per["tp.stale"][
+                        "executions"] == 2 * modes.count("stale"),
+                    f"relaxed {name}: scheduled-off sites {per} against "
+                    f"the full schedule's tp.psum {full}")
+    return recs[0][-1]["rank"]["launches_total"]
+
+
 # The four-rank phases share one world: its processes start, reach the
 # card and warm up once (``dist_plans.stages``). A stage's single-device
 # references run first, in this process (then freed), then the world's
 # stages, then each stage's gates, in DIST_STAGES' order. trainer_mesh
 # holds its launches to dist_train's, so it needs that stage.
-DIST_STAGES = ("tp_serving", "dist_parity", "dist_train", "trainer_mesh")
+DIST_STAGES = ("tp_serving", "dist_parity", "dist_train", "trainer_mesh",
+               "relaxed")
 DIST_WORLD_TIMEOUT = 1500
 
 
-def phase_dist_world(stages=DIST_STAGES):
+def phase_dist_world(stages=DIST_STAGES, smi=""):
     """The ``stages`` of DIST_STAGES on one world of four ranks. Returns
-    rank 0's launches by kernel name, by stage (tp_serving's, dist_train's
-    and trainer_mesh's). One stage alone: ``phase_dist_world(
-    ("tp_serving",))``."""
+    rank 0's launches by kernel name, by stage (tp_serving's, dist_train's,
+    trainer_mesh's and relaxed's). One stage alone: ``phase_dist_world(
+    ("tp_serving",))``; ``smi``: the card's nvidia-smi line, which the
+    relaxed stage's records carry."""
     stages = [s for s in DIST_STAGES if s in stages]
     if "trainer_mesh" in stages and "dist_train" not in stages:
         raise ValueError("trainer_mesh's launches are held to dist_train's")
@@ -4962,6 +5179,11 @@ def phase_dist_world(stages=DIST_STAGES):
                 tp = _tp_prepare()
                 program.append(("serve_plans", (tp["jobs"],)))
                 checks.append(lambda recs, s, tp=tp: _tp_check(tp, recs, s))
+            elif stage == "relaxed":
+                rx = _relaxed_prepare(smi)
+                program.append(("relaxed_plans", (rx["jobs"],)))
+                checks.append(lambda recs, s, rx=rx:
+                              _relaxed_check(rx, recs, s))
             elif stage in ("dist_parity", "dist_train"):
                 parity = stage == "dist_parity"
                 refs = _parity_refs() if parity else {
@@ -5870,7 +6092,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    smi = phase_build()
     record = phase_kernel()
     bwd = phase_backward()
     partial = phase_partial()
@@ -5882,9 +6104,10 @@ def main() -> int:
     phase_dist_shapes()
     # the dist phases before the rest: four ranks' trees share the card
     # with this process, which holds least now
-    by_stage = phase_dist_world()
-    tp_launches, dist_launches, mesh_launches = (
-        by_stage[s] for s in ("tp_serving", "dist_train", "trainer_mesh"))
+    by_stage = phase_dist_world(smi=smi)
+    tp_launches, dist_launches, mesh_launches, relaxed_launches = (
+        by_stage[s] for s in ("tp_serving", "dist_train", "trainer_mesh",
+                              "relaxed"))
     phase_ring()
     (_, train_dq, train_dkv, train_adamw, train_grad_sq, _,
      train_norm_bwd), train_rec = phase_train()
@@ -5933,7 +6156,9 @@ def main() -> int:
     # launches_trainer_mesh: rank 0's over the trainer_mesh phase's steps
     # (the elastic leg's, its twin's and its re-run steps among them);
     # launches_tp_serving: rank 0's over the tp_serving phase's six legs
-    # (RMSNorm's forward, and the dequantize of the int8 leg)
+    # (RMSNorm's forward, and the dequantize of the int8 leg);
+    # launches_relaxed: rank 0's over the relaxed stage (its legs' bitwise
+    # and relaxed arms and the codec-check steps)
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))
@@ -5948,7 +6173,8 @@ def main() -> int:
         launches_ulysses=by_ulysses.get(rec["name"], 0),
         launches_dist=dist_launches.get(rec["name"], 0),
         launches_trainer_mesh=mesh_launches.get(rec["name"], 0),
-        launches_tp_serving=tp_launches.get(rec["name"], 0))
+        launches_tp_serving=tp_launches.get(rec["name"], 0),
+        launches_relaxed=relaxed_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

@@ -31,6 +31,13 @@ the flash kernel on a CUDA device for shapes it supports; ``attn_impl``
 forces either path ("flash" or "ref") so a run can compare the two.
 ``remat`` recomputes layers in the backward, as the reference's
 ``jax.checkpoint`` modes do.
+
+Under the relaxed parity tier (``parallel/lowp``) the ctx also names the
+tp reduce's wire codec, the chunked tp matmul and the per-layer sync
+schedule (``relaxed_sync``, resolved by ``lowp/syncpolicy.py``): each
+block then takes its layer's ``SiteSync`` pair, and ``run_layers`` with
+``sync_state`` threads the stale layers' corrections through the step
+(``[n_stale, 2, *x.shape]`` in, the same out).
 """
 
 from __future__ import annotations
@@ -59,9 +66,8 @@ from hadoop_tpu_torch.serving.weightplane import is_qtensor, qdot, qrows
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """The axes the current run is under (None = single device), and
-    whether quantized weights may be contracted. The wire-codec fields
-    come with ROADMAP Queue A 6, and naming one is a TypeError.
+    """The axes the current run is under (None = single device), whether
+    quantized weights may be contracted, and the relaxed tier's knobs.
 
     ring:      name of the context-parallel axis (the reference's
         ``ring_axis``), e.g. "sp".
@@ -77,6 +83,12 @@ class ParallelCtx:
         matmul leaves that are weight-plane qtensors route through the
         dequantizing matmul. False (the bitwise tier): a qtensor leaf
         fails at its first use.
+    tp_overlap_chunks: the chunks of a relaxed tp reduce (1 without tp).
+    relaxed_codec: the relaxed tier's tp reduce wire ("int8", "fp8"),
+        None: the exact reduce.
+    relaxed_chunk_matmul: the relaxed tier's chunked tp matmul.
+    relaxed_sync: the per-layer sync modes ("sync", "skip", "stale"),
+        None: every layer syncs. All three are None/False without tp.
     """
     ring: Optional[str] = None
     ring_size: int = 1
@@ -86,6 +98,10 @@ class ParallelCtx:
     tp: Optional[spmd.Axis] = None
     megatron_sp: bool = False
     ep: Optional[spmd.Axis] = None
+    tp_overlap_chunks: int = 1
+    relaxed_codec: Optional[str] = None
+    relaxed_chunk_matmul: bool = False
+    relaxed_sync: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         if self.sp_mode not in ("ring", "ulysses"):
@@ -240,22 +256,32 @@ def _dot(h, w, ctx: ParallelCtx):
     return qdot(h, w) if _relaxed_qready(w, ctx) else h @ w
 
 
-def _down(x, w, ctx: ParallelCtx, bias=None):
+def _down(x, w, ctx: ParallelCtx, bias=None, relaxed_sync=None):
     """A row-parallel projection, ``x @ w (+ bias)``: reduced over tp
-    (``ops/collective_matmul.py``) under a tp axis."""
+    (``ops/collective_matmul.py``) under a tp axis, in the site's
+    scheduled mode (``relaxed_sync``)."""
     if ctx.tp is not None:
-        return row_parallel_project(x, w, ctx, bias)
+        return row_parallel_project(x, w, ctx, bias, relaxed_sync)
     y = _dot(x, w, ctx)
     return y if bias is None else y + bias
 
 
+def _split_stale(out, relaxed_sync):
+    """A reduce's output and its new stale correction (None unless the
+    site's mode is stale)."""
+    if relaxed_sync is not None and relaxed_sync.mode == "stale":
+        return out
+    return out, None
+
+
 def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
                      attn_impl: str = "auto", ctx: ParallelCtx = SINGLE,
-                     return_kv: bool = False):
+                     return_kv: bool = False, relaxed_sync=None):
     """Pre-norm attention with residual. x: [B, S, D] ([R*B, S_local, D]
     under a ring ctx). ``return_kv=True`` also returns this layer's
     post-RoPE ``(k, v)`` [B, S, Hkv, Dh], the rows the long-context
-    prefill streams out."""
+    prefill streams out. ``relaxed_sync`` (a ``SiteSync``): the block
+    returns ``(y, corr)``, ``corr`` the new stale correction or None."""
     resid = x
     h = _tp_enter(_norm(x, lp["attn_norm_w"], lp.get("attn_norm_b"), cfg),
                   ctx)
@@ -276,12 +302,17 @@ def _attention_block(x, lp, cfg: ModelConfig, cos, sin,
             q, k, v, ctx.ring_group or ctx.ring_size, impl=attn_impl)
     else:
         attn = causal_attention(q, k, v, impl=attn_impl)
-    out = _down(attn.reshape(B, S, hq * cfg.head_dim), lp["wo"], ctx)
+    out, corr = _split_stale(
+        _down(attn.reshape(B, S, hq * cfg.head_dim), lp["wo"], ctx,
+              relaxed_sync=relaxed_sync), relaxed_sync)
     y = resid + out.to(resid.dtype)
-    return (y, (k, v)) if return_kv else y
+    if return_kv:
+        return y, (k, v)
+    return (y, corr) if relaxed_sync is not None else y
 
 
-def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
+def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE,
+               relaxed_sync=None):
     resid = x
     h = _tp_enter(_norm(x, lp["mlp_norm_w"], lp.get("mlp_norm_b"), cfg),
                   ctx)
@@ -292,21 +323,34 @@ def _mlp_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx = SINGLE):
         ranks = ctx.ring_size if ctx.ring_group is None else 1
         out = moe_mlp(h, lp, cfg, ctx) if ranks == 1 else torch.cat(
             [moe_mlp(hr, lp, cfg, ctx) for hr in h.chunk(ranks, dim=0)])
-        out = reduce_row_parallel(out, ctx)
+        out = reduce_row_parallel(out, ctx, relaxed_sync)
     elif cfg.use_swiglu:
         out = _down(swiglu(_dot(h, lp["w_gate"], ctx),
-                           _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx)
+                           _dot(h, lp["w_up"], ctx)), lp["w_down"], ctx,
+                    relaxed_sync=relaxed_sync)
     else:
         out = _down(gelu(_dot(h, lp["w_in"], ctx) + lp["b_in"]), lp["w_out"],
-                    ctx, lp["b_out"])
-    return resid + out.to(resid.dtype)
+                    ctx, lp["b_out"], relaxed_sync)
+    out, corr = _split_stale(out, relaxed_sync)
+    y = resid + out.to(resid.dtype)
+    return (y, corr) if relaxed_sync is not None else y
 
 
 def layer_forward(x, lp, cfg: ModelConfig, cos, sin,
-                  attn_impl: str = "auto", ctx: ParallelCtx = SINGLE):
-    """One transformer block. lp: this layer's weights (no leading L dim)."""
-    x = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx)
-    return _mlp_block(x, lp, cfg, ctx)
+                  attn_impl: str = "auto", ctx: ParallelCtx = SINGLE,
+                  relaxed_sync=None):
+    """One transformer block. lp: this layer's weights (no leading L dim).
+    ``relaxed_sync``: an ``(attn, mlp)`` pair of ``SiteSync``; the block
+    then returns ``(x, (attn_corr, mlp_corr))``, the corrections None
+    except in stale mode."""
+    if relaxed_sync is None:
+        x = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx)
+        return _mlp_block(x, lp, cfg, ctx)
+    a_sync, m_sync = relaxed_sync
+    x, ca = _attention_block(x, lp, cfg, cos, sin, attn_impl, ctx,
+                             relaxed_sync=a_sync)
+    x, cm = _mlp_block(x, lp, cfg, ctx, relaxed_sync=m_sync)
+    return x, (ca, cm)
 
 
 def layer_forward_kv(x, lp, cfg: ModelConfig, cos, sin,
@@ -369,12 +413,45 @@ def layer_slices(layers, n_layers: int):
 
 def run_layers(x, layers, cfg: ModelConfig, cos, sin,
                attn_impl: str = "auto", remat=False,
-               ctx: ParallelCtx = SINGLE):
-    """Run the stacked layers over x, one layer slice at a time."""
+               ctx: ParallelCtx = SINGLE, sync_state=None):
+    """Run the stacked layers over x, one layer slice at a time.
+
+    Under a sync schedule (``ctx.relaxed_sync`` with tp) each layer takes
+    its mode; ``sync_state`` (needed iff the schedule has stale layers):
+    ``[n_stale, 2, *x.shape]``, the previous step's corrections, one
+    (attention, MLP) pair a stale layer in layer order. With
+    ``sync_state`` the result is ``(out, new_sync_state)``."""
     body = _layer_fn(remat)
-    for lp in layer_slices(layers, cfg.n_layers):
-        x = body(x, lp, cfg, cos, sin, attn_impl, ctx)
-    return x
+    sched = ctx.relaxed_sync if ctx.tp is not None else None
+    if sched is not None and all(m == "sync" for m in sched):
+        sched = None
+    if sched is None:
+        for lp in layer_slices(layers, cfg.n_layers):
+            x = body(x, lp, cfg, cos, sin, attn_impl, ctx)
+        return (x, sync_state) if sync_state is not None else x
+    from hadoop_tpu_torch.parallel.lowp.syncpolicy import SiteSync
+    slices = layer_slices(layers, cfg.n_layers)
+    if len(sched) != len(slices):
+        raise ValueError(
+            f"sync schedule names {len(sched)} layers but this run has "
+            f"{len(slices)} (per-layer schedules compose with the flat "
+            f"layer stack only)")
+    if "stale" in sched and sync_state is None:
+        raise ValueError("stale sync schedule needs sync_state (the "
+                         "previous step's corrections)")
+    corrs = []
+    for mode, lp in zip(sched, slices):
+        if mode == "stale":
+            prev = sync_state[len(corrs)]
+            pair = (SiteSync("stale", prev[0]), SiteSync("stale", prev[1]))
+        else:
+            pair = (SiteSync(mode), SiteSync(mode))
+        x, (ca, cm) = body(x, lp, cfg, cos, sin, attn_impl, ctx, pair)
+        if mode == "stale":
+            corrs.append(torch.stack([ca, cm]))
+    if sync_state is None:
+        return x
+    return x, (torch.stack(corrs) if corrs else sync_state)
 
 
 @torch.no_grad()
@@ -453,11 +530,15 @@ def lm_logits(params, h, cfg: ModelConfig):
 
 def forward_hidden(params, tokens, cfg: ModelConfig,
                    attn_impl: str = "auto", remat=False,
-                   ctx: ParallelCtx = SINGLE):
-    """Embed + layer stack (everything before the LM head)."""
+                   ctx: ParallelCtx = SINGLE, sync_state=None):
+    """Embed + layer stack (everything before the LM head); with
+    ``sync_state``, ``(h, new_sync_state)`` (``run_layers``)."""
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=params["embed"].device)
     h = embed_tokens(params, tokens, cfg, ctx)
+    if sync_state is not None:
+        return run_layers(h, params["layers"], cfg, cos, sin, attn_impl,
+                          remat, ctx, sync_state=sync_state)
     return run_layers(h, params["layers"], cfg, cos, sin, attn_impl, remat,
                       ctx)
 

@@ -9,6 +9,8 @@ under a bounded ``site`` label (``COMM_SITES``):
   updated slices (``parallel/overlap.py``);
 - ``tp.psum``, ``tp.scatter``: the row-parallel reduce, psum or
   Megatron-SP's psum_scatter (``ops/collective_matmul.py``);
+- ``tp.stale``: the deferred exact reduce of a stale-scheduled layer
+  (``parallel/lowp/syncpolicy.py``), whose result the next step uses;
 - ``cp.ring``: the ring attention's K/V hops (``parallel/ring_attention
   .py``); ``cp.all2all``: Ulysses' head transposes
   (``parallel/ulysses.py``);
@@ -34,11 +36,18 @@ How the port counts, against the reference:
   traced profile: the sites sit where the reference's do and record the
   same payloads (``zero1.gather`` its [Z, K] buffer, the ring its K/V
   shards times the hops of its path).
-- The train step's gradient sums record nothing: they are the port's
-  form of the sums the reference's autodiff inserts (its vma
-  transposes), which its ledger does not see. So no path of the port
-  records ``bucket.psum`` or ``bucket.scatter`` until a caller needs
-  them; the labels stay in ``COMM_SITES`` as the reference's.
+- On the bitwise tier the train step's gradient sums record nothing:
+  they are the port's form of the sums the reference's autodiff inserts
+  (its vma transposes), which its ledger does not see. On the relaxed
+  tier (``parallel/lowp``) they are quantized buckets and record their
+  wire form at ``bucket.psum`` / ``bucket.scatter``, where the
+  reference's would record if its sums reached the overlap pass.
+- The relaxed tier records the wire form: the quantized ``bucket.*``,
+  ``zero1.gather``, ``tp.*`` and ``moe.*`` payloads (values and f32
+  scales) against the bytes of their float forms. A layer the sync
+  schedule turns off records its tp site at ``payload 0, executions 0``
+  against the full reference bytes; a stale layer's deferred reduce
+  records at ``tp.stale``.
 - A site records in the forward only. A record made inside an autograd
   backward (a collective's transpose, or the forward a ``remat``
   checkpoint recomputes there) is dropped, as the reference's trace
@@ -46,14 +55,15 @@ How the port counts, against the reference:
   outside the backward and records, as each microbatch's forward does;
   the reference's trace of its scanned clock counts neither per
   microbatch, so under pp the two profiles differ.
-- Executions differ: the reference cuts a tp reduce into
-  ``parallel.overlap.tp.chunks`` (4) collectives and splits the ZeRO-1
-  gather's buckets by the axes a slice varies over; the port runs one
-  reduce, and one bucket per (axes, dtype).
+- Executions differ on the bitwise tier: the reference cuts a tp reduce
+  into ``parallel.overlap.tp.chunks`` (4) collectives and splits the
+  ZeRO-1 gather's buckets by the axes a slice varies over; the port
+  runs one reduce, and one bucket per (axes, dtype). On the relaxed
+  tier the port cuts and buckets as the reference does (its values
+  depend on the cut), so the executions agree.
 - Records outside a ``step`` window on this thread are dropped.
 - The port's ``moe.dispatch`` / ``moe.combine`` record on the exact tier
-  too; the reference records them on its quantized tier only (ROADMAP
-  Queue A 6 item 4 brings that tier).
+  too; the reference records them on its quantized tier only.
 
 Against ``spmd.traffic`` (the bytes each process hands to the wire, by
 axis): a step's traffic on an axis is the ledger's bytes of the sites on

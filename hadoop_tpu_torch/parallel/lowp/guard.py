@@ -1,8 +1,7 @@
-"""A-B acceptance for the relaxed parity tier, first part.
+"""A-B acceptance for the relaxed parity tier.
 
-The counterpart of the numpy half of ``hadoop_tpu/parallel/lowp/guard.py``:
-the relaxed tier's guards are statistical where the bitwise tier's are
-``==``.
+The counterpart of ``hadoop_tpu/parallel/lowp/guard.py``: the relaxed
+tier's guards are statistical where the bitwise tier's are ``==``.
 
 - :func:`allclose_guard` replaces a bitwise assert on values, reporting
   the max abs/rel divergence, so a failing guard says how far off.
@@ -10,17 +9,23 @@ the relaxed tier's guards are statistical where the bitwise tier's are
   smoothed per-step relative divergence stays within ``rel_tol`` and
   the judged run still learns. The elastic plane's acceptance uses it
   too (an evicted, resharded run against its uninterrupted twin).
-
-``guard_rel_tol_for`` and ``run_loss_ab`` need ``ParityConfig`` and wait
-for the relaxed tier (ROADMAP Queue A 6 item 4).
+- :func:`run_loss_ab`: N training steps bitwise and relaxed from the
+  same init and data, judged by ``loss_curve_report`` at the tolerance
+  :func:`guard_rel_tol_for` picks. The reference runs it as one
+  controller; the port's runs on every rank of a ``torch.distributed``
+  world (or alone, for a one-device plan), as the ``Trainer`` does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from hadoop_tpu_torch.parallel.lowp import (BITWISE_PARITY, ParityConfig,
+                                            RELAXED_PARITY)
 
 
 class ParityGuardError(AssertionError):
@@ -135,3 +140,148 @@ def loss_curve_report(bitwise: Sequence[float],
         return report
     report["accepted"] = True
     return report
+
+
+def guard_rel_tol_for(parity: ParityConfig, n_layers: int, *,
+                      tp: int = 1) -> float:
+    """The loss-curve tolerance that judges ``parity``: the schedule
+    tier's when the RESOLVED schedule turns a sync off (a schedule
+    shifts the trajectory), else the quantizers' (``periodic:1``,
+    ``layers:*=sync`` and a plan without tp build the full graph)."""
+    from hadoop_tpu_torch.parallel.lowp.syncpolicy import resolve_schedule
+    sched = resolve_schedule(
+        parity.relaxed_sync, n_layers,
+        off_mode=parity.relaxed_sync_mode) if tp > 1 else None
+    if sched is not None and any(m != "sync" for m in sched):
+        return parity.sync_guard_rel_tol
+    return parity.guard_rel_tol
+
+
+def _traffic() -> Dict[str, int]:
+    from hadoop_tpu_torch.parallel import spmd
+    return dict(spmd.traffic)
+
+
+def _delta(after: Dict[str, Any], before: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def run_loss_ab(plan, *, preset: str = "tiny", steps: int = 50,
+                lr: float = 5e-3, batch: int = 8, seq: int = 32,
+                zero1: bool = False, n_microbatches: int = 1,
+                optimizer: str = "adamw", remat=False,
+                parity: Optional[ParityConfig] = None,
+                rel_tol: Optional[float] = None,
+                bitwise_losses: Optional[Sequence[float]] = None,
+                seed: int = 0, overrides: Optional[Dict[str, Any]] = None,
+                weights=None, tokens=None, mesh=None, device=None,
+                probe: Optional[Callable[[], Dict[str, int]]] = None
+                ) -> Dict:
+    """The loss-curve A-B: ``steps`` training steps bitwise and relaxed
+    from the same init and data on ``plan``, the relaxed curve judged by
+    :func:`loss_curve_report`. On a plan of more than one rank every
+    rank of the world calls it (``mesh``: the plan's, made here if not
+    given). Returns the report (never raises on a rejection): the
+    judge's fields, ``plan``, ``codec``, ``sync_schedule``,
+    ``sync_mode``, ``comm`` (the comm ledger of the first relaxed step:
+    the reference's ledger is one trace, which is one step),
+    ``comm_steps`` (every relaxed step's), both curves, and ``rank``:
+    this rank's own measures a step and an arm (host seconds, the
+    ``spmd.traffic`` bytes by axis, and ``probe()``'s counters, deltas
+    over the arm). Everything but ``rank`` is the same on every rank.
+
+    The data: ``tokens`` (a [batch, seq] integer array, which sets
+    ``batch`` and ``seq``) or drawn from ``seed + 1``; targets the tokens
+    rolled by one; the model's ``max_seq`` is ``max(seq, 32)`` unless
+    ``overrides`` names it. The init:
+    ``weights`` (a numpy tree, ``params_from_numpy``) or ``init_params``
+    from ``seed``, the same for both arms. ``bitwise_losses``: a bitwise
+    curve measured before for the same plan, steps and data, which
+    skips the bitwise arm. ``lr`` 5e-3 keeps ``tiny`` descending for 50
+    steps (the reference's default)."""
+    from hadoop_tpu_torch.device import resolve_device
+    from hadoop_tpu_torch.models import get_config
+    from hadoop_tpu_torch.models.convert import params_from_numpy
+    from hadoop_tpu_torch.models.decoder import init_params
+    from hadoop_tpu_torch.parallel.lowp.quant import capture_comm
+    from hadoop_tpu_torch.parallel.mesh import make_mesh
+    from hadoop_tpu_torch.parallel.train import (init_sharded,
+                                                 make_data_sharding,
+                                                 make_train_step)
+
+    if parity is None:
+        parity = RELAXED_PARITY
+    if tokens is not None:
+        batch, seq = np.asarray(tokens).shape
+    cfg = get_config(preset, **dict({"max_seq": max(seq, 32)},
+                                    **(overrides or {})))
+    if rel_tol is None:
+        rel_tol = guard_rel_tol_for(parity, cfg.n_layers, tp=plan.tp)
+    dev = resolve_device(device)
+    if mesh is None and plan.n_devices > 1:
+        mesh = make_mesh(plan)
+    if tokens is None:
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=torch.Generator().manual_seed(
+                                   seed + 1))
+    tokens = torch.as_tensor(np.asarray(tokens)).long()
+    targets = torch.roll(tokens, -1, dims=1)
+    if mesh is not None:
+        cut = make_data_sharding(mesh)
+        tokens, targets = cut(tokens), cut(targets)
+    tokens, targets = tokens.to(dev), targets.to(dev)
+    rank: Dict[str, Any] = {}
+    first: List[Any] = []       # the first relaxed step's ledger
+
+    def run(tier: ParityConfig, arm: str) -> List[float]:
+        step = make_train_step(cfg, plan, mesh, lr=lr, optimizer=optimizer,
+                               zero1=zero1, n_microbatches=n_microbatches,
+                               remat=remat, parity=tier, device=dev)
+        full = params_from_numpy(weights, cfg, dev) if weights is not None \
+            else init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed), dev)
+        if mesh is not None:
+            params, opt = init_sharded(full, cfg, plan, mesh, zero1=zero1,
+                                       optimizer=optimizer)
+        else:
+            from hadoop_tpu_torch.parallel.optimizer import adamw_init
+            params, opt = full, adamw_init(full)
+        del full
+        losses, secs = [], []
+        t0, c0 = _traffic(), probe() if probe is not None else {}
+        for i in range(steps):
+            s0 = time.monotonic()
+            if i == 0 and tier.relaxed:
+                with capture_comm() as led:
+                    params, opt, m = step(params, opt, tokens, targets)
+                first.append(led)
+            else:
+                params, opt, m = step(params, opt, tokens, targets)
+            # the judge needs both whole curves on the host
+            losses.append(float(m["loss"]))
+            secs.append(time.monotonic() - s0)
+        rank[arm] = {"step_s": secs, "traffic": _delta(_traffic(), t0)}
+        if probe is not None:
+            rank[arm]["probe"] = _delta(probe(), c0)
+        return losses
+
+    bit = [float(x) for x in bitwise_losses] \
+        if bitwise_losses is not None else run(BITWISE_PARITY, "bitwise")
+    with capture_comm() as ledger:
+        rel = run(parity, "relaxed")
+    report = loss_curve_report(bit, rel, rel_tol=rel_tol)
+    report["plan"] = repr(plan)
+    report["codec"] = parity.codec
+    report["sync_schedule"] = parity.relaxed_sync
+    report["sync_mode"] = parity.relaxed_sync_mode
+    report["comm"] = first[0].report()
+    report["comm_steps"] = ledger.report()
+    if mesh is not None:
+        # ranks hold their own stage's sites under pp: position 0's
+        report["comm"], report["comm_steps"] = mesh.broadcast(
+            (report["comm"], report["comm_steps"]))
+    report["bitwise_losses"] = [round(x, 6) for x in bit]
+    report["relaxed_losses"] = [round(x, 6) for x in rel]
+    report["rank"] = rank
+    return report
+

@@ -86,16 +86,27 @@ class MeshPlan:
         axes = self.batch_axes + ("sp",)
         return axes + ("tp",) if self.megatron_sp else axes
 
-    def ctx(self, cfg: ModelConfig, mesh: "Mesh"):
-        """The ``ParallelCtx`` the model runs under on ``mesh``."""
+    def ctx(self, cfg: ModelConfig, mesh: "Mesh", tp_overlap_chunks: int = 1,
+            relaxed_codec=None, relaxed_chunk_matmul: bool = False,
+            relaxed_sync=None):
+        """The ``ParallelCtx`` the model runs under on ``mesh``. The
+        relaxed tier's knobs act only where a tp collective exists: a
+        plan without tp keeps none of them, its sync schedule included
+        (the reference's rule)."""
         from hadoop_tpu_torch.models.decoder import ParallelCtx
         sp = mesh.axis("sp")
+        tp = mesh.axis("tp")
         return ParallelCtx(
             ring=None if sp is None else "sp",
             ring_size=self.sp if sp is not None else 1,
             ring_group=sp, sp_mode=self.sp_mode,
-            tp=mesh.axis("tp"), megatron_sp=self.megatron_sp,
-            ep=mesh.axis("ep") if cfg.is_moe else None)
+            tp=tp, megatron_sp=self.megatron_sp,
+            ep=mesh.axis("ep") if cfg.is_moe else None,
+            tp_overlap_chunks=tp_overlap_chunks if tp is not None else 1,
+            relaxed_codec=relaxed_codec if tp is not None else None,
+            relaxed_chunk_matmul=relaxed_chunk_matmul and tp is not None,
+            relaxed_sync=(tuple(relaxed_sync) if relaxed_sync is not None
+                          and tp is not None else None))
 
     def validate(self, cfg: ModelConfig, batch: int, seq: int,
                  n_microbatches: int = 1) -> None:

@@ -230,15 +230,19 @@ def zero1_update(params, grads, state: AdamWState, lr: float, *,
                  leaf_axes, gsq: torch.Tensor, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, grad_clip: float = 1.0,
-                 gather_bucket_bytes: int = 0):
+                 gather_bucket_bytes: int = 0, gather_relaxed=None,
+                 gather_vma=None):
     """One ZeRO-1 AdamW step, in place. ``leaf_axes``: per leaf, the
     ``spmd.Axis`` tuple its state is partitioned over; ``grads`` are
     this rank's (K,) slices of the gradients summed over the data axes,
     ``state``'s moments its (K,) float32 slices. Each rank updates its
     slice of each parameter (the kernel on CUDA tensors) and the slices are gathered into the whole leaves: through
     ``overlap.bucketed_gather_slices`` when ``gather_bucket_bytes`` > 0,
-    else one ``all_gather`` per leaf. Returns ``(params, AdamWState,
-    grad_norm)``."""
+    else one ``all_gather`` per leaf. ``gather_relaxed`` (the relaxed
+    tier, with bucketed gathers): the slices cross the wire quantized,
+    bucketed by ``gather_vma`` as the reference's, and the parameters
+    (this rank's slice too) become the dequantized copy, as the
+    reference's do. Returns ``(params, AdamWState, grad_norm)``."""
     count = state.count + 1
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -260,7 +264,8 @@ def zero1_update(params, grads, state: AdamWState, lr: float, *,
         slices.append(ps)
     if gather_bucket_bytes > 0:
         whole, _ = overlap.flatten(overlap.bucketed_gather_slices(
-            rebuild(slices), params, leaf_axes, gather_bucket_bytes))
+            rebuild(slices), params, leaf_axes, gather_bucket_bytes,
+            relaxed=gather_relaxed, vma=gather_vma))
     else:
         whole = [_gather_leaf(s, p, axes)
                  for s, p, axes in zip(slices, flat_p, flat_a)]

@@ -20,16 +20,29 @@ The counterpart of ``hadoop_tpu/parallel/overlap.py``:
 
 The ZeRO-1 gather records its bytes in the comm ledger
 (``obs/comm.py``, ``zero1.gather``), as the reference's does. The
-bucketed sums record nothing: the train step's are the port's form of
-the sums the reference's autodiff inserts (its vma transposes), which
-its ledger does not see either.
+bucketed sums record nothing on the bitwise tier: the train step's are
+the port's form of the sums the reference's autodiff inserts (its vma
+transposes), which its ledger does not see either.
 
-The knobs are fixed when the train step is built. Reading them from the
-``parallel.overlap.*`` keys of a Configuration (the reference's
-``overlap_from_conf``, which has no caller in either package yet), the
-tp collective matmul's chunking and the relaxed tier's quantized buckets
-come with the slice that brings their caller (ROADMAP Queue A 6). Leaves
-are ``spmd.Axis`` tuples, not names.
+Under the relaxed parity tier (``parallel/lowp``) the three take
+``relaxed`` (a ``RelaxedQuant``): a float bucket rides the wire as int8
+(or fp8) with shared f32 scales (``lowp/quant.py``) and records its
+wire bytes (``bucket.psum``, ``bucket.scatter``, ``zero1.gather``);
+integer buckets stay exact, and so does the per-leaf fallback of the
+scatter. A bucket's scale groups cover ``group`` consecutive elements of
+its buffer, so under relaxed a bucket holds the reference's leaves in
+the reference's order and cut: its groups are keyed also by ``vma``, a
+tree of the axis names each leaf's value varies over in the
+reference's tracking (the spec axes and the reduce or slice axes, at
+any size), as its ``_vma_key``. The sum over several axes shares one
+scale over all of them, with headroom for their product of ranks.
+
+``OverlapConfig`` holds the reference's knobs (its
+``parallel.overlap.*`` keys; the reference's ``overlap_from_conf`` has
+no caller in either package); ``tp_chunks``
+(``parallel.overlap.tp.chunks``) cuts the relaxed tier's tp reduce
+(``ops/collective_matmul.py``). Leaves are ``spmd.Axis`` tuples, not
+names.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ class OverlapConfig:
     """Static overlap knobs, fixed at train-step build time."""
     enabled: bool = True
     bucket_mb: int = 4
+    tp_chunks: int = 4
 
     @property
     def bucket_bytes(self) -> int:
@@ -56,6 +70,7 @@ class OverlapConfig:
 
 DEFAULT_OVERLAP = OverlapConfig()
 OVERLAP_OFF = OverlapConfig(enabled=False)
+
 
 
 # ------------------------------------------------------------------ trees
@@ -116,14 +131,26 @@ def _pack_buckets(sizes: Sequence[int], itemsize: int,
     return buckets
 
 
-def _groups(flat, axes_flat):
-    """Leaf positions by (axes, dtype), in first-seen order."""
+def _vma_flat(vma, n: int) -> List[Tuple[str, ...]]:
+    """The ``vma`` tree's leaves as sorted name tuples (all empty
+    without one)."""
+    if vma is None:
+        return [()] * n
+    return [tuple(sorted(v)) for v in flatten(vma)[0]]
+
+
+def _groups(flat, axes_flat, vma_flat):
+    """Leaf positions by (axes, dtype, vma), in first-seen order."""
     groups: Dict[Any, List[int]] = {}
-    for i, (g, axes) in enumerate(zip(flat, axes_flat)):
+    for i, (g, axes, v) in enumerate(zip(flat, axes_flat, vma_flat)):
         axes = _live(axes)
         if axes:
-            groups.setdefault((_key(axes), g.dtype), []).append(i)
+            groups.setdefault((_key(axes), g.dtype, v), []).append(i)
     return groups
+
+
+def _quantized(relaxed, x: torch.Tensor) -> bool:
+    return relaxed is not None and x.is_floating_point()
 
 
 def _psum_axes(x: torch.Tensor, axes, inplace: bool = False
@@ -133,26 +160,37 @@ def _psum_axes(x: torch.Tensor, axes, inplace: bool = False
     return x
 
 
-def bucketed_psum(tree, reduce_axes_tree, bucket_bytes: int):
+def bucketed_psum(tree, reduce_axes_tree, bucket_bytes: int,
+                  relaxed=None, vma=None):
     """psum every leaf over its reduce axes (a tuple of ``spmd.Axis`` per
     leaf; empty: the leaf passes through), same-signature leaves packed
     into flattened buckets of at most ``bucket_bytes``; a leaf alone in
     its bucket is summed in place (the caller's gradient buffers are
-    consumed). Bit for bit the per-leaf result."""
+    consumed). Bit for bit the per-leaf result. ``relaxed``: a float
+    bucket's sum is ``psum_quantized`` (group scales)."""
     flat, rebuild = flatten(tree)
     axes_flat, _ = flatten(reduce_axes_tree)
     out = list(flat)
-    for idxs in _groups(flat, axes_flat).values():
+    for idxs in _groups(flat, axes_flat,
+                        _vma_flat(vma, len(flat))).values():
         axes = _live(axes_flat[idxs[0]])
+        quant = _quantized(relaxed, flat[idxs[0]])
         for bucket in _pack_buckets([flat[i].numel() for i in idxs],
                                     flat[idxs[0]].element_size(),
                                     bucket_bytes):
             members = [idxs[j] for j in bucket]
-            if len(members) == 1 and flat[members[0]].is_contiguous():
+            if quant:
+                from hadoop_tpu_torch.parallel.lowp.quant import \
+                    psum_quantized
+                buf = psum_quantized(torch.cat(
+                    [flat[i].reshape(-1) for i in members]), axes, relaxed,
+                    site="bucket.psum")
+            elif len(members) == 1 and flat[members[0]].is_contiguous():
                 out[members[0]] = _psum_axes(flat[members[0]], axes, True)
                 continue
-            buf = torch.cat([flat[i].reshape(-1) for i in members])
-            buf = _psum_axes(buf, axes)
+            else:
+                buf = _psum_axes(torch.cat(
+                    [flat[i].reshape(-1) for i in members]), axes)
             for i, part in zip(members, buf.split(
                     [flat[i].numel() for i in members])):
                 out[i] = part.view(flat[i].shape)
@@ -193,15 +231,18 @@ def local_slice(x: torch.Tensor, axes) -> torch.Tensor:
 
 
 def bucketed_psum_scatter(tree, reduce_axes_tree, scatter_axes_tree,
-                          bucket_bytes: int):
+                          bucket_bytes: int, relaxed=None, vma=None):
     """Each leaf summed over its reduce axes, as this rank's ZeRO-1 (K,)
     slice: leaves whose state is partitioned over exactly one axis (which
     they reduce over) go in buckets of [Z, K] rows, summed over the other
     axes and reduce-scattered over that one; the rest take psum and the
-    local slice. The same bits as psum-then-slice."""
+    local slice. The same bits as psum-then-slice. ``relaxed``: a float
+    bucket takes ``psum_scatter_quantized`` (group scales; the fallback
+    stays exact)."""
     flat, rebuild = flatten(tree)
     red_flat, _ = flatten(reduce_axes_tree)
     sc_flat, _ = flatten(scatter_axes_tree)
+    vma_flat = _vma_flat(vma, len(flat))
     out: List[Any] = [None] * len(flat)
     groups: Dict[Any, List[int]] = {}
     for i, (g, red, sc) in enumerate(zip(flat, red_flat, sc_flat)):
@@ -210,7 +251,8 @@ def bucketed_psum_scatter(tree, reduce_axes_tree, scatter_axes_tree,
             out[i] = local_slice(_psum_axes(g, red), sc)
             continue
         rest = tuple(a for a in red if a.name != sc[0].name)
-        groups.setdefault((_key(rest), sc[0].name, g.dtype), []).append(i)
+        groups.setdefault((_key(rest), sc[0].name, g.dtype, vma_flat[i]),
+                          []).append(i)
     for idxs in groups.values():
         red = _live(red_flat[idxs[0]])
         sc = _live(sc_flat[idxs[0]])[0]
@@ -221,7 +263,13 @@ def bucketed_psum_scatter(tree, reduce_axes_tree, scatter_axes_tree,
             members = [(idxs[j], ks[j]) for j in bucket]
             buf = torch.cat([pad_flat(flat[i], sc.size, k).view(sc.size, k)
                              for i, k in members], dim=1)
-            sl = spmd.psum_scatter_raw(_psum_axes(buf, rest), sc, 0)
+            if _quantized(relaxed, buf):
+                from hadoop_tpu_torch.parallel.lowp.quant import \
+                    psum_scatter_quantized
+                sl = psum_scatter_quantized(buf, sc, relaxed, rest_axes=rest,
+                                            site="bucket.scatter")
+            else:
+                sl = spmd.psum_scatter_raw(_psum_axes(buf, rest), sc, 0)
             for (i, _), part in zip(members, sl.reshape(-1).split(
                     [k for _, k in members])):
                 out[i] = part
@@ -229,15 +277,20 @@ def bucketed_psum_scatter(tree, reduce_axes_tree, scatter_axes_tree,
 
 
 def bucketed_gather_slices(slices, params_like, leaf_axes,
-                           bucket_bytes: int):
+                           bucket_bytes: int, relaxed=None, vma=None):
     """Whole leaves from every rank's (K,) slices: same-axes slices
     concatenated into one row per bucket, gathered over the axes (the
     last first, so rows land in mixed-radix order), each leaf's [Z, k]
     block flattened and unpadded. Leaves with Z == 1 pass through
-    reshaped."""
+    reshaped. ``relaxed``: a float bucket's row crosses quantized at
+    full range (``psum_of_scatter_quantized``). Every rank's leaves,
+    its own slice included, become the dequantized copy, and the next
+    update slices them: the reference's does the same, though its
+    docstring says the updated slices stay exact (ROADMAP Queue C)."""
     flat_s, rebuild = flatten(slices)
     flat_p, _ = flatten(params_like)
     flat_a, _ = flatten(leaf_axes)
+    vma_flat = _vma_flat(vma, len(flat_s))
     out: List[Any] = [None] * len(flat_s)
     groups: Dict[Any, List[int]] = {}
     for i, (sl, p, axes) in enumerate(zip(flat_s, flat_p, flat_a)):
@@ -245,7 +298,8 @@ def bucketed_gather_slices(slices, params_like, leaf_axes,
         if not axes:
             out[i] = sl[:p.numel()].view(p.shape)
             continue
-        groups.setdefault((_key(axes), sl.dtype), []).append(i)
+        groups.setdefault((_key(axes), sl.dtype, vma_flat[i]),
+                          []).append(i)
     for idxs in groups.values():
         axes = _live(flat_a[idxs[0]])
         z = zero1_slice_meta(1, axes)[0]
@@ -253,13 +307,21 @@ def bucketed_gather_slices(slices, params_like, leaf_axes,
         for bucket in _pack_buckets(ks, flat_s[idxs[0]].element_size() * z,
                                     bucket_bytes):
             members = [(idxs[j], ks[j]) for j in bucket]
-            buf = torch.cat([flat_s[i] for i, _ in members])[None]
-            # the reference's payload: its [Z, K] buffer (the wire
-            # carries this rank's row)
-            record_comm("zero1.gather", z * static_nbytes(buf),
-                        z * static_nbytes(buf))
-            for a in reversed(axes):
-                buf = spmd.all_gather_raw(buf, a, 0)
+            row = torch.cat([flat_s[i] for i, _ in members])
+            if _quantized(relaxed, row):
+                from hadoop_tpu_torch.parallel.lowp.quant import \
+                    psum_of_scatter_quantized
+                buf = psum_of_scatter_quantized(
+                    row, z, zero1_slice_index(axes), axes, relaxed,
+                    site="zero1.gather")[:, :row.numel()]
+            else:
+                # the reference's payload: its [Z, K] buffer (the wire
+                # carries this rank's row)
+                record_comm("zero1.gather", z * static_nbytes(row),
+                            z * static_nbytes(row))
+                buf = row[None]
+                for a in reversed(axes):
+                    buf = spmd.all_gather_raw(buf, a, 0)
             for (i, _), block in zip(members, buf.split(
                     [k for _, k in members], dim=1)):
                 p = flat_p[i]

@@ -33,7 +33,9 @@ q = V − 1 (V = v·P) ends in the loss head.
 float32 gradient accumulators; the caller sums them over the data axes
 and over ``pp`` for every leaf not sharded on it (stage 0 holds the
 embedding's part, the last stage the head's and the final norm's) and
-divides by M (``parallel/train.py``).
+divides by M (``parallel/train.py``), through the overlap pass's
+buckets: quantized ones under the relaxed parity tier, where the
+reference's sums never reach its buckets (ROADMAP Queue C 9).
 """
 
 from __future__ import annotations

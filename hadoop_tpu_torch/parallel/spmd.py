@@ -36,8 +36,11 @@ Transport: NCCL takes CUDA tensors. Any other backend (gloo) sees a
 CUDA tensor's collective through host memory, in ``_to_wire`` /
 ``_from_wire`` and nowhere else, chosen by the backend the process
 group was made with (``_DEVICE_BACKENDS``), never by catching a
-failure. ``traffic`` counts the bytes each process hands to the wire,
-per axis name.
+failure. The host buffers of a CUDA tensor's wire are page-locked
+(``_host_empty``; PyTorch's caching host allocator keeps them), so the
+copies to and from the card run at the bus's rate
+(``tools/ab_wire.py`` times both kinds). ``traffic`` counts the bytes
+each process hands to the wire, per axis name.
 
 ``launch`` starts N ranks with ``spawn`` on a backend the caller names.
 """
@@ -65,6 +68,10 @@ _PIECE_BYTES = 1 << 26
 
 # bytes this process handed to the wire, by axis name
 traffic: collections.Counter = collections.Counter()
+
+# wire dtypes gloo has no type for: they travel as their bytes (the
+# gathers and exchanges below move values and add nothing on the wire)
+_BYTE_WIRE = frozenset({torch.int16, torch.float8_e4m3fn})
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -156,17 +163,34 @@ def local_ranks(axis: Optional[Axis], device) -> torch.Tensor:
 
 # ------------------------------------------------------------ the wire
 
+def _host_empty(shape, dtype: torch.dtype, like: torch.Tensor
+                ) -> torch.Tensor:
+    """A host buffer for the wire of ``like``: page-locked when ``like``
+    lies on the card."""
+    return torch.empty(shape, dtype=dtype, pin_memory=like.is_cuda)
+
+
 def _to_wire(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The tensor the backend is handed: contiguous, in host memory when
     the backend does not take device tensors."""
     x = x.contiguous()
     traffic[axis.name] += x.numel() * x.element_size()
-    return x.cpu() if axis.host and x.is_cuda else x
+    if axis.host and x.is_cuda:
+        buf = _host_empty(x.shape, x.dtype, x)
+        buf.copy_(x)
+        return buf
+    return x
 
 
 def _from_wire(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if y.dtype != like.dtype:                 # a byte view (_as_bytes)
+        y = y.view(like.dtype)
     return y.to(like.device, non_blocking=True) if y.device != like.device \
         else y
+
+
+def _as_bytes(w: torch.Tensor) -> torch.Tensor:
+    return w.view(torch.uint8) if w.dtype in _BYTE_WIRE else w
 
 
 def _ordered_sum(stack: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -184,8 +208,9 @@ def _ordered_sum(stack: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _stack(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """Every rank's value, stacked: [P, *x.shape] on every rank."""
-    w = _to_wire(x.reshape(-1), axis)
-    out = w.new_empty((axis.size * w.numel(),))
+    w = _as_bytes(_to_wire(x.reshape(-1), axis))
+    out = torch.empty((axis.size * w.numel(),), dtype=w.dtype,
+                      device=w.device, pin_memory=w.is_pinned())
     dist.all_gather_into_tensor(out, w, group=axis.group)
     return _from_wire(out, x).view(axis.size, *x.shape)
 
@@ -223,8 +248,8 @@ def broadcast_raw(x: torch.Tensor, axis: Optional[Axis], src: int = 0
     if axis.index == src:
         w = _to_wire(x, axis)
     else:
-        w = torch.empty(x.shape, dtype=x.dtype,
-                        device="cpu" if axis.host else x.device)
+        w = _host_empty(x.shape, x.dtype, x) if axis.host else \
+            torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dist.broadcast(w, axis.ranks[src], group=axis.group)
     return x if axis.index == src else _from_wire(w, x)
 
@@ -263,8 +288,9 @@ def all_gather_raw(x: torch.Tensor, axis: Optional[Axis], dim: int
 
 def _exchange(pieces: torch.Tensor, axis: Axis) -> torch.Tensor:
     """[P, ...] pieces, piece j to rank j → [P, ...], row i from rank i."""
-    w = _to_wire(pieces, axis)
-    out = torch.empty_like(w)
+    w = _as_bytes(_to_wire(pieces, axis))
+    out = torch.empty(w.shape, dtype=w.dtype, device=w.device,
+                      pin_memory=w.is_pinned())
     dist.all_to_all_single(out, w, group=axis.group)
     return _from_wire(out, pieces)
 
@@ -363,8 +389,9 @@ def hop_raw(axis: Optional[Axis],
                                axis.ranks[(axis.index + shift) % p],
                                group=axis.group, tag=tag))
     for like, shift, tag in recvs:
-        buf = torch.empty(like.shape, dtype=like.dtype,
-                          device="cpu" if axis.host else like.device)
+        buf = _host_empty(like.shape, like.dtype, like) if axis.host \
+            else torch.empty(like.shape, dtype=like.dtype,
+                             device=like.device)
         reqs.append(dist.irecv(buf, axis.ranks[(axis.index - shift) % p],
                                group=axis.group, tag=tag))
         outs.append((buf, like))

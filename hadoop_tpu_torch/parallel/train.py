@@ -29,6 +29,23 @@ schedule (``parallel/pipeline.py``: "1f1b", "gpipe", or "interleaved",
 which vpp > 1 selects) over ``n_microbatches`` microbatches of the
 local batch; at pp = 1 the step is the flat one whatever the count, as
 the reference's ``flat_loss`` (only ``validate`` reads it there).
+
+``parity`` (``parallel/lowp``, default bitwise) is the tier the step is
+built under. Bitwise is the step as it always was: no code of ``lowp``
+runs. Relaxed turns on the consumers its ``ParityConfig`` names: the
+gradient sums (and ZeRO-1 reduce-scatters) of the overlap pass as
+quantized buckets, the quantized ZeRO-1 gather, the quantized chunked tp
+reduce and the chunked tp matmul, and the per-layer tp sync schedule.
+They ride the overlap pass, so relaxed without it raises; a schedule
+needs the flat layer stack (pp = 1), and a plan without tp has none. A
+stale schedule's corrections, ``[n_stale, 2, B, S_eff, D]`` a rank (the
+reference's global ``[pp, tp, n_stale, 2, B, S_eff, D]`` cut to this
+rank), live in the step: zeros when the batch shape changes, never
+checkpointed (a restart takes one skip step). The reference's gradient
+sums on every plan this slice runs are inside its autodiff, where no
+quantizer reaches (ROADMAP Queue C 9); the port's are the overlap pass's
+explicit buckets, and its relaxed tier quantizes them, as the
+reference's manual-schedule buckets are meant to be.
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ from hadoop_tpu_torch.models.decoder import (SINGLE, _layer_fn,
 from hadoop_tpu_torch.ops.cross_entropy import chunked_lm_cross_entropy
 from hadoop_tpu_torch.parallel import overlap as ov
 from hadoop_tpu_torch.parallel import pipeline, spmd
+from hadoop_tpu_torch.parallel.lowp import BITWISE_PARITY, ParityConfig
 from hadoop_tpu_torch.parallel.mesh import (Mesh, MeshPlan, layer_order,
                                             param_specs,
                                             physical_layer_order,
@@ -137,6 +155,7 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
                     remat=False, optimizer: str = "adamw",
                     zero1: bool = False,
                     overlap: Optional[ov.OverlapConfig] = None,
+                    parity: Optional[ParityConfig] = None,
                     attn_impl: str = "auto", device=None):
     """The train step on ``device`` (default: the GPU; raises without one
     unless ``device="cpu"``), on ``mesh`` (``make_mesh(plan)``) when the
@@ -157,10 +176,12 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
     ``n_microbatches`` and ``pipeline_schedule`` ("1f1b", "gpipe",
     "interleaved") drive a plan with pp > 1 (``parallel/pipeline.py``);
     after each step ``step.stats`` holds the schedule's stats (stage,
-    ticks, the most stage inputs stashed at once).
+    ticks, the most stage inputs stashed at once). ``parity``: the
+    parity tier (module doc; default bitwise).
     """
     plan = MeshPlan() if plan is None else plan
     overlap = ov.DEFAULT_OVERLAP if overlap is None else overlap
+    parity = BITWISE_PARITY if parity is None else parity
     clock = pipeline.make_clock(pipeline_schedule, n_microbatches, plan.pp,
                                 plan.vpp)
     if plan.pp == 1:                      # the flat step
@@ -172,8 +193,21 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
     zero1 = zero1 and optimizer == "adamw"
     _layer_fn(remat)                      # refuse an unknown mode now
     dev = resolve_device(device)
-    ctx = plan.ctx(cfg, mesh) if mesh is not None else SINGLE
+    rq_buckets = rq_gather = relaxed_codec = sched = vma = None
+    if parity.relaxed:
+        rq_buckets, rq_gather, relaxed_codec, sched = _relaxed_knobs(
+            parity, cfg, plan, overlap)
     specs = param_specs(cfg, plan)
+    if parity.relaxed:
+        # the reference's bucket signature: the axes a leaf varies over
+        vma = _map_leaves(lambda _, s: spec_axes(s), specs, specs)
+    ctx = plan.ctx(cfg, mesh, tp_overlap_chunks=(
+        overlap.tp_chunks if overlap.enabled else 1),
+        relaxed_codec=relaxed_codec,
+        relaxed_chunk_matmul=parity.relaxed and parity.chunk_matmul,
+        relaxed_sync=sched) if mesh is not None else SINGLE
+    n_stale = sum(m == "stale" for m in ctx.relaxed_sync or ())
+    sync = {"shape": None, "state": None}
     loss_div = plan.dp * plan.ep * plan.sp
     # per leaf: the axes its gradient sums over (the data axes, and pp:
     # the stages hold different parts of a leaf they do not shard), the
@@ -193,13 +227,16 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
         only this rank's slices; then a pipeline's float32 accumulators
         over M, cast to the parameters' dtypes, and the mean-loss
         scale."""
-        # no comm-ledger site: these sums are the port's form of the ones
-        # the reference's autodiff inserts, which its ledger does not see
+        # no comm-ledger site on the bitwise tier: these sums are the
+        # port's form of the ones the reference's autodiff inserts, which
+        # its ledger does not see; the relaxed buckets record their wire
         if zero1 and overlap.enabled:
             grads = ov.bucketed_psum_scatter(grads, red_axes, z1_axes,
-                                             overlap.bucket_bytes)
+                                             overlap.bucket_bytes,
+                                             relaxed=rq_buckets, vma=vma)
         elif overlap.enabled:
-            grads = ov.bucketed_psum(grads, red_axes, overlap.bucket_bytes)
+            grads = ov.bucketed_psum(grads, red_axes, overlap.bucket_bytes,
+                                     relaxed=rq_buckets, vma=vma)
         else:
             grads = tree_map(lambda g, axes: ov._psum_axes(g, axes),
                              grads, red_axes)
@@ -228,13 +265,31 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
             total = total + part
         return total
 
+    def stale_state(tokens):
+        """The stale corrections for this batch shape (zeros when it
+        changes)."""
+        if sync["shape"] != tuple(tokens.shape):
+            b, s = tokens.shape
+            s_eff = s // plan.tp if plan.megatron_sp else s
+            sync["state"] = torch.zeros(
+                (n_stale, 2, b, s_eff, cfg.d_model), dtype=cfg.torch_dtype,
+                device=dev)
+            sync["shape"] = tuple(tokens.shape)
+        return sync["state"]
+
     def flat_loss_and_grads(params, tokens, targets):
         # differentiate through aliases: the caller's tensors keep their
         # requires_grad flag, and the update below writes their storage
         alias = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             with record_function("forward"):
-                h = forward_hidden(alias, tokens, cfg, attn_impl, remat, ctx)
+                if n_stale:
+                    h, sync["state"] = forward_hidden(
+                        alias, tokens, cfg, attn_impl, remat, ctx,
+                        stale_state(tokens))
+                else:
+                    h = forward_hidden(alias, tokens, cfg, attn_impl, remat,
+                                       ctx)
             with record_function("loss"):
                 loss = _loss_from_h(alias, h, targets, cfg, ctx)
             leaves = tree_leaves(alias)
@@ -269,7 +324,8 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
                     params, grads, opt_state, lr, leaf_axes=z1_axes,
                     gsq=gsq,
                     gather_bucket_bytes=(overlap.bucket_bytes
-                                         if overlap.enabled else 0))
+                                         if overlap.enabled else 0),
+                    gather_relaxed=rq_gather, gather_vma=vma)
             elif optimizer == "sgd":
                 with torch.no_grad():
                     tree_map(lambda p, g: p.copy_(p.float() - lr * g.float()),
@@ -284,6 +340,35 @@ def make_train_step(cfg: ModelConfig, plan: Optional[MeshPlan] = None,
 
     step.stats = None
     return step
+
+
+def _relaxed_knobs(parity: ParityConfig, cfg: ModelConfig, plan: MeshPlan,
+                   overlap: ov.OverlapConfig):
+    """The relaxed tier's quantizers (buckets, ZeRO-1 gather), its tp
+    codec and its resolved sync schedule (None: every layer syncs), as
+    the reference's step builds them."""
+    if not overlap.enabled:
+        # degrading to bitwise would label a run relaxed that is not
+        raise ValueError(
+            "parallel.parity=relaxed requires the overlap pass "
+            "(parallel.overlap.enabled=true): every relaxed consumer "
+            "rides its bucketed/chunked collectives")
+    from hadoop_tpu_torch.parallel.lowp.quant import RelaxedQuant
+    from hadoop_tpu_torch.parallel.lowp.syncpolicy import resolve_schedule
+    rq = RelaxedQuant(codec=parity.codec, group=parity.group)
+    sched = resolve_schedule(parity.relaxed_sync, cfg.n_layers,
+                             off_mode=parity.relaxed_sync_mode) \
+        if plan.tp > 1 else None
+    if sched is not None and all(m == "sync" for m in sched):
+        sched = None
+    if sched is not None and plan.pp > 1:
+        raise ValueError(
+            "parallel.lowp.sync.schedule requires a flat layer "
+            "stack (pp=1); pipeline plans run per-stage layer "
+            "slices the global schedule cannot index")
+    return (rq if parity.quant_buckets else None,
+            rq if parity.quant_zero1_gather else None,
+            parity.codec if parity.quant_tp else None, sched)
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,

@@ -71,9 +71,11 @@ controller) rebuilds for a plan over the mesh's first ranks.
 
 Initialisation draws from a ``torch.Generator`` seeded with ``seed``; the
 reference draws from ``PRNGKey(0)``, a different stream, so the two
-packages start from the same state only through a checkpoint. The
-relaxed parity tier (``parity``) is ROADMAP Queue A 6 item 4, and
-raises.
+packages start from the same state only through a checkpoint.
+``parity`` (a ``ParityConfig``, ``parallel/lowp``) builds the step under
+that tier, and ``apply_plan``'s rebuild keeps it; a stale sync
+schedule's corrections live in the step and start at zeros after a
+restore.
 """
 
 from __future__ import annotations
@@ -127,9 +129,6 @@ from hadoop_tpu_torch.parallel.train import (make_data_sharding,
 
 log = logging.getLogger(__name__)
 
-_PARITY = "ROADMAP Queue A 6 item 4 (the relaxed parity tier)"
-
-
 class Trainer:
     # losses older than this many steps are read back to the host
     MAX_INFLIGHT = 16
@@ -146,8 +145,6 @@ class Trainer:
                  async_ckpt: bool = True, rank: int = 0,
                  elastic: Optional[ElasticConfig] = None, doctor_poll=None,
                  seed: int = 0, device=None):
-        if parity is not None:
-            raise NotImplementedError(f"Trainer argument parity: {_PARITY}")
         self.cfg, self.fs = cfg, fs
         self.device = resolve_device(device)
         self.ckpt_dir = ckpt_dir
@@ -159,7 +156,8 @@ class Trainer:
         self._n_microbatches_arg = n_microbatches
         self._build_kwargs = dict(
             lr=lr, optimizer=optimizer, zero1=self.zero1, remat=remat,
-            pipeline_schedule=pipeline_schedule, overlap=overlap)
+            pipeline_schedule=pipeline_schedule, overlap=overlap,
+            parity=parity)
         self._seed = seed
         self.async_ckpt = async_ckpt
         self._ckpt_writer = AsyncCheckpointWriter()

@@ -38,6 +38,16 @@ anatomy and the bytes this rank wrote.
 ``stages(rank, world, stages)`` runs several of these programs in turn
 on one world, so its processes start and warm up once.
 
+``lowp_collectives(rank, world, cases)`` runs the relaxed tier's
+quantized collectives, its sync-scheduled reduces and the MoE payload
+exchange on this rank's input of each case (``lowp_case``), forward and
+backward, with the comm ledger of each call.
+
+``relaxed_plans(rank, world, jobs)`` runs the loss-curve A-B
+(``lowp.guard.run_loss_ab``) of each job on one world and returns each
+rank's report, with its kernels' launches, wire bytes and step times
+an arm.
+
 ``serve_plans(rank, world, jobs)`` serves on one world: per job, a
 ``DecodeEngine`` on a tp plan or on a group of ranks that the expert
 stacks split over, built on every rank from this rank's shards (drawn
@@ -47,6 +57,7 @@ position 0 drives a script of operations and the others ``follow()``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -73,7 +84,7 @@ from hadoop_tpu_torch.mapreduce.device_shuffle import (device_group_reduce,
 from hadoop_tpu_torch.models import config as config_mod
 from hadoop_tpu_torch.models.convert import params_from_numpy
 from hadoop_tpu_torch.models import moe
-from hadoop_tpu_torch.models.decoder import init_params
+from hadoop_tpu_torch.models.decoder import ParallelCtx, init_params
 from hadoop_tpu_torch.ops import collective_matmul, flash, norms
 from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
 from hadoop_tpu_torch.parallel.elastic import ElasticConfig
@@ -180,7 +191,7 @@ def collectives(rank: int, world: int, seed: int) -> Dict[str, Any]:
     y = torch.from_numpy(rng.standard_normal((4, 8, 6)).astype(np.float32)
                          ) * (rank + 1)
     for sp in (False, True):
-        ctx = types.SimpleNamespace(tp=axis, megatron_sp=sp)
+        ctx = ParallelCtx(tp=axis, megatron_sp=sp)
         fn = functools.partial(collective_matmul.reduce_row_parallel,
                                ctx=ctx)
         with torch.no_grad():
@@ -286,9 +297,39 @@ def train_plans(rank: int, world: int, jobs: List[Dict[str, Any]]
     unless it is "cpu"; raises without a card), ``sample`` (flat indices per leaf; 0 gathers every leaf
     whole, None none) and ``plans``: dicts of ``plan`` (MeshPlan kwargs),
     ``optimizer``, ``zero1``, ``overlap`` (bool), ``steps``, ``lr``,
-    ``remat``, ``n_microbatches``, ``pipeline_schedule``. Returns one
-    record per plan."""
-    return [rec for job in jobs for rec in _train_job(rank, job)]
+    ``remat``, ``n_microbatches``, ``pipeline_schedule``, ``parity`` (a
+    ``ParityConfig``). A job with ``poison_lowp`` makes every entry
+    point of the relaxed tier raise while it runs. Returns one record
+    per plan."""
+    out = []
+    for job in jobs:
+        with _poisoned_lowp(job.get("poison_lowp", False)):
+            out += _train_job(rank, job)
+    return out
+
+
+@contextlib.contextmanager
+def _poisoned_lowp(on: bool):
+    """With ``on``, the relaxed tier's entry points raise (what the
+    bitwise tier must never reach)."""
+    from hadoop_tpu_torch.parallel.lowp import quant, syncpolicy
+    names = [(quant, n) for n in ("psum_quantized", "psum_scatter_quantized",
+                                  "psum_of_scatter_quantized", "_record",
+                                  "RelaxedQuant")] + \
+        [(syncpolicy, "scheduled_row_reduce"),
+         (collective_matmul, "chunked_matmul_reduce")]
+    saved = [(m, n, getattr(m, n)) for m, n in names] if on else []
+
+    def poisoned(*args, **kw):
+        raise AssertionError("a relaxed-tier entry point ran on the "
+                             "bitwise tier")
+    for m, n, _ in saved:
+        setattr(m, n, poisoned)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -329,7 +370,8 @@ def _train_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
             remat=spec.get("remat", False), n_microbatches=n_micro,
             pipeline_schedule=spec.get("pipeline_schedule", "1f1b"),
             overlap=(overlap.DEFAULT_OVERLAP if spec.get("overlap", True)
-                     else overlap.OVERLAP_OFF), device=dev)
+                     else overlap.OVERLAP_OFF), parity=spec.get("parity"),
+            device=dev)
         cut = make_data_sharding(mesh)
         tok, tgt = cut(tokens).to(dev), cut(targets).to(dev)
         rec: Dict[str, Any] = {"plan": spec, "losses": [], "grad_norms": [],
@@ -614,6 +656,8 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                     torch.equal(a, b) for a, b in zip(got, ref))
         elif kind == "restore":
             rec["restored"] = t.try_restore()
+        elif kind == "apply_plan":
+            rec["restored"] = t.apply_plan(MeshPlan(**op["plan"]))
         elif kind == "link":
             if rank == 0:
                 _link_snapshot(op["src"], op["step"], op["dst"])
@@ -961,9 +1005,178 @@ def _serve_job(rank: int, job: Dict[str, Any]) -> Dict[str, Any]:
     return rec
 
 
+# ------------------------------------------------- the relaxed parity tier
+
+def _lowp_axes(world: int) -> Dict[str, spmd.Axis]:
+    """"x": every rank; "a" and "b": the (2, 2) grid's axes of a world
+    of four (rank = 2a + b), as a mesh of four devices reshaped (2, 2)
+    names them."""
+    axes = {"x": spmd.new_groups("x", [list(range(world))])}
+    if world == 4:
+        axes["a"] = spmd.new_groups("a", [[0, 2], [1, 3]])
+        axes["b"] = spmd.new_groups("b", [[0, 1], [2, 3]])
+    return axes
+
+
+def lowp_case(case: Dict[str, Any], x: torch.Tensor,
+              axes: Dict[str, spmd.Axis]) -> torch.Tensor:
+    """One case of ``lowp_collectives`` on this rank's ``x``: ``op``
+    psum | scatter | gather | moe | skip | stale | project, with its
+    ``axes`` (names), ``codec``, ``group``, ``scale``, ``dim``,
+    ``megatron_sp``, ``corr``, ``w`` and ``chunked`` (the relaxed chunked
+    tp matmul on exact reduces, or the one reduce)."""
+    from hadoop_tpu_torch.parallel.lowp import quant, syncpolicy
+    rq = quant.RelaxedQuant(codec=case.get("codec", "int8"),
+                            group=case.get("group", 1024))
+    ax = [axes[n] for n in case.get("axes", "x")]
+    op = case["op"]
+    if op == "psum":
+        return quant.psum_quantized(x, ax, rq, scale=case["scale"])
+    if op == "scatter":
+        return quant.psum_scatter_quantized(
+            x, ax[-1], rq, rest_axes=ax[:-1],
+            scatter_dimension=case.get("dim", 0), scale=case["scale"])
+    if op == "gather":
+        return quant.psum_of_scatter_quantized(
+            x, overlap.zero1_slice_meta(1, ax)[0],
+            overlap.zero1_slice_index(ax), ax, rq)
+    if op == "moe":
+        leg = quant.moe_dispatch_quantized if case["leg"] == "dispatch" \
+            else quant.moe_combine_quantized
+        return leg(x, ax[0])
+    ctx = ParallelCtx(tp=ax[0], megatron_sp=case.get("megatron_sp", False),
+                      tp_overlap_chunks=4,
+                      relaxed_chunk_matmul=case.get("chunked", False))
+    if op == "project":
+        w = torch.from_numpy(case["w"][ax[0].index])
+        return collective_matmul.row_parallel_project(x, w, ctx)
+    if op == "skip":
+        return syncpolicy.skip_row_reduce(x, ctx)
+    out, new = syncpolicy.stale_row_reduce(
+        x, ctx, torch.from_numpy(case["corr"][ax[0].index]))
+    return torch.cat([out.reshape(-1), new.reshape(-1)])
+
+
+def lowp_collectives(rank: int, world: int, cases: List[Dict[str, Any]]
+                     ) -> List[Dict[str, Any]]:
+    """Each case (``lowp_case``; ``x``: every rank's input stacked on dim
+    0, ``ct``: every rank's cotangent, or None) on this rank's slice:
+    the forward's output, the input's gradient under ``ct`` and the comm
+    ledger's report of the call."""
+    from hadoop_tpu_torch.parallel.lowp.quant import capture_comm
+    axes = _lowp_axes(world)
+    out = []
+    for case in cases:
+        x = torch.from_numpy(case["x"][rank]).requires_grad_(
+            case.get("ct") is not None)
+        with capture_comm() as led:
+            y = lowp_case(case, x, axes)
+        rec = {"y": _np(y), "comm": led.report()}
+        if case.get("ct") is not None:
+            y.backward(torch.from_numpy(case["ct"][rank]))
+            rec["grad"] = _np(x.grad)
+        out.append(rec)
+    return out
+
+
+def relaxed_plans(rank: int, world: int, jobs: List[Dict[str, Any]]
+                  ) -> List[Dict[str, Any]]:
+    """``lowp.guard.run_loss_ab`` for each job on one mesh of its plan; a
+    job: ``plan`` (MeshPlan kwargs) and ``run_loss_ab``'s keywords
+    (``bitwise_from``: the index of an earlier job whose bitwise curve
+    this one reuses; ``codec_check``: first run one relaxed step from the
+    same weights and data, which is the A-B's first, holding every
+    gradient bucket's int8 and fp8 codec on its device against the same
+    codec on the CPU). Each arm's entry of the report's ``rank`` has the
+    kernels' launches (``COUNTERS``); on a card the entry adds the peak
+    memory. Returns this rank's reports, and in the last one's ``rank``
+    the launches over the whole program."""
+    from hadoop_tpu_torch.parallel.lowp.guard import run_loss_ab
+    out: List[Dict[str, Any]] = []
+    meshes: Dict[Any, Any] = {}
+    start = _counts()
+    for job in jobs:
+        job = dict(job)
+        plan = MeshPlan(**job.pop("plan"))
+        if plan not in meshes:
+            meshes[plan] = make_mesh(plan) if plan.n_devices > 1 else None
+        src = job.pop("bitwise_from", None)
+        if src is not None:
+            job["bitwise_losses"] = out[src]["bitwise_losses"]
+        check = job.pop("codec_check", False)
+        dev = resolve_device(job.get("device"))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        codec = _codec_step(plan, meshes[plan], job) if check else None
+        rep = run_loss_ab(plan, mesh=meshes[plan], probe=lambda: dict(
+            zip(COUNTERS, _counts())), **job)
+        if codec is not None:
+            rep["rank"]["codec_check"] = codec
+        if dev.type == "cuda":
+            rep["rank"]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out.append(rep)
+        gc.collect()
+    if out:
+        out[-1]["rank"]["launches_total"] = dict(zip(COUNTERS, [
+            a - b for a, b in zip(_counts(), start)]))
+    return out
+
+
+def _codec_step(plan: MeshPlan, mesh, job: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """One relaxed step of ``run_loss_ab``'s job (its first), every
+    gradient bucket's int8 and fp8 codec (scales, values; the wire
+    scales and headroom of its sum) held on its device against the CPU's,
+    byte for byte. Returns the buckets and elements held and the
+    mismatches."""
+    from hadoop_tpu_torch.parallel.lowp import quant
+    from hadoop_tpu_torch.parallel.lowp.guard import run_loss_ab
+    seen = {"buckets": 0, "elements": 0, "mismatched": 0}
+    group = job["parity"].group
+
+    def codecs(rows, qmax):
+        out = []
+        for q in (qmax, quant._F8_MAX):
+            scales = quant._wire_scales(rows.abs().amax(dim=1), q)
+            vals = quant._quant_rows(rows, scales, q) if q == qmax else \
+                quant._to_f8(rows, scales).view(torch.uint8)
+            out += [scales.view(torch.int32), vals]
+        return out
+
+    def hold(x, axes):
+        rows = quant._pad_rows(x.detach().float(), group)
+        qmax = quant._wire_for(quant.RelaxedQuant.ranks(axes))[1]
+        for a, b in zip(codecs(rows, qmax), codecs(rows.cpu(), qmax)):
+            seen["mismatched"] += int((a.cpu() != b).sum())
+        seen["buckets"] += 1
+        seen["elements"] += x.numel()
+
+    psum, scatter = quant.psum_quantized, quant.psum_scatter_quantized
+
+    def held_psum(x, axes, rq, **kw):
+        if kw.get("site", "").startswith("bucket"):
+            hold(x, axes)
+        return psum(x, axes, rq, **kw)
+
+    def held_scatter(x, axis, rq, **kw):
+        if kw.get("site", "").startswith("bucket"):
+            hold(x, tuple(kw.get("rest_axes", ())) + (axis,))
+        return scatter(x, axis, rq, **kw)
+    quant.psum_quantized, quant.psum_scatter_quantized = held_psum, \
+        held_scatter
+    try:
+        run_loss_ab(plan, mesh=mesh, **dict(job, steps=1,
+                                            bitwise_losses=[0.0]))
+    finally:
+        quant.psum_quantized, quant.psum_scatter_quantized = psum, scatter
+    return seen
+
+
 PROGRAMS = {"collectives": collectives, "train_plans": train_plans,
             "shuffle_cases": shuffle_cases, "trainer_ops": trainer_ops,
-            "serve_plans": serve_plans}
+            "serve_plans": serve_plans, "relaxed_plans": relaxed_plans,
+            "lowp_collectives": lowp_collectives}
 
 
 def stages(rank: int, world: int, stages: List[Any]) -> List[Any]:

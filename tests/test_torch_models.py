@@ -320,6 +320,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.mapreduce.device_shuffle\n"
         "import hadoop_tpu_torch.parallel.elastic.controller\n"
         "import hadoop_tpu_torch.parallel.lowp.guard\n"
+        "import hadoop_tpu_torch.parallel.lowp.syncpolicy\n"
+        "import hadoop_tpu_torch.tools.ab_wire\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -359,7 +361,8 @@ def test_port_sources_name_no_jax():
                 "ops/collective_matmul.py", "tools/dist_plans.py",
                 "parallel/pipeline.py", "parallel/collectives.py",
                 "mapreduce/device_shuffle.py",
-                "parallel/elastic/controller.py", "parallel/lowp/guard.py"):
+                "parallel/elastic/controller.py", "parallel/lowp/guard.py",
+                "parallel/lowp/syncpolicy.py", "tools/ab_wire.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

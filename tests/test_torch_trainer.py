@@ -28,6 +28,7 @@ from hadoop_tpu_torch.parallel import MeshPlan, Trainer
 from hadoop_tpu_torch.parallel import checkpoint as ckpt
 from hadoop_tpu_torch.parallel import optimizer, spmd
 from hadoop_tpu_torch.parallel.elastic import ElasticConfig
+from hadoop_tpu_torch.parallel.lowp import RELAXED_PARITY
 from hadoop_tpu_torch.parallel.mesh import (AXES, Mesh, param_specs,
                                             shard_params)
 from hadoop_tpu_torch.parallel.overlap import OverlapConfig
@@ -250,7 +251,7 @@ def two_ranks(tmp_path_factory):
 @pytest.mark.parametrize("kw", [
     dict(plan=MeshPlan(dp=2)), dict(plan=MeshPlan(tp=2)), dict(zero1=True),
     dict(n_microbatches=2), dict(pipeline_schedule="interleaved"),
-    dict(overlap=OverlapConfig(bucket_mb=1)), dict(parity=object()),
+    dict(overlap=OverlapConfig(bucket_mb=1)), dict(parity=RELAXED_PARITY),
     dict(elastic=ElasticConfig(enabled=True, poll_steps=1)),
     dict(doctor_poll=lambda: {"trainers": {}})],
     ids=lambda kw: next(iter(kw)))
@@ -261,37 +262,32 @@ def test_trainer_refuses_what_queue_a6_brings(fs, token_file, port_curve,
     curve tolerance of the one-device run
     (``tests/test_torch_trainer_mesh.py`` holds the mesh against the
     reference), and ZeRO-1, microbatches, a pipeline schedule, an
-    overlap config, an enabled elastic plane polling a clear doctor
-    feed every step, or a doctor poll without one, on one device exactly
-    on its curve (``tests/test_torch_elastic.py`` holds the plane
-    against the reference). The relaxed parity tier (item 4) still
-    raises, naming its item."""
+    overlap config, the relaxed parity tier (item 4: on one device it
+    has no collective to quantize; ``tests/test_torch_relaxed.py`` holds
+    it on a mesh), an enabled elastic plane polling a clear doctor feed
+    every step, or a doctor poll without one, on one device exactly on
+    its curve (``tests/test_torch_elastic.py`` holds the plane against
+    the reference)."""
     plan = kw.pop("plan", MeshPlan())
     if plan != MeshPlan():
         losses = request.getfixturevalue("two_ranks")[
             "dp2" if plan.dp == 2 else "tp2"]
         np.testing.assert_allclose(losses, port_curve[:2], rtol=2e-4)
         return
-    lifted = {"zero1", "n_microbatches", "pipeline_schedule", "overlap",
-              "elastic", "doctor_poll"}
-    if set(kw) <= lifted:
-        polls = []
-        if "elastic" in kw:       # a clear feed: no rank flagged or dead
-            kw["doctor_poll"] = lambda: polls.append(1) or {"trainers": {
-                "flagged": {}, "ranks": {"rank-0": {"ok": True}}}}
-        t = _port(fs, token_file, "/pckpt/lifted", **kw)
-        np.testing.assert_allclose(t.train(2), port_curve[:2], rtol=1e-6)
-        if "elastic" in kw:
-            assert len(polls) == 2 and t.elastic.events == []
-            assert t.plan == MeshPlan() and t.step == 2
-        else:
-            assert t.elastic is None
-        t.close()
-        return
-    item = "item 4"
-    with pytest.raises(NotImplementedError, match=f"Queue A 6 {item}"):
-        Trainer(config.get_config("tiny"), plan, fs, token_file, "/pckpt/r",
-                batch=BATCH, device="cpu", **kw)
+    polls = []
+    if "elastic" in kw:       # a clear feed: no rank flagged or dead
+        kw["doctor_poll"] = lambda: polls.append(1) or {"trainers": {
+            "flagged": {}, "ranks": {"rank-0": {"ok": True}}}}
+    t = _port(fs, token_file, "/pckpt/lifted", **kw)
+    np.testing.assert_allclose(t.train(2), port_curve[:2], rtol=1e-6)
+    if "elastic" in kw:
+        assert len(polls) == 2 and t.elastic.events == []
+        assert t.plan == MeshPlan() and t.step == 2
+    else:
+        assert t.elastic is None
+    if "parity" in kw:
+        assert t._build_kwargs["parity"] is RELAXED_PARITY
+    t.close()
 
 
 def test_refusals_name_their_queue_item(fs, token_file):

@@ -129,6 +129,9 @@ def test_zeros_group_and_group_mismatch():
 
 
 def test_quantize_array_equals_the_reference_and_fp8_is_refused():
+    """The codec equals the reference's in int8 and (since the relaxed
+    tier's slice, ROADMAP Queue A 8(b)) in fp8, byte for byte; an
+    unknown codec is refused."""
     from hadoop_tpu.parallel.lowp import quant as jquant
     x = np.random.default_rng(3).standard_normal(1000).astype(np.float32)
     q, s = quant.quantize_array(torch.from_numpy(x), group=64)
@@ -138,8 +141,12 @@ def test_quantize_array_equals_the_reference_and_fp8_is_refused():
     np.testing.assert_array_equal(
         quant.dequantize_array(q, s, (1000,), torch.float32).numpy(),
         jquant.dequantize_array(jq, js, (1000,), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        quant.quantize_array(torch.from_numpy(x), codec="fp8")
+    q8, s8 = quant.quantize_array(torch.from_numpy(x), codec="fp8",
+                                  group=64)
+    jq8, js8 = jquant.quantize_array(x, codec="fp8", group=64)
+    np.testing.assert_array_equal(q8.view(torch.uint8).numpy(),
+                                  jq8.view(np.uint8))
+    np.testing.assert_array_equal(s8.numpy(), js8)
     with pytest.raises(ValueError):
         quant.quantize_array(torch.from_numpy(x), codec="int4")
 
