@@ -109,7 +109,17 @@ plane (see ELASTIC): a ZeRO-1 dp4 run whose scripted doctor flags rank 2
 (a demote and its protective checkpoint), then marks it dead (an evict:
 the other three ranks shrink to dp3, reshard-restore the protective
 snapshot and re-run the lost steps), held against a dp4 twin restored
-from the same snapshot. The device shuffle (phase ``shuffle``, see
+from the same snapshot. The fleet plane rides three of these phases
+(see FLEET): a ``TrainerTelemetry`` door beside the trainer phase's
+uninterrupted ``Trainer`` (``/ws/v1/trainer``, ``/prom``, ``/health``,
+``/ws/v1/stacks`` read after its steps, whose launches stay pinned),
+the replica's chassis in phase ``door`` (each request's root span in
+``/ws/v1/traces`` by its trace id in hex and in decimal, the flight
+recorder, ``/conf`` redaction, ``/ws/v1/top``, ``/health``) and a door
+on every rank's trainers in ``trainer_mesh`` (each read's comm block
+equal to that rank's ledger report; the elastic block carrying the
+evict and the shrink); one ``{"fleet": ...}`` line before the kernels
+line gives the reads' ms and the seconds the doors added. The device shuffle (phase ``shuffle``, see
 SHUFFLE) runs on a folded axis of four ranks on the card: TeraSort and
 WordCount at Hadoop's own record sizes, a hash exchange and an
 overflowing one, each checked exactly. Weights are random, made from a
@@ -184,6 +194,7 @@ from hadoop_tpu_torch.tools.ab_ec_rmsnorm import graph_ms
 from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
+from hadoop_tpu_torch.obs.trainer import TrainerTelemetry, anatomy_delta
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
 from hadoop_tpu_torch.parallel.collectives import hash_partitioner
 from hadoop_tpu_torch.parallel import overlap
@@ -359,6 +370,10 @@ SERVE_KW = dict(max_batch=4, block_size=16, max_context=1024,
 # parameters.
 TRAINER = dict(steps=6, crash_at=3, file_batches=4.5, loss_rtol=1e-6,
                prompts=2, max_new=16, io_workers=4)
+# the fleet plane's reads in phases trainer and door and stage
+# trainer_mesh: their ms and the wall seconds the doors added (the
+# "fleet" line)
+FLEET = {}
 # The door phase: ServingReplica (QoS on, an auth secret) on the step-6
 # checkpoint, flagship-1b bf16 at SERVE_KW's sizes on 127.0.0.1:0. Its
 # ``requests`` greedy requests of ``max_new`` tokens (_door_prompts: the
@@ -1092,17 +1107,67 @@ def _counted_steps(trainer, log):
     trainer.step_fn = counted
 
 
-def _anatomy(trainer):
-    """The trainer's step anatomy: means in ms, and counts."""
-    m = trainer.step_metrics
-    rec = {}
-    for name in ("data_wait", "step_wall", "ckpt_snapshot", "ckpt_write",
-                 "ckpt_fence"):
-        snap = getattr(m, name).snapshot()
-        rec[name] = {"count": snap["num_ops"],
-                     "mean_ms": snap["avg_time"] * 1e3,
-                     "max_ms": snap["max_time"] * 1e3}
+def _anatomy(trainer, before):
+    """The trainer's step anatomy since ``before`` (its
+    ``step_metrics.anatomy()`` when it was made: the metrics source is the
+    process's): counts, and means in ms."""
+    a = anatomy_delta(before, trainer.step_metrics.anatomy())
+    rec = {name: {"count": a[name]["count"],
+                  "mean_ms": a[name]["sum"] / max(1, a[name]["count"]) * 1e3}
+           for name in ("data_wait", "step_wall")}
+    for name, r in a["ckpt"].items():
+        rec[f"ckpt_{name}"] = {"count": r["num_ops"],
+                               "mean_ms": r["avg_time"] * 1e3}
     return rec
+
+
+def _get_ms(port, path, want=200):
+    """(body, ms) of one GET to a door on 127.0.0.1; fails the run on any
+    other status."""
+    t0 = time.perf_counter()
+    status, body = _http(port, "GET", path)
+    ms = (time.perf_counter() - t0) * 1e3
+    require(status == want, f"GET {path}: {status} {body[:200]!r}")
+    return body, ms
+
+
+def _prom_count(text, family, rank):
+    """The ``_count`` of ``family``'s series with ``rank`` on /prom."""
+    m = re.search(rf'^{family}_count{{[^}}]*rank="{rank}"[^}}]*}} (\S+)$',
+                  text, re.M)
+    require(m is not None, f"/prom lacks {family}_count for rank {rank}")
+    return float(m.group(1))
+
+
+def _trainer_door_reads(door, before, steps):
+    """The trainer phase's reads of ``door`` after ``steps`` steps since
+    the ``/ws/v1/trainer`` body ``before``: the step counts, the HBM
+    ledger's components and the /prom histogram's count, gated; returns
+    each read's ms."""
+    ms = {}
+    body, ms["trainer"] = _get_ms(door.port, "/ws/v1/trainer")
+    body = json.loads(body)
+    ledger = hbm_ledger().report()["components"]
+    prom, ms["prom"] = _get_ms(door.port, "/prom")
+    health, ms["health"] = _get_ms(door.port, "/health")
+    stacks, ms["stacks"] = _get_ms(door.port, "/ws/v1/stacks")
+    prom_count = _prom_count(prom.decode(), "htpu_trainer_step_wall_seconds",
+                             0)
+    require(body["steps"] - before["steps"] == steps and
+            body["step_wall"]["count"] - before["step_wall"]["count"]
+            == steps and body["job"] == "chip-smoke",
+            f"/ws/v1/trainer: {body['steps']} steps, step_wall "
+            f"{body['step_wall']} after {steps} (before {before['steps']})")
+    require(prom_count == body["step_wall"]["count"],
+            f"/prom counts {prom_count} steps, /ws/v1/trainer "
+            f"{body['step_wall']['count']}")
+    require(body["hbm"]["components"] == ledger,
+            f"/ws/v1/trainer hbm {body['hbm']['components']}, ledger "
+            f"{ledger}")
+    require(json.loads(health) == {"status": "alive",
+                                   "daemon": "trainer-rank0"} and
+            json.loads(stacks)["num_threads"] >= 1, "/health, /ws/v1/stacks")
+    return ms
 
 
 def _ledger_bytes():
@@ -1158,29 +1223,45 @@ def phase_trainer(train_rec, fs, root):
     per_step = []
     zero_counts()                             # the main path's run
     u = trainer("uninterrupted", ckpt_interval=0)
+    u_before = u.step_metrics.anatomy()
     _counted_steps(u, per_step)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    losses = u.train(steps)
-    train_wall = time.monotonic() - t0
+    # the fleet plane: a telemetry door open through the uninterrupted
+    # run, whose launches a step stay pinned below
+    t_door = time.monotonic()
+    door = TrainerTelemetry(Configuration(), rank=0, job="chip-smoke",
+                            metrics=u.step_metrics)
+    try:
+        door_before = json.loads(_get_ms(door.port, "/ws/v1/trainer")[0])
+        door_s = time.monotonic() - t_door
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses = u.train(steps)
+        train_wall = time.monotonic() - t0
+        t_door = time.monotonic()
+        FLEET["trainer_ms"] = _trainer_door_reads(door, door_before, steps)
+    finally:
+        door.close()
+    FLEET["trainer_added_s"] = door_s + time.monotonic() - t_door
     step_ms = [s.elapsed_time(e) for _, s, e in per_step]
     timed_ms = sum(step_ms[1:]) / (steps - 1)
-    u_anatomy = _anatomy(u)
+    u_anatomy = _anatomy(u, u_before)
     u.close()
     del u
 
     a = trainer("resumed", ckpt_interval=crash_at, keep=1)
+    a_before = a.step_metrics.anatomy()
     _counted_steps(a, per_step)
     t0 = time.monotonic()
     crashed = a.train(crash_at)             # the exit fence included
     crashed_wall = time.monotonic() - t0
     require(list_checkpoints(fs, f"{root}/resumed") == [crash_at],
             "the interval save is not durable at train()'s exit")
-    a_anatomy = _anatomy(a)
+    a_anatomy = _anatomy(a, a_before)
     a.close()
     del a                                     # as a crash leaves it
 
     b = trainer("resumed", ckpt_interval=0, keep=1)
+    b_before = b.step_metrics.anatomy()
     _counted_steps(b, per_step)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -1195,7 +1276,7 @@ def phase_trainer(train_rec, fs, root):
     b.save()
     save_ms = (time.monotonic() - t0) * 1e3
     launches = train_counts()
-    b_anatomy = _anatomy(b)
+    b_anatomy = _anatomy(b, b_before)
     require(list_checkpoints(fs, f"{root}/resumed") == [steps],
             "retention kept more than the newest checkpoint")
     step_dir = f"{root}/resumed/step_{steps:012d}"
@@ -1372,6 +1453,42 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
+def _replica_chassis_reads(port, traces, n):
+    """The replica's chassis after a round of ``n`` requests whose root
+    spans had ``traces`` as trace ids: each found in ``/ws/v1/traces``
+    by its id in hex and in decimal, the flight recorder, ``/conf`` with
+    the auth secret redacted, ``/ws/v1/top`` with the door's tenants and
+    ``/health``. Returns the reads' ms (the trace reads' mean and max)."""
+    require(len(traces) == n, f"{len(traces)} root spans for {n} requests")
+    trace_ms = []
+    for tid in traces:
+        for form in (f"{tid:016x}", str(tid)):
+            body, ms = _get_ms(port, f"/ws/v1/traces?trace_id={form}")
+            trace_ms.append(ms)
+            spans = json.loads(body)["spans"]
+            require(any(sp["name"] == "serving.request" and
+                        sp["trace_id"] == tid and sp["parent_id"] is None
+                        for sp in spans),
+                    f"/ws/v1/traces?trace_id={form}: no root span")
+    ms = {"traces_mean": sum(trace_ms) / len(trace_ms),
+          "traces_max": max(trace_ms), "trace_reads": len(trace_ms)}
+    slow, ms["traces_slow"] = _get_ms(port, "/ws/v1/traces/slow")
+    conf, ms["conf"] = _get_ms(port, "/conf")
+    top, ms["top"] = _get_ms(port, "/ws/v1/top")
+    health, ms["health"] = _get_ms(port, "/health")
+    stacks, ms["stacks"] = _get_ms(port, "/ws/v1/stacks")
+    tenants = json.loads(top)["sources"]["serving.chip-smoke.tenants"]
+    require("traces" in json.loads(slow), "/ws/v1/traces/slow")
+    require(json.loads(conf)["serving.http.auth.secret"] == "<redacted>",
+            "/conf shows the auth secret")
+    require({f"client{c}" for c in range(DOOR["clients"])} <=
+            {e["key"] for e in tenants["window"]},
+            f"/ws/v1/top tenants {tenants}")
+    require(json.loads(health)["status"] == "alive" and
+            json.loads(stacks)["num_threads"] >= 1, "/health, /ws/v1/stacks")
+    return ms
+
+
 def phase_door(fs, root):
     """The step-6 checkpoint served over HTTP by ``ServingReplica`` (this
     slice's main path): auth (401 without a credential), DOOR["requests"]
@@ -1397,11 +1514,13 @@ def phase_door(fs, root):
                              checkpoint=f"{root}/resumed", fs=fs)
     eng = replica.engine
     prompts = _door_prompts(cfg.vocab_size)
-    ttfts, collecting = [], [False]
+    ttfts, collecting, traces = [], [False], []
 
     def on_span(span):
         if collecting[0] and span.name == "serving.first_token":
             ttfts.append(float(span.kv["ttft_s"]))
+        if collecting[0] and span.name == "serving.request":
+            traces.append(span.trace_id)
 
     tracer = global_tracer()
     tracer.add_receiver(on_span)
@@ -1420,6 +1539,10 @@ def phase_door(fs, root):
         tokens, lines, wall = _door_round(port, prompts, stream={3})
         collecting[0] = False
         door_ttft = list(ttfts)
+        t_fleet = time.monotonic()
+        FLEET["door_ms"] = _replica_chassis_reads(port, traces,
+                                                  len(prompts))
+        FLEET["door_added_s"] = time.monotonic() - t_fleet
         n_tokens = sum(len(t) for t in tokens)
         streamed = lines[3]
         health_status, health = _http(port, "GET", "/v1/health")
@@ -4093,16 +4216,18 @@ def phase_moe_trainer():
     per_step = []
     zero_counts()                             # the main path's run
     u = trainer("uninterrupted", ckpt_interval=0)
+    u_before = u.step_metrics.anatomy()
     _counted_steps(u, per_step)
     losses = u.train(steps)
     torch.cuda.synchronize()
     step_ms = [st.elapsed_time(e) for _, st, e in per_step]
-    u_anatomy = _anatomy(u)
+    u_anatomy = _anatomy(u, u_before)
     u.close()
     del u
     free_device()
 
     a = trainer("resumed", ckpt_interval=crash_at, keep=1)
+    a_before = a.step_metrics.anatomy()
     _counted_steps(a, per_step)
     t0 = time.monotonic()
     crashed = a.train(crash_at)             # the exit fence included
@@ -4110,7 +4235,7 @@ def phase_moe_trainer():
     require(list_checkpoints(fs, f"{root}/resumed") == [crash_at],
             "the interval save is not durable at train()'s exit")
     host = tree_map(lambda x: x.cpu(), a.params)
-    a_anatomy = _anatomy(a)
+    a_anatomy = _anatomy(a, a_before)
     a.close()
     del a                                     # as a crash leaves it
     free_device()
@@ -4122,6 +4247,7 @@ def phase_moe_trainer():
     largest_shard = max(sizes.values())
 
     b = trainer("resumed", ckpt_interval=0, keep=1)
+    b_before = b.step_metrics.anatomy()
     _counted_steps(b, per_step)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -4133,7 +4259,7 @@ def phase_moe_trainer():
     resumed = b.train(steps - crash_at)
     ledger = _ledger_bytes()
     launches = train_counts()
-    b_anatomy = _anatomy(b)
+    b_anatomy = _anatomy(b, b_before)
     b.close()
     del b
     free_device()
@@ -5669,6 +5795,7 @@ def _trainer_mesh_check(ctx, recs, root, dist_launches, seconds, phase_t0):
     _mesh_reshard(recs[0], root, ctx["cfg"], ctx["bytes"])
     _mesh_vpp(recs[1], root, ctx["bytes_vpp"])
     _mesh_elastic(recs[2], root, dist_launches, launches)
+    _mesh_doors(recs)
     require(all(r["foreign"] == [] for r in
                 _mesh_records(recs[2], "modules", None)),
             "a rank imported jax or hadoop_tpu")
@@ -5682,6 +5809,34 @@ def _trainer_mesh_check(ctx, recs, root, dist_launches, seconds, phase_t0):
           "launches_rank0": launches,
           "seconds": dict(seconds, phase=time.monotonic() - phase_t0)})
     return launches
+
+
+def _mesh_doors(jobs):
+    """Every rank's reads of its own ``/ws/v1/trainer`` after each
+    "train" op (``dist_plans._scrape_trainer``): the comm block equal to
+    that rank's ledger report, the step count at least the op's. Into
+    FLEET: the reads' ms, and rank 0's seconds in its doors (opening,
+    reads, closing)."""
+    ms, added_ms = [], 0.0
+    for job in jobs:
+        for per_op in job:
+            added_ms += per_op[0].get("door_ms", 0.0) + \
+                per_op[0].get("door", {}).get("scrape_ms", 0.0)
+            if per_op[0]["op"] != "train":
+                continue
+            for rank, rec in enumerate(per_op):
+                door = rec["door"]
+                ms.append(door["scrape_ms"])
+                require(door["comm"] == rec["comm_report"],
+                        f"trainer_mesh {rec['name']} rank {rank}: the door's "
+                        f"comm block is not the rank's ledger report")
+                require(door["steps"] >= rec["anatomy"]["steps"] ==
+                        len(rec["launches"]),
+                        f"trainer_mesh {rec['name']} rank {rank}: door "
+                        f"{door['steps']} steps, op {len(rec['launches'])}")
+    FLEET["trainer_mesh_ms"] = {"reads": len(ms), "mean": sum(ms) / len(ms),
+                                "max": max(ms)}
+    FLEET["trainer_mesh_added_s"] = added_ms / 1e3
 
 
 def _mesh_regroup(recs, n_jobs):
@@ -5735,6 +5890,7 @@ def _trainer_mesh_jobs(root, data):
         op("restore", "w"), op("train", "w", steps=1), op("crash", "w")]
     jobs = [{"preset": "flagship-1b", "overrides": {"n_layers": layers},
              "data": data, "device": "cuda", "seed": SEED,
+             "telemetry": True,
              "trainer": {"batch": TRAIN["batch"], "lr": TRAIN["lr"],
                          "remat": TRAIN["remat"]}, "ops": ops}
             for layers, ops in ((tm["layers"], flat),
@@ -5755,6 +5911,7 @@ def _elastic_job(root):
     return {
         "preset": "flagship-1b", "overrides": {"n_layers": el["layers"]},
         "data": f"{root}/elastic.bin", "device": "cuda", "seed": SEED,
+        "telemetry": True,
         "trainer": {"batch": el["batch"], "lr": TRAIN["lr"],
                     "remat": TRAIN["remat"]},
         "ops": [dict(base, name="e", feed=feed, kw={
@@ -5851,6 +6008,7 @@ def _mesh_elastic(job, root, dist_launches, total):
             "the surviving ranks took different decisions")
     require(kinds == ["demote", "evict", "resume"] and resume.get(
         "restored"), f"elastic decisions {kinds}")
+    _mesh_elastic_doors(runs, evicted)
     require(lead["plan"]["dp"] == 3 and all(
         runs[r]["step"] == el["steps"] for r in survivors),
         f"elastic run ended at {lead['plan']} step {lead['step']}")
@@ -5876,6 +6034,21 @@ def _mesh_elastic(job, root, dist_launches, total):
             f"{len(ev['launches'])} steps")
     for run in ("elastic", "twin"):
         shutil.rmtree(f"{root}/{run}", ignore_errors=True)
+
+
+def _mesh_elastic_doors(runs, evicted):
+    """Each rank's door carries its controller's decisions: the evict of
+    ``evicted`` and, on the survivors, the shrink to dp3."""
+    for rank, rec in enumerate(runs):
+        block = rec["door"]["elastic"]
+        decisions = [e["decision"] for e in block["events"]]
+        require(block["evicted_ranks"] == [f"rank-{evicted}"] and
+                "evict" in decisions,
+                f"rank {rank}'s door elastic block: {decisions}, "
+                f"{block['evicted_ranks']}")
+        require(rank == evicted or (block["plan"]["dp"] == 3 and
+                                    "resume" in decisions),
+                f"rank {rank}'s door plan {block['plan']}")
 
 
 def _mesh_launches(job, plans, dist_launches, total):
@@ -6159,6 +6332,9 @@ def main() -> int:
     # (RMSNorm's forward, and the dequantize of the int8 leg);
     # launches_relaxed: rank 0's over the relaxed stage (its legs' bitwise
     # and relaxed arms and the codec-check steps)
+    FLEET["added_s"] = sum(v for k, v in FLEET.items()
+                           if k.endswith("_added_s"))
+    emit({"fleet": FLEET})
     train_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
                    "grad_sq", "rms_norm_fwd", "rms_norm_bwd")
     by_trainer = dict(zip(train_names, trainer_launches))

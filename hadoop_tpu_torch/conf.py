@@ -2,8 +2,8 @@
 
 The part of ``hadoop_tpu/conf/configuration.py``'s ``Configuration`` that
 the door reads: typed getters with the default at the call site (as in
-the reference's ``conf.get_int(KEY, default)`` calls), ``set`` and
-``set_if_unset``. It loads no resource files and expands no ``${var}``.
+the reference's ``conf.get_int(KEY, default)`` calls), ``set``,
+``set_if_unset`` and ``to_dict`` (what the chassis's ``/conf`` shows). It loads no resource files and expands no ``${var}``.
 
 The door takes any object with these methods (:class:`ConfLike`), so a
 ``hadoop_tpu`` ``Configuration`` passes in unchanged; the port never
@@ -42,6 +42,8 @@ class ConfLike(Protocol):
     def set(self, key: str, value: Any) -> None: ...
 
     def set_if_unset(self, key: str, value: Any) -> None: ...
+
+    def to_dict(self) -> Dict[str, str]: ...
 
 
 class Configuration:
@@ -116,3 +118,7 @@ class Configuration:
         if v is None or v == "":
             return list(default) if default else []
         return [s.strip() for s in v.split(",") if s.strip()]
+
+    def to_dict(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._props)

@@ -1,4 +1,5 @@
-"""The embedded HTTP server the serving door rides."""
+"""The embedded HTTP server the serving door and the trainer's telemetry
+door ride."""
 
 
 def http_get(host: str, port: int, path: str, timeout: float) -> bytes:

@@ -1,8 +1,9 @@
-"""Embedded HTTP server: the chassis the serving door rides.
+"""Embedded HTTP server: the chassis the serving door and a trainer
+rank's telemetry door ride.
 
-The part of ``hadoop_tpu/http/server.py``'s ``HttpServer`` the door uses,
-with its dispatch contract, so a handler written for one runs on the
-other:
+The port's copy of ``hadoop_tpu/http/server.py``'s ``HttpServer``, with
+its dispatch contract and standard servlets, so a handler written for
+one runs on the other and a fleet tool reads both the same way:
 
 - a handler ``fn(query, body)`` is registered under a path prefix
   (longest prefix wins) and receives the query parameters plus
@@ -17,11 +18,24 @@ other:
 - an exception a handler raises becomes a JSON ``RemoteException`` with
   404 (``FileNotFoundError``), 403 (``PermissionError``) or 500.
 
-Standard endpoints: ``/jmx`` (the metrics system as JSON, ``?qry=``
-filters sources) and ``/prom`` (Prometheus text, exemplars on unless
-``?exemplars=0`` or ``metrics.prom.exemplars=false``). The reference's
-``/health``, ``/conf``, ``/stacks``, ``/ws/v1/traces`` and the other
-``/ws/v1/*`` endpoints are ROADMAP Queue A 9.
+Standard endpoints, as the reference's:
+
+- ``/jmx``: the metrics system as JSON (``?qry=`` filters sources);
+- ``/prom``: Prometheus text, exemplars on unless ``?exemplars=0`` or
+  ``metrics.prom.exemplars=false``;
+- ``/health``: ``{"status": "alive", "daemon": name}``;
+- ``/conf``: the live configuration, ``secret``, ``password``,
+  ``keytab`` and ``credential`` keys shown as ``<redacted>``;
+- ``/stacks`` (text) and ``/ws/v1/stacks`` (JSON): every thread's stack;
+- ``/ws/v1/top``: the top-N of the decay accountings registered in
+  ``obs/top.py`` (``?n=``);
+- ``/ws/v1/traces``: the span collector's ring (``?trace_id=`` in hex
+  or decimal, ``?limit=``), ``/ws/v1/traces/slow`` its flight recorder;
+- ``/ws/v1/conf``: 503, as the reference answers without its generated
+  conf-key registry; the port has none yet (ROADMAP Queue A 9 part 2).
+
+Constructing a server configures the process's span collector from its
+conf (the slow thresholds and sizes).
 
 stdlib ``ThreadingHTTPServer``: one thread per connection.
 """
@@ -29,7 +43,9 @@ stdlib ``ThreadingHTTPServer``: one thread per connection.
 from __future__ import annotations
 
 import json
+import sys
 import threading
+import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs, unquote, urlparse
@@ -37,7 +53,17 @@ from urllib.parse import parse_qs, unquote, urlparse
 from hadoop_tpu_torch.conf import ConfLike, Configuration
 from hadoop_tpu_torch.metrics import (build_info_prom, metrics_system,
                                       render_prom)
-from hadoop_tpu_torch.tracing import TRACE_HEADER
+from hadoop_tpu_torch.obs.top import top_n
+from hadoop_tpu_torch.tracing import (TRACE_HEADER,
+                                      parse_trace_id_candidates,
+                                      span_collector)
+
+_REDACT = ("secret", "password", "keytab", "credential")
+
+
+def _redacted(key: str, value):
+    return "<redacted>" if any(s in key.lower() for s in _REDACT) \
+        else value
 
 
 class HttpServer:
@@ -96,7 +122,17 @@ class HttpServer:
         self.port = self._httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
         self.add_handler("/jmx", self._jmx)
+        self.add_handler("/conf", self._conf)
+        self.add_handler("/stacks", self._stacks)
+        self.add_handler("/health", lambda q, b: (
+            200, {"status": "alive", "daemon": self.daemon_name}))
         self.add_handler("/prom", self._prom)
+        self.add_handler("/ws/v1/traces", self._traces)
+        self.add_handler("/ws/v1/traces/slow", self._traces_slow)
+        self.add_handler("/ws/v1/stacks", self._ws_stacks)
+        self.add_handler("/ws/v1/top", self._ws_top)
+        self.add_handler("/ws/v1/conf", self._ws_conf)
+        span_collector().configure(self.conf)
 
     def add_handler(self, prefix: str, fn: Callable) -> None:
         """``fn(query: dict, body: bytes) -> (status, obj|bytes|str|iter
@@ -218,3 +254,68 @@ class HttpServer:
             exemplars = q not in ("0", "false", "no")
         return 200, (render_prom(metrics_system(), exemplars=exemplars)
                      + build_info_prom())
+
+    def _conf(self, query, body):
+        # /conf sits outside any auth filter, as the reference's: a
+        # signing secret shown here would let anyone forge cookies
+        return 200, {k: _redacted(k, v)
+                     for k, v in self.conf.to_dict().items()}
+
+    def _ws_conf(self, query, body):
+        return 503, {"error": "conf registry not generated: the port has "
+                              "no conf-key registry yet (ROADMAP Queue A "
+                              "9 part 2; the reference's comes from "
+                              "`hadoop-tpu lint --write-conf-registry`)"}
+
+    @staticmethod
+    def _bad(what: str, value):
+        return 400, {"RemoteException": {
+            "exception": "IllegalArgumentException",
+            "message": f"bad {what} {value!r}"}}
+
+    def _traces(self, query, body):
+        tid = (query.get("trace_id") or "").strip()
+        try:
+            limit = int(query.get("limit", 0) or 0)
+        except ValueError:
+            return self._bad("limit", query.get("limit"))
+        cands = set()
+        if tid:
+            cands = set(parse_trace_id_candidates(tid))
+            if not cands:
+                return self._bad("trace_id", tid)
+        return 200, span_collector().snapshot(trace_id=cands or None,
+                                              limit=limit)
+
+    def _traces_slow(self, query, body):
+        return 200, span_collector().slow_traces()
+
+    def _stacks(self, query, body):
+        out = []
+        frames = sys._current_frames()
+        for t in threading.enumerate():
+            frame = frames.get(t.ident)
+            stack = "".join(traceback.format_stack(frame)) if frame else ""
+            out.append(f'Thread "{t.name}" daemon={t.daemon}:\n{stack}')
+        return 200, "\n".join(out)
+
+    def _ws_stacks(self, query, body):
+        threads = []
+        frames = sys._current_frames()
+        for t in threading.enumerate():
+            frame = frames.get(t.ident)
+            stack = [] if frame is None else [
+                {"file": fs.filename, "line": fs.lineno, "func": fs.name}
+                for fs in traceback.extract_stack(frame)]
+            threads.append({"name": t.name, "daemon": t.daemon,
+                            "ident": t.ident, "alive": t.is_alive(),
+                            "stack": stack})
+        return 200, {"daemon": self.daemon_name,
+                     "num_threads": len(threads), "threads": threads}
+
+    def _ws_top(self, query, body):
+        try:
+            n = int(query.get("n", 10) or 10)
+        except ValueError:
+            return self._bad("n", query.get("n"))
+        return 200, {"daemon": self.daemon_name, "sources": top_n(n)}

@@ -1,11 +1,12 @@
-"""Metrics of the serving door: registries of counters, gauges, rates,
-quantiles and histograms, a process-wide system of them, and their
-``/jmx`` and Prometheus (``/prom``) expositions.
+"""Metrics of the serving door and the trainer: registries of counters,
+gauges, rates, quantiles and histograms, a process-wide system of them,
+and their ``/jmx`` and Prometheus (``/prom``) expositions.
 
 The part of ``hadoop_tpu/metrics/registry.py`` and ``metrics/prom.py``
-that ``serving/metrics.py`` uses. Names, label keys, bucket bounds and
-the text format are the reference's, so a scraper or dashboard built for
-a ``hadoop_tpu`` replica reads a port replica the same way:
+that ``serving/metrics.py`` and ``obs/trainer.py`` use. Names, label
+keys, bucket bounds and the text format are the reference's, so a
+scraper or dashboard built for a ``hadoop_tpu`` replica or trainer rank
+reads a port one the same way:
 
   counter    -> ``htpu_<name>_total``
   gauge      -> ``htpu_<name>``
@@ -260,6 +261,12 @@ class MetricsRegistry:
         with self._lock:
             return list(self._metrics.values())
 
+    def remove(self, name: str) -> None:
+        """Drop one metric, so that making it again can change its
+        exposition (a re-ranked trainer's label)."""
+        with self._lock:
+            self._metrics.pop(name, None)
+
     def register_callback_gauge(self, name: str, fn: Callable[[], Any],
                                 prom_name: str = None,
                                 prom_labels: dict = None) -> None:
@@ -318,6 +325,10 @@ class MetricsSystem:
     def snapshot_all(self) -> Dict[str, Dict[str, Any]]:
         return {name: reg.snapshot()
                 for name, reg in self.sources().items()}
+
+    def reset_for_tests(self) -> None:
+        with self._lock:
+            self._sources.clear()
 
 
 _global = MetricsSystem()

@@ -1,1 +1,2 @@
-"""HTTP authentication for the serving door (the hadoop-auth filter)."""
+"""HTTP authentication for the serving door (the hadoop-auth filter),
+and the RPC caller's identity (``ugi``)."""

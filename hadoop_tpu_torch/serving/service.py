@@ -1,19 +1,23 @@
-"""The serving replica as a deployable unit, and its command line.
+"""The serving replica as a deployable unit, its command line and its
+YARN service spec.
 
     python -m hadoop_tpu_torch.serving.service --checkpoint DIR \\
         --preset flagship-1b [--port N] [--host H] [--name SVC] \\
-        [--device cpu] [-D key=value ...]
+        [--registry HOST:PORT] [--role R] [--device cpu] [-D key=value ...]
 
 The counterpart of ``hadoop_tpu/serving/service.py``'s ``ServingReplica``
 and ``replica_main``: load the newest checkpoint under ``--checkpoint``
 (``serving/loader.py``), build the engine (its two step shapes are CUDA
 graphs on the card) with the QoS fair admission queue in front of it
 (``serving.qos.enabled``, on by default), put the door
-(``serving/server.py``) in front of that, optionally publish a record in
-a service registry and refresh it, and on SIGTERM or SIGINT (or
-``POST /v1/admin/drain``) drain: refuse new work, finish what is in
-flight, unregister, exit 0. ``-D key=value`` sets a conf key (the door's
-``serving.http.auth.secret``, the engine sizes ``serving.max.batch``,
+(``serving/server.py``, on the chassis with its standard endpoints) in
+front of that, optionally publish a record in a service registry and
+refresh it, and on SIGTERM or SIGINT (or ``POST /v1/admin/drain``)
+drain: refuse new work, finish what is in flight, unregister, exit 0.
+The door's decay-cost accounting is ``/ws/v1/top``'s source
+``serving.<name>.tenants`` while the replica runs. ``-D key=value``
+sets a conf key (the door's ``serving.http.auth.secret``, the engine
+sizes ``serving.max.batch``,
 ``serving.kv.block.size``, ``serving.kv.num.blocks``,
 ``serving.max.context``, ``serving.prefill.chunk``, the KV tiers'
 ``serving.kv.host.bytes``, ``serving.kv.dfs.enable``, ``serving.kv.dfs.dir``,
@@ -43,16 +47,21 @@ tests); without a CUDA device and without ``--device`` it raises.
 
 A ``file://`` URI or a bare path opens the port's ``LocalFileSystem``;
 any other scheme needs a ``FileSystemLike`` passed in as ``fs=`` by an
-in-process caller (the port carries no DFS client), and the command line
-exits 2 for one. ``registry=`` takes any ``RegistryLike`` (``hadoop_tpu``'s
-``RegistryClient`` fits); ``--registry HOST:PORT`` needs an RPC client the
-port does not have and exits 2. Features the port has not ported are
-refused with ``NotImplementedError`` naming their ROADMAP item (the
-command line exits 2), never ignored: more than one expert shard (A 6).
-``serving.longctx.enabled`` attaches the long-context plane
-(``serving/longctx``) under ``serving.parity=relaxed`` and raises the
-reference's ``ValueError`` without it. The YARN packaging
-(``serving_service_spec``, ``autoscaler_service_spec``) is Queue A 9.
+in-process caller, and the command line exits 2 for one: the port has
+no DFS client yet (ROADMAP Queue A 9 part 2). ``registry=`` takes any
+``RegistryLike``; ``--registry HOST:PORT`` opens the port's
+``RegistryClient`` on the reference's registry server. Features the
+port has not ported are refused with ``NotImplementedError`` naming
+their ROADMAP item (the command line exits 2), never ignored: more than
+one expert shard (A 6). ``serving.longctx.enabled`` attaches the
+long-context plane (``serving/longctx``) under
+``serving.parity=relaxed`` and raises the reference's ``ValueError``
+without it.
+
+:func:`serving_service_spec` packages N replicas as a YARN long-running
+service for the reference's service AM (``yarn.py``), which restarts an
+exited replica; ``autoscaler_service_spec`` waits for the autoscaler
+(ROADMAP Queue A 9 part 2).
 """
 
 from __future__ import annotations
@@ -71,9 +80,11 @@ from hadoop_tpu_torch.conf import ConfLike, Configuration
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.fs import FileSystemLike, LocalFileSystem
 from hadoop_tpu_torch.models.config import get_config
-from hadoop_tpu_torch.registry import (HEARTBEAT_ATTR, RegistryLike,
-                                       ServiceRecord, record_ttl,
-                                       replica_path)
+from hadoop_tpu_torch.obs.top import (register_top_source,
+                                      unregister_top_source)
+from hadoop_tpu_torch.registry import (HEARTBEAT_ATTR, RegistryClient,
+                                       RegistryLike, ServiceRecord,
+                                       record_ttl, replica_path)
 from hadoop_tpu_torch.serving.engine import DecodeEngine
 from hadoop_tpu_torch.serving.longctx import (ENABLED_KEY,
                                               longctx_plane_from_conf)
@@ -86,8 +97,33 @@ from hadoop_tpu_torch.serving.qos import (DecayCostScheduler,
 from hadoop_tpu_torch.serving.server import ServingServer
 from hadoop_tpu_torch.serving.weightplane import (quantized_load,
                                                   weightplane_from_conf)
+from hadoop_tpu_torch.yarn import (RESTART_ALWAYS, Component, Resource,
+                                   ServiceSpec)
 
 log = logging.getLogger(__name__)
+
+
+def serving_service_spec(name: str, *, checkpoint: str, preset: str,
+                         replicas: int = 2,
+                         registry_addr: Optional[str] = None,
+                         resource: Optional[Resource] = None,
+                         extra_args: Optional[List[str]] = None,
+                         ) -> ServiceSpec:
+    """YARN service spec: N identical replica containers."""
+    cmd = [sys.executable, "-m", "hadoop_tpu_torch.serving.service",
+           "--replica", "--name", name,
+           "--checkpoint", checkpoint, "--preset", preset,
+           # containers land on any host: bind the wildcard, so the
+           # replica advertises its hostname, not a loopback address
+           "--host", "0.0.0.0"]
+    if registry_addr:
+        cmd += ["--registry", registry_addr]
+    cmd += list(extra_args or [])
+    return ServiceSpec(name, [
+        Component("replica", replicas, cmd,
+                  resource=resource or Resource(1024, 1),
+                  restart_policy=RESTART_ALWAYS),
+    ])
 
 
 def _refuse(what: str, item: str) -> None:
@@ -106,7 +142,7 @@ def checkpoint_location(checkpoint: str, fs: Optional[FileSystemLike]
     if fs is None:
         _refuse(f"opening {parsed.scheme}:// checkpoints from the command "
                 f"line (the port carries no DFS client: an in-process "
-                f"caller passes its filesystem as fs=)", "9")
+                f"caller passes its filesystem as fs=)", "9 part 2")
     return fs, parsed.path
 
 
@@ -232,6 +268,8 @@ class ServingReplica:
             else socket.gethostname()
         self.reg = registry
         self.record: Optional[ServiceRecord] = None
+        # the door's tenant accounting as /ws/v1/top's source, while up
+        self._top_source: Optional[str] = None
         self._stopped = threading.Event()
         self._drain_lock = threading.Lock()
         # set when drain_and_stop has fully finished; _stopped only
@@ -241,6 +279,10 @@ class ServingReplica:
     def start(self) -> None:
         self.engine.start()
         self.server.start()
+        if self.server.qos is not None:
+            self._top_source = f"serving.{self.name}.tenants"
+            register_top_source(self._top_source,
+                                self.server.qos.sched.snapshot)
         if self.reg is not None:
             self._record_ttl = record_ttl(self.conf)
             eng = self.engine
@@ -337,6 +379,8 @@ class ServingReplica:
                 self.reg.close()
             self.server.stop()
         finally:
+            if self._top_source is not None:
+                unregister_top_source(self._top_source)
             self.drained.set()
 
 
@@ -373,24 +417,25 @@ def replica_main(argv: List[str], conf: Optional[ConfLike] = None) -> int:
     if not args["checkpoint"]:
         print("usage: python -m hadoop_tpu_torch.serving.service "
               "--checkpoint URI --preset NAME [--name SVC] [--port N] "
-              "[--host H] [--device DEV] [-D key=value ...]",
-              file=sys.stderr)
-        return 2
-    if args["registry"]:
-        print("--registry: the port carries no registry RPC client "
-              "(ROADMAP Queue A 9); an in-process caller passes its "
-              "client as ServingReplica(registry=...)", file=sys.stderr)
+              "[--host H] [--registry HOST:PORT] [--role R] "
+              "[--device DEV] [-D key=value ...]", file=sys.stderr)
         return 2
     if args["role"]:
         conf.set("serving.role", str(args["role"]))
+    registry = None
+    if args["registry"]:
+        host, _, port = str(args["registry"]).rpartition(":")
+        registry = RegistryClient((host or "127.0.0.1", int(port)), conf)
     try:
         replica = ServingReplica(
             conf, name=str(args["name"]),
             checkpoint=str(args["checkpoint"]), preset=str(args["preset"]),
-            bind=(str(args["host"]), int(args["port"])),
+            registry=registry, bind=(str(args["host"]), int(args["port"])),
             device=args["device"])
     except NotImplementedError as e:
         print(f"serve: {e}", file=sys.stderr)
+        if registry is not None:
+            registry.close()
         return 2
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())

@@ -62,6 +62,7 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import json
 import os
 import sys
 import time
@@ -76,6 +77,7 @@ import torch.distributed as dist
 
 from hadoop_tpu_torch.device import resolve_device
 from hadoop_tpu_torch.fs import LocalFileSystem
+from hadoop_tpu_torch.http import http_get
 from hadoop_tpu_torch.mapreduce.device_shuffle import (device_group_reduce,
                                                        device_shuffle,
                                                        device_terasort,
@@ -89,6 +91,7 @@ from hadoop_tpu_torch.ops import collective_matmul, flash, norms
 from hadoop_tpu_torch.parallel import optimizer, overlap, spmd
 from hadoop_tpu_torch.parallel.elastic import ElasticConfig
 from hadoop_tpu_torch.obs.comm import comm_runtime
+from hadoop_tpu_torch.obs.trainer import TrainerTelemetry, anatomy_delta
 from hadoop_tpu_torch.parallel.mesh import (MeshPlan, layer_order,
                                             make_mesh, param_specs,
                                             param_specs_for,
@@ -603,6 +606,17 @@ def trainer_ops(rank: int, world: int, jobs: List[Dict[str, Any]]
       plan without ZeRO-1) in checkpoint layer order, a ``sample`` of
       flat indices per leaf or every element (rank 0 keeps them).
 
+    A "train" or "save" record's ``anatomy`` is the step anatomy of that
+    op alone (``anatomy_delta``: the metrics source is the process's).
+    With ``telemetry`` in the job, each trainer gets a
+    ``TrainerTelemetry`` door when it is made (its elastic controller's
+    report as the elastic block) and closed when it crashes; after each
+    "train" the rank reads its own ``/ws/v1/trainer`` and records it as
+    ``door`` (``comm``, ``steps``, ``step_wall``, ``elastic`` and the
+    read's ``scrape_ms``), beside ``comm_report``, the ledger's report
+    read just after; "make" and "crash" records add ``door_ms``, the
+    door's opening and closing.
+
     The last job's list ends with a record (op "modules") of the foreign
     modules the rank imported (``jax``, ``hadoop_tpu``): none."""
     out = [_trainer_job(rank, job) for job in jobs]
@@ -620,6 +634,7 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         torch.cuda.set_device(dev)
     fs = LocalFileSystem()
     live: Dict[str, Trainer] = {}
+    doors: Dict[str, TrainerTelemetry] = {}
     logs: Dict[str, List[Dict[str, Any]]] = {}
     out = []
     for op in job["ops"]:
@@ -644,6 +659,12 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                                      **kw)
             logs[name] = []
             _count_steps(t, logs[name], cuda)
+            if job.get("telemetry"):
+                t_door = time.perf_counter()
+                doors[name] = TrainerTelemetry(
+                    rank=rank, job=name, metrics=t.step_metrics,
+                    elastic=None if t.elastic is None else t.elastic.report)
+                rec["door_ms"] = (time.perf_counter() - t_door) * 1e3
             if op.get("check_init"):
                 gen = torch.Generator(device=dev).manual_seed(
                     job.get("seed", 0))
@@ -666,6 +687,7 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                 t.ckpt_interval = op["ckpt_interval"]
             del logs[name][:]
             comm_runtime().reset_for_tests()
+            before = t.step_metrics.anatomy()
             rec["losses"] = t.train(op["steps"])
             if cuda:
                 torch.cuda.synchronize()
@@ -686,16 +708,24 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
                 rec["loss_by_step"] = dict(t.loss_by_step)
             rec["comm"] = {site: list(v) for site, v in
                            comm_runtime().profile("trainer.step").items()}
+            rec["anatomy"] = anatomy_delta(before, t.step_metrics.anatomy())
+            if name in doors:
+                rec["door"] = _scrape_trainer(doors[name].port)
             rec["comm_report"] = comm_runtime().report()
-            rec["anatomy"] = t.step_metrics.anatomy()
         elif kind == "save":
             if "dir" in op:
                 t.ckpt_dir = op["dir"]
+            before = t.step_metrics.anatomy()
             path = t.save()
             if t.mesh is not None:
                 rec["bytes_written"] = _rank_bytes(path, rank)
-            rec["anatomy"] = t.step_metrics.anatomy()["ckpt"]
+            rec["anatomy"] = anatomy_delta(
+                before, t.step_metrics.anatomy())["ckpt"]
         elif kind == "crash":
+            if name in doors:
+                t_door = time.perf_counter()
+                doors.pop(name).close()
+                rec["door_ms"] = (time.perf_counter() - t_door) * 1e3
             t.close()
             del live[name], logs[name]
             t = None
@@ -720,9 +750,21 @@ def _trainer_job(rank: int, job: Dict[str, Any]) -> List[Dict[str, Any]]:
         if cuda:
             rec["peak_bytes"] = torch.cuda.max_memory_allocated()
         out.append(rec)
+    for door in doors.values():
+        door.close()
     for t in live.values():
         t.close()
     return out
+
+
+def _scrape_trainer(port: int) -> Dict[str, Any]:
+    """This rank's own ``/ws/v1/trainer``: the blocks a check reads, and
+    the read's wall ms."""
+    t0 = time.perf_counter()
+    body = json.loads(http_get("127.0.0.1", port, "/ws/v1/trainer", 30.0))
+    return {"scrape_ms": (time.perf_counter() - t0) * 1e3,
+            "comm": body["comm"], "steps": body["steps"],
+            "step_wall": body["step_wall"], "elastic": body.get("elastic")}
 
 
 # ---------------------------------------------------------- serving runner

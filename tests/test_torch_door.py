@@ -8,7 +8,8 @@ the reference door's and a full-recompute greedy loop over the JAX
 cookies and trace headers cross between the packages both ways, the
 health key set and the ``/prom`` families are the same, QoS levels
 follow the same charges, and a ``hadoop_tpu`` router reaches a port
-replica through its registry.
+replica through its registry, in process and from the command line's
+``--registry``; the YARN spec is the reference's but for the module.
 """
 
 import http.client
@@ -634,6 +635,104 @@ def test_command_line_serves_health_and_exits_0_on_sigterm(tmp_path):
         proc.stderr.close()
 
 
+def _replica_port(proc):
+    """The port a replica process logs once it is up."""
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        assert line, "the replica exited before serving"
+        if " up on :" in line:
+            return int(line.split(" up on :")[1].split()[0])
+    raise AssertionError("the replica did not come up")
+
+
+def test_command_line_registry_routes_traces_then_unregisters(tmp_path):
+    """``--registry`` opens the port's RPC client on the reference's
+    registry: the record carries the attributes a router reads, the
+    reference's router serves through the replica, the replica's chassis
+    shows the request's span and the door's tenants, and SIGTERM drains
+    and unregisters."""
+    from hadoop_tpu.registry import RegistryServer, record_is_stale
+    from hadoop_tpu.serving.router import ServingRouter
+    save_checkpoint(LocalFileSystem(), f"{tmp_path}/ckpt", 4,
+                    {"params": _tiny()["params"]})
+    jconf = _conf(JConfiguration)
+    reg_srv = RegistryServer(jconf)
+    reg_srv.init(jconf)
+    reg_srv.start()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hadoop_tpu_torch.serving.service",
+         "--name", "door", "--checkpoint", f"{tmp_path}/ckpt",
+         "--preset", "tiny", "--registry", f"127.0.0.1:{reg_srv.port}",
+         "--device", "cpu", "-D", "serving.kv.block.size=4",
+         "-D", "serving.max.context=48", "-D", "serving.kv.host.bytes=4096"],
+        cwd=REPO, env=env, stderr=subprocess.PIPE, text=True)
+    router = None
+    try:
+        port = _replica_port(proc)
+        (rec,) = reg_srv.list("/services/serving/door")
+        assert rec.endpoints == {"http": f"127.0.0.1:{port}"}
+        assert {k: rec.attributes[k] for k in ("role", "kv_host_bytes",
+                                               "kv_dfs", "state")} == \
+            {"role": "mixed", "kv_host_bytes": "4096", "kv_dfs": "0",
+             "state": "serving"}
+        assert not record_is_stale(rec, 10.0)
+        router = ServingRouter(("127.0.0.1", reg_srv.port), "door", jconf)
+        out = router.generate({"tokens": [1, 2], "max_new_tokens": 3},
+                              user="alice")
+        assert out["tokens"] == _reference_greedy([1, 2], 3)
+        status, body, _ = _request(port, "GET", "/ws/v1/traces")
+        spans = json.loads(body)["spans"]
+        assert status == 200 and any(sp["name"] == "serving.request"
+                                     for sp in spans)
+        status, body, _ = _request(port, "GET", "/ws/v1/top")
+        tenants = json.loads(body)["sources"]["serving.door.tenants"]
+        assert status == 200 and tenants["window"][0]["key"] == "alice"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        assert reg_srv.list("/services/serving/door") == []
+    finally:
+        if router is not None:
+            router.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stderr.close()
+        reg_srv.stop()
+
+
+def test_service_spec_is_the_references_but_the_module():
+    """The reference's ``ServiceSpec.from_json`` reads the port's spec,
+    which equals the reference's but for the module it launches."""
+    from hadoop_tpu.serving.service import serving_service_spec as jspec
+    from hadoop_tpu.yarn.records import Resource as JResource
+    from hadoop_tpu.yarn.services import ServiceSpec as JServiceSpec
+    from hadoop_tpu_torch.yarn import Resource
+    for kw, res in (({}, None),
+                    ({"registry_addr": "127.0.0.1:7777", "replicas": 3,
+                      "extra_args": ["--role", "decode", "-D",
+                                     "serving.parity=relaxed"]},
+                     (2048, 4, 1))):
+        got = service.serving_service_spec(
+            "llm", checkpoint="/models/llm", preset="tiny",
+            resource=Resource(*res) if res else None, **kw)
+        want = jspec("llm", checkpoint="/models/llm", preset="tiny",
+                     resource=JResource(*res) if res else None, **kw)
+        read = JServiceSpec.from_json(got.to_json())
+        assert json.loads(read.to_json()) == json.loads(
+            want.to_json().replace("hadoop_tpu.serving.service",
+                                   "hadoop_tpu_torch.serving.service"))
+        (comp,) = read.components
+        assert comp.restart_policy == "ALWAYS"
+        assert comp.launch_command[1:3] == [
+            "-m", "hadoop_tpu_torch.serving.service"]
+        # the port's command line takes every flag the spec passes
+        flags = [a for a in comp.launch_command[3:] if a.startswith("--")]
+        assert set(flags) <= {"--replica", "--name", "--checkpoint",
+                              "--preset", "--host", "--registry", "--role"}
+
+
 # ----------------------------------------------------------- refusals
 
 @pytest.mark.parametrize("key,value,item", [
@@ -877,7 +976,6 @@ def test_prefill_role_without_the_dfs_tier_is_refused(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["--checkpoint", "htpu://nn:8020/models/x", "--device", "cpu"],
-    ["--checkpoint", "/m", "--registry", "127.0.0.1:1", "--device", "cpu"],
     ["--checkpoint", "/m", "--bogus", "1"],
 ])
 def test_command_line_exits_2_for_what_it_cannot_do(argv, capsys):

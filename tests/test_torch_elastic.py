@@ -380,7 +380,7 @@ def world(root, reference):
                 {"op": "train", "name": name, "steps": STEPS},
                 {"op": "crash", "name": name}]
     job = {"preset": "tiny", "overrides": OVER, "data": f"{root}/toks.bin",
-           "device": "cpu", "seed": 0,
+           "device": "cpu", "seed": 0, "telemetry": True,
            "trainer": {"batch": BATCH, "lr": LR}, "ops": ops}
     # PyTorch's barrier after each new group, over its members: a mesh
     # over part of the world waits for none of the processes that left
@@ -442,3 +442,29 @@ def test_port_evicts_and_reshards_as_the_reference(reference, world, name,
     if name == "evict":       # steps 3-5 at dp4, then 5-7 again at dp3
         assert all(runs[r]["step_dp"] == [4] * 3 + [3] * 3
                    for r in survivors)
+
+
+@pytest.mark.parametrize("name,evicted", [("evict", [2]),
+                                          ("shrink", [2, 3, 1])])
+def test_each_rank_door_serves_its_ledger_and_elastic_block(world, name,
+                                                            evicted):
+    """Every rank's own ``/ws/v1/trainer`` after the run: the comm block
+    is that rank's ledger report, the step counts are the run's, and the
+    elastic block carries the controller's evict and resume decisions
+    and the shrunken plan."""
+    for rank, rec in enumerate(world[("train", name)]):
+        door = rec["door"]
+        assert door["comm"] == rec["comm_report"]
+        assert door["steps"] >= rec["anatomy"]["steps"] == \
+            len(rec["launches"])
+        block = door["elastic"]
+        # an evicted process's controller stops at its own eviction
+        upto = evicted[:evicted.index(rank) + 1] if rank in evicted \
+            else evicted
+        assert block["evicted_ranks"] == sorted(f"rank-{r}" for r in upto)
+        decisions = [e["decision"] for e in block["events"]]
+        assert [d for d in decisions if d != "leave"] == \
+            [e["decision"] for e in rec["events"] if e["decision"] != "leave"]
+        if rank not in evicted:
+            assert block["plan"] == rec["plan"]
+            assert "evict" in decisions and "resume" in decisions

@@ -322,6 +322,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.parallel.lowp.guard\n"
         "import hadoop_tpu_torch.parallel.lowp.syncpolicy\n"
         "import hadoop_tpu_torch.tools.ab_wire\n"
+        "import hadoop_tpu_torch.obs.top, hadoop_tpu_torch.io.wire\n"
+        "import hadoop_tpu_torch.ipc.rpc, hadoop_tpu_torch.yarn\n"
+        "import hadoop_tpu_torch.security.ugi\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -362,7 +365,10 @@ def test_port_sources_name_no_jax():
                 "parallel/pipeline.py", "parallel/collectives.py",
                 "mapreduce/device_shuffle.py",
                 "parallel/elastic/controller.py", "parallel/lowp/guard.py",
-                "parallel/lowp/syncpolicy.py", "tools/ab_wire.py"):
+                "parallel/lowp/syncpolicy.py", "tools/ab_wire.py",
+                "obs/top.py", "io/wire.py", "ipc/__init__.py",
+                "ipc/errors.py", "ipc/client.py", "ipc/rpc.py",
+                "security/ugi.py", "yarn.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

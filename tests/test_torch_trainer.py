@@ -24,6 +24,7 @@ from hadoop_tpu.parallel.trainer import Trainer as JTrainer
 from hadoop_tpu.testing.minicluster import MiniDFSCluster
 from hadoop_tpu_torch.fs import LocalFileSystem
 from hadoop_tpu_torch.models import config
+from hadoop_tpu_torch.obs.trainer import anatomy_delta
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer
 from hadoop_tpu_torch.parallel import checkpoint as ckpt
 from hadoop_tpu_torch.parallel import optimizer, spmd
@@ -155,8 +156,10 @@ def _interval_save_in_flight(fs, token_file, curve):
     """The interval save fires at step 3 with the next batch already
     prefetched; it must record the cursor of the last consumed batch."""
     a = _port(fs, token_file, "/pckpt/interval", ckpt_interval=3)
+    before = a.step_metrics.anatomy()
     a.train(4)
-    assert a.step_metrics.ckpt_write.snapshot()["num_ops"] == 1
+    window = anatomy_delta(before, a.step_metrics.anatomy())
+    assert window["ckpt"]["write"]["num_ops"] == 1
     return "/pckpt/interval", 3
 
 
@@ -208,6 +211,8 @@ def test_step_anatomy_and_ranges(fs, token_file):
     """The step anatomy counts what ran, and a profile that records every
     thread sees the three ranges (the write's is on the writer thread)."""
     t = _port(fs, token_file, "/pckpt/anatomy", ckpt_interval=2)
+    # the metrics source is the process's: earlier trainers counted too
+    before = t.step_metrics.anatomy()
     every_thread = torch._C._profiler._ExperimentalConfig(
         profile_all_threads=True)
     with profile(activities=[ProfilerActivity.CPU],
@@ -216,7 +221,7 @@ def test_step_anatomy_and_ranges(fs, token_file):
     names = {e.name for e in prof.events()}
     assert {"trainer.step", "trainer.ckpt.snapshot",
             "trainer.ckpt.write"} <= names
-    a = t.step_metrics.anatomy()
+    a = anatomy_delta(before, t.step_metrics.anatomy())
     assert a["steps"] == 4
     assert a["data_wait"]["count"] == a["step_wall"]["count"] == 4
     assert a["ckpt"]["snapshot"]["num_ops"] == 2
