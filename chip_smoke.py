@@ -123,7 +123,13 @@ line gives the reads' ms and the seconds the doors added. The device shuffle (ph
 SHUFFLE) runs on a folded axis of four ranks on the card: TeraSort and
 WordCount at Hadoop's own record sizes, a hash exchange and an
 overflowing one, each checked exactly. Weights are random, made from a
-seeded ``torch.Generator``. Each phase
+seeded ``torch.Generator``. The build phase also builds the DFS
+client's native CRC32C (``hadoop_tpu_torch/native/crc32c.cc``) with the
+host C++ compiler, holds it against the pure-Python backend on 4 MiB of
+seeded bytes with an unaligned tail and on a corrupted chunk, times it
+on the host CPU (its line's ``host_cpu_gb_per_s``: a host figure, not
+the card's) and imports the DFS client's modules, which must load
+nothing of JAX or the JAX package (see CRC). Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
@@ -816,6 +822,93 @@ def ptxas_report(log):
     return entries, bad
 
 
+# The DFS client's modules: imported by the build phase, which then
+# checks that nothing of JAX or the JAX package came with them.
+DFS_MODULES = ("hadoop_tpu_torch.dfs.client",
+               "hadoop_tpu_torch.dfs.client.dfsclient",
+               "hadoop_tpu_torch.dfs.client.filesystem",
+               "hadoop_tpu_torch.dfs.client.streams",
+               "hadoop_tpu_torch.dfs.client.striped",
+               "hadoop_tpu_torch.dfs.client.shortcircuit",
+               "hadoop_tpu_torch.dfs.protocol",
+               "hadoop_tpu_torch.dfs.protocol.records",
+               "hadoop_tpu_torch.dfs.protocol.datatransfer",
+               "hadoop_tpu_torch.dfs.protocol.blocktoken",
+               "hadoop_tpu_torch.security.sasl",
+               "hadoop_tpu_torch.ipc.retry", "hadoop_tpu_torch.util.crc")
+# The DFS client's native CRC32C on the host: ``python_bytes`` seeded
+# bytes with an unaligned tail held against the pure-Python backend (and
+# a chunk corrupted in the middle), ``timed_bytes`` timed ``iters``
+# times for the host CPU's rate.
+CRC = dict(python_bytes=(4 << 20) + 1021, timed_bytes=64 << 20, iters=5,
+           seed=21)
+
+
+def _crc32c_host():
+    """Build the native CRC32C from ``hadoop_tpu_torch/native/crc32c.cc``
+    with the host compiler (failing if the build fails or the native
+    backend is not live), hold it against the pure-Python backend, time
+    it on the host CPU, and import the DFS client's modules."""
+    import importlib
+    from hadoop_tpu_torch.util import crc as crc_module
+    t0 = time.monotonic()
+    crc_module.build()
+    seconds = time.monotonic() - t0
+    require(crc_module.native_available(),
+            "the native CRC32C built but is not the live backend")
+    data = np.random.default_rng(CRC["seed"]).integers(
+        0, 256, CRC["python_bytes"], dtype=np.uint8).tobytes()
+    checksum = crc_module.DataChecksum(512)
+    sums = checksum.checksums_for(data)
+    bad = bytearray(data)
+    flip = len(data) // 2 + 77
+    bad[flip] ^= 0x5A
+    errors = {}
+    for backend in ("native", "python"):
+        ctx = crc_module.python_backend() if backend == "python" \
+            else contextlib.nullcontext()
+        with ctx:
+            got = (crc_module.crc32c(data), crc_module.crc32c(
+                memoryview(data)[3:], 0x1234), checksum.checksums_for(data))
+            try:
+                checksum.verify(bytes(bad), sums, base_pos=4096)
+                errors[backend] = None
+            except crc_module.ChecksumError as e:
+                errors[backend] = (e.pos, str(e))
+        if backend == "native":
+            native = got
+    require(native == got, "native CRC32C disagrees with the pure-Python "
+            "backend")
+    require(errors["native"] == errors["python"] and errors["native"] and
+            errors["native"][0] == 4096 + flip // 512 * 512,
+            f"DataChecksum.verify of a corrupted chunk: {errors}")
+    big = np.random.default_rng(CRC["seed"] + 1).integers(
+        0, 256, CRC["timed_bytes"], dtype=np.uint8).tobytes()
+    big_sums = checksum.checksums_for(big)
+    rates = {}
+    for name, fn in (("crc32c", lambda: crc_module.crc32c(big)),
+                     ("checksums_for", lambda: checksum.checksums_for(big)),
+                     ("verify", lambda: checksum.verify(big, big_sums))):
+        fn()
+        t = time.perf_counter()
+        for _ in range(CRC["iters"]):
+            fn()
+        rates[name] = CRC["iters"] * len(big) / (
+            time.perf_counter() - t) / 1e9
+    for name in DFS_MODULES:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "hadoop_tpu"))
+    require(not leaked, f"the DFS client's imports loaded {leaked}")
+    emit({"phase": "build", "library": "crc32c", "seconds": seconds,
+          "source": "hadoop_tpu_torch/native/crc32c.cc",
+          "built": str(crc_module.target().name), "native": True,
+          "python_bytes_checked": len(data),
+          "corrupt_chunk_pos": errors["native"][0],
+          "host_cpu_gb_per_s": rates, "host_cpu_bytes": len(big),
+          "dfs_modules_imported": len(DFS_MODULES)})
+
+
 def phase_build():
     t0 = time.monotonic()
     _build.build(KERNEL_SOURCES)        # one nvcc per source, in parallel
@@ -839,6 +932,7 @@ def phase_build():
             f"{dt} D{d}": smem(d, code) for dt, code in (("float32", 0),
                                                         ("bfloat16", 1))
             for d in flash._HEAD_DIMS}})
+    _crc32c_host()
     print(smi, flush=True)
     require(not problems, f"ptxas reports: {problems}")
     return smi

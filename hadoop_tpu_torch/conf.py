@@ -1,11 +1,14 @@
-"""Typed key/value configuration for the serving door.
+"""Typed key/value configuration for the serving door, the RPC client
+and the DFS client.
 
-The part of ``hadoop_tpu/conf/configuration.py``'s ``Configuration`` that
-the door reads: typed getters with the default at the call site (as in
-the reference's ``conf.get_int(KEY, default)`` calls), ``set``,
-``set_if_unset`` and ``to_dict`` (what the chassis's ``/conf`` shows). It loads no resource files and expands no ``${var}``.
+The part of ``hadoop_tpu/conf/configuration.py``'s ``Configuration``
+they read: typed getters with the default at the call site (as in the
+reference's ``conf.get_int(KEY, default)`` calls; sizes as ``64m``,
+times as ``30s``), ``set``, ``set_if_unset`` and ``to_dict`` (what the
+chassis's ``/conf`` shows). It loads no resource files and expands no
+``${var}``.
 
-The door takes any object with these methods (:class:`ConfLike`), so a
+They take any object with these methods (:class:`ConfLike`), so a
 ``hadoop_tpu`` ``Configuration`` passes in unchanged; the port never
 imports or checks for its type.
 """
@@ -17,6 +20,8 @@ from typing import Any, Dict, List, Optional, Protocol
 
 _TRUE = {"true", "yes", "on", "1"}
 _FALSE = {"false", "no", "off", "0"}
+_SIZE_SUFFIXES = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40,
+                  "p": 1 << 50}
 _TIME_SUFFIXES = {"ns": 1e-9, "us": 1e-6, "ms": 1e-3, "s": 1.0,
                   "m": 60.0, "h": 3600.0, "d": 86400.0}
 
@@ -35,6 +40,8 @@ class ConfLike(Protocol):
 
     def get_time_seconds(self, key: str, default: float = 0.0
                          ) -> float: ...
+
+    def get_size_bytes(self, key: str, default: int = 0) -> int: ...
 
     def get_list(self, key: str, default: Optional[List[str]] = None
                  ) -> List[str]: ...
@@ -97,6 +104,16 @@ class Configuration:
         raise ValueError(
             f"conf key {key!r}: invalid boolean value {v!r} (accepted: "
             f"{'/'.join(sorted(_TRUE))} or {'/'.join(sorted(_FALSE))})")
+
+    def get_size_bytes(self, key: str, default: int = 0) -> int:
+        """'64m' → 67108864."""
+        v = self.get_trimmed(key)
+        if v is None or v == "":
+            return default
+        vl = v.lower()
+        if vl[-1] in _SIZE_SUFFIXES:
+            return int(float(vl[:-1]) * _SIZE_SUFFIXES[vl[-1]])
+        return int(v)
 
     def get_time_seconds(self, key: str, default: float = 0.0) -> float:
         """'30s' / '5m' / '100ms' → seconds."""

@@ -1,11 +1,13 @@
 """The filesystem the port's trainer, data and checkpoints run on.
 
-The port does not carry a DFS client. Its data loader, checkpoints and
-serving loader take any object with the nine methods of
-:class:`FileSystemLike`, the part of ``hadoop_tpu``'s ``FileSystem``
-they use, so the caller passes a filesystem in: a ``hadoop_tpu``
-``FileSystem`` (a ``MiniDFSCluster``'s, a ``DistributedFileSystem``)
-works unchanged, and the port never imports or checks for its types.
+The port's data loader, checkpoints, serving loader and KV tier take
+any object with the nine methods of :class:`FileSystemLike`, the part
+of ``hadoop_tpu``'s ``FileSystem`` they use, so a caller may pass a
+filesystem in: the port's own (:class:`LocalFileSystem`, the DFS
+client's ``DistributedFileSystem``) or a ``hadoop_tpu`` one (a
+``MiniDFSCluster``'s), which works unchanged; the port never imports or
+checks for the reference's types. :func:`get_filesystem` picks the
+port's own by a URI's scheme, as the reference's ``FileSystem.get``.
 
 - ``get_file_status(path)`` returns a status with ``.path`` (str),
   ``.is_dir`` (bool) and ``.length`` (bytes); it raises
@@ -20,8 +22,7 @@ works unchanged, and the port never imports or checks for its types.
   replaces a file with ``data``.
 
 :class:`LocalFileSystem` is the port's own copy of the reference's local
-filesystem (``hadoop_tpu/fs/filesystem.py``'s ``LocalFileSystem``), for
-runs that have no ``hadoop_tpu`` to import.
+filesystem (``hadoop_tpu/fs/filesystem.py``'s ``LocalFileSystem``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import dataclasses
 import os
 import shutil
 from typing import BinaryIO, List, Protocol
+from urllib.parse import urlparse
 
 
 @dataclasses.dataclass
@@ -138,3 +140,20 @@ class LocalFileSystem:
                   overwrite: bool = True) -> None:
         with self.create(path, overwrite=overwrite) as f:
             f.write(data)
+
+
+def get_filesystem(uri: str, conf=None) -> FileSystemLike:
+    """The port's filesystem for ``uri``'s scheme: ``file`` (or none)
+    gives :class:`LocalFileSystem`, ``htpu`` the DFS client's
+    ``DistributedFileSystem`` on the URI's NameNode (or
+    ``dfs.namenode.rpc-address`` in ``conf``). Any other scheme raises
+    ``ValueError`` naming it."""
+    scheme = urlparse(uri).scheme
+    if scheme in ("", "file"):
+        return LocalFileSystem()
+    if scheme == "htpu":
+        from hadoop_tpu_torch.dfs.client.filesystem import \
+            DistributedFileSystem
+        return DistributedFileSystem.create_instance(uri, conf)
+    raise ValueError(f"no filesystem for scheme {scheme!r} ({uri}): the "
+                     f"port has file:// and htpu://")

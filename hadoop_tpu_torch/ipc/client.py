@@ -20,10 +20,18 @@ outstanding closes itself), ``ipc.client.read.timeout`` (120 s of
 silence with calls outstanding fails them; 0 turns it off) and
 ``ipc.client.rpc-timeout`` (60 s, a call's default timeout).
 
-Only SIMPLE authentication: ``hadoop.security.authentication=sasl`` is
-refused with ``NotImplementedError`` (ROADMAP Queue A 9 part 2, with
-the DFS client that needs it), and no delegation token rides the
-header.
+Authentication, as the reference's: under SIMPLE the header names the
+user, and a delegation token of the client's ``token_kind`` held by the
+caller rides in it (auth ``TOKEN``). Under
+``hadoop.security.authentication=sasl`` the header carries a SASL
+initiate instead (``security/sasl.py``): TOKEN with that delegation
+token, else SCRAM with the real user's ``sasl_password`` (from
+``UserGroupInformation.login_from_keytab``) or the principal's entry in
+``hadoop.security.client.keytab``. The server's challenge and success
+come back as frames, the client's proof goes out as one, and the
+connection goes live only after the server's proof checks. With QoP
+(``hadoop.rpc.protection``) integrity or privacy, every later frame is
+wrapped both ways.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 from hadoop_tpu_torch.conf import ConfLike, Configuration
-from hadoop_tpu_torch.io.wire import pack, unpack
+from hadoop_tpu_torch.io.wire import pack, read_frame, unpack
 from hadoop_tpu_torch.ipc.errors import (ConnectFailedError, FatalRpcError,
                                          RpcError, RpcTimeoutError,
                                          resolve_exception)
@@ -88,11 +96,6 @@ class _Connection:
 
     def _connect(self) -> None:
         conf = self.client.conf
-        if conf.get("hadoop.security.authentication",
-                    "simple").lower() == "sasl":
-            raise NotImplementedError(
-                "SASL RPC authentication is not ported to "
-                "hadoop_tpu_torch yet (ROADMAP Queue A 9 part 2)")
         timeout = conf.get_time_seconds("ipc.client.connect.timeout", 20.0)
         self.ping_interval = conf.get_time_seconds("ipc.ping.interval",
                                                    10.0)
@@ -111,15 +114,85 @@ class _Connection:
         self.sock.settimeout(self.read_timeout or None)
         self.last_activity = time.monotonic()
         self.last_inbound = time.monotonic()
-        payload = pack({
+        self.cipher = None
+        hdr: Dict[str, Any] = {
             "magic": MAGIC,
             "protocol": self.protocol,
             "user": self.user.user_name,
             "real": self.user.real_user.user_name
             if self.user.real_user else None,
             "auth": self.user.auth_method,
-        })
+        }
+        token = self.user.tokens.get(self.client.token_kind) \
+            if self.client.token_kind else None
+        if conf.get("hadoop.security.authentication",
+                    "simple").lower() == "sasl":
+            try:
+                self._sasl_handshake(conf, hdr, token, timeout)
+            except BaseException:
+                self.sock.close()
+                raise
+            return
+        if token is not None:
+            hdr["auth"] = UserGroupInformation.AUTH_TOKEN
+            hdr["token"] = token.to_wire()
+        payload = pack(hdr)
         self.sock.sendall(struct.pack(">I", len(payload)) + payload)
+
+    def _sasl_handshake(self, conf, hdr: Dict, token, timeout: float) -> None:
+        """Mutual authentication before the connection goes live: the
+        initiate rides in the header, then one frame each way twice."""
+        from hadoop_tpu_torch.security.sasl import (MECH_SCRAM, MECH_TOKEN,
+                                                    QOP_AUTH,
+                                                    SaslClientSession,
+                                                    password_from_keytab)
+        qop = conf.get("hadoop.rpc.protection", QOP_AUTH).lower()
+        # the real user authenticates; an effective (proxy) user rides in
+        # the header on top of the proven identity
+        auth_ugi = self.user.real_user or self.user
+        if token is not None:
+            sess = SaslClientSession(MECH_TOKEN, token=token, qop=qop)
+        else:
+            password = auth_ugi.sasl_password or self.user.sasl_password
+            if password is None:
+                keytab = conf.get("hadoop.security.client.keytab", None)
+                if keytab:
+                    password = password_from_keytab(keytab,
+                                                    auth_ugi.user_name)
+            if password is None:
+                raise FatalRpcError(
+                    f"SASL required but no credentials for "
+                    f"{auth_ugi.user_name!r} (login_from_keytab or set "
+                    f"hadoop.security.client.keytab)")
+            sess = SaslClientSession(MECH_SCRAM, user=auth_ugi.user_name,
+                                     password=password, qop=qop)
+        hdr["auth"] = "SASL"
+        hdr["sasl"] = sess.initiate()
+        self.sock.settimeout(timeout)
+        try:
+            payload = pack(hdr)
+            self.sock.sendall(struct.pack(">I", len(payload)) + payload)
+            resp = sess.step(self._handshake_reply())
+            payload = pack({"sasl": resp})
+            self.sock.sendall(struct.pack(">I", len(payload)) + payload)
+            sess.step(self._handshake_reply())
+        except (OSError, EOFError) as e:
+            raise FatalRpcError(
+                f"connection to {self.addr} failed during SASL: {e}") from e
+        finally:
+            self.sock.settimeout(self.read_timeout or None)
+        self.cipher = sess.cipher
+
+    def _handshake_reply(self) -> Dict:
+        msg = unpack(read_frame(self.sock, MAX_CLIENT_FRAME))
+        if not isinstance(msg, dict) or msg.get("fatal"):
+            raise FatalRpcError(
+                (msg or {}).get("em", "connection failed during SASL")
+                if isinstance(msg, dict) else "bad SASL reply")
+        sasl = msg.get("sasl")
+        if not isinstance(sasl, dict):
+            raise FatalRpcError("server reply missing SASL body")
+        return sasl
 
     def _receive_loop(self) -> None:
         buf = bytearray()
@@ -192,6 +265,8 @@ class _Connection:
     def _handle_frame(self, frame: bytes) -> bool:
         """One response frame; False when the connection is torn down."""
         try:
+            if self.cipher is not None:
+                frame = self.cipher.unwrap(frame)
             msg = unpack(frame)
         except Exception as e:  # noqa: BLE001 — any decode failure
             # means the stream is out of step: fail the connection
@@ -253,7 +328,11 @@ class _Connection:
             # flight, not the idle gap before it
             self.last_inbound = self.last_activity
         try:
+            # wrap under send_lock: the cipher's counters are sequential
+            # and the peer takes records in order
             with self.send_lock:
+                if self.cipher is not None:
+                    payload = self.cipher.wrap(payload)
                 self.sock.sendall(struct.pack(">I", len(payload)) + payload)
         except OSError as e:
             with self.calls_lock:
@@ -265,6 +344,8 @@ class _Connection:
     def ping(self) -> None:
         payload = pack({"id": PING_CALL_ID})
         with self.send_lock:
+            if self.cipher is not None:
+                payload = self.cipher.wrap(payload)
             self.sock.sendall(struct.pack(">I", len(payload)) + payload)
 
     def close(self) -> None:
@@ -272,10 +353,14 @@ class _Connection:
 
 
 class Client:
-    """A shared RPC client; thread-safe, one a process is typical."""
+    """A shared RPC client; thread-safe, one a process is typical.
+    ``token_kind`` names the delegation token a caller's connection
+    presents, when the caller holds one of that kind."""
 
-    def __init__(self, conf: Optional[ConfLike] = None):
+    def __init__(self, conf: Optional[ConfLike] = None,
+                 token_kind: Optional[str] = None):
         self.conf = conf or Configuration()
+        self.token_kind = token_kind
         self.client_id = os.urandom(16)
         self.last_state_id = -1
         self._call_id = 0  # guarded-by: _id_lock

@@ -18,6 +18,8 @@ from __future__ import annotations
 import builtins
 from typing import Dict, Optional, Type
 
+from hadoop_tpu_torch.security.ugi import AccessControlError
+
 
 class RpcError(IOError):
     """Base of the transport's failures (connection refused, reset, ...)."""
@@ -55,10 +57,6 @@ class StandbyError(IOError):
 
 class RetriableError(IOError):
     """A transient server condition: retry on the same node."""
-
-
-class AccessControlError(PermissionError):
-    pass
 
 
 _registry: Dict[str, Type[BaseException]] = {}

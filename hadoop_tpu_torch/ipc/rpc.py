@@ -15,6 +15,9 @@ with ``backoff_delay`` between tries, when:
 
 A remote application error is raised at once. The call's ``rc`` field
 carries the retry count, as the reference's retry layer sends it.
+``max_retries=0`` turns these retries off for a proxy that a
+``retry.RetryInvocationHandler`` drives (the DFS client's NameNode
+proxy): that handler then sets the count through ``_set_retry_count``.
 """
 
 from __future__ import annotations
@@ -66,17 +69,23 @@ class RpcProxy:
     def __init__(self, protocol_name: str, protocol_class: Optional[Type],
                  address: Tuple[str, int], client: Client,
                  timeout: Optional[float] = None,
-                 user: Optional[UserGroupInformation] = None):
+                 user: Optional[UserGroupInformation] = None,
+                 max_retries: int = MAX_RETRIES):
         self._protocol = protocol_name
         self._protocol_class = protocol_class
         self._address = address
         self._client = client
         self._timeout = timeout
         self._user = user
+        self._max_retries = max_retries
+        self._retry_count = 0
 
     def _is_idempotent(self, method_name: str) -> bool:
         fn = getattr(self._protocol_class, method_name, None)
         return bool(getattr(fn, "_rpc_idempotent", False))
+
+    def _set_retry_count(self, n: int) -> None:
+        self._retry_count = n
 
     def __getattr__(self, name: str):
         if name.startswith("_"):
@@ -84,14 +93,16 @@ class RpcProxy:
         idem = self._is_idempotent(name)
 
         def invoke(*args, **kwargs):
-            for attempt in range(MAX_RETRIES + 1):
+            for attempt in range(self._max_retries + 1):
                 try:
                     return self._client.call(
                         self._address, self._protocol, name, args, kwargs,
-                        timeout=self._timeout, retry_count=attempt,
+                        timeout=self._timeout,
+                        retry_count=self._retry_count + attempt,
                         user=self._user)
                 except (RpcError, RetriableError) as e:
-                    if attempt == MAX_RETRIES or not _retryable(e, idem):
+                    if attempt == self._max_retries or \
+                            not _retryable(e, idem):
                         raise
                 time.sleep(backoff_delay(RETRY_BASE_S, attempt,
                                          max_s=RETRY_MAX_S))
@@ -106,7 +117,8 @@ def get_proxy(protocol, address: Tuple[str, int],
               conf: Optional[ConfLike] = None,
               client: Optional[Client] = None,
               timeout: Optional[float] = None,
-              user: Optional[UserGroupInformation] = None) -> RpcProxy:
+              user: Optional[UserGroupInformation] = None,
+              max_retries: int = MAX_RETRIES) -> RpcProxy:
     """A stub for ``protocol`` (a name, or a class whose name is used and
     whose ``@idempotent`` methods may be retried) at ``address``, on
     ``client`` or the process's shared one. ``conf`` is accepted for the
@@ -117,7 +129,7 @@ def get_proxy(protocol, address: Tuple[str, int],
     else:
         cls, name = None, protocol
     return RpcProxy(name, cls, address, client or default_client(),
-                    timeout=timeout, user=user)
+                    timeout=timeout, user=user, max_retries=max_retries)
 
 
 def wait_for_proxy(protocol, address: Tuple[str, int],

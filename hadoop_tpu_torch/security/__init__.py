@@ -1,2 +1,3 @@
 """HTTP authentication for the serving door (the hadoop-auth filter),
-and the RPC caller's identity (``ugi``)."""
+the RPC caller's identity and tokens (``ugi``), and the client side of
+SASL (``sasl``)."""

@@ -38,17 +38,22 @@ when ``serving.kv.hbm.bytes`` is set.
 or ``decode``, as the reference's: any explicit role turns the DFS KV
 tier on unless ``serving.kv.dfs.enable`` says otherwise, and a prefill
 replica refuses to start without it. The store is the filesystem the
-checkpoint is read from (the ``fs=`` an in-process caller passes, or the
-local disk), and the registry record carries ``role``,
+checkpoint is read from (the ``fs=`` an in-process caller passes, or
+the one the checkpoint URI names), and the registry record carries ``role``,
 ``kv_host_bytes`` and ``kv_dfs`` for a router's prefill offload.
 
 The device is the card unless ``--device`` names another (``cpu`` for
 tests); without a CUDA device and without ``--device`` it raises.
 
-A ``file://`` URI or a bare path opens the port's ``LocalFileSystem``;
-any other scheme needs a ``FileSystemLike`` passed in as ``fs=`` by an
-in-process caller, and the command line exits 2 for one: the port has
-no DFS client yet (ROADMAP Queue A 9 part 2). ``registry=`` takes any
+Without an ``fs=`` from an in-process caller, the checkpoint URI picks
+the port's filesystem (``fs.get_filesystem``, with the replica's conf):
+a ``file://`` URI or a bare path the local disk, an
+``htpu://host:port/dir`` URI the port's DFS client on that NameNode
+(SASL, block tokens and data-transfer encryption as the conf says),
+which the replica closes when it stops. Another scheme is refused with
+``ValueError``, a conf with ``dfs.encryption.key.provider.uri`` with
+``NotImplementedError`` (ROADMAP Queue A 9 part 2); the command line
+exits 2 for both. ``registry=`` takes any
 ``RegistryLike``; ``--registry HOST:PORT`` opens the port's
 ``RegistryClient`` on the reference's registry server. Features the
 port has not ported are refused with ``NotImplementedError`` naming
@@ -78,7 +83,7 @@ from urllib.parse import urlparse
 
 from hadoop_tpu_torch.conf import ConfLike, Configuration
 from hadoop_tpu_torch.device import resolve_device
-from hadoop_tpu_torch.fs import FileSystemLike, LocalFileSystem
+from hadoop_tpu_torch.fs import FileSystemLike, get_filesystem
 from hadoop_tpu_torch.models.config import get_config
 from hadoop_tpu_torch.obs.top import (register_top_source,
                                       unregister_top_source)
@@ -126,24 +131,16 @@ def serving_service_spec(name: str, *, checkpoint: str, preset: str,
     ])
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported to hadoop_tpu_torch "
-                              f"yet (ROADMAP Queue A {item})")
-
-
-def checkpoint_location(checkpoint: str, fs: Optional[FileSystemLike]
+def checkpoint_location(checkpoint: str, fs: Optional[FileSystemLike],
+                        conf: Optional[ConfLike] = None
                         ) -> Tuple[FileSystemLike, str]:
-    """(filesystem, directory) of a checkpoint URI: a ``file://`` URI or
-    bare path on ``fs`` or the local disk; another scheme only on the
-    ``fs`` the caller passes."""
-    parsed = urlparse(checkpoint)
-    if parsed.scheme in ("", "file"):
-        return fs or LocalFileSystem(), parsed.path
-    if fs is None:
-        _refuse(f"opening {parsed.scheme}:// checkpoints from the command "
-                f"line (the port carries no DFS client: an in-process "
-                f"caller passes its filesystem as fs=)", "9 part 2")
-    return fs, parsed.path
+    """(filesystem, directory) of a checkpoint URI: on ``fs`` when the
+    caller passes one, else on the port's filesystem for the URI's
+    scheme (``fs.get_filesystem``)."""
+    path = urlparse(checkpoint).path
+    if fs is not None:
+        return fs, path
+    return get_filesystem(checkpoint, conf), path
 
 
 class ServingReplica:
@@ -161,7 +158,10 @@ class ServingReplica:
         serving_read_defaults(conf)
         cfg = get_config(preset)
         self.device = resolve_device(device)
-        fs, ckpt_dir = checkpoint_location(checkpoint, fs)
+        # a filesystem the replica opens itself it also closes
+        opens_fs = fs is None
+        fs, ckpt_dir = checkpoint_location(checkpoint, fs, conf)
+        self._own_fs = fs if opens_fs else None
         # the weight plane: serving.parity picks the tier. bitwise (the
         # default) loads the checkpoint's own dtypes; relaxed quantizes
         # each leaf as it streams in
@@ -381,6 +381,9 @@ class ServingReplica:
         finally:
             if self._top_source is not None:
                 unregister_top_source(self._top_source)
+            close = getattr(self._own_fs, "close", None)
+            if close is not None:
+                close()
             self.drained.set()
 
 
@@ -432,7 +435,7 @@ def replica_main(argv: List[str], conf: Optional[ConfLike] = None) -> int:
             checkpoint=str(args["checkpoint"]), preset=str(args["preset"]),
             registry=registry, bind=(str(args["host"]), int(args["port"])),
             device=args["device"])
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         print(f"serve: {e}", file=sys.stderr)
         if registry is not None:
             registry.close()

@@ -34,11 +34,16 @@ _REDACTED_KEYS = {"serving.http.auth.secret": "s3cr3t",
 
 @pytest.fixture(autouse=True)
 def _clean_port_globals():
+    """Both packages' ``/ws/v1/top`` sources start empty: a reference
+    test run earlier in the same worker may leave a replica's source
+    registered in ``hadoop_tpu``'s."""
     tracing.span_collector().reset_for_tests()
     top.reset_for_tests()
+    jtop.reset_for_tests()
     yield
     tracing.span_collector().reset_for_tests()
     top.reset_for_tests()
+    jtop.reset_for_tests()
 
 
 def _get(port, path):

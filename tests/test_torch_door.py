@@ -702,6 +702,95 @@ def test_command_line_registry_routes_traces_then_unregisters(tmp_path):
         reg_srv.stop()
 
 
+@pytest.fixture(scope="module")
+def dfs_checkpoint(tmp_path_factory):
+    """A reference ``MiniDFSCluster`` holding the tiny checkpoint at
+    ``/models/tiny`` (written in process); yields its ``htpu://`` URI."""
+    from hadoop_tpu.testing.minicluster import MiniDFSCluster
+    with MiniDFSCluster(num_datanodes=2,
+                        base_dir=str(tmp_path_factory.mktemp("dfs"))) as c:
+        save_checkpoint(c.get_filesystem(), "/models/tiny", 3,
+                        {"params": _tiny()["params"]})
+        yield f"{c.default_fs}/models/tiny"
+
+
+def _replica(checkpoint, *args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.Popen(
+        [sys.executable, "-m", "hadoop_tpu_torch.serving.service",
+         "--checkpoint", checkpoint, "--preset", "tiny", "--device", "cpu",
+         "-D", "serving.kv.block.size=4", "-D", "serving.max.context=48",
+         *args], cwd=REPO, env=env, stderr=subprocess.PIPE, text=True)
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    proc.stderr.close()
+    return proc.returncode
+
+
+def _in_process_greedy(prompt, n):
+    m = _tiny()
+    eng = DecodeEngine(m["params"], m["cfg"], device="cpu", **ENGINE_KW)
+    return eng.generate([prompt], SamplingParams(max_new_tokens=n))[0]
+
+
+def test_command_line_serves_an_htpu_checkpoint(dfs_checkpoint):
+    """``replica_main`` reads an ``htpu://`` checkpoint through the
+    port's DFS client; its greedy tokens equal an in-process engine's on
+    the same weights, and SIGTERM drains it to exit 0."""
+    proc = _replica(dfs_checkpoint)
+    try:
+        port = _replica_port(proc)
+        health = _health(port)
+        assert health["status"] == "serving"
+        assert health["weights"]["dtype"] == "float32"
+        prompt = [5, 9, 2, 7]
+        status, out, _ = _post(port, "/v1/generate?user.name=alice",
+                               {"tokens": prompt, "max_new_tokens": 6})
+        assert status == 200, out
+        assert out["tokens"] == _in_process_greedy(prompt, 6) == \
+            _reference_greedy(prompt, 6)
+    finally:
+        assert _stop(proc) == 0
+
+
+def test_dfs_kv_tier_crosses_replicas_from_the_command_line(dfs_checkpoint):
+    """The reference's tiered-KV recipe on the port's DFS client: a
+    prefill-role replica persists a prompt's prefix to the DFS tier;
+    after it exits, a second replica on the same DFS maps it back
+    (``hits_dfs`` > 0) and decodes the same tokens."""
+    prompt, n = list(range(7, 21)), 4
+    tier = ["-D", "serving.kv.dfs.min-refs=1",
+            "-D", "serving.kv.dfs.dir=/kvcache-door"]
+    prefill = _replica(dfs_checkpoint, "--role", "prefill", *tier)
+    try:
+        port = _replica_port(prefill)
+        status, out, _ = _post(port, "/v1/prefill", {"tokens": prompt})
+        assert status == 200, out
+        assert out == {"persisted_tokens": 12, "prompt_tokens": 14}
+    finally:
+        assert _stop(prefill) == 0
+    decode = _replica(dfs_checkpoint, "-D", "serving.kv.dfs.enable=true",
+                      *tier)
+    try:
+        port = _replica_port(decode)
+        status, out, _ = _post(port, "/v1/generate?user.name=alice",
+                               {"tokens": prompt, "max_new_tokens": n})
+        assert status == 200, out
+        assert out["tokens"] == _in_process_greedy(prompt, n)
+        tiers = _health(port)["prefix_cache"]["tiers"]
+        assert tiers["dfs_enabled"] and tiers["hits_dfs"] > 0
+    finally:
+        assert _stop(decode) == 0
+
+
 def test_service_spec_is_the_references_but_the_module():
     """The reference's ``ServiceSpec.from_json`` reads the port's spec,
     which equals the reference's but for the module it launches."""
@@ -735,19 +824,29 @@ def test_service_spec_is_the_references_but_the_module():
 
 # ----------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("key,value,item", [
-    ("checkpoint", "htpu://nn:8020/models/x", "A 9"),
-])
-def test_unported_features_are_refused(tmp_path, key, value, item):
-    """What the replica still refuses names its ROADMAP item, in process
-    and on the command line (exit 2): a DFS checkpoint URI without an
-    ``fs=`` (the port has no DFS client). ``serving.longctx.enabled`` is
-    ported (``test_longctx_key_*`` below)."""
+@pytest.mark.parametrize("checkpoint,keys,exc,match", [
+    ("gs://bucket/models/x", {}, ValueError, "scheme 'gs'"),
+    ("htpu://nn:8020/models/x",
+     {"dfs.encryption.key.provider.uri": "kms://http@kms:9600/kms"},
+     NotImplementedError, "ROADMAP Queue A 9 part 2"),
+], ids=["unknown-scheme", "kms"])
+def test_unported_features_are_refused(tmp_path, checkpoint, keys, exc,
+                                       match):
+    """What the replica still refuses, in process and on the command line
+    (exit 2): a checkpoint scheme the port has no filesystem for, and a
+    DFS client configured for encryption zones (the KMS client, ROADMAP
+    Queue A 9 part 2). An ``htpu://`` checkpoint is served
+    (``test_command_line_serves_an_htpu_checkpoint`` below), and
+    ``serving.longctx.enabled`` is ported (``test_longctx_key_*``)."""
     conf = Configuration()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
+    for k, v in keys.items():
+        conf.set(k, v)
+    with pytest.raises(exc, match=match):
         service.ServingReplica(conf, name="x", preset="tiny",
-                               checkpoint=value, device="cpu")
-    argv = ["--checkpoint", value, "--device", "cpu"]
+                               checkpoint=checkpoint, device="cpu")
+    argv = ["--checkpoint", checkpoint, "--device", "cpu"]
+    for k, v in keys.items():
+        argv += ["-D", f"{k}={v}"]
     assert service.replica_main(argv, Configuration()) == 2
 
 
@@ -975,13 +1074,14 @@ def test_prefill_role_without_the_dfs_tier_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--checkpoint", "htpu://nn:8020/models/x", "--device", "cpu"],
+    ["--checkpoint", "viewfs://cluster/models/x", "--device", "cpu"],
     ["--checkpoint", "/m", "--bogus", "1"],
 ])
 def test_command_line_exits_2_for_what_it_cannot_do(argv, capsys):
     assert service.replica_main(argv, Configuration()) == 2
     err = capsys.readouterr().err
-    assert "ROADMAP Queue A 9" in err or "unknown serve option" in err
+    assert "no filesystem for scheme 'viewfs'" in err or \
+        "unknown serve option" in err
 
 
 def test_no_cuda_and_no_device_raises(tmp_path):

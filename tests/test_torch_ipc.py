@@ -4,10 +4,11 @@
 the reference's server: values cross both ways, a remote exception comes
 back as its registered class, a builtin or ``RemoteError``, a call times
 out, calls share one connection, the caller's user and trace context
-reach the handler, and SASL is refused by name. Idempotent retry is held
+reach the handler, and a SASL client authenticates. Idempotent retry is held
 on a client that fails on cue.
 """
 
+import socket
 import threading
 import time
 
@@ -16,6 +17,7 @@ import pytest
 from hadoop_tpu.conf import Configuration as JConfiguration
 from hadoop_tpu.ipc import Server
 from hadoop_tpu.ipc import current_call
+from hadoop_tpu.testing.minikdc import MiniKdc
 from hadoop_tpu.tracing.tracer import global_tracer as jglobal_tracer
 from hadoop_tpu.util.misc import backoff_delay as jbackoff_delay
 from hadoop_tpu_torch.conf import Configuration
@@ -63,10 +65,16 @@ class EchoProtocol:
 
 
 @pytest.fixture
-def server():
+def server(tmp_path):
+    """SIMPLE authentication, and SASL for a client that asks for it
+    (the KDC's keytab for ``alice``)."""
     conf = JConfiguration(load_defaults=False)
     conf.set("hadoop.proxyuser.scheduler.users", "*")
     conf.set("hadoop.proxyuser.scheduler.hosts", "*")
+    kdc = MiniKdc(str(tmp_path / "kdc"))
+    kdc.create_principal("alice", b"alice-pw")
+    conf.set("hadoop.security.server.keytab",
+             kdc.create_keytab(str(tmp_path / "server.keytab")))
     srv = Server(conf, num_handlers=3, name="echo")
     srv.register_protocol("EchoProtocol", EchoProtocol())
     srv.start()
@@ -172,13 +180,28 @@ def test_trace_context_becomes_the_server_span_parent(server, client):
 
 
 def test_sasl_is_refused_naming_the_roadmap(server):
+    """SASL is ported: a client configured for it authenticates to the
+    same server with alice's password, the handler sees alice, and a
+    wrong password is refused."""
     conf = Configuration()
     conf.set("hadoop.security.authentication", "sasl")
+    alice = UserGroupInformation.create_remote_user("alice")
+    alice.sasl_password = b"alice-pw"
     c = Client(conf)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-            get_proxy(EchoProtocol, ("127.0.0.1", server.port),
-                      client=c).echo(1)
+        p = get_proxy(EchoProtocol, ("127.0.0.1", server.port), client=c,
+                      user=alice)
+        assert p.echo(b"sasl") == b"sasl"
+        assert p.whoami() == {"user": "alice", "real": None}
+    finally:
+        c.stop()
+    mallory = UserGroupInformation.create_remote_user("alice")
+    mallory.sasl_password = b"wrong"
+    c = Client(conf)
+    try:
+        with pytest.raises(errors.FatalRpcError, match="auth failed"):
+            get_proxy(EchoProtocol, ("127.0.0.1", server.port), client=c,
+                      user=mallory).echo(1)
     finally:
         c.stop()
 
@@ -229,3 +252,69 @@ def test_backoff_delay_equals_the_reference():
     for attempt in range(8):
         assert rpc.backoff_delay(0.2, attempt, 5.0, random.Random(attempt)) \
             == jbackoff_delay(0.2, attempt, 5.0, random.Random(attempt))
+
+
+# ------------------------------------------------------- retry and failover
+
+def _remote(cls, msg="x"):
+    e = cls(msg)
+    e._rpc_remote = True
+    return e
+
+
+@pytest.mark.parametrize("make", [
+    lambda m: m.StandbyError("standby"),
+    lambda m: m.ConnectFailedError("refused"),
+    lambda m: m.ServerTooBusyError("busy"),
+    lambda m: m.RetriableError("later"),
+    lambda m: m.RpcError("reset"),
+    lambda m: m.RpcTimeoutError("slow"),
+    lambda m: ConnectionResetError("reset"),
+    lambda m: _remote(FileNotFoundError),
+    lambda m: ValueError("other"),
+], ids=["standby", "connect", "busy", "retriable", "reset", "timeout",
+        "oserror", "remote", "other"])
+@pytest.mark.parametrize("idem", [True, False])
+@pytest.mark.parametrize("retries,failovers", [(0, 0), (3, 2), (10, 0),
+                                               (0, 15)])
+def test_failover_policy_decides_as_the_reference(make, idem, retries,
+                                                  failovers):
+    """The DFS client's NameNode policy takes the reference's decision
+    for every kind of failure, idempotent or not, and its limits."""
+    from hadoop_tpu.ipc import errors as jerrors
+    from hadoop_tpu.ipc import retry as jretry
+    from hadoop_tpu_torch.ipc import retry
+    got = retry.RetryPolicies.failover_on_network_exception(
+        max_failovers=15, max_retries=10, delay_s=0.3).should_retry(
+        make(errors), retries, failovers, idem)
+    want = jretry.RetryPolicies.failover_on_network_exception(
+        max_failovers=15, max_retries=10, delay_s=0.3).should_retry(
+        make(jerrors), retries, failovers, idem)
+    assert got.action == want.action
+    assert (got.delay_s == 0) == (want.delay_s == 0)
+
+
+def test_retry_handler_fails_over_to_the_live_server(server):
+    """A dead first address: the connection never opens, so even a
+    method that is not idempotent fails over to the live server, and
+    the retry count rides the call."""
+    from hadoop_tpu_torch.ipc import retry
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()
+    c = Client(Configuration())
+    try:
+        provider = retry.StaticFailoverProxyProvider(
+            lambda addr: get_proxy(EchoProtocol, addr, client=c,
+                                   max_retries=0),
+            [("127.0.0.1", dead_port), ("127.0.0.1", server.port)])
+        nn = retry.RetryInvocationHandler(
+            provider, retry.RetryPolicies.failover_on_network_exception(
+                delay_s=0.01))
+        assert nn.whoami()["user"] == UserGroupInformation.get_login_user(
+        ).user_name
+        assert provider.current_address == ("127.0.0.1", server.port)
+        assert nn.echo(5) == 5
+    finally:
+        c.stop()

@@ -325,6 +325,16 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.obs.top, hadoop_tpu_torch.io.wire\n"
         "import hadoop_tpu_torch.ipc.rpc, hadoop_tpu_torch.yarn\n"
         "import hadoop_tpu_torch.security.ugi\n"
+        "import hadoop_tpu_torch.security.sasl, hadoop_tpu_torch.ipc.retry\n"
+        "import hadoop_tpu_torch.util.crc\n"
+        "import hadoop_tpu_torch.dfs.client.filesystem\n"
+        "import hadoop_tpu_torch.dfs.client.dfsclient\n"
+        "import hadoop_tpu_torch.dfs.client.streams\n"
+        "import hadoop_tpu_torch.dfs.client.striped\n"
+        "import hadoop_tpu_torch.dfs.client.shortcircuit\n"
+        "import hadoop_tpu_torch.dfs.protocol.records\n"
+        "import hadoop_tpu_torch.dfs.protocol.datatransfer\n"
+        "import hadoop_tpu_torch.dfs.protocol.blocktoken\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -339,7 +349,8 @@ def test_port_sources_name_no_jax():
     """No port source imports jax or names a module of the JAX package."""
     files = sorted((REPO / "hadoop_tpu_torch").rglob("*.py")) + sorted(
         (REPO / "hadoop_tpu_torch").rglob("*.cu")) + sorted(
-        (REPO / "hadoop_tpu_torch").rglob("*.cuh")) + [REPO / "chip_smoke.py"]
+        (REPO / "hadoop_tpu_torch").rglob("*.cuh")) + sorted(
+        (REPO / "hadoop_tpu_torch").rglob("*.cc")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for new in ("ops/csrc/flash_bwd.cu", "ops/csrc/sm90.cuh",
                 "ops/csrc/adamw.cu",
@@ -368,7 +379,12 @@ def test_port_sources_name_no_jax():
                 "parallel/lowp/syncpolicy.py", "tools/ab_wire.py",
                 "obs/top.py", "io/wire.py", "ipc/__init__.py",
                 "ipc/errors.py", "ipc/client.py", "ipc/rpc.py",
-                "security/ugi.py", "yarn.py"):
+                "security/ugi.py", "yarn.py", "security/sasl.py",
+                "ipc/retry.py", "util/crc.py", "dfs/client/filesystem.py",
+                "dfs/client/dfsclient.py", "dfs/client/streams.py",
+                "dfs/client/striped.py", "dfs/client/shortcircuit.py",
+                "dfs/protocol/records.py", "dfs/protocol/datatransfer.py",
+                "dfs/protocol/blocktoken.py", "native/crc32c.cc"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

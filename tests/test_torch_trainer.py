@@ -120,6 +120,77 @@ def test_port_run_resumes_in_reference(fs, token_file, port_curve):
     np.testing.assert_allclose(ref.train(3), port_curve[3:], rtol=5e-4)
 
 
+# --------------------------------------- through the port's DFS client
+
+@pytest.fixture(scope="module")
+def pfs(cluster):
+    """The port's own DFS client on the same cluster."""
+    from hadoop_tpu_torch.conf import Configuration
+    from hadoop_tpu_torch.dfs.client import DistributedFileSystem
+    conf = Configuration()
+    for k, v in cluster.conf.to_dict().items():
+        conf.set(k, v)
+    fs = DistributedFileSystem([cluster.nn_addr], conf)
+    yield fs
+    fs.close()
+
+
+def _assert_bit_equal(got, want):
+    names = [n for n, _ in ckpt.leaf_paths(want)]
+    assert [n for n, _ in ckpt.leaf_paths(got)] == names
+    for (name, a), (_, b) in zip(ckpt.leaf_paths(got),
+                                 ckpt.leaf_paths(want)):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a.detach().cpu().numpy(),
+                                      b.detach().cpu().numpy(),
+                                      err_msg=name)
+
+
+def _jparams_numpy(tree):
+    import jax
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def test_reference_trainer_checkpoint_serves_through_the_port_client(
+        fs, pfs, token_file):
+    """The reference's ``Trainer`` writes on the DFS with its own client;
+    the port's ``load_serving_params`` reads it through the port's
+    client, every leaf bit-equal to the reference trainer's parameters."""
+    from hadoop_tpu_torch.models import params_from_numpy
+    ref = _reference(fs, token_file, "/pckpt/ref-via-port-client")
+    ref.train(2)
+    ref.save()
+    params, step = loader.load_serving_params(
+        pfs, "/pckpt/ref-via-port-client", config.get_config("tiny"),
+        device="cpu", io_workers=3)
+    assert step == 2
+    _assert_bit_equal(params, params_from_numpy(
+        _jparams_numpy(ref.params), config.get_config("tiny"),
+        device="cpu"))
+
+
+def test_port_trainer_writes_through_the_port_client(fs, pfs, token_file):
+    """A port ``Trainer`` reads its tokens and writes its checkpoint
+    through the port's client; the reference loads it with its own
+    client, every parameter bit-equal, and resumes from it."""
+    from hadoop_tpu.models import decoder as jdecoder
+    from hadoop_tpu_torch.models import params_from_numpy
+    import jax
+    t = _port(pfs, token_file, "/pckpt/port-client")
+    t.train(2)
+    t.save()
+    t.close()
+    jcfg = jconfig.get_config("tiny")
+    like = {"params": jdecoder.init_params(jax.random.PRNGKey(1), jcfg)}
+    back, step = jckpt.load_checkpoint(fs, "/pckpt/port-client", like)
+    assert step == 2
+    _assert_bit_equal(params_from_numpy(
+        _jparams_numpy(back["params"]), config.get_config("tiny"),
+        device="cpu"), t.params)
+    ref = _reference(fs, token_file, "/pckpt/port-client")
+    assert ref.try_restore() and ref.step == 2
+
+
 # ------------------------------------------------------ the port's resume
 
 class _FailingFS:
