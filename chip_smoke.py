@@ -115,7 +115,9 @@ uninterrupted ``Trainer`` (``/ws/v1/trainer``, ``/prom``, ``/health``,
 ``/ws/v1/stacks`` read after its steps, whose launches stay pinned),
 the replica's chassis in phase ``door`` (each request's root span in
 ``/ws/v1/traces`` by its trace id in hex and in decimal, the flight
-recorder, ``/conf`` redaction, ``/ws/v1/top``, ``/health``) and a door
+recorder, ``/conf`` redaction, ``/ws/v1/top``, ``/health``, the port's
+conf registry on ``/ws/v1/conf`` and one ``FleetScraper`` scrape of the
+replica's own record, as the autoscaler reads it) and a door
 on every rank's trainers in ``trainer_mesh`` (each read's comm block
 equal to that rank's ledger report; the elastic block carrying the
 evict and the shrink); one ``{"fleet": ...}`` line before the kernels
@@ -129,7 +131,10 @@ host C++ compiler, holds it against the pure-Python backend on 4 MiB of
 seeded bytes with an unaligned tail and on a corrupted chunk, times it
 on the host CPU (its line's ``host_cpu_gb_per_s``: a host figure, not
 the card's) and imports the DFS client's modules, which must load
-nothing of JAX or the JAX package (see CRC). Each phase
+nothing of JAX or the JAX package (see CRC); then the ``crypto_ctr`` line
+times the encryption-zone streams on the host CPU, or says
+``available: false`` where the ``cryptography`` package is missing (see
+CRYPTO). Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
@@ -165,6 +170,7 @@ import http.client
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -842,6 +848,17 @@ DFS_MODULES = ("hadoop_tpu_torch.dfs.client",
 # times for the host CPU's rate.
 CRC = dict(python_bytes=(4 << 20) + 1021, timed_bytes=64 << 20, iters=5,
            seed=21)
+# The crypto_ctr line (host CPU): ``nbytes`` of seeded bytes through the
+# cipher alone in memory (one ``_crypt`` call), then through the port's
+# CryptoOutputStream into a local file in ``write`` byte writes,
+# then back through CryptoInputStream in reads of the ``reads`` sizes
+# (odd, so most start inside an AES block) and ``preads`` positioned
+# reads at unaligned offsets; the plaintext must come back byte for byte
+# and the file must differ from it. Without the ``cryptography`` package
+# the line says ``available: false`` (encryption zones cannot be opened
+# on that host) and nothing else runs.
+CRYPTO = dict(nbytes=256 << 20, write=(4 << 20) + 3, reads=(1_000_003, 7,
+              (8 << 20) + 5, 15), preads=64, seed=23, key_bits=128)
 
 
 def _crc32c_host():
@@ -909,6 +926,81 @@ def _crc32c_host():
           "dfs_modules_imported": len(DFS_MODULES)})
 
 
+def _crypto_ctr_host():
+    """The crypto_ctr line: the port's AES-CTR streams on the host CPU
+    (see CRYPTO), with the seconds their decrypt rate adds to reading
+    flagship-1b's checkpoint bytes (bf16 parameters, counted on the meta
+    device)."""
+    import importlib.util
+    if importlib.util.find_spec("cryptography") is None:
+        emit({"crypto_ctr": {"available": False, "host": "cpu",
+                             "package": "cryptography"}})
+        return
+    from hadoop_tpu_torch.crypto.streams import (CryptoInputStream,
+                                                 CryptoOutputStream, _crypt)
+    t_step = time.monotonic()
+    rng = np.random.default_rng(CRYPTO["seed"])
+    key = rng.integers(0, 256, CRYPTO["key_bits"] // 8,
+                       dtype=np.uint8).tobytes()
+    iv = rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+    data = rng.integers(0, 256, CRYPTO["nbytes"], dtype=np.uint8).tobytes()
+    view = memoryview(data)
+    _crypt(key, iv, 0, data[:4096])         # loads the OpenSSL backend
+    t0 = time.perf_counter()
+    whole = _crypt(key, iv, 0, data)        # the cipher alone, in memory
+    cipher_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ctr-") as tmp:
+        path = f"{tmp}/zone.bin"
+        t0 = time.perf_counter()
+        with CryptoOutputStream(open(path, "wb"), key, iv) as out:
+            for at in range(0, len(data), CRYPTO["write"]):
+                out.write(view[at:at + CRYPTO["write"]])
+        write_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            raw_head = f.read(1 << 20)
+        require(os.path.getsize(path) == len(data) and
+                raw_head != data[:1 << 20] and
+                raw_head == whole[:1 << 20],
+                "the encrypted file is not the stream's ciphertext")
+        parts, sizes = [], CRYPTO["reads"]
+        t0 = time.perf_counter()
+        with CryptoInputStream(open(path, "rb"), key, iv) as f:
+            i = 0
+            while True:
+                chunk = f.read(sizes[i % len(sizes)])
+                if not chunk:
+                    break
+                parts.append(chunk)
+                i += 1
+        read_s = time.perf_counter() - t0
+        back = b"".join(parts)
+        at_rng = np.random.default_rng(CRYPTO["seed"] + 1)
+        with CryptoInputStream(open(path, "rb"), key, iv) as f:
+            preads_ok = all(
+                f.pread(int(at), int(n)) == data[int(at):int(at) + int(n)]
+                for at, n in zip(at_rng.integers(0, len(data) - 70_000,
+                                                 CRYPTO["preads"]),
+                                 at_rng.integers(1, 70_000,
+                                                 CRYPTO["preads"])))
+    require(back == data, "CryptoInputStream did not return the plaintext")
+    require(preads_ok, "a positioned CryptoInputStream read disagrees")
+    cfg = get_config("flagship-1b")
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+        init_params(cfg, torch.Generator(), device="meta")))
+    write_gb_s = len(data) / write_s / 1e9
+    read_gb_s = len(data) / read_s / 1e9
+    emit({"crypto_ctr": {
+        "available": True, "host": "cpu", "bytes": len(data),
+        "write_chunk": CRYPTO["write"], "read_chunks": list(sizes),
+        "preads": CRYPTO["preads"], "write_s": write_s, "read_s": read_s,
+        "encrypt_gb_per_s": write_gb_s, "decrypt_gb_per_s": read_gb_s,
+        "cipher_only_gb_per_s": len(data) / cipher_s / 1e9,
+        "plaintext_equal": True,
+        "flagship_1b_checkpoint_bytes": ckpt_bytes,
+        "flagship_1b_decrypt_s": ckpt_bytes / (read_gb_s * 1e9),
+        "seconds": time.monotonic() - t_step}})
+
+
 def phase_build():
     t0 = time.monotonic()
     _build.build(KERNEL_SOURCES)        # one nvcc per source, in parallel
@@ -933,6 +1025,7 @@ def phase_build():
                                                         ("bfloat16", 1))
             for d in flash._HEAD_DIMS}})
     _crc32c_host()
+    _crypto_ctr_host()
     print(smi, flush=True)
     require(not problems, f"ptxas reports: {problems}")
     return smi
@@ -1583,6 +1676,79 @@ def _replica_chassis_reads(port, traces, n):
     return ms
 
 
+class _RecordKeeper:
+    """A ``RegistryLike`` that keeps the records in process: no registry
+    server runs beside the card, so the replica's own record is what the
+    scraper reads."""
+
+    def __init__(self):
+        self.by_path = {}
+
+    @property
+    def records(self):
+        return list(self.by_path.values())
+
+    def register(self, record, ttl_s=10.0, auto_renew=True):
+        self.by_path[record.path] = record
+
+    def unregister(self, path):
+        self.by_path.pop(path, None)
+
+    def close(self):
+        pass
+
+
+def _conf_and_scrape_reads(port, conf, records):
+    """``/ws/v1/conf`` on the replica: every key of the port's registry,
+    the keys this phase sets with ``source: "set"``, the auth secret
+    redacted, ``?diff=1`` the set rows only; then one ``FleetScraper``
+    scrape of the replica's record (``/v1/health`` and ``/prom``): one
+    sample, serving, slots > 0, utilization in [0, 1]. Returns the reads'
+    ms."""
+    from hadoop_tpu_torch.conf import registry as conf_registry
+    from hadoop_tpu_torch.serving.autoscale import FleetScraper
+    ms = {}
+    body, ms["ws_conf"] = _get_ms(port, "/ws/v1/conf")
+    table = json.loads(body)
+    rows = {r["key"]: r for r in table["keys"]}
+    live = conf.to_dict()
+    require(table["registry_keys"] == len(conf_registry.KEYS) == len(rows),
+            f"/ws/v1/conf: {table['registry_keys']} keys, registry "
+            f"{len(conf_registry.KEYS)}")
+    set_keys = {k for k in live if k in conf_registry.KEYS}
+    require(set_keys and all(rows[k]["source"] == "set" for k in set_keys)
+            and all(r["source"] == "default" for k, r in rows.items()
+                    if k not in live),
+            "/ws/v1/conf: the phase's keys do not read source set")
+    require(rows["serving.http.auth.secret"]["effective"] == "<redacted>",
+            "/ws/v1/conf shows the auth secret")
+    require(rows["serving.max.batch"]["effective"] ==
+            str(SERVE_KW["max_batch"]), "/ws/v1/conf: serving.max.batch")
+    body, ms["ws_conf_diff"] = _get_ms(port, "/ws/v1/conf?diff=1")
+    diff = json.loads(body)
+    require({r["key"] for r in diff["keys"]} == set_keys and
+            all(r["source"] == "set" for r in diff["keys"]),
+            "/ws/v1/conf?diff=1 is not the set rows")
+    require(len(records) == 1, f"{len(records)} replica records")
+    t0 = time.perf_counter()
+    snap = FleetScraper(conf).scrape(records)
+    ms["scrape"] = (time.perf_counter() - t0) * 1e3
+    (sample,) = snap.samples
+    util = snap.utilization("decode")
+    require(sample.ok and not sample.draining and sample.slots > 0 and
+            0.0 <= util <= 1.0 and snap.scrape_failures == 0,
+            f"FleetScraper: ok={sample.ok} error={sample.error!r} "
+            f"draining={sample.draining} slots={sample.slots} util={util}")
+    ms["scrape_sample"] = {"slots": sample.slots, "active": sample.active,
+                           "queue_depth": sample.queue_depth,
+                           "utilization": util,
+                           "ttft_samples": snap.ttft_samples,
+                           "ttft_p99_s": snap.ttft_p99_s}
+    ms["registry_keys"] = len(rows)
+    ms["keys_set"] = len(set_keys)
+    return ms
+
+
 def phase_door(fs, root):
     """The step-6 checkpoint served over HTTP by ``ServingReplica`` (this
     slice's main path): auth (401 without a credential), DOOR["requests"]
@@ -1604,8 +1770,10 @@ def phase_door(fs, root):
                        ("serving.prefill.chunk", SERVE_KW["prefill_chunk"]),
                        ("serving.loader.io.workers", TRAINER["io_workers"])):
         conf.set(key, value)
+    registry = _RecordKeeper()
     replica = ServingReplica(conf, name="chip-smoke", preset="flagship-1b",
-                             checkpoint=f"{root}/resumed", fs=fs)
+                             checkpoint=f"{root}/resumed", fs=fs,
+                             registry=registry)
     eng = replica.engine
     prompts = _door_prompts(cfg.vocab_size)
     ttfts, collecting, traces = [], [False], []
@@ -1636,6 +1804,8 @@ def phase_door(fs, root):
         t_fleet = time.monotonic()
         FLEET["door_ms"] = _replica_chassis_reads(port, traces,
                                                   len(prompts))
+        FLEET["door_ms"].update(_conf_and_scrape_reads(
+            port, conf, registry.records))
         FLEET["door_added_s"] = time.monotonic() - t_fleet
         n_tokens = sum(len(t) for t in tokens)
         streamed = lines[3]

@@ -11,12 +11,26 @@ chassis's ``/conf`` shows). It loads no resource files and expands no
 They take any object with these methods (:class:`ConfLike`), so a
 ``hadoop_tpu`` ``Configuration`` passes in unchanged; the port never
 imports or checks for its type.
+
+Strict mode, as the reference's: with ``conf.strict.keys=true``, a
+``set()`` of a key that the port's generated registry
+(``conf/registry.py``: a key, a key family's pattern) does not know
+logs a warning once per key, a typo caught at the set. A missing
+registry knows every key.
+
+``conf/registry.py`` is generated by
+``python -m hadoop_tpu_torch.analysis --write-conf-registry``;
+``conf/levers.py`` holds the tunable-lever annotations it re-exports.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+from fnmatch import fnmatchcase
 from typing import Any, Dict, List, Optional, Protocol
+
+log = logging.getLogger(__name__)
 
 _TRUE = {"true", "yes", "on", "1"}
 _FALSE = {"false", "no", "off", "0"}
@@ -24,6 +38,25 @@ _SIZE_SUFFIXES = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40,
                   "p": 1 << 50}
 _TIME_SUFFIXES = {"ns": 1e-9, "us": 1e-6, "ms": 1e-3, "s": 1.0,
                   "m": 60.0, "h": 3600.0, "d": 86400.0}
+
+
+STRICT_KEY = "conf.strict.keys"
+
+
+def _strict_enabled(conf: "ConfLike") -> bool:
+    return conf.get_bool(STRICT_KEY, False)
+
+
+def registry_knows(key: str) -> bool:
+    """The generated registry accounts for ``key``, as a key or a key
+    family's pattern. Without a registry every key is known."""
+    try:
+        from hadoop_tpu_torch.conf import registry
+    except ImportError:  # pragma: no cover - registry not generated
+        return True
+    if key == STRICT_KEY or key in registry.KEYS:
+        return True
+    return any(fnmatchcase(key, p) for p in registry.PATTERNS)
 
 
 class ConfLike(Protocol):
@@ -61,6 +94,7 @@ class Configuration:
     def __init__(self, load_defaults: bool = True):
         self._lock = threading.Lock()
         self._props: Dict[str, str] = {}
+        self._strict_warned: set = set()   # strict mode warns once a key
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         with self._lock:
@@ -74,6 +108,15 @@ class Configuration:
     def set(self, key: str, value: Any) -> None:
         with self._lock:
             self._props[key] = str(value)
+        # outside the lock: the strict probe reads the conf again
+        if key not in self._strict_warned and _strict_enabled(self) and \
+                not registry_knows(key):
+            self._strict_warned.add(key)
+            log.warning(
+                "conf.strict.keys: set() of key %r that the conf "
+                "registry does not know — a typo, or a new key that needs "
+                "`python -m hadoop_tpu_torch.analysis "
+                "--write-conf-registry`", key)
 
     def set_if_unset(self, key: str, value: Any) -> None:
         with self._lock:

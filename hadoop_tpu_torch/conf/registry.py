@@ -1,0 +1,1180 @@
+"""Conf-key registry of the port — GENERATED, do not edit by hand.
+
+Regenerate:  ``python -m hadoop_tpu_torch.analysis --write-conf-registry``
+Verify:      ``python -m hadoop_tpu_torch.analysis --check-conf-registry``  (tier-1 gate)
+
+Extracted by ``hadoop_tpu_torch/analysis/confscan.py`` from every statically
+resolvable ``conf.get*`` call site in ``hadoop_tpu_torch/``. ``KEYS`` maps each
+concrete key to its typed-getter type, the defaults read sites pass,
+its namespace, whether the hand-written README documents it (the
+generated appendices do not count), and the files that read it.
+``PATTERNS`` holds dynamic key families as fnmatch globs. ``LEVERS``
+(hand-maintained in ``hadoop_tpu_torch/conf/levers.py``, re-exported here)
+carries the tunable-lever annotations: type, range, acceptance guard.
+"""
+
+from hadoop_tpu_torch.conf.levers import LEVERS  # noqa: F401  (re-export)
+
+ABSENT = "<absent>"    # a read site passes no default
+DYNAMIC = "<dynamic>"  # default computed at runtime, not a literal
+
+
+KEYS = {
+    "conf.strict.keys": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'conf',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/conf/__init__.py',
+        ),
+    },
+    "dfs.bytes-per-checksum": {
+        "type": 'size',
+        "defaults": ('512',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.client-write-packet-size": {
+        "type": 'size',
+        "defaults": ('1048576',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.client.hedged.read.threadpool.size": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+            'hadoop_tpu_torch/dfs/client/streams.py',
+        ),
+    },
+    "dfs.client.hedged.read.threshold": {
+        "type": 'time',
+        "defaults": ('0.5',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/streams.py',
+        ),
+    },
+    "dfs.client.observer.reads.enabled": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.client.read.shortcircuit": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/streams.py',
+        ),
+    },
+    "dfs.client.write.max-packets-in-flight": {
+        "type": 'int',
+        "defaults": ('64',),
+        "namespace": 'dfs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.client.write.socket.buffer": {
+        "type": 'size',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.data.transfer.protection": {
+        "type": 'str',
+        "defaults": ("'privacy'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.domain.socket.path": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/streams.py',
+        ),
+    },
+    "dfs.encrypt.data.transfer": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.encryption.key.provider.uri": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/filesystem.py',
+        ),
+    },
+    "dfs.lease.soft-limit": {
+        "type": 'time',
+        "defaults": ('60.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/dfsclient.py',
+        ),
+    },
+    "dfs.namenode.rpc-address": {
+        "type": 'str',
+        "defaults": ("'127.0.0.1:8020'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/client/filesystem.py',
+        ),
+    },
+    "elastic.cooldown.polls": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.dead.windows": {
+        "type": 'int',
+        "defaults": ('2',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.demote.windows": {
+        "type": 'int',
+        "defaults": ('2',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.enabled": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.evict.windows": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.min-dp": {
+        "type": 'int',
+        "defaults": ('1',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "elastic.poll.steps": {
+        "type": 'int',
+        "defaults": ('20',),
+        "namespace": 'elastic',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "hadoop.rpc.protection": {
+        "type": 'str',
+        "defaults": ("'authentication'",),
+        "namespace": 'hadoop',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "hadoop.security.authentication": {
+        "type": 'str',
+        "defaults": ("'simple'",),
+        "namespace": 'hadoop',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "hadoop.security.client.keytab": {
+        "type": 'str',
+        "defaults": ('None',),
+        "namespace": 'hadoop',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.client.connect.timeout": {
+        "type": 'time',
+        "defaults": ('20.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.client.connection.maxidletime": {
+        "type": 'time',
+        "defaults": ('10.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.client.read.timeout": {
+        "type": 'time',
+        "defaults": ('120.0',),
+        "namespace": 'ipc',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.client.rpc-timeout": {
+        "type": 'time',
+        "defaults": ('60.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.ping.interval": {
+        "type": 'time',
+        "defaults": ('10.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "metrics.prom.exemplars": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'metrics',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/http/server.py',
+        ),
+    },
+    "obs.comm.timing": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/comm.py',
+        ),
+    },
+    "obs.slo.class.map": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.trainer.port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/trainer.py',
+        ),
+    },
+    "obs.trainer.registry": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/trainer.py',
+        ),
+    },
+    "obs.trainer.service": {
+        "type": 'str',
+        "defaults": ("'/trainer-jobs'",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/trainer.py',
+        ),
+    },
+    "parallel.lowp.chunk-matmul": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.codec": {
+        "type": 'str',
+        "defaults": ("'int8'",),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.guard.rel-tol": {
+        "type": 'float',
+        "defaults": ('0.25',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.guard.steps": {
+        "type": 'int',
+        "defaults": ('50',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.quant.buckets": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.quant.group": {
+        "type": 'int',
+        "defaults": ('1024',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.quant.tp": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.quant.zero1-gather": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.sync.guard.rel-tol": {
+        "type": 'float',
+        "defaults": ('2.0',),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.sync.mode": {
+        "type": 'str',
+        "defaults": ("'skip'",),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.lowp.sync.schedule": {
+        "type": 'str',
+        "defaults": ("'full'",),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "parallel.parity": {
+        "type": 'str',
+        "defaults": ("'bitwise'",),
+        "namespace": 'parallel',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "serving.autoscale.backlog.high": {
+        "type": 'float',
+        "defaults": ('512.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.breach.polls": {
+        "type": 'int',
+        "defaults": ('2',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.cooldown": {
+        "type": 'time',
+        "defaults": ('30.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.doctor": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.drain.timeout": {
+        "type": 'time',
+        "defaults": ('120.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.horizon": {
+        "type": 'time',
+        "defaults": ('60.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.idle.polls": {
+        "type": 'int',
+        "defaults": ('5',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.interval": {
+        "type": 'time',
+        "defaults": ('10.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.lead.max": {
+        "type": 'float',
+        "defaults": ('0.3',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.max": {
+        "type": 'int',
+        "defaults": ('8',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.min": {
+        "type": 'int',
+        "defaults": ('1',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.prefill.max": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.prefill.min": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.queue.high": {
+        "type": 'float',
+        "defaults": ('2.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.scalein.ttft.frac": {
+        "type": 'float',
+        "defaults": ('0.5',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.scrape.timeout": {
+        "type": 'time',
+        "defaults": ('2.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/signals.py',
+        ),
+    },
+    "serving.autoscale.slo.burn": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.ttft.p99.slo": {
+        "type": 'time',
+        "defaults": ('2.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.util.high": {
+        "type": 'float',
+        "defaults": ('0.85',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.autoscale.util.low": {
+        "type": 'float',
+        "defaults": ('0.3',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/autoscale/controller.py',
+        ),
+    },
+    "serving.http.auth.anonymous.allowed": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/server.py',
+        ),
+    },
+    "serving.http.auth.secret": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/server.py',
+        ),
+    },
+    "serving.kv.block.size": {
+        "type": 'int',
+        "defaults": ('16',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.codec": {
+        "type": 'str',
+        "defaults": ("'raw'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.dfs.dir": {
+        "type": 'str',
+        "defaults": ("'/kvcache'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.dfs.enable": {
+        "type": 'bool',
+        "defaults": ('<dynamic>',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.dfs.min-refs": {
+        "type": 'int',
+        "defaults": ('1',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.drain.persist": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.fetch.window": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.hbm.bytes": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.host.bytes": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.kv.num.blocks": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.loader.io.workers": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.longctx.chips": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.decode.fetch.windows": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.decode.pipeline": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.decode.sampler": {
+        "type": 'str',
+        "defaults": ("'device'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.decode.tail.tokens": {
+        "type": 'int',
+        "defaults": ('256',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.decode.window.blocks": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.enabled": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.longctx.max.tokens": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.min.tokens": {
+        "type": 'int',
+        "defaults": ('4096',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.longctx.sp.mode": {
+        "type": 'str',
+        "defaults": ("'ring'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/longctx/plane.py',
+        ),
+    },
+    "serving.max.batch": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.max.context": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.max.lanes": {
+        "type": 'int',
+        "defaults": ('16',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.max.new.tokens": {
+        "type": 'int',
+        "defaults": ('1024',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/server.py',
+        ),
+    },
+    "serving.moe.a2a.codec": {
+        "type": 'str',
+        "defaults": ("'int8'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.moe.capacity.factor": {
+        "type": 'float',
+        "defaults": ('0.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.moe.shards": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.parity": {
+        "type": 'str',
+        "defaults": ("'bitwise'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.prefill.chunk": {
+        "type": 'int',
+        "defaults": ('16',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.prefix_cache.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.qos.decay.factor": {
+        "type": 'float',
+        "defaults": ('0.5',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.qos.decay.period": {
+        "type": 'time',
+        "defaults": ('5.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.qos.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.qos.levels": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.qos.queue.max": {
+        "type": 'int',
+        "defaults": ('256',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.qos.retry.after": {
+        "type": 'time',
+        "defaults": ('1.0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.qos.shed.queue.depth": {
+        "type": 'int',
+        "defaults": ('32',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.qos.thresholds": {
+        "type": 'list',
+        "defaults": ('<absent>',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/qos.py',
+        ),
+    },
+    "serving.registry.record.ttl": {
+        "type": 'time',
+        "defaults": ('<dynamic>',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/registry.py',
+        ),
+    },
+    "serving.registry.ttl": {
+        "type": 'time',
+        "defaults": ('10.0',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/registry.py',
+        ),
+    },
+    "serving.role": {
+        "type": 'str',
+        "defaults": ("'mixed'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.speculate.k": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.speculate.ngram": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/service.py',
+        ),
+    },
+    "serving.weights.codec": {
+        "type": 'str',
+        "defaults": ("'int8'",),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.weights.embed": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.weights.group": {
+        "type": 'int',
+        "defaults": ('64',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.weights.guard.min-agree": {
+        "type": 'float',
+        "defaults": ('0.95',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.weights.guard.rel-tol": {
+        "type": 'float',
+        "defaults": ('0.25',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "serving.weights.head": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/weightplane.py',
+        ),
+    },
+    "tracing.collector.max-spans": {
+        "type": 'int',
+        "defaults": ('<dynamic>',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.flight.max-traces": {
+        "type": 'int',
+        "defaults": ('<dynamic>',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.ckpt.ms": {
+        "type": 'float',
+        "defaults": ('30000.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.client.ms": {
+        "type": 'float',
+        "defaults": ('2000.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.rpc.ms": {
+        "type": 'float',
+        "defaults": ('300.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.serving.ms": {
+        "type": 'float',
+        "defaults": ('1000.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.step.ms": {
+        "type": 'float',
+        "defaults": ('1000.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+    "tracing.slow.xceiver.ms": {
+        "type": 'float',
+        "defaults": ('500.0',),
+        "namespace": 'tracing',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/tracing.py',
+        ),
+    },
+}
+
+PATTERNS = {
+}

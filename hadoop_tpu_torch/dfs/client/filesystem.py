@@ -9,17 +9,22 @@ cache directives. :func:`create_instance` takes the NameNode from
 the URI's authority, or from ``dfs.namenode.rpc-address`` (a comma list
 of ``host:port``, an HA pair) when the URI has none.
 
-Encryption zones are not ported (ROADMAP Queue A 9 part 2, the KMS
-client and the crypto streams): a filesystem whose conf sets
-``dfs.encryption.key.provider.uri`` is refused with
-``NotImplementedError``, and opening or creating a file inside a zone
-raises the reference's ``PermissionError`` for a client with no KMS,
+Encryption zones: with ``dfs.encryption.key.provider.uri`` set, a file
+inside a zone is opened through ``crypto.CryptoInputStream`` and created
+through ``crypto.CryptoOutputStream`` on its DEK, which the client (not
+the NameNode) decrypts from the file's EDEK at the KMS, calling as
+``security.ugi.current_user()``. The URI takes the reference's form,
+``kms://host:port``, and Hadoop's, ``kms://http@host:port/kms``, whose
+path is the root of the KMS's ``/v1`` REST resource (the reference's
+client reads the whole remainder as ``host:port`` and cannot dial it).
+A client with no KMS gets ``PermissionError`` for a file in a zone and
 never hands out the zone's ciphertext as the file.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import base64
+from typing import List, Optional, Tuple
 from urllib.parse import urlparse
 
 from hadoop_tpu_torch.conf import ConfLike, Configuration
@@ -29,6 +34,26 @@ from hadoop_tpu_torch.dfs.protocol.records import FileStatus
 KMS_URI_KEY = "dfs.encryption.key.provider.uri"
 NN_RPC_ADDRESS_KEY = "dfs.namenode.rpc-address"
 NN_RPC_ADDRESS_DEFAULT = "127.0.0.1:8020"
+
+
+def kms_endpoint(uri: str) -> Tuple[str, str]:
+    """(``host:port``, REST base path) of a KMS provider URI:
+    ``kms://host:port`` or ``kms://http@host:port[/path]`` (the path
+    ``/kms`` when absent)."""
+    if not uri.startswith("kms://"):
+        raise ValueError(f"{KMS_URI_KEY}: {uri!r} is not a kms:// URI")
+    rest = uri[len("kms://"):]
+    scheme, at, rest = rest.partition("@")
+    if not at:
+        scheme, rest = "http", scheme
+    if scheme != "http":
+        raise ValueError(f"{KMS_URI_KEY}: {uri!r}: the KMS client speaks "
+                         f"http, not {scheme!r}")
+    hostport, slash, path = rest.partition("/")
+    if not hostport:
+        raise ValueError(f"{KMS_URI_KEY}: {uri!r} names no host")
+    return hostport, ("/" + path.strip("/")) if slash and path.strip("/") \
+        else "/kms"
 
 
 def parse_addr_list(spec: str):
@@ -48,11 +73,9 @@ def parse_addr_list(spec: str):
 class DistributedFileSystem:
     def __init__(self, nn_addrs, conf: Optional[ConfLike] = None):
         conf = conf or Configuration()
-        if conf.get(KMS_URI_KEY, ""):
-            raise NotImplementedError(
-                f"encryption zones ({KMS_URI_KEY}: the KMS client and the "
-                f"crypto streams) are not ported to hadoop_tpu_torch yet "
-                f"(ROADMAP Queue A 9 part 2)")
+        uri = conf.get(KMS_URI_KEY, "")
+        self._kms_endpoint = kms_endpoint(uri) if uri else None
+        self._kms_provider = None
         self.client = DFSClient(nn_addrs, conf)
 
     @classmethod
@@ -68,18 +91,59 @@ class DistributedFileSystem:
                                              NN_RPC_ADDRESS_DEFAULT))
         return cls(addrs, conf)
 
-    def _refuse_zone(self, path: str) -> None:
-        if self.client.nn.get_encryption_info(path) is not None:
+    # -------------------------------------------------- encryption at rest
+
+    def _kms(self):
+        if self._kms_endpoint is None:
+            return None
+        if self._kms_provider is None:
+            from hadoop_tpu_torch.crypto.kms import KMSKeyProvider
+            from hadoop_tpu_torch.security.ugi import current_user
+            addr, base = self._kms_endpoint
+            self._kms_provider = KMSKeyProvider(
+                addr, user=current_user().user_name, base_path=base)
+        return self._kms_provider
+
+    def _dek_for(self, path: str):
+        """(DEK, IV) of a file in an encryption zone, or None outside
+        one. The client resolves EDEK to DEK, so plaintext keys never
+        reach the metadata plane."""
+        info = self.client.nn.get_encryption_info(path)
+        if info is None:
+            return None
+        kms = self._kms()
+        if kms is None:
             raise PermissionError(
                 f"{path} is in an encryption zone but this client has no "
                 f"KMS configured ({KMS_URI_KEY})")
+        from hadoop_tpu_torch.crypto.keys import EncryptedKeyVersion
+        ekv = EncryptedKeyVersion(
+            info["key"], info["version"], base64.b64decode(info["iv"]),
+            base64.b64decode(info["edek"]))
+        return kms.decrypt_encrypted_key(ekv), ekv.iv
+
+    def create_encryption_zone(self, path: str, key_name: str) -> bool:
+        return self.client.nn.create_encryption_zone(path, key_name)
+
+    def get_encryption_info(self, path: str):
+        return self.client.nn.get_encryption_info(path)
+
+    def list_encryption_zones(self):
+        return self.client.nn.list_encryption_zones()
 
     # ---------------------------------------------------------- streams
 
     def open(self, path: str):
         stream = self.client.open(path)
-        self._refuse_zone(path)
-        return stream
+        try:
+            dek_iv = self._dek_for(path)
+        except BaseException:
+            stream.close()
+            raise
+        if dek_iv is None:
+            return stream
+        from hadoop_tpu_torch.crypto.streams import CryptoInputStream
+        return CryptoInputStream(stream, *dek_iv)
 
     def create(self, path: str, overwrite: bool = False, replication=None,
                block_size=None):
@@ -87,12 +151,15 @@ class DistributedFileSystem:
                                     replication=replication,
                                     block_size=block_size)
         try:
-            self._refuse_zone(path)
-        except PermissionError:
+            dek_iv = self._dek_for(path)
+        except BaseException:
             stream.close()
             self.client.nn.delete(path, False)
             raise
-        return stream
+        if dek_iv is None:
+            return stream
+        from hadoop_tpu_torch.crypto.streams import CryptoOutputStream
+        return CryptoOutputStream(stream, *dek_iv)
 
     def read_all(self, path: str) -> bytes:
         with self.open(path) as f:
@@ -133,7 +200,7 @@ class DistributedFileSystem:
     def content_summary(self, path: str):
         return self.client.nn.content_summary(path)
 
-    # --------------------------------------- erasure coding, cache, zones
+    # ------------------------------------------- erasure coding, cache
 
     def set_ec_policy(self, path: str, policy: Optional[str]) -> bool:
         return self.client.set_ec_policy(path, policy)
@@ -150,9 +217,6 @@ class DistributedFileSystem:
     def list_cache_directives(self):
         return {int(k): v
                 for k, v in self.client.nn.list_cache_directives().items()}
-
-    def get_encryption_info(self, path: str):
-        return self.client.nn.get_encryption_info(path)
 
     def close(self) -> None:
         self.client.close()

@@ -31,8 +31,10 @@ Standard endpoints, as the reference's:
   ``obs/top.py`` (``?n=``);
 - ``/ws/v1/traces``: the span collector's ring (``?trace_id=`` in hex
   or decimal, ``?limit=``), ``/ws/v1/traces/slow`` its flight recorder;
-- ``/ws/v1/conf``: 503, as the reference answers without its generated
-  conf-key registry; the port has none yet (ROADMAP Queue A 9 part 2).
+- ``/ws/v1/conf``: the port's generated conf-key registry
+  (``conf/registry.py``) joined with the live conf, as the reference's
+  rows (``?diff=1``: the set keys only; ``unregistered``: set keys the
+  registry does not know); 503, as the reference's, without a registry.
 
 Constructing a server configures the process's span collector from its
 conf (the slow thresholds and sizes).
@@ -46,6 +48,7 @@ import json
 import sys
 import threading
 import traceback
+from fnmatch import fnmatchcase
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs, unquote, urlparse
@@ -262,10 +265,53 @@ class HttpServer:
                      for k, v in self.conf.to_dict().items()}
 
     def _ws_conf(self, query, body):
-        return 503, {"error": "conf registry not generated: the port has "
-                              "no conf-key registry yet (ROADMAP Queue A "
-                              "9 part 2; the reference's comes from "
-                              "`hadoop-tpu lint --write-conf-registry`)"}
+        """The effective lever table: every key of the port's generated
+        registry joined with this door's live conf (``source`` ``set`` or
+        ``default``, ``effective`` redacted as ``/conf`` does), with the
+        lever annotation where one exists. ``?diff=1`` keeps the set
+        rows; ``unregistered`` lists set keys that no registered key or
+        pattern names."""
+        try:
+            from hadoop_tpu_torch.conf import registry
+        except ImportError:
+            return 503, {"error": "conf registry not generated — run "
+                                  "`python -m hadoop_tpu_torch.analysis "
+                                  "--write-conf-registry`"}
+        live = self.conf.to_dict()
+        diff_only = (query.get("diff") or "") in ("1", "true", "yes")
+        rows = []
+        overridden = []
+        for key, meta in sorted(registry.KEYS.items()):
+            is_set = key in live
+            if is_set:
+                overridden.append(key)
+            if diff_only and not is_set:
+                continue
+            row = {"key": key,
+                   "type": meta["type"],
+                   "defaults": list(meta["defaults"]),
+                   "namespace": meta["namespace"],
+                   "documented": meta["documented"],
+                   "source": "set" if is_set else "default",
+                   "effective": _redacted(key, live[key]) if is_set
+                   else None}
+            lever = registry.LEVERS.get(key)
+            if lever is not None:
+                row["lever"] = {lk: list(lv) if isinstance(lv, tuple) else lv
+                                for lk, lv in lever.items()}
+            rows.append(row)
+        unregistered = sorted(
+            k for k in live
+            if k not in registry.KEYS
+            and not any(fnmatchcase(k, p) for p in registry.PATTERNS))
+        return 200, {
+            "registry_keys": len(registry.KEYS),
+            "patterns": sorted(registry.PATTERNS),
+            "keys": rows,
+            "overridden": overridden,
+            "unregistered": [{"key": k, "value": _redacted(k, live[k])}
+                             for k in unregistered],
+        }
 
     @staticmethod
     def _bad(what: str, value):

@@ -50,10 +50,12 @@ the port's filesystem (``fs.get_filesystem``, with the replica's conf):
 a ``file://`` URI or a bare path the local disk, an
 ``htpu://host:port/dir`` URI the port's DFS client on that NameNode
 (SASL, block tokens and data-transfer encryption as the conf says),
-which the replica closes when it stops. Another scheme is refused with
-``ValueError``, a conf with ``dfs.encryption.key.provider.uri`` with
-``NotImplementedError`` (ROADMAP Queue A 9 part 2); the command line
-exits 2 for both. ``registry=`` takes any
+which the replica closes when it stops; with
+``dfs.encryption.key.provider.uri`` set, a checkpoint inside an
+encryption zone is decrypted on the way in (``crypto/``, which needs
+the ``cryptography`` package on the replica's host). Another scheme is
+refused with ``ValueError``, and the command line exits 2 for it.
+``registry=`` takes any
 ``RegistryLike``; ``--registry HOST:PORT`` opens the port's
 ``RegistryClient`` on the reference's registry server. Features the
 port has not ported are refused with ``NotImplementedError`` naming
@@ -65,8 +67,9 @@ without it.
 
 :func:`serving_service_spec` packages N replicas as a YARN long-running
 service for the reference's service AM (``yarn.py``), which restarts an
-exited replica; ``autoscaler_service_spec`` waits for the autoscaler
-(ROADMAP Queue A 9 part 2).
+exited replica; :func:`autoscaler_service_spec` packages the port's
+autoscaler (``serving/autoscale``) beside it, which flexes that
+service through the AM.
 """
 
 from __future__ import annotations
@@ -127,6 +130,25 @@ def serving_service_spec(name: str, *, checkpoint: str, preset: str,
     return ServiceSpec(name, [
         Component("replica", replicas, cmd,
                   resource=resource or Resource(1024, 1),
+                  restart_policy=RESTART_ALWAYS),
+    ])
+
+
+def autoscaler_service_spec(name: str, *, registry_addr: str,
+                            service: str,
+                            resource: Optional[Resource] = None,
+                            extra_args: Optional[List[str]] = None,
+                            ) -> ServiceSpec:
+    """The SLO controller (``serving/autoscale``) as its own YARN
+    long-running service beside the fleet it scales: one instance,
+    restarted like any daemon (it is stateless; its hysteresis counters
+    rebuild within a few polls)."""
+    cmd = [sys.executable, "-m", "hadoop_tpu_torch.serving.autoscale",
+           "--registry", registry_addr, "--service", service]
+    cmd += list(extra_args or [])
+    return ServiceSpec(name, [
+        Component("autoscaler", 1, cmd,
+                  resource=resource or Resource(256, 1),
                   restart_policy=RESTART_ALWAYS),
     ])
 

@@ -826,17 +826,14 @@ def test_service_spec_is_the_references_but_the_module():
 
 @pytest.mark.parametrize("checkpoint,keys,exc,match", [
     ("gs://bucket/models/x", {}, ValueError, "scheme 'gs'"),
-    ("htpu://nn:8020/models/x",
-     {"dfs.encryption.key.provider.uri": "kms://http@kms:9600/kms"},
-     NotImplementedError, "ROADMAP Queue A 9 part 2"),
-], ids=["unknown-scheme", "kms"])
+], ids=["unknown-scheme"])
 def test_unported_features_are_refused(tmp_path, checkpoint, keys, exc,
                                        match):
     """What the replica still refuses, in process and on the command line
-    (exit 2): a checkpoint scheme the port has no filesystem for, and a
-    DFS client configured for encryption zones (the KMS client, ROADMAP
-    Queue A 9 part 2). An ``htpu://`` checkpoint is served
-    (``test_command_line_serves_an_htpu_checkpoint`` below), and
+    (exit 2): a checkpoint scheme the port has no filesystem for. An
+    ``htpu://`` checkpoint is served
+    (``test_command_line_serves_an_htpu_checkpoint`` below), one in an
+    encryption zone too (``tests/test_torch_crypto.py``), and
     ``serving.longctx.enabled`` is ported (``test_longctx_key_*``)."""
     conf = Configuration()
     for k, v in keys.items():

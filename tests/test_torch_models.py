@@ -335,6 +335,12 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.dfs.protocol.records\n"
         "import hadoop_tpu_torch.dfs.protocol.datatransfer\n"
         "import hadoop_tpu_torch.dfs.protocol.blocktoken\n"
+        "import hadoop_tpu_torch.crypto\n"
+        "import hadoop_tpu_torch.serving.autoscale\n"
+        "import hadoop_tpu_torch.serving.autoscale.__main__\n"
+        "import hadoop_tpu_torch.conf.registry\n"
+        "import hadoop_tpu_torch.analysis.confscan\n"
+        "import hadoop_tpu_torch.analysis.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -361,7 +367,7 @@ def test_port_sources_name_no_jax():
                 "serving/longctx/guard.py", "fs.py", "parallel/data.py",
                 "parallel/checkpoint.py", "parallel/trainer.py",
                 "serving/loader.py", "obs/hbm.py", "obs/trainer.py",
-                "conf.py", "tracing.py", "metrics.py", "obs/slo.py",
+                "conf/__init__.py", "tracing.py", "metrics.py", "obs/slo.py",
                 "registry.py", "http/server.py", "security/http_auth.py",
                 "serving/metrics.py", "serving/qos.py", "serving/server.py",
                 "serving/service.py", "serving/speculate.py",
@@ -384,7 +390,15 @@ def test_port_sources_name_no_jax():
                 "dfs/client/dfsclient.py", "dfs/client/streams.py",
                 "dfs/client/striped.py", "dfs/client/shortcircuit.py",
                 "dfs/protocol/records.py", "dfs/protocol/datatransfer.py",
-                "dfs/protocol/blocktoken.py", "native/crc32c.cc"):
+                "dfs/protocol/blocktoken.py", "native/crc32c.cc",
+                "crypto/__init__.py", "crypto/streams.py", "crypto/keys.py",
+                "crypto/kms.py", "serving/autoscale/__init__.py",
+                "serving/autoscale/__main__.py",
+                "serving/autoscale/signals.py",
+                "serving/autoscale/controller.py", "conf/levers.py",
+                "conf/registry.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/core.py",
+                "analysis/confscan.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
