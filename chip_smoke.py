@@ -22,9 +22,13 @@ threads, their tokens against in-process ``generate``; auth, health,
 behind the engine (phase ``kvtiers``: demotions to a host-RAM ring and
 persists to a DFS store on the local disk under waves of shared-head
 traffic, replays from the ring and from the store on a second engine, a
-``prefill_to_store`` handoff, a drain persist, TTFT from each tier, an
-int8 ring, and prefill/decode roles through the door, every replay's
-tokens equal to the first run's); runs the flagship-1b forward, also in
+``prefill_to_store`` handoff, a drain persist, TTFT from each tier and an
+int8 ring, every replay's tokens equal to the first run's), then as a
+fleet (phase ``fleet_front``, see FLEET_FRONT: the port's registry
+server, three replicas with roles prefill, decode and mixed, the port's
+router with its prefill handoff, prefix affinity and drain retries, and
+the port's fleet doctor assembling a router-to-door trace); runs the
+flagship-1b forward, also in
 float16 (which no flash kernel takes: "auto" runs the plain attention);
 serves flagship-1b requests through ``DecodeEngine`` (each step shape a
 CUDA graph), holding the graphs' tokens against the engine's eager step,
@@ -121,7 +125,10 @@ replica's own record, as the autoscaler reads it) and a door
 on every rank's trainers in ``trainer_mesh`` (each read's comm block
 equal to that rank's ledger report; the elastic block carrying the
 evict and the shrink); one ``{"fleet": ...}`` line before the kernels
-line gives the reads' ms and the seconds the doors added. The device shuffle (phase ``shuffle``, see
+line gives the reads' ms, the seconds the doors added and the front
+half's numbers (``front``: TTFT p50 through the router and direct, the
+milliseconds the router adds before a door sees a request, the doctor's
+polls, the phase's wall seconds). The device shuffle (phase ``shuffle``, see
 SHUFFLE) runs on a folded axis of four ranks on the card: TeraSort and
 WordCount at Hadoop's own record sizes, a hash exchange and an
 overflowing one, each checked exactly. Weights are random, made from a
@@ -232,6 +239,10 @@ from hadoop_tpu_torch.serving.longctx import decode as decode_module
 from hadoop_tpu_torch.serving import engine as engine_module
 from hadoop_tpu_torch.serving import weightplane
 from hadoop_tpu_torch.serving.service import ServingReplica
+from hadoop_tpu_torch.obs.doctor import FleetDoctor
+from hadoop_tpu_torch.registry import RegistryClient, RegistryServer
+from hadoop_tpu_torch.serving.router import (ServingRouter, affinity_key,
+                                             rendezvous_owner, replica_path)
 from hadoop_tpu_torch.tracing import global_tracer
 from hadoop_tpu_torch.tools.profile_flagship import (MOE_RANGES,
                                                      TRAIN_RANGES,
@@ -425,6 +436,25 @@ SPECULATE = dict(k=4, ngram=3, requests=16, greedy=12, head=8, template=24,
 KVTIERS = dict(host_bytes=128 << 20, prompts=32, heads=8, head=192,
                tails=(64, 108), max_new=32, wave=8, replay=8, handoff=600,
                ttft_prompt=300, timed_pages=32)
+# The fleet_front phase: the serving fleet's front half on the card. The
+# port's RegistryServer on port 0; three ServingReplicas of the step-6
+# checkpoint (flagship-1b bf16 at SERVE_KW's sizes), roles prefill, decode
+# and mixed, on one DFS KV tier directory, each registered through its own
+# RegistryClient under ``service``; the port's ServingRouter in front
+# (prompts of at least ``offload_min`` tokens are offered to the prefill
+# replica first) and the port's FleetDoctor beside them. KVTIERS'
+# ``ttft_prompt``-token prompt goes through the router's prefill handoff;
+# ``groups`` groups of ``per_group`` prompts, each group sharing a
+# ``prefix``-token head (a tail of ``tail`` tokens, ``max_new`` tokens
+# out), are streamed through the router, and a second such set straight
+# to each prompt's rendezvous owner (TTFT: the client's wait for the first
+# streamed line); one ``eager_prompt``-token prompt through the router and
+# one straight to the decode replica on its eager step (kernel launches a
+# step); ``polls`` doctor polls; ``drained`` requests after a drain of the
+# mixed replica.
+FLEET_FRONT = dict(service="fleet-front", groups=4, per_group=3, prefix=64,
+                   tail=(8, 24), max_new=16, offload_min=256,
+                   eager_prompt=48, eager_tokens=8, polls=2, drained=4)
 # The weight plane (serving.parity=relaxed): int8 matmul weights with one
 # f32 scale per group of ``group`` elements along the contraction dim,
 # the embedding, head, norms and router left in the model's dtype.
@@ -1984,8 +2014,9 @@ def phase_kvtiers(fs, root):
     second engine (tokens equal the first run's), a prefill_to_store
     handoff (592 of 600 tokens durable, decoded to an engine without
     tiers' tokens), a drain persist hit by a fresh engine, TTFT of one
-    prompt from each tier, the page movers and the DFS tier per page, an
-    int8 pass, and prefill/decode roles through the door."""
+    prompt from each tier, the page movers and the DFS tier per page, and
+    an int8 pass. Prefill/decode roles through the door are phase
+    fleet_front's."""
     K = KVTIERS
     cfg = get_config("flagship-1b")
     params, _ = load_serving_params(fs, f"{root}/resumed", cfg,
@@ -2121,7 +2152,6 @@ def phase_kvtiers(fs, root):
             "tokens": sum(len(x) for x in got8)}
     del eng
 
-    door = _kv_door(fs, root)
     emit({"phase": "kvtiers", "dtype": "bfloat16",
           "pool_blocks": pool_blocks, "block_bytes": block_bytes,
           "host_capacity_blocks": ring, "waves_seconds": waves_s,
@@ -2131,58 +2161,364 @@ def phase_kvtiers(fs, root):
           "drain_persists": drain_persists, "drain_dfs_hits": drain_hits,
           "ttft_s": ttft, "extract_ms_per_page": extract_ms,
           "inject_ms_per_page": inject_ms, "dfs_put_ms_per_page": put_ms,
-          "dfs_get_ms_per_page": get_ms, "tiers": stats, "int8": int8,
-          "door": door})
+          "dfs_get_ms_per_page": get_ms, "tiers": stats, "int8": int8})
     require(int8["hits_host"] > 0, "the int8 ring served no hit")
 
 
-def _kv_door(fs, root):
-    """A prefill-role replica answers /v1/prefill for a prompt; a
-    decode-role replica on the same store serves it from the DFS tier,
-    with the prefill replica's own tokens for it."""
-    K = KVTIERS
-    replicas = {}
-    for role in ("prefill", "decode"):
-        conf = Configuration()
-        for key, value in (("serving.role", role),
-                           ("serving.kv.dfs.dir", f"{root}/kvdoor"),
-                           ("serving.max.batch", SERVE_KW["max_batch"]),
-                           ("serving.kv.block.size", SERVE_KW["block_size"]),
-                           ("serving.max.context", SERVE_KW["max_context"]),
-                           ("serving.prefill.chunk",
-                            SERVE_KW["prefill_chunk"]),
-                           ("serving.loader.io.workers",
-                            TRAINER["io_workers"])):
-            conf.set(key, value)
-        replicas[role] = ServingReplica(
-            conf, name=f"kv-{role}", preset="flagship-1b",
-            checkpoint=f"{root}/resumed", fs=fs)
-        replicas[role].start()
+def _count_submits(eng):
+    """A request counter on ``eng``: a box whose item 0 counts the
+    requests its door submits from now on."""
+    box = [0]
+    inner = eng.submit
+
+    def submit(*args, **kw):
+        box[0] += 1
+        return inner(*args, **kw)
+
+    eng.submit = submit
+    return box
+
+
+def _stream_ttft(lines):
+    """Read a streamed answer: (seconds to its first line, the last
+    line's tokens)."""
+    t0 = time.perf_counter()
+    first = last = None
+    for line in lines:
+        if first is None:
+            first = time.perf_counter() - t0
+        last = line
+    require(last is not None and last.get("done") is True,
+            f"a stream ended without its last line: {last}")
+    return first, last.get("tokens")
+
+
+def _door_stream(port, payload):
+    """Stream one /v1/generate answer straight from a door, one JSON
+    line at a time."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        gen = torch.Generator().manual_seed(SEED + 33)
-        prompt = torch.randint(0, get_config("flagship-1b").vocab_size,
-                               (K["ttft_prompt"],), generator=gen).tolist()
-        pre, dec = (replicas[r].server.port for r in ("prefill", "decode"))
-        status, body = _http(pre, "POST", "/v1/prefill", {"tokens": prompt})
-        require(status == 200, f"/v1/prefill answered {status}: {body[:200]}")
-        persisted = json.loads(body)["persisted_tokens"]
-        ask = {"tokens": prompt, "max_new_tokens": K["max_new"]}
-        status, body = _http(dec, "POST", "/v1/generate", ask)
-        require(status == 200, f"decode replica answered {status}")
-        decoded = json.loads(body)["tokens"]
-        status, body = _http(pre, "POST", "/v1/generate", ask)
-        own = json.loads(body)["tokens"]
-        hits = replicas["decode"].engine.kvstore.stats()["hits_dfs"]
-        roles = {r: replicas[r].role for r in replicas}
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            dict(payload, stream=True)).encode())
+        resp = conn.getresponse()
+        require(resp.status == 200, f"door :{port} answered {resp.status}")
+        for raw in resp:
+            if raw.strip():
+                yield json.loads(raw)
     finally:
+        conn.close()
+
+
+def _group_prompts(vocab, seed):
+    """FLEET_FRONT's groups: ``per_group`` prompts a group, each its
+    group's ``prefix``-token head and a tail of its own."""
+    F = FLEET_FRONT
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(F["groups"]):
+        head = torch.randint(0, vocab, (F["prefix"],), generator=gen).tolist()
+        for _ in range(F["per_group"]):
+            n = int(torch.randint(F["tail"][0], F["tail"][1] + 1, (1,),
+                                  generator=gen))
+            out.append(head + torch.randint(0, vocab, (n,),
+                                            generator=gen).tolist())
+    return out
+
+
+def _owned_prompts(vocab, seed, n, length, owner, paths):
+    """``n`` prompts of ``length`` tokens whose rendezvous owner among
+    ``paths`` is ``owner``."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    while len(out) < n:
+        p = torch.randint(0, vocab, (length,), generator=gen).tolist()
+        if rendezvous_owner(affinity_key(p, FLEET_FRONT["prefix"]),
+                            paths) == owner:
+            out.append(p)
+    return out
+
+
+def _tree_names(node, parents=()):
+    """(name, ancestor names) of every span under an assembled node."""
+    yield node["name"], parents
+    for child in node["children"]:
+        yield from _tree_names(child, parents + (node["name"],))
+
+
+def phase_fleet_front(fs, root):
+    """The serving fleet's front half (see FLEET_FRONT): the port's
+    registry server, router and doctor around three port replicas on the
+    step-6 checkpoint. Gates: the router's prefill handoff (persisted
+    tokens, DFS hits on the replica that decodes, the prefill replica's
+    own tokens); each affinity request on its rendezvous owner (the
+    replicas' request counters), the routed tokens equal to the other
+    replica's; the front half's kernel launches a step equal to a direct
+    request's; the doctor listing the three replicas and assembling a
+    router -> door trace; a drained replica costing no failed request."""
+    F, K = FLEET_FRONT, KVTIERS
+    t_phase = time.monotonic()
+    free_device()
+    vocab = get_config("flagship-1b").vocab_size
+    reg_conf = Configuration()
+    registry = RegistryServer(reg_conf)
+    registry.init(reg_conf)
+    registry.start()
+    addr = ("127.0.0.1", registry.port)
+    replicas, counters, spans = {}, {}, {}
+    router = doctor = None
+
+    def on_span(span):
+        if span.name.startswith("serving.router.") or \
+                span.name == "serving.request":
+            spans.setdefault(span.trace_id, {})[span.name] = span.to_dict()
+
+    tracer = global_tracer()
+    tracer.add_receiver(on_span)
+    try:
+        for role in ("prefill", "decode", "mixed"):
+            conf = Configuration()
+            for key, value in (("serving.role", role),
+                               ("serving.kv.dfs.enable", "true"),
+                               ("serving.kv.dfs.dir", f"{root}/kvfleet"),
+                               ("serving.max.batch", SERVE_KW["max_batch"]),
+                               ("serving.kv.block.size",
+                                SERVE_KW["block_size"]),
+                               ("serving.max.context",
+                                SERVE_KW["max_context"]),
+                               ("serving.prefill.chunk",
+                                SERVE_KW["prefill_chunk"]),
+                               ("serving.loader.io.workers",
+                                TRAINER["io_workers"])):
+                conf.set(key, value)
+            replicas[role] = ServingReplica(
+                conf, name=F["service"], preset="flagship-1b",
+                checkpoint=f"{root}/resumed", fs=fs, instance=role,
+                registry=RegistryClient(addr, conf))
+            replicas[role].start()
+            counters[role] = _count_submits(replicas[role].engine)
+        paths = {r: replica_path(F["service"], r) for r in replicas}
+        roles = {p: r for r, p in paths.items()}
+        ports = {r: replicas[r].server.port for r in replicas}
+        generate = [paths["decode"], paths["mixed"]]
+        for r in ("decode", "mixed"):         # both step shapes captured
+            status, _ = _http(ports[r], "POST", "/v1/generate",
+                              {"tokens": [1], "max_new_tokens": 2})
+            require(status == 200, f"{r} replica warm-up: {status}")
+        rconf = Configuration()
+        rconf.set("serving.router.prefill.min.tokens", F["offload_min"])
+        router = ServingRouter(addr, F["service"], rconf)
+        require(sorted(r.path for r in router.replicas()) ==
+                sorted(paths.values()), "the router does not list the "
+                "three replicas")
+
+        # the prefill -> decode handoff through the router
+        gen = torch.Generator().manual_seed(SEED + 33)
+        prompt = torch.randint(0, vocab, (K["ttft_prompt"],),
+                               generator=gen).tolist()
+        ask = {"tokens": prompt, "max_new_tokens": K["max_new"]}
+        hits0 = {r: replicas[r].engine.kvstore.stats()["hits_dfs"]
+                 for r in ("decode", "mixed")}
+        sub0 = {r: counters[r][0] for r in counters}
+        t0 = time.perf_counter()
+        decoded = router.generate(ask)["tokens"]
+        handoff_s = time.perf_counter() - t0
+        # the prefill replica's counter counts the handoff's prefill
+        (decoded_on,) = [r for r in ("decode", "mixed")
+                         if counters[r][0] > sub0[r]]
+        hits = replicas[decoded_on].engine.kvstore.stats()["hits_dfs"] \
+            - hits0[decoded_on]
+        (handoff_trace,) = [t for t, by in spans.items()
+                            if "serving.router.prefill_offload" in by]
+        offload = spans[handoff_trace]["serving.router.prefill_offload"]
+        persisted = int(offload["kv"].get("persisted_tokens", -1))
+        status, body = _http(ports["prefill"], "POST", "/v1/generate", ask)
+        require(status == 200, f"prefill replica answered {status}")
+        own = json.loads(body)["tokens"]
+        require(router.prefill_offloaded == 1 and decoded_on != "prefill"
+                and persisted == K["ttft_prompt"] // 16 * 16 and hits > 0
+                and decoded == own,
+                f"router handoff: offloaded {router.prefill_offloaded}, "
+                f"decoded on {decoded_on}, {persisted} persisted, {hits} "
+                f"DFS hits, tokens equal {decoded == own}")
+
+        # affinity: groups through the router, a second set straight to
+        # each prompt's owner
+        aff0 = router.affinity_routed
+        routed, direct = [], []
+        for p in _group_prompts(vocab, SEED + 60):
+            owner = rendezvous_owner(affinity_key(p, F["prefix"]), generate)
+            sub0 = {r: counters[r][0] for r in counters}
+            ttft, toks = _stream_ttft(router.generate_stream(
+                {"tokens": p, "max_new_tokens": F["max_new"]}))
+            landed = [paths[r] for r in counters if counters[r][0] > sub0[r]]
+            routed.append({"prompt": p, "owner": owner, "landed": landed,
+                           "ttft_s": ttft, "tokens": toks})
+        affinity_routed = router.affinity_routed - aff0
+        for p in _group_prompts(vocab, SEED + 61):
+            owner = rendezvous_owner(affinity_key(p, F["prefix"]), generate)
+            ttft, toks = _stream_ttft(_door_stream(
+                ports[roles[owner]],
+                {"tokens": p, "max_new_tokens": F["max_new"]}))
+            direct.append({"ttft_s": ttft, "tokens": toks})
+        cross = []
+        for rec in routed[::F["per_group"]]:
+            other = next(r for r in generate if r != rec["owner"])
+            status, body = _http(ports[roles[other]], "POST", "/v1/generate",
+                                 {"tokens": rec["prompt"],
+                                  "max_new_tokens": F["max_new"]})
+            require(status == 200, f"{other} answered {status}")
+            cross.append(json.loads(body)["tokens"] == rec["tokens"])
+        require(all(r["landed"] == [r["owner"]] for r in routed) and
+                affinity_routed == len(routed),
+                f"affinity: {[(r['owner'], r['landed']) for r in routed]}, "
+                f"affinity_routed {affinity_routed}")
+        require(all(len(r["tokens"]) == F["max_new"] for r in routed + direct)
+                and all(cross),
+                f"affinity tokens: lengths {[len(r['tokens']) for r in routed]}"
+                f", equal on the other replica {cross}")
+        router_added_ms = []
+        for t, by in spans.items():
+            front = by.get("serving.router.generate_stream")
+            door = by.get("serving.request")
+            if front is not None and door is not None:
+                router_added_ms.append((door["start"] - front["start"]) * 1e3)
+        require(len(router_added_ms) == len(routed),
+                f"{len(router_added_ms)} router -> door span pairs for "
+                f"{len(routed)} routed requests")
+
+        # launches a step: the decode replica on its eager step, one
+        # prompt of a shape through the router, one straight to its door
+        eng = replicas["decode"].engine
+        via, straight = _owned_prompts(vocab, SEED + 62, 2, F["eager_prompt"],
+                                       paths["decode"], generate)
+        launched = {}
+        eng._launch_step = eng._step_eager
+        try:
+            for how, p in (("routed", via), ("direct", straight)):
+                before = (flash.launches, norms.launches_fwd, eng.steps,
+                          counters["decode"][0])
+                ask = {"tokens": p, "max_new_tokens": F["eager_tokens"]}
+                if how == "routed":
+                    out = router.generate(ask)["tokens"]
+                else:
+                    status, body = _http(ports["decode"], "POST",
+                                         "/v1/generate", ask)
+                    require(status == 200, f"decode answered {status}")
+                    out = json.loads(body)["tokens"]
+                steps = eng.steps - before[2]
+                launched[how] = {
+                    "steps": steps, "tokens": len(out),
+                    "requests": counters["decode"][0] - before[3],
+                    "flash_fwd": flash.launches - before[0],
+                    "rms_norm_fwd": norms.launches_fwd - before[1]}
+        finally:
+            del eng._launch_step
+        per_step = {how: {k: v / max(1, rec["steps"]) for k, v in rec.items()
+                          if k in ("flash_fwd", "rms_norm_fwd")}
+                    for how, rec in launched.items()}
+        require(launched["routed"] == launched["direct"] and
+                launched["direct"]["rms_norm_fwd"] > 0 and
+                launched["direct"]["requests"] == 1,
+                f"kernel launches routed {launched['routed']} against "
+                f"direct {launched['direct']}")
+
+        # the doctor: discovery through the registry, two polls, a trace
+        dconf = Configuration()
+        dconf.set("obs.doctor.registry", f"127.0.0.1:{registry.port}")
+        dconf.set("obs.doctor.interval", "3600")
+        doctor = FleetDoctor(dconf)
+        doctor.init(dconf)
+        doctor.start()
+        poll_ms = []
+        for _ in range(F["polls"]):
+            t0 = time.perf_counter()
+            doctor.poll_once()
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+        body, report_ms = _get_ms(doctor.port, "/ws/v1/fleet/doctor")
+        report = json.loads(body)
+        listed = sorted(st["endpoint"]["name"]
+                        for st in report["endpoints"].values()
+                        if st["endpoint"]["kind"] == "replica" and st["ok"])
+        require(listed == sorted(paths.values()),
+                f"/ws/v1/fleet/doctor lists {listed}")
+        body, trace_ms = _get_ms(doctor.port, f"/ws/v1/fleet/traces/"
+                                 f"{handoff_trace:016x}")
+        tree = json.loads(body)
+        names = [nm for r in tree["tree"] for nm in _tree_names(r)]
+        require(any(n == "serving.request" and
+                    "serving.router.generate" in up for n, up in names) and
+                any(n == "serving.router.prefill_offload"
+                    for n, _ in names),
+                f"the assembled trace: {sorted({n for n, _ in names})}")
+
+        # drain the mixed replica: the next requests all land on decode
+        status, _ = _http(ports["mixed"], "POST", "/v1/admin/drain")
+        require(status == 202, f"/v1/admin/drain answered {status}")
+        deadline = time.monotonic() + 60
+        while not replicas["mixed"].server._draining.is_set():
+            require(time.monotonic() < deadline, "the drain did not begin")
+            time.sleep(0.01)
+        drained = _owned_prompts(vocab, SEED + 63, F["drained"] // 2, 40,
+                                 paths["mixed"], generate) + \
+            _owned_prompts(vocab, SEED + 64, F["drained"] // 2, 40,
+                           paths["decode"], generate)
+        drain_rows = []
+        for p in drained:
+            sub0 = counters["decode"][0]
+            t0 = time.perf_counter()
+            out = router.generate({"tokens": p,
+                                   "max_new_tokens": F["max_new"]})["tokens"]
+            drain_rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                               "tokens": len(out),
+                               "on_decode": counters["decode"][0] - sub0})
+        require(all(r["tokens"] == F["max_new"] and r["on_decode"] == 1
+                    for r in drain_rows),
+                f"requests after the drain: {drain_rows}")
+        require(replicas["mixed"].drained.wait(300),
+                "the drained replica did not finish its drain")
+        gone = [r.path for r in router.replicas(refresh=True)]
+        require(paths["mixed"] not in gone,
+                f"the drained replica is still listed: {gone}")
+    finally:
+        tracer.remove_receiver(on_span)
+        if doctor is not None:
+            doctor.stop()
+        if router is not None:
+            router.close()
         for r in replicas.values():
-            r.drain_and_stop(timeout=60)
-    require(persisted == K["ttft_prompt"] // 16 * 16 and hits > 0
-            and decoded == own,
-            f"door handoff: {persisted} persisted, {hits} DFS hits, tokens "
-            f"equal {decoded == own}")
-    return {"persisted_tokens": persisted, "decode_dfs_hits": hits,
-            "tokens_equal": decoded == own, "roles": roles}
+            r.drain_and_stop(timeout=300)
+        registry.stop()
+    wall_s = time.monotonic() - t_phase
+    ttft_routed = [r["ttft_s"] for r in routed]
+    ttft_direct = [r["ttft_s"] for r in direct]
+    front = {"ttft_p50_routed_ms": _pct(ttft_routed, 0.5) * 1e3,
+             "ttft_p50_direct_ms": _pct(ttft_direct, 0.5) * 1e3,
+             "router_added_ms_p50": _pct(router_added_ms, 0.5),
+             "router_added_ms_max": max(router_added_ms),
+             "doctor_poll_ms": poll_ms, "doctor_report_ms": report_ms,
+             "doctor_trace_ms": trace_ms, "wall_s": wall_s}
+    FLEET["front"] = front
+    emit({"phase": "fleet_front", "model": "flagship-1b", "dtype": "bfloat16",
+          "replicas": {r: {"port": ports[r], "load_seconds":
+                           replicas[r].load_seconds} for r in replicas},
+          "handoff": {"persisted_tokens": persisted, "decoded_on": decoded_on,
+                      "decode_dfs_hits": hits, "tokens_equal": decoded == own,
+                      "seconds": handoff_s},
+          "affinity": {"requests": len(routed),
+                       "affinity_routed": affinity_routed,
+                       "on_owner": sum(r["landed"] == [r["owner"]]
+                                       for r in routed),
+                       "by_replica": {p: sum(r["owner"] == p for r in routed)
+                                      for p in generate},
+                       "tokens_equal_on_other": cross},
+          "ttft_ms": {"routed": [t * 1e3 for t in ttft_routed],
+                      "direct": [t * 1e3 for t in ttft_direct]},
+          "router_added_ms": router_added_ms,
+          "launches": launched, "launches_per_step": per_step,
+          "doctor": {"listed": listed, "poll_ms": poll_ms,
+                     "trace_spans": tree["num_spans"],
+                     "critical_path": tree["critical_path"]},
+          "drain": drain_rows, **front})
 
 
 def make_params():
@@ -6555,6 +6891,7 @@ def main() -> int:
         del host
         phase_door(fs, root)
         phase_kvtiers(fs, root)
+        phase_fleet_front(fs, root)
         phase_weightplane(fs, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)

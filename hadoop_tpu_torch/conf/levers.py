@@ -131,4 +131,31 @@ LEVERS: Dict[str, Dict[str, Any]] = {
         "note": "let the doctor's error-budget burn verdict grow the "
                 "decode pool (default off)",
     },
+    # ---------------------------------------------- fleet SLO scoreboard
+    "obs.slo.burn.fast": {
+        "type": "float", "range": (2.0, 100.0), "guard": "capacity",
+        "note": "fast-window burn-rate threshold (x budget)",
+    },
+    "obs.slo.burn.slow": {
+        "type": "float", "range": (1.0, 20.0), "guard": "capacity",
+        "note": "slow-window burn-rate threshold (x budget)",
+    },
 }
+
+# one target triple a tenant class (obs/slo.py): turning them redraws
+# the SLO itself, so the capacity guard and tight ranges
+for _cls in ("p0", "p1", "p2", "p3"):
+    LEVERS[f"obs.slo.{_cls}.ttft.p99.ms"] = {
+        "type": "float", "range": (50.0, 60000.0), "guard": "capacity",
+        "note": f"class {_cls} windowed TTFT p99 target, ms",
+    }
+    LEVERS[f"obs.slo.{_cls}.token.p99.ms"] = {
+        "type": "float", "range": (10.0, 10000.0), "guard": "capacity",
+        "note": f"class {_cls} windowed per-token p99 target, ms",
+    }
+    LEVERS[f"obs.slo.{_cls}.availability"] = {
+        "type": "float", "range": (0.9, 0.9999), "guard": "capacity",
+        "note": f"class {_cls} availability target (error budget "
+                f"= 1 - target)",
+    }
+del _cls

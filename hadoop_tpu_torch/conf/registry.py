@@ -151,9 +151,10 @@ KEYS = {
         "type": 'str',
         "defaults": ("'127.0.0.1:8020'",),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/client/filesystem.py',
+            'hadoop_tpu_torch/obs/doctor.py',
         ),
     },
     "elastic.cooldown.polls": {
@@ -223,18 +224,20 @@ KEYS = {
         "type": 'str',
         "defaults": ("'authentication'",),
         "namespace": 'hadoop',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/ipc/client.py',
+            'hadoop_tpu_torch/ipc/server.py',
         ),
     },
     "hadoop.security.authentication": {
         "type": 'str',
         "defaults": ("'simple'",),
         "namespace": 'hadoop',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/ipc/client.py',
+            'hadoop_tpu_torch/ipc/server.py',
         ),
     },
     "hadoop.security.client.keytab": {
@@ -244,6 +247,15 @@ KEYS = {
         "documented": False, "sites": 1,
         "files": (
             'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "hadoop.security.server.keytab": {
+        "type": 'str',
+        "defaults": ('None',),
+        "namespace": 'hadoop',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/server.py',
         ),
     },
     "ipc.client.connect.timeout": {
@@ -282,6 +294,33 @@ KEYS = {
             'hadoop_tpu_torch/ipc/client.py',
         ),
     },
+    "ipc.decay-scheduler.decay-factor": {
+        "type": 'float',
+        "defaults": ('0.5',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
+    "ipc.decay-scheduler.period": {
+        "type": 'time',
+        "defaults": ('5.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
+    "ipc.decay-scheduler.thresholds": {
+        "type": 'list',
+        "defaults": ('<absent>',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
     "ipc.ping.interval": {
         "type": 'time',
         "defaults": ('10.0',),
@@ -289,6 +328,24 @@ KEYS = {
         "documented": False, "sites": 1,
         "files": (
             'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "ipc.server.connection.maxidletime": {
+        "type": 'time',
+        "defaults": ('120.0',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/server.py',
+        ),
+    },
+    "ipc.server.reuseport": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'ipc',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/server.py',
         ),
     },
     "metrics.prom.exemplars": {
@@ -309,9 +366,325 @@ KEYS = {
             'hadoop_tpu_torch/obs/comm.py',
         ),
     },
+    "obs.doctor.endpoints": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.interval": {
+        "type": 'time',
+        "defaults": ('5.0',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.max-traces": {
+        "type": 'int',
+        "defaults": ('256',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/assemble.py',
+        ),
+    },
+    "obs.doctor.namenode.http": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.push.namenode": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.registry": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.scrape.timeout": {
+        "type": 'time',
+        "defaults": ('2.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/obs/assemble.py',
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.service": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.floor.ms": {
+        "type": 'float',
+        "defaults": ('1.0',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.history": {
+        "type": 'int',
+        "defaults": ('5',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.mad-k": {
+        "type": 'float',
+        "defaults": ('3.0',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.min-peers": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.min-windows": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.ratio": {
+        "type": 'float',
+        "defaults": ('1.5',),
+        "namespace": 'obs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.slow.ttl": {
+        "type": 'time',
+        "defaults": ('<dynamic>',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.doctor.trainer.service": {
+        "type": 'str',
+        "defaults": ("'/trainer-jobs'",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "obs.slo.burn.fast": {
+        "type": 'float',
+        "defaults": ('14.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.burn.history": {
+        "type": 'int',
+        "defaults": ('5',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.burn.min-windows": {
+        "type": 'int',
+        "defaults": ('2',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.burn.slow": {
+        "type": 'float',
+        "defaults": ('2.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
     "obs.slo.class.map": {
         "type": 'str',
         "defaults": ("''",),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p0.availability": {
+        "type": 'float',
+        "defaults": ('0.99',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p0.token.p99.ms": {
+        "type": 'float',
+        "defaults": ('500.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p0.ttft.p99.ms": {
+        "type": 'float',
+        "defaults": ('2000.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p1.availability": {
+        "type": 'float',
+        "defaults": ('0.99',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p1.token.p99.ms": {
+        "type": 'float',
+        "defaults": ('500.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p1.ttft.p99.ms": {
+        "type": 'float',
+        "defaults": ('2000.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p2.availability": {
+        "type": 'float',
+        "defaults": ('0.99',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p2.token.p99.ms": {
+        "type": 'float',
+        "defaults": ('500.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p2.ttft.p99.ms": {
+        "type": 'float',
+        "defaults": ('2000.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p3.availability": {
+        "type": 'float',
+        "defaults": ('0.99',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p3.token.p99.ms": {
+        "type": 'float',
+        "defaults": ('500.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.p3.ttft.p99.ms": {
+        "type": 'float',
+        "defaults": ('2000.0',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.window.fast": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'obs',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/obs/slo.py',
+        ),
+    },
+    "obs.slo.window.slow": {
+        "type": 'int',
+        "defaults": ('12',),
         "namespace": 'obs',
         "documented": True, "sites": 1,
         "files": (
@@ -451,6 +824,24 @@ KEYS = {
         "documented": True, "sites": 1,
         "files": (
             'hadoop_tpu_torch/parallel/lowp/__init__.py',
+        ),
+    },
+    "registry.port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'registry',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/registry.py',
+        ),
+    },
+    "registry.sweep.interval": {
+        "type": 'time',
+        "defaults": ('1.0',),
+        "namespace": 'registry',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/registry.py',
         ),
     },
     "serving.autoscale.backlog.high": {
@@ -1030,6 +1421,60 @@ KEYS = {
             'hadoop_tpu_torch/serving/service.py',
         ),
     },
+    "serving.router.affinity.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
+    "serving.router.affinity.max.imbalance": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
+    "serving.router.affinity.prefix.tokens": {
+        "type": 'int',
+        "defaults": ('64',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
+    "serving.router.max.retries": {
+        "type": 'int',
+        "defaults": ('6',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
+    "serving.router.prefill.min.tokens": {
+        "type": 'int',
+        "defaults": ('32',),
+        "namespace": 'serving',
+        "documented": True, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
+    "serving.router.prefill.timeout": {
+        "type": 'time',
+        "defaults": ('20.0',),
+        "namespace": 'serving',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/serving/router.py',
+        ),
+    },
     "serving.speculate.k": {
         "type": 'int',
         "defaults": ('0',),
@@ -1177,4 +1622,40 @@ KEYS = {
 }
 
 PATTERNS = {
+    "*.backoff.enable": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": '*',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
+    "*.callqueue.impl": {
+        "type": 'str',
+        "defaults": ("'fifo'",),
+        "namespace": '*',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
+    "*.scheduler.impl": {
+        "type": 'str',
+        "defaults": ("'decay'", "'default'",),
+        "namespace": '*',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
+    "*.scheduler.priority.levels": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": '*',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/ipc/callqueue.py',
+        ),
+    },
 }

@@ -49,8 +49,9 @@ from hadoop_tpu_torch.ipc.errors import RpcError
 from hadoop_tpu_torch.ipc.retry import (RetryInvocationHandler,
                                         RetryPolicies,
                                         StaticFailoverProxyProvider)
-from hadoop_tpu_torch.ipc.rpc import RETRY_RNG, get_proxy, idempotent
+from hadoop_tpu_torch.ipc.rpc import get_proxy, idempotent
 from hadoop_tpu_torch.tracing import carry_context
+from hadoop_tpu_torch.util.misc import RETRY_RNG
 
 log = logging.getLogger(__name__)
 

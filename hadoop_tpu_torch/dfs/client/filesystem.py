@@ -30,6 +30,7 @@ from urllib.parse import urlparse
 from hadoop_tpu_torch.conf import ConfLike, Configuration
 from hadoop_tpu_torch.dfs.client.dfsclient import DFSClient
 from hadoop_tpu_torch.dfs.protocol.records import FileStatus
+from hadoop_tpu_torch.util.misc import parse_addr_list
 
 KMS_URI_KEY = "dfs.encryption.key.provider.uri"
 NN_RPC_ADDRESS_KEY = "dfs.namenode.rpc-address"
@@ -54,20 +55,6 @@ def kms_endpoint(uri: str) -> Tuple[str, str]:
         raise ValueError(f"{KMS_URI_KEY}: {uri!r} names no host")
     return hostport, ("/" + path.strip("/")) if slash and path.strip("/") \
         else "/kms"
-
-
-def parse_addr_list(spec: str):
-    """``host:port[,host:port...]`` -> [(host, port)], strictly."""
-    out = []
-    for part in str(spec).split(","):
-        part = part.strip()
-        if not part:
-            continue
-        host, sep, port = part.rpartition(":")
-        if not sep or not port.isdigit():
-            raise ValueError(f"invalid host:port {part!r} in {spec!r}")
-        out.append((host or "127.0.0.1", int(port)))
-    return out
 
 
 class DistributedFileSystem:

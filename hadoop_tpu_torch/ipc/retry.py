@@ -6,14 +6,18 @@ method is idempotent; :class:`RetryInvocationHandler` wraps a
 :class:`StaticFailoverProxyProvider` and does the sleeps and the
 failovers.
 The DFS client's NameNode proxy is built on these
-(``failover_on_network_exception`` over the NameNode addresses); the
-reference's other policies have no caller in the port. The jitter
-comes from the RPC layer's ``RETRY_RNG``.
+(``failover_on_network_exception`` over the NameNode addresses), the
+serving router on ``exponential_backoff``; the reference's other
+policies have no caller in the port. The failover policy's jitter comes
+from ``util.misc.RETRY_RNG``; the exponential backoff's, as the
+reference's, from the module-level ``random`` (so two routers seeded
+alike draw alike).
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import time
 from typing import Callable, List, Sequence, Tuple
 
@@ -21,7 +25,7 @@ from hadoop_tpu_torch.ipc.errors import (ConnectFailedError, RetriableError,
                                          RpcError, RpcTimeoutError,
                                          ServerTooBusyError, StandbyError,
                                          is_remote)
-from hadoop_tpu_torch.ipc.rpc import RETRY_RNG
+from hadoop_tpu_torch.util.misc import RETRY_RNG
 
 log = logging.getLogger(__name__)
 
@@ -46,6 +50,26 @@ class RetryPolicy:
 class _TryOnceThenFail(RetryPolicy):
     def should_retry(self, e, retries, failovers, idempotent):
         return RetryAction(RetryAction.FAIL, reason="try once")
+
+
+class _ExponentialBackoff(RetryPolicy):
+    """Retry up to ``max_retries`` times, the delay doubling from
+    ``base_delay_s`` (capped at ``max_delay_s``) times a factor in
+    [0.5, 1.5), whatever the error."""
+
+    def __init__(self, max_retries: int, base_delay_s: float,
+                 max_delay_s: float = 30.0):
+        self.max_retries = max_retries
+        self.base_delay_s = base_delay_s
+        self.max_delay_s = max_delay_s
+
+    def should_retry(self, e, retries, failovers, idempotent):
+        if retries >= self.max_retries:
+            return RetryAction(RetryAction.FAIL,
+                               reason=f"exceeded {self.max_retries} retries")
+        delay = min(self.max_delay_s, self.base_delay_s * (2 ** retries)
+                    * (0.5 + random.random()))
+        return RetryAction(RetryAction.RETRY, delay)
 
 
 class FailoverOnNetworkExceptionRetry(RetryPolicy):
@@ -106,6 +130,12 @@ class FailoverOnNetworkExceptionRetry(RetryPolicy):
 
 class RetryPolicies:
     TRY_ONCE_THEN_FAIL: RetryPolicy = _TryOnceThenFail()
+
+    @staticmethod
+    def exponential_backoff(max_retries: int = 10,
+                            base_delay_s: float = 0.2,
+                            max_delay_s: float = 30.0) -> RetryPolicy:
+        return _ExponentialBackoff(max_retries, base_delay_s, max_delay_s)
 
     @staticmethod
     def failover_on_network_exception(max_failovers: int = 15,

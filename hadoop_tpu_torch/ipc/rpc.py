@@ -15,14 +15,14 @@ with ``backoff_delay`` between tries, when:
 
 A remote application error is raised at once. The call's ``rc`` field
 carries the retry count, as the reference's retry layer sends it.
-``max_retries=0`` turns these retries off for a proxy that a
+``backoff_delay`` (``util/misc.py``) draws from the process's
+``RETRY_RNG``. ``max_retries=0`` turns these retries off for a proxy that a
 ``retry.RetryInvocationHandler`` drives (the DFS client's NameNode
 proxy): that handler then sets the count through ``_set_retry_count``.
 """
 
 from __future__ import annotations
 
-import random
 import time
 from typing import Optional, Tuple, Type
 
@@ -32,21 +32,11 @@ from hadoop_tpu_torch.ipc.errors import (ConnectFailedError, RetriableError,
                                          RpcError, ServerTooBusyError,
                                          is_remote)
 from hadoop_tpu_torch.security.ugi import UserGroupInformation
+from hadoop_tpu_torch.util.misc import backoff_delay
 
 MAX_RETRIES = 3
 RETRY_BASE_S = 0.1
 RETRY_MAX_S = 2.0
-
-RETRY_RNG = random.Random()
-
-
-def backoff_delay(base_s: float, attempt: int, max_s: float = 30.0,
-                  rng=None) -> float:
-    """Exponential backoff with jitter: ``base_s * 2**attempt``, capped at
-    ``max_s``, times a factor in [0.5, 1.5), so clients never retry in
-    lockstep (the reference's ``util/misc.py`` ``backoff_delay``)."""
-    rng = RETRY_RNG if rng is None else rng
-    return min(max_s, base_s * (2 ** attempt)) * (0.5 + rng.random())
 
 
 def idempotent(fn):

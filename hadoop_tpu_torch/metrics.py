@@ -78,6 +78,14 @@ class MutableGauge:
         with self._lock:
             self._value = v
 
+    def incr(self, delta=1) -> None:
+        with self._lock:
+            self._value += delta
+
+    def decr(self, delta=1) -> None:
+        with self._lock:
+            self._value -= delta
+
     def value(self):
         return self._value
 

@@ -20,8 +20,8 @@ The port's copy of ``hadoop_tpu/obs/trainer.py``:
   the runtime comm ledger, the HBM ledger and, from an optional
   callable, the elastic controller's block. With ``obs.trainer.registry``
   set it registers the rank under ``obs.trainer.service`` with a
-  heartbeat stamp, so the reference's doctor discovers it as it
-  discovers replicas.
+  heartbeat stamp, so a fleet doctor (the port's ``obs/doctor.py`` or
+  the reference's) discovers it as it discovers replicas.
 
 ``Trainer`` does not open a door itself: a caller opens one beside it
 and hands it ``trainer.step_metrics``. Conf keys: ``obs.trainer.port``

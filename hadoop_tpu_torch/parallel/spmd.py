@@ -52,13 +52,14 @@ import dataclasses
 import datetime
 import multiprocessing
 import queue
-import socket
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from hadoop_tpu_torch.util.misc import free_port
 
 # backends whose collectives take CUDA tensors as they are
 _DEVICE_BACKENDS = frozenset({"nccl"})
@@ -507,12 +508,6 @@ def ppermute(x: torch.Tensor, axis: Optional[Axis], shift: int = 1
 
 # ------------------------------------------------------------ launcher
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn, rank, world, port, backend, threads, timeout, args,
                results):
     torch.set_num_threads(threads)
@@ -544,7 +539,7 @@ def launch(fn: Callable, world: int, *, backend: str,
     a rank fails, the others get 30 s to report before all are killed."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
+    port = free_port("localhost")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world, port, backend, threads,
                                timeout, tuple(args), results))

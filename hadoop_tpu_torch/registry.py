@@ -1,7 +1,7 @@
-"""The service registry as its clients see it: records, their names, and
-the RPC client of the reference's registry server.
+"""The service registry: records, their names, the RPC client and the
+server.
 
-The port's copy of the client side of ``hadoop_tpu/registry/registry.py``:
+The port's copy of ``hadoop_tpu/registry/registry.py``:
 
 - :class:`ServiceRecord` with the reference's wire form
   (``{"p": path, "e": endpoints, "a": attributes, "eph": ephemeral}``);
@@ -13,11 +13,15 @@ The port's copy of the client side of ``hadoop_tpu/registry/registry.py``:
   10 s);
 - :func:`replica_path`, where a replica of a service registers
   (``/services/serving/<service>/<instance>``);
-- :class:`RegistryClient`, which speaks the reference's
-  ``RegistryProtocol`` over the port's RPC client (``ipc/``) to the
-  reference's ``RegistryServer``, and renews ephemeral records it
-  registered with ``auto_renew``. The server is a fleet daemon the port
-  uses as it is, like the router and the doctor.
+- :class:`RegistryClient`, which speaks ``RegistryProtocol`` over the
+  port's RPC client (``ipc/``) to a registry server (the port's or the
+  reference's: the wire is one), and renews ephemeral records it
+  registered with ``auto_renew``;
+- :class:`RegistryServer`, a service serving ``RegistryProtocol`` on the
+  port's RPC server (``registry.port``, 0 for any): records by path, an
+  ephemeral record's deadline its TTL from the last register or renew,
+  a persistent one never expiring, a sweep every
+  ``registry.sweep.interval`` (1 s) that deletes the expired.
 
 A replica or trainer rank takes any object with the methods of
 :class:`RegistryLike`, so an in-process caller may pass another client.
@@ -31,7 +35,9 @@ import time
 from typing import Dict, List, Optional, Protocol
 
 from hadoop_tpu_torch.conf import ConfLike, Configuration
-from hadoop_tpu_torch.ipc import Client, get_proxy, idempotent
+from hadoop_tpu_torch.ipc import Client, Server, get_proxy, idempotent
+from hadoop_tpu_torch.service import AbstractService
+from hadoop_tpu_torch.util.misc import Daemon
 
 log = logging.getLogger(__name__)
 
@@ -100,25 +106,125 @@ class RegistryLike(Protocol):
     def close(self) -> None: ...
 
 
+class _Entry:
+    __slots__ = ("record", "deadline")
+
+    def __init__(self, record: ServiceRecord, deadline: float):
+        self.record = record
+        self.deadline = deadline
+
+
 class RegistryProtocol:
-    """The reference server's RPC face as the client calls it (the class
-    name is the wire protocol name). Every method is idempotent: a
-    register overwrites, an unregister of a gone path is a no-op."""
+    """The registry's RPC face (the class name is the wire protocol
+    name): the server half calls into ``server``, and the client's proxy
+    reads the idempotency marks. Every method is idempotent: a register
+    overwrites, an unregister of a gone path is a no-op."""
+
+    def __init__(self, server: Optional["RegistryServer"] = None):
+        self.srv = server
 
     @idempotent
-    def register(self, record_wire: Dict, ttl_s: float) -> bool: ...
+    def register(self, record_wire: Dict, ttl_s: float) -> bool:
+        return self.srv.put(ServiceRecord.from_wire(record_wire), ttl_s)
 
     @idempotent
-    def renew(self, path: str, ttl_s: float) -> bool: ...
+    def renew(self, path: str, ttl_s: float) -> bool:
+        return self.srv.renew(path, ttl_s)
 
     @idempotent
-    def unregister(self, path: str) -> bool: ...
+    def unregister(self, path: str) -> bool:
+        return self.srv.remove(path)
 
     @idempotent
-    def resolve(self, path: str) -> Optional[Dict]: ...
+    def resolve(self, path: str) -> Optional[Dict]:
+        rec = self.srv.get(path)
+        return rec.to_wire() if rec else None
 
     @idempotent
-    def list(self, prefix: str) -> List[Dict]: ...
+    def list(self, prefix: str) -> List[Dict]:
+        return [r.to_wire() for r in self.srv.list(prefix)]
+
+
+class RegistryServer(AbstractService):
+    """Records with liveness TTLs, served over the port's RPC server."""
+
+    def __init__(self, conf: ConfLike):
+        super().__init__("RegistryServer")
+        self._entries: Dict[str, _Entry] = {}   # guarded-by: _lock
+        self._lock = threading.Lock()
+        self.rpc: Optional[Server] = None
+        self._stop = threading.Event()
+
+    def service_init(self, conf: ConfLike) -> None:
+        self.rpc = Server(conf, bind=("127.0.0.1", conf.get_int(
+            "registry.port", 0)), num_handlers=2, name="registry")
+        self.rpc.register_protocol("RegistryProtocol",
+                                   RegistryProtocol(self))
+        self._sweep_interval = conf.get_time_seconds(
+            "registry.sweep.interval", 1.0)
+
+    def service_start(self) -> None:
+        self.rpc.start()
+        Daemon(self._sweep_loop, "registry-sweeper").start()
+        log.info("RegistryServer on :%d", self.rpc.port)
+
+    def service_stop(self) -> None:
+        self._stop.set()
+        if self.rpc:
+            self.rpc.stop()
+
+    @property
+    def port(self) -> int:
+        return self.rpc.port
+
+    def put(self, record: ServiceRecord, ttl_s: float) -> bool:
+        deadline = time.monotonic() + ttl_s if record.ephemeral \
+            else float("inf")
+        with self._lock:
+            self._entries[record.path] = _Entry(record, deadline)
+        return True
+
+    def renew(self, path: str, ttl_s: float) -> bool:
+        with self._lock:
+            e = self._entries.get(path)
+            if e is None:
+                return False
+            # a persistent record stays persistent: a keepalive must not
+            # give it a TTL that the sweep would then enforce
+            if e.record.ephemeral:
+                e.deadline = time.monotonic() + ttl_s
+            return True
+
+    def remove(self, path: str) -> bool:
+        with self._lock:
+            return self._entries.pop(path, None) is not None
+
+    def get(self, path: str) -> Optional[ServiceRecord]:
+        with self._lock:
+            e = self._entries.get(path)
+            return e.record if e else None
+
+    def list(self, prefix: str) -> List[ServiceRecord]:
+        prefix = prefix.rstrip("/")
+        with self._lock:
+            return [e.record for p, e in sorted(self._entries.items())
+                    if p == prefix or p.startswith(prefix + "/")]
+
+    def _sweep_once(self, now: Optional[float] = None) -> List[str]:
+        """Delete the records whose deadline passed (on the monotonic
+        clock, or at ``now`` on it); the paths deleted."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            dead = [p for p, e in self._entries.items() if e.deadline < now]
+            for p in dead:
+                del self._entries[p]
+        for p in dead:
+            log.info("registry record %s expired", p)
+        return dead
+
+    def _sweep_loop(self) -> None:
+        while not self._stop.wait(self._sweep_interval):
+            self._sweep_once()
 
 
 class RegistryClient:

@@ -25,9 +25,12 @@ bound to both nonces. The client never accepts less than it asked for.
 
 ``cryptography``'s ``AESGCM`` is imported only where a privacy cipher
 is built, so this module imports on a machine without the package; a
-privacy QoP there raises an error that says so. The server session
-(``SaslServerSession``) and the credential store stay the reference
-daemons': the port runs none.
+privacy QoP there raises an error that says so.
+
+The server half, for the port's RPC server: :class:`SaslServerSession`
+(message in, message out: the challenge to an initiate, the server's
+proof to a response) and :class:`CredentialStore`, the principals'
+SCRAM verifiers from a keytab or added by hand.
 """
 
 from __future__ import annotations
@@ -246,6 +249,103 @@ class CipherSocket:
         return self._sock.fileno()
 
 
+class SaslServerSession:
+    """The server half of the handshake. ``credentials(user)`` gives a
+    principal's verifier (:func:`scram_verifier`'s record) for SCRAM;
+    ``secret_manager`` recomputes a token's password for TOKEN. The
+    granted QoP is the stronger of the client's wish and
+    ``required_qop``."""
+
+    def __init__(self, credentials, secret_manager=None,
+                 required_qop: str = QOP_AUTH):
+        self.credentials = credentials
+        self.secret_manager = secret_manager
+        self.required_qop = required_qop
+        self.user: Optional[str] = None
+        self.token_ident: Optional[Dict] = None
+        self.cipher = None
+        self.qop: Optional[str] = None   # granted, once complete
+        self.complete = False
+        self._state: Optional[Dict] = None
+
+    def step(self, msg: Dict) -> Dict:
+        state = msg.get("state")
+        if state == "initiate":
+            return self._challenge(msg)
+        if state == "response":
+            return self._verify(msg)
+        raise AccessControlError(f"unexpected SASL state {state!r}")
+
+    def _challenge(self, msg: Dict) -> Dict:
+        mech = msg.get("mech")
+        cnonce = msg.get("cnonce", b"")
+        if not isinstance(cnonce, bytes) or len(cnonce) < 8:
+            raise AccessControlError("bad client nonce")
+        wanted = (msg.get("qop"), self.required_qop)
+        if QOP_PRIVACY in wanted:
+            qop = QOP_PRIVACY
+        elif QOP_INTEGRITY in wanted:
+            qop = QOP_INTEGRITY
+        else:
+            qop = QOP_AUTH
+        if mech == MECH_SCRAM:
+            user = msg.get("user")
+            if not user:
+                raise AccessControlError("SCRAM initiate without user")
+            ver = self.credentials(user) if self.credentials else None
+            if ver is None:
+                raise AccessControlError(f"unknown principal {user!r}")
+            token_ident = None
+        elif mech == MECH_TOKEN:
+            if self.secret_manager is None:
+                raise AccessControlError("server does not accept tokens")
+            ident_bytes = msg.get("token_ident")
+            if not isinstance(ident_bytes, bytes):
+                raise AccessControlError("TOKEN initiate without an "
+                                         "identifier")
+            # the recomputed password is the shared secret; the
+            # identifier's claims count only once the proof verifies
+            password = self.secret_manager.password_for(ident_bytes)
+            token_ident = unpack(ident_bytes)
+            user = token_ident["owner"]
+            ver = scram_verifier(password)
+        else:
+            raise AccessControlError(f"unsupported mechanism {mech!r}")
+        if qop == QOP_PRIVACY:
+            _aesgcm()            # refuse before the challenge, not after
+        snonce = secrets.token_bytes(16)
+        self._state = {"mech": mech, "user": user, "ver": ver,
+                       "cnonce": cnonce, "snonce": snonce, "qop": qop,
+                       "token_ident": token_ident}
+        return {"state": "challenge", "snonce": snonce,
+                "salt": ver["salt"], "iters": ver["iters"], "qop": qop}
+
+    def _verify(self, msg: Dict) -> Dict:
+        st = self._state
+        if st is None:
+            raise AccessControlError("SASL response before initiate")
+        ver = st["ver"]
+        auth_msg = _auth_message(st["user"], st["cnonce"], st["snonce"],
+                                 ver["salt"], ver["iters"], st["qop"])
+        proof = msg.get("proof", b"")
+        client_key = _xor(proof, _hmac(ver["stored_key"], auth_msg))
+        if hashlib.sha256(client_key).digest() != ver["stored_key"]:
+            raise AccessControlError(
+                f"authentication failed for {st['user']!r}")
+        self.user = st["user"]
+        self.token_ident = st["token_ident"]
+        self.qop = st["qop"]
+        self.complete = True
+        if st["qop"] in (QOP_PRIVACY, QOP_INTEGRITY):
+            c2s, s2c = _derive_wire_keys(client_key, st["cnonce"],
+                                         st["snonce"])
+            cls = WireCipher if st["qop"] == QOP_PRIVACY \
+                else IntegrityWrapper
+            self.cipher = cls(c2s, s2c, is_client=False)
+        return {"state": "success", "qop": st["qop"],
+                "server_proof": _hmac(ver["server_key"], auth_msg)}
+
+
 class SaslClientSession:
     """The client half: ``initiate()``, then ``step(challenge)`` gives
     the response, then ``step(success)`` checks the server's proof and
@@ -342,3 +442,34 @@ def password_from_keytab(path: str, principal: str) -> bytes:
         raise AccessControlError(
             f"principal {principal!r} not in keytab {path}")
     return entries[user]
+
+
+class CredentialStore:
+    """Principal -> SCRAM verifier, from a keytab (a wirepack map of
+    short principal name to password, as the reference's ``MiniKdc``
+    writes) or added by hand. Called with a user, it gives a copy of
+    that user's verifier or None."""
+
+    def __init__(self):
+        self._verifiers: Dict[str, Dict] = {}    # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def add_principal(self, user: str, password: bytes) -> None:
+        with self._lock:
+            self._verifiers[user] = scram_verifier(password)
+
+    def add_verifier(self, user: str, verifier: Dict) -> None:
+        with self._lock:
+            self._verifiers[user] = dict(verifier)
+
+    def load_keytab(self, path: str) -> "CredentialStore":
+        with open(path, "rb") as f:
+            entries = unpack(f.read())
+        for user, pw in entries.items():
+            self.add_principal(user, pw)
+        return self
+
+    def __call__(self, user: str) -> Optional[Dict]:
+        with self._lock:
+            v = self._verifiers.get(user)
+            return dict(v) if v else None

@@ -12,20 +12,25 @@ process's OS user; ``do_as`` runs a callable as another user, whom
 same wire form (``to_wire``: kind, identifier, password, service); its
 identifier is a wirepack record the client can read
 (``identifier_fields``: owner, renewer, issue and expiry times, master
-key id, extra claims such as a block token's block and modes). Minting
-and verifying tokens (the reference's ``SecretManager``) stays with the
-reference's daemons: the port runs none.
+key id, extra claims such as a block token's block and modes).
+:class:`SecretManager` mints and verifies them (HMAC-SHA256 under
+rolling master keys), for the port's RPC server: its TOKEN
+authentication and the SASL TOKEN mechanism.
 """
 
 from __future__ import annotations
 
 import contextvars
 import getpass
+import hashlib
+import hmac
 import os
+import secrets
 import threading
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
-from hadoop_tpu_torch.io.wire import unpack
+from hadoop_tpu_torch.io.wire import pack, unpack
 
 
 class AccessControlError(PermissionError):
@@ -44,9 +49,11 @@ class UserGroupInformation:
     _login_user: Optional["UserGroupInformation"] = None
     _lock = threading.Lock()
 
-    def __init__(self, user_name: str, auth_method: str = AUTH_SIMPLE,
+    def __init__(self, user_name: str, groups: Optional[List[str]] = None,
+                 auth_method: str = AUTH_SIMPLE,
                  real_user: Optional["UserGroupInformation"] = None):
         self.user_name = user_name
+        self.groups = list(groups or [])
         self.auth_method = auth_method
         self.real_user = real_user
         self.tokens: Dict[str, "Token"] = {}
@@ -128,3 +135,77 @@ class Token:
         """The identifier's claims: ``owner``, ``renewer``, ``issue``,
         ``expiry``, ``key_id``, ``extra``."""
         return unpack(self.identifier)
+
+
+class SecretManager:
+    """HMAC secret manager with rolling master keys: the last three keys
+    stay, so tokens minted before a rotation still verify."""
+
+    def __init__(self, kind: str, key_rotation_s: float = 24 * 3600.0,
+                 token_ttl_s: float = 7 * 24 * 3600.0):
+        self.kind = kind
+        self.key_rotation_s = key_rotation_s
+        self.token_ttl_s = token_ttl_s
+        self._keys: Dict[int, bytes] = {}      # guarded-by: _lock
+        self._key_id = 0                       # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._roll_key()
+
+    def _roll_key(self) -> None:
+        with self._lock:
+            self._key_id += 1
+            self._keys[self._key_id] = secrets.token_bytes(32)
+            for kid in list(self._keys):
+                if kid < self._key_id - 2:
+                    del self._keys[kid]
+
+    def _sign(self, key: bytes, ident: bytes) -> bytes:
+        return hmac.new(key, ident, hashlib.sha256).digest()
+
+    def create_token(self, owner: str, renewer: str = "",
+                     extra: Optional[Dict] = None) -> Token:
+        with self._lock:
+            kid = self._key_id
+            key = self._keys.get(kid)
+        if key is None:
+            raise AccessControlError(
+                f"no current master key (id {kid}) to mint {self.kind}")
+        ident = pack({
+            "owner": owner, "renewer": renewer, "issue": time.time(),
+            "expiry": time.time() + self.token_ttl_s, "key_id": kid,
+            "extra": extra or {},
+        })
+        return Token(self.kind, ident, self._sign(key, ident))
+
+    def password_for(self, identifier: bytes) -> bytes:
+        """A token's password recomputed from its identifier: the SASL
+        TOKEN mechanism's server side, where only the identifier crosses
+        the wire."""
+        ident = unpack(identifier)
+        kid = ident.get("key_id")
+        with self._lock:
+            key = self._keys.get(kid)
+        if key is None:
+            raise AccessControlError(f"unknown/expired master key {kid}")
+        if ident.get("expiry", 0) < time.time():
+            raise AccessControlError("token expired")
+        return self._sign(key, identifier)
+
+    def verify_token(self, token: Token) -> Dict:
+        """The decoded identifier; ``AccessControlError`` for another
+        kind, a bad signature or an expired token."""
+        if token.kind != self.kind:
+            raise AccessControlError(
+                f"token kind {token.kind!r} != expected {self.kind!r}")
+        ident = unpack(token.identifier)
+        kid = ident.get("key_id")
+        with self._lock:
+            key = self._keys.get(kid)
+        if key is None:
+            raise AccessControlError(f"unknown/expired master key {kid}")
+        if not hmac.compare_digest(self._sign(key, token.identifier),
+                                   token.password):
+            raise AccessControlError("token signature mismatch")
+        if ident["expiry"] < time.time():
+            raise AccessControlError("token expired")
+        return ident

@@ -35,7 +35,7 @@ USAGE = ("usage: python -m hadoop_tpu_torch.serving.autoscale "
 
 def autoscaler_main(argv: List[str],
                     conf: Optional[ConfLike] = None) -> int:
-    from hadoop_tpu_torch.dfs.client.filesystem import parse_addr_list
+    from hadoop_tpu_torch.util.misc import parse_addr_list
     from hadoop_tpu_torch.http.server import HttpServer
     from hadoop_tpu_torch.serving.autoscale.controller import (
         Autoscaler, YarnServiceActuator)

@@ -57,7 +57,8 @@ the ``cryptography`` package on the replica's host). Another scheme is
 refused with ``ValueError``, and the command line exits 2 for it.
 ``registry=`` takes any
 ``RegistryLike``; ``--registry HOST:PORT`` opens the port's
-``RegistryClient`` on the reference's registry server. Features the
+``RegistryClient`` on a registry server (the port's ``RegistryServer``
+or the reference's). Features the
 port has not ported are refused with ``NotImplementedError`` naming
 their ROADMAP item (the command line exits 2), never ignored: more than
 one expert shard (A 6). ``serving.longctx.enabled`` attaches the

@@ -1,1 +1,3 @@
-"""Host utilities the DFS client needs: CRC32C checksums (``crc``)."""
+"""Host utilities: CRC32C checksums (``crc``) for the DFS client, and the
+daemon threads, address lists and retry backoff the fleet daemons share
+(``misc``)."""

@@ -1,0 +1,145 @@
+"""The port's command line (``python -m hadoop_tpu_torch.cli.main``).
+
+``registry`` and ``doctor`` run as their own processes, serve (a port
+``RegistryClient`` registers and lists; the doctor discovers the record
+through the registry and answers ``/ws/v1/fleet/doctor``), and exit 0 on
+SIGTERM; ``serve`` and ``autoscale`` hand over to their entry points; an
+unported command of the reference's command line exits 2 naming its
+ROADMAP item, an unknown one 1; the generic options set conf keys as the
+reference's parser does.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import pytest
+
+from hadoop_tpu.cli import main as jmain
+from hadoop_tpu.conf import Configuration as JConfiguration
+from hadoop_tpu_torch.cli import main as cli
+from hadoop_tpu_torch.conf import Configuration
+from hadoop_tpu_torch.http import http_get
+from hadoop_tpu_torch.registry import RegistryClient, ServiceRecord
+from hadoop_tpu_torch.util.misc import free_port
+
+REPO = __import__("pathlib").Path(__file__).resolve().parents[1]
+
+
+def _spawn(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.Popen(
+        [sys.executable, "-m", "hadoop_tpu_torch.cli.main", *args],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _until(fn, seconds=60.0):
+    deadline = time.monotonic() + seconds
+    last = None
+    while time.monotonic() < deadline:
+        try:
+            return fn()
+        except (OSError, ValueError) as e:
+            last = e
+            time.sleep(0.1)
+    raise AssertionError(f"not up in {seconds}s: {last}")
+
+
+def _stop(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, err = proc.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(f"no exit on SIGTERM: {err[-2000:]}")
+    return proc.returncode, err
+
+
+def test_registry_and_doctor_daemons_serve_and_stop_on_sigterm():
+    reg_port, doc_port = free_port(), free_port()
+    reg = _spawn("registry", "-D", f"registry.port={reg_port}")
+    doc = None
+    client = None
+    try:
+        client = RegistryClient(("127.0.0.1", reg_port),
+                                Configuration(load_defaults=False))
+        rec = ServiceRecord("/services/serving/svc/a",
+                            {"http": "127.0.0.1:1"}, {"state": "serving"})
+        _until(lambda: client.register(rec, ttl_s=120, auto_renew=False))
+        assert [r.path for r in client.list("/services")] == [rec.path]
+        doc = _spawn("doctor", "--registry", f"127.0.0.1:{reg_port}",
+                     "--port", str(doc_port), "--interval", "3600",
+                     "-D", "obs.doctor.scrape.timeout=1")
+        report = _until(lambda: json.loads(http_get(
+            "127.0.0.1", doc_port, "/ws/v1/fleet/doctor", 5.0)))
+        assert report["generated_at"] == 0.0       # no poll yet
+        for proc in (doc, reg):
+            rc, err = _stop(proc)
+            assert rc == 0, err[-2000:]
+        doc = reg = None
+    finally:
+        if client is not None:
+            client.close()
+        for proc in (doc, reg):
+            if proc is not None:
+                proc.kill()
+                proc.communicate()
+
+
+@pytest.mark.parametrize("cmd", sorted(cli.UNPORTED))
+def test_an_unported_command_exits_2_naming_its_item(cmd, capsys):
+    assert cli.main([cmd, "x"]) == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP Queue A 1" in err
+
+
+def test_every_reference_command_is_served_or_named():
+    """Each command the reference's ``_main`` dispatches is either run
+    by the port or in ``UNPORTED``."""
+    import inspect
+    import re
+    src = inspect.getsource(jmain._main)
+    ref_cmds = set(re.findall(r'cmd == "([a-z0-9]+)"', src))
+    served = {"version", "registry", "doctor", "serve", "autoscale"}
+    assert ref_cmds == served | set(cli.UNPORTED)
+
+
+def test_unknown_command_exits_1_and_help_0(capsys):
+    assert cli.main(["bogus"]) == 1
+    assert "unknown command" in capsys.readouterr().err
+    assert cli.main([]) == 0
+    assert "registry" in capsys.readouterr().out
+    assert cli.main(["version"]) == 0
+    assert cli.main(["registry", "-conf", "x.xml"]) == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["-D", "a.b=1", "rest", "-Dc.d=x=y", "-fs", "htpu://h:1", "tail"],
+    ["plain"], ["-D", "k=", "x"], ["-D"]])
+def test_generic_options_parse_as_the_references(argv):
+    conf, jconf = Configuration(load_defaults=False), \
+        JConfiguration(load_defaults=False)
+    assert cli.parse_generic_options(conf, list(argv)) == \
+        jmain.parse_generic_options(jconf, list(argv))
+    assert conf.to_dict() == {k: v for k, v in jconf.to_dict().items()}
+
+
+def test_serve_and_autoscale_hand_over(monkeypatch):
+    from hadoop_tpu_torch.serving import service
+    from hadoop_tpu_torch.serving.autoscale import __main__ as amain
+    seen = []
+    monkeypatch.setattr(service, "replica_main",
+                        lambda argv, conf: seen.append(("serve", argv,
+                                                        conf.get("k"))) or 7)
+    monkeypatch.setattr(amain, "autoscaler_main",
+                        lambda argv, conf: seen.append(("autoscale", argv,
+                                                        conf.get("k"))) or 8)
+    assert cli.main(["serve", "-D", "k=v", "--preset", "tiny"]) == 7
+    assert cli.main(["autoscale", "--service", "s", "-Dk=w"]) == 8
+    assert seen == [("serve", ["--preset", "tiny"], "v"),
+                    ("autoscale", ["--service", "s"], "w")]

@@ -114,10 +114,13 @@ def test_readme_appendix_has_the_ports_own_markers():
 def test_each_port_key_is_in_the_references_registry_without_drift():
     """Every key the port reads is registered by the reference with the
     same type, namespace and README bit; the port's defaults are some
-    of the reference's."""
-    assert registry.PATTERNS == {}
-    for key, e in registry.KEYS.items():
-        r = jregistry.KEYS.get(key)
+    of the reference's. A key family the port reads through a prefix
+    (the call queue's ``<prefix>.callqueue.impl``, ...) is the
+    reference's pattern, held the same way."""
+    assert set(registry.PATTERNS) <= set(jregistry.PATTERNS)
+    for key, e in list(registry.KEYS.items()) + \
+            list(registry.PATTERNS.items()):
+        r = jregistry.KEYS.get(key) or jregistry.PATTERNS.get(key)
         assert r is not None, key
         assert e["type"] == r["type"], key
         assert set(e["defaults"]) <= set(r["defaults"]), key
@@ -192,7 +195,8 @@ def test_ws_conf_rows_equal_the_reference_servlets(doors, query):
     port, ref, keys = doors
     got, want = _ws_conf(port.port, query), _ws_conf(ref.port, query)
     assert got["registry_keys"] == len(registry.KEYS)
-    assert got["patterns"] == []
+    assert got["patterns"] == sorted(registry.PATTERNS)
+    assert set(got["patterns"]) <= set(want["patterns"])
     want_rows = {r["key"]: r for r in want["keys"]}
     rows = {r["key"]: r for r in got["keys"]}
     assert len(rows) == len(got["keys"])

@@ -341,6 +341,12 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.conf.registry\n"
         "import hadoop_tpu_torch.analysis.confscan\n"
         "import hadoop_tpu_torch.analysis.__main__\n"
+        "import hadoop_tpu_torch.util.misc, hadoop_tpu_torch.service\n"
+        "import hadoop_tpu_torch.ipc.callqueue, hadoop_tpu_torch.ipc.server\n"
+        "import hadoop_tpu_torch.security.proxyusers\n"
+        "import hadoop_tpu_torch.serving.router\n"
+        "import hadoop_tpu_torch.obs.detect, hadoop_tpu_torch.obs.assemble\n"
+        "import hadoop_tpu_torch.obs.doctor, hadoop_tpu_torch.cli.main\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
         "m.startswith('hadoop_tpu.')]\n"
@@ -398,7 +404,11 @@ def test_port_sources_name_no_jax():
                 "serving/autoscale/controller.py", "conf/levers.py",
                 "conf/registry.py", "analysis/__init__.py",
                 "analysis/__main__.py", "analysis/core.py",
-                "analysis/confscan.py"):
+                "analysis/confscan.py", "util/misc.py", "service.py",
+                "ipc/callqueue.py", "ipc/server.py",
+                "security/proxyusers.py", "serving/router.py",
+                "obs/detect.py", "obs/assemble.py", "obs/doctor.py",
+                "cli/__init__.py", "cli/main.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
