@@ -78,8 +78,9 @@ ranks started by ``spmd.launch``, each a process on this one card in a
 gloo world (NCCL takes no two ranks on one GPU; the collectives and
 pipeline hops travel through host memory): flagship-1b as dp2×tp2, with
 Megatron-SP, dp2×sp2 as ring and as Ulysses, ZeRO-1 dp4, and the
-pipelines pp4 1F1B, dp2×pp2×vpp2 interleaved, pp2×tp2 GPipe with
-Megatron-SP and ZeRO-1 dp2×pp2 (4 layers); mixtral-8x7b as
+pipelines pp4 1F1B, dp2×pp2×vpp2 interleaved (4 layers), pp2×tp2 GPipe
+with Megatron-SP and ZeRO-1 dp2×pp2 (2 layers, as the plans without a
+pipeline); mixtral-8x7b as
 dp2×ep2 and ep2×tp2 (1 layer): one float32 step against the
 single-device step at the same depth, then two bf16 AdamW steps with
 their launches pinned per rank and stage and the pipelines' stashed
@@ -173,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import http.client
 import io
 import json
@@ -212,6 +214,7 @@ from hadoop_tpu_torch.ops import _build, ec_device, flash, norms
 from hadoop_tpu_torch.tools.ab_ec_rmsnorm import graph_ms
 from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
+from hadoop_tpu_torch.testing.minicluster import MiniDFSCluster, fast_conf
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.obs.trainer import TrainerTelemetry, anatomy_delta
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
@@ -470,6 +473,33 @@ WEIGHTS_INT8 = weightplane.WeightPlaneConfig(tier="relaxed", group=64)
 # serving.parity=relaxed against the in-process int8 engine's tokens.
 WEIGHTPLANE = dict(prompts=5, max_new=32, budget=int(2.5e9), max_lanes=64,
                    door=8, alloc_slack=0.01)
+# The dfs_daemons phase: the port's own MiniDFSCluster (its NameNode and
+# ``datanodes`` DataNodes, in a temporary directory on the host) at the
+# reference's defaults for replication (3), ``dfs.blocksize`` (128 MiB),
+# checksums (CRC32C) and the reconstruction timeout (30 s), with the
+# test intervals of ``fast_conf`` and the NameNode's redundancy pass run
+# by the phase (``redundancy_s`` is the background monitor's period, out
+# of the way). flagship-1b at full width with its depth cut to
+# ``layers`` (time and disk: ≈ 2.29 GB a checkpoint, three replicas of
+# it): Trainer on htpu:// for ``steps`` steps with an interval save at
+# ``save_at`` that a second Trainer resumes from; against an
+# uninterrupted run on file://, whose explicit save and restore time the
+# same checkpoint there. Then one DataNode holding the first shard dies
+# (the loader serves the checkpoint, the NameNode brings every block back
+# to 3 live replicas within ``timeout_s``), the NameNode restarts from its
+# fsimage and edits, ``ec_policy`` stripes ``ec_units`` units of
+# ``ec_unit`` seeded bytes (the parity units held to the card's encode, a
+# read with data units 0-2 down, the unit still missing after two come
+# back rebuilt by the port's EC worker and held to the card's decode),
+# and an engine's KV pages go to the DFS tier at min-refs 1 for a second
+# engine with no host ring to replay KVTIERS["replay"] prompts from
+# (``max_new`` tokens each). ``ec_unit`` is 8 MiB, not 64: the client's
+# degraded read fetches one 64 KiB cell a connection and decodes each
+# missing cell apart, 3.4 MB/s for 6 × 64 MiB on the card's host (118 s;
+# PERF.md §6).
+DFS_DAEMONS = dict(datanodes=10, layers=2, steps=3, save_at=2,
+                   timeout_s=120.0, redundancy_s="1h", ec_policy="RS-6-3-64k",
+                   ec_units=6, ec_unit=8 << 20, max_new=16)
 # The moe phase: mixtral-8x7b at full width and all 32 layers from an int8
 # plane built on the card (group 64), DecodeEngine with ``hbm_bytes``,
 # ``max_lanes``, block 16, ``max_context`` and chunk 64, speculation off;
@@ -529,11 +559,12 @@ MOE_TRAIN = dict(batch=1, seq=4096, steps=6, lr=3e-4, profiled=1, prompts=4,
 # are four ranks on one card, not a multi-GPU deployment's, and no
 # pipeline bubble a deployment would see. DIST_PLANS gives each plan its
 # model and depth (full width always): flagship-1b at 4 of its 18 layers
-# for every plan, which pp 4 and pp*vpp 4 divide (18 divides by neither;
-# the plans ran at 6 and 8 layers until the tp_serving phase needed their
-# time: at 4 layers the two phases took 75 and 85 s of host transport and
-# setup on an H100 80GB HBM3 before the pipeline plans came, so full
-# depth would add ~470 s); mixtral-8x7b at 1 layer (a dp2 x ep2
+# for pp 4 and pp*vpp 4, which 4 divides (18 divides by neither), and at
+# 2 for every other plan (the plans ran at 6 and 8 layers until the
+# tp_serving phase needed their time, and at 4 until the dfs_daemons
+# phase did: at 4 layers the two phases took 113.4 and 90.9 s of host
+# transport and setup on an H100 80GB HBM3 whose whole script ran 1295
+# s); mixtral-8x7b at 1 layer (a dp2 x ep2
 # rank holds ~1.0e9 parameters, ~1.2e10 B with AdamW, so four ranks fit
 # the card and not at 2 layers; ep2 x tp2 would fit 2, but the plans' two
 # phases ran 587 s at 2 and 3 steps, too long beside the script's other
@@ -581,21 +612,21 @@ DIST = dict(world=4, backend="gloo", sample=4096,
 # (name, model, layers, mesh, pipeline options); a "zero1" plan trains
 # with ZeRO-1 AdamW
 DIST_PLANS = [
-    ("dp2_tp2", "flagship-1b", 4, {"dp": 2, "tp": 2}, {}),
-    ("dp2_tp2_megatron_sp", "flagship-1b", 4,
+    ("dp2_tp2", "flagship-1b", 2, {"dp": 2, "tp": 2}, {}),
+    ("dp2_tp2_megatron_sp", "flagship-1b", 2,
      {"dp": 2, "tp": 2, "megatron_sp": True}, {}),
-    ("dp2_sp2_ring", "flagship-1b", 4, {"dp": 2, "sp": 2}, {}),
-    ("dp2_sp2_ulysses", "flagship-1b", 4,
+    ("dp2_sp2_ring", "flagship-1b", 2, {"dp": 2, "sp": 2}, {}),
+    ("dp2_sp2_ulysses", "flagship-1b", 2,
      {"dp": 2, "sp": 2, "sp_mode": "ulysses"}, {}),
-    ("zero1_dp4", "flagship-1b", 4, {"dp": 4}, {}),
+    ("zero1_dp4", "flagship-1b", 2, {"dp": 4}, {}),
     ("pp4_1f1b", "flagship-1b", 4, {"pp": 4}, {"n_microbatches": 4}),
     ("dp2_pp2_vpp2_interleaved", "flagship-1b", 4,
      {"dp": 2, "pp": 2, "vpp": 2},
      {"n_microbatches": 2, "pipeline_schedule": "interleaved"}),
-    ("pp2_tp2_megatron_sp_gpipe", "flagship-1b", 4,
+    ("pp2_tp2_megatron_sp_gpipe", "flagship-1b", 2,
      {"pp": 2, "tp": 2, "megatron_sp": True},
      {"n_microbatches": 2, "pipeline_schedule": "gpipe"}),
-    ("zero1_dp2_pp2", "flagship-1b", 4, {"dp": 2, "pp": 2},
+    ("zero1_dp2_pp2", "flagship-1b", 2, {"dp": 2, "pp": 2},
      {"n_microbatches": 2}),
     ("dp2_ep2", "mixtral-8x7b", 1, {"dp": 2, "ep": 2}, {}),
     ("ep2_tp2", "mixtral-8x7b", 1, {"ep": 2, "tp": 2}, {}),
@@ -627,10 +658,11 @@ DIST_SHAPES = [("ulysses_prefill", (4, 8192, 8, 2, 128), False),
 # (M 2) at ``vpp_layers`` (which pp·vpp divides): ``vpp_steps``, a save,
 # one more step, and a fresh trainer restoring and taking it. A token
 # file of ``file_batches`` batches; samples of ``sample`` flat indices a
-# leaf. Both models at 4 layers, dist_train's depth, whose launches a
-# rank-step must equal (6 and 8 until the tp_serving phase needed the
-# time).
-TRAINER_MESH = dict(layers=4, vpp_layers=4, steps=4, crash_at=3,
+# leaf. ``layers`` and ``vpp_layers`` are dist_train's depths for those
+# plans, whose launches a rank-step must equal (6 and 8 until the
+# tp_serving phase needed the time; ``layers`` 4 until the dfs_daemons
+# phase did).
+TRAINER_MESH = dict(layers=2, vpp_layers=4, steps=4, crash_at=3,
                     interval=2, z1_steps=2, vpp_steps=2, file_batches=4.5,
                     sample=4096)
 # The elastic leg of the trainer_mesh world (the reference's
@@ -647,9 +679,9 @@ TRAINER_MESH = dict(layers=4, vpp_layers=4, steps=4, crash_at=3,
 # the newest), for the steps after it. ``step_rtol``: each step after
 # the reshard against the twin's (the reference dryrun's acceptance,
 # __graft_entry__.py); ``guard_rel_tol``: loss_curve_report's, as the
-# reference's smoke. At 4 layers (6 until the tp_serving phase needed the
-# time).
-ELASTIC = dict(layers=4, batch=12, steps=8, interval=4, flag_at=4,
+# reference's smoke. At 2 layers (6 until the tp_serving phase needed the
+# time, 4 until the dfs_daemons phase did).
+ELASTIC = dict(layers=2, batch=12, steps=8, interval=4, flag_at=4,
                dead_at=6, file_batches=10.5, step_rtol=5e-4,
                guard_rel_tol=0.25,
                config=dict(enabled=True, poll_steps=1, min_dp=1,
@@ -4333,6 +4365,404 @@ def phase_weightplane(fs, root):
     free_device()
 
 
+# ------------------------------------------------------------ DFS daemons
+
+def _sha_tree(fs, path):
+    """{file: sha256} of every file under ``path``, read through ``fs``."""
+    out = {}
+    for st in fs.list_status(path):
+        if st.is_dir:
+            out.update(_sha_tree(fs, st.path))
+        else:
+            out[st.path] = hashlib.sha256(fs.read_all(st.path)).hexdigest()
+    return out
+
+
+def _tree_bytes(fs, path):
+    return sum(_tree_bytes(fs, st.path) if st.is_dir else st.length
+               for st in fs.list_status(path))
+
+
+def _dn_index(cluster, uuid):
+    return next(i for i, dn in enumerate(cluster.datanodes)
+                if dn is not None and dn.uuid == uuid)
+
+
+def _until(cond, timeout_s, pump=None, what=""):
+    """Seconds until ``cond()`` holds, calling ``pump`` between looks;
+    fails the run past ``timeout_s``."""
+    t0 = time.monotonic()
+    while not cond():
+        require(time.monotonic() - t0 < timeout_s,
+                f"{what}: not within {timeout_s} s")
+        if pump is not None:
+            pump()
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _replicas_ok(cluster, fs, files, want, dead):
+    """Every block of ``files`` has ``want`` replicas on DataNodes that
+    run and are not the ``dead`` uuid."""
+    live = {dn.uuid for dn in cluster.datanodes
+            if dn is not None and dn.uuid != dead}
+    for path in files:
+        for b in fs.client.get_block_locations(path)["blocks"]:
+            info = cluster.namenode.fsn.bm.get(b["b"]["id"])
+            if len(set(info.locations) & live) < want:
+                return False
+    return True
+
+
+def _unit_bytes(cluster, uuid, block_id):
+    """The raw bytes of replica ``block_id`` on DataNode ``uuid``."""
+    dn = cluster.datanodes[_dn_index(cluster, uuid)]
+    rep = dn.store.get_replica(block_id)
+    require(rep is not None, f"no replica {block_id} on {uuid}")
+    data_path, _, _, n = dn.store.open_for_read(rep.to_block())
+    with open(data_path, "rb") as f:
+        return f.read(n)
+
+
+def phase_dfs_daemons(smi):
+    """The port's NameNode and DataNodes on the host under the card's
+    work (DFS_DAEMONS): flagship-1b (2 layers) trained, checkpointed and
+    resumed on htpu://, served by the loader with a DataNode down, its
+    checkpoint re-replicated and read back across a NameNode restart; an
+    RS(6,3) file's parity and rebuilt unit held to ec_gf256.cu; the DFS KV
+    tier. Returns the phase's launches by kernel."""
+    D = DFS_DAEMONS
+    cfg = get_config("flagship-1b", n_layers=D["layers"])
+    batch, seq = TRAIN["batch"], TRAIN["seq"]
+    leaves = tree_leaves(init_params(cfg, torch.Generator(), device="meta"))
+    n_params = sum(p.numel() for p in leaves)
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    ckpt_bytes = n_params * (elt + 4 + 4) + 4 + 8
+    tmp = tempfile.mkdtemp(prefix="htpu-dfs-")
+    # three replicas of two checkpoints, one more while re-replicating,
+    # the file:// twin, the striped file at 1.5x
+    need = 8 * ckpt_bytes + 2 * D["ec_units"] * D["ec_unit"]
+    free_disk = shutil.disk_usage(tmp).free
+    require(free_disk > need, f"{free_disk} B free under {tmp}: the phase "
+            f"needs {need} B")
+    mem_avail = _mem_available()
+    require(mem_avail > 3 * ckpt_bytes,
+            f"{mem_avail} B of host memory available for snapshots of "
+            f"{ckpt_bytes} B")
+    conf = fast_conf()
+    conf.set("dfs.blocksize", str(128 << 20))          # the default
+    conf.set("dfs.namenode.redundancy.interval", D["redundancy_s"])
+    # the reference's default, which fast_conf shortens to 4 s: a unit's
+    # rebuild outlasting it is scheduled again over itself
+    conf.set("dfs.namenode.reconstruction.pending.timeout", "30s")
+    sock = f"{tmp}/ds-_PORT.sock"
+    if len(sock) < 100:                      # AF_UNIX paths are short
+        conf.set("dfs.domain.socket.path", sock)
+    n_tokens = int(TRAINER["file_batches"] * batch * (seq + 1))
+    tokens = torch.randint(0, cfg.vocab_size, (n_tokens,),
+                           generator=torch.Generator().manual_seed(SEED + 60))
+    token_bytes = tokens.numpy().astype(np.uint16).tobytes()
+    local, lroot = LocalFileSystem(), f"{tmp}/local"
+    rec = {"phase": "dfs_daemons", "model": "flagship-1b",
+           "layers": cfg.n_layers, "reduced": f"depth {cfg.n_layers} of "
+           f"{get_config('flagship-1b').n_layers} layers",
+           "datanodes": D["datanodes"], "params": n_params,
+           "checkpoint_bytes_reckoned": ckpt_bytes}
+    launches = {}
+    zero_counts()
+    ec_device.launches = 0
+    try:
+        with MiniDFSCluster(num_datanodes=D["datanodes"], conf=conf,
+                            base_dir=f"{tmp}/dfs") as cluster:
+            fs = cluster.get_filesystem()
+            hroot = "/flagship"
+            gate_s, t0 = {}, time.monotonic()
+            host, train = _dfs_train_gate(cfg, fs, hroot, local, lroot,
+                                          token_bytes, len(leaves))
+            rec.update(train)
+            gate_s["train"], t0 = time.monotonic() - t0, time.monotonic()
+            params, loader = _dfs_loader_gate(cluster, fs, hroot, cfg, host)
+            del host
+            rec.update(loader)
+            gate_s["loader"], t0 = time.monotonic() - t0, time.monotonic()
+            rec.update(_dfs_restart_gate(cluster, fs, hroot))
+            gate_s["restart"], t0 = time.monotonic() - t0, time.monotonic()
+            rec.update(_dfs_ec_gate(cluster, fs))
+            gate_s["ec"], t0 = time.monotonic() - t0, time.monotonic()
+            rec.update(_dfs_kv_gate(fs, params, cfg))
+            gate_s["kv"] = time.monotonic() - t0
+            rec["gate_s"] = gate_s
+            del params
+            launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                 "adamw", "grad_sq", "rms_norm_fwd",
+                                 "rms_norm_bwd"), train_counts()),
+                            ec_gf256=ec_device.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = launches
+    rec["device"] = smi
+    require(launches.get("ec_gf256", 0) >= 2,
+            f"ec_gf256.cu launched {launches.get('ec_gf256')} times")
+    rec["note"] = ("host numbers with the card in the loop: one process "
+                   "holds the NameNode, the DataNodes, the client and the "
+                   "model; no DFS benchmark")
+    emit({"dfs": rec})
+    free_device()
+    return launches
+
+
+def _dfs_train_gate(cfg, fs, hroot, local, lroot, token_bytes, n_leaves):
+    """Gate 1: an uninterrupted run on file:// (its explicit save and a
+    restore timed there), then Trainer on htpu:// to the interval save at
+    ``save_at``, and a second Trainer that resumes from it for the last
+    step and saves: losses within TRAINER's loss_rtol, each step's
+    launches as the train phase's at this depth."""
+    D = DFS_DAEMONS
+    batch, steps, save_at = TRAIN["batch"], D["steps"], D["save_at"]
+    local.write_all(f"{lroot}/tokens.bin", token_bytes)
+    fs.write_all(f"{hroot}/tokens.bin", token_bytes)
+
+    def trainer(store, root, **kw):
+        return Trainer(cfg, MeshPlan(), store, f"{root}/tokens.bin",
+                       f"{root}/trainer", batch=batch, lr=TRAIN["lr"],
+                       remat=TRAIN["remat"], seed=SEED, **kw)
+
+    per_step = []
+    u = trainer(local, lroot, ckpt_interval=0, keep=1)
+    _counted_steps(u, per_step)
+    want_losses = u.train(steps)
+    file_save_s = _timed(lambda: u.save())
+    u.close()
+    del u
+    r = trainer(local, lroot, ckpt_interval=0, keep=1)
+    file_restore_s = _timed(r.try_restore)
+    require(r.step == steps, f"file:// restore at step {r.step}")
+    r.close()
+    del r
+
+    a = trainer(fs, hroot, ckpt_interval=save_at, keep=1)
+    _counted_steps(a, per_step)
+    crashed = a.train(save_at)          # the interval save fenced at exit
+    require(list_checkpoints(fs, f"{hroot}/trainer") == [save_at],
+            "the interval save is not durable on htpu:// at train()'s exit")
+    a.close()
+    del a
+    b = trainer(fs, hroot, ckpt_interval=0, keep=1)
+    _counted_steps(b, per_step)
+    restore_s = _timed(b.try_restore)
+    require(b.step == save_at, f"htpu:// restore at step {b.step}")
+    resumed = b.train(steps - save_at)
+    save_s = _timed(lambda: b.save())
+    require(list_checkpoints(fs, f"{hroot}/trainer") == [steps],
+            "retention kept more than the newest checkpoint")
+    host = tree_map(lambda t: t.cpu(), b.params)
+    b.close()
+    del b
+    ckpt = _tree_bytes(fs, f"{hroot}/trainer/step_{steps:012d}")
+    got = crashed + resumed
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want_losses)]
+    want = train_counts_want(cfg, n_leaves)
+    require(all(math.isfinite(x) for x in got + want_losses),
+            "non-finite loss")
+    require(max(rel) <= TRAINER["loss_rtol"],
+            f"htpu:// losses {got} against file:// {want_losses}")
+    require(all(c == want for c, _, _ in per_step) and
+            len(per_step) == 2 * steps,
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm fwd, "
+            f"rms_norm bwd), expected {want}: "
+            f"{[c for c, _, _ in per_step]}")
+    mb = ckpt / 1e6
+    return host, {"losses_file": want_losses, "losses_htpu": got,
+                  "loss_rel_err": rel, "checkpoint_bytes": ckpt,
+                  "save_s": save_s, "save_mb_per_s": mb / save_s,
+                  "restore_s": restore_s,
+                  "restore_mb_per_s": mb / restore_s,
+                  "file_save_s": file_save_s,
+                  "file_save_mb_per_s": mb / file_save_s,
+                  "file_restore_s": file_restore_s,
+                  "file_restore_mb_per_s": mb / file_restore_s,
+                  "launches_per_step": want}
+
+
+def _timed(fn):
+    """Wall seconds of ``fn()`` between two device syncs; fails the run
+    when it returns False (a restore that found nothing)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    require(out is not False, f"{fn} returned False")
+    return time.monotonic() - t0
+
+
+def _dfs_loader_gate(cluster, fs, hroot, cfg, host):
+    """Gate 2: a DataNode holding the first shard dies; the loader serves
+    the checkpoint (its leaves bit-equal to ``host``, the resumed
+    trainer's parameters, and greedy tokens equal to an engine's on
+    those), and the NameNode brings every block back to 3 live replicas.
+    Returns the loaded parameters and the record."""
+    D = DFS_DAEMONS
+    step_dir = f"{hroot}/trainer/step_{D['steps']:012d}"
+    files = sorted(st.path for st in fs.list_status(step_dir))
+    shard = next(p for p in files if not p.endswith("manifest.json"))
+    holder = fs.client.get_block_locations(shard)["blocks"][0]["locs"][0]
+    victim = _dn_index(cluster, holder["u"])
+    cluster.kill_datanode(victim)
+    dead = holder["u"]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    params, step = load_serving_params(fs, f"{hroot}/trainer", cfg,
+                                       io_workers=TRAINER["io_workers"])
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    require(step == D["steps"], f"loaded step {step}")
+    unequal = [i for i, (x, y) in enumerate(zip(tree_leaves(params),
+                                                tree_leaves(host)))
+               if x.dtype != y.dtype or not torch.equal(x.cpu(), y)]
+    require(not unequal, f"loaded leaves {unequal} differ from the "
+            f"trainer's")
+    prompts = _prompts(cfg.vocab_size)[0][1:1 + TRAINER["prompts"]]
+    greedy = SamplingParams(max_new_tokens=D["max_new"])
+    tokens = []
+    dev = tree_leaves(params)[0].device
+    for tree in (params, tree_map(lambda t: t.to(dev), host)):
+        eng = DecodeEngine(tree, cfg, **SERVE_KW)
+        tokens.append(eng.generate(prompts, greedy))
+        eng.stop()
+        del eng
+    require(tokens[0] == tokens[1], "greedy tokens of the checkpoint "
+            "loaded from htpu:// differ from the trainer's parameters'")
+    # from the first redundancy pass: the DataNode's dead interval has
+    # passed during the load
+    rereplicate_s = _until(
+        lambda: _replicas_ok(cluster, fs, files, 3, dead), D["timeout_s"],
+        pump=cluster.namenode.redundancy_pass,
+        what="re-replication of the checkpoint")
+    cluster.restart_datanode(victim)
+    cluster.wait_active()
+    return params, {"load_s": load_s, "killed_datanode": victim,
+                    "tokens_loaded": tokens[0],
+                    "rereplicate_s": rereplicate_s}
+
+
+def _dfs_restart_gate(cluster, fs, hroot):
+    """Gate 3: the NameNode restarts from its fsimage and edits; the
+    checkpoint lists again and reads back with the same hashes."""
+    base = f"{hroot}/trainer"
+    before = _sha_tree(fs, base)
+    t0 = time.monotonic()
+    cluster.restart_namenode()
+    cluster.wait_active()
+    restart_s = time.monotonic() - t0
+    require(list_checkpoints(fs, base) == [DFS_DAEMONS["steps"]],
+            "the checkpoint does not list after the NameNode's restart")
+    after = _sha_tree(fs, base)
+    require(after == before, "the checkpoint's bytes changed across the "
+            "NameNode's restart")
+    return {"namenode_restart_s": restart_s, "checkpoint_files": len(after)}
+
+
+def _dfs_ec_gate(cluster, fs):
+    """Gate 4: RS(6,3) on a directory, ``ec_units`` units of seeded bytes
+    written through the port's striped client; the parity units' raw
+    bytes on the DataNodes equal ec_gf256.cu's encode of the same cells;
+    the file reads bit-equal with the DataNodes of data units 0-2 down;
+    two come back, the NameNode schedules the unit still missing onto the
+    free DataNode, the port's EC worker rebuilds it, and the rebuilt
+    unit equals ec_gf256.cu's decode of the same stripes."""
+    from hadoop_tpu_torch.io.erasurecode import get_policy
+    D = DFS_DAEMONS
+    policy = get_policy(D["ec_policy"])
+    k, m, cell, unit = policy.k, policy.m, policy.cell_size, D["ec_unit"]
+    require(k == D["ec_units"], f"{D['ec_policy']} has {k} data units")
+    data = torch.randint(0, 256, (k * unit,), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(SEED + 61)
+                         ).numpy()
+    cells = [np.ascontiguousarray(u).tobytes() for u in
+             data.reshape(-1, k, cell).transpose(1, 0, 2)]
+    data = data.tobytes()
+    fs.mkdirs("/ec")
+    fs.client.set_ec_policy("/ec", D["ec_policy"])
+    t0 = time.monotonic()
+    fs.write_all("/ec/f.bin", data)
+    write_s = time.monotonic() - t0
+    gid = fs.client.get_block_locations("/ec/f.bin")["blocks"][0]["b"]["id"]
+    info = cluster.namenode.fsn.bm.get(gid)
+    _until(lambda: len(info.live_units()) == k + m, D["timeout_s"],
+           what="the group's units reported")
+    by_idx = {idx: uuid for uuid, idx in info.unit_map.items()}
+    raw = [_unit_bytes(cluster, by_idx[i], gid + i) for i in range(k + m)]
+    require(raw[:k] == cells, "a data unit on its DataNode is not the "
+            "file's cells")
+    t0 = time.monotonic()
+    parity = ec_device.encode_cells(k, m, cells)
+    encode_s = time.monotonic() - t0
+    require(parity == raw[k:], "the parity units on the DataNodes differ "
+            "from ec_gf256.cu's encode of the same cells")
+    down = [_dn_index(cluster, by_idx[i]) for i in range(3)]
+    free = [i for i, dn in enumerate(cluster.datanodes)
+            if dn is not None and dn.uuid not in info.unit_map]
+    require(len(free) == 1, f"free DataNodes {free}")
+    for i in down:
+        cluster.kill_datanode(i)
+    reader = cluster.get_filesystem()
+    t0 = time.monotonic()
+    require(reader.read_all("/ec/f.bin") == data,
+            "the striped file read with units 0-2 down differs")
+    degraded_s = time.monotonic() - t0
+    for i in down[:2]:
+        cluster.restart_datanode(i)
+    _until(lambda: {0, 1} <= info.live_units(), D["timeout_s"],
+           what="units 0 and 1 reported again")
+    free_uuid = cluster.datanodes[free[0]].uuid
+    rebuild_s = _until(
+        lambda: info.unit_map.get(free_uuid) == 2 and
+        2 in info.live_units(), D["timeout_s"],
+        pump=cluster.namenode.redundancy_pass,
+        what="unit 2 rebuilt on the free DataNode")
+    rebuilt = _unit_bytes(cluster, free_uuid, gid + 2)
+    decoded = ec_device.decode_cells(k, m, [None] * 3 + raw[3:])
+    require(decoded == cells and rebuilt == decoded[2],
+            "the rebuilt unit differs from ec_gf256.cu's decode")
+    cluster.restart_datanode(down[2])
+    cluster.wait_active()
+    mb = len(data) / 1e6
+    return {"ec_policy": D["ec_policy"], "ec_bytes": len(data),
+            "ec_write_s": write_s, "ec_write_mb_per_s": mb / write_s,
+            "ec_encode_cells_s": encode_s, "ec_degraded_read_s": degraded_s,
+            "ec_degraded_read_mb_per_s": mb / degraded_s,
+            "ec_reconstruct_s": rebuild_s}
+
+
+def _dfs_kv_gate(fs, params, cfg):
+    """Gate 5: an engine keeps its KV pages on the port's DFS at min-refs
+    1 and persists them; a second engine with no host ring replays
+    KVTIERS["replay"] prompts from the DFS tier, with the first's
+    tokens."""
+    K = KVTIERS
+    tiers = dict(kv_store_fs=fs, kv_store_dir="/kvcache", kv_dfs_min_refs=1)
+    prompts = _kv_prompts(cfg.vocab_size)[:K["replay"]]
+    greedy = SamplingParams(max_new_tokens=K["max_new"])
+    eng = DecodeEngine(params, cfg, **tiers, **SERVE_KW)
+    first = eng.generate(prompts, greedy)
+    persisted = eng.persist_cache(timeout=DFS_DAEMONS["timeout_s"])
+    require(eng.kvstore.flush(DFS_DAEMONS["timeout_s"]),
+            "the DFS writer did not drain")
+    persists = eng.kvstore.stats()["dfs_persists"]
+    eng.stop()
+    del eng
+    eng = DecodeEngine(params, cfg, **tiers, **SERVE_KW)
+    got = eng.generate(prompts, greedy)
+    hits = eng.kvstore.stats()["hits_dfs"]
+    eng.stop()
+    del eng
+    require(persists > 0 and hits > 0 and got == first,
+            f"DFS KV tier: {persists} persisted, {hits} hits, tokens equal "
+            f"{got == first}")
+    return {"kv_persist_enqueued": persisted, "kv_dfs_persists": persists,
+            "kv_hits_dfs": hits}
+
+
 # -------------------------------------------------------------------- MoE
 
 def build_int8_model(cfg, group, seed):
@@ -6893,6 +7323,7 @@ def main() -> int:
         phase_kvtiers(fs, root)
         phase_fleet_front(fs, root)
         phase_weightplane(fs, root)
+        dfs_launches = phase_dfs_daemons(smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()
@@ -6951,7 +7382,8 @@ def main() -> int:
         launches_dist=dist_launches.get(rec["name"], 0),
         launches_trainer_mesh=mesh_launches.get(rec["name"], 0),
         launches_tp_serving=tp_launches.get(rec["name"], 0),
-        launches_relaxed=relaxed_launches.get(rec["name"], 0))
+        launches_relaxed=relaxed_launches.get(rec["name"], 0),
+        launches_dfs_daemons=dfs_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

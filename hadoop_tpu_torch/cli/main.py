@@ -1,5 +1,7 @@
 """The port's command line: its daemons and its serving plane.
 
+    python -m hadoop_tpu_torch.cli.main namenode [-D k=v ...]
+    python -m hadoop_tpu_torch.cli.main datanode [-D k=v ...]
     python -m hadoop_tpu_torch.cli.main registry [-D k=v ...]
     python -m hadoop_tpu_torch.cli.main doctor [--registry H:P]
         [--service PREFIX] [--namenode-http H:P] [--endpoints LIST]
@@ -12,10 +14,13 @@
 
 The daemon half of ``hadoop_tpu/cli/main.py``. Generic options come
 before a command's own: ``-D key=value`` (or ``-Dkey=value``) sets a
-conf key, ``-fs URI`` sets ``fs.defaultFS``. ``registry`` runs the
-port's ``RegistryServer`` (``registry.port``, 0 for any); ``doctor`` the
-port's ``FleetDoctor`` (``obs/doctor.py``); both stop on SIGTERM or
-SIGINT and exit 0. ``serve`` hands over to the replica's command line
+conf key, ``-fs URI`` sets ``fs.defaultFS``. ``namenode`` and
+``datanode`` run the port's DFS daemons (``dfs.namenode.name.dir``,
+``dfs.namenode.rpc-port``; ``dfs.datanode.data.dir``,
+``dfs.namenode.rpc-address``); ``registry`` the port's
+``RegistryServer`` (``registry.port``, 0 for any); ``doctor`` the port's
+``FleetDoctor`` (``obs/doctor.py``); each stops on SIGTERM or SIGINT and
+exits 0. ``serve`` hands over to the replica's command line
 (``serving.service.replica_main``) and ``autoscale`` to the
 autoscaler's (``serving.autoscale.__main__.autoscaler_main``).
 
@@ -37,14 +42,13 @@ from hadoop_tpu_torch.conf import ConfLike, Configuration
 VERSION = "0.1.0"
 FS_DEFAULT_FS = "fs.defaultFS"
 
-_DFS = "ROADMAP Queue A 10 (the DFS daemons)"
+_HA = "ROADMAP Queue A 10 part 2 (the JournalNode and HA)"
 _YARN = "ROADMAP Queue A 11 (the YARN daemons and the MapReduce engine)"
 _REST = "ROADMAP Queue A 12 (the tools and the rest of the command line)"
 # the reference's commands the port does not run yet, and the item that
 # brings each
 UNPORTED: Dict[str, str] = {
-    **{c: _DFS for c in ("namenode", "datanode", "journalnode", "oiv",
-                         "oev")},
+    **{c: _HA for c in ("journalnode", "oiv", "oev")},
     **{c: _YARN for c in ("rm", "nodeagent", "historyserver", "job")},
     **{c: _REST for c in ("fs", "dfsadmin", "fsck", "balancer", "mover",
                           "cacheadmin", "crypto", "kms", "httpfs",
@@ -114,6 +118,12 @@ def main(argv=None) -> int:
     if cmd == "version":
         print(f"hadoop_tpu_torch {VERSION}")
         return 0
+    if cmd == "namenode":
+        from hadoop_tpu_torch.dfs.namenode import NameNode
+        return _run_daemon(NameNode(conf), conf)
+    if cmd == "datanode":
+        from hadoop_tpu_torch.dfs.datanode import DataNode
+        return _run_daemon(DataNode(conf), conf)
     if cmd == "registry":
         from hadoop_tpu_torch.registry import RegistryServer
         return _run_daemon(RegistryServer(conf), conf)

@@ -88,13 +88,17 @@ class ConfLike(Protocol):
 
 class Configuration:
     """Flat string properties with the reference's typed getters.
-    ``load_defaults`` is accepted for the reference's signature; there
-    are no default resources to load."""
+    ``other`` copies another conf's properties (the daemons each take a
+    copy of the cluster's); ``load_defaults`` is accepted for the
+    reference's signature; there are no default resources to load."""
 
-    def __init__(self, load_defaults: bool = True):
+    def __init__(self, other: Optional["ConfLike"] = None,
+                 load_defaults: bool = True):
         self._lock = threading.Lock()
         self._props: Dict[str, str] = {}
         self._strict_warned: set = set()   # strict mode warns once a key
+        if other is not None:
+            self._props = {k: str(v) for k, v in other.to_dict().items()}
 
     def get(self, key: str, default: Optional[str] = None) -> Optional[str]:
         with self._lock:

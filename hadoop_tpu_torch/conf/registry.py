@@ -29,6 +29,34 @@ KEYS = {
             'hadoop_tpu_torch/conf/__init__.py',
         ),
     },
+    "dfs.block.access.token.enable": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.blockreport.interval": {
+        "type": 'time',
+        "defaults": ('21600.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.blocksize": {
+        "type": 'size',
+        "defaults": ('134217728',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
     "dfs.bytes-per-checksum": {
         "type": 'size',
         "defaults": ('512',),
@@ -102,59 +130,418 @@ KEYS = {
             'hadoop_tpu_torch/dfs/client/dfsclient.py',
         ),
     },
+    "dfs.cluster.administrators": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
     "dfs.data.transfer.protection": {
         "type": 'str',
         "defaults": ("'privacy'",),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/client/dfsclient.py',
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.capacity": {
+        "type": 'size',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.data.dir": {
+        "type": 'list',
+        "defaults": ('<dynamic>',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.directoryscan.interval": {
+        "type": 'time',
+        "defaults": ('21600.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.drop.cache.behind.writes": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.hostname": {
+        "type": 'str',
+        "defaults": ("'127.0.0.1'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.http-port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.http.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.max.locked.memory": {
+        "type": 'size',
+        "defaults": ('67108864',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.scan.period": {
+        "type": 'time',
+        "defaults": ('10800.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.storage.type": {
+        "type": 'str',
+        "defaults": ("'DISK'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.synconclose": {
+        "type": 'bool',
+        "defaults": ('False',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.volume-choosing-policy": {
+        "type": 'str',
+        "defaults": ("'available-space'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+        ),
+    },
+    "dfs.datanode.volumes": {
+        "type": 'int',
+        "defaults": ('1',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
         ),
     },
     "dfs.domain.socket.path": {
         "type": 'str',
         "defaults": ("''",),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/client/streams.py',
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
         ),
     },
     "dfs.encrypt.data.transfer": {
         "type": 'bool',
         "defaults": ('False',),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 3,
         "files": (
             'hadoop_tpu_torch/dfs/client/dfsclient.py',
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
         ),
     },
     "dfs.encryption.key.provider.uri": {
         "type": 'str',
         "defaults": ("''",),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/client/filesystem.py',
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.ha.namenode.id": {
+        "type": 'str',
+        "defaults": ("'nn1'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.heartbeat.interval": {
+        "type": 'time',
+        "defaults": ('3.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.lease.hard-limit": {
+        "type": 'time',
+        "defaults": ('1200.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
         ),
     },
     "dfs.lease.soft-limit": {
         "type": 'time',
         "defaults": ('60.0',),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/client/dfsclient.py',
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.namenode.checkpoint.period": {
+        "type": 'time',
+        "defaults": ('3600.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.checkpoint.txns": {
+        "type": 'int',
+        "defaults": ('1000000',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.handler.count": {
+        "type": 'int',
+        "defaults": ('8',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.heartbeat.recheck-interval": {
+        "type": 'time',
+        "defaults": ('10.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.namenode.http-port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.http.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.name.dir": {
+        "type": 'str',
+        "defaults": ("'/tmp/htpu-name'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.reconstruction.pending.timeout": {
+        "type": 'time',
+        "defaults": ('30.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.namenode.redundancy.interval": {
+        "type": 'time',
+        "defaults": ('3.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.replication.min": {
+        "type": 'int',
+        "defaults": ('1',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
         ),
     },
     "dfs.namenode.rpc-address": {
         "type": 'str',
         "defaults": ("'127.0.0.1:8020'",),
         "namespace": 'dfs',
-        "documented": False, "sites": 2,
+        "documented": False, "sites": 3,
         "files": (
             'hadoop_tpu_torch/dfs/client/filesystem.py',
+            'hadoop_tpu_torch/dfs/datanode/datanode.py',
             'hadoop_tpu_torch/obs/doctor.py',
+        ),
+    },
+    "dfs.namenode.rpc-bind-host": {
+        "type": 'str',
+        "defaults": ("'127.0.0.1'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.rpc-port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.safemode.extension": {
+        "type": 'time',
+        "defaults": ('0.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.namenode.safemode.threshold-pct": {
+        "type": 'float',
+        "defaults": ('0.999',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.namenode.scheduler.impl": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.shared.edits.dir": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.namenode.write-lock-reporting-threshold": {
+        "type": 'time',
+        "defaults": ('1.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.permissions.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.permissions.superusergroup": {
+        "type": 'str',
+        "defaults": ("'supergroup'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.replication": {
+        "type": 'int',
+        "defaults": ('3',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "dfs.replication.max": {
+        "type": 'int',
+        "defaults": ('512',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
         ),
     },
     "elastic.cooldown.polls": {
@@ -224,8 +611,9 @@ KEYS = {
         "type": 'str',
         "defaults": ("'authentication'",),
         "namespace": 'hadoop',
-        "documented": False, "sites": 2,
+        "documented": False, "sites": 3,
         "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
             'hadoop_tpu_torch/ipc/client.py',
             'hadoop_tpu_torch/ipc/server.py',
         ),
@@ -234,8 +622,10 @@ KEYS = {
         "type": 'str',
         "defaults": ("'simple'",),
         "namespace": 'hadoop',
-        "documented": False, "sites": 2,
+        "documented": False, "sites": 4,
         "files": (
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
             'hadoop_tpu_torch/ipc/client.py',
             'hadoop_tpu_torch/ipc/server.py',
         ),
@@ -247,6 +637,15 @@ KEYS = {
         "documented": False, "sites": 1,
         "files": (
             'hadoop_tpu_torch/ipc/client.py',
+        ),
+    },
+    "hadoop.security.group.mapping.static.mapping": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'hadoop',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/security/groups.py',
         ),
     },
     "hadoop.security.server.keytab": {
@@ -355,6 +754,34 @@ KEYS = {
         "documented": True, "sites": 1,
         "files": (
             'hadoop_tpu_torch/http/server.py',
+        ),
+    },
+    "namenode.audit.enable": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'namenode',
+        "documented": True, "sites": 3,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/audit.py',
+            'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
+        ),
+    },
+    "net.topology.script.file.name": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'net',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/net/topology.py',
+        ),
+    },
+    "net.topology.table": {
+        "type": 'list',
+        "defaults": ('()',),
+        "namespace": 'net',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/net/topology.py',
         ),
     },
     "obs.comm.timing": {

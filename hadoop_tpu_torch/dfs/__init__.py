@@ -1,3 +1,3 @@
-"""The port's DFS client (``client``) and the client half of the DFS
-protocols (``protocol``). The NameNode and the DataNodes stay the
-reference's (ROADMAP Queue A 10)."""
+"""The port's DFS: the client (``client``), the protocols
+(``protocol``), the NameNode (``namenode``), the DataNode
+(``datanode``) and WebHDFS on the NameNode (``webhdfs``)."""

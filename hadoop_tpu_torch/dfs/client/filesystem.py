@@ -4,8 +4,10 @@ The port's copy of ``hadoop_tpu/dfs/client/filesystem.py``, the
 ``htpu://host:port`` scheme. It has the nine methods of the port's
 ``FileSystemLike`` (``fs.py``), so the trainer, checkpoints, data
 loader, serving loader and KV tier run on it as on the local disk, and
-``create``, ``open``, listing, a content summary, EC policies and
-cache directives. :func:`create_instance` takes the NameNode from
+``create``, ``open``, listing, a content summary, EC policies, cache
+directives and the namespace features (replication, permissions and
+owners, quotas, xattrs, ACLs, storage policies, snapshots, concat and
+truncate). :func:`create_instance` takes the NameNode from
 the URI's authority, or from ``dfs.namenode.rpc-address`` (a comma list
 of ``host:port``, an HA pair) when the URI has none.
 
@@ -183,6 +185,63 @@ class DistributedFileSystem:
             return True
         except FileNotFoundError:
             return False
+
+    def set_replication(self, path: str, replication: int) -> bool:
+        return self.client.nn.set_replication(path, replication)
+
+    def set_permission(self, path: str, permission: int) -> None:
+        self.client.nn.set_permission(path, permission)
+
+    def set_owner(self, path: str, owner: str, group: str) -> None:
+        self.client.nn.set_owner(path, owner, group)
+
+    # ------------------------------------------------- namespace features
+
+    def set_quota(self, path: str, ns_quota: int = -1,
+                  space_quota: int = -1) -> bool:
+        return self.client.nn.set_quota(path, ns_quota, space_quota)
+
+    def set_xattr(self, path: str, name: str, value: bytes) -> bool:
+        return self.client.nn.set_xattr(path, name, value)
+
+    def get_xattrs(self, path: str, names=None):
+        return self.client.nn.get_xattrs(path, names)
+
+    def remove_xattr(self, path: str, name: str) -> bool:
+        return self.client.nn.remove_xattr(path, name)
+
+    def set_acl(self, path: str, entries) -> bool:
+        return self.client.nn.set_acl(path, entries)
+
+    def get_acl(self, path: str):
+        return self.client.nn.get_acl(path)
+
+    def set_storage_policy(self, path: str, policy: str) -> bool:
+        return self.client.nn.set_storage_policy(path, policy)
+
+    def get_storage_policy(self, path: str) -> str:
+        return self.client.nn.get_storage_policy(path)
+
+    def allow_snapshot(self, path: str) -> bool:
+        return self.client.nn.allow_snapshot(path)
+
+    def create_snapshot(self, path: str, name: str) -> str:
+        return self.client.nn.create_snapshot(path, name)
+
+    def delete_snapshot(self, path: str, name: str) -> bool:
+        return self.client.nn.delete_snapshot(path, name)
+
+    def rename_snapshot(self, path: str, old: str, new: str) -> bool:
+        return self.client.nn.rename_snapshot(path, old, new)
+
+    def snapshot_diff(self, path: str, from_snap: str, to_snap: str):
+        return self.client.nn.snapshot_diff(path, from_snap, to_snap)
+
+    def concat(self, target: str, srcs) -> bool:
+        return self.client.nn.concat(target, srcs)
+
+    def truncate(self, path: str, new_length: int) -> bool:
+        return self.client.nn.truncate(path, new_length)
 
     def content_summary(self, path: str):
         return self.client.nn.content_summary(path)

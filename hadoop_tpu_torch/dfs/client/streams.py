@@ -320,6 +320,7 @@ class _Pipeline:
         self.window = window            # max unacked packets (0 = no cap)
         self._unacked: "queue.Queue[int]" = queue.Queue()
         self._acked_through = -1
+        self._first_seq: Optional[int] = None
         self._ack_cond = threading.Condition()
         self._error: Optional[Exception] = None
         try:
@@ -388,6 +389,13 @@ class _Pipeline:
         with self._ack_cond:
             if self._error is not None:
                 raise self._error
+            if self._first_seq is None:
+                # the window counts from this pipeline's first packet:
+                # the stream's sequence runs on across blocks, and a
+                # later block counted from -1 waits for acks of packets
+                # it never sent (ROADMAP C 22)
+                self._first_seq = pkt.seq
+                self._acked_through = pkt.seq - 1
             # outstanding-ack window: run at most ``window`` packets
             # ahead of the last ack — deep enough to keep every hop's
             # pipe full, bounded so a wedged DN surfaces as a pipeline

@@ -16,7 +16,7 @@ With ``dfs.encrypt.data.transfer`` the DFS client installs a
 socket then runs a SASL handshake (user ``dek-<key id>``, the
 NameNode's data encryption key as the secret) before its first op
 frame and is wrapped for integrity or privacy. The accept side
-(``secure_accept``) stays the DataNode's.
+(``secure_accept``) is the DataNode's.
 """
 
 from __future__ import annotations
@@ -196,3 +196,99 @@ def read_block_range(addr, block_wire: Dict, offset: int,
         return bytes(out)
     finally:
         sock.close()
+
+
+class DataEncryptionKeys:
+    """Rotating shared secrets for SASL on the data plane.
+
+    Ref: the reference's DataEncryptionKey flow — the NN's
+    BlockTokenSecretManager mints encryption keys
+    (``dfs.encrypt.data.transfer``), DNs learn them via the NN, clients
+    fetch them with getDataEncryptionKey(), and
+    SaslDataTransferClient/Server run DIGEST-MD5 with
+    ``user = <keyId>``. Same contract here with the SCRAM-analog:
+    user ``dek-<kid>``, secret = the key bytes.
+
+    One class serves both roles: the NN generates/rotates; DNs/clients
+    ingest wire copies. ``credentials`` is the SaslServerSession
+    callable for the accepting DN.
+    """
+
+    def __init__(self, ttl_s: float = 10 * 3600.0):
+        import threading
+        import time as _time
+        self._ttl = ttl_s
+        self._time = _time
+        self._lock = threading.Lock()
+        self._keys: Dict[int, Dict] = {}
+        self._current_kid = 0
+        self._verifiers: Dict[int, Dict] = {}
+
+    def current(self) -> Dict:
+        """NN role: the active key, rotating it when 80% expired."""
+        import secrets
+        now = self._time.time()
+        with self._lock:
+            cur = self._keys.get(self._current_kid)
+            if cur is None or cur["expiry"] - now < 0.2 * self._ttl:
+                self._current_kid += 1
+                cur = {"kid": self._current_kid,
+                       "key": secrets.token_bytes(32),
+                       "expiry": now + self._ttl}
+                self._keys[self._current_kid] = cur
+                for kid in list(self._keys):
+                    if self._keys[kid]["expiry"] < now:
+                        del self._keys[kid]
+                        self._verifiers.pop(kid, None)
+            return dict(cur)
+
+    def all_wire(self) -> list:
+        self.current()  # ensure at least one live key
+        with self._lock:
+            return [dict(k) for k in self._keys.values()]
+
+    def update(self, entries: list) -> None:
+        """DN role: ingest the NN's key set."""
+        with self._lock:
+            for e in entries:
+                self._keys[e["kid"]] = dict(e)
+
+    def newest(self) -> Dict:
+        """Dial-side key for a node that only ingests (DN→DN push)."""
+        with self._lock:
+            if not self._keys:
+                raise IOError("no data encryption keys received yet")
+            return dict(self._keys[max(self._keys)])
+
+    def credentials(self, user: str):
+        if not user.startswith("dek-"):
+            return None
+        try:
+            kid = int(user[4:])
+        except ValueError:
+            return None
+        from hadoop_tpu_torch.security.sasl import scram_verifier
+        with self._lock:
+            if kid not in self._verifiers:
+                key = self._keys.get(kid)
+                if key is None or key["expiry"] < self._time.time():
+                    return None
+                self._verifiers[kid] = scram_verifier(key["key"])
+            return dict(self._verifiers[kid])
+
+
+def secure_accept(sock, keys: DataEncryptionKeys, required_qop: str):
+    """DN-accept half (ref: SaslDataTransferServer.java). Raises
+    AccessControlError on a plaintext or unauthenticated peer."""
+    from hadoop_tpu_torch.security.sasl import CipherSocket, SaslServerSession
+    from hadoop_tpu_torch.security.ugi import AccessControlError
+    sess = SaslServerSession(keys.credentials, required_qop=required_qop)
+    first = recv_frame(sock)
+    if "sasl" not in first:
+        send_frame(sock, {"ok": False,
+                          "em": "data transfer protection is required"})
+        raise AccessControlError("unprotected data-transfer peer rejected")
+    send_frame(sock, {"sasl": sess.step(first["sasl"])})
+    second = recv_frame(sock)
+    send_frame(sock, {"sasl": sess.step(second.get("sasl") or {})})
+    return CipherSocket(sock, sess.cipher) if sess.cipher else sock

@@ -6,7 +6,8 @@ with the reference's ``to_wire``/``from_wire`` keys, and the
 NameNode's and DataNode's errors a client may get back, registered with
 the port's RPC error model under their bare class names, so a reference
 daemon's exception (named by its own module path) comes back as the
-port's class. ``DnCommand`` (NameNode to DataNode) stays the daemons'.
+port's class. It also holds the storage policies' media classes and
+``DnCommand`` (NameNode to DataNode), which the port's daemons use.
 """
 
 from __future__ import annotations
@@ -40,6 +41,31 @@ class ReplicaNotFoundError(IOError):
 
 class QuotaExceededError(IOError):
     """Namespace or space quota violated."""
+
+
+# Which media classes satisfy each storage policy, in preference order
+# (ref: BlockStoragePolicySuite's storage-type lists). Shared by the
+# placement policy, excess pruning, and the Mover.
+POLICY_TYPES = {
+    "HOT": ["DISK"],
+    "WARM": ["DISK", "ARCHIVE"],
+    "COLD": ["ARCHIVE"],
+    "ALL_SSD": ["SSD"],
+    "ONE_SSD": ["SSD", "DISK"],
+    "LAZY_PERSIST": ["RAM_DISK", "DISK"],
+    "PROVIDED": ["PROVIDED", "DISK"],
+}
+
+
+def effective_storage_policy(inode) -> str:
+    """Nearest ancestor-or-self storage policy; HOT when unset."""
+    node = inode
+    while node is not None:
+        sp = getattr(node, "storage_policy", None)
+        if sp:
+            return sp
+        node = getattr(node, "parent", None)
+    return "HOT"
 
 
 for _cls in (SafeModeError, NotReplicatedYetError, LeaseExpiredError,
@@ -258,3 +284,49 @@ class FileStatus:
     def __repr__(self):
         kind = "dir" if self.is_dir else f"file[{self.length}B]"
         return f"FileStatus({self.path}, {kind})"
+
+
+class DnCommand:
+    """NameNode → DataNode command piggybacked on heartbeat responses.
+    Ref: server/protocol/DatanodeProtocol.proto (BlockCommandProto):
+    TRANSFER = replicate a block to targets; INVALIDATE = delete blocks;
+    RECOVER = recover an under-construction block to a new gen stamp."""
+
+    TRANSFER = "transfer"
+    INVALIDATE = "invalidate"
+    RECOVER = "recover"
+    REREGISTER = "reregister"
+    # EC reconstruction (ref: BlockECReconstructionCommand.java): the
+    # receiving DN reads surviving units from peers, decodes, and stores
+    # the missing unit locally. ``extra`` carries the reconstruction info.
+    EC_RECONSTRUCT = "ec_reconstruct"
+    # Centralized cache (ref: DatanodeProtocol CACHE/UNCACHE in
+    # BlockIdCommandProto): pin/unpin block replicas in memory.
+    CACHE = "cache"
+    UNCACHE = "uncache"
+
+    def __init__(self, action: str, blocks: Optional[List[Block]] = None,
+                 targets: Optional[List[List[DatanodeInfo]]] = None,
+                 new_gen_stamps: Optional[List[int]] = None,
+                 extra: Optional[Dict] = None):
+        self.action = action
+        self.blocks = blocks or []
+        self.targets = targets or []
+        self.new_gen_stamps = new_gen_stamps or []
+        self.extra = extra or {}
+
+    def to_wire(self) -> Dict:
+        return {
+            "a": self.action,
+            "b": [b.to_wire() for b in self.blocks],
+            "t": [[d.to_wire() for d in tgt] for tgt in self.targets],
+            "gs": self.new_gen_stamps,
+            "x": self.extra,
+        }
+
+    @classmethod
+    def from_wire(cls, d: Dict) -> "DnCommand":
+        return cls(d["a"], [Block.from_wire(x) for x in d.get("b", [])],
+                   [[DatanodeInfo.from_wire(y) for y in t]
+                    for t in d.get("t", [])],
+                   d.get("gs", []), d.get("x", {}))

@@ -64,6 +64,26 @@ from hadoop_tpu_torch.tracing import (TRACE_HEADER,
 _REDACT = ("secret", "password", "keytab", "credential")
 
 
+# a request body above this reaches the handler as a _BodyReader
+STREAM_BODY_THRESHOLD = 4 * 1024 * 1024
+
+
+class _BodyReader:
+    """Bounded reader over the request socket for a large upload."""
+
+    def __init__(self, rfile, n: int):
+        self._rfile = rfile
+        self.remaining = n
+
+    def read(self, n: int = -1) -> bytes:
+        if self.remaining <= 0:
+            return b""
+        want = self.remaining if n < 0 else min(n, self.remaining)
+        data = self._rfile.read(want)
+        self.remaining -= len(data)
+        return data
+
+
 def _redacted(key: str, value):
     return "<redacted>" if any(s in key.lower() for s in _REDACT) \
         else value
@@ -115,10 +135,18 @@ class HttpServer:
 
             def do_PUT(self):
                 n = int(self.headers.get("Content-Length", 0) or 0)
-                self._dispatch(self.rfile.read(n) if n else b"")
+                if n > STREAM_BODY_THRESHOLD:
+                    # a large upload (a WebHDFS CREATE) reaches the
+                    # handler as a bounded reader, never whole in memory
+                    self._dispatch(_BodyReader(self.rfile, n))
+                else:
+                    self._dispatch(self.rfile.read(n) if n else b"")
 
             def do_POST(self):
                 self.do_PUT()
+
+            def do_DELETE(self):
+                self._dispatch()
 
         self._httpd = ThreadingHTTPServer(bind, Handler)
         self._httpd.daemon_threads = True

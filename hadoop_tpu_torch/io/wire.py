@@ -246,3 +246,25 @@ def read_frame(sock_or_file, max_frame: int = MAX_FRAME) -> bytes:
     if n > max_frame:
         raise WireError(f"frame of {n} bytes exceeds limit {max_frame}")
     return read_exact(sock_or_file, n)
+
+
+def read_frame_buffer(sock_or_file, max_frame: int = MAX_FRAME
+                      ) -> bytearray:
+    """``read_frame`` without the final ``bytes()`` copy: the receive
+    buffer itself, for the DataNode's store-and-forward hops, where the
+    frame is unpacked and re-sent as it came."""
+    (n,) = struct.unpack(">I", read_exact(sock_or_file, 4))
+    if n > max_frame:
+        raise WireError(f"frame of {n} bytes exceeds limit {max_frame}")
+    recv_into = getattr(sock_or_file, "recv_into", None)
+    if recv_into is None:
+        return bytearray(read_exact(sock_or_file, n))
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        m = recv_into(view[got:])
+        if not m:
+            raise EOFError(f"stream closed after {got}/{n} bytes")
+        got += m
+    return buf

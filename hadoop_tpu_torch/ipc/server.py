@@ -49,7 +49,7 @@ only, gets a ``RemoteError`` that carries the port's class name).
 
 ``ipc.server.reuseport`` (the reference's multi-process handler mode,
 ``ipc/mpserver.py``) is refused with ``NotImplementedError``: ROADMAP
-Queue A 10 brings it with the DFS daemons.
+Queue A 10 part 2 brings it.
 """
 
 from __future__ import annotations
@@ -175,7 +175,7 @@ class Server:
         if self.conf.get_bool(REUSE_PORT_KEY, False):
             raise NotImplementedError(
                 f"{REUSE_PORT_KEY}: the multi-process handler mode is not "
-                f"ported (ROADMAP Queue A 10)")
+                f"ported (ROADMAP Queue A 10 part 2)")
         self.name = name
         self.num_handlers = num_handlers
         self.num_readers = max(1, num_readers)

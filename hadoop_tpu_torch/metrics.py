@@ -115,6 +115,9 @@ class MutableRate:
             self._min = min(self._min, elapsed_s)
             self._max = max(self._max, elapsed_s)
 
+    def time(self) -> _Timer:
+        return _Timer(self)
+
     def snapshot(self, reset: bool = False) -> Dict[str, Any]:
         with self._lock:
             out = {
@@ -131,6 +134,22 @@ class MutableRate:
                 self._min = float("inf")
                 self._max = 0.0
             return out
+
+
+class _Timer:
+    """``with rate.time():`` adds the block's seconds to a rate or a
+    histogram."""
+
+    def __init__(self, metric):
+        self._metric = metric
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._metric.add(time.monotonic() - self._t0)
+        return False
 
 
 class MutableQuantiles:
@@ -218,6 +237,9 @@ class MutableHistogram:
         with self._lock:
             ex = dict(self._exemplars)
         return [ex.get(i) for i in range(len(self.BOUNDS) + 1)]
+
+    def time(self) -> _Timer:
+        return _Timer(self)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:

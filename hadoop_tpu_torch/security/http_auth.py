@@ -110,3 +110,15 @@ class AuthFilter:
             return out
         return wrapped
 
+
+
+def ugi_for_query(query) -> "UserGroupInformation":
+    """The UGI a REST handler acts as (WebHDFS): the AuthFilter's
+    authenticated principal (``__user__``) outranks the pseudo-auth
+    ``user.name`` parameter, and an anonymous or absent identity is the
+    unprivileged default ``dr.who``."""
+    from hadoop_tpu_torch.security.ugi import UserGroupInformation
+    user = query.get("__user__")
+    if user in (None, "", "anonymous"):
+        user = query.get("user.name") or "dr.who"
+    return UserGroupInformation.create_remote_user(user)

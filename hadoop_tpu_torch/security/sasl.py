@@ -248,6 +248,9 @@ class CipherSocket:
     def fileno(self) -> int:
         return self._sock.fileno()
 
+    def getpeername(self):
+        return self._sock.getpeername()
+
 
 class SaslServerSession:
     """The server half of the handshake. ``credentials(user)`` gives a

@@ -103,6 +103,15 @@ class UserGroupInformation:
     def add_token(self, token: "Token") -> None:
         self.tokens[token.kind] = token
 
+    def short_name(self) -> str:
+        return self.user_name
+
+    def effective_and_real(self) -> Dict[str, Optional[str]]:
+        return {
+            "user": self.user_name,
+            "real": self.real_user.user_name if self.real_user else None,
+        }
+
     def __repr__(self) -> str:
         via = f" via {self.real_user.user_name}" if self.real_user else ""
         return f"{self.user_name}{via} (auth:{self.auth_method})"

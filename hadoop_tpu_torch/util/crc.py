@@ -56,28 +56,41 @@ def _cxx() -> str:
     return cxx
 
 
-def target() -> Path:
-    """The library built from ``SOURCE`` with ``CXX_FLAGS``."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path, stem: str) -> Path:
+    """The library ``stem`` built from ``source`` with ``CXX_FLAGS``,
+    named by a hash of both."""
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libhtpu_crc32c-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``SOURCE`` unless its build exists; raise on failure."""
-    out = target()
+def build_library(source: Path, stem: str) -> Path:
+    """Compile ``source`` into ``library_path(source, stem)`` unless that
+    exists; raise on failure. The native sources of the port (this
+    module's CRC32C, ``util/nativeio.py``'s page-cache calls) build here."""
+    out = library_path(source, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed:\n"
+        raise RuntimeError(f"building {source.name} failed:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)     # atomic: a concurrent loader sees all or none
     return out
+
+
+def target() -> Path:
+    """The library built from ``SOURCE``."""
+    return library_path(SOURCE, "libhtpu_crc32c")
+
+
+def build() -> Path:
+    """Compile ``SOURCE`` unless its build exists; raise on failure."""
+    return build_library(SOURCE, "libhtpu_crc32c")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -3,7 +3,9 @@
 ``registry`` and ``doctor`` run as their own processes, serve (a port
 ``RegistryClient`` registers and lists; the doctor discovers the record
 through the registry and answers ``/ws/v1/fleet/doctor``), and exit 0 on
-SIGTERM; ``serve`` and ``autoscale`` hand over to their entry points; an
+SIGTERM; so do ``namenode`` and ``datanode``, in processes where JAX
+cannot be imported, with the port's client writing and reading through
+them; ``serve`` and ``autoscale`` hand over to their entry points; an
 unported command of the reference's command line exits 2 naming its
 ROADMAP item, an unknown one 1; the generic options set conf keys as the
 reference's parser does.
@@ -91,11 +93,65 @@ def test_registry_and_doctor_daemons_serve_and_stop_on_sigterm():
                 proc.communicate()
 
 
+def _spawn_without_jax(*args):
+    """The command line in a process where ``jax`` and the JAX package
+    cannot be imported."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['hadoop_tpu'] = None\n"
+            "from hadoop_tpu_torch.cli.main import main\n"
+            "sys.exit(main(sys.argv[1:]))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def test_namenode_and_datanode_serve_without_jax(tmp_path):
+    from hadoop_tpu_torch.dfs.client import DistributedFileSystem
+    nn_port = free_port()
+    fast = ["-D", "dfs.heartbeat.interval=0.1s",
+            "-D", "dfs.namenode.heartbeat.recheck-interval=0.25s"]
+    nn = _spawn_without_jax(
+        "namenode", "-D", f"dfs.namenode.name.dir={tmp_path / 'name'}",
+        "-D", f"dfs.namenode.rpc-port={nn_port}", *fast)
+    dn = _spawn_without_jax(
+        "datanode", "-D", f"dfs.datanode.data.dir={tmp_path / 'data'}",
+        "-D", f"dfs.namenode.rpc-address=127.0.0.1:{nn_port}",
+        "-D", f"dfs.domain.socket.path={tmp_path}/dn-_PORT.sock", *fast)
+    conf = Configuration(load_defaults=False)
+    conf.set("dfs.replication", "1")
+    fs = DistributedFileSystem([("127.0.0.1", nn_port)], conf)
+    try:
+        def one_live():
+            if fs.client.nn.get_stats()["live_datanodes"] != 1:
+                raise OSError("the DataNode has not registered yet")
+        _until(one_live)
+        payload = os.urandom(300_000)
+        fs.write_all("/cli/f.bin", payload)
+        assert fs.read_all("/cli/f.bin") == payload
+        fs.close()
+        fs = None
+        for proc in (dn, nn):
+            rc, err = _stop(proc)
+            assert rc == 0, err[-2000:]
+        dn = nn = None
+    finally:
+        if fs is not None:
+            fs.close()
+        for proc in (dn, nn):
+            if proc is not None:
+                proc.kill()
+                proc.communicate()
+
+
 @pytest.mark.parametrize("cmd", sorted(cli.UNPORTED))
 def test_an_unported_command_exits_2_naming_its_item(cmd, capsys):
     assert cli.main([cmd, "x"]) == 2
     err = capsys.readouterr().err
     assert "not ported" in err and "ROADMAP Queue A 1" in err
+    if cmd in ("journalnode", "oiv", "oev"):
+        assert "ROADMAP Queue A 10 part 2" in err
 
 
 def test_every_reference_command_is_served_or_named():
@@ -105,7 +161,8 @@ def test_every_reference_command_is_served_or_named():
     import re
     src = inspect.getsource(jmain._main)
     ref_cmds = set(re.findall(r'cmd == "([a-z0-9]+)"', src))
-    served = {"version", "registry", "doctor", "serve", "autoscale"}
+    served = {"version", "namenode", "datanode", "registry", "doctor",
+              "serve", "autoscale"}
     assert ref_cmds == served | set(cli.UNPORTED)
 
 

@@ -1,6 +1,7 @@
 """The port's DFS client (``hadoop_tpu_torch/dfs/client``) against the
-JAX package's NameNode and DataNodes on a ``MiniDFSCluster``, and
-against the JAX package's own client: bytes written by one are read by
+JAX package's own client, on a ``MiniDFSCluster`` of either package's
+NameNode and DataNodes (every cluster fixture has the cases
+``reference`` and ``port``): bytes written by one client are read by
 the other, byte for byte, both ways.
 
 Mirrors ``tests/test_minidfs.py`` (empty, sub-chunk, multi-block and
@@ -22,10 +23,15 @@ import time
 import numpy as np
 import pytest
 
-from hadoop_tpu.dfs.datanode.datanode import DataNodeFaultInjector
-from hadoop_tpu.testing.minicluster import (MiniDFSCluster, MiniQJMHACluster,
-                                            fast_conf)
+from hadoop_tpu.conf import Configuration as JConfiguration
+from hadoop_tpu.dfs.client.filesystem import DistributedFileSystem as JDFS
+from hadoop_tpu.dfs.datanode import datanode as jdatanode
+from hadoop_tpu.ipc.errors import RemoteError as JRemoteError
+from hadoop_tpu.testing import minicluster as jmini
+from hadoop_tpu.testing.minicluster import MiniQJMHACluster
 from hadoop_tpu_torch.conf import Configuration
+from hadoop_tpu_torch.dfs.datanode import datanode as pdatanode
+from hadoop_tpu_torch.testing import minicluster as pmini
 from hadoop_tpu_torch.dfs.client import DistributedFileSystem
 from hadoop_tpu_torch.dfs.client import shortcircuit, streams
 from hadoop_tpu_torch.dfs.protocol.records import AlreadyBeingCreatedError
@@ -52,15 +58,49 @@ def _port_fs(cluster, **overrides):
                                  _port_conf(cluster, **overrides))
 
 
-@pytest.fixture(scope="module")
-def cluster():
-    with MiniDFSCluster(num_datanodes=3) as c:
+# whose NameNode and DataNodes a cluster runs
+DAEMONS = {"reference": (jmini, jdatanode), "port": (pmini, pdatanode)}
+
+
+def _mini(kind, num_datanodes, base_dir=None, **keys):
+    mini = DAEMONS[kind][0]
+    conf = mini.fast_conf()
+    for k, v in keys.items():
+        conf.set(k, v)
+    return mini.MiniDFSCluster(num_datanodes=num_datanodes, conf=conf,
+                               base_dir=base_dir)
+
+
+def _ref_conf(cluster, **overrides):
+    """A reference ``Configuration`` holding the cluster's keys."""
+    conf = JConfiguration(load_defaults=False)
+    for k, v in cluster.conf.to_dict().items():
+        conf.set(k, v)
+    for k, v in overrides.items():
+        conf.set(k, v)
+    return conf
+
+
+def _ref_fs(cluster, **overrides):
+    """The reference's client on the cluster, closed with the cluster."""
+    fs = JDFS([cluster.nn_addr], _ref_conf(cluster, **overrides))
+    cluster._fs_instances.append(fs)
+    return fs
+
+
+@pytest.fixture(scope="module", params=sorted(DAEMONS))
+def cluster(request):
+    # the port's short-circuit cache is the process's: each cluster
+    # starts it afresh, rid of the slots poisoned on the one before
+    shortcircuit.ShortCircuitCache._instance = None
+    with _mini(request.param, 3) as c:
+        c.kind = request.param
         yield c
 
 
 @pytest.fixture(scope="module")
 def jfs(cluster):
-    return cluster.get_filesystem()
+    return _ref_fs(cluster)
 
 
 @pytest.fixture(scope="module")
@@ -114,12 +154,7 @@ def test_non_default_bytes_per_checksum(cluster, writer):
     keys = {"dfs.bytes-per-checksum": "2048",
             "dfs.client.read.shortcircuit": "false"}
     p = _port_fs(cluster, **keys)
-    jconf = fast_conf(cluster.conf)
-    for k, v in keys.items():
-        jconf.set(k, v)
-    from hadoop_tpu.dfs.client.filesystem import \
-        DistributedFileSystem as JDFS
-    j = JDFS([cluster.nn_addr], jconf)
+    j = JDFS([cluster.nn_addr], _ref_conf(cluster, **keys))
     try:
         payload = _bytes(300_001, 6)
         wfs, rfs = (p, j) if writer == "port" else (j, p)
@@ -128,6 +163,26 @@ def test_non_default_bytes_per_checksum(cluster, writer):
     finally:
         p.close()
         j.close()
+
+
+def test_blocks_after_the_first_fill_the_ack_window(cluster, jfs):
+    """Blocks of more packets than the ack window, three of them: the
+    window of each block's pipeline counts from its own first packet
+    (the reference's writer counts from -1 and stalls on the second
+    block, ROADMAP C 22)."""
+    keys = {"dfs.client-write-packet-size": str(16 * 1024),
+            "dfs.client.write.max-packets-in-flight": "4"}
+    p = _port_fs(cluster, **keys)
+    try:
+        data = _bytes(600 * 1024 + 5, 15)
+        with p.create("/window.bin", block_size=256 * 1024) as out:
+            out.write(data)
+        assert len(p.client.get_block_locations("/window.bin")["blocks"]) \
+            == 3
+        assert jfs.read_all("/window.bin") == data
+        assert p.read_all("/window.bin") == data
+    finally:
+        p.close()
 
 
 def test_pread_seek_and_namespace(cluster, jfs, pfs):
@@ -175,8 +230,16 @@ def test_single_writer_enforced(cluster, jfs, pfs):
     try:
         with pytest.raises(Exception) as e:
             jfs.create("/locked.txt", overwrite=True)
-        assert "AlreadyBeingCreated" in type(e.value).__name__ or \
-            isinstance(e.value, FileExistsError)
+        if cluster.kind == "port":
+            # the reference's client resolves only its own dotted error
+            # names: the port's error reaches it by name (ROADMAP C 20)
+            assert isinstance(e.value, JRemoteError)
+            assert e.value.class_name == (
+                f"{AlreadyBeingCreatedError.__module__}."
+                "AlreadyBeingCreatedError")
+        else:
+            assert "AlreadyBeingCreated" in type(e.value).__name__ or \
+                isinstance(e.value, FileExistsError)
     finally:
         out.close()
     out = jfs.create("/locked2.txt")
@@ -360,9 +423,10 @@ def test_close_stops_the_clients_threads(cluster):
 
 # ------------------------------------------------------------ hedged reads
 
-class _BlockFirstReplica(DataNodeFaultInjector):
+class _BlockFirstReplica:
     """The first read parks on an event the test sets only after the
-    read returned: the read can finish only through the hedge."""
+    read returned: the read can finish only through the hedge. Mixed
+    into the cluster's ``DataNodeFaultInjector``."""
 
     def __init__(self):
         self.hits = 0
@@ -380,33 +444,34 @@ class _BlockFirstReplica(DataNodeFaultInjector):
         self._gate.set()
 
 
-@pytest.fixture(scope="module")
-def hedge_cluster(tmp_path_factory):
-    conf = fast_conf()
-    conf.set("dfs.replication", "2")
-    with MiniDFSCluster(num_datanodes=2, conf=conf,
-                        base_dir=str(tmp_path_factory.mktemp("hedge"))) as c:
+@pytest.fixture(scope="module", params=sorted(DAEMONS))
+def hedge_cluster(request, tmp_path_factory):
+    with _mini(request.param, 2,
+               base_dir=str(tmp_path_factory.mktemp("hedge")),
+               **{"dfs.replication": "2"}) as c:
         c.wait_active()
+        c.kind = request.param
         yield c
 
 
 def test_hedged_read_wins_over_a_blocked_replica(hedge_cluster):
     c = hedge_cluster
-    jfs = c.get_filesystem()
+    jfs = _ref_fs(c)
+    injector = DAEMONS[c.kind][1].DataNodeFaultInjector
     payload = _bytes(100_000, 12)
     jfs.write_all("/hedge.bin", payload)
     p = _port_fs(c, **{"dfs.client.read.shortcircuit": "false",
                        "dfs.client.hedged.read.threadpool.size": "4",
                        "dfs.client.hedged.read.threshold": "0.05"})
-    inj = _BlockFirstReplica()
-    DataNodeFaultInjector.set(inj)
+    inj = type("BlockFirstReplica", (_BlockFirstReplica, injector), {})()
+    injector.set(inj)
     try:
         assert p.read_all("/hedge.bin") == payload
         assert inj.hits >= 2
         assert p.client.hedged_reads >= 1 and p.client.hedged_wins >= 1
     finally:
         inj.release()
-        DataNodeFaultInjector.set(None)
+        injector.set(None)
     with p.open("/hedge.bin") as f:
         assert f.pread(10_000, 256) == payload[10_000:10_256]
     p.close()
@@ -414,12 +479,11 @@ def test_hedged_read_wins_over_a_blocked_replica(hedge_cluster):
 
 # --------------------------------------------------------- erasure coding
 
-@pytest.fixture(scope="module")
-def ec_cluster(tmp_path_factory):
-    conf = fast_conf()
-    conf.set("dfs.blocksize", str(256 * 1024))  # several block groups
-    with MiniDFSCluster(num_datanodes=9, conf=conf,
-                        base_dir=str(tmp_path_factory.mktemp("ec"))) as c:
+@pytest.fixture(scope="module", params=sorted(DAEMONS))
+def ec_cluster(request, tmp_path_factory):
+    # several block groups
+    with _mini(request.param, 9, base_dir=str(tmp_path_factory.mktemp("ec")),
+               **{"dfs.blocksize": str(256 * 1024)}) as c:
         c.wait_active()
         yield c
 
@@ -432,7 +496,7 @@ def test_striped_files_cross_both_ways_with_m_datanodes_down(ec_cluster,
     DataNodes holding units killed (the readers decode)."""
     from hadoop_tpu.io import erasurecode as jec
     c = ec_cluster
-    jfs = c.get_filesystem()
+    jfs = _ref_fs(c)
     pfs = _port_fs(c)
     m = jec.get_policy(policy).m
     d = f"/ec-{policy}"
@@ -461,7 +525,7 @@ def test_striped_files_cross_both_ways_with_m_datanodes_down(ec_cluster,
                     assert f.pread(at, 70_000) == data[at:at + 70_000]
             finally:
                 fresh.close()
-            assert c.get_filesystem().read_all(path) == data
+            assert _ref_fs(c).read_all(path) == data
     finally:
         for i in killed:
             c.restart_datanode(i)
@@ -474,7 +538,8 @@ def test_striped_files_cross_both_ways_with_m_datanodes_down(ec_cluster,
 def test_observer_reads_through_the_port_client(tmp_path):
     """With an observer NameNode and observer reads on, the port's
     namespace reads go to the observer after an msync to the active,
-    and see the active's latest writes."""
+    and see the active's latest writes. The reference's HA cluster: the
+    port's is ROADMAP Queue A 10 part 2."""
     with MiniQJMHACluster(num_journalnodes=3, num_namenodes=2,
                           num_datanodes=3, num_observers=1,
                           base_dir=str(tmp_path)) as c:

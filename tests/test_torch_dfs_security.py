@@ -1,5 +1,7 @@
 """The port's SASL RPC and secured DFS client against the JAX package's
-``ipc.Server``, ``MiniKdc`` and secured ``MiniDFSCluster``.
+``ipc.Server`` and ``MiniKdc``, and on a secured ``MiniDFSCluster`` of
+either package's NameNode and DataNodes (the cluster fixtures have the
+cases ``reference`` and ``port``).
 
 Mirrors ``tests/test_security.py``: SASL RPC at QoP authentication,
 integrity and privacy, with no plaintext on a privacy channel, a wrong
@@ -26,7 +28,8 @@ from hadoop_tpu.conf import Configuration as JConfiguration
 from hadoop_tpu.dfs.protocol.blocktoken import BlockTokenSecretManager
 from hadoop_tpu.ipc import Server
 from hadoop_tpu.security.ugi import SecretManager
-from hadoop_tpu.testing.minicluster import MiniDFSCluster, fast_conf
+from hadoop_tpu.dfs.client.filesystem import DistributedFileSystem as JDFS
+from hadoop_tpu.testing import minicluster as jmini
 from hadoop_tpu.testing.minikdc import MiniKdc
 from hadoop_tpu_torch.conf import Configuration
 from hadoop_tpu_torch.dfs.client import DistributedFileSystem, shortcircuit
@@ -37,6 +40,7 @@ from hadoop_tpu_torch.ipc.errors import FatalRpcError
 from hadoop_tpu_torch.security import sasl
 from hadoop_tpu_torch.security.ugi import (AccessControlError, Token,
                                            UserGroupInformation)
+from hadoop_tpu_torch.testing import minicluster as pmini
 
 REPO = Path(__file__).resolve().parents[1]
 DT_KIND = "HTPU_DELEGATION_TOKEN"
@@ -288,12 +292,28 @@ def _port_fs(cluster, **overrides):
     return DistributedFileSystem([cluster.nn_addr], conf)
 
 
-@pytest.fixture(scope="module")
-def token_cluster(tmp_path_factory):
-    conf = fast_conf()
+# whose NameNode and DataNodes a cluster runs
+MINIS = {"reference": jmini, "port": pmini}
+
+
+def _ref_fs(cluster):
+    """The reference's client on the cluster, closed with the cluster."""
+    conf = JConfiguration(load_defaults=False)
+    for k, v in cluster.conf.to_dict().items():
+        conf.set(k, v)
+    fs = JDFS([cluster.nn_addr], conf)
+    cluster._fs_instances.append(fs)
+    return fs
+
+
+@pytest.fixture(scope="module", params=sorted(MINIS))
+def token_cluster(request, tmp_path_factory):
+    mini = MINIS[request.param]
+    conf = mini.fast_conf()
     conf.set("dfs.block.access.token.enable", "true")
-    with MiniDFSCluster(num_datanodes=5, conf=conf,
-                        base_dir=str(tmp_path_factory.mktemp("tok"))) as c:
+    with mini.MiniDFSCluster(
+            num_datanodes=5, conf=conf,
+            base_dir=str(tmp_path_factory.mktemp("tok"))) as c:
         c.wait_active()
         yield c
 
@@ -305,7 +325,7 @@ def test_block_tokens_gate_the_tcp_data_plane(token_cluster):
         payload = _bytes(300_000, 1)
         pfs.write_all("/tok/tcp.bin", payload)      # write tokens too
         assert pfs.read_all("/tok/tcp.bin") == payload
-        assert c.get_filesystem().read_all("/tok/tcp.bin") == payload
+        assert _ref_fs(c).read_all("/tok/tcp.bin") == payload
         blk = pfs.client.get_block_locations("/tok/tcp.bin")["blocks"][0]
         assert blk.get("tok") is not None
         dn = DatanodeInfo.from_wire(blk["locs"][0])
@@ -354,7 +374,7 @@ def test_block_tokens_with_erasure_coding(token_cluster, writer):
     ways."""
     c = token_cluster
     pfs = _port_fs(c, **{"dfs.client.read.shortcircuit": "false"})
-    jfs = c.get_filesystem()
+    jfs = _ref_fs(c)
     try:
         pfs.mkdirs("/tok/ec")
         pfs.set_ec_policy("/tok/ec", "RS-3-2-64k")
@@ -369,15 +389,16 @@ def test_block_tokens_with_erasure_coding(token_cluster, writer):
 
 # ----------------------------------------------- encryption, full security
 
-@pytest.fixture(scope="module")
-def secure_cluster(tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(MINIS))
+def secure_cluster(request, tmp_path_factory):
     """SASL privacy on every RPC, a keytab per side, block tokens and
     encrypted data transfer."""
+    mini = MINIS[request.param]
     base = tmp_path_factory.mktemp("secure")
     kdc = MiniKdc(str(base / "kdc"))
     me = getpass.getuser()
     kdc.create_principal(me)
-    conf = fast_conf()
+    conf = mini.fast_conf()
     conf.set("dfs.replication", "2")
     conf.set("hadoop.security.authentication", "sasl")
     conf.set("hadoop.rpc.protection", "privacy")
@@ -387,8 +408,8 @@ def secure_cluster(tmp_path_factory):
              kdc.create_keytab(str(base / "client.keytab"), me))
     conf.set("dfs.block.access.token.enable", "true")
     conf.set("dfs.encrypt.data.transfer", "true")
-    with MiniDFSCluster(num_datanodes=2, conf=conf,
-                        base_dir=str(base / "dfs")) as c:
+    with mini.MiniDFSCluster(num_datanodes=2, conf=conf,
+                             base_dir=str(base / "dfs")) as c:
         c.wait_active()
         yield c
 
@@ -398,7 +419,7 @@ def test_secured_cluster_cross_read_with_encrypted_transfer(secure_cluster,
                                                             writer):
     c = secure_cluster
     pfs = _port_fs(c, **{"dfs.client.read.shortcircuit": "false"})
-    jfs = c.get_filesystem()
+    jfs = _ref_fs(c)
     try:
         assert isinstance(dt.default_security(), dt.TransferSecurity)
         payload = _bytes(300_000, 4)

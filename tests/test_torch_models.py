@@ -276,9 +276,10 @@ def test_moe_trains_on_one_device_and_refuses_expert_parallelism(tmp_path):
 def test_port_imports_no_jax_and_no_jax_package():
     """In a fresh interpreter (this one has JAX loaded by conftest), the
     port and chip_smoke's module-level imports load no jax and no
-    hadoop_tpu module."""
+    hadoop_tpu module: both are blocked, so an import of either fails."""
     code = (
         "import sys\n"
+        "sys.modules['jax'] = sys.modules['hadoop_tpu'] = None\n"
         "import chip_smoke\n"
         "import hadoop_tpu_torch, hadoop_tpu_torch.models.convert\n"
         "import hadoop_tpu_torch.ops.flash, hadoop_tpu_torch.ops._build\n"
@@ -347,9 +348,21 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.serving.router\n"
         "import hadoop_tpu_torch.obs.detect, hadoop_tpu_torch.obs.assemble\n"
         "import hadoop_tpu_torch.obs.doctor, hadoop_tpu_torch.cli.main\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')) or m == 'hadoop_tpu' or "
-        "m.startswith('hadoop_tpu.')]\n"
+        "import hadoop_tpu_torch.testing.minicluster\n"
+        "import hadoop_tpu_torch.dfs.namenode.namenode\n"
+        "import hadoop_tpu_torch.dfs.datanode.datanode\n"
+        "import hadoop_tpu_torch.dfs.webhdfs, hadoop_tpu_torch.http.webui\n"
+        "import hadoop_tpu_torch.dfs.namenode.sps\n"
+        "import hadoop_tpu_torch.dfs.datanode.ec_worker\n"
+        "import hadoop_tpu_torch.dfs.datanode.domainsocket\n"
+        "import hadoop_tpu_torch.dfs.datanode.volumes\n"
+        "import hadoop_tpu_torch.obs.peers, hadoop_tpu_torch.net.topology\n"
+        "import hadoop_tpu_torch.security.groups\n"
+        "import hadoop_tpu_torch.ipc.retry_cache\n"
+        "import hadoop_tpu_torch.util.nativeio\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None "
+        "and (m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
+        "m == 'hadoop_tpu' or m.startswith('hadoop_tpu.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -408,7 +421,22 @@ def test_port_sources_name_no_jax():
                 "ipc/callqueue.py", "ipc/server.py",
                 "security/proxyusers.py", "serving/router.py",
                 "obs/detect.py", "obs/assemble.py", "obs/doctor.py",
-                "cli/__init__.py", "cli/main.py"):
+                "cli/__init__.py", "cli/main.py", "net/__init__.py",
+                "net/topology.py", "security/groups.py", "obs/peers.py",
+                "dfs/namenode/__init__.py", "dfs/namenode/inodes.py",
+                "dfs/namenode/permissions.py", "dfs/namenode/lease.py",
+                "dfs/namenode/namesystem_lock.py", "dfs/namenode/audit.py",
+                "dfs/namenode/editlog.py", "dfs/namenode/fsimage.py",
+                "dfs/namenode/blockmanager.py", "dfs/namenode/sps.py",
+                "dfs/namenode/ha.py", "dfs/namenode/fsnamesystem.py",
+                "dfs/namenode/namenode.py", "dfs/webhdfs.py",
+                "http/webui.py", "dfs/datanode/__init__.py",
+                "dfs/datanode/blockstore.py", "dfs/datanode/volumes.py",
+                "dfs/datanode/xceiver.py", "dfs/datanode/domainsocket.py",
+                "dfs/datanode/ec_worker.py", "dfs/datanode/datanode.py",
+                "testing/__init__.py", "testing/minicluster.py",
+                "ipc/retry_cache.py", "util/nativeio.py",
+                "native/native_io.cc"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:
