@@ -39,7 +39,8 @@ against plain attention and against the layer loop that slices each
 stacked leaf per layer (bit for bit); runs
 the context-parallel prefill of flagship-1b in float32 through the
 exact A-B guard (sp 4 and sp 2); and prefills three prompts of
-llama3-8b (8192, 8100 and 8000 tokens) at full width and depth with
+llama3-8b (8192, 8100 and 8000 tokens) at full width and 8 of its 32
+layers with
 ``ContextParallelPrefiller`` (sp 4 ranks on the one card), holding every
 layer's ring attention against the causal kernel on the same inputs,
 and its logits and every layer's K/V against the single-device forward;
@@ -142,7 +143,12 @@ the card's) and imports the DFS client's modules, which must load
 nothing of JAX or the JAX package (see CRC); then the ``crypto_ctr`` line
 times the encryption-zone streams on the host CPU, or says
 ``available: false`` where the ``cryptography`` package is missing (see
-CRYPTO). Each phase
+CRYPTO). The port's DFS daemons run in the script's process: phase
+``dfs_daemons`` (see DFS_DAEMONS: a NameNode and ten DataNodes under a
+flagship-1b trainer, loader, EC file and KV tier) and then phase
+``dfs_ha`` (see DFS_HA: JournalNodes, an HA pair and an observer; the
+active NameNode stopped mid-save, a resume with a JournalNode down, the
+stopped NameNode's rejoin and the observer's reads). Each phase
 prints one JSON line; the card's name and power limit (as
 ``nvidia-smi`` reports them) follow the build lines; the line before the
 last lists every ported kernel with its launches on its main path (the
@@ -155,7 +161,8 @@ MoE phases' 6 and 12; ``launches_ulysses``: one 8192-token Ulysses
 prefill; ``launches_dist``: rank 0's in dist_train's eleven plans of
 two steps; ``launches_trainer_mesh``: rank 0's over trainer_mesh's
 steps; ``launches_tp_serving``: rank 0's over tp_serving's legs;
-``launches_relaxed``: rank 0's over the relaxed stage), its
+``launches_relaxed``: rank 0's over the relaxed stage;
+``launches_dfs_daemons``, ``launches_dfs_ha``: the DFS phases'), its
 error and its times; the last line is
 ``{"ok": true, "device":
 ...}``. Any failed check raises, so the script exits non-zero and
@@ -214,7 +221,12 @@ from hadoop_tpu_torch.ops import _build, ec_device, flash, norms
 from hadoop_tpu_torch.tools.ab_ec_rmsnorm import graph_ms
 from hadoop_tpu_torch.ops import rope_frequencies
 from hadoop_tpu_torch.fs import FileStatus, LocalFileSystem
-from hadoop_tpu_torch.testing.minicluster import MiniDFSCluster, fast_conf
+from hadoop_tpu_torch.testing.minicluster import (MiniDFSCluster,
+                                                   MiniQJMHACluster, fast_conf)
+from hadoop_tpu_torch.cli import oiv
+from hadoop_tpu_torch.cli.dfsadmin import DFSAdmin
+from hadoop_tpu_torch.dfs.qjournal import JournalNode
+from hadoop_tpu_torch.ipc import Client, get_proxy
 from hadoop_tpu_torch.obs.hbm import device_memory_stats, hbm_ledger
 from hadoop_tpu_torch.obs.trainer import TrainerTelemetry, anatomy_delta
 from hadoop_tpu_torch.parallel import MeshPlan, Trainer, adamw_init
@@ -337,8 +349,10 @@ RING_CASES = [(1, 8192, 32, 8, 128, torch.bfloat16),
               (1, 1024, 4, 2, 64, torch.float32)]
 RING_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 RING_SP = 4
-# llama3-8b CP prefill: sp 4 ranks, 16-token blocks; three prompts of
-# random tokens, each from its own seed: 8192 tokens (no padding; the
+# llama3-8b CP prefill: full width, ``layers`` of its 32 layers (the cut
+# keeps the script's margin under its time limit; every check below is
+# per layer or on the logits); sp 4 ranks, 16-token blocks; three
+# prompts of random tokens, each from its own seed: 8192 tokens (no padding; the
 # main path's counted and timed run), 8100 (padding and a 4-token tail
 # block) and 8000 (padding, no tail). Rank 0's K/V must equal the
 # single-device forward's bit for bit (the same GEMMs and kernel tiles).
@@ -346,12 +360,12 @@ RING_SP = 4
 # against the single-device forward (the causal kernel at S 8192) by way
 # of a calibration: the same forward with plain attention, which lies
 # 1.8e-2 to 2.4e-2 of max |ref| from the kernel forward on this metric
-# (bf16 noise through 32 layers; each value is a few ulps of the
-# largest). The CP prefill may lie at most ``cal_factor`` times as far as
+# (bf16 noise, seen through all 32 layers; each value is a few ulps of
+# the largest). The CP prefill may lie at most ``cal_factor`` times as far as
 # the calibration, value by value (logits, and K and V per layer). Seen
-# on an H100 over the three prompts: 0.75 to 1.33 times.
-LONGCTX = dict(model="llama3-8b", sp=4, block=16, tokens=(8192, 8100, 8000),
-               cal_factor=2.0, timed=3)
+# on an H100 over the three prompts at 32 layers: 0.75 to 1.33 times.
+LONGCTX = dict(model="llama3-8b", layers=8, sp=4, block=16,
+               tokens=(8192, 8100, 8000), cal_factor=2.0, timed=3)
 EXACT_SP = (4, 2)       # flagship-1b float32 through run_prefill_ab(exact)
 TIE_REL = 1e-4          # near-tie rule for greedy token comparisons
 # adamw.cu against its plain version on flagship-1b's leaves (bf16, random
@@ -500,6 +514,34 @@ WEIGHTPLANE = dict(prompts=5, max_new=32, budget=int(2.5e9), max_lanes=64,
 DFS_DAEMONS = dict(datanodes=10, layers=2, steps=3, save_at=2,
                    timeout_s=120.0, redundancy_s="1h", ec_policy="RS-6-3-64k",
                    ec_units=6, ec_unit=8 << 20, max_new=16)
+# The dfs_ha phase: the port's MiniQJMHACluster in the script's process
+# (``journalnodes`` JournalNodes; two NameNodes over their quorum journal
+# with automatic failover through the JournalNodes' lease; one observer;
+# ``datanodes`` DataNodes; replication 3, 128 MiB blocks, the HA
+# intervals of MiniQJMHACluster: tailing 0.2 s, the lease 1.5 s, health
+# checks 0.3 s; ``block_bytes`` the reference's default) under
+# flagship-1b at DFS_DAEMONS' depth, steps and save_at, on its token
+# file. Gate 1: Trainer on the nameservice to the interval save at
+# ``save_at``; once the save's first shard file has appeared, the active
+# NameNode is stopped while its answer to that file's first
+# ``add_block`` is held in flight (before the manifest is there); the
+# port's client retries the call on the new active, which answers with
+# the same block (ROADMAP C 26: the reference's client fails the write
+# there), and the save completes through the client's failover
+# (``save_with_failover_s`` runs from that add_block); a second
+# Trainer, started with JournalNode 0 down, restores at ``save_at`` (the
+# leaves bit-equal to the first trainer's) and trains to ``steps``, its
+# losses those of dfs_daemons' file:// run; it saves nothing (the save
+# without a failover is dfs_daemons', on the same bytes).
+# Gate 2: the stopped NameNode restarts as standby, tails to the active's
+# txid and checkpoints; the port's oiv dump of that image lists
+# /flagship as the active does; dfsadmin -getServiceState reads one
+# active and one standby. Gate 3: load_serving_params through a client
+# with observer reads on loads the checkpoint the failover landed in, its
+# leaves bit-equal to the trainer's and one prompt's greedy tokens
+# equal. ``timeout_s`` bounds each wait.
+DFS_HA = dict(journalnodes=3, datanodes=3, block_bytes=128 << 20,
+              timeout_s=120.0)
 # The moe phase: mixtral-8x7b at full width and all 32 layers from an int8
 # plane built on the card (group 64), DecodeEngine with ``hbm_bytes``,
 # ``max_lanes``, block 16, ``max_context`` and chunk 64, speculation off;
@@ -3724,6 +3766,7 @@ def _ulysses_prefill(upre, prompt, ref, local, cfg, ring_ms):
     err, cal, ratio = _cp_errors(got, got_kv, ref, local)
     kernel = ref["auto"]
     rec = {"phase": "ulysses", "model": LONGCTX["model"], "dtype": cfg.dtype,
+           "reduced": _depth_cut(LONGCTX["model"], cfg),
            "prompt_tokens": n, "pad_tokens": upre.pad_tokens, "sp": sp,
            "sp_mode": upre.sp_mode, "block_size": LONGCTX["block"],
            "full_blocks": n_blocks,
@@ -3756,8 +3799,14 @@ def _ulysses_prefill(upre, prompt, ref, local, cfg, ring_ms):
     return launches
 
 
+def _depth_cut(model, cfg):
+    """A record's ``reduced``: the depth ``cfg`` runs of ``model``'s."""
+    return f"depth {cfg.n_layers} of {get_config(model).n_layers} layers"
+
+
 def phase_longctx(int8: bool = False, bf16_ms=None):
-    """llama3-8b at full width and depth and its published context: CP
+    """llama3-8b at full width, LONGCTX's depth, and its published
+    context: CP
     prefill (sp 4 on this card, block 16) of three prompts against the
     single-device forward (the causal kernel at S 8192). With ``int8``
     (phase ``longctx_int8``) the prefiller holds the weight plane's int8
@@ -3770,7 +3819,7 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
     prefill, its ms (``bf16_ms``: the bf16 prefill's, recorded beside
     the int8 one's) and the Ulysses prefill's launches (causal,
     partial)."""
-    cfg = get_config(LONGCTX["model"])
+    cfg = get_config(LONGCTX["model"], n_layers=LONGCTX["layers"])
     sp = LONGCTX["sp"]
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -3826,6 +3875,7 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
                           for g, w in zip(got_kv, kernel[1:]))
         rec = {"phase": "longctx_int8" if int8 else "longctx",
                **plane, "model": LONGCTX["model"],
+               "reduced": _depth_cut(LONGCTX["model"], cfg),
                "dtype": cfg.dtype, "params": n_params, "prompt_tokens": n,
                "pad_tokens": pre.pad_tokens, "sp": sp,
                "block_size": LONGCTX["block"], "full_blocks": n_blocks,
@@ -3893,7 +3943,7 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
 # Phase longctx_decode: the long-context plane (serving/longctx) attached
 # to a DecodeEngine the way ServingReplica attaches it
 # (longctx_plane_from_conf under serving.parity=relaxed). llama3-8b at
-# full width and depth (bf16, random weights from seed 0; then its int8
+# full width and LONGCTX's depth, ``layers`` of 32 (bf16, random weights from seed 0; then its int8
 # plane, group 64): an 8192-token prompt through engine.submit → CP
 # prefill at sp 4, block 16 → the chain ingested into the page-locked
 # host ring → working-set decode of `new` greedy tokens on the pipelined
@@ -3911,7 +3961,8 @@ def phase_longctx(int8: bool = False, bf16_ms=None):
 # against the same prompt through the fused step of an engine with
 # max_context 2048: equal tokens, a difference only at a near-tie of the
 # float32 greedy loop (the serving phase's rule).
-LONGCTX_DECODE = dict(model="llama3-8b", sp=4, block=16, tokens=8192,
+LONGCTX_DECODE = dict(model="llama3-8b", layers=LONGCTX["layers"], sp=4,
+                      block=16, tokens=8192,
                       min_tokens=4096, new=32, legacy_new=8,
                       window_blocks=4, tail=256,
                       cal_factor=2.0, flagship_prompt=1536,
@@ -4127,6 +4178,7 @@ def _ulysses_plane(params, cfg, prompt, ring_toks, ring_rows):
     free_device()
     emit({"phase": "ulysses", "part": "plane", "model":
           LONGCTX_DECODE["model"], "dtype": cfg.dtype,
+          "reduced": _depth_cut(LONGCTX_DECODE["model"], cfg),
           "sp": LONGCTX_DECODE["sp"], "tokens_equal_ring": toks == ring_toks,
           "tokens_out": toks, **rec})
     require(_tokens_agree(toks, ring_toks, ring_rows),
@@ -4141,6 +4193,7 @@ def phase_longctx_decode():
     LONGCTX_DECODE). Returns the launches of the bf16 run (RMSNorm
     forward) and of the int8 run (dequantize)."""
     cfg = get_config(LONGCTX_DECODE["model"],
+                     n_layers=LONGCTX_DECODE["layers"],
                      max_seq=LONGCTX_DECODE["tokens"] + 128)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     prompt = torch.randint(0, cfg.vocab_size, (LONGCTX_DECODE["tokens"],),
@@ -4149,6 +4202,7 @@ def phase_longctx_decode():
     rec = _llama_decode_part(params, params, cfg, prompt, "bf16")
     rows = rec.pop("rows")
     emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
+          "reduced": _depth_cut(LONGCTX_DECODE["model"], cfg),
           "dtype": cfg.dtype, "sp": LONGCTX_DECODE["sp"],
           "block_size": LONGCTX_DECODE["block"], **rec})
     rms_launches = rec["launches_rms_norm_fwd"]
@@ -4160,6 +4214,7 @@ def phase_longctx_decode():
     rec = _llama_decode_part(qparams, ref_params, cfg, prompt, "int8")
     del rec["rows"]
     emit({"phase": "longctx_decode", "model": LONGCTX_DECODE["model"],
+          "reduced": _depth_cut(LONGCTX_DECODE["model"], cfg),
           "dtype": "int8", "group": WEIGHTS_INT8.group,
           "weight_bytes": report["weight_bytes"],
           "sp": LONGCTX_DECODE["sp"], "block_size": LONGCTX_DECODE["block"],
@@ -4430,7 +4485,7 @@ def phase_dfs_daemons(smi):
     resumed on htpu://, served by the loader with a DataNode down, its
     checkpoint re-replicated and read back across a NameNode restart; an
     RS(6,3) file's parity and rebuilt unit held to ec_gf256.cu; the DFS KV
-    tier. Returns the phase's launches by kernel."""
+    tier. Returns the phase's launches by kernel and its record."""
     D = DFS_DAEMONS
     cfg = get_config("flagship-1b", n_layers=D["layers"])
     batch, seq = TRAIN["batch"], TRAIN["seq"]
@@ -4508,7 +4563,7 @@ def phase_dfs_daemons(smi):
                    "model; no DFS benchmark")
     emit({"dfs": rec})
     free_device()
-    return launches
+    return launches, rec
 
 
 def _dfs_train_gate(cfg, fs, hroot, local, lroot, token_bytes, n_leaves):
@@ -4761,6 +4816,380 @@ def _dfs_kv_gate(fs, params, cfg):
             f"{got == first}")
     return {"kv_persist_enqueued": persisted, "kv_dfs_persists": persists,
             "kv_hits_dfs": hits}
+
+
+def phase_dfs_ha(smi, dfs):
+    """The port's HA DFS on the host under the card's work (DFS_HA):
+    flagship-1b (DFS_DAEMONS' depth) trained on the HA nameservice, its
+    interval save carried through the active NameNode's death, resumed
+    with a JournalNode down; the dead NameNode rejoins as standby and
+    checkpoints; the checkpoint served through observer reads. ``dfs``:
+    the dfs_daemons phase's record (its file:// losses, its save time).
+    Returns the phase's launches by kernel."""
+    D, H = DFS_DAEMONS, DFS_HA
+    cfg = get_config("flagship-1b", n_layers=D["layers"])
+    batch, seq = TRAIN["batch"], TRAIN["seq"]
+    leaves = tree_leaves(init_params(cfg, torch.Generator(), device="meta"))
+    n_params = sum(p.numel() for p in leaves)
+    elt = torch.finfo(cfg.torch_dtype).bits // 8
+    ckpt_bytes = n_params * (elt + 4 + 4) + 4 + 8
+    tmp = tempfile.mkdtemp(prefix="htpu-dfsha-")
+    # three replicas of two checkpoints, one more while the second lands
+    need = 9 * ckpt_bytes
+    free_disk = shutil.disk_usage(tmp).free
+    require(free_disk > need, f"{free_disk} B free under {tmp}: the phase "
+            f"needs {need} B")
+    conf = fast_conf()
+    conf.set("dfs.blocksize", str(H["block_bytes"]))
+    conf.set("dfs.namenode.reconstruction.pending.timeout", "30s")
+    n_tokens = int(TRAINER["file_batches"] * batch * (seq + 1))
+    tokens = torch.randint(0, cfg.vocab_size, (n_tokens,),
+                           generator=torch.Generator().manual_seed(SEED + 60))
+    token_bytes = tokens.numpy().astype(np.uint16).tobytes()
+    rec = {"phase": "dfs_ha", "model": "flagship-1b",
+           "layers": cfg.n_layers, "reduced": f"depth {cfg.n_layers} of "
+           f"{get_config('flagship-1b').n_layers} layers",
+           "journalnodes": H["journalnodes"], "namenodes": 2, "observers": 1,
+           "datanodes": H["datanodes"], "params": n_params,
+           "checkpoint_bytes_reckoned": ckpt_bytes,
+           "dfs_daemons_save_s": dfs["save_s"],
+           "dfs_daemons_restore_s": dfs["restore_s"]}
+    zero_counts()
+    try:
+        with MiniQJMHACluster(num_journalnodes=H["journalnodes"],
+                              num_namenodes=2, num_observers=1,
+                              num_datanodes=H["datanodes"], conf=conf,
+                              base_dir=f"{tmp}/ha") as cluster:
+            t0 = time.monotonic()
+            cluster.wait_active(H["timeout_s"])
+            rec["first_active_s"] = time.monotonic() - t0
+            fs = cluster.get_filesystem()
+            hroot, gate_s = "/flagship", {}
+            t0 = time.monotonic()
+            host, train = _ha_failover_gate(cluster, cfg, fs, hroot,
+                                            token_bytes, len(leaves),
+                                            dfs["losses_file"])
+            rec.update(train)
+            gate_s["failover"], t0 = time.monotonic() - t0, time.monotonic()
+            rec.update(_ha_rejoin_gate(cluster, fs, hroot,
+                                       train["killed_namenode"]))
+            gate_s["rejoin"], t0 = time.monotonic() - t0, time.monotonic()
+            rec.update(_ha_observer_gate(cluster, hroot, cfg, host))
+            gate_s["observer"] = time.monotonic() - t0
+            rec["gate_s"] = gate_s
+            del host
+            launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                                 "adamw", "grad_sq", "rms_norm_fwd",
+                                 "rms_norm_bwd"), train_counts()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = launches
+    rec["device"] = smi
+    rec["note"] = ("host numbers with the card in the loop: one process "
+                   "holds the JournalNodes, the NameNodes, the DataNodes, "
+                   "the client and the model; the stopped NameNode stops "
+                   "as MiniQJMHACluster.kill_active stops it (its lease "
+                   "released), with its answer to the save's first "
+                   "add_block in flight; no DFS benchmark")
+    emit({"dfs_ha": rec})
+    free_device()
+    return launches
+
+
+def _ha_kill_mid_save(cluster, step_dir, stop, seen):
+    """The kill of gate 1: the active NameNode's answer to the save's
+    first ``add_block`` (the first shard file has appeared: its create
+    was answered) is held until the NameNode has stopped, so the stop
+    meets that call in flight and its answer is lost with the
+    connection; the port's client retries it on the new active (ROADMAP
+    C 26). Records whether the manifest was there, stops the active and
+    times the stop until a new active answers an RPC. Returns the
+    thread that waits for the held call."""
+    nn = cluster.namenodes[cluster.active_index()]
+    fsn, held = nn.fsn, threading.Event()
+    real, stopped = fsn.add_block, threading.Event()
+
+    def add_block(path, *args, **kwargs):
+        out = real(path, *args, **kwargs)
+        if path.startswith(step_dir + "/") and not held.is_set():
+            seen["shard"] = path.rsplit("/", 1)[1]
+            seen["block_id"] = out.block.block_id
+            with fsn.lock.read():
+                seen["manifest_at_kill"] = fsn.fsdir.exists(
+                    f"{step_dir}/manifest.json")
+            seen["save_t"] = time.monotonic()
+            held.set()
+            stopped.wait(DFS_HA["timeout_s"])
+        return out
+
+    def kill():
+        while not held.wait(0.01):
+            if stop.is_set():
+                return
+        seen["kill_t"] = time.monotonic()
+        try:
+            seen["killed"] = cluster.kill_active()
+        finally:
+            stopped.set()
+        client = Client(cluster.conf)
+        try:
+            while time.monotonic() - seen["kill_t"] < DFS_HA["timeout_s"]:
+                new = cluster.active_index()
+                if new is not None:
+                    proxy = get_proxy(
+                        "ClientProtocol",
+                        ("127.0.0.1", cluster.namenodes[new].port),
+                        client=client)
+                    try:
+                        proxy.get_file_info("/")
+                    except OSError:
+                        pass
+                    else:
+                        seen["failover_s"] = time.monotonic() - \
+                            seen["kill_t"]
+                        seen["new_active"] = new
+                        return
+                time.sleep(0.01)
+        finally:
+            client.stop()
+
+    fsn.add_block = add_block
+    return threading.Thread(target=kill, name="dfs-ha-kill")
+
+
+def _ha_failover_gate(cluster, cfg, fs, hroot, token_bytes, n_leaves,
+                      want_losses):
+    """Gate 1: Trainer on the nameservice to the interval save at
+    ``save_at``, the active NameNode stopped mid-save, the save complete
+    through the client's failover; a second Trainer started with
+    JournalNode 0 down restores it (bit-equal to the first trainer's
+    parameters) and trains to ``steps``: losses equal to ``want_losses``
+    (dfs_daemons' file:// run), each step's launches as the train
+    phase's at this depth. Returns the first trainer's parameters at
+    ``save_at`` (host copies) and the record."""
+    D = DFS_DAEMONS
+    batch, steps, save_at = TRAIN["batch"], D["steps"], D["save_at"]
+    fs.write_all(f"{hroot}/tokens.bin", token_bytes)
+
+    def trainer(**kw):
+        return Trainer(cfg, MeshPlan(), fs, f"{hroot}/tokens.bin",
+                       f"{hroot}/trainer", batch=batch, lr=TRAIN["lr"],
+                       remat=TRAIN["remat"], seed=SEED, **kw)
+
+    seen, stop = {}, threading.Event()
+    step_dir = f"{hroot}/trainer/step_{save_at:012d}"
+    watcher = _ha_kill_mid_save(cluster, step_dir, stop, seen)
+    per_step = []
+    a = trainer(ckpt_interval=save_at, keep=1)
+    _counted_steps(a, per_step)
+    watcher.start()
+    try:
+        crashed = a.train(save_at)      # the interval save fenced at exit
+        saved_t = time.monotonic()
+    finally:
+        stop.set()
+        watcher.join()
+    host = tree_map(lambda t: t.cpu(), a.params)
+    a.close()
+    del a
+    require("killed" in seen, "the active NameNode was not stopped during "
+            "the interval save")
+    require(not seen["manifest_at_kill"], "the save's manifest was written "
+            "before the active NameNode was stopped")
+    require("failover_s" in seen, f"no new active NameNode within "
+            f"{DFS_HA['timeout_s']} s")
+    survivor = cluster.namenodes[seen["new_active"]].fsn
+    with survivor.lock.read():
+        first = survivor.fsdir.get_inode(f"{step_dir}/{seen['shard']}")
+        first_ids = [b.block_id for b in first.blocks[:1]]
+    require(first_ids == [seen["block_id"]], f"the new active's "
+            f"{seen['shard']} starts with blocks {first_ids}, not the "
+            f"block {seen['block_id']} whose allocation the stop met")
+    require(list_checkpoints(fs, f"{hroot}/trainer") == [save_at],
+            "the interval save is not durable on the nameservice at "
+            "train()'s exit")
+    jn0 = cluster.journalnodes[0]
+    jn0_port, jn0_dir = jn0.port, jn0.storage_dir
+    jn0.stop()
+    b = trainer(ckpt_interval=0, keep=1)
+    _counted_steps(b, per_step)
+    restore_s = _timed(b.try_restore)
+    require(b.step == save_at, f"restore with a JournalNode down at step "
+            f"{b.step}")
+    unequal = [i for i, (x, y) in enumerate(zip(tree_leaves(b.params),
+                                                tree_leaves(host)))
+               if not torch.equal(x.cpu(), y)]
+    require(not unequal, f"leaves {unequal} restored from the save the "
+            f"failover landed in differ from the trainer's")
+    resumed = b.train(steps - save_at)
+    b.close()
+    del b
+    jconf = Configuration(other=cluster.conf)
+    jconf.set("dfs.journalnode.rpc-port", jn0_port)
+    jn0 = JournalNode(jconf, storage_dir=jn0_dir)
+    jn0.init(jconf)
+    jn0.start()
+    cluster.journalnodes[0] = jn0
+    got = crashed + resumed
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want_losses)]
+    want = train_counts_want(cfg, n_leaves)
+    require(all(math.isfinite(x) for x in got), "non-finite loss")
+    require(len(got) == len(want_losses) and
+            max(rel) <= TRAINER["loss_rtol"],
+            f"losses across the failover {got} against file:// "
+            f"{want_losses}")
+    require(all(c == want for c, _, _ in per_step) and
+            len(per_step) == steps,
+            f"launches per step (fwd, dq, dkv, adamw, grad_sq, rms_norm fwd, "
+            f"rms_norm bwd), expected {want}: "
+            f"{[c for c, _, _ in per_step]}")
+    ckpt = _tree_bytes(fs, f"{hroot}/trainer/step_{save_at:012d}")
+    mb = ckpt / 1e6
+    return host, {"losses_ha": got, "losses_file": want_losses,
+                  "loss_rel_err": rel, "checkpoint_bytes": ckpt,
+                  "killed_namenode": seen["killed"],
+                  "killed_during": f"add_block of {seen['shard']}",
+                  "new_active": seen["new_active"],
+                  "failover_s": seen["failover_s"],
+                  "save_with_failover_s": saved_t - seen["save_t"],
+                  "save_with_failover_mb_per_s": mb / (saved_t -
+                                                       seen["save_t"]),
+                  "kill_to_saved_s": saved_t - seen["kill_t"],
+                  "restore_one_jn_down_s": restore_s,
+                  "restore_mb_per_s": mb / restore_s,
+                  "launches_per_step": want}
+
+
+def _ha_tree(fs, path):
+    """{path: (type, length)} of ``path`` and everything under it, as
+    the port's oiv names them (a directory's length None)."""
+    st = fs.get_file_status(path)
+    out = {path: ("DIRECTORY", None) if st.is_dir else ("FILE", st.length)}
+    if st.is_dir:
+        for child in fs.list_status(path):
+            out.update(_ha_tree(fs, child.path))
+    return out
+
+
+def _ha_rejoin_gate(cluster, fs, hroot, killed):
+    """Gate 2: the stopped NameNode restarts as standby and tails to the
+    active's txid; its StandbyCheckpointer writes an image whose oiv dump
+    lists ``hroot`` as the active does; dfsadmin -getServiceState reads
+    one active and one standby."""
+    active = cluster.namenodes[cluster.active_index()]
+    target = active.fsn.editlog.last_txid
+    t0 = time.monotonic()
+    cluster.restart_namenode(killed)
+    nn = cluster.namenodes[killed]
+    restart_s = time.monotonic() - t0
+    require(nn.ha_state == "standby", f"the restarted NameNode is "
+            f"{nn.ha_state}")
+    # from the restart's start: the load replays the quorum's committed
+    # edits, the tailer the rest
+    catch_up_s = restart_s + _until(lambda: nn.applied_txid() >= target,
+                                    DFS_HA["timeout_s"],
+                                    what="the restarted NameNode's tailing")
+    require(nn.applied_txid() == target and nn.ha_state == "standby",
+            f"the rejoined NameNode at txid {nn.applied_txid()} of "
+            f"{target}, {nn.ha_state}")
+    t0 = time.monotonic()
+    image = nn.checkpointer.do_checkpoint()
+    checkpoint_s = time.monotonic() - t0
+    require(os.path.basename(image) == f"fsimage_{target:019d}",
+            f"the standby's image {image} is not at txid {target}")
+    out = io.StringIO()
+    oiv.dump_image(nn.name_dir, out=out)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    require(lines[0].get("image_txid") == target,
+            f"oiv read the image at {lines[0]}")
+    dumped = {d["path"]: (d["type"], d.get("length")) for d in lines[1:]
+              if d["path"] == hroot or d["path"].startswith(hroot + "/")}
+    walked = _ha_tree(fs, hroot)
+    require(dumped == walked, f"oiv lists {len(dumped)} paths under "
+            f"{hroot}, the active {len(walked)}; differing: "
+            f"{sorted(set(dumped.items()) ^ set(walked.items()))[:4]}")
+    states = []
+    for i in range(2):
+        buf = io.StringIO()
+        admin = DFSAdmin(Configuration(other=cluster.conf), out=buf)
+        try:
+            rc = admin.run(["-getServiceState",
+                            f"127.0.0.1:{cluster.namenodes[i].port}"])
+        finally:
+            admin.close()
+        require(rc == 0, f"dfsadmin -getServiceState exited {rc}")
+        states.append(buf.getvalue().strip())
+    require(sorted(states) == ["active", "standby"],
+            f"dfsadmin reads {states}")
+    return {"namenode_restart_s": restart_s, "catch_up_s": catch_up_s,
+            "caught_up_txid": target, "standby_checkpoint_s": checkpoint_s,
+            "image_paths": len(dumped), "service_states": states}
+
+
+def _ha_observer_gate(cluster, hroot, cfg, host):
+    """Gate 3: load_serving_params through a client with observer reads
+    on loads the checkpoint the failover landed in: the observer serves
+    every block lookup of the load and the active none; the leaves are
+    bit-equal to ``host`` (the trainer's), one prompt's greedy tokens
+    from a DecodeEngine on them equal an engine's on ``host``."""
+    D = DFS_DAEMONS
+    observer = cluster.namenodes[2]
+    active = cluster.namenodes[cluster.active_index()]
+    require(observer.ha_state == "observer",
+            f"NameNode 2 is {observer.ha_state}")
+    ofs = cluster.get_filesystem(observer_reads=True)
+    # each NameNode's block lookups during the load (the client falls
+    # back to the active on any observer failure)
+    lookups = {"observer": [], "active": []}
+    for role, nn in (("observer", observer), ("active", active)):
+        def counted(path, *args, _real=nn.fsn.get_block_locations,
+                    _seen=lookups[role], **kwargs):
+            _seen.append(path)
+            return _real(path, *args, **kwargs)
+        nn.fsn.get_block_locations = counted
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        params, step = load_serving_params(
+            ofs, f"{hroot}/trainer", cfg, io_workers=TRAINER["io_workers"])
+        torch.cuda.synchronize()
+    finally:
+        for nn in (observer, active):
+            del nn.fsn.get_block_locations
+    load_s = time.monotonic() - t0
+    require(step == D["save_at"], f"loaded step {step}")
+    # the load reads the manifest and one shard file a parameter leaf
+    # (the optimizer's files stay unread)
+    step_dir = f"{hroot}/trainer/step_{step:012d}"
+    files = {st.path for st in ofs.list_status(step_dir) if not st.is_dir}
+    read = files & set(lookups["observer"])
+    want = len(tree_leaves(host)) + 1
+    require(not lookups["active"] and len(read) >= want,
+            f"block lookups of the load: {len(lookups['observer'])} on the "
+            f"observer ({len(read)} of the checkpoint's files, the load "
+            f"reads {want}), {len(lookups['active'])} on the active")
+    unequal = [i for i, (x, y) in enumerate(zip(tree_leaves(params),
+                                                tree_leaves(host)))
+               if x.dtype != y.dtype or not torch.equal(x.cpu(), y)]
+    require(not unequal, f"leaves {unequal} loaded through the observer "
+            f"differ from the trainer's")
+    prompts = _prompts(cfg.vocab_size)[0][1:2]
+    greedy = SamplingParams(max_new_tokens=D["max_new"])
+    tokens = []
+    dev = tree_leaves(params)[0].device
+    for tree in (params, tree_map(lambda t: t.to(dev), host)):
+        eng = DecodeEngine(tree, cfg, **SERVE_KW)
+        tokens.append(eng.generate(prompts, greedy))
+        eng.stop()
+        del eng
+    del params
+    require(tokens[0] == tokens[1], "greedy tokens of the checkpoint read "
+            "through the observer differ from the trainer's parameters'")
+    return {"observer_load_s": load_s, "tokens_observer": tokens[0],
+            "observer_block_lookups": len(lookups["observer"]),
+            "active_block_lookups": len(lookups["active"]),
+            "checkpoint_files_looked_up": len(read),
+            "checkpoint_files": len(files)}
 
 
 # -------------------------------------------------------------------- MoE
@@ -7323,7 +7752,9 @@ def main() -> int:
         phase_kvtiers(fs, root)
         phase_fleet_front(fs, root)
         phase_weightplane(fs, root)
-        dfs_launches = phase_dfs_daemons(smi)
+        dfs_launches, dfs_rec = phase_dfs_daemons(smi)
+        ha_launches = phase_dfs_ha(smi, dfs_rec)
+        del dfs_rec
     finally:
         shutil.rmtree(root, ignore_errors=True)
     cfg32, p32, cfg16, p16 = make_params()
@@ -7383,7 +7814,8 @@ def main() -> int:
         launches_trainer_mesh=mesh_launches.get(rec["name"], 0),
         launches_tp_serving=tp_launches.get(rec["name"], 0),
         launches_relaxed=relaxed_launches.get(rec["name"], 0),
-        launches_dfs_daemons=dfs_launches.get(rec["name"], 0))
+        launches_dfs_daemons=dfs_launches.get(rec["name"], 0),
+        launches_dfs_ha=ha_launches.get(rec["name"], 0))
         for rec in [{
         "name": "flash_fwd", "route": "cuda", "source": source_fwd,
         "replaces": "hadoop_tpu/ops/flash.py:79",

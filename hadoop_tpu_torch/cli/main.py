@@ -2,6 +2,12 @@
 
     python -m hadoop_tpu_torch.cli.main namenode [-D k=v ...]
     python -m hadoop_tpu_torch.cli.main datanode [-D k=v ...]
+    python -m hadoop_tpu_torch.cli.main journalnode [-D k=v ...]
+    python -m hadoop_tpu_torch.cli.main dfsadmin -fs htpu://H:P -<command>
+        [args]
+    python -m hadoop_tpu_torch.cli.main fsck -fs htpu://H:P [PATH]
+        [-files]
+    python -m hadoop_tpu_torch.cli.main oiv|oev --name-dir DIR
     python -m hadoop_tpu_torch.cli.main registry [-D k=v ...]
     python -m hadoop_tpu_torch.cli.main doctor [--registry H:P]
         [--service PREFIX] [--namenode-http H:P] [--endpoints LIST]
@@ -14,10 +20,17 @@
 
 The daemon half of ``hadoop_tpu/cli/main.py``. Generic options come
 before a command's own: ``-D key=value`` (or ``-Dkey=value``) sets a
-conf key, ``-fs URI`` sets ``fs.defaultFS``. ``namenode`` and
-``datanode`` run the port's DFS daemons (``dfs.namenode.name.dir``,
-``dfs.namenode.rpc-port``; ``dfs.datanode.data.dir``,
-``dfs.namenode.rpc-address``); ``registry`` the port's
+conf key, ``-fs URI`` sets ``fs.defaultFS``. ``namenode``,
+``datanode`` and ``journalnode`` run the port's DFS daemons
+(``dfs.namenode.name.dir``, ``dfs.namenode.rpc-port``, and for HA
+``dfs.namenode.shared.edits.dir``, the JournalNodes' ``host:port``
+list; ``dfs.datanode.data.dir``, ``dfs.namenode.rpc-address``;
+``dfs.journalnode.edits.dir``, ``dfs.journalnode.rpc-port``);
+``dfsadmin`` and ``fsck`` the port's admin tools (``-report``,
+``-safemode``, quotas, ``-transitionToActive H:P``,
+``-transitionToStandby H:P``, ``-getServiceState H:P``, ...; a
+namespace health walk); ``oiv`` and ``oev`` dump a name directory's
+image and edits offline; ``registry`` the port's
 ``RegistryServer`` (``registry.port``, 0 for any); ``doctor`` the port's
 ``FleetDoctor`` (``obs/doctor.py``); each stops on SIGTERM or SIGINT and
 exits 0. ``serve`` hands over to the replica's command line
@@ -42,15 +55,13 @@ from hadoop_tpu_torch.conf import ConfLike, Configuration
 VERSION = "0.1.0"
 FS_DEFAULT_FS = "fs.defaultFS"
 
-_HA = "ROADMAP Queue A 10 part 2 (the JournalNode and HA)"
 _YARN = "ROADMAP Queue A 11 (the YARN daemons and the MapReduce engine)"
 _REST = "ROADMAP Queue A 12 (the tools and the rest of the command line)"
 # the reference's commands the port does not run yet, and the item that
 # brings each
 UNPORTED: Dict[str, str] = {
-    **{c: _HA for c in ("journalnode", "oiv", "oev")},
     **{c: _YARN for c in ("rm", "nodeagent", "historyserver", "job")},
-    **{c: _REST for c in ("fs", "dfsadmin", "fsck", "balancer", "mover",
+    **{c: _REST for c in ("fs", "balancer", "mover",
                           "cacheadmin", "crypto", "kms", "httpfs",
                           "router", "distcp", "streaming", "archive",
                           "sls", "gridmix", "rumen", "dynamometer",
@@ -124,6 +135,22 @@ def main(argv=None) -> int:
     if cmd == "datanode":
         from hadoop_tpu_torch.dfs.datanode import DataNode
         return _run_daemon(DataNode(conf), conf)
+    if cmd == "journalnode":
+        from hadoop_tpu_torch.dfs.qjournal import JournalNode
+        return _run_daemon(JournalNode(conf), conf)
+    if cmd in ("dfsadmin", "fsck"):
+        from hadoop_tpu_torch.cli.dfsadmin import DFSAdmin, Fsck
+        tool = (DFSAdmin if cmd == "dfsadmin" else Fsck)(conf)
+        try:
+            return tool.run(rest)
+        finally:
+            tool.close()
+    if cmd == "oiv":
+        from hadoop_tpu_torch.cli.oiv import main_oiv
+        return main_oiv(rest)
+    if cmd == "oev":
+        from hadoop_tpu_torch.cli.oiv import main_oev
+        return main_oev(rest)
     if cmd == "registry":
         from hadoop_tpu_torch.registry import RegistryServer
         return _run_daemon(RegistryServer(conf), conf)

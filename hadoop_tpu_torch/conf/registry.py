@@ -306,9 +306,54 @@ KEYS = {
             'hadoop_tpu_torch/dfs/namenode/fsnamesystem.py',
         ),
     },
+    "dfs.ha.automatic-failover.enabled": {
+        "type": 'bool',
+        "defaults": ('True',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.ha.health-check.interval": {
+        "type": 'time',
+        "defaults": ('0.5',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.ha.initial-state": {
+        "type": 'str',
+        "defaults": ("''",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.ha.lease-duration": {
+        "type": 'time',
+        "defaults": ('4.0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
     "dfs.ha.namenode.id": {
         "type": 'str',
         "defaults": ("'nn1'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/namenode/namenode.py',
+        ),
+    },
+    "dfs.ha.tail-edits.period": {
+        "type": 'time',
+        "defaults": ('0.5',),
         "namespace": 'dfs',
         "documented": False, "sites": 1,
         "files": (
@@ -323,6 +368,33 @@ KEYS = {
         "files": (
             'hadoop_tpu_torch/dfs/datanode/datanode.py',
             'hadoop_tpu_torch/dfs/namenode/blockmanager.py',
+        ),
+    },
+    "dfs.journalnode.edits.dir": {
+        "type": 'str',
+        "defaults": ("'/tmp/htpu-journal'",),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/qjournal.py',
+        ),
+    },
+    "dfs.journalnode.handler.count": {
+        "type": 'int',
+        "defaults": ('4',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/qjournal.py',
+        ),
+    },
+    "dfs.journalnode.rpc-port": {
+        "type": 'int',
+        "defaults": ('0',),
+        "namespace": 'dfs',
+        "documented": False, "sites": 1,
+        "files": (
+            'hadoop_tpu_torch/dfs/qjournal.py',
         ),
     },
     "dfs.lease.hard-limit": {
@@ -348,7 +420,7 @@ KEYS = {
         "type": 'time',
         "defaults": ('3600.0',),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/namenode/namenode.py',
         ),
@@ -357,7 +429,7 @@ KEYS = {
         "type": 'int',
         "defaults": ('1000000',),
         "namespace": 'dfs',
-        "documented": False, "sites": 1,
+        "documented": False, "sites": 2,
         "files": (
             'hadoop_tpu_torch/dfs/namenode/namenode.py',
         ),
@@ -605,6 +677,15 @@ KEYS = {
         "documented": True, "sites": 1,
         "files": (
             'hadoop_tpu_torch/parallel/elastic/__init__.py',
+        ),
+    },
+    "fs.defaultFS": {
+        "type": 'str',
+        "defaults": ("'file:///'",),
+        "namespace": 'fs',
+        "documented": False, "sites": 2,
+        "files": (
+            'hadoop_tpu_torch/cli/dfsadmin.py',
         ),
     },
     "hadoop.rpc.protection": {

@@ -85,6 +85,14 @@ class _ClientProtocolDecl:
     def get_ec_policies(self): ...
     @_idem
     def get_data_encryption_key(self): ...
+    # HDFS marks these two idempotent, and the port's NameNode answers a
+    # retry with the block it allocated or the file it closed, so a call
+    # in flight when its NameNode stops fails over (ROADMAP C 26); the
+    # reference's client marks only reads
+    @_idem
+    def add_block(self): ...
+    @_idem
+    def complete(self): ...
 
 
 class DFSClient:

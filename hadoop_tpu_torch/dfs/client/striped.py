@@ -60,7 +60,10 @@ class _UnitWriter:
 
     def _drain_ready_acks(self) -> None:
         import select
-        while select.select([self.sock], [], [], 0)[0]:
+        # poll: select() takes no descriptor past 1024 (ROADMAP C 29)
+        poller = select.poll()
+        poller.register(self.sock, select.POLLIN)
+        while poller.poll(0):
             self._check_ack(dt.recv_frame(self.sock))
 
     def send_cell(self, data: bytes) -> None:

@@ -555,6 +555,10 @@ class FSNamesystem:
                 inode = self._check_lease_locked(path, client_name)
                 if prev_block is not None:
                     self._commit_block_locked(inode, prev_block)
+                lb = self._retried_block_locked(inode, prev_block,
+                                                exclude, writer_host)
+                if lb is not None:
+                    return self._with_write_token(lb, client_name)
                 last = inode.last_block()
                 if last is not None:
                     info = self.bm.get(last.block_id)
@@ -610,14 +614,76 @@ class FSNamesystem:
                 inode.blocks.append(block)
                 txid = self.editlog.log_edit(el.OP_ADD_BLOCK, {
                     "p": path, "b": block.to_wire()})
-            if self.block_tokens is not None:
-                # the writer needs WRITE (pipeline) + READ (verify/reopen)
-                from hadoop_tpu_torch.dfs.protocol import blocktoken as bt
-                lb.token = self.block_tokens.generate_token(
-                    client_name, block.block_id,
-                    (bt.MODE_READ, bt.MODE_WRITE))
+            self._with_write_token(lb, client_name)
             self.editlog.log_sync(txid)
             return lb
+
+    def _with_write_token(self, lb: LocatedBlock,
+                          client_name: str) -> LocatedBlock:
+        if self.block_tokens is not None:
+            # the writer needs WRITE (pipeline) + READ (verify/reopen)
+            from hadoop_tpu_torch.dfs.protocol import blocktoken as bt
+            lb.token = self.block_tokens.generate_token(
+                client_name, lb.block.block_id,
+                (bt.MODE_READ, bt.MODE_WRITE))
+        return lb
+
+    def _retried_block_locked(self, inode: INodeFile,
+                              prev_block: Optional[Block],
+                              exclude: List[str],
+                              writer_host: Optional[str]
+                              ) -> Optional[LocatedBlock]:
+        """An ``add_block`` retried because its answer was lost (its
+        NameNode stopped or failed over mid-call, ROADMAP C 26): the
+        file's last block is the one that call allocated, still empty,
+        right after ``previous``. Return it, on the targets this
+        NameNode chose for it, or on new ones where a new active never
+        knew them (ref: FSDirWriteFileOp.analyzeFileState's retry block
+        and getAdditionalBlock's new targets for it)."""
+        blocks = inode.blocks
+        if not blocks or blocks[-1].num_bytes:
+            return None
+        before = blocks[-2].block_id if len(blocks) > 1 else None
+        if before != (prev_block.block_id if prev_block else None):
+            return None
+        last = blocks[-1]
+        info = self.bm.get(last.block_id)
+        if info is None or not info.under_construction or \
+                info.live_replicas():
+            return None
+        offset = sum(b.num_bytes for b in blocks[:-1])
+        dm = self.bm.dn_manager
+
+        def usable(nodes):
+            return nodes and all(n is not None and n.uuid not in exclude
+                                 for n in nodes)
+
+        if inode.ec_policy:
+            policy = ec.get_policy(inode.ec_policy)
+            units = sorted((i, u) for u, i in info.unit_map.items())
+            targets = [dm.get(u) for _, u in units]
+            if not usable(targets):
+                targets = dm.choose_targets(policy.num_units, set(exclude),
+                                            None)
+                if len(targets) < policy.k:
+                    return None
+                info.unit_map = {t.uuid: i for i, t in enumerate(targets)}
+                info.rbw_locations = {t.uuid for t in targets}
+            return LocatedBlock(
+                last, [t.public_info() for t in targets], offset,
+                ec_policy=policy.name, indices=list(range(len(targets))))
+        targets = [dm.get(u) for u in sorted(info.rbw_locations)]
+        if not usable(targets):
+            from hadoop_tpu_torch.dfs.protocol.records import (
+                POLICY_TYPES, effective_storage_policy)
+            targets = dm.choose_targets(
+                inode.replication, set(exclude), writer_host,
+                preferred_types=POLICY_TYPES.get(
+                    effective_storage_policy(inode)))
+            if not targets:
+                return None
+            info.rbw_locations = {t.uuid for t in targets}
+        return LocatedBlock(last, [t.public_info() for t in targets], offset)
 
     def abandon_block(self, path: str, client_name: str, block: Dict) -> None:
         """Client gave up on a block (pipeline could not be built).
@@ -637,6 +703,17 @@ class FSNamesystem:
         """Finalize the file. Ref: FSNamesystem.completeFile."""
         with self._m["complete"].time():
             with self.lock.write():
+                inode = self.fsdir.get_inode(path)
+                if last is not None and isinstance(inode, INodeFile) and \
+                        not inode.under_construction:
+                    # a retried complete whose answer was lost (ROADMAP
+                    # C 26; ref: FSDirWriteFileOp.completeFileInternal)
+                    done = inode.last_block()
+                    blk = Block.from_wire(last)
+                    if done is not None and \
+                            done.block_id == blk.block_id and \
+                            done.gen_stamp == blk.gen_stamp:
+                        return True
                 inode = self._check_lease_locked(path, client_name)
                 if last is not None:
                     self._commit_block_locked(inode, Block.from_wire(last))

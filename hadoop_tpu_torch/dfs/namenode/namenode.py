@@ -2,9 +2,12 @@
 
 The port's copy of ``hadoop_tpu/dfs/namenode/namenode.py``, on the same
 RPC protocols, name directory and HTTP pages, so either package's
-clients, DataNodes and name directories work with it. It runs as a
-single active NameNode: HA (a quorum journal, standby, observer and
-failover) is ROADMAP Queue A 10 part 2 and refused by name.
+clients, DataNodes and name directories work with it. With
+``dfs.namenode.shared.edits.dir`` set it runs HA over a quorum of
+either package's JournalNodes (``dfs/qjournal.py``): it boots standby,
+tails the shared edits, and is promoted by the failover controller or
+``HAServiceProtocol``; ``dfs.ha.initial-state=observer`` makes it an
+observer that serves reads.
 
 Parity with the reference (ref: server/namenode/NameNode.java:722 initialize,
 :1701 createNameNode, :1821 main; NameNodeRpcServer.java (2,659 LoC; :781
@@ -19,7 +22,7 @@ create)): hosts two RPC protocols on one server —
 Background: RedundancyMonitor (re-replication work + dead-node sweep,
 ref: BlockManager.RedundancyMonitor), lease monitor (ref: LeaseManager
 .Monitor), checkpointer (ref: StandbyCheckpointer.java:194 — here a periodic
-local checkpoint).
+local checkpoint; in HA the standby checkpoints, ``ha.StandbyCheckpointer``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional
 
 from hadoop_tpu_torch.conf import Configuration
@@ -36,6 +40,7 @@ from hadoop_tpu_torch.dfs.protocol.records import Block, DatanodeInfo
 from hadoop_tpu_torch.ipc import Server, current_call, idempotent
 from hadoop_tpu_torch.ipc.retry_cache import RetryCache
 from hadoop_tpu_torch.security.ugi import AccessControlError
+from hadoop_tpu_torch.ipc.errors import RetriableError
 from hadoop_tpu_torch.ipc.server import CallContext
 from hadoop_tpu_torch.service import AbstractService
 from hadoop_tpu_torch.util.misc import Daemon
@@ -187,7 +192,21 @@ class ClientProtocol:
     @idempotent
     def get_block_locations(self, path: str, offset: int = 0,
                             length: int = 1 << 62):
-        return self.fsn.get_block_locations(path, offset, length)
+        info = self.fsn.get_block_locations(path, offset, length)
+        if self._state() == ha.OBSERVER and not info.get("uc"):
+            # An observer that has tailed the namespace but not yet
+            # received the DNs' block reports would answer with zero
+            # locations for a COMPLETE file — send the client to the
+            # active instead (ref: ObserverRetryOnActiveException in
+            # the reference's getBlockLocations path). Under-
+            # construction files ("uc" is the top-level flag) are
+            # exempt: their in-flight block legitimately has none.
+            for b in info.get("blocks", []):
+                if not b.get("locs"):
+                    raise RetriableError(
+                        f"observer has no locations for a block of "
+                        f"{path} yet; retry on active")
+        return info
 
     @idempotent
     def get_file_info(self, path: str):
@@ -589,10 +608,10 @@ class HAServiceProtocol:
 
 
 class NameNode(AbstractService):
-    """The daemon. Ref: server/namenode/NameNode.java. A single active
-    with a local journal; HA over a quorum journal
-    (``dfs.namenode.shared.edits.dir``) is refused, ROADMAP Queue A 10
-    part 2."""
+    """The daemon. Ref: server/namenode/NameNode.java. Non-HA: single
+    active with a local journal. HA: a QuorumJournalManager over the
+    configured JournalNodes; the node boots standby and is promoted by the
+    failover controller (auto) or HAServiceProtocol (manual)."""
 
     def __init__(self, conf: Configuration, name_dir: Optional[str] = None,
                  nn_id: Optional[str] = None):
@@ -605,6 +624,10 @@ class NameNode(AbstractService):
         self.rpc: Optional[Server] = None
         self.ha_enabled = False
         self.ha_state = ha.ACTIVE
+        self.tailer: Optional[ha.EditLogTailer] = None
+        self.checkpointer: Optional[ha.StandbyCheckpointer] = None
+        self.failover: Optional[ha.FailoverController] = None
+        self.fenced_by: Optional[str] = None
         self.http = None
         self._webhdfs = None
         self._ha_lock = threading.RLock()
@@ -615,18 +638,65 @@ class NameNode(AbstractService):
         return self.rpc.port
 
     def applied_txid(self) -> int:
-        return self.fsn.editlog.last_txid
+        if self.ha_state in (ha.ACTIVE, ha.FENCED) or self.tailer is None:
+            return self.fsn.editlog.last_txid
+        return self.tailer.last_applied_txid
 
     def is_healthy(self) -> bool:
-        return self.fsn is not None and self.rpc is not None
+        return self.fsn is not None and self.rpc is not None and \
+            self.fenced_by is None
+
+    def _fenced(self, e: BaseException) -> None:
+        """A newer writer fenced this active's journal (ROADMAP C 24):
+        from now on the node is ``fenced``. It answers clients as a
+        standby, reports itself unhealthy and refuses every transition,
+        since its namespace holds an edit the quorum refused. Hadoop's
+        NameNode exits here; this one waits to be stopped and
+        restarted. Called from the edit sync of a handler thread: it
+        takes no lock, so it cannot wait on a transition that waits on
+        that sync."""
+        if self.fenced_by is None:
+            log.error("NameNode %s fenced, stepping down: %s", self.nn_id, e)
+            self.fenced_by = str(e)
+        self.ha_state = ha.FENCED
+
+    def _refuse_if_fenced(self) -> None:
+        if self.fenced_by is not None:
+            from hadoop_tpu_torch.dfs.qjournal import FencedError
+            raise FencedError(
+                f"NameNode {self.nn_id} was fenced by a newer writer "
+                f"({self.fenced_by}); restart it to rejoin")
 
     def service_init(self, conf: Configuration) -> None:
         os.makedirs(self.name_dir, exist_ok=True)
-        if conf.get("dfs.namenode.shared.edits.dir", ""):
-            raise ha.refuse("HA over a quorum journal "
-                            "(dfs.namenode.shared.edits.dir)")
-        self.fsn = FSNamesystem(conf, self.name_dir)
-        self.fsn.load_from_disk()
+        shared = conf.get("dfs.namenode.shared.edits.dir", "")
+        self.ha_enabled = bool(shared)
+        journal = None
+        if self.ha_enabled:
+            from hadoop_tpu_torch.dfs.qjournal import QuorumJournalManager
+            from hadoop_tpu_torch.util.misc import parse_addr_list
+            self._jn_addrs = parse_addr_list(shared)
+            journal = QuorumJournalManager(self._jn_addrs, conf=conf,
+                                           on_fenced=self._fenced)
+        self.fsn = FSNamesystem(conf, self.name_dir, journal_manager=journal)
+        if self.ha_enabled:
+            self.ha_state = ha.STANDBY
+            # Standby: DN reports can outrun edit tailing — postpone
+            # unknown-block reports instead of invalidating (ref:
+            # shouldPostponeBlocksFromFuture set in startStandbyServices).
+            self.fsn.bm.postpone_unknown = True
+            last = self.fsn.load_from_disk(open_edits=False)
+            self.tailer = ha.EditLogTailer(
+                self.fsn, interval_s=conf.get_time_seconds(
+                    "dfs.ha.tail-edits.period", 0.5))
+            self.tailer.last_applied_txid = last
+            self.checkpointer = ha.StandbyCheckpointer(
+                self.fsn, self.tailer,
+                period_s=conf.get_time_seconds(
+                    "dfs.namenode.checkpoint.period", 3600.0),
+                txns=conf.get_int("dfs.namenode.checkpoint.txns", 1_000_000))
+        else:
+            self.fsn.load_from_disk()
         bind_host = conf.get("dfs.namenode.rpc-bind-host", "127.0.0.1")
         port = conf.get_int("dfs.namenode.rpc-port", 0)
         self.retry_cache = RetryCache()
@@ -645,11 +715,10 @@ class NameNode(AbstractService):
             queue_prefix="dfs.namenode")
         state = lambda: self.ha_state  # noqa: E731
         from hadoop_tpu_torch.dfs.namenode.audit import maybe_audited
-        self.rpc.register_protocol(
-            "ClientProtocol",
-            maybe_audited(ClientProtocol(self.fsn, self.retry_cache,
-                                         state), conf),
-            pre_call=self._client_pre_call)
+        client_proto = maybe_audited(ClientProtocol(
+            self.fsn, self.retry_cache, state), conf)
+        self.rpc.register_protocol("ClientProtocol", client_proto,
+                                   pre_call=self._client_pre_call)
         # nntop: expose the scheduler's decayed per-caller window at
         # every chassis' /ws/v1/top (obs/top.py)
         from hadoop_tpu_torch.obs.top import register_top_source
@@ -695,15 +764,45 @@ class NameNode(AbstractService):
             for n in dm.all_nodes()]}
 
     def _client_pre_call(self, method: str, ctx: CallContext) -> None:
-        """HA gate (ref: NameNodeRpcServer's checkOperation)."""
+        """HA gate + observer alignment (ref: NameNodeRpcServer's
+        checkOperation + GlobalStateIdContext.receiveRequestState)."""
         ha.check_operation(self.ha_state, method in WRITE_METHODS)
+        if self.ha_state == ha.OBSERVER and ctx.client_state_id >= 0:
+            deadline = time.monotonic() + 3.0
+            while self.applied_txid() < ctx.client_state_id:
+                if time.monotonic() > deadline:
+                    raise RetriableError(
+                        f"observer lagging: applied {self.applied_txid()} "
+                        f"< requested {ctx.client_state_id}")
+                time.sleep(0.01)
 
     def service_start(self) -> None:
         self.rpc.start()
         if self.http is not None:
             self.http.start()
         Daemon(self._redundancy_monitor, "nn-redundancy-monitor").start()
-        Daemon(self._checkpoint_monitor, "nn-checkpointer").start()
+        if self.ha_enabled:
+            self.tailer.start(self.tailer.last_applied_txid)
+            self.checkpointer.start()
+            auto = self.config.get_bool(
+                "dfs.ha.automatic-failover.enabled", True)
+            want_observer = self.config.get(
+                "dfs.ha.initial-state", "") == ha.OBSERVER
+            if want_observer:
+                self.ha_state = ha.OBSERVER
+            elif auto:
+                from hadoop_tpu_torch.dfs.qjournal import QuorumLease
+                lease = QuorumLease(
+                    self._jn_addrs, holder=self.nn_id,
+                    ttl_s=self.config.get_time_seconds(
+                        "dfs.ha.lease-duration", 4.0),
+                    conf=self.config)
+                self.failover = ha.FailoverController(
+                    self, lease, check_interval_s=self.config.get_time_seconds(
+                        "dfs.ha.health-check.interval", 0.5))
+                self.failover.start()
+        else:
+            Daemon(self._checkpoint_monitor, "nn-checkpointer").start()
         log.info("NameNode %s up at 127.0.0.1:%d (state %s, name dir %s)",
                  self.nn_id, self.rpc.port, self.ha_state, self.name_dir)
 
@@ -712,6 +811,20 @@ class NameNode(AbstractService):
         if getattr(self, "_top_source", None):
             from hadoop_tpu_torch.obs.top import unregister_top_source
             unregister_top_source(self._top_source)
+        if self.failover is not None:
+            self.failover.stop()
+        if self.ha_enabled and self.ha_state == ha.ACTIVE:
+            # answer as a standby from here on (ROADMAP C 24): a client
+            # then fails over instead of losing a call in flight when the
+            # RPC server closes below
+            self.ha_state = ha.STANDBY
+        if self.failover is not None:
+            self.failover.lease.release()
+            self.failover.lease.close()
+        if self.tailer is not None:
+            self.tailer.stop()
+        if self.checkpointer is not None:
+            self.checkpointer.stop()
         if self.http is not None:
             self.http.stop()
         if self._webhdfs is not None:
@@ -724,17 +837,95 @@ class NameNode(AbstractService):
     # ---------------------------------------------------------- transitions
 
     def transition_to_active(self) -> None:
-        """A single NameNode is active already; a transition of any
-        other kind needs HA (ROADMAP Queue A 10 part 2)."""
-        if self.ha_state != ha.ACTIVE:
-            raise ha.refuse("an HA transition")
+        """Ref: NameNode.transitionToActive → startActiveServices: final
+        tail, fence + recover the quorum journal, open for write."""
+        with self._ha_lock:
+            self._refuse_if_fenced()
+            if self.ha_state == ha.ACTIVE:
+                return
+            if not self.ha_enabled:
+                raise ValueError("HA is not enabled")
+            self.tailer.stop()
+            self.checkpointer.stop()
+            qjm = self.fsn.editlog.journal
+            last_committed = qjm.recover()      # epoch fencing happens here
+            # Apply anything committed but not yet tailed. Loop: one
+            # read_edits pass is capped server-side (~50k records per JN),
+            # and a long-lagging standby must fully catch up here, not
+            # trip the abort guard below.
+            while self.tailer.last_applied_txid < last_committed:
+                before = self.tailer.last_applied_txid
+                edits = list(qjm.read_edits(before + 1))
+                if edits:
+                    with self.fsn.lock.write():
+                        for rec in edits:
+                            self.fsn._apply_edit(rec)
+                            self.tailer.last_applied_txid = rec["t"]
+                if self.tailer.last_applied_txid == before:
+                    break  # no forward progress — the guard below decides
+            if self.tailer.last_applied_txid < last_committed:
+                # Recovery adopted a tail the quorum cannot serve us — a
+                # JN died between accept and this read, or the accept
+                # itself was torn. Opening the log here would issue txids
+                # past edits this namespace never applied, silently
+                # dropping them (and wedging every standby at the gap).
+                # Abort; the failover controller retries the transition.
+                # Ref: the reference's recoverUnfinalizedSegments +
+                # catchupDuringFailover both completing before
+                # startActiveServices opens the log.
+                self.tailer.start(self.tailer.last_applied_txid)
+                self.checkpointer.start()
+                raise IOError(
+                    f"transition to active aborted: caught up only to txid "
+                    f"{self.tailer.last_applied_txid} of recovered tail "
+                    f"{last_committed}")
+            last = max(last_committed, self.tailer.last_applied_txid)
+            self.fsn.editlog.open_for_write(last)
+            self.ha_state = ha.ACTIVE
+            # Namespace is caught up: replay every postponed DN report
+            # (ref: processAllPendingDNMessages in startActiveServices).
+            self.fsn.bm.process_all_postponed()
+            log.info("NameNode %s is now ACTIVE at txid %d", self.nn_id, last)
 
     def transition_to_standby(self) -> None:
-        # the reference's answer on a NameNode without HA
-        raise ValueError("HA is not enabled")
+        """Ref: NameNode.transitionToStandby → startStandbyServices."""
+        with self._ha_lock:
+            self._refuse_if_fenced()
+            if self.ha_state == ha.STANDBY:
+                return
+            if not self.ha_enabled:
+                raise ValueError("HA is not enabled")
+            was_active = self.ha_state == ha.ACTIVE
+            self.ha_state = ha.STANDBY
+            self.fsn.bm.postpone_unknown = True
+            # Always stop first: observer→standby must not leave the old
+            # tailer/checkpointer threads running beside fresh ones.
+            self.tailer.stop()
+            self.checkpointer.stop()
+            if was_active:
+                try:
+                    # Finalize our segment but keep the journal manager
+                    # alive — the standby tails through it and a later
+                    # re-promotion reuses it.
+                    self.fsn.editlog.close_segment()
+                except Exception:
+                    log.exception("closing edit segment on demotion")
+                if self.fenced_by is not None:
+                    return  # the closing sync was fenced: never tail
+                start_from = self.fsn.editlog.last_txid
+            else:
+                start_from = self.tailer.last_applied_txid
+            self.tailer.start(start_from)
+            self.checkpointer.start()
+            log.info("NameNode %s is now STANDBY", self.nn_id)
 
     def transition_to_observer(self) -> None:
-        self.transition_to_standby()
+        with self._ha_lock:
+            self._refuse_if_fenced()
+            if self.ha_state == ha.ACTIVE:
+                self.transition_to_standby()
+            self.ha_state = ha.OBSERVER
+            log.info("NameNode %s is now OBSERVER", self.nn_id)
 
     # ------------------------------------------------------------- monitors
 

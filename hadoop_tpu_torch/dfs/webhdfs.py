@@ -113,7 +113,7 @@ class WebHdfsHandler:
             return 403, {"RemoteException": {
                 "exception": "StandbyException",
                 "message": f"mutations not allowed in state {state}"}}
-        if method == "GET" and state == "standby":
+        if method == "GET" and state not in ("active", "observer"):
             return 403, {"RemoteException": {
                 "exception": "StandbyException",
                 "message": "reads not served by a standby"}}

@@ -89,6 +89,8 @@ class _Connection:
         self.calls: Dict[int, _PendingCall] = {}  # guarded-by: calls_lock
         self.calls_lock = threading.Lock()
         self.dead = False
+        # the server's fatal frame that closed this connection, if one did
+        self.fatal: Optional[FatalRpcError] = None
         self.last_state_id = -1
         self._connect()
         threading.Thread(target=self._receive_loop, daemon=True,
@@ -199,9 +201,14 @@ class _Connection:
         # tick fast enough that a small read timeout is honoured promptly
         tick = self.ping_interval if not self.read_timeout else \
             min(self.ping_interval, max(0.05, self.read_timeout / 4.0))
+        # poll, not select: select() takes no descriptor past FD_SETSIZE
+        # (1024), so in a process with more sockets open every new
+        # connection died before its first call (ROADMAP C 29)
+        poller = select.poll()
+        poller.register(self.sock, select.POLLIN)
         while not self.dead:
             try:
-                ready, _, _ = select.select([self.sock], [], [], tick)
+                ready = poller.poll(tick * 1000.0)
             except (OSError, ValueError):
                 self._fail_all(RpcError(f"connection to {self.addr} closed"))
                 return
@@ -292,6 +299,8 @@ class _Connection:
         return True
 
     def _fail_all(self, err: BaseException) -> None:
+        if isinstance(err, FatalRpcError):
+            self.fatal = err
         self.dead = True
         try:
             if self.sock:
@@ -310,6 +319,12 @@ class _Connection:
         pend = _PendingCall()
         with self.calls_lock:
             if self.dead:
+                if self.fatal is not None:
+                    # the server refused the connection (its auth, say)
+                    # before this call was sent: a fresh connection is
+                    # refused the same way, so the call fails with the
+                    # server's reason (ROADMAP C 30)
+                    raise FatalRpcError(str(self.fatal))
                 raise _ConnClosedBeforeSend(
                     f"connection to {self.addr} closed before send")
             self.calls[call_id] = pend

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import logging
 import random
+import threading
 import time
 from typing import Callable, List, Sequence, Tuple
 
@@ -158,20 +159,32 @@ class StaticFailoverProxyProvider:
         self._addresses: List[Tuple[str, int]] = list(addresses)
         self._idx = 0
         self._proxy = None
+        self._lock = threading.Lock()
 
     @property
     def current_address(self) -> Tuple[str, int]:
         return self._addresses[self._idx]
 
     def get_proxy(self):
-        if self._proxy is None:
-            self._proxy = self._factory(self._addresses[self._idx])
-        return self._proxy
+        with self._lock:
+            if self._proxy is None:
+                self._proxy = self._factory(self._addresses[self._idx])
+            return self._proxy
 
     def perform_failover(self, current) -> None:
-        self._idx = (self._idx + 1) % len(self._addresses)
-        self._proxy = None
-        log.info("Failing over to %s", self._addresses[self._idx])
+        """Move to the next address, unless another caller already moved
+        on from ``current``, the proxy whose call failed (ROADMAP C 28,
+        the expected-failover-count check of Hadoop's
+        RetryInvocationHandler): callers that fail together on one
+        address move the provider once, so none is carried past the
+        active NameNode. The reference's moves once a failure."""
+        with self._lock:
+            if current is not self._proxy:
+                return
+            self._idx = (self._idx + 1) % len(self._addresses)
+            self._proxy = None
+            target = self._addresses[self._idx]
+        log.info("Failing over to %s", target)
 
 
 class RetryInvocationHandler:

@@ -47,9 +47,9 @@ builtin by its bare name, the port's own exceptions by their port names
 their last component; the reference's client, which resolves full names
 only, gets a ``RemoteError`` that carries the port's class name).
 
-``ipc.server.reuseport`` (the reference's multi-process handler mode,
-``ipc/mpserver.py``) is refused with ``NotImplementedError``: ROADMAP
-Queue A 10 part 2 brings it.
+``ipc.server.reuseport`` binds the listener with ``SO_REUSEPORT``, so
+several processes serve one port (``ipc/mpserver.py``, the reference's
+multi-process handler mode).
 """
 
 from __future__ import annotations
@@ -172,10 +172,7 @@ class Server:
                  state_provider: Optional[Callable[[], int]] = None,
                  queue_prefix: str = "ipc"):
         self.conf = conf or Configuration(load_defaults=False)
-        if self.conf.get_bool(REUSE_PORT_KEY, False):
-            raise NotImplementedError(
-                f"{REUSE_PORT_KEY}: the multi-process handler mode is not "
-                f"ported (ROADMAP Queue A 10 part 2)")
+        self.reuse_port = self.conf.get_bool(REUSE_PORT_KEY, False)
         self.name = name
         self.num_handlers = num_handlers
         self.num_readers = max(1, num_readers)
@@ -236,6 +233,10 @@ class Server:
     def start(self) -> None:
         self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if self.reuse_port:
+            # the kernel hashes connections across every process bound
+            # to this port (ipc/mpserver.py)
+            self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         # a restart on a fixed port can meet the last incarnation's
         # lingering sockets: retry the bind briefly
         deadline = time.monotonic() + 10.0

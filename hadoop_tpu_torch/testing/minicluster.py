@@ -1,9 +1,8 @@
 """In-process DFS minicluster: the port's NameNode and DataNodes.
 
-The port's copy of ``MiniDFSCluster`` and ``fast_conf`` from
-``hadoop_tpu/testing/minicluster.py``. The HA cluster
-(``MiniQJMHACluster``, JournalNodes and a quorum journal) is ROADMAP
-Queue A 10 part 2 and refused by name; the YARN clusters are Queue A 11.
+The port's copy of ``MiniDFSCluster``, ``MiniQJMHACluster`` (JournalNodes,
+HA NameNodes over their quorum journal, observers) and ``fast_conf`` from
+``hadoop_tpu/testing/minicluster.py``; the YARN clusters are Queue A 11.
 
 Parity with the reference's pattern (ref:
 hadoop-hdfs/src/test/java/org/apache/hadoop/hdfs/MiniDFSCluster.java:157,
@@ -32,11 +31,151 @@ log = logging.getLogger(__name__)
 
 
 class MiniQJMHACluster:
-    """The HA minicluster: ROADMAP Queue A 10 part 2."""
+    """HA minicluster: N JournalNodes + M NameNodes (QJM shared edits,
+    automatic lease failover) + D DataNodes reporting to every NN.
+    Ref: hadoop-hdfs/src/test/.../qjournal/MiniQJMHACluster.java:47 +
+    MiniJournalCluster."""
 
-    def __init__(self, *args, **kwargs):
-        from hadoop_tpu_torch.dfs.namenode.ha import refuse
-        raise refuse("MiniQJMHACluster (JournalNodes and HA NameNodes)")
+    def __init__(self, num_journalnodes: int = 3, num_namenodes: int = 2,
+                 num_datanodes: int = 3, num_observers: int = 0,
+                 conf: Optional[Configuration] = None,
+                 base_dir: Optional[str] = None):
+        self.conf = fast_conf(conf)
+        self.conf.set_if_unset("dfs.ha.tail-edits.period", "0.2s")
+        self.conf.set_if_unset("dfs.ha.lease-duration", "1.5s")
+        self.conf.set_if_unset("dfs.ha.health-check.interval", "0.3s")
+        self.base_dir = base_dir or tempfile.mkdtemp(prefix="htpu-qjmha-")
+        self._owns_dir = base_dir is None
+        self.num_journalnodes = num_journalnodes
+        self.num_namenodes = num_namenodes
+        self.num_observers = num_observers
+        self.num_datanodes = num_datanodes
+        self.journalnodes: List = []
+        self.namenodes: List[Optional[NameNode]] = []
+        self.datanodes: List[Optional[DataNode]] = []
+        self._fs_instances: List[DistributedFileSystem] = []
+        self._nn_ports: dict = {}  # index → last known port (for restarts)
+
+    def start(self) -> "MiniQJMHACluster":
+        for i in range(self.num_journalnodes):
+            self._start_journalnode(i)
+        jn_spec = ",".join(f"127.0.0.1:{j.port}" for j in self.journalnodes)
+        self.conf.set("dfs.namenode.shared.edits.dir", jn_spec)
+        total_nn = self.num_namenodes + self.num_observers
+        for i in range(total_nn):
+            self._start_namenode(i, observer=i >= self.num_namenodes)
+        self.conf.set("dfs.namenode.rpc-address", ",".join(
+            f"127.0.0.1:{nn.port}" for nn in self.namenodes))
+        for i in range(self.num_datanodes):
+            self._start_datanode(i)
+        return self
+
+    def _start_journalnode(self, i: int) -> None:
+        from hadoop_tpu_torch.dfs.qjournal import JournalNode
+        jn_conf = Configuration(other=self.conf)
+        jn = JournalNode(jn_conf, storage_dir=os.path.join(
+            self.base_dir, f"journal{i}"))
+        jn.init(jn_conf)
+        jn.start()
+        self.journalnodes.append(jn)
+
+    def _start_datanode(self, i: int) -> None:
+        dn_conf = Configuration(other=self.conf)
+        dn = DataNode(dn_conf,
+                      data_dir=os.path.join(self.base_dir, f"data{i}"),
+                      nn_addr=[("127.0.0.1", nn.port)
+                               for nn in self.namenodes])
+        dn.init(dn_conf)
+        dn.start()
+        self.datanodes.append(dn)
+
+    def _start_namenode(self, i: int, observer: bool = False) -> None:
+        nn_conf = Configuration(other=self.conf)
+        if observer:
+            nn_conf.set("dfs.ha.initial-state", "observer")
+        if i in self._nn_ports:
+            nn_conf.set("dfs.namenode.rpc-port", self._nn_ports[i])
+        nn = NameNode(nn_conf,
+                      name_dir=os.path.join(self.base_dir, f"name{i}"),
+                      nn_id=f"nn{i + 1}")
+        nn.init(nn_conf)
+        nn.start()
+        self._nn_ports[i] = nn.port
+        if i < len(self.namenodes):
+            self.namenodes[i] = nn
+        else:
+            self.namenodes.append(nn)
+
+    # --------------------------------------------------------------- access
+
+    def active_index(self) -> Optional[int]:
+        for i, nn in enumerate(self.namenodes):
+            if nn is not None and nn.ha_state == "active":
+                return i
+        return None
+
+    def wait_active(self, timeout: float = 30.0) -> int:
+        """Wait for an elected active NN with all DNs live + safemode off."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            idx = self.active_index()
+            if idx is not None:
+                fsn = self.namenodes[idx].fsn
+                live = len(fsn.bm.dn_manager.live_nodes())
+                want = sum(1 for d in self.datanodes if d is not None)
+                if not fsn.bm.safemode.is_on() and live >= want:
+                    return idx
+            time.sleep(0.05)
+        raise TimeoutError(
+            f"no active NN (states: "
+            f"{[nn.ha_state if nn else None for nn in self.namenodes]})")
+
+    def kill_active(self) -> int:
+        """Stop the active NN (simulates a crash); returns its index."""
+        idx = self.active_index()
+        assert idx is not None, "no active to kill"
+        nn = self.namenodes[idx]
+        self.namenodes[idx] = None
+        nn.stop()
+        return idx
+
+    def restart_namenode(self, i: int) -> None:
+        self._start_namenode(i, observer=i >= self.num_namenodes)
+
+    def get_filesystem(self, observer_reads: bool = False
+                       ) -> DistributedFileSystem:
+        conf = Configuration(other=self.conf)
+        if observer_reads:
+            conf.set("dfs.client.observer.reads.enabled", "true")
+        fs = DistributedFileSystem(
+            [("127.0.0.1", nn.port) for nn in self.namenodes
+             if nn is not None], conf)
+        self._fs_instances.append(fs)
+        return fs
+
+    def shutdown(self) -> None:
+        for fs in self._fs_instances:
+            try:
+                fs.close()
+            except (OSError, RpcError) as e:
+                log.debug("fs close during shutdown failed: %s", e)
+        for dn in self.datanodes:
+            if dn is not None:
+                dn.stop()
+        for nn in self.namenodes:
+            if nn is not None:
+                nn.stop()
+        for jn in self.journalnodes:
+            jn.stop()
+        if self._owns_dir:
+            shutil.rmtree(self.base_dir, ignore_errors=True)
+
+    def __enter__(self) -> "MiniQJMHACluster":
+        return self.start()
+
+    def __exit__(self, *exc) -> bool:
+        self.shutdown()
+        return False
 
 
 def fast_conf(base: Optional[Configuration] = None) -> Configuration:

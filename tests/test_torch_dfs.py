@@ -28,7 +28,6 @@ from hadoop_tpu.dfs.client.filesystem import DistributedFileSystem as JDFS
 from hadoop_tpu.dfs.datanode import datanode as jdatanode
 from hadoop_tpu.ipc.errors import RemoteError as JRemoteError
 from hadoop_tpu.testing import minicluster as jmini
-from hadoop_tpu.testing.minicluster import MiniQJMHACluster
 from hadoop_tpu_torch.conf import Configuration
 from hadoop_tpu_torch.dfs.datanode import datanode as pdatanode
 from hadoop_tpu_torch.testing import minicluster as pmini
@@ -535,14 +534,15 @@ def test_striped_files_cross_both_ways_with_m_datanodes_down(ec_cluster,
 
 # ---------------------------------------------------------- observer reads
 
-def test_observer_reads_through_the_port_client(tmp_path):
+@pytest.mark.parametrize("kind", sorted(DAEMONS))
+def test_observer_reads_through_the_port_client(tmp_path, kind):
     """With an observer NameNode and observer reads on, the port's
     namespace reads go to the observer after an msync to the active,
-    and see the active's latest writes. The reference's HA cluster: the
-    port's is ROADMAP Queue A 10 part 2."""
-    with MiniQJMHACluster(num_journalnodes=3, num_namenodes=2,
-                          num_datanodes=3, num_observers=1,
-                          base_dir=str(tmp_path)) as c:
+    and see the active's latest writes, on either package's HA
+    cluster."""
+    with DAEMONS[kind][0].MiniQJMHACluster(
+            num_journalnodes=3, num_namenodes=2, num_datanodes=3,
+            num_observers=1, base_dir=str(tmp_path)) as c:
         c.wait_active()
         observer = c.namenodes[2]
         assert observer.ha_state == "observer"

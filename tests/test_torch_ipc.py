@@ -294,6 +294,56 @@ def test_failover_policy_decides_as_the_reference(make, idem, retries,
     assert (got.delay_s == 0) == (want.delay_s == 0)
 
 
+def test_a_call_past_1024_open_descriptors():
+    """With more than 1024 descriptors open in the process, the port's
+    client still calls (it polls its socket); the reference's client's
+    connection dies before its first call, as select() cannot take the
+    descriptor (ROADMAP C 29)."""
+    import os
+    from hadoop_tpu.ipc import Client as JClient
+    from hadoop_tpu.ipc.client import _ConnClosedBeforeSend
+    srv = Server(JConfiguration(load_defaults=False), name="fds")
+    srv.register_protocol("EchoProtocol", EchoProtocol())
+    srv.start()
+    held = []
+    try:
+        while len(os.listdir("/proc/self/fd")) < 1100:
+            held.append(os.open(os.devnull, os.O_RDONLY))
+        c = Client(Configuration(load_defaults=False))
+        j = JClient(JConfiguration(load_defaults=False))
+        try:
+            assert c.call(("127.0.0.1", srv.port), "EchoProtocol", "echo",
+                          (7,)) == 7
+            with pytest.raises(_ConnClosedBeforeSend):
+                j.call(("127.0.0.1", srv.port), "EchoProtocol", "echo", (7,))
+        finally:
+            c.stop()
+            j.stop()
+    finally:
+        for fd in held:
+            os.close(fd)
+        srv.stop()
+
+
+def test_callers_failing_together_fail_over_once():
+    """Two callers whose calls failed on the same proxy (the DFS
+    client's writer and its lease renewer on a standby) move the port's
+    provider one address, to the new active; the reference's moves it
+    once a caller, past the active to the observer (ROADMAP C 28)."""
+    from hadoop_tpu.ipc import retry as jretry
+    from hadoop_tpu_torch.ipc import retry
+    addrs = [("standby", 1), ("active", 2), ("observer", 3)]
+    landed = {}
+    for name, mod in (("port", retry), ("reference", jretry)):
+        provider = mod.StaticFailoverProxyProvider(lambda addr: object(),
+                                                   addrs)
+        failed = provider.get_proxy()
+        for _ in range(2):
+            provider.perform_failover(failed)
+        landed[name] = provider.current_address
+    assert landed == {"port": ("active", 2), "reference": ("observer", 3)}
+
+
 def test_retry_handler_fails_over_to_the_live_server(server):
     """A dead first address: the connection never opens, so even a
     method that is not idempotent fails over to the live server, and

@@ -360,6 +360,9 @@ def test_port_imports_no_jax_and_no_jax_package():
         "import hadoop_tpu_torch.security.groups\n"
         "import hadoop_tpu_torch.ipc.retry_cache\n"
         "import hadoop_tpu_torch.util.nativeio\n"
+        "import hadoop_tpu_torch.dfs.qjournal, hadoop_tpu_torch.ipc.mpserver\n"
+        "import hadoop_tpu_torch.cli.oiv, hadoop_tpu_torch.cli.oev\n"
+        "import hadoop_tpu_torch.cli.dfsadmin\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m == 'jax' or m.startswith(('jax.', 'jaxlib')) or "
         "m == 'hadoop_tpu' or m.startswith('hadoop_tpu.'))]\n"
@@ -436,7 +439,9 @@ def test_port_sources_name_no_jax():
                 "dfs/datanode/ec_worker.py", "dfs/datanode/datanode.py",
                 "testing/__init__.py", "testing/minicluster.py",
                 "ipc/retry_cache.py", "util/nativeio.py",
-                "native/native_io.cc"):
+                "native/native_io.cc", "dfs/qjournal.py",
+                "ipc/mpserver.py", "cli/oiv.py", "cli/oev.py",
+                "cli/dfsadmin.py"):
         assert REPO / "hadoop_tpu_torch" / new in files, new
     bad = re.compile(r"^\s*(import|from)\s+jax\b|hadoop_tpu\.", re.M)
     for path in files:

@@ -22,7 +22,8 @@ JAX package's.
   diffs, block lists and bytes, through both packages' clients; both
   packages' block stores report the same replicas from every DataNode
   directory each cluster left.
-- Every part of HA the port refuses names ROADMAP Queue A 10 part 2.
+- A NameNode without HA answers the HA admin protocol as the
+  reference's does (the port's HA is tests/test_torch_ha.py's).
 
 Every comparison is exact.
 """
@@ -43,8 +44,6 @@ from hadoop_tpu_torch.dfs.datanode import blockstore as pbs
 from hadoop_tpu_torch.dfs.namenode import NameNode
 from hadoop_tpu_torch.testing import minicluster as pmini
 from torch_ported_cases import cases_on_port
-
-PART2 = "ROADMAP Queue A 10 part 2"
 
 # the DataNode's units are tests/test_torch_datanode.py's
 _DATANODE_UNITS = ("test_blockstore_", "test_finalize_existing_")
@@ -341,17 +340,7 @@ def test_http_pages_and_webhdfs_as_the_references(tmp_path):
     assert rounds[1]["list"][1] == [("a b.bin", len(payload), "FILE")]
 
 
-# --------------------------------------------------------------- refusals
-
-def test_ha_is_refused_by_name(tmp_path):
-    conf = pmini.fast_conf()
-    conf.set("dfs.namenode.shared.edits.dir", "127.0.0.1:1,127.0.0.1:2")
-    nn = NameNode(conf, name_dir=str(tmp_path / "name"))
-    with pytest.raises(NotImplementedError, match=PART2):
-        nn.init(conf)
-    with pytest.raises(NotImplementedError, match=PART2):
-        pmini.MiniQJMHACluster(num_journalnodes=3, num_namenodes=2)
-
+# ------------------------------------------------------------ without HA
 
 def test_a_single_namenode_stays_active(tmp_path):
     """The HA admin protocol on a NameNode without HA answers as the

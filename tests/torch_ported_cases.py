@@ -7,11 +7,15 @@ DataNodes and ``MiniDFSCluster`` hold the port's. The caller binds the
 returned tests and fixtures into its own module (pytest collects them
 there), under the names the reference gave them, less the cases it
 lists with a reason. :class:`MixedCluster` runs either package's
-NameNode beside either package's DataNodes.
+NameNode beside either package's DataNodes; :class:`MixedHACluster`
+either package's JournalNodes, NameNodes and DataNodes in one HA
+cluster.
 """
 
+import gc
 import os
 import re
+import time
 import types
 from pathlib import Path
 
@@ -20,6 +24,7 @@ import pytest
 from hadoop_tpu.conf import Configuration as JConfiguration
 from hadoop_tpu.dfs.datanode import DataNode as JDataNode
 from hadoop_tpu.dfs.namenode import NameNode as JNameNode
+from hadoop_tpu.dfs.qjournal import JournalNode as JJournalNode
 from hadoop_tpu_torch.testing import minicluster as pmini
 
 TESTS = Path(__file__).resolve().parent
@@ -87,6 +92,16 @@ def _reset_port_state():
     span_collector().reset_for_tests()
 
 
+@pytest.fixture(autouse=True)
+def collect_sockets():
+    """After each case, collect the reference cycles that still hold its
+    daemons' and clients' sockets, so a test process does not pile up
+    descriptors: past 1024 the reference's RPC client cannot connect
+    (ROADMAP C 29). A module takes it by importing it."""
+    yield
+    gc.collect()
+
+
 def jconf(conf):
     """A reference ``Configuration`` holding ``conf``'s keys."""
     out = JConfiguration(load_defaults=False)
@@ -132,3 +147,60 @@ class MixedCluster(pmini.MiniDFSCluster):
             self.datanodes[i] = dn
         else:
             self.datanodes.append(dn)
+
+
+class MixedHACluster(pmini.MiniQJMHACluster):
+    """The port's HA cluster with daemons of either package: JournalNode
+    ``i`` of ``jn_classes[i % len]``, NameNode ``i`` of
+    ``nn_classes[i]``, DataNode ``i`` of ``dn_classes[i % len]``. Each
+    reference daemon gets a reference ``Configuration`` of the same
+    keys. NameNode 0 is elected active before NameNode 1 starts, so it
+    is the first active."""
+
+    def __init__(self, jn_classes, nn_classes, dn_classes, **kwargs):
+        super().__init__(num_namenodes=len(nn_classes), **kwargs)
+        self.jn_classes, self.nn_classes = list(jn_classes), list(nn_classes)
+        self.dn_classes = list(dn_classes)
+
+    def _conf_for(self, cls):
+        conf = pmini.Configuration(other=self.conf)
+        return jconf(conf) if cls in (JNameNode, JDataNode,
+                                      JJournalNode) else conf
+
+    def _start_journalnode(self, i: int) -> None:
+        cls = self.jn_classes[i % len(self.jn_classes)]
+        conf = self._conf_for(cls)
+        jn = cls(conf, storage_dir=os.path.join(self.base_dir,
+                                                f"journal{i}"))
+        jn.init(conf)
+        jn.start()
+        self.journalnodes.append(jn)
+
+    def _start_namenode(self, i: int, observer: bool = False) -> None:
+        cls = self.nn_classes[i]
+        conf = self._conf_for(cls)
+        first = i not in self._nn_ports
+        if i in self._nn_ports:
+            conf.set("dfs.namenode.rpc-port", self._nn_ports[i])
+        nn = cls(conf, name_dir=os.path.join(self.base_dir, f"name{i}"),
+                 nn_id=f"nn{i + 1}")
+        nn.init(conf)
+        nn.start()
+        self._nn_ports[i] = nn.port
+        if i < len(self.namenodes):
+            self.namenodes[i] = nn
+        else:
+            self.namenodes.append(nn)
+        deadline = time.monotonic() + 30.0
+        while first and i == 0 and nn.ha_state != "active":
+            assert time.monotonic() < deadline, "NameNode 0 never active"
+            time.sleep(0.05)
+
+    def _start_datanode(self, i: int) -> None:
+        cls = self.dn_classes[i % len(self.dn_classes)]
+        conf = self._conf_for(cls)
+        dn = cls(conf, data_dir=os.path.join(self.base_dir, f"data{i}"),
+                 nn_addr=[("127.0.0.1", nn.port) for nn in self.namenodes])
+        dn.init(conf)
+        dn.start()
+        self.datanodes.append(dn)
